@@ -28,6 +28,10 @@ def pytest_configure(config):
         'duplicated by a dryrun_multichip stage that runs in every '
         'MULTICHIP round, or a multi-minute model-zoo one-off; run them '
         'with `pytest -m slow`.')
+    config.addinivalue_line(
+        'markers',
+        'cuda: needs a CUDA device (the PyTorch/H100 port\'s kernels); '
+        'skips without one.')
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,117 @@
+"""The port's flash-attention forward (mxnet_tpu_torch/ops/flash_attention.py)
+against the JAX package's Pallas kernel run through the Pallas
+interpreter on the CPU.
+
+On the CPU the port's wrapper runs its plain version, which does the
+kernel's arithmetic in torch f32; the CUDA kernel itself is held against
+that plain version on the card by chip_smoke.py. Inputs are made with
+numpy from a seed and handed to both packages.
+
+Every row here keeps at least one key. A row whose keys are all masked
+gets the average of the values its tiles saw (every score is -1e30, so
+p = 1 everywhere); that depends on the tiling and is not asserted.
+"""
+import jax.numpy as jnp
+import numpy as onp
+import pytest
+import torch
+
+from mxnet_tpu.ops import pallas_attention as pa
+from mxnet_tpu_torch.ops import flash_attention as fa
+
+B, H, T, D = 2, 2, 20, 8     # T = 20 is not a block multiple
+RTOL, ATOL = 1e-4, 1e-5      # the bound of tests/test_operator.py:312
+
+
+def _qkv(seed=0):
+    rng = onp.random.RandomState(seed)
+    return [rng.randn(B, H, T, D).astype(onp.float32) for _ in range(3)]
+
+
+def _mask(kind, seed=1):
+    """(B, T) key mask: None, additive f32, or boolean keep."""
+    if kind is None:
+        return None
+    valid = onp.array([T, 13])
+    keep = onp.arange(T)[None, :] < valid[:, None]
+    if kind == 'bool':
+        return keep
+    rng = onp.random.RandomState(seed)
+    return onp.where(keep, rng.randn(B, T) * 0.5, -1e30).astype(onp.float32)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('mask_kind', [None, 'additive', 'bool'])
+def test_forward_matches_pallas_kernel(causal, mask_kind):
+    q, k, v = _qkv()
+    m = _mask(mask_kind)
+    j_out = pa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        key_mask=None if m is None else jnp.asarray(m), causal=causal,
+        interpret=True)
+    t_out, t_lse = fa.flash_attention_forward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        key_mask=None if m is None else torch.from_numpy(m), causal=causal)
+    onp.testing.assert_allclose(t_out.numpy(), onp.asarray(j_out),
+                                rtol=RTOL, atol=ATOL)
+
+    # lse against the JAX forward's second output, on (B*H, T)
+    km = None
+    if m is not None:
+        add = onp.where(m, 0.0, -1e30) if m.dtype == bool else m
+        km = jnp.asarray(onp.repeat(add.astype(onp.float32), H, axis=0))
+    _, j_lse = pa._fa_forward(
+        jnp.asarray(q.reshape(B * H, T, D)), jnp.asarray(k.reshape(B * H, T, D)),
+        jnp.asarray(v.reshape(B * H, T, D)), km,
+        jnp.zeros((1, 1), jnp.uint32), causal, 0.0, True)
+    onp.testing.assert_allclose(t_lse.reshape(B * H, T).numpy(),
+                                onp.asarray(j_lse), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('trial', range(4))
+def test_counter_keep_bit_for_bit(trial):
+    rng = onp.random.RandomState(100 + trial)
+    seed = int(rng.randint(0, 2 ** 32, dtype=onp.uint64))
+    rate = float(rng.choice([0.1, 0.3, 0.5, 0.9]))
+    bh = rng.randint(0, 2 ** 32, (5, 1, 1), dtype=onp.uint64).astype(onp.uint32)
+    rows = rng.randint(0, 2 ** 32, (1, 7, 1), dtype=onp.uint64).astype(onp.uint32)
+    cols = rng.randint(0, 2 ** 32, (1, 1, 9), dtype=onp.uint64).astype(onp.uint32)
+    j = onp.asarray(pa._counter_keep(jnp.uint32(seed), jnp.asarray(bh),
+                                     jnp.asarray(rows), jnp.asarray(cols),
+                                     rate))
+    t = fa.counter_keep(seed, torch.from_numpy(bh.astype(onp.int64)),
+                        torch.from_numpy(rows.astype(onp.int64)),
+                        torch.from_numpy(cols.astype(onp.int64)), rate)
+    assert j.dtype == onp.float32 and t.dtype == torch.float32
+    onp.testing.assert_array_equal(t.numpy(), j)
+
+
+def test_dropout_forward_matches_pallas_kernel():
+    q, k, v = _qkv(3)
+    j_out = pa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               dropout_p=0.3, dropout_seed=42, interpret=True)
+    t_out = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), dropout_p=0.3,
+                               dropout_seed=42)
+    onp.testing.assert_allclose(t_out.numpy(), onp.asarray(j_out),
+                                rtol=RTOL, atol=ATOL)
+    # dropout really dropped something: the output differs from p = 0
+    plain = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v))
+    assert not torch.allclose(plain, t_out)
+
+
+def test_wrapper_argument_errors():
+    q, k, v = (torch.from_numpy(a) for a in _qkv())
+    with pytest.raises(ValueError, match='dropout_seed'):
+        fa.flash_attention(q, k, v, dropout_p=0.1)
+    with pytest.raises(ValueError, match='neither'):
+        fa.flash_attention(q, k, v, key_mask=torch.zeros(3, T))
+
+
+def test_per_head_mask_matches_per_batch_mask():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5))
+    m = torch.from_numpy(_mask('additive'))
+    a = fa.flash_attention(q, k, v, key_mask=m)
+    b = fa.flash_attention(q, k, v, key_mask=m.repeat_interleave(H, dim=0))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
