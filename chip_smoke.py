@@ -7,16 +7,17 @@
    limit as nvidia-smi reports them.
 2. Builds the CUDA kernels from mxnet_tpu_torch/csrc with nvcc (all
    sources at once) and prints the -Xptxas -v summary on one line.
-3. Kernel phase: each hand-written kernel (flash-attention forward, fused
-   residual+LayerNorm, fused FFN1) against its plain PyTorch version on
-   the same inputs on the card, at the serving path's shapes (B = 8,
-   T in {128, 512}, bf16 and f32; attention also causal, with a key mask,
-   with dropout and at a ragged T), with the tolerance stated beside each
-   comparison. Times each kernel, its plain version and one PyTorch
-   library call that computes the same function (a yardstick only: the
-   port never calls it) as device time from torch.profiler's CUDA trace
-   (CUDA events where the trace has none), and computes each kernel's
-   bound from the H100 SXM data sheet.
+3. Kernel phase: each hand-written kernel (flash-attention forward, its
+   backward's dq and dk/dv kernels, fused residual+LayerNorm, fused FFN1)
+   against its plain PyTorch version on the same inputs on the card, at
+   the main paths' shapes (B = 8, T in {128, 512}, bf16 and f32;
+   attention also causal, with a key mask, with dropout and at a ragged
+   T), with the tolerance stated beside each comparison. Times each
+   kernel, its plain version and one PyTorch library call that computes
+   the same function (a yardstick only: the port never calls it) as
+   device time from torch.profiler's CUDA trace (CUDA events where the
+   trace has none), and computes each kernel's bound from the H100 SXM
+   data sheet.
 4. Serving phase: BERT-base at full width, weights drawn with numpy from
    a fixed seed (Normal(0.02)) and cast to bf16 on the card, served by
    InferenceEngine with both fused-kernel knobs on. The launch counters
@@ -26,7 +27,17 @@
    the CPU through the plain versions, and again with both knobs off.
    A profiled dispatch of the largest bucket (8 x 512) prints where the
    device time goes and the device's idle share.
-5. Prints the kernels' JSON line and, last, the result line.
+5. Training phase: BERT-base BertForPretraining at full width in bf16,
+   the same numpy weights, both knobs on, so all five kernels run. First
+   one step at B = 2 with dropout 0 against the same weights in f32 on the
+   CPU through the plain versions (loss, and every gradient). Then, with
+   dropout 0.1 drawn on the card, the flagship batch (B = 8, T = 512,
+   valid_length in [256, 512], 72 masked positions per row) through
+   gluon.Trainer/AdamW (multi_precision): a warm-up step, then 5 timed
+   steps with the launch counters set to 0 just before and read just
+   after (12 forward, 12 dq, 12 dk/dv, 24 LayerNorm and 12 FFN1 launches
+   per step), step time, samples/s and MFU, and a profiled step.
+6. Prints the kernels' JSON line and, last, the result line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 """
@@ -133,9 +144,11 @@ def compare(name, got, want, atol, rtol):
 def timings(kernel, plain, library):
     """Device times of a kernel's wrapper, its plain version and the
     library yardstick, plus the kernel's back-to-back stream time."""
-    ms, how = time_ms(kernel)
-    return dict(ms=ms, how=how, stream_ms=stream_ms(kernel),
-                plain_ms=time_ms(plain)[0], library_ms=time_ms(library)[0])
+    (ms, how), (plain_ms, plain_how), (library_ms, library_how) = (
+        time_ms(fn) for fn in (kernel, plain, library))
+    return dict(ms=ms, how=f'{how}/{plain_how}/{library_how}',
+                stream_ms=stream_ms(kernel), plain_ms=plain_ms,
+                library_ms=library_ms)
 
 
 # tolerances, kernel vs plain version on the same inputs on the card:
@@ -143,6 +156,9 @@ def timings(kernel, plain, library):
 # two bf16 ulps (2**-8 relative) where the two round differently
 TOL = {'float32': dict(atol=1e-4, rtol=1e-4),
        'bfloat16': dict(atol=1e-2, rtol=1.6e-2)}
+# one BERT-base training step in bf16 on the card against f32 on the CPU
+# (chosen before the first run; see PERF.md section 2)
+TRAIN_TOL = {'loss_rel': 0.01, 'grad_rel_fro': 0.1, 'grad_min_cos': 0.95}
 
 
 def kernel_phase(card):
@@ -197,6 +213,74 @@ def kernel_phase(card):
         replaces='mxnet_tpu/ops/pallas_attention.py:171',
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
+    # ---- K2, K3: flash-attention backward (dq; dk and dv)
+    for B, T, dtype, opt in cases:
+        q, k, v, do = (randn(B, H, T, D, dtype=dtype) for _ in range(4))
+        key_mask = None
+        if opt.get('mask'):
+            valid = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
+            key_mask = torch.arange(T, device=dev)[None, :] < valid[:, None]
+        causal, p = opt.get('causal', False), opt.get('dropout_p', 0.0)
+        seed = 1234 if p else None
+        out, lse = fa.flash_attention_forward(q, k, v, key_mask, causal, p,
+                                              seed)
+        grads = fa.flash_attention_backward(q, k, v, key_mask, causal, p,
+                                            seed, out, lse, do)
+        torch.cuda.synchronize()
+        km, _ = fa._normalize_mask(key_mask, B, H, T)
+        want = fa.flash_attention_backward_reference(q, k, v, km, causal, p,
+                                                     seed, out, lse, do)
+        tag = f'flash_attn_bwd B={B} T={T} {str(dtype)[6:]} {opt or "plain"}'
+        errs = [compare(f'{tag} d{n}', g, w, **TOL[str(dtype)[6:]])
+                for n, g, w in zip('qkv', grads, want)]
+    # timed at the training path's shape: bf16, B=8, T=512, with a float
+    # additive key mask as the valid_length mask is
+    valid = torch.randint(T // 2, T + 1, (B,), generator=gen, device=dev)
+    fmask = torch.where(torch.arange(T, device=dev)[None, :] < valid[:, None],
+                        0.0, -1e30).float()
+    out, lse = fa.flash_attention_forward(q, k, v, fmask)
+
+    def backward():
+        return fa.flash_attention_backward(q, k, v, fmask, False, 0.0, None,
+                                           out, lse, do)
+    per_kernel, _ = profile_device(backward, 20)
+    bwd_stream_ms = stream_ms(backward)
+    km, _ = fa._normalize_mask(fmask, B, H, T)
+    plain_ms, plain_how = time_ms(
+        lambda: fa.flash_attention_backward_reference(
+            q, k, v, km, False, 0.0, None, out, lse, do))
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=fmask.to(dtype)[:, None, None, :])
+    library_ms, library_how = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qs, ks, vs), do, retain_graph=True))
+    io = q.numel() * q.element_size()          # one (B, H, T, D) tensor
+    rows_f32 = 2 * B * H * T * 4 + fmask.numel() * 4   # lse, delta, mask
+    for name, kname, flops, nbytes, err in (
+            ('flash_attn_bwd_dq', 'flash_bwd_dq_kernel',
+             6 * B * H * T * T * D, 5 * io + rows_f32, errs[0]),
+            ('flash_attn_bwd_dkv', 'flash_bwd_dkv_kernel',
+             8 * B * H * T * T * D, 6 * io + rows_f32, max(errs[1:]))):
+        us = sum(t for n, t in per_kernel.items() if kname in n)
+        check(us > 0, f'no device time for {kname} in the trace')
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16)
+        rows[name] = dict(
+            route='cuda', source='mxnet_tpu_torch/csrc/flash_attn_bwd.cu',
+            replaces='mxnet_tpu/ops/pallas_attention.py:' +
+            ('283' if name.endswith('dq') else '319'),
+            max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            ms=us / 20 / 1e3, how=f'profiler/{plain_how}/{library_how}',
+            stream_ms=bwd_stream_ms,
+            plain_ms=plain_ms, library_ms=library_ms)
+    delta_us = sum(t for n, t in per_kernel.items()
+                   if 'flash_bwd' not in n) / 20
+    print(f'  flash_attn_bwd: delta = rowsum(dO*O) and the allocations take '
+          f'{delta_us / 1e3:.4f} ms of device time per backward beside the '
+          f'two kernels; plain_ms (the whole plain backward) and library_ms '
+          f'(the backward of F.scaled_dot_product_attention with the same '
+          f'float mask, dq+dk+dv) are one time for both kernels, and so is '
+          f'the stream time (the whole backward)')
+
     # ---- B: fused residual + LayerNorm
     for B, T, dtype in [(8, 128, torch.float32), (8, 512, torch.float32),
                         (8, 128, torch.bfloat16), (8, 512, torch.bfloat16)]:
@@ -247,7 +331,8 @@ def kernel_phase(card):
 
     for name, r in rows.items():
         print(f'  timing {name} (bf16, B=8 T=512) on {card}: device time '
-              f'({r["how"]}) kernel {r["ms"]:.4f} ms, plain '
+              f'(kernel/plain/library from {r["how"]}) kernel '
+              f'{r["ms"]:.4f} ms, plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms; '
               f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}); back-to-back '
               f'stream time of the kernel {r["stream_ms"]:.4f} ms')
@@ -255,18 +340,18 @@ def kernel_phase(card):
 
 
 _FAMILIES = (('flash_attn_fwd', ('flash_fwd_kernel',)),
+             ('flash_attn_bwd_dq', ('flash_bwd_dq_kernel',)),
+             ('flash_attn_bwd_dkv', ('flash_bwd_dkv_kernel',)),
              ('fused_add_layernorm', ('_add_ln_fwd',)),
              ('dense_gelu', ('dense_gelu_',)),
              ('library GEMMs', ('gemm', 'nvjet', 'cutlass', 'xmma')))
 
 
-def dispatch_breakdown(engine, card, batch=8, seq=512, iters=3):
-    """Device time of one dispatch of the largest bucket by kernel family,
-    from torch.profiler's CUDA trace, and the device's idle share: one
-    minus the kernels' summed time over the dispatch's host time (tokens
-    in, output back to the host included)."""
-    per_kernel, wall = profile_device(
-        lambda: engine.run_bucket(batch, seq), iters)
+def device_breakdown(label, fn, card, iters):
+    """Device time of one call of ``fn`` by kernel family, from
+    torch.profiler's CUDA trace, and the device's idle share: one minus
+    the kernels' summed time over the call's host time."""
+    per_kernel, wall = profile_device(fn, iters)
     fam = {}
     for name, us in per_kernel.items():
         f = next((f for f, pats in _FAMILIES
@@ -274,14 +359,21 @@ def dispatch_breakdown(engine, card, batch=8, seq=512, iters=3):
         fam[f] = fam.get(f, 0.0) + us / iters / 1e3
     busy = sum(fam.values())
     per = wall / iters * 1e3
-    print(f'  dispatch b{batch}_s{seq} on {card}: host {per:.3f} ms, '
+    print(f'  {label} on {card}: host {per:.3f} ms, '
           f'device busy {busy:.3f} ms, idle share '
           f'{max(0.0, 1 - busy / per):.3f}; by family: ' + ', '.join(
               f'{f} {ms:.3f} ms ({ms / busy:.1%})' for f, ms in
               sorted(fam.items(), key=lambda kv: -kv[1])))
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    print('  top kernels per dispatch: ' + '; '.join(
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print(f'  top kernels per {label}: ' + '; '.join(
         f'{n[:60]} {us / iters / 1e3:.3f} ms' for n, us in top))
+
+
+def dispatch_breakdown(engine, card, batch=8, seq=512, iters=3):
+    """One dispatch of the largest bucket (tokens in, output back to the
+    host included)."""
+    device_breakdown(f'dispatch b{batch}_s{seq}',
+                     lambda: engine.run_bucket(batch, seq), card, iters)
 
 
 def random_bert_arrays(net):
@@ -367,6 +459,7 @@ def serving_phase(card):
               f'routes={routes}')
         check(routes['flash'] > 0, 'attention never took the flash route')
         check(launches == {'flash_attn_fwd': L * dispatches,
+                           'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
                            'fused_add_layernorm': 2 * L * dispatches,
                            'dense_gelu': L * dispatches},
               f'launch counts {launches} for {dispatches} dispatches')
@@ -407,6 +500,192 @@ def serving_phase(card):
     return launches, stats, len(requests) / wall
 
 
+def pretraining_batch(cfg, batch, seq, seed):
+    """The flagship batch of bench.py: random tokens, token types 0,
+    valid_length in [seq/2, seq], 72 masked positions per row (15% of 512
+    rounded down to a multiple of 8), their labels and NSP labels."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    nmask = max(8, int(0.15 * seq) // 8 * 8)
+    arrays = dict(
+        tokens=rng.randint(0, cfg['vocab_size'], (batch, seq)),
+        types=onp.zeros((batch, seq), onp.int64),
+        valid=rng.randint(seq // 2, seq + 1, (batch,)).astype(onp.float32),
+        mpos=onp.stack([rng.choice(seq, nmask, replace=False)
+                        for _ in range(batch)]),
+        labels=rng.randint(0, cfg['vocab_size'], (batch, nmask)),
+        nsp=rng.randint(0, 2, (batch,)))
+    return arrays, nmask
+
+
+def _key_bias_zeroed(name, g, hidden):
+    """A gradient with the key third of a qkv bias set to 0: that gradient
+    is zero in exact arithmetic (softmax ignores a shift shared by every
+    key of a row), so what any run computes for it is rounding noise."""
+    if name.endswith('attention.qkv.bias'):
+        g = g.clone()
+        g[hidden:2 * hidden] = 0
+    return g
+
+
+def training_parity(cfg, arrays, card, seq=512, batch=2):
+    """One step's loss and gradients on the card (bf16, all five kernels,
+    dropout 0) against the same weights in f32 on the CPU through the
+    plain versions."""
+    import torch
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_pretrain_loss)
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    data, _ = pretraining_batch(cfg, batch, seq, SEED + 1)
+    cfg0 = dict(cfg, dropout=0.0)
+    out = {}
+    for dev, dtype in (('cuda', torch.bfloat16), ('cpu', torch.float32)):
+        net = BertForPretraining(cfg0, dtype=dtype, device=dev).train()
+        net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+        t = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
+        loss = bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
+        loss.backward()
+        out[dev] = (float(loss.detach()), {
+            n: _key_bias_zeroed(n, p.grad.detach().float().cpu(),
+                                cfg['hidden'])
+            for n, p in net.named_parameters()})
+        del net, mlm, nsp, loss
+    (lg, gg), (lc, gc) = out['cuda'], out['cpu']
+    loss_rel = abs(lg - lc) / abs(lc)
+    num = sum(float((gg[n] - gc[n]).square().sum()) for n in gc)
+    den = sum(float(gc[n].square().sum()) for n in gc)
+    rel_fro = (num / den) ** 0.5
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        gg[n].flatten(), gc[n].flatten(), dim=0)) for n in gc}
+    worst = min(cos, key=cos.get)
+    ok = loss_rel <= TRAIN_TOL['loss_rel'] and \
+        rel_fro <= TRAIN_TOL['grad_rel_fro'] and \
+        cos[worst] >= TRAIN_TOL['grad_min_cos']
+    print(f'  parity, one step at B={batch} T={seq} (dropout 0), bf16 on the '
+          f'card vs f32 CPU plain: loss {lg:.5f} vs {lc:.5f} (rel '
+          f'{loss_rel:.2e}), gradients rel_fro_err={rel_fro:.4f}, least '
+          f'cosine {cos[worst]:.5f} ({worst}); tolerance {TRAIN_TOL} '
+          f'(key third of each qkv bias left out: its gradient is zero in '
+          f'exact arithmetic) -> {"ok" if ok else "FAIL"}')
+    check(ok, 'training step disagrees with the f32 CPU reference')
+    return dict(loss_rel=loss_rel, rel_fro=rel_fro, min_cos=cos[worst])
+
+
+def training_phase(card, steps=5, batch=8, seq=512):
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config,
+                                             bert_pretrain_loss)
+    from mxnet_tpu_torch.ops import attention as attn_ops
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+
+    os.environ['MXTPU_PALLAS_LN'] = '1'
+    os.environ['MXTPU_PALLAS_FFN'] = '1'
+    cfg = bert_base_config()
+    print(f'training phase on {card}: BertForPretraining (BERT-base), bf16, '
+          f'both knobs on')
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    net = BertForPretraining(dict(cfg, dropout=0.1), dtype=torch.bfloat16,
+                             device='cuda', generator=gen)
+    arrays = random_bert_arrays(net)
+    parity = training_parity(cfg, arrays, card)
+
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    net.train()
+    params = gluon.collect_params(net)
+    trainer = gluon.Trainer(params, 'adamw',
+                            {'learning_rate': 1e-4, 'wd': 0.01,
+                             'multi_precision': True})
+    data, nmask = pretraining_batch(cfg, batch, seq, SEED)
+    t = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+
+    def step():
+        mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
+        loss = bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
+        loss.backward()
+        trainer.step(1)
+        net.zero_grad(set_to_none=False)
+        return loss.detach()
+
+    warm = float(step())
+    masters0 = {i: st[0].clone() for i, st in trainer._states.items()}
+    torch.cuda.synchronize()
+    # the main path's run: counters at 0 just before, read just after
+    mt.ops.reset_launch_counts()
+    for k in attn_ops.route_counts:
+        attn_ops.route_counts[k] = 0
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(mt.ops.launch_counts)
+    routes = dict(attn_ops.route_counts)
+    losses = [float(x) for x in losses]
+
+    L = cfg['layers']
+    print(f'  losses: warm-up {warm:.5f}, timed {losses}')
+    print(f'  launches={launches} routes={routes} over {steps} steps')
+    check(all(onp.isfinite(x) for x in [warm] + losses), 'non-finite loss')
+    check(routes['flash'] == L * steps, f'flash route {routes}')
+    check(launches == {'flash_attn_fwd': L * steps,
+                       'flash_attn_bwd_dq': L * steps,
+                       'flash_attn_bwd_dkv': L * steps,
+                       'fused_add_layernorm': 2 * L * steps,
+                       'dense_gelu': L * steps},
+          f'launch counts {launches} for {steps} steps')
+    names = list(params)
+    still = [names[i] for i, st in trainer._states.items()
+             if torch.equal(st[0], masters0[i])]
+    check(not still, f'parameters that did not move: {still}')
+
+    # bench.py's FLOP accounting: embeddings do no matmul work, the MLM
+    # head runs on the masked positions only, pooler and NSP on one
+    # position per sequence; 12*L*hidden*T per token for attention
+    def psize(keys):
+        return sum(p.numel() for n, p in params.items()
+                   if any(k in n for k in keys))
+    P = psize([''])
+    P_embed = psize(['word_embed', 'pos_embed', 'type_embed'])
+    P_head = psize(['mlm_'])
+    P_pool = psize(['pooler', 'nsp'])
+    P_body = P - P_embed - P_head - P_pool
+    tokens = batch * seq
+    flops = (6 * P_body * tokens + 6 * P_head * batch * nmask
+             + 6 * P_pool * batch + 12 * L * cfg['hidden'] * seq * tokens)
+    step_s = wall / steps
+    mfu = flops / step_s / PEAK_BF16
+    print(f'  {steps} AdamW steps at B={batch} T={seq} on {card}: '
+          f'{step_s * 1e3:.3f} ms per step (host clock between '
+          f'synchronizes), {batch / step_s:.3f} samples/s, '
+          f'{flops / 1e12:.4f} TFLOP per step, MFU {mfu:.4%} of 989 '
+          f'TFLOP/s bf16')
+
+    # where a step's device time goes: by kernel family over one profiled
+    # step, then forward / backward / optimizer from CUDA events
+    device_breakdown(f'training step b{batch}_s{seq}', step, card, 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
+    loss = bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    trainer.step(1)
+    net.zero_grad(set_to_none=False)
+    ev[3].record()
+    ev[3].synchronize()
+    phases = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    print(f'  one step by phase (CUDA events) on {card}: forward+loss '
+          f'{phases[0]:.3f} ms, backward {phases[1]:.3f} ms, AdamW update '
+          f'{phases[2]:.3f} ms')
+    return launches, dict(step_ms=step_s * 1e3, samples_per_s=batch / step_s,
+                          mfu=mfu, parity=parity)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -427,9 +706,15 @@ def main():
     print('ptxas: ' + ' | '.join(_build.ptxas_report()))
 
     rows = kernel_phase(card)
-    launches, _stats, _rps = serving_phase(card)
+    serving, _stats, _rps = serving_phase(card)
+    training, _train = training_phase(card)
+    # launches: the serving run's and the training run's, each counted
+    # from 0 just before its run
     kernels = [dict(name=name, route=r['route'], source=r['source'],
-                    replaces=r['replaces'], launches=launches[name],
+                    replaces=r['replaces'],
+                    launches=serving[name] + training[name],
+                    launches_by_path={'serving': serving[name],
+                                      'training': training[name]},
                     max_abs_err=r['max_abs_err'], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'])

@@ -6,12 +6,14 @@ Module names mirror ``mxnet_tpu`` so each counterpart is easy to find.
 Entry points run on the card unless the caller passes ``device='cpu'``;
 with no CUDA device and no explicit ``'cpu'`` they raise.
 
-This slice serves ``models.bert.BertModel`` through
-``serving.InferenceEngine`` on three hand-written kernels (see ``ops``).
+It serves ``models.bert.BertModel`` through ``serving.InferenceEngine``
+and trains ``models.bert.BertForPretraining`` through ``gluon.Trainer``
+(AdamW) on five hand-written kernels (see ``ops``).
 """
 from .base import MXNetError
-from . import (config, context, gluon, initializer, models, ops,
+from . import (config, context, gluon, initializer, models, ops, optimizer,
                serialization, serving, weights)
 
 __all__ = ['MXNetError', 'config', 'context', 'gluon', 'initializer',
-           'models', 'ops', 'serialization', 'serving', 'weights']
+           'models', 'ops', 'optimizer', 'serialization', 'serving',
+           'weights']

@@ -31,6 +31,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "counter_keep.cuh"
+
 namespace {
 
 constexpr int BQ = 64;         // q rows per block
@@ -45,21 +47,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// _counter_keep: murmur3 finalizer over the element coordinates, uint32
-// arithmetic that wraps the same way in Mosaic, XLA and here.
-__device__ __forceinline__ bool counter_keep(uint32_t seed, uint32_t bh, uint32_t row,
-                                             uint32_t col, uint32_t thresh) {
-  uint32_t h = row * 0x9E3779B1u + col;
-  h = h + bh * 0x9e3779b9u;
-  h = h ^ seed;
-  h = h ^ (h >> 16);
-  h = h * 0x85ebca6bu;
-  h = h ^ (h >> 13);
-  h = h * 0xc2b2ae35u;
-  h = h ^ (h >> 16);
-  return h >= thresh;
 }
 
 struct Strides {

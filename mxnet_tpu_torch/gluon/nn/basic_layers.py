@@ -80,9 +80,11 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Active only in training mode, as the JAX package's dropout is only
-    under autograd training. Its noise comes from ``generator`` (a CPU
-    ``torch.Generator``; None draws from PyTorch's default one)."""
+    """Active only in training mode (``module.train()``), as the JAX
+    package's dropout is only under autograd training. Its noise is drawn
+    on the input's device from ``generator``, a ``torch.Generator`` on that
+    device (None draws from the device's default one); a generator on
+    another device raises."""
 
     def __init__(self, rate, generator=None):
         super().__init__()
@@ -90,9 +92,5 @@ class Dropout(nn.Module):
         self.generator = generator
 
     def forward(self, x):
-        if not self.training or self._rate <= 0:
-            return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device='cpu').to(x.device) >= self._rate
-        return torch.where(keep, x / (1.0 - self._rate),
-                           torch.zeros_like(x))
+        return F.dropout(x, self._rate, training=self.training,
+                         generator=self.generator)

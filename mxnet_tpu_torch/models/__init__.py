@@ -1,4 +1,6 @@
 from . import bert
-from .bert import BertModel, bert_base_config
+from .bert import (BertForPretraining, BertModel, bert_base_config,
+                   bert_pretrain_loss)
 
-__all__ = ['bert', 'BertModel', 'bert_base_config']
+__all__ = ['bert', 'BertForPretraining', 'BertModel', 'bert_base_config',
+           'bert_pretrain_loss']

@@ -1,12 +1,15 @@
-"""BERT encoder (counterpart of ``mxnet_tpu/models/bert.py``: the config,
-``BertSelfAttention``, ``BertLayer`` and ``BertModel``).
+"""BERT (counterpart of ``mxnet_tpu/models/bert.py``: the config,
+``BertSelfAttention``, ``BertLayer``, ``BertModel``, ``BertForPretraining``
+and its loss).
 
 Each encoder layer runs qkv Dense, ``multi_head_attention`` (the flash
 kernel on CUDA), proj, ``add_layer_norm`` (the fused LayerNorm kernel
 when ``MXTPU_PALLAS_LN=1``), ``dense_gelu`` (the fused FFN1 kernel when
 ``MXTPU_PALLAS_FFN=1``), ffn2 and ``add_layer_norm`` again: the same seams
 as the JAX model. Activations run in the parameters' dtype; LayerNorm
-statistics in f32.
+statistics in f32. Dropout and attention dropout are active in training
+mode (``module.train()``), their noise drawn from ``generator`` on the
+model's device.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ from ..gluon import nn
 from ..ops import attention as attn_ops
 from ..ops import nn as F
 
-__all__ = ['bert_base_config', 'BertSelfAttention',
-           'BertLayer', 'BertModel']
+__all__ = ['bert_base_config', 'BertSelfAttention', 'BertLayer',
+           'BertModel', 'BertForPretraining', 'masked_cross_entropy',
+           'bert_pretrain_loss']
 
 
 def bert_base_config():
@@ -122,3 +126,67 @@ class BertModel(tnn.Module):
             x = layer(x, mask)
         pooled = self.pooler(x[:, 0, :])
         return x, pooled
+
+
+def _gather_positions(seq, positions):
+    """(N, T, C) gathered at (N, M) int positions -> (N, M, C)."""
+    idx = positions.to(torch.int64)[:, :, None].expand(-1, -1, seq.shape[2])
+    return torch.gather(seq, 1, idx)
+
+
+class BertForPretraining(tnn.Module):
+    """MLM + NSP heads on BertModel (the pretraining objective). Parameter
+    names (``bert.*``, ``mlm_dense.*``, ``mlm_ln.gamma/beta``,
+    ``mlm_decoder.*``, ``nsp.*``) are the JAX model's structured names.
+    ``config`` is a ``bert_base_config()``-style dict (it may carry
+    ``dropout``). Built on the CUDA device unless ``device='cpu'``."""
+
+    def __init__(self, config=None, device=None, dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        cfg = dict(config or bert_base_config())
+        self._cfg = cfg
+        dev = resolve_device(device)
+        kw = dict(device=dev, dtype=dtype)
+        hidden = cfg['hidden']
+        self.bert = BertModel(**cfg, generator=generator, **kw)
+        self.mlm_dense = nn.Dense(hidden, flatten=False, in_units=hidden,
+                                  activation='gelu', **kw)
+        self.mlm_ln = nn.LayerNorm(in_channels=hidden, **kw)
+        self.mlm_decoder = nn.Dense(cfg['vocab_size'], flatten=False,
+                                    in_units=hidden, **kw)
+        self.nsp = nn.Dense(2, in_units=hidden, **kw)
+
+    def forward(self, tokens, token_types=None, valid_length=None,
+                masked_positions=None):
+        """masked_positions: optional (N, M) ints; the decoder then runs
+        only on those M positions, and mlm is (N, M, vocab)."""
+        seq, pooled = self.bert(tokens, token_types, valid_length)
+        if masked_positions is not None:
+            seq = _gather_positions(seq, masked_positions)
+        mlm = self.mlm_decoder(self.mlm_ln(self.mlm_dense(seq)))
+        return mlm, self.nsp(pooled)
+
+
+def _pick(data, index):
+    """data[..., index] along the last axis, the index clipped to range."""
+    idx = index.to(torch.int64).clamp(0, data.shape[-1] - 1)
+    return torch.gather(data, -1, idx[..., None])[..., 0]
+
+
+def masked_cross_entropy(logits, labels):
+    """Mean cross entropy over the positions where labels >= 0 (-1 marks
+    padding / unmasked)."""
+    logp = F.log_softmax(logits, axis=-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    token_loss = -_pick(logp, safe) * valid
+    return token_loss.sum() / (valid.sum() + 1e-6)
+
+
+def bert_pretrain_loss(mlm_logits, nsp_logits, labels, nsp_labels):
+    """Masked-LM + NSP cross entropy, each a mean. labels: (N, M) with -1
+    where there is nothing to predict."""
+    mlm_loss = masked_cross_entropy(mlm_logits, labels)
+    nsp_logp = F.log_softmax(nsp_logits, axis=-1)
+    return mlm_loss + (-_pick(nsp_logp, nsp_labels)).mean()

@@ -34,11 +34,12 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build',
                          'mxnet_tpu_torch')
-SOURCES = ('flash_attn_fwd.cu', 'dense_gelu.cu')
+SOURCES = ('flash_attn_fwd.cu', 'flash_attn_bwd.cu', 'dense_gelu.cu')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-launch_counts = {'flash_attn_fwd': 0, 'fused_add_layernorm': 0,
+launch_counts = {'flash_attn_fwd': 0, 'flash_attn_bwd_dq': 0,
+                 'flash_attn_bwd_dkv': 0, 'fused_add_layernorm': 0,
                  'dense_gelu': 0}
 
 _lock = threading.Lock()
@@ -64,8 +65,13 @@ def _nvcc():
 
 
 def _target(src):
-    with open(os.path.join(CSRC_DIR, src), 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode())
+    """The library path of one source, named by a hash of the source, the
+    shared headers it may include and the flags."""
+    digest = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for name in [src] + headers:
+        with open(os.path.join(CSRC_DIR, name), 'rb') as f:
+            digest.update(f.read())
     stem = os.path.splitext(src)[0]
     return os.path.join(BUILD_DIR, f'{stem}-{digest.hexdigest()[:12]}.so')
 

@@ -2,11 +2,13 @@
 ``multi_head_attention``).
 
 Routing: CUDA tensors with no mask or a key-padding mask go to the flash
-kernel (ops/flash_attention.py); everything else takes the plain einsum
-path below, which is ordinary PyTorch math, not a fused library call. A
-kernel failure raises: there is no quiet fallback. ``route_counts``
-records each call's route (``'flash'`` is the JAX package's ``'pallas'``,
-``'plain'`` its ``'xla'``), so a run can show that it took the kernel.
+kernels (ops/flash_attention.py), forward and backward, so training takes
+the flash route as the JAX package's does; everything else takes the
+plain einsum path below, which is ordinary PyTorch math, not a fused
+library call. A kernel failure raises: there is no quiet fallback.
+``route_counts`` records each call's route (``'flash'`` is the JAX
+package's ``'pallas'``, ``'plain'`` its ``'xla'``), so a run can show
+that it took the kernel.
 """
 from __future__ import annotations
 
@@ -39,11 +41,22 @@ def _as_key_padding_mask(mask, N, Tk):
     return None
 
 
+def _dropout_seed(generator, device):
+    """One uint32 seed drawn on the generator's own device (the tensors'
+    device when there is no generator), brought to the host once."""
+    dev = generator.device if generator is not None else device
+    return int(torch.randint(0, 2 ** 32, (1,), generator=generator,
+                             device=dev, dtype=torch.int64).item())
+
+
 def multi_head_attention(query, key, value, mask=None, num_heads=1,
-                         dropout_p=0.0, causal=False, generator=None):
+                         dropout_p=0.0, causal=False, generator=None,
+                         dropout_seed=None):
     """Fused MHA on (N, T, H*D) q/k/v. ``dropout_p`` applies attention
-    dropout (the caller passes 0 outside training); its seed is drawn
-    from ``generator``."""
+    dropout (the caller passes 0 outside training). On the flash route its
+    seed is ``dropout_seed`` when given (the counterpart of JAX's
+    ``dropout_key``), else drawn from ``generator``; the plain route draws
+    its keep mask from ``generator`` on the tensors' device."""
     N, Tq, tot = query.shape
     H = num_heads
     D = tot // H
@@ -60,8 +73,8 @@ def multi_head_attention(query, key, value, mask=None, num_heads=1,
         from .flash_attention import flash_attention
         seed = None
         if dropout_p > 0.0:
-            seed = int(torch.randint(0, 2 ** 32, (1,), generator=generator,
-                                     device='cpu').item())
+            seed = dropout_seed if dropout_seed is not None else \
+                _dropout_seed(generator, query.device)
         out = flash_attention(q, k, v, key_mask=kpm, causal=causal,
                               dropout_p=dropout_p, dropout_seed=seed)
         route_counts['flash'] += 1
@@ -82,7 +95,7 @@ def multi_head_attention(query, key, value, mask=None, num_heads=1,
     att = torch.softmax(scores, dim=-1).to(q.dtype)
     if dropout_p > 0.0:
         keep = torch.rand(att.shape, generator=generator,
-                          device='cpu').to(att.device) >= dropout_p
+                          device=att.device) >= dropout_p
         att = torch.where(keep, att / (1.0 - dropout_p),
                           torch.zeros_like(att)).to(q.dtype)
     out = torch.einsum('nhqk,nhkd->nhqd', att, v)

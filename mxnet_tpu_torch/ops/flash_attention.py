@@ -1,14 +1,17 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-PyTorch version (counterpart of ``mxnet_tpu/ops/pallas_attention.py``,
-forward only).
+"""Flash attention: the hand-written Hopper kernels, forward and backward,
+and their plain PyTorch versions (counterpart of
+``mxnet_tpu/ops/pallas_attention.py``).
 
 ``flash_attention`` keeps the JAX signature and mask handling: q/k/v are
 (B, H, T, D); ``key_mask`` is an optional (B, Tk) or (B*H, Tk) mask,
 additive f32 (0 = keep, large negative = drop) or boolean (True = keep);
-``dropout_p > 0`` needs ``dropout_seed``. A CUDA tensor goes to the CUDA
-kernel in ``csrc/flash_attn_fwd.cu``; a CPU tensor goes to
-``flash_attention_reference``, which does the same arithmetic in torch
-f32. There is no fallback from one to the other.
+``dropout_p > 0`` needs ``dropout_seed``. It goes through
+``_FlashAttention``, the counterpart of the JAX ``custom_vjp``: for CUDA
+tensors the forward is the kernel in ``csrc/flash_attn_fwd.cu`` and the
+backward the dq and dk/dv kernels in ``csrc/flash_attn_bwd.cu``; for CPU
+tensors they are ``flash_attention_reference`` and
+``flash_attention_backward_reference``, which do the same arithmetic in
+torch f32. There is no fallback from one to the other.
 
 Attention dropout is the JAX package's counter hash (``counter_keep``):
 the keep mask is a pure function of (seed, batch*head, row, col), so the
@@ -26,8 +29,9 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ['flash_attention', 'flash_attention_forward',
-           'flash_attention_reference', 'counter_keep', 'dropout_threshold',
-           'KERNEL_HEAD_DIMS']
+           'flash_attention_backward', 'flash_attention_reference',
+           'flash_attention_backward_reference', 'counter_keep',
+           'dropout_threshold', 'KERNEL_HEAD_DIMS']
 
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
@@ -95,33 +99,45 @@ def _normalize_mask(key_mask, B, H, Tk):
         f"batch {B} nor batch*heads {B * H}")
 
 
-def flash_attention_reference(q, k, v, key_mask=None, causal=False,
-                              dropout_p=0.0, dropout_seed=None):
-    """Plain PyTorch version of the kernel: the same arithmetic in f32,
-    with the whole key range as one tile. Returns (out (B, H, Tq, D) in
-    q's dtype, lse (B, H, Tq) f32). ``key_mask`` is additive f32 of shape
-    (B, Tk) or (B*H, Tk), or None."""
+def _scores(q, k, key_mask, causal):
+    """(B, H, Tq, Tk) f32 scores in the order of ``_masked_scores``:
+    q.k^T * scale, the additive mask, the causal cut."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    scale = 1.0 / math.sqrt(D)
-    s = torch.einsum('bhqd,bhkd->bhqk', q.float(), k.float()) * scale
+    s = torch.einsum('bhqd,bhkd->bhqk', q.float(), k.float()) * \
+        (1.0 / math.sqrt(D))
     if key_mask is not None:
-        km = key_mask.to(torch.float32)
-        s = s + km.reshape(B, -1, 1, Tk)
+        s = s + key_mask.to(torch.float32).reshape(B, -1, 1, Tk)
     if causal:
-        keep = torch.ones(Tq, Tk, dtype=torch.bool,
-                          device=q.device).tril()
+        keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
         s = torch.where(keep, s, _NEG_INF)
+    return s
+
+
+def _keep_multipliers(dropout_seed, B, H, Tq, Tk, rate, dev):
+    """(B, H, Tq, Tk) keep/(1-rate) multipliers over global coordinates."""
+    bh = torch.arange(B * H, device=dev).reshape(B, H, 1, 1)
+    rows = torch.arange(Tq, device=dev).reshape(1, 1, Tq, 1)
+    cols = torch.arange(Tk, device=dev).reshape(1, 1, 1, Tk)
+    return counter_keep(_seed_int(dropout_seed), bh, rows, cols,
+                        rate).to(dev)
+
+
+def flash_attention_reference(q, k, v, key_mask=None, causal=False,
+                              dropout_p=0.0, dropout_seed=None):
+    """Plain PyTorch version of the forward kernel: the same arithmetic in
+    f32, with the whole key range as one tile. Returns (out (B, H, Tq, D)
+    in q's dtype, lse (B, H, Tq) f32). ``key_mask`` is additive f32 of
+    shape (B, Tk) or (B*H, Tk), or None."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    s = _scores(q, k, key_mask, causal)
     m = s.amax(-1, keepdim=True).clamp_min(_NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     if dropout_p > 0.0:
-        dev = q.device
-        bh = torch.arange(B * H, device=dev).reshape(B, H, 1, 1)
-        rows = torch.arange(Tq, device=dev).reshape(1, 1, Tq, 1)
-        cols = torch.arange(Tk, device=dev).reshape(1, 1, 1, Tk)
-        p = p * counter_keep(_seed_int(dropout_seed), bh, rows, cols,
-                             dropout_p).to(dev)
+        p = p * _keep_multipliers(dropout_seed, B, H, Tq, Tk, dropout_p,
+                                  q.device)
     acc = torch.einsum('bhqk,bhkd->bhqd', p.to(v.dtype).float(), v.float())
     safe_l = l.clamp_min(1e-30)
     out = (acc / safe_l).to(q.dtype)
@@ -129,8 +145,39 @@ def flash_attention_reference(q, k, v, key_mask=None, causal=False,
     return out, lse
 
 
-def _check_kernel_inputs(q, k, v):
-    for name, t in (('q', q), ('k', k), ('v', v)):
+def flash_attention_backward_reference(q, k, v, key_mask, causal, dropout_p,
+                                       dropout_seed, out, lse, do):
+    """Plain PyTorch version of the two backward kernels (``_fa_backward``):
+    p = exp(s - lse) from the forward's lse, dp = dO.v^T, dp *= keep under
+    dropout, ds = p * (dp - delta) * scale with delta = rowsum(dO * O),
+    then dq = ds.k, dk = ds^T.q and dv = (p*keep)^T.dO with p in f32, all
+    in f32 with the whole key range as one tile, cast to the input dtypes.
+    ``key_mask`` is as for ``flash_attention_reference``; lse is
+    (B, H, Tq) f32."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    p = torch.exp(_scores(q, k, key_mask, causal) - lse.float()[..., None])
+    do32 = do.float()
+    dp = torch.einsum('bhqd,bhkd->bhqk', do32, v.float())
+    pv = p
+    if dropout_p > 0.0:
+        keep = _keep_multipliers(dropout_seed, B, H, Tq, Tk, dropout_p,
+                                 q.device)
+        pv = p * keep
+        dp = dp * keep
+    delta = (do32 * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum('bhqk,bhkd->bhqd', ds, k.float())
+    dk = torch.einsum('bhqk,bhqd->bhkd', ds, q.float())
+    dv = torch.einsum('bhqk,bhqd->bhkd', pv, do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(q, k, v, *more):
+    """Raises on what the kernels do not take. ``more`` holds (name,
+    tensor) pairs shaped like q (dO and O for the backward)."""
+    for name, t in (('q', q), ('k', k), ('v', v)) + more:
         if not t.is_cuda:
             raise MXNetError(f"flash_attention: {name} is on {t.device} "
                              f"while q is on CUDA")
@@ -138,7 +185,8 @@ def _check_kernel_inputs(q, k, v):
             raise MXNetError(f"flash_attention: {name} must be (B, H, T, "
                              f"D), got {tuple(t.shape)}")
         if t.dtype != q.dtype:
-            raise MXNetError("flash_attention: q, k, v dtypes differ")
+            raise MXNetError(f"flash_attention: {name}'s dtype {t.dtype} "
+                             f"differs from q's {q.dtype}")
         if t.stride(-1) != 1:
             raise MXNetError(f"flash_attention: {name} needs a unit "
                              f"stride on D")
@@ -149,9 +197,37 @@ def _check_kernel_inputs(q, k, v):
     if k.shape[:2] != (B, H) or v.shape != k.shape or k.shape[3] != D:
         raise MXNetError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    for name, t in more:
+        if t.shape != q.shape:
+            raise MXNetError(f"flash_attention: {name} {tuple(t.shape)} "
+                             f"does not match q {tuple(q.shape)}")
     if D not in KERNEL_HEAD_DIMS:
         raise MXNetError(f"flash_attention kernel head dim must be one of "
                          f"{KERNEL_HEAD_DIMS}, got {D}")
+
+
+def _check_rows(name, t, q, BH, Tq):
+    if t.device != q.device or t.dtype != torch.float32 or \
+            tuple(t.shape) != (BH, Tq) or not t.is_contiguous():
+        raise MXNetError(f"flash_attention: {name} must be a contiguous "
+                         f"({BH}, {Tq}) float32 tensor on {q.device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _dropout_args(dropout_p, seed):
+    """(seed, uint32 threshold, keep scale, flag) as the kernels take them."""
+    if dropout_p <= 0.0:
+        return 0, 0, 1.0, 0
+    return (seed, dropout_threshold(dropout_p),
+            float(onp.float32(1.0 / (1.0 - dropout_p))), 1)
+
+
+def _like_bthd(t):
+    """An empty (B, H, T, D) tensor in (B, T, H, D) memory, like the caller's
+    (B, T, H*D) projections: the transpose back is then free."""
+    B, H, T, D = t.shape
+    return torch.empty(B, T, H, D, dtype=t.dtype,
+                       device=t.device).permute(0, 2, 1, 3)
 
 
 def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed):
@@ -160,10 +236,7 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed):
     Tk = k.shape[2]
     if kmask is not None and kmask.device != q.device:
         raise MXNetError("flash_attention: key_mask is on another device")
-    # o in (B, Tq, H, D) memory, viewed as (B, H, Tq, D): the caller's
-    # transpose back to (B, Tq, H*D) is then free
-    o = torch.empty(B, Tq, H, D, dtype=q.dtype,
-                    device=q.device).permute(0, 2, 1, 3)
+    o = _like_bthd(q)
     lse = torch.empty(B * H, Tq, dtype=torch.float32, device=q.device)
     lib = _build.library('flash_attn_fwd.cu')
     fn = lib.mxtt_flash_attn_fwd
@@ -173,7 +246,6 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed):
             [ll] * 12 + [i, ctypes.c_float, i, ctypes.c_uint,
                          ctypes.c_uint, ctypes.c_float, i, vp]
         fn.restype = ctypes.c_int
-    use_dropout = dropout_p > 0.0
     strides = []
     for t in (q, k, v, o):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
@@ -181,37 +253,140 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed):
             v.data_ptr(), kmask.data_ptr() if kmask is not None else None,
             o.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, *strides, mask_div,
             1.0 / math.sqrt(D), int(bool(causal)),
-            seed if use_dropout else 0,
-            dropout_threshold(dropout_p) if use_dropout else 0,
-            float(onp.float32(1.0 / (1.0 - dropout_p))) if use_dropout
-            else 1.0,
-            int(use_dropout), torch.cuda.current_stream(q.device).cuda_stream)
+            *_dropout_args(dropout_p, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, 'flash_attn_fwd')
     _build.launch_counts['flash_attn_fwd'] += 1
     return o, lse.reshape(B, H, Tq)
 
 
-def flash_attention_forward(q, k, v, key_mask=None, causal=False,
-                            dropout_p=0.0, dropout_seed=None):
-    """(out (B, H, Tq, D), lse (B, H, Tq) f32): the kernel's two outputs,
-    as ``_fa_forward`` returns them."""
+def _bwd_fn(name):
+    fn = getattr(_build.library('flash_attn_bwd.cu'), name)
+    if fn.argtypes is None:
+        i, vp = ctypes.c_int, ctypes.c_void_p
+        outs = [vp] if name.endswith('_dq') else [vp, vp]
+        fn.argtypes = [i, i] + [vp] * 7 + outs + [i] * 4 + [vp] + \
+            [i, ctypes.c_float, i, ctypes.c_uint, ctypes.c_uint,
+             ctypes.c_float, i, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
+                lse, do):
+    """The dq kernel, then the dk/dv kernel, on the current stream."""
+    _check_kernel_inputs(q, k, v, ('dO', do), ('out', out))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    km, mask_div = _normalize_mask(key_mask, B, H, Tk)
+    if kmask is not None and kmask.device != q.device:
+        raise MXNetError("flash_attention: key_mask is on another device")
+    lse = lse.reshape(B * H, Tq)
+    _check_rows('lse', lse, q, B * H, Tq)
+    # delta = rowsum(dO * O) in f32: XLA outside the kernels in JAX too
+    delta = (do.float() * out.float()).sum(-1).reshape(B * H, Tq)
+    dq, dk, dv = _like_bthd(q), _like_bthd(k), _like_bthd(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), kmask.data_ptr() if kmask is not None else None,
+              do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    tail = (mask_div, 1.0 / math.sqrt(D), int(bool(causal)),
+            *_dropout_args(dropout_p, seed), stream)
+    for name, outs, count in (
+            ('mxtt_flash_attn_bwd_dq', (dq,), 'flash_attn_bwd_dq'),
+            ('mxtt_flash_attn_bwd_dkv', (dk, dv), 'flash_attn_bwd_dkv')):
+        st = []
+        for t in (q, k, v, do, outs[0]):
+            st += [t.stride(0), t.stride(1), t.stride(2)]
+        strides = (ctypes.c_longlong * 15)(*st)
+        rc = _bwd_fn(name)(*common, *(t.data_ptr() for t in outs), B, H,
+                           Tq, Tk, strides, *tail)
+        _build.check(rc, count)
+        _build.launch_counts[count] += 1
+    return dq, dk, dv
+
+
+def _prepare(q, k, key_mask, dropout_p, dropout_seed):
+    """Checks the device and the dropout arguments; returns (mask as
+    (rows, Tk) f32 additive or None, rows-per-mask divisor, dropout_p,
+    uint32 seed)."""
+    if not q.is_cuda and q.device.type != 'cpu':
+        raise MXNetError(f"flash_attention: unsupported device {q.device}")
     dropout_p = float(dropout_p)
     if dropout_p > 0.0 and dropout_seed is None:
         raise ValueError("dropout_p > 0 requires dropout_seed")
+    B, H = q.shape[:2]
+    km, mask_div = _normalize_mask(key_mask, B, H, k.shape[2])
+    seed = _seed_int(dropout_seed) if dropout_p > 0.0 else 0
+    return km, mask_div, dropout_p, seed
+
+
+def _forward(q, k, v, km, mask_div, causal, dropout_p, seed):
+    """(out, lse): the forward kernel for CUDA tensors, the plain version
+    for CPU tensors."""
     if q.is_cuda:
-        seed = _seed_int(dropout_seed) if dropout_p > 0.0 else 0
         return _launch(q, k, v, km, mask_div, causal, dropout_p, seed)
-    if q.device.type != 'cpu':
-        raise MXNetError(f"flash_attention: unsupported device {q.device}")
-    return flash_attention_reference(q, k, v, km, causal, dropout_p,
-                                     dropout_seed)
+    return flash_attention_reference(q, k, v, km, causal, dropout_p, seed)
+
+
+def _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out, lse, do):
+    """(dq, dk, dv): the two backward kernels for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q.is_cuda:
+        return _launch_bwd(q, k, v, km, mask_div, causal, dropout_p, seed,
+                           out, lse, do)
+    return flash_attention_backward_reference(q, k, v, km, causal, dropout_p,
+                                              seed, out, lse, do)
+
+
+def flash_attention_forward(q, k, v, key_mask=None, causal=False,
+                            dropout_p=0.0, dropout_seed=None):
+    """(out (B, H, Tq, D), lse (B, H, Tq) f32): the forward's two outputs,
+    as ``_fa_forward`` returns them, with no gradient."""
+    km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
+                                             dropout_seed)
+    return _forward(q, k, v, km, mask_div, causal, dropout_p, seed)
+
+
+def flash_attention_backward(q, k, v, key_mask, causal, dropout_p,
+                             dropout_seed, out, lse, do):
+    """(dq, dk, dv) in the input dtypes, as ``_fa_backward`` returns them:
+    the two backward kernels for CUDA tensors, the plain version for CPU
+    tensors."""
+    km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
+                                             dropout_seed)
+    return _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out,
+                     lse, do)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the JAX ``_flash`` custom_vjp: the forward saves
+    q, k, v, the normalised mask, the seed, out and lse; the backward runs
+    the two backward kernels (the plain version on the CPU). The mask and
+    the seed get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, km, mask_div, causal, dropout_p, seed):
+        out, lse = _forward(q, k, v, km, mask_div, causal, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, km, out, lse)
+        ctx.args = (mask_div, causal, dropout_p, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, km, out, lse = ctx.saved_tensors
+        mask_div, causal, dropout_p, seed = ctx.args
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = _backward(q, k, v, km, mask_div, causal, dropout_p,
+                               seed, out, lse, do)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, key_mask=None, causal=False, dropout_p=0.0,
                     dropout_seed=None):
-    """Flash attention over (B, H, T, D) q/k/v; returns (B, H, Tq, D)."""
-    return flash_attention_forward(q, k, v, key_mask, causal, dropout_p,
-                                   dropout_seed)[0]
+    """Flash attention over (B, H, T, D) q/k/v; returns (B, H, Tq, D),
+    differentiable in q, k and v."""
+    km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
+                                             dropout_seed)
+    return _FlashAttention.apply(q, k, v, km, mask_div, bool(causal),
+                                 dropout_p, seed)

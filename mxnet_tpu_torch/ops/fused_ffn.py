@@ -1,7 +1,13 @@
-"""Fused FFN1: gelu_erf(x @ W.T + b) in one CUDA kernel, and its plain
-PyTorch version (counterpart of ``mxnet_tpu/ops/pallas_ffn.py``, forward
-only). The kernel, its bound and its design are described in
-``csrc/dense_gelu.cu``.
+"""Fused FFN1: gelu_erf(x @ W.T + b) in one CUDA kernel, its plain PyTorch
+version, and the autograd Function around them (counterpart of
+``mxnet_tpu/ops/pallas_ffn.py`` and its ``custom_vjp``). The kernel, its
+bound and its design are described in ``csrc/dense_gelu.cu``.
+
+The backward is ``_bwd``'s math in plain PyTorch, as the JAX package's is
+plain ``jnp`` outside any Pallas kernel: it saves only (x, w, b) and
+recomputes the pre-activation in f32 rather than keeping the (M, N)
+intermediate the fusion exists to keep out of device memory. Its f32
+products go to ``torch.matmul`` in full f32 (TF32 stays off).
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ['fused_dense_gelu', 'dense_gelu_reference']
+__all__ = ['fused_dense_gelu', 'dense_gelu_reference',
+           'dense_gelu_backward']
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,11 +64,42 @@ def _launch(x, w, b):
     return out
 
 
+def dense_gelu_backward(x, w, b, g):
+    """``_bwd`` of the JAX package: (dx, dw, db) from the saved inputs and
+    the output gradient, in f32, each cast to its input's dtype."""
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K).to(torch.float32)
+    w32 = w.to(torch.float32)
+    g2 = g.reshape(-1, w.shape[0]).to(torch.float32)
+    s = torch.matmul(x2, w32.t()) + b.to(torch.float32)
+    pdf = torch.exp(-0.5 * s * s) * (1.0 / math.sqrt(2.0 * math.pi))
+    dgelu = 0.5 * (1.0 + torch.erf(s * _INV_SQRT2)) + s * pdf
+    ds = g2 * dgelu
+    dx = torch.matmul(ds, w32).reshape(x.shape).to(x.dtype)
+    dw = torch.matmul(ds.t(), x2).to(w.dtype)
+    db = ds.sum(0).to(b.dtype)
+    return dx, dw, db
+
+
+class _FusedDenseGelu(torch.autograd.Function):
+    """Forward: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. Backward: ``dense_gelu_backward`` on both."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        out = _launch(x, w, b) if x.is_cuda else dense_gelu_reference(x, w, b)
+        ctx.save_for_backward(x, w, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return dense_gelu_backward(*ctx.saved_tensors, g)
+
+
 def fused_dense_gelu(x, w, b):
-    """gelu(x @ w.T + b) with the epilogue fused into the matmul: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return _launch(x, w, b)
-    if x.device.type != 'cpu':
+    """gelu(x @ w.T + b) with the epilogue fused into the matmul,
+    differentiable in x, w and b: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if not x.is_cuda and x.device.type != 'cpu':
         raise MXNetError(f"fused_dense_gelu: unsupported device {x.device}")
-    return dense_gelu_reference(x, w, b)
+    return _FusedDenseGelu.apply(x, w, b)

@@ -1,6 +1,6 @@
-"""Fused residual-add + LayerNorm forward: a Triton kernel and its plain
-PyTorch version (counterpart of ``mxnet_tpu/ops/pallas_layernorm.py``,
-forward only).
+"""Fused residual-add + LayerNorm: a Triton forward kernel, its plain
+PyTorch version, and the autograd Function around them (counterpart of
+``mxnet_tpu/ops/pallas_layernorm.py`` and its ``custom_vjp``).
 
 Replaces ``_ln_kernel`` (launched by ``_fwd_impl``): out = LN(x + r) *
 gamma + beta with f32 statistics and the output in x's dtype.
@@ -13,6 +13,12 @@ masked), so each element is read once and the sum never goes back to
 device memory; Triton's masked row loads and ``tl.sum`` reach the memory
 rate without hand-written shuffles, which is why this kernel is Triton.
 
+The backward is ``_bwd``'s math in plain PyTorch, as the JAX package's is
+plain ``jnp`` outside any Pallas kernel. As there, the forward saves the
+sum ``x + res`` in x's dtype (bf16 in training), and the backward takes
+its statistics from that rounded sum, not from the f32 sum the kernel
+normalised; dx is returned for both x and res.
+
 ``triton`` is imported, and the kernel defined, at the first launch.
 (No ``from __future__ import annotations`` here: Triton reads the
 ``tl.constexpr`` annotations of the kernel's parameters.)
@@ -22,7 +28,8 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ['fused_add_layer_norm', 'add_layer_norm_reference']
+__all__ = ['fused_add_layer_norm', 'add_layer_norm_reference',
+           'add_layer_norm_backward']
 
 _ROWS = 4
 _kernel = []
@@ -98,12 +105,54 @@ def _launch(x, res, gamma, beta, eps):
     return out
 
 
+def add_layer_norm_backward(s_in, gamma, g, eps=1e-5):
+    """``_bwd`` of the JAX package: (dx, dgamma, dbeta) from the saved sum
+    ``s_in`` (in x's dtype), gamma and the output gradient ``g``. dx comes
+    back in s_in's dtype, dgamma and dbeta, summed in f32, in gamma's."""
+    s = s_in.to(torch.float32)
+    mean = s.mean(-1, keepdim=True)
+    xc = s - mean
+    var = (xc * xc).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = xc * inv
+    gf = g.to(torch.float32)
+    lead = tuple(range(g.dim() - 1))
+    dgamma = (gf * xhat).sum(lead)
+    dbeta = gf.sum(lead)
+    gg = gf * gamma.to(torch.float32)
+    dx = inv * (gg - gg.mean(-1, keepdim=True)
+                - xhat * (gg * xhat).mean(-1, keepdim=True))
+    return (dx.to(s_in.dtype), dgamma.to(gamma.dtype),
+            dbeta.to(gamma.dtype))
+
+
+class _FusedAddLayerNorm(torch.autograd.Function):
+    """Forward: the Triton kernel for CUDA tensors, the plain version for
+    CPU tensors. Backward: ``add_layer_norm_backward`` on both."""
+
+    @staticmethod
+    def forward(ctx, x, res, gamma, beta, eps):
+        if x.is_cuda:
+            out = _launch(x, res, gamma, beta, eps)
+        else:
+            out = add_layer_norm_reference(x, res, gamma, beta, eps)
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(x + res, gamma)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        s_in, gamma = ctx.saved_tensors
+        dx, dgamma, dbeta = add_layer_norm_backward(s_in, gamma, g, ctx.eps)
+        return dx, dx, dgamma, dbeta, None
+
+
 def fused_add_layer_norm(x, res, gamma, beta, eps=1e-5):
-    """LN(x + res) * gamma + beta in one pass over the rows: the Triton
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return _launch(x, res, gamma, beta, eps)
-    if x.device.type != 'cpu':
+    """LN(x + res) * gamma + beta in one pass over the rows, differentiable
+    in x, res, gamma and beta: the Triton kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if not x.is_cuda and x.device.type != 'cpu':
         raise MXNetError(f"fused_add_layer_norm: unsupported device "
                          f"{x.device}")
-    return add_layer_norm_reference(x, res, gamma, beta, eps)
+    return _FusedAddLayerNorm.apply(x, res, gamma, beta, float(eps))

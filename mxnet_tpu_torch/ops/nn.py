@@ -1,5 +1,5 @@
-"""Neural-network ops on the BERT serving path (counterpart of
-``mxnet_tpu/ops/nn.py``), with the JAX package's arithmetic:
+"""Neural-network ops on the BERT serving and training paths (counterpart
+of ``mxnet_tpu/ops/nn.py``), with the JAX package's arithmetic:
 
 - ``fully_connected`` accumulates in f32 and casts to the input dtype
   before the bias is added;
@@ -9,7 +9,10 @@
   kernels take: the kernel runs when its knob is on and the tensors are
   on CUDA, the plain math otherwise. The kernels take any C (LayerNorm)
   and any M, N, K (FFN1), so the TPU's ``C % 128`` lane rule is dropped;
-  their own checks (dtype, contiguity) raise rather than fall back.
+  their own checks (dtype, contiguity) raise rather than fall back;
+- ``dropout`` is active only in training (the module's ``training`` flag
+  stands in for the JAX package's autograd train mode) and computes
+  ``x * mask / keep`` with the mask drawn on x's device.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from ..base import MXNetError
 from .. import config as _config
 
 __all__ = ['fully_connected', 'activation', 'layer_norm', 'add_layer_norm',
-           'dense_gelu', 'embedding']
+           'dense_gelu', 'embedding', 'softmax', 'log_softmax', 'dropout']
 
 
 def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
@@ -92,3 +95,28 @@ def embedding(data, weight):
     with mode='clip' does."""
     idx = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
     return weight[idx]
+
+
+def softmax(data, axis=-1):
+    return torch.softmax(data, dim=axis)
+
+
+def log_softmax(data, axis=-1):
+    return torch.log_softmax(data, dim=axis)
+
+
+def dropout(data, p=0.5, training=False, generator=None):
+    """Zero each element with probability ``p`` and scale the rest by
+    1/(1-p), active only when ``training``. The keep mask is drawn from
+    ``generator``, which must live on data's device (None draws from that
+    device's default generator)."""
+    if not training or p <= 0.0:
+        return data
+    if generator is not None and generator.device.type != data.device.type:
+        raise MXNetError(f"dropout: generator on {generator.device} for a "
+                         f"tensor on {data.device}; the noise is drawn on "
+                         f"the tensor's device")
+    keep = 1.0 - p
+    mask = (torch.rand(data.shape, generator=generator, device=data.device)
+            < keep).to(data.dtype)
+    return data * mask / keep

@@ -1,6 +1,8 @@
-"""The port's three Hopper kernels against their plain PyTorch versions, on
-the card, at small and ragged shapes that chip_smoke.py does not reach
-(head dims 8 to 128, sequence lengths and widths that divide no tile).
+"""The port's Hopper kernels (flash-attention forward, dq and dk/dv;
+residual+LayerNorm; FFN1) against their plain PyTorch versions, on the
+card, at small and ragged shapes that chip_smoke.py does not reach (head
+dims 8 to 128, sequence lengths and widths that divide no tile), and the
+gradients of their autograd Functions against plain autograd.
 
 These tests need a CUDA device and carry the ``cuda`` marker; without a
 card they skip. On the card, from the root of the checkout (the file
@@ -89,3 +91,93 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = torch.randn(1, 1, 4, 12, generator=gen, device='cuda')
     with pytest.raises(MXNetError, match='head dim'):
         fa.flash_attention(q, q, q)
+
+
+def _attn_inputs(gen, B, H, Tq, Tk, D, dtype):
+    q = torch.randn(B, H, Tq, D, generator=gen, device='cuda').to(dtype)
+    k = torch.randn(B, H, Tk, D, generator=gen, device='cuda').to(dtype)
+    v = torch.randn(B, H, Tk, D, generator=gen, device='cuda').to(dtype)
+    do = torch.randn(B, H, Tq, D, generator=gen, device='cuda').to(dtype)
+    # per-head additive mask; every row keeps key 0
+    m = torch.randn(B * H, Tk, generator=gen, device='cuda')
+    m[:, 1::3] = -1e30
+    return q, k, v, do, m
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('D', [8, 32, 64, 128])
+@pytest.mark.parametrize('causal,dropout_p', [(False, 0.0), (True, 0.2),
+                                              (False, 0.2)])
+def test_flash_attention_backward_kernels(gen, dtype, D, causal, dropout_p):
+    B, H, Tq, Tk = 2, 3, 70, 100          # ragged: neither divides 64
+    q, k, v, do, m = _attn_inputs(gen, B, H, Tq, Tk, D, dtype)
+    if causal:
+        k, v, Tk, m = k[:, :, :Tq], v[:, :, :Tq], Tq, m[:, :Tq].contiguous()
+    seed = 11 if dropout_p else None
+    out, lse = fa.flash_attention_forward(q, k, v, key_mask=m, causal=causal,
+                                          dropout_p=dropout_p,
+                                          dropout_seed=seed)
+    got = fa.flash_attention_backward(q, k, v, m, causal, dropout_p, seed,
+                                      out, lse, do)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_reference(q, k, v, m, causal,
+                                                 dropout_p, seed, out, lse, do)
+    for name, g, w in zip('qkv', got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g, w, **TOL[dtype], msg=f'd{name}')
+
+
+def test_flash_attention_backward_is_deterministic(gen):
+    B, H, T, D = 2, 12, 200, 64
+    q, k, v, do, m = _attn_inputs(gen, B, H, T, T, D, torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v, key_mask=m,
+                                          dropout_p=0.1, dropout_seed=5)
+    runs = [fa.flash_attention_backward(q, k, v, m, False, 0.1, 5, out, lse,
+                                        do) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_function_gradients_on_the_card_match_plain_autograd(gen):
+    """loss.backward() through each kernel's autograd Function on CUDA gives
+    the gradient of plain torch autograd through its plain version."""
+    # flash attention: views of one (B, T, 3*H*D) projection, as the model
+    B, H, T, D = 2, 4, 90, 32
+    qkv = torch.randn(B, T, 3 * H * D, generator=gen, device='cuda')
+    do = torch.randn(B, H, T, D, generator=gen, device='cuda')
+    vl = torch.tensor([90, 41], device='cuda')
+    mask = torch.arange(T, device='cuda')[None, :] < vl[:, None]
+
+    def attn(fn, x):
+        q, k, v = (t.reshape(B, T, H, D).permute(0, 2, 1, 3)
+                   for t in x.chunk(3, dim=-1))
+        return fn(q, k, v)
+
+    x1 = qkv.clone().requires_grad_()
+    attn(lambda q, k, v: fa.flash_attention(q, k, v, key_mask=mask,
+                                            causal=True), x1).backward(do)
+    x2 = qkv.clone().requires_grad_()
+    km, _ = fa._normalize_mask(mask, B, H, T)
+    attn(lambda q, k, v: fa.flash_attention_reference(q, k, v, km, True)[0],
+         x2).backward(do)
+    torch.testing.assert_close(x1.grad, x2.grad, **TOL[torch.float32])
+
+    # residual + LayerNorm and FFN1, f32
+    xs = [torch.randn(6, 100, generator=gen, device='cuda') for _ in range(2)]
+    g = torch.rand(100, generator=gen, device='cuda') + 0.5
+    bt = torch.randn(100, generator=gen, device='cuda')
+    w = torch.randn(70, 100, generator=gen, device='cuda') * 0.1
+    b = torch.randn(70, generator=gen, device='cuda') * 0.1
+    cot_ln = torch.randn(6, 100, generator=gen, device='cuda')
+    cot_ffn = torch.randn(6, 70, generator=gen, device='cuda')
+    for fused, plain, args, cot in (
+            (fused_layernorm.fused_add_layer_norm,
+             fused_layernorm.add_layer_norm_reference, xs + [g, bt], cot_ln),
+            (fused_ffn.fused_dense_gelu, fused_ffn.dense_gelu_reference,
+             [xs[0], w, b], cot_ffn)):
+        a1 = [t.clone().requires_grad_() for t in args]
+        a2 = [t.clone().requires_grad_() for t in args]
+        fused(*a1).backward(cot)
+        plain(*a2).backward(cot)
+        for t1, t2 in zip(a1, a2):
+            torch.testing.assert_close(t1.grad, t2.grad, atol=1e-4, rtol=1e-4)

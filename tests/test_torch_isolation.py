@@ -14,7 +14,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import resolve_device
 from mxnet_tpu_torch.gluon import nn
-from mxnet_tpu_torch.models.bert import BertModel
+from mxnet_tpu_torch.models.bert import BertForPretraining, BertModel
 from mxnet_tpu_torch.ops import fused_ffn, fused_layernorm
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.weights import params_from_mxnet_tpu
@@ -78,6 +78,8 @@ def test_entry_points_refuse_a_missing_card(device):
     with pytest.raises(MXNetError, match='no CUDA device'):
         BertModel(**SMALL, device=device)
     with pytest.raises(MXNetError, match='no CUDA device'):
+        BertForPretraining(SMALL, device=device)
+    with pytest.raises(MXNetError, match='no CUDA device'):
         nn.Dense(4, in_units=4, device=device)
     cpu_net = BertModel(**SMALL, device='cpu')
     with pytest.raises(MXNetError, match='no CUDA device'):
@@ -117,3 +119,17 @@ def test_importing_the_port_builds_nothing():
         os.path.exists(os.path.join(_build.CSRC_DIR, s))
         for s in _build.SOURCES)
     assert not _build._libs
+
+
+def test_dropout_draws_on_the_tensors_device():
+    """A generator on another device than the tensor raises instead of
+    drawing on the host and copying; in eval mode nothing is drawn."""
+    drop = nn.Dropout(0.5, generator=torch.Generator())
+    x = torch.ones(4, 8, device='meta')
+    assert drop.eval()(x) is x
+    with pytest.raises(MXNetError, match="tensor's device"):
+        drop.train()(x)
+    y = drop(torch.ones(64, 64))
+    kept = y != 0
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 2.0))
+    assert 0.4 < kept.float().mean().item() < 0.6
