@@ -37,7 +37,25 @@
    steps with the launch counters set to 0 just before and read just
    after (12 forward, 12 dq, 12 dk/dv, 24 LayerNorm and 12 FFN1 launches
    per step), step time, samples/s and MFU, and a profiled step.
-6. Prints the kernels' JSON line and, last, the result line.
+6. NDArray phase: MXNet's imperative API (mx.nd, mx.autograd) on the
+   card with user kernels compiled by NVRTC (mx.rtc, the counterpart of
+   the JAX package's pallas_op). Compiles the five user kernels of
+   mxnet_tpu_torch/test_utils.py (scale_add, block_double, rowsum, GELU
+   forward and backward), holds each against its plain version at the
+   shapes of tests/test_rtc.py and at 4096 x 3072 f32, and times each
+   there beside its bound and one PyTorch call, with the copy each
+   output array costs printed apart. The counters are set to 0, then the
+   path runs: the three mirrored kernels called on NDArrays as
+   tests/test_rtc.py calls its Pallas ops, and 5 SGD steps of the FFN
+   block y = dot(gelu(dot(x, w1) + b1), w2) + b2 at BERT-base width
+   (4096 x 768, FFN 3072, f32), its GELU an autograd.Function whose
+   forward and backward are rtc launches; exactly 5 + 5 GELU launches.
+   Step 1 is checked against the same program on the CPU with the plain
+   GELU; the losses must fall. Prints step time, the idle share of one
+   profiled step, the host cost of one NDArray op, and checks two
+   semantics on the card (a launch into a reshape leaves its source
+   unchanged; a second backward leaves the gradients).
+7. Prints the kernels' JSON line and, last, the result line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 """
@@ -344,6 +362,8 @@ _FAMILIES = (('flash_attn_fwd', ('flash_fwd_kernel',)),
              ('flash_attn_bwd_dkv', ('flash_bwd_dkv_kernel',)),
              ('fused_add_layernorm', ('_add_ln_fwd',)),
              ('dense_gelu', ('dense_gelu_',)),
+             ('rtc user kernels', ('gelu_fwd', 'gelu_bwd', 'scale_add',
+                                   'block_double', 'rowsum')),
              ('library GEMMs', ('gemm', 'nvjet', 'cutlass', 'xmma')))
 
 
@@ -686,6 +706,224 @@ def training_phase(card, steps=5, batch=8, seq=512):
                           mfu=mfu, parity=parity)
 
 
+# user kernels against their plain versions on the card (chosen before the
+# first run): the copies and 2x are exact; the row sum adds in another
+# order (uniform [0, 1) inputs, no cancellation); erff/expf may differ from
+# torch's by an ulp and the GELU derivative cancels near x = -0.75, so
+# GELU also gets an absolute 1e-6 (8 ulps of 1.0)
+USER_TOL = {'scale_add': dict(atol=0, rtol=0),
+            'block_double': dict(atol=0, rtol=0),
+            'rowsum': dict(atol=0, rtol=1e-5),
+            'gelu_fwd': dict(atol=1e-6, rtol=1e-5),
+            'gelu_bwd': dict(atol=1e-6, rtol=1e-5)}
+USER_TEST_SHAPES = {'scale_add': (8, 128), 'block_double': (128, 128),
+                    'rowsum': (8, 16), 'gelu_fwd': (8, 128),
+                    'gelu_bwd': (8, 128)}
+USER_BIG = (4096, 3072)            # the slice's FFN activation, 50.3 MB f32
+# operations per element, to bound each user kernel
+USER_OPS = {'scale_add': 2, 'block_double': 1, 'rowsum': 1, 'gelu_fwd': 5,
+            'gelu_bwd': 10}
+# step 1 of the FFN SGD program on the card vs the CPU, both f32 with TF32
+# off (chosen before the first run: only the products' summation order
+# differs)
+NDARRAY_TOL = {'loss_rel': 1e-5, 'grad_rel_fro': 1e-4}
+FFN_LR = 1.0
+
+
+def _user_yardsticks():
+    """One PyTorch call per user kernel that computes the same function
+    (timed only; the port never calls them)."""
+    import torch
+    import torch.nn.functional as F
+    return {'scale_add': lambda x, y: torch.add(y, x, alpha=2),
+            'block_double': lambda x: x * 2,
+            'rowsum': lambda x: x.sum(1, keepdim=True),
+            'gelu_fwd': lambda x: F.gelu(x),
+            'gelu_bwd': lambda x, dy: torch.ops.aten.gelu_backward(dy, x)}
+
+
+def ndarray_phase(card, steps=5):
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd, rtc
+    from mxnet_tpu_torch.test_utils import (FfnSgd, PlainGelu, RTC_SOURCE,
+                                            USER_KERNELS, ffn_arrays,
+                                            launch_user_kernel,
+                                            rtc_gelu_function)
+    ctx = mt.gpu(0)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
+    print(f'ndarray phase on {card}: mx.nd + mx.autograd on the card, user '
+          f'kernels compiled by NVRTC (mx.rtc)')
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(RTC_SOURCE)
+    compile_s = time.perf_counter() - t0
+    kernels = {n: mod.get_kernel(n, s['signature'])
+               for n, s in USER_KERNELS.items()}
+    print(f'  NVRTC: one module of {len(kernels)} kernels compiled and '
+          f'loaded in {compile_s:.3f} s ({" ".join(mod.options[:2])}); '
+          f'log: {mod.log.strip() or "empty"}')
+
+    def inputs(name, shape):
+        """Drawn on the card: rowsum sums uniform [0, 1) values, as
+        tests/test_rtc.py does; the others take N(0, 9)."""
+        if name == 'rowsum':
+            ts = [torch.rand(shape, generator=gen, device='cuda')]
+        else:
+            ts = [torch.randn(shape, generator=gen, device='cuda') * 3
+                  for _ in range(USER_KERNELS[name]['n_in'])]
+        return [nd.NDArray(t) for t in ts]
+
+    errs = {}
+    for name in USER_KERNELS:
+        for shape in (USER_TEST_SHAPES[name], USER_BIG):
+            xs = inputs(name, shape)
+            out = launch_user_kernel(kernels[name], name, xs)
+            torch.cuda.synchronize()
+            want = USER_KERNELS[name]['plain'](*[x._data for x in xs])
+            errs[name] = compare(f'{name} {shape} f32 (rtc launch)',
+                                 out._data, want, **USER_TOL[name])
+
+    rows, yard = {}, _user_yardsticks()
+    for name, spec in USER_KERNELS.items():
+        xs = inputs(name, USER_BIG)
+        out = nd.zeros(spec['out_shape'](USER_BIG), ctx=ctx)
+        grid, block = spec['geometry'](USER_BIG)
+        args = xs + [out] + list(spec['ints'](USER_BIG))
+
+        def launch(k=kernels[name], args=args, grid=grid, block=block):
+            k.launch(args, ctx, grid, block)
+        per_kernel, _ = profile_device(launch, 20)
+        k_us = per_kernel.get(name, 0.0)
+        check(k_us > 0, f'no device time for {name} in the trace')
+        copy_ms = (sum(per_kernel.values()) - k_us) / 20 / 1e3
+        ts = [x._data for x in xs]
+        plain_ms, plain_how = time_ms(lambda: spec['plain'](*ts))
+        library_ms, library_how = time_ms(lambda: yard[name](*ts))
+        n = ts[0].numel()
+        nbytes = sum(t.numel() * 4 for t in ts) + out.size * 4
+        b_ms, b_by = bound_ms(USER_OPS[name] * n, nbytes, PEAK_F32)
+        rows[name] = dict(
+            route='cuda', via='rtc (NVRTC)',
+            source='mxnet_tpu_torch/test_utils.py',
+            replaces='mxnet_tpu/rtc.py:32 PallasKernel',
+            max_abs_err=errs[name], ms=k_us / 20 / 1e3,
+            how=f'profiler/{plain_how}/{library_how}', copy_ms=copy_ms,
+            stream_ms=stream_ms(launch), plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f'  timing {name} {USER_BIG} f32 on {card}: kernel '
+              f'{rows[name]["ms"]:.4f} ms, bound {b_ms:.4f} ms ({b_by}, '
+              f'{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, library '
+              f'{library_ms:.4f} ms ({rows[name]["how"]}); the copy of the '
+              f'output array each launch makes: {copy_ms:.4f} ms; '
+              f'back-to-back stream time of a launch {rows[name]["stream_ms"]:.4f} ms')
+        del xs, out, args, ts
+
+    # the path's run: the mirrored kernels called on NDArrays as
+    # tests/test_rtc.py calls its Pallas ops, then the slice's SGD steps
+    x_np, t_np, params_np = ffn_arrays(4096, 768, 3072, SEED)
+    run = FfnSgd(mt, ctx, x_np, t_np, params_np, rtc_gelu_function(mod),
+                 FFN_LR)
+    small = {n: inputs(n, USER_TEST_SHAPES[n])
+             for n in ('scale_add', 'block_double', 'rowsum')}
+    torch.cuda.synchronize()
+    rtc.reset_launch_counts()
+    mt.ops.reset_launch_counts()
+    calls = [('scale_add', small['scale_add']),
+             ('scale_add', small['scale_add'][::-1]),
+             ('block_double', small['block_double']),
+             ('rowsum', small['rowsum'])]
+    outs = [launch_user_kernel(kernels[n], n, xs) for n, xs in calls]
+    losses, marks = [], [time.perf_counter()]
+    for i in range(steps):
+        losses.append(run.step())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if i == 0:
+            grads1 = [p.grad._data for p in run.params]   # rebound, not
+    launches = dict(rtc.launch_counts)                    # overwritten
+    op_launches = dict(mt.ops.launch_counts)
+    losses = [float(v.asscalar()) for v in losses]
+
+    for (n, xs), out in zip(calls, outs):
+        torch.testing.assert_close(
+            out._data, USER_KERNELS[n]['plain'](*[x._data for x in xs]),
+            **{k: USER_TOL[n][k] for k in ('atol', 'rtol')})
+    print(f'  path run: launches {launches}, the five kernels of ops '
+          f'{op_launches}; losses {losses}')
+    check(launches == {'scale_add': 2, 'block_double': 1, 'rowsum': 1,
+                       'gelu_fwd': steps, 'gelu_bwd': steps},
+          f'rtc launch counts {launches} for {steps} steps')
+    check(set(op_launches.values()) == {0}, f'op kernels ran: {op_launches}')
+    check(all(onp.isfinite(v) for v in losses), 'non-finite loss')
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f'losses do not fall: {losses}')
+    step_ms = (marks[-1] - marks[1]) / (steps - 1) * 1e3
+    print(f'  {steps} SGD steps (4096 x 768, FFN 3072, f32, TF32 off) on '
+          f'{card}: {step_ms:.3f} ms per step over steps 2-{steps} (host '
+          f'clock between synchronizes), first step '
+          f'{(marks[1] - marks[0]) * 1e3:.3f} ms')
+
+    cpu = FfnSgd(mt, mt.cpu(), x_np, t_np, params_np, PlainGelu, FFN_LR)
+    cpu_loss = float(cpu.step().asscalar())
+    loss_rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    num = sum(float((g.cpu() - p.grad._data).square().sum())
+              for g, p in zip(grads1, cpu.params))
+    den = sum(float(p.grad._data.square().sum()) for p in cpu.params)
+    rel_fro = (num / den) ** 0.5
+    ok = loss_rel <= NDARRAY_TOL['loss_rel'] and \
+        rel_fro <= NDARRAY_TOL['grad_rel_fro']
+    print(f'  parity, step 1 on the card (rtc GELU) vs the CPU (plain GELU): '
+          f'loss {losses[0]:.7f} vs {cpu_loss:.7f} (rel {loss_rel:.2e}), '
+          f'gradients rel_fro_err={rel_fro:.2e}; tolerance {NDARRAY_TOL} '
+          f'-> {"ok" if ok else "FAIL"}')
+    check(ok, 'the NDArray step disagrees with the CPU reference')
+    device_breakdown('ndarray SGD step', run.step, card, 1)
+
+    # host cost of one NDArray op on small card arrays, beside plain torch
+    a, b = nd.ones((8, 128), ctx=ctx), nd.ones((8, 128), ctx=ctx)
+    ta, tb = a._data, b._data
+    per_op = {'nd': [], 'torch': []}
+    ops = {'nd': lambda: a + b, 'torch': lambda: ta + tb}
+    for label in ('nd', 'torch', 'torch', 'nd'):      # in turns
+        for _ in range(100):
+            ops[label]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            ops[label]()
+        per_op[label].append((time.perf_counter() - t0) / 1000 * 1e6)
+        torch.cuda.synchronize()
+    print(f'  dispatch: {per_op["nd"]} us of host time per NDArray a + b on '
+          f'(8, 128) card arrays, {per_op["torch"]} us for the same torch op '
+          f'(host clock around 1000 calls that only enqueue, in turns nd, '
+          f'torch, torch, nd)')
+
+    # semantics on the card
+    src = nd.array(onp.arange(8, dtype='f'), ctx=ctx)
+    view = src.reshape((2, 4))
+    ones = nd.ones((2, 4), ctx=ctx)
+    kernels['scale_add'].launch([ones, ones, view, 8], ctx, (1, 1, 1),
+                                (32, 1, 1))
+    check(onp.array_equal(src.asnumpy(), onp.arange(8.0)) and
+          onp.array_equal(view.asnumpy(), onp.full((2, 4), 3.0)),
+          'a launch into a reshape changed its source')
+    w = nd.array([1.0, 2.0], ctx=ctx)
+    w.attach_grad()
+    with mt.autograd.record():
+        y = (w * w).sum()
+    y.backward()
+    w.grad[:] = 7
+    y.backward()
+    check(onp.array_equal(w.grad.asnumpy(), [7.0, 7.0]),
+          'a second backward without retain_graph wrote the gradients')
+    print('  semantics on the card: a launch into a.reshape(...) leaves a '
+          'unchanged; a second backward leaves the gradients -> ok')
+    return launches, op_launches, rows, dict(
+        compile_s=compile_s, step_ms=step_ms, dispatch_us=per_op,
+        loss_rel=loss_rel, grad_rel_fro=rel_fro)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -708,17 +946,22 @@ def main():
     rows = kernel_phase(card)
     serving, _stats, _rps = serving_phase(card)
     training, _train = training_phase(card)
-    # launches: the serving run's and the training run's, each counted
+    user, nd_ops, user_rows, _nd = ndarray_phase(card)
+    # launches: the serving, training and ndarray runs', each counted
     # from 0 just before its run
+    by_path = {name: {'serving': serving[name], 'training': training[name],
+                      'ndarray': nd_ops[name]} for name in rows}
+    for name in user_rows:
+        by_path[name] = {'serving': 0, 'training': 0, 'ndarray': user[name]}
     kernels = [dict(name=name, route=r['route'], source=r['source'],
                     replaces=r['replaces'],
-                    launches=serving[name] + training[name],
-                    launches_by_path={'serving': serving[name],
-                                      'training': training[name]},
+                    launches=sum(by_path[name].values()),
+                    launches_by_path=by_path[name],
                     max_abs_err=r['max_abs_err'], ms=r['ms'],
                     plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
-                    bound_by=r['bound_by'], library_ms=r['library_ms'])
-               for name, r in rows.items()]
+                    bound_by=r['bound_by'], library_ms=r['library_ms'],
+                    **({'via': r['via']} if 'via' in r else {}))
+               for name, r in {**rows, **user_rows}.items()]
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

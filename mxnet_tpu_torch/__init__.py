@@ -2,18 +2,28 @@
 H100 (Hopper, sm_90a).
 
 It imports torch and numpy, never jax and nothing of ``mxnet_tpu``.
-Module names mirror ``mxnet_tpu`` so each counterpart is easy to find.
-Entry points run on the card unless the caller passes ``device='cpu'``;
-with no CUDA device and no explicit ``'cpu'`` they raise.
+Module names mirror ``mxnet_tpu`` so each counterpart is easy to find,
+and ``import mxnet_tpu_torch as mx`` reads like ``import mxnet_tpu as
+mx``: ``mx.nd``, ``mx.autograd``, ``mx.rtc``, ``mx.cpu()``, ``mx.gpu()``.
+Entry points run on the card unless the caller asks for the CPU
+(``device='cpu'``, ``ctx=mx.cpu()``); with no CUDA device they raise.
 
 It serves ``models.bert.BertModel`` through ``serving.InferenceEngine``
 and trains ``models.bert.BertForPretraining`` through ``gluon.Trainer``
-(AdamW) on five hand-written kernels (see ``ops``).
+(AdamW) on five hand-written kernels (see ``ops``), and runs MXNet's
+imperative API (``nd``, ``autograd``) with user kernels compiled by
+NVRTC (``rtc``).
 """
 from .base import MXNetError
-from . import (config, context, gluon, initializer, models, ops, optimizer,
-               serialization, serving, weights)
+from .context import Context, cpu, cpu_pinned, current_context, gpu, \
+    num_gpus, tpu
+from . import (autograd, config, context, engine, gluon, initializer,
+               models, ndarray, ops, optimizer, random, rtc, serialization,
+               serving, weights)
+from . import ndarray as nd
 
-__all__ = ['MXNetError', 'config', 'context', 'gluon', 'initializer',
-           'models', 'ops', 'optimizer', 'serialization', 'serving',
+__all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
+           'gpu', 'num_gpus', 'tpu', 'autograd', 'config', 'context',
+           'engine', 'gluon', 'initializer', 'models', 'nd', 'ndarray',
+           'ops', 'optimizer', 'random', 'rtc', 'serialization', 'serving',
            'weights']

@@ -1,9 +1,83 @@
-"""Error type shared by every module of the port (counterpart of
-``mxnet_tpu/base.py``'s ``MXNetError``)."""
+"""Error type, op registry and thread-local autograd flags shared by every
+module of the port (counterpart of ``mxnet_tpu/base.py``).
+
+Ops are plain Python functions over ``torch.Tensor``s registered by name;
+``mx.nd.<name>`` wraps each one for NDArrays (``ndarray/register.py``).
+The JAX package's sparse implementations, aliases and op-use accounting
+are not carried over.
+"""
 from __future__ import annotations
 
-__all__ = ['MXNetError']
+import threading
+from typing import Callable, Dict, Optional
+
+import numpy as onp
+import torch
+
+__all__ = ['MXNetError', 'OpDef', 'register_op', 'get_op', 'list_ops',
+           'state', 'torch_dtype']
 
 
 class MXNetError(RuntimeError):
     """Raised for invalid usage, bad inputs and kernel failures."""
+
+
+_TORCH_DTYPES = {n: getattr(torch, n) for n in (
+    'float16', 'bfloat16', 'float32', 'float64', 'uint8', 'int8', 'int16',
+    'int32', 'int64', 'bool')}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or type, or a name
+    ('float32', 'bfloat16', ...)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = (dtype if isinstance(dtype, str) and dtype == 'bfloat16'
+            else onp.dtype(dtype).name)
+    if name not in _TORCH_DTYPES:
+        raise MXNetError(f"unsupported dtype {dtype!r}")
+    return _TORCH_DTYPES[name]
+
+
+class OpDef:
+    __slots__ = ('name', 'fn', 'num_outputs')
+
+    def __init__(self, name: str, fn: Callable, num_outputs: int = 1):
+        self.name = name
+        self.fn = fn
+        self.num_outputs = num_outputs   # -1: set by the op's arguments
+
+
+_OP_REGISTRY: Dict[str, OpDef] = {}
+
+
+def register_op(name: Optional[str] = None, num_outputs: int = 1):
+    """Register a function over torch tensors as a framework op."""
+    def deco(fn: Callable):
+        opname = name or fn.__name__
+        _OP_REGISTRY[opname] = OpDef(opname, fn, num_outputs)
+        return fn
+    return deco
+
+
+def get_op(name: str) -> OpDef:
+    od = _OP_REGISTRY.get(name)
+    if od is None:
+        raise MXNetError(f"Operator {name!r} is not registered")
+    return od
+
+
+def list_ops():
+    return sorted(_OP_REGISTRY)
+
+
+class _ThreadLocalState(threading.local):
+    """Thread-local runtime flags (ref: include/mxnet/imperative.h:206-212)."""
+
+    def __init__(self):
+        self.is_recording = False
+        self.is_training = False
+        self.record_depth = 0  # nesting depth of autograd.record scopes
+
+
+state = _ThreadLocalState()

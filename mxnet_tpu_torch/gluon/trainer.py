@@ -77,12 +77,14 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
-    def step(self, batch_size):
+    def step(self, batch_size, ignore_stale_grad=False):
         """One update of every parameter, its gradient scaled by
-        1/batch_size."""
-        self.update(batch_size)
+        1/batch_size. ``ignore_stale_grad`` is accepted and changes
+        nothing, as in the JAX Trainer: a gradient the loss did not reach
+        is updated as zero either way."""
+        self.update(batch_size, ignore_stale_grad)
 
-    def update(self, batch_size):
+    def update(self, batch_size, ignore_stale_grad=False):
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update()
 

@@ -9,13 +9,19 @@ each inside a ``torch.autograd.Function``:
 - ``fused_ffn`` — CUDA C++ (csrc/dense_gelu.cu), the counterpart of
   ``ops/pallas_ffn.py``; its backward is plain PyTorch.
 
+``elemwise``, ``reduce``, ``matrix``, ``index``, ``init`` and part of
+``nn`` are the registered ops that ``mx.nd`` wraps for NDArrays (plain
+PyTorch, as the JAX package left them to XLA).
+
 ``optimizer_ops`` holds the optimizers' update math (plain PyTorch).
 
 ``launch_counts`` counts each kernel's launches (see ``_build``).
 """
 from ._build import launch_counts, reset_launch_counts
-from . import (attention, flash_attention, fused_ffn, fused_layernorm, nn,
-               optimizer_ops)
+from . import (attention, elemwise, flash_attention, fused_ffn,
+               fused_layernorm, index, init, matrix, nn, optimizer_ops,
+               reduce)
 
-__all__ = ['attention', 'flash_attention', 'fused_ffn', 'fused_layernorm',
-           'nn', 'optimizer_ops', 'launch_counts', 'reset_launch_counts']
+__all__ = ['attention', 'elemwise', 'flash_attention', 'fused_ffn',
+           'fused_layernorm', 'index', 'init', 'matrix', 'nn',
+           'optimizer_ops', 'reduce', 'launch_counts', 'reset_launch_counts']

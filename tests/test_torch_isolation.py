@@ -84,6 +84,13 @@ def test_entry_points_refuse_a_missing_card(device):
     cpu_net = BertModel(**SMALL, device='cpu')
     with pytest.raises(MXNetError, match='no CUDA device'):
         mt.serving.BlockRunner(cpu_net, device=device)
+    # NDArrays with no ctx go to the card (gpu(0) is the default context)
+    with pytest.raises(MXNetError, match=r'no CUDA device.*ctx=mx.cpu\(\)'):
+        mt.nd.zeros((2, 3))
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        mt.nd.array([1.0], ctx=mt.gpu(0))
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        mt.rtc.CudaModule('extern "C" __global__ void k() {}')
 
 
 def test_weights_follow_the_module_device():

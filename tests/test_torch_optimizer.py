@@ -110,3 +110,28 @@ def test_create_refuses_what_is_not_ported():
         topt.create('sgd')
     with pytest.raises(MXNetError, match='lr_scheduler'):
         topt.create('adamw', lr_scheduler=object())
+
+
+@pytest.mark.parametrize('call', ['step', 'update'])
+def test_ignore_stale_grad_is_accepted_and_changes_nothing(call):
+    """``trainer.step(bs, ignore_stale_grad=True)`` (an MXNet script's
+    call) gives the update a call without it gives, for a parameter with
+    a gradient and for one whose gradient the loss never reached (updated
+    from a zeroed buffer, as the JAX Trainer's)."""
+    from mxnet_tpu_torch import gluon
+    rng = onp.random.RandomState(3)
+    w0, g0, s0 = (rng.randn(4, 3).astype(onp.float32) for _ in range(3))
+    results = []
+    for flag in (False, True):
+        used = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+        stale = torch.nn.Parameter(torch.from_numpy(s0.copy()))
+        used.grad = torch.from_numpy(g0.copy())
+        trainer = gluon.Trainer([used, stale], 'adamw',
+                                {'learning_rate': 0.1, 'wd': 0.01})
+        kwargs = {'ignore_stale_grad': True} if flag else {}
+        for _ in range(2):
+            getattr(trainer, call)(2, **kwargs)
+        results.append((used.detach().clone(), stale.detach().clone()))
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(results[0][1], torch.from_numpy(s0))
