@@ -6,25 +6,32 @@
 1. Refuses to run without a CUDA device; prints the card's name and power
    limit as nvidia-smi reports them.
 2. Builds the CUDA kernels from mxnet_tpu_torch/csrc with nvcc (all
-   sources at once) and prints the -Xptxas -v summary on one line.
+   sources at once) and prints the -Xptxas -v summary on one line, then
+   the tensor-core kernels' lines apart; fails if those spill at D = 64.
 3. Kernel phase: each hand-written kernel (flash-attention forward, its
    backward's dq and dk/dv kernels, fused residual+LayerNorm, fused FFN1)
    against its plain PyTorch version on the same inputs on the card, at
    the main paths' shapes (B = 8, T in {128, 512}, bf16 and f32;
-   attention also causal, with a key mask, with dropout and at a ragged
-   T), with the tolerance stated beside each comparison. Times each
-   kernel, its plain version and one PyTorch library call that computes
-   the same function (a yardstick only: the port never calls it) as
-   device time from torch.profiler's CUDA trace (CUDA events where the
-   trace has none), and computes each kernel's bound from the H100 SXM
-   data sheet.
+   attention also causal, with a key mask, with dropout, at a ragged T,
+   at the serving shapes B in {1, 8} x T in {64, 256}, and at D = 128),
+   with the tolerance stated beside each comparison. The forward and the
+   dk/dv kernel each have a tensor-core variant (bf16) and a SIMT one
+   (f32, D = 8, and the first design, reachable at bf16 through a private
+   argument): every case checks that exactly one launch of the expected
+   variant ran, and both variants are held against the plain version and
+   timed at the main shape in this run. Times each kernel, its plain
+   version and one PyTorch library call that computes the same function
+   (a yardstick only: the port never calls it) as device time from
+   torch.profiler's CUDA trace (CUDA events where the trace has none),
+   and computes each kernel's bound from the H100 SXM data sheet.
 4. Serving phase: BERT-base at full width, weights drawn with numpy from
    a fixed seed (Normal(0.02)) and cast to bf16 on the card, served by
    InferenceEngine with both fused-kernel knobs on. The launch counters
    are set to 0 just before 64 ragged requests from 4 client threads and
    read just after: every kernel must have run 12, 24 and 12 times per
-   dispatch. One request is checked against the same weights in f32 on
-   the CPU through the plain versions, and again with both knobs off.
+   dispatch, every flash forward on the tensor-core variant. One request
+   is checked against the same weights in f32 on the CPU through the
+   plain versions, and again with both knobs off.
    A profiled dispatch of the largest bucket (8 x 512) prints where the
    device time goes and the device's idle share.
 5. Training phase: BERT-base BertForPretraining at full width in bf16,
@@ -36,7 +43,8 @@
    gluon.Trainer/AdamW (multi_precision): a warm-up step, then 5 timed
    steps with the launch counters set to 0 just before and read just
    after (12 forward, 12 dq, 12 dk/dv, 24 LayerNorm and 12 FFN1 launches
-   per step), step time, samples/s and MFU, and a profiled step.
+   per step; every forward and dk/dv on the tensor-core variant), step
+   time, samples/s and MFU, and a profiled step.
 6. NDArray phase: MXNet's imperative API (mx.nd, mx.autograd) on the
    card with user kernels compiled by NVRTC (mx.rtc, the counterpart of
    the JAX package's pallas_op). Compiles the five user kernels of
@@ -55,7 +63,9 @@
    profiled step, the host cost of one NDArray op, and checks two
    semantics on the card (a launch into a reshape leaves its source
    unchanged; a second backward leaves the gradients).
-7. Prints the kernels' JSON line and, last, the result line.
+7. Prints the kernels' JSON line (each row with its variant and, for a
+   redesigned kernel, the time of the one it replaced, old_ms) and, last,
+   the result line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 """
@@ -182,8 +192,8 @@ TRAIN_TOL = {'loss_rel': 0.01, 'grad_rel_fro': 0.1, 'grad_min_cos': 0.95}
 def kernel_phase(card):
     import torch
     import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import _build, fused_ffn, fused_layernorm
     from mxnet_tpu_torch.ops import flash_attention as fa
-    from mxnet_tpu_torch.ops import fused_ffn, fused_layernorm
 
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     dev = 'cuda'
@@ -195,73 +205,108 @@ def kernel_phase(card):
                 scale).to(dtype)
 
     print(f'kernel phase on {card}')
-    # ---- A: flash-attention forward
+    # ---- A: flash-attention forward. bf16 at D = 64 or 128 routes to the
+    # tensor-core variant, f32 to the SIMT one; {'variant': 'simt'} forces
+    # the SIMT kernel (the first design) at bf16, as nothing else does.
+    # The serving shapes (B in {1, 8}, T in {64, 256}) come before the main
+    # shape, which is last and timed.
     cases = [(8, 128, torch.bfloat16, {}), (8, 128, torch.float32, {}),
              (8, 512, torch.float32, {}),
              (8, 512, torch.bfloat16, {'causal': True}),
              (8, 512, torch.bfloat16, {'mask': True}),
              (8, 512, torch.bfloat16, {'dropout_p': 0.1}),
              (8, 200, torch.bfloat16, {'mask': True, 'causal': True}),
-             (8, 512, torch.bfloat16, {})]      # the main shape, timed
-    for B, T, dtype, opt in cases:
-        q, k, v = (randn(B, H, T, D, dtype=dtype) for _ in range(3))
+             (8, 512, torch.bfloat16, {'D': 128}),
+             (8, 200, torch.bfloat16, {'D': 128, 'mask': True,
+                                       'dropout_p': 0.1}),
+             (8, 512, torch.bfloat16, {'variant': 'simt'}),
+             (8, 200, torch.bfloat16, {'variant': 'simt', 'mask': True,
+                                       'dropout_p': 0.1})] + \
+        [(B, T, torch.bfloat16, {}) for B in (1, 8) for T in (64, 256)] + \
+        [(8, 512, torch.bfloat16, {})]          # the main shape, timed
+
+    def case_inputs(B, T, dtype, opt, n):
+        Dc = opt.get('D', D)
+        ts = [randn(B, H, T, Dc, dtype=dtype) for _ in range(n)]
         key_mask = None
         if opt.get('mask'):
             valid = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
             key_mask = torch.arange(T, device=dev)[None, :] < valid[:, None]
-        kw = dict(key_mask=key_mask, causal=opt.get('causal', False),
-                  dropout_p=opt.get('dropout_p', 0.0),
-                  dropout_seed=1234 if opt.get('dropout_p') else None)
-        out, lse = fa.flash_attention_forward(q, k, v, **kw)
+        p = opt.get('dropout_p', 0.0)
+        variant = opt.get('variant') or fa.kernel_variant(dtype, Dc)
+        shown = {key: x for key, x in opt.items() if key != 'variant'}
+        tag = (f'B={B} T={T} D={Dc} {str(dtype)[6:]} [{variant}] '
+               f'{shown or "plain"}')
+        return ts, key_mask, opt.get('causal', False), p, \
+            (1234 if p else None), variant, tag
+
+    def one_launch(kernel, variant):
+        """the call launched exactly one ``kernel`` of ``variant``"""
+        got = dict(_build.variant_counts)
+        want = {k: int(k == f'{kernel}.{variant}') for k in got}
+        check(got == want, f'variant counts {got}, expected one {kernel}.'
+              f'{variant}')
+
+    for B, T, dtype, opt in cases:
+        (q, k, v), key_mask, causal, p, seed, variant, tag = case_inputs(
+            B, T, dtype, opt, 3)
+        _build.reset_launch_counts()
+        out, lse = fa.flash_attention_forward(q, k, v, key_mask, causal, p,
+                                              seed, _variant=variant)
         torch.cuda.synchronize()
+        one_launch('flash_attn_fwd', variant)
         km, _ = fa._normalize_mask(key_mask, B, H, T)
-        ref_out, ref_lse = fa.flash_attention_reference(
-            q, k, v, km, kw['causal'], kw['dropout_p'], kw['dropout_seed'])
-        tag = f'flash_attn_fwd B={B} T={T} {str(dtype)[6:]} {opt or "plain"}'
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, km, causal,
+                                                        p, seed)
         tol = TOL[str(dtype)[6:]]
-        err = compare(tag + ' out', out, ref_out, **tol)
-        compare(tag + ' lse', lse, ref_lse, **TOL['float32'])
-    times = timings(lambda: fa.flash_attention(q, k, v),
+        err = compare(f'flash_attn_fwd {tag} out', out, ref_out, **tol)
+        compare(f'flash_attn_fwd {tag} lse', lse, ref_lse, **TOL['float32'])
+    # the main shape: the tensor-core kernel, then the SIMT one it replaced
+    times = timings(lambda: fa.flash_attention_forward(q, k, v),
                     lambda: fa.flash_attention_reference(q, k, v),
                     lambda: F.scaled_dot_product_attention(q, k, v))
+    old_ms, _ = time_ms(lambda: fa.flash_attention_forward(
+        q, k, v, _variant='simt'))
     nbytes = 4 * q.numel() * q.element_size() + B * H * T * 4
     b_ms, b_by = bound_ms(4 * B * H * T * T * D, nbytes, PEAK_BF16)
     rows['flash_attn_fwd'] = dict(
         route='cuda', source='mxnet_tpu_torch/csrc/flash_attn_fwd.cu',
-        replaces='mxnet_tpu/ops/pallas_attention.py:171',
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
+        replaces='mxnet_tpu/ops/pallas_attention.py:171', variant='tc',
+        old_ms=old_ms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **times)
 
-    # ---- K2, K3: flash-attention backward (dq; dk and dv)
+    # ---- K2, K3: flash-attention backward (dq; dk and dv). The dk/dv
+    # kernel routes like the forward; dq has one variant (SIMT).
     for B, T, dtype, opt in cases:
-        q, k, v, do = (randn(B, H, T, D, dtype=dtype) for _ in range(4))
-        key_mask = None
-        if opt.get('mask'):
-            valid = torch.randint(1, T + 1, (B,), generator=gen, device=dev)
-            key_mask = torch.arange(T, device=dev)[None, :] < valid[:, None]
-        causal, p = opt.get('causal', False), opt.get('dropout_p', 0.0)
-        seed = 1234 if p else None
+        (q, k, v, do), key_mask, causal, p, seed, variant, tag = case_inputs(
+            B, T, dtype, opt, 4)
         out, lse = fa.flash_attention_forward(q, k, v, key_mask, causal, p,
                                               seed)
+        _build.reset_launch_counts()
         grads = fa.flash_attention_backward(q, k, v, key_mask, causal, p,
-                                            seed, out, lse, do)
+                                            seed, out, lse, do,
+                                            _variant=variant)
         torch.cuda.synchronize()
+        one_launch('flash_attn_bwd_dkv', variant)
         km, _ = fa._normalize_mask(key_mask, B, H, T)
         want = fa.flash_attention_backward_reference(q, k, v, km, causal, p,
                                                      seed, out, lse, do)
-        tag = f'flash_attn_bwd B={B} T={T} {str(dtype)[6:]} {opt or "plain"}'
-        errs = [compare(f'{tag} d{n}', g, w, **TOL[str(dtype)[6:]])
+        errs = [compare(f'flash_attn_bwd {tag} d{n}', g, w,
+                        **TOL[str(dtype)[6:]])
                 for n, g, w in zip('qkv', grads, want)]
     # timed at the training path's shape: bf16, B=8, T=512, with a float
-    # additive key mask as the valid_length mask is
+    # additive key mask as the valid_length mask is; the SIMT dk/dv kernel
+    # in the same run
     valid = torch.randint(T // 2, T + 1, (B,), generator=gen, device=dev)
     fmask = torch.where(torch.arange(T, device=dev)[None, :] < valid[:, None],
                         0.0, -1e30).float()
     out, lse = fa.flash_attention_forward(q, k, v, fmask)
 
-    def backward():
+    def backward(variant=None):
         return fa.flash_attention_backward(q, k, v, fmask, False, 0.0, None,
-                                           out, lse, do)
+                                           out, lse, do, _variant=variant)
     per_kernel, _ = profile_device(backward, 20)
+    per_kernel_simt, _ = profile_device(lambda: backward('simt'), 20)
     bwd_stream_ms = stream_ms(backward)
     km, _ = fa._normalize_mask(fmask, B, H, T)
     plain_ms, plain_how = time_ms(
@@ -274,20 +319,28 @@ def kernel_phase(card):
         sdpa_out, (qs, ks, vs), do, retain_graph=True))
     io = q.numel() * q.element_size()          # one (B, H, T, D) tensor
     rows_f32 = 2 * B * H * T * 4 + fmask.numel() * 4   # lse, delta, mask
-    for name, kname, flops, nbytes, err in (
-            ('flash_attn_bwd_dq', 'flash_bwd_dq_kernel',
-             6 * B * H * T * T * D, 5 * io + rows_f32, errs[0]),
-            ('flash_attn_bwd_dkv', 'flash_bwd_dkv_kernel',
-             8 * B * H * T * T * D, 6 * io + rows_f32, max(errs[1:]))):
-        us = sum(t for n, t in per_kernel.items() if kname in n)
+
+    def trace_ms(trace, kname):
+        us = sum(t for n, t in trace.items() if kname in n)
         check(us > 0, f'no device time for {kname} in the trace')
+        return us / 20 / 1e3
+    for name, kname, old_kname, flops, nbytes, err in (
+            ('flash_attn_bwd_dq', 'flash_bwd_dq_kernel', None,
+             6 * B * H * T * T * D, 5 * io + rows_f32, errs[0]),
+            ('flash_attn_bwd_dkv', 'flash_bwd_dkv_tc_kernel',
+             'flash_bwd_dkv_kernel', 8 * B * H * T * T * D,
+             6 * io + rows_f32, max(errs[1:]))):
         b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16)
         rows[name] = dict(
             route='cuda', source='mxnet_tpu_torch/csrc/flash_attn_bwd.cu',
             replaces='mxnet_tpu/ops/pallas_attention.py:' +
             ('283' if name.endswith('dq') else '319'),
+            variant='tc' if old_kname else 'simt',
+            old_ms=trace_ms(per_kernel_simt, old_kname) if old_kname
+            else None,
             max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-            ms=us / 20 / 1e3, how=f'profiler/{plain_how}/{library_how}',
+            ms=trace_ms(per_kernel, kname),
+            how=f'profiler/{plain_how}/{library_how}',
             stream_ms=bwd_stream_ms,
             plain_ms=plain_ms, library_ms=library_ms)
     delta_us = sum(t for n, t in per_kernel.items()
@@ -320,7 +373,8 @@ def kernel_phase(card):
     b_ms, b_by = bound_ms(7 * N * C, (3 * N * C + 2 * C) * x.element_size(),
                           PEAK_F32)
     rows['fused_add_layernorm'] = dict(
-        route='triton', source='mxnet_tpu_torch/ops/fused_layernorm.py',
+        route='triton', variant='triton', old_ms=None,
+        source='mxnet_tpu_torch/ops/fused_layernorm.py',
         replaces='mxnet_tpu/ops/pallas_layernorm.py:33',
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
@@ -343,23 +397,27 @@ def kernel_phase(card):
                           (M * C + FF * C + FF + M * FF) * x.element_size(),
                           PEAK_BF16)
     rows['dense_gelu'] = dict(
-        route='cuda', source='mxnet_tpu_torch/csrc/dense_gelu.cu',
+        route='cuda', variant='wmma', old_ms=None,
+        source='mxnet_tpu_torch/csrc/dense_gelu.cu',
         replaces='mxnet_tpu/ops/pallas_ffn.py:48',
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
     for name, r in rows.items():
+        old = (f', the SIMT kernel it replaced {r["old_ms"]:.4f} ms'
+               if r['old_ms'] is not None else '')
         print(f'  timing {name} (bf16, B=8 T=512) on {card}: device time '
               f'(kernel/plain/library from {r["how"]}) kernel '
-              f'{r["ms"]:.4f} ms, plain '
+              f'[{r["variant"]}] {r["ms"]:.4f} ms{old}, plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms; '
               f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}); back-to-back '
               f'stream time of the kernel {r["stream_ms"]:.4f} ms')
     return rows
 
 
-_FAMILIES = (('flash_attn_fwd', ('flash_fwd_kernel',)),
+_FAMILIES = (('flash_attn_fwd', ('flash_fwd_kernel', 'flash_fwd_tc_kernel')),
              ('flash_attn_bwd_dq', ('flash_bwd_dq_kernel',)),
-             ('flash_attn_bwd_dkv', ('flash_bwd_dkv_kernel',)),
+             ('flash_attn_bwd_dkv', ('flash_bwd_dkv_kernel',
+                                     'flash_bwd_dkv_tc_kernel')),
              ('fused_add_layernorm', ('_add_ln_fwd',)),
              ('dense_gelu', ('dense_gelu_',)),
              ('rtc user kernels', ('gelu_fwd', 'gelu_bwd', 'scale_add',
@@ -463,6 +521,7 @@ def serving_phase(card):
             t.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = dict(mt.ops.launch_counts)
+        variants = dict(mt.ops.variant_counts)
         routes = dict(attn_ops.route_counts)
         stats = engine.stats()
         dispatches = stats['batches'] - batches0
@@ -476,13 +535,18 @@ def serving_phase(card):
             check(bool(onp.isfinite(out).all()), 'non-finite output')
         L = cfg['layers']
         print(f'  dispatches={dispatches} launches={launches} '
-              f'routes={routes}')
+              f'variants={variants} routes={routes}')
         check(routes['flash'] > 0, 'attention never took the flash route')
         check(launches == {'flash_attn_fwd': L * dispatches,
                            'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
                            'fused_add_layernorm': 2 * L * dispatches,
                            'dense_gelu': L * dispatches},
               f'launch counts {launches} for {dispatches} dispatches')
+        check(variants == {'flash_attn_fwd.tc': L * dispatches,
+                           'flash_attn_fwd.simt': 0,
+                           'flash_attn_bwd_dkv.tc': 0,
+                           'flash_attn_bwd_dkv.simt': 0},
+              f'variant counts {variants} for {dispatches} dispatches')
         print(f'  served {len(requests)} requests in {wall:.3f} s: '
               f'{len(requests) / wall:.2f} requests/s, '
               f'p50 {stats["p50_ms"]} ms, p99 {stats["p99_ms"]} ms, '
@@ -643,12 +707,14 @@ def training_phase(card, steps=5, batch=8, seq=512):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(mt.ops.launch_counts)
+    variants = dict(mt.ops.variant_counts)
     routes = dict(attn_ops.route_counts)
     losses = [float(x) for x in losses]
 
     L = cfg['layers']
     print(f'  losses: warm-up {warm:.5f}, timed {losses}')
-    print(f'  launches={launches} routes={routes} over {steps} steps')
+    print(f'  launches={launches} variants={variants} routes={routes} over '
+          f'{steps} steps')
     check(all(onp.isfinite(x) for x in [warm] + losses), 'non-finite loss')
     check(routes['flash'] == L * steps, f'flash route {routes}')
     check(launches == {'flash_attn_fwd': L * steps,
@@ -657,6 +723,11 @@ def training_phase(card, steps=5, batch=8, seq=512):
                        'fused_add_layernorm': 2 * L * steps,
                        'dense_gelu': L * steps},
           f'launch counts {launches} for {steps} steps')
+    check(variants == {'flash_attn_fwd.tc': L * steps,
+                       'flash_attn_fwd.simt': 0,
+                       'flash_attn_bwd_dkv.tc': L * steps,
+                       'flash_attn_bwd_dkv.simt': 0},
+          f'variant counts {variants} for {steps} steps')
     names = list(params)
     still = [names[i] for i, st in trainer._states.items()
              if torch.equal(st[0], masters0[i])]
@@ -804,7 +875,7 @@ def ndarray_phase(card, steps=5):
         nbytes = sum(t.numel() * 4 for t in ts) + out.size * 4
         b_ms, b_by = bound_ms(USER_OPS[name] * n, nbytes, PEAK_F32)
         rows[name] = dict(
-            route='cuda', via='rtc (NVRTC)',
+            route='cuda', via='rtc (NVRTC)', variant='nvrtc', old_ms=None,
             source='mxnet_tpu_torch/test_utils.py',
             replaces='mxnet_tpu/rtc.py:32 PallasKernel',
             max_abs_err=errs[name], ms=k_us / 20 / 1e3,
@@ -941,7 +1012,16 @@ def main():
     _build.build_all()
     print(f'build: nvcc of {len(_build.SOURCES)} sources in '
           f'{time.perf_counter() - t0:.1f} s')
-    print('ptxas: ' + ' | '.join(_build.ptxas_report()))
+    report = _build.ptxas_report()
+    print('ptxas: ' + ' | '.join(report))
+    tc = [e for e in report if '_tc_kernel' in e]
+    print('ptxas, tensor-core kernels: ' + (' | '.join(tc) or
+                                            'not rebuilt in this process'))
+    for name in ('flash_fwd_tc_kernel<Li64>', 'flash_bwd_dkv_tc_kernel<Li64>'):
+        line = next((e for e in tc if name in e), None)
+        check(not tc or (line is not None and
+                         ' 0 bytes spill stores, 0 bytes spill loads' in line),
+              f'{name} spills or is missing: {line}')
 
     rows = kernel_phase(card)
     serving, _stats, _rps = serving_phase(card)
@@ -953,12 +1033,13 @@ def main():
                       'ndarray': nd_ops[name]} for name in rows}
     for name in user_rows:
         by_path[name] = {'serving': 0, 'training': 0, 'ndarray': user[name]}
-    kernels = [dict(name=name, route=r['route'], source=r['source'],
-                    replaces=r['replaces'],
+    kernels = [dict(name=name, route=r['route'], variant=r['variant'],
+                    source=r['source'], replaces=r['replaces'],
                     launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
                     max_abs_err=r['max_abs_err'], ms=r['ms'],
-                    plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+                    old_ms=r['old_ms'], plain_ms=r['plain_ms'],
+                    bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
                     **({'via': r['via']} if 'via' in r else {}))
                for name, r in {**rows, **user_rows}.items()]

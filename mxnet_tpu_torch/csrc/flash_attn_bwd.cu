@@ -2,8 +2,8 @@
 // with plain C entry points loaded through ctypes by
 // mxnet_tpu_torch/ops/flash_attention.py.
 //
-// Replaces: mxnet_tpu/ops/pallas_attention.py _fa_dq_kernel and
-// _fa_dkv_kernel (launched by _fa_backward). Same arithmetic: the scores of
+// Replaces: mxnet_tpu/ops/pallas_attention.py _fa_dq_kernel (:283-316)
+// and _fa_dkv_kernel (:319-364), launched by _fa_backward. Same arithmetic: the scores of
 // _masked_scores in its order (keys at or past Tk get -1e30, then the
 // additive key mask, then the causal cut), p = exp(s - lse) from the
 // forward's lse, dp = dO.v^T with f32 operands, dp *= keep under dropout,
@@ -19,33 +19,49 @@
 // and moves q, k, v, dO, lse, delta, the mask and dq, about 38 MB if dq
 // were f32 (11.5 us at 3.35 TB/s, 9.8 us at the 989 TFLOP/s bf16 peak); the
 // dk/dv kernel does 8*BH*T^2*D = 12.9 GFLOP (s, dv, dp, dk) over about
-// 51 MB (15.2 us). Both are bound by bytes at the bf16 peak, but the JAX
-// kernels multiply f32 operands, and an exact port keeps those products
-// off the tensor cores: at the 67 TFLOP/s f32 rate the same work takes
-// 144 us and 192 us, so operations bound this version.
+// 51 MB (15.2 us). Both are bound by bytes at the bf16 peak; at the
+// 67 TFLOP/s f32 SIMT rate the same work takes 144 us and 192 us.
 //
 // Design: the TPU grids carry the dq (and dk, dv) sums across a sequential
 // grid axis in VMEM scratch; here one block owns one output tile and loops
 // over the other axis itself, keeping its sums in registers and storing
 // once, with no atomics, so a gradient is the same from run to run.
-//  - dq: one block per (batch*head, 64-row q tile), looping over 64-key
-//    tiles staged through shared memory;
-//  - dk/dv: one block per (batch*head, 64-key tile), looping over 64-row q
-//    tiles.
+//  - dq (flash_bwd_dq_kernel): one block per (batch*head, 64-row q tile),
+//    looping over 64-key tiles staged through shared memory; scalar f32
+//    FMAs out of shared memory (the first design).
+//  - dk/dv, bf16 and D in {16, 32, 64, 128} (flash_bwd_dkv_tc_kernel): one
+//    block of four warps per (batch*head, 64-key tile), each warp owning 16
+//    keys, looping over 64-row q tiles that come through a two-stage ring
+//    of 16-byte cp.async copies (Q, dO, lse, delta), so the next tile is in
+//    flight while this one is multiplied. Its four products run on the
+//    tensor cores (mma.sync.m16n8k16 bf16 -> f32, operands by ldmatrix from
+//    padded, bank-conflict-free tiles): S^T = K.Q^T and dP^T = V.dO^T have
+//    bf16 operands that are exact in f32, so they ARE the reference's f32
+//    products up to summation order; their accumulators become, in
+//    registers, the A fragments of dV += (P*keep)^T.dO and dK += dS^T.Q.
+//    Those two have an f32 operand in the reference, which is split into
+//    two bf16 terms (hi = bf16(x), lo = bf16(x - hi), 16 significand bits)
+//    each multiplied against the exact bf16 dO or Q: within about 2^-16 of
+//    the f32 product, 256 times finer than the bf16 rounding of the stored
+//    dk and dv. Rounding p and ds to one bf16 would change the reference's
+//    arithmetic; the split keeps it.
+//  - dk/dv, f32 or D = 8 (flash_bwd_dkv_kernel): the first design, scalar
+//    f32 FMAs out of shared memory.
+// The wrapper routes by dtype and D; that is not a fallback on failure.
 // Under a causal mask, tiles that the cut removes whole are skipped: their
-// p is exactly 0, so they would add exact zeros. This first version
-// computes with scalar f32 FMAs out of shared memory (no tensor cores, no
-// TMA): it is right first; making it fast is later work. Rows at or past
-// Tq and keys at or past Tk are masked in the kernel instead of padded.
-// q, k, v, dO and the outputs are read and written through (batch, head,
-// seq) strides with a unit stride on D, so the caller's (B, T, H*D) views
-// need no copy.
+// p is exactly 0, so they would add exact zeros. Rows at or past Tq and
+// keys at or past Tk are masked in the kernel instead of padded. q, k, v,
+// dO and the outputs are read and written through (batch, head, seq)
+// strides with a unit stride on D, so the caller's (B, T, H*D) views need
+// no copy (the tensor-core kernel needs 16-byte aligned rows; the wrapper
+// checks).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "counter_keep.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -352,7 +368,217 @@ int dispatch_d(bool dkv, int D, const BwdArgs& a, int B, cudaStream_t stream) {
   }
 }
 
-int run(bool dkv, int dtype, int D, const void* q, const void* k, const void* v,
+
+// ------------------------------------------------ dk/dv on the tensor cores
+constexpr int TC_THREADS = 128;  // four warps of 16 keys each
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdArgs a) {
+  using namespace mma_tiles;
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int LD = D + 8;    // padded row
+  constexpr int KD = D / 16;   // k-steps of K.Q^T and V.dO^T
+  constexpr int ND = D / 8;    // n-tiles of dK and dV
+  constexpr int NQ = BQ / 8;   // n-tiles of S^T and dP^T, one per 8 q rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BK x LD
+  __nv_bfloat16* Vs = Ks + BK * LD;                                  // BK x LD
+  __nv_bfloat16* Qs = Vs + BK * LD;                                  // 2 x BQ x LD
+  __nv_bfloat16* dOs = Qs + 2 * BQ * LD;                             // 2 x BQ x LD
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);          // 2 x BQ: lse
+  float* Dl = Ls + 2 * BQ;                                           // 2 x BQ: delta
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const __nv_bfloat16* dop =
+      static_cast<const __nv_bfloat16*>(a.dout) + b * a.dos.b + h * a.dos.h;
+  const float* lsep = static_cast<const float*>(a.lse) + (long long)bh * a.Tq;
+  const float* delp = static_cast<const float*>(a.delta) + (long long)bh * a.Tq;
+  const float* mrow =
+      a.kmask ? static_cast<const float*>(a.kmask) + (long long)(bh / a.mask_div) * a.Tk : nullptr;
+
+  // this thread's keys, rows g and g + 8 of the warp's 16: past Tk a key's
+  // score is -1e30 (no mask added); else the mask is added
+  const int key0 = k0 + warp * 16 + (lane >> 2);
+  bool kvalid[2];
+  float mval[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kvalid[i] = key0 + 8 * i < a.Tk;
+    mval[i] = (mrow != nullptr && kvalid[i]) ? mrow[key0 + 8 * i] : 0.f;
+  }
+
+  // one commit group per q tile: Q, dO, lse and delta into a stage
+  auto load_q = [&](int qb, int stage) {
+    const int q0 = qb * BQ;
+    load_tile<BQ, D, TC_THREADS>(Qs + stage * BQ * LD, qp, a.qs.t, q0, a.Tq);
+    load_tile<BQ, D, TC_THREADS>(dOs + stage * BQ * LD, dop, a.dos.t, q0, a.Tq);
+    load_row<TC_THREADS>(Ls + stage * BQ, lsep, q0, BQ, a.Tq);
+    load_row<TC_THREADS>(Dl + stage * BQ, delp, q0, BQ, a.Tq);
+    cp_async_commit();
+  };
+  load_tile<BK, D, TC_THREADS>(Ks, static_cast<const __nv_bfloat16*>(a.k) + b * a.ks.b +
+                                       h * a.ks.h, a.ks.t, k0, a.Tk);
+  load_tile<BK, D, TC_THREADS>(Vs, static_cast<const __nv_bfloat16*>(a.v) + b * a.vs.b +
+                                       h * a.vs.h, a.vs.t, k0, a.Tk);
+  const int nqb = (a.Tq + BQ - 1) / BQ;
+  const int qb0 = a.causal ? k0 / BQ : 0;     // rows before k0 see none of these keys
+  if (qb0 < nqb)
+    load_q(qb0, 0);                   // the first group holds K and V too
+  else
+    cp_async_commit();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int qb = qb0; qb < nqb; ++qb) {
+    const int stage = (qb - qb0) & 1, q0 = qb * BQ;
+    if (qb + 1 < nqb) {
+      load_q(qb + 1, stage ^ 1);       // in flight while this tile is multiplied
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Qt = Qs + stage * BQ * LD;
+    const __nv_bfloat16* dOt = dOs + stage * BQ * LD;
+    const float* Lt = Ls + stage * BQ;
+    const float* Dt = Dl + stage * BQ;
+
+    // S^T = K.Q^T and dP^T = V.dO^T: exact bf16 operands, f32 sums
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t kf[4], vf[4];
+      ldsm_x4(kf, a_addr(Ks, LD, warp * 16, kk * 16, lane));
+      ldsm_x4(vf, a_addr(Vs, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int p = 0; p < NQ / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b_addr_nk(Qt, LD, p * 16, kk * 16, lane));
+        mma_bf16(s[2 * p], kf, bf[0], bf[1]);
+        mma_bf16(s[2 * p + 1], kf, bf[2], bf[3]);
+        ldsm_x4(bf, b_addr_nk(dOt, LD, p * 16, kk * 16, lane));
+        mma_bf16(dp[2 * p], vf, bf[0], bf[1]);
+        mma_bf16(dp[2 * p + 1], vf, bf[2], bf[3]);
+      }
+    }
+
+    // per element (fragment rows are keys, columns q rows): prob()'s
+    // masking in its order and exp(s - lse), then p*keep and ds in place.
+    // The causal cut and the rows past Tq touch only some steps; those
+    // branches are uniform over the block.
+    const bool cut = a.causal && q0 < k0 + BK - 1;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 lv = *reinterpret_cast<const float2*>(Lt + j * 8 + 2 * t);
+      const float2 dv2 = *reinterpret_cast<const float2*>(Dt + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, qpos = q0 + j * 8 + 2 * t + (e & 1);
+        float x = kvalid[i] ? __fmul_rn(s[j][e], a.scale) + mval[i] : NEG_INF;
+        if (cut && qpos < key0 + 8 * i) x = NEG_INF;
+        const float p = expf(x - ((e & 1) ? lv.y : lv.x));
+        const float km = keep_mul(a, bh, qpos, key0 + 8 * i);
+        s[j][e] = p * km;
+        dp[j][e] = p * (dp[j][e] * km - ((e & 1) ? dv2.y : dv2.x)) * a.scale;
+      }
+    }
+    if (q0 + BQ > a.Tq) {             // rows past Tq contribute nothing
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (q0 + j * 8 + 2 * t + (e & 1) >= a.Tq) s[j][e] = dp[j][e] = 0.f;
+    }
+
+    // dV += (P*keep)^T.dO and dK += dS^T.Q. The reference multiplies
+    // these f32 operands in f32: each is split into two bf16 terms, hi +
+    // lo, both multiplied against the exact bf16 dO or Q with f32 sums.
+    // The S^T and dP^T fragments of q rows 16kk.. are the A fragments of
+    // k-step kk.
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 2 * kk + (i >> 1), e = (i & 1) * 2;
+        split_bf16(s[j][e], s[j][e + 1], ph[i], pl[i]);
+        split_bf16(dp[j][e], dp[j][e + 1], sh[i], sl[i]);
+      }
+#pragma unroll
+      for (int p = 0; p < ND / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, b_addr_kn(dOt, LD, kk * 16, p * 16, lane));
+        mma_bf16(dv[2 * p], ph, bf[0], bf[1]);
+        mma_bf16(dv[2 * p], pl, bf[0], bf[1]);
+        mma_bf16(dv[2 * p + 1], ph, bf[2], bf[3]);
+        mma_bf16(dv[2 * p + 1], pl, bf[2], bf[3]);
+        ldsm_x4_t(bf, b_addr_kn(Qt, LD, kk * 16, p * 16, lane));
+        mma_bf16(dk[2 * p], sh, bf[0], bf[1]);
+        mma_bf16(dk[2 * p], sl, bf[0], bf[1]);
+        mma_bf16(dk[2 * p + 1], sh, bf[2], bf[3]);
+        mma_bf16(dk[2 * p + 1], sl, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();                   // every warp is done with this stage
+  }
+  cp_async_wait<0>();                  // nothing left in flight (no q tile at all)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = key0 + 8 * i;
+    if (kpos < a.Tk) {
+      const long long at = b * a.os.b + h * a.os.h + kpos * a.os.t + 2 * t;
+      __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(a.out0) + at;
+      __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(a.out1) + at;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dkp + n * 8) =
+            __floats2bfloat162_rn(dk[n][2 * i], dk[n][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvp + n * 8) =
+            __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_tc(const BwdArgs& a, int B, cudaStream_t stream) {
+  constexpr int LD = D + 8;
+  const size_t smem =
+      sizeof(__nv_bfloat16) * (2 * BK * LD + 4 * BQ * LD) + sizeof(float) * 4 * BQ;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * a.H, (a.Tk + BK - 1) / BK);
+  flash_bwd_dkv_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_dkv_tc(int D, const BwdArgs& a, int B, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_dkv_tc<16>(a, B, stream);
+    case 32: return launch_dkv_tc<32>(a, B, stream);
+    case 64: return launch_dkv_tc<64>(a, B, stream);
+    case 128: return launch_dkv_tc<128>(a, B, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// which: 0 = dq, 1 = dk/dv, 2 = dk/dv on the tensor cores (bf16 only)
+int run(int which, int dtype, int D, const void* q, const void* k, const void* v,
         const void* kmask, const void* dout, const void* lse, const void* delta, void* out0,
         void* out1, int B, int H, int Tq, int Tk, const long long* st, int mask_div, float scale,
         int causal, unsigned int seed, unsigned int thresh, float keep_scale, int use_dropout,
@@ -363,8 +589,9 @@ int run(bool dkv, int dtype, int D, const void* q, const void* k, const void* v,
             Strides{st[12], st[13], st[14]}, mask_div, scale, causal, seed, thresh, keep_scale,
             use_dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(dkv, D, a, B, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(dkv, D, a, B, s);
+  if (which == 2) return dtype == 1 ? dispatch_dkv_tc(D, a, B, s) : (int)cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_d<float>(which == 1, D, a, B, s);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which == 1, D, a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -382,7 +609,7 @@ extern "C" int mxtt_flash_attn_bwd_dq(int dtype, int D, const void* q, const voi
                                       float scale, int causal, unsigned int seed,
                                       unsigned int thresh, float keep_scale, int use_dropout,
                                       void* stream) {
-  return run(false, dtype, D, q, k, v, kmask, dout, lse, delta, dq, nullptr, B, H, Tq, Tk,
+  return run(0, dtype, D, q, k, v, kmask, dout, lse, delta, dq, nullptr, B, H, Tq, Tk,
              strides, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
 }
 
@@ -393,6 +620,20 @@ extern "C" int mxtt_flash_attn_bwd_dkv(int dtype, int D, const void* q, const vo
                                        int mask_div, float scale, int causal, unsigned int seed,
                                        unsigned int thresh, float keep_scale, int use_dropout,
                                        void* stream) {
-  return run(true, dtype, D, q, k, v, kmask, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
+  return run(1, dtype, D, q, k, v, kmask, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
+             mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+}
+
+// The tensor-core dk/dv kernel: dtype must be 1 (bfloat16) and D one of
+// 16, 32, 64, 128; q, k, v, dO and the outputs' rows 16-byte aligned.
+// Arguments as for mxtt_flash_attn_bwd_dkv.
+extern "C" int mxtt_flash_attn_bwd_dkv_tc(int dtype, int D, const void* q, const void* k,
+                                          const void* v, const void* kmask, const void* dout,
+                                          const void* lse, const void* delta, void* dk, void* dv,
+                                          int B, int H, int Tq, int Tk, const long long* strides,
+                                          int mask_div, float scale, int causal,
+                                          unsigned int seed, unsigned int thresh,
+                                          float keep_scale, int use_dropout, void* stream) {
+  return run(2, dtype, D, q, k, v, kmask, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
              mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
 }

@@ -1,10 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a), with a plain C entry point
 // loaded through ctypes by mxnet_tpu_torch/ops/flash_attention.py.
 //
-// Replaces: mxnet_tpu/ops/pallas_attention.py _fa_fwd_kernel (launched by
-// _fa_forward). Same arithmetic: s = q.k^T * scale in f32; keys at or past
-// Tk get -1e30, then the additive key mask, then the causal cut (the order
-// of _masked_scores); online softmax with m starting at -1e30, l summed
+// Replaces: mxnet_tpu/ops/pallas_attention.py _fa_fwd_kernel (:171-218,
+// launched by _fa_forward). Same arithmetic: s = q.k^T * scale in f32;
+// keys at or past Tk get -1e30, then the additive key mask, then the causal
+// cut (the order of _masked_scores); online softmax with m starting at -1e30, l summed
 // over the UNdropped p, the f32 accumulator rescaled by exp(m_prev-m_new);
 // dropout scales only the P.V product, with the keep mask hashed from the
 // GLOBAL (bh, row, col) coordinates exactly as _counter_keep does, so the
@@ -15,23 +15,49 @@
 // What bounds it on the H100: at the BERT-base serving shape (B=8, H=12,
 // T=512, D=64, bf16) the function reads q, k, v and the mask and writes o
 // and lse once: 25.4 MB, 7.6 us at 3.35 TB/s; its 6.44 GFLOP take 6.5 us
-// at the 989 TFLOP/s bf16 tensor-core peak. So the bound is bytes, and
-// the design keeps the T x T scores out of device memory: one block per
-// (batch*head, 64-row q tile) loops over 64-key tiles staged through
-// shared memory, with m, l and the accumulator in registers.
+// at the 989 TFLOP/s bf16 tensor-core peak. Bytes and operations are
+// nearly level, so the kernel has to run its products on the tensor cores
+// AND keep its copies in flight; the T x T scores never leave the chip.
 //
-// This first version computes with scalar f32 FMAs out of shared memory
-// (no tensor cores, no TMA): it is right first; making it fast with wgmma
-// is later work. There is no head grouping and no padding to a block
-// multiple: the ragged edge of q and k is masked in the kernel. q, k, v
-// and o are read and written through (batch, head, seq) strides with a
-// unit stride on D, so the caller's (B, T, H*D) projections need no copy.
+// Two kernels, routed by the wrapper on dtype and head dim (not a
+// fallback: a CUDA tensor always launches one of them, or raises):
+//
+// flash_fwd_tc_kernel, bf16 and D in {16, 32, 64, 128}: the tensor-core
+// design. One block of four warps per (batch*head, 64-row q tile); each
+// warp owns 16 q rows. The two products have bf16 operands and f32 sums
+// in the JAX kernel (S = Q.K^T; P cast to v's dtype before P.V), so
+// mma.sync.m16n8k16 bf16 -> f32 computes them as the reference does: Q's
+// A fragments stay in registers for the whole key loop, K and V come from
+// shared memory through ldmatrix (V transposed by ldmatrix.trans), and
+// the S accumulator turns into the bf16 A fragments of P.V in registers,
+// so P never touches shared memory. The online softmax runs on the
+// accumulator's registers, its row max and row sum shuffled across the
+// four lanes that share a row. 64-key tiles of K, V and the mask row come
+// through a two-stage ring of 16-byte cp.async copies, so tile j+1 is in
+// flight while tile j is multiplied; rows are padded by 16 bytes in
+// shared memory so ldmatrix is free of bank conflicts. The softmax takes
+// exp as exp2 of x * log2(e), one MUFU op, where expf adds a range
+// reduction: at D = 64 the per-score work (scale, mask, max, exp, sum,
+// cast) costs about as much as the products. mma.sync and not wgmma: its
+// register fragments are fixed by the PTX ISA, while a wgmma shared-memory
+// descriptor or swizzle that is slightly off gives silently wrong tiles;
+// wgmma is a later redesign.
+//
+// flash_fwd_kernel, f32 (any listed D) and bf16 at D = 8: the first
+// design, scalar f32 FMAs out of shared memory.
+//
+// In both, there is no head grouping and no padding to a block multiple:
+// the ragged edge of q and k is masked in the kernel. q, k, v and o are
+// read and written through (batch, head, seq) strides with a unit stride
+// on D, so the caller's (B, T, H*D) projections need no copy (the
+// tensor-core kernel needs 16-byte aligned rows; the wrapper checks).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "counter_keep.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -223,6 +249,235 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* k
 #undef MXTT_FA_CASE
 }
 
+// ------------------------------------------------------------ tensor cores
+constexpr int TC_THREADS = 128;  // four warps of 16 q rows each
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ kmask,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int Tq, int Tk,
+                    Strides qs, Strides ks, Strides vs, Strides os, int mask_div, float scale,
+                    int causal, uint32_t seed, uint32_t thresh, float keep_scale,
+                    int use_dropout) {
+  using namespace mma_tiles;
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int LD = D + 8;    // padded row
+  constexpr int KD = D / 16;   // k-steps of Q.K^T
+  constexpr int ND = D / 8;    // n-tiles of P.V
+  constexpr int NK = BK / 8;   // n-tiles of Q.K^T, one per 8 keys
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BQ x LD
+  __nv_bfloat16* Ks = Qs + BQ * LD;                                  // 2 x BK x LD
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;                              // 2 x BK x LD
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * BK * LD);           // 2 x BK
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BQ;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const __nv_bfloat16* kp = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vp = v + b * vs.b + h * vs.h;
+  const float* mrow = kmask ? kmask + (long long)(bh / mask_div) * Tk : nullptr;
+
+  // one commit group per key tile: K, V and the mask row into a stage
+  auto load_kv = [&](int kb, int stage) {
+    const int k0 = kb * BK;
+    load_tile<BK, D, TC_THREADS>(Ks + stage * BK * LD, kp, ks.t, k0, Tk);
+    load_tile<BK, D, TC_THREADS>(Vs + stage * BK * LD, vp, vs.t, k0, Tk);
+    if (mrow != nullptr) load_row<TC_THREADS>(Ms + stage * BK, mrow, k0, BK, Tk);
+    cp_async_commit();
+  };
+  load_tile<BQ, D, TC_THREADS>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, Tq);
+  load_kv(0, 0);                       // the first group holds Q too
+
+  // the warp's rows wrow + {g, g + 8}; Q's A fragments, loaded once
+  const int wrow = q0 + warp * 16;
+  const int row0 = wrow + (lane >> 2);
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int nkb = (Tk + BK - 1) / BK;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int stage = kb & 1, k0 = kb * BK;
+    if (kb + 1 < nkb) {
+      load_kv(kb + 1, stage ^ 1);      // in flight while this tile is multiplied
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kb == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], a_addr(Qs, LD, warp * 16, kk * 16, lane));
+    }
+    const __nv_bfloat16* Kt = Ks + stage * BK * LD;
+    const __nv_bfloat16* Vt = Vs + stage * BK * LD;
+    const float* Mt = Ms + stage * BK;
+
+    // S = Q.K^T: bf16 operands, f32 sums
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int p = 0; p < NK / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b_addr_nk(Kt, LD, p * 16, kk * 16, lane));
+        mma_bf16(s[2 * p], qf[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * p + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // _masked_scores in its order: scale; keys at or past Tk get -1e30
+    // (only the last tile has any); the additive mask (staged as 0 past Tk,
+    // so those keys stay at -1e30); the causal cut (only tiles that reach
+    // past the warp's first row). Each branch is uniform over the warp.
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);  // not fused with + mask
+    if (k0 + BK > Tk) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + j * 8 + 2 * t + (e & 1) >= Tk) s[j][e] = NEG_INF;
+    }
+    if (mrow != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const float2 mv = *reinterpret_cast<const float2*>(Mt + j * 8 + 2 * t);
+        s[j][0] += mv.x;
+        s[j][1] += mv.y;
+        s[j][2] += mv.x;
+        s[j][3] += mv.y;
+      }
+    }
+    if (causal && k0 + BK - 1 > wrow) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (row0 + (e >> 1) * 8 < k0 + j * 8 + 2 * t + (e & 1)) s[j][e] = NEG_INF;
+    }
+
+    // the online softmax: the tile's row max, shuffled across the four
+    // lanes of a row; l sums the undropped p. exp(x) is taken as
+    // exp2(x * log2(e)): one MUFU.EX2 and a multiply where expf adds a
+    // range reduction, within a few f32 ulps of expf (x = s - m is exact,
+    // and 0 for a row that is all -1e30, as in the reference)
+    float mc[2] = {NEG_INF, NEG_INF}, alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mc[e >> 1] = fmaxf(mc[e >> 1], s[j][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
+      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
+      const float m_new = fmaxf(m_i[i], mc[i]);
+      alpha[i] = exp2f((m_i[i] - m_new) * LOG2E);
+      m_i[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[j][e] - m_i[e >> 1]) * LOG2E);
+        psum[e >> 1] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+      l_i[i] = l_i[i] * alpha[i] + psum[i];
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    // dropout scales only what P.V sees
+    if (use_dropout) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t row = (uint32_t)(row0 + (e >> 1) * 8);
+          const uint32_t col = (uint32_t)(k0 + j * 8 + 2 * t + (e & 1));
+          s[j][e] = counter_keep(seed, (uint32_t)bh, row, col, thresh) ? s[j][e] * keep_scale
+                                                                        : 0.f;
+        }
+    }
+
+    // P.V: P cast to bf16 (v's dtype); the S fragments of keys 16kk.. are
+    // the A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int p = 0; p < ND / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, b_addr_kn(Vt, LD, kk * 16, p * 16, lane));
+        mma_bf16(acc[2 * p], pa, bf[0], bf[1]);
+        mma_bf16(acc[2 * p + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();                   // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    if (row < Tq) {
+      const float safe_l = fmaxf(l_i[i], 1e-30f);
+      __nv_bfloat16* orow = o + b * os.b + h * os.h + (long long)row * os.t + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+            __floats2bfloat162_rn(acc[n][2 * i] / safe_l, acc[n][2 * i + 1] / safe_l);
+      if (t == 0) lse[(long long)bh * Tq + row] = m_i[i] + logf(safe_l);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
+              int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
+              int mask_div, float scale, int causal, uint32_t seed, uint32_t thresh,
+              float keep_scale, int use_dropout, cudaStream_t stream) {
+  constexpr int LD = D + 8;
+  const size_t smem = sizeof(__nv_bfloat16) * (BQ * LD + 4 * BK * LD) + sizeof(float) * 2 * BK;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  flash_fwd_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmask),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Tq, Tk, qs, ks, vs, os,
+      mask_div, scale, causal, seed, thresh, keep_scale, use_dropout);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kmask may be null (no mask); its row for
@@ -249,4 +504,34 @@ extern "C" int mxtt_flash_attn_fwd(int dtype, int D, const void* q, const void* 
                                      mask_div, scale, causal, seed, thresh, keep_scale,
                                      use_dropout, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel: dtype must be 1 (bfloat16) and D one of 16, 32,
+// 64, 128; q, k, v and o rows 16-byte aligned. Arguments as above.
+extern "C" int mxtt_flash_attn_fwd_tc(int dtype, int D, const void* q, const void* k,
+                                      const void* v, const void* kmask, void* o, void* lse,
+                                      int B, int H, int Tq, int Tk, long long q_sb,
+                                      long long q_sh, long long q_st, long long k_sb,
+                                      long long k_sh, long long k_st, long long v_sb,
+                                      long long v_sh, long long v_st, long long o_sb,
+                                      long long o_sh, long long o_st, int mask_div, float scale,
+                                      int causal, unsigned int seed, unsigned int thresh,
+                                      float keep_scale, int use_dropout, void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st},
+      os{o_sb, o_sh, o_st};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MXTT_FA_TC_CASE(DD)                                                                  \
+  case DD:                                                                                   \
+    return launch_tc<DD>(q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,     \
+                         scale, causal, seed, thresh, keep_scale, use_dropout, st);
+  switch (D) {
+    MXTT_FA_TC_CASE(16)
+    MXTT_FA_TC_CASE(32)
+    MXTT_FA_TC_CASE(64)
+    MXTT_FA_TC_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MXTT_FA_TC_CASE
 }

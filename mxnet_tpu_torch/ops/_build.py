@@ -13,7 +13,9 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 
 ``launch_counts`` holds one plain integer per kernel. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. ``variant_counts`` splits the
+launches of the two kernels that come in two variants (flash forward and
+dk/dv: ``'tc'`` on the tensor cores, ``'simt'`` the first design).
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ import threading
 
 from ..base import MXNetError
 
-__all__ = ['launch_counts', 'reset_launch_counts', 'library', 'build_all',
-           'ptxas_report', 'check', 'SOURCES', 'BUILD_DIR']
+__all__ = ['launch_counts', 'variant_counts', 'reset_launch_counts',
+           'library', 'build_all', 'ptxas_report', 'check', 'SOURCES',
+           'BUILD_DIR']
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -41,6 +44,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 launch_counts = {'flash_attn_fwd': 0, 'flash_attn_bwd_dq': 0,
                  'flash_attn_bwd_dkv': 0, 'fused_add_layernorm': 0,
                  'dense_gelu': 0}
+variant_counts = {'flash_attn_fwd.tc': 0, 'flash_attn_fwd.simt': 0,
+                  'flash_attn_bwd_dkv.tc': 0, 'flash_attn_bwd_dkv.simt': 0}
 
 _lock = threading.Lock()
 _libs = {}
@@ -48,8 +53,9 @@ _ptxas = {}
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, variant_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc():

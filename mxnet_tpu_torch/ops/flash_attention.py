@@ -13,6 +13,13 @@ tensors they are ``flash_attention_reference`` and
 ``flash_attention_backward_reference``, which do the same arithmetic in
 torch f32. There is no fallback from one to the other.
 
+The forward and the dk/dv kernel each come in two variants, chosen by
+``kernel_variant`` from the dtype and the head dim alone: ``'tc'`` runs
+the products on the tensor cores (bf16, D a multiple of 16, 16-byte
+aligned rows, else the wrapper raises), ``'simt'`` is the first design in
+scalar f32 FMAs (f32, or D = 8). ``_build.variant_counts`` records which
+one each launch took.
+
 Attention dropout is the JAX package's counter hash (``counter_keep``):
 the keep mask is a pure function of (seed, batch*head, row, col), so the
 kernel, the plain version and the Pallas kernel agree bit for bit.
@@ -31,17 +38,33 @@ from . import _build
 __all__ = ['flash_attention', 'flash_attention_forward',
            'flash_attention_backward', 'flash_attention_reference',
            'flash_attention_backward_reference', 'counter_keep',
-           'dropout_threshold', 'KERNEL_HEAD_DIMS']
+           'dropout_threshold', 'split_bf16', 'kernel_variant',
+           'KERNEL_HEAD_DIMS', 'TC_HEAD_DIMS']
 
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+TC_HEAD_DIMS = (16, 32, 64, 128)       # the tensor-core variants' head dims
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dropout_threshold(rate):
     """The uint32 keep threshold: keep where hash >= threshold."""
     return min(int(float(rate) * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def kernel_variant(dtype, D):
+    """'tc' (tensor cores) for bfloat16 at a head dim in ``TC_HEAD_DIMS``,
+    else 'simt': the kernel the forward and dk/dv wrappers launch."""
+    return 'tc' if dtype == torch.bfloat16 and D in TC_HEAD_DIMS else 'simt'
+
+
+def split_bf16(x):
+    """(hi, lo) bf16 with hi = bf16(x) and lo = bf16(x - hi): the two terms
+    the tensor-core dk/dv kernel multiplies in place of one f32 operand
+    (p*keep and ds). hi + lo is within 2**-16 |x| of x."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
 
 
 def _mul32(a, c):
@@ -214,6 +237,37 @@ def _check_rows(name, t, q, BH, Tq):
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _tc_aligned(t):
+    """Whether every (B, H, T) row of a bf16 tensor starts on 16 bytes, as
+    the tensor-core kernels' 16-byte copies need: the base, and the
+    strides of the dims longer than 1, in multiples of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def _pick_variant(q, named, forced):
+    """The variant to launch: ``kernel_variant`` unless ``forced`` names
+    one. Raises where the tensor-core kernel cannot take the inputs."""
+    D = q.shape[-1]
+    variant = forced or kernel_variant(q.dtype, D)
+    if variant not in ('tc', 'simt'):
+        raise MXNetError(f"flash_attention: unknown kernel variant "
+                         f"{variant!r}")
+    if variant == 'tc':
+        if kernel_variant(q.dtype, D) != 'tc':
+            raise MXNetError(f"flash_attention: the tensor-core kernel takes "
+                             f"bfloat16 with a head dim in {TC_HEAD_DIMS}, "
+                             f"got {q.dtype}, D={D}")
+        for name, t in named:
+            if not _tc_aligned(t):
+                raise MXNetError(
+                    f"flash_attention: {name} rows are not 16-byte aligned "
+                    f"(offset {t.data_ptr() % 16} bytes, strides "
+                    f"{tuple(t.stride())}); the tensor-core kernel copies "
+                    f"16 bytes at a time")
+    return variant
+
+
 def _dropout_args(dropout_p, seed):
     """(seed, uint32 threshold, keep scale, flag) as the kernels take them."""
     if dropout_p <= 0.0:
@@ -230,16 +284,18 @@ def _like_bthd(t):
                        device=t.device).permute(0, 2, 1, 3)
 
 
-def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed):
+def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed,
+            variant=None):
     _check_kernel_inputs(q, k, v)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if kmask is not None and kmask.device != q.device:
         raise MXNetError("flash_attention: key_mask is on another device")
     o = _like_bthd(q)
+    variant = _pick_variant(q, (('q', q), ('k', k), ('v', v)), variant)
     lse = torch.empty(B * H, Tq, dtype=torch.float32, device=q.device)
-    lib = _build.library('flash_attn_fwd.cu')
-    fn = lib.mxtt_flash_attn_fwd
+    name = 'mxtt_flash_attn_fwd' + ('_tc' if variant == 'tc' else '')
+    fn = getattr(_build.library('flash_attn_fwd.cu'), name)
     if fn.argtypes is None:
         ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, i, i, i, i] + \
@@ -255,8 +311,9 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed):
             1.0 / math.sqrt(D), int(bool(causal)),
             *_dropout_args(dropout_p, seed),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, 'flash_attn_fwd')
+    _build.check(rc, f'flash_attn_fwd ({variant})')
     _build.launch_counts['flash_attn_fwd'] += 1
+    _build.variant_counts[f'flash_attn_fwd.{variant}'] += 1
     return o, lse.reshape(B, H, Tq)
 
 
@@ -273,8 +330,9 @@ def _bwd_fn(name):
 
 
 def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
-                lse, do):
-    """The dq kernel, then the dk/dv kernel, on the current stream."""
+                lse, do, variant=None):
+    """The dq kernel, then the dk/dv kernel (``variant`` as for the
+    forward), on the current stream."""
     _check_kernel_inputs(q, k, v, ('dO', do), ('out', out))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -285,23 +343,28 @@ def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
     # delta = rowsum(dO * O) in f32: XLA outside the kernels in JAX too
     delta = (do.float() * out.float()).sum(-1).reshape(B * H, Tq)
     dq, dk, dv = _like_bthd(q), _like_bthd(k), _like_bthd(v)
+    dkv_variant = _pick_variant(
+        q, (('q', q), ('k', k), ('v', v), ('dO', do)), variant)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
               v.data_ptr(), kmask.data_ptr() if kmask is not None else None,
               do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (mask_div, 1.0 / math.sqrt(D), int(bool(causal)),
             *_dropout_args(dropout_p, seed), stream)
+    dkv_fn = 'mxtt_flash_attn_bwd_dkv' + ('_tc' if dkv_variant == 'tc'
+                                          else '')
     for name, outs, count in (
             ('mxtt_flash_attn_bwd_dq', (dq,), 'flash_attn_bwd_dq'),
-            ('mxtt_flash_attn_bwd_dkv', (dk, dv), 'flash_attn_bwd_dkv')):
+            (dkv_fn, (dk, dv), 'flash_attn_bwd_dkv')):
         st = []
         for t in (q, k, v, do, outs[0]):
             st += [t.stride(0), t.stride(1), t.stride(2)]
         strides = (ctypes.c_longlong * 15)(*st)
         rc = _bwd_fn(name)(*common, *(t.data_ptr() for t in outs), B, H,
                            Tq, Tk, strides, *tail)
-        _build.check(rc, count)
+        _build.check(rc, name)
         _build.launch_counts[count] += 1
+    _build.variant_counts[f'flash_attn_bwd_dkv.{dkv_variant}'] += 1
     return dq, dk, dv
 
 
@@ -320,42 +383,46 @@ def _prepare(q, k, key_mask, dropout_p, dropout_seed):
     return km, mask_div, dropout_p, seed
 
 
-def _forward(q, k, v, km, mask_div, causal, dropout_p, seed):
+def _forward(q, k, v, km, mask_div, causal, dropout_p, seed, variant=None):
     """(out, lse): the forward kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if q.is_cuda:
-        return _launch(q, k, v, km, mask_div, causal, dropout_p, seed)
+        return _launch(q, k, v, km, mask_div, causal, dropout_p, seed,
+                       variant)
     return flash_attention_reference(q, k, v, km, causal, dropout_p, seed)
 
 
-def _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out, lse, do):
+def _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out, lse, do,
+              variant=None):
     """(dq, dk, dv): the two backward kernels for CUDA tensors, the plain
     version for CPU tensors."""
     if q.is_cuda:
         return _launch_bwd(q, k, v, km, mask_div, causal, dropout_p, seed,
-                           out, lse, do)
+                           out, lse, do, variant)
     return flash_attention_backward_reference(q, k, v, km, causal, dropout_p,
                                               seed, out, lse, do)
 
 
 def flash_attention_forward(q, k, v, key_mask=None, causal=False,
-                            dropout_p=0.0, dropout_seed=None):
+                            dropout_p=0.0, dropout_seed=None, _variant=None):
     """(out (B, H, Tq, D), lse (B, H, Tq) f32): the forward's two outputs,
-    as ``_fa_forward`` returns them, with no gradient."""
+    as ``_fa_forward`` returns them, with no gradient. ``_variant``
+    ('simt' or 'tc') overrides ``kernel_variant`` on the card, so that
+    both kernels can be held against each other; nothing else passes it."""
     km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
                                              dropout_seed)
-    return _forward(q, k, v, km, mask_div, causal, dropout_p, seed)
+    return _forward(q, k, v, km, mask_div, causal, dropout_p, seed, _variant)
 
 
 def flash_attention_backward(q, k, v, key_mask, causal, dropout_p,
-                             dropout_seed, out, lse, do):
+                             dropout_seed, out, lse, do, _variant=None):
     """(dq, dk, dv) in the input dtypes, as ``_fa_backward`` returns them:
     the two backward kernels for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors. ``_variant`` picks the dk/dv kernel as for the forward."""
     km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
                                              dropout_seed)
     return _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out,
-                     lse, do)
+                     lse, do, _variant)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -375,7 +442,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, km, out, lse = ctx.saved_tensors
         mask_div, causal, dropout_p, seed = ctx.args
-        if do.stride(-1) != 1:
+        if do.stride(-1) != 1 or (
+                do.is_cuda and kernel_variant(do.dtype, do.shape[-1]) == 'tc'
+                and not _tc_aligned(do)):
             do = do.contiguous()
         dq, dk, dv = _backward(q, k, v, km, mask_div, causal, dropout_p,
                                seed, out, lse, do)

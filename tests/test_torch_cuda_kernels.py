@@ -2,7 +2,11 @@
 residual+LayerNorm; FFN1) against their plain PyTorch versions, on the
 card, at small and ragged shapes that chip_smoke.py does not reach (head
 dims 8 to 128, sequence lengths and widths that divide no tile), and the
-gradients of their autograd Functions against plain autograd.
+gradients of their autograd Functions against plain autograd. The flash
+forward and dk/dv kernels come in two variants (tensor cores for bf16 at
+D a multiple of 16, SIMT otherwise); the tests pin which one each dtype
+and head dim takes, hold both against the plain versions, and check that
+the tensor-core kernels refuse a view whose rows are not 16-byte aligned.
 
 These tests need a CUDA device and carry the ``cuda`` marker; without a
 card they skip. On the card, from the root of the checkout (the file
@@ -13,8 +17,9 @@ imports only torch and the port, so the JAX conftest is left out):
 import pytest
 import torch
 
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import _build, fused_ffn, fused_layernorm
 from mxnet_tpu_torch.ops import flash_attention as fa
-from mxnet_tpu_torch.ops import fused_ffn, fused_layernorm
 
 pytestmark = pytest.mark.cuda
 
@@ -33,7 +38,7 @@ def gen():
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('D', [8, 32, 128])
+@pytest.mark.parametrize('D', [8, 32, 64, 128])
 @pytest.mark.parametrize('causal', [False, True])
 def test_flash_attention_kernel(gen, dtype, D, causal):
     B, H, Tq, Tk = 2, 3, 20, 70
@@ -181,3 +186,86 @@ def test_function_gradients_on_the_card_match_plain_autograd(gen):
         plain(*a2).backward(cot)
         for t1, t2 in zip(a1, a2):
             torch.testing.assert_close(t1.grad, t2.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('D', [8, 32, 64, 128])
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_dkv_kernel(gen, dtype, D, causal):
+    """The dk/dv kernel that routing picks, ragged and masked, with
+    dropout, against the plain backward."""
+    B, H, Tq, Tk = 2, 3, 20, 70
+    q, k, v, do, m = _attn_inputs(gen, B, H, Tq, Tk, D, dtype)
+    if causal:
+        k, v, Tk, m = k[:, :, :Tq], v[:, :, :Tq], Tq, m[:, :Tq].contiguous()
+    out, lse = fa.flash_attention_forward(q, k, v, key_mask=m, causal=causal,
+                                          dropout_p=0.2, dropout_seed=7)
+    _build.reset_launch_counts()
+    _, dk, dv = fa.flash_attention_backward(q, k, v, m, causal, 0.2, 7, out,
+                                            lse, do)
+    torch.cuda.synchronize()
+    variant = fa.kernel_variant(dtype, D)
+    assert _build.variant_counts[f'flash_attn_bwd_dkv.{variant}'] == 1
+    _, want_dk, want_dv = fa.flash_attention_backward_reference(
+        q, k, v, m, causal, 0.2, 7, out, lse, do)
+    torch.testing.assert_close(dk, want_dk, **TOL[dtype], msg='dk')
+    torch.testing.assert_close(dv, want_dv, **TOL[dtype], msg='dv')
+
+
+@pytest.mark.parametrize('dtype,D,variant', [
+    (torch.bfloat16, 16, 'tc'), (torch.bfloat16, 64, 'tc'),
+    (torch.bfloat16, 128, 'tc'), (torch.bfloat16, 8, 'simt'),
+    (torch.float32, 64, 'simt'), (torch.float32, 128, 'simt')])
+def test_each_dtype_and_head_dim_takes_its_variant(gen, dtype, D, variant):
+    q, k, v, do, _ = _attn_inputs(gen, 1, 2, 40, 40, D, dtype)
+    _build.reset_launch_counts()
+    out, lse = fa.flash_attention_forward(q, k, v)
+    fa.flash_attention_backward(q, k, v, None, False, 0.0, None, out, lse, do)
+    torch.cuda.synchronize()
+    other = 'simt' if variant == 'tc' else 'tc'
+    assert _build.variant_counts == {
+        f'flash_attn_fwd.{variant}': 1, f'flash_attn_fwd.{other}': 0,
+        f'flash_attn_bwd_dkv.{variant}': 1, f'flash_attn_bwd_dkv.{other}': 0}
+    assert _build.launch_counts['flash_attn_fwd'] == 1
+    assert _build.launch_counts['flash_attn_bwd_dkv'] == 1
+
+
+@pytest.mark.parametrize('D', [64, 128])
+def test_simt_variant_at_bf16_matches_plain(gen, D):
+    """The first design stays reachable at bf16 (for timing it beside the
+    tensor-core kernel) and stays right."""
+    B, H, T = 2, 3, 70
+    q, k, v, do, m = _attn_inputs(gen, B, H, T, T, D, torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v, key_mask=m, dropout_p=0.1,
+                                          dropout_seed=3, _variant='simt')
+    _, dk, dv = fa.flash_attention_backward(q, k, v, m, False, 0.1, 3, out,
+                                            lse, do, _variant='simt')
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, m, False, 0.1, 3)
+    torch.testing.assert_close(out, ref_out, **TOL[torch.bfloat16])
+    _, want_dk, want_dv = fa.flash_attention_backward_reference(
+        q, k, v, m, False, 0.1, 3, out, lse, do)
+    torch.testing.assert_close(dk, want_dk, **TOL[torch.bfloat16])
+    torch.testing.assert_close(dv, want_dv, **TOL[torch.bfloat16])
+
+
+def test_tensor_core_kernels_refuse_unaligned_views(gen):
+    B, H, T, D = 1, 2, 16, 64
+    n = B * H * T * D
+    buf = torch.randn(n + 8, generator=gen, device='cuda').to(torch.bfloat16)
+    q = buf[1:n + 1].view(B, H, T, D)           # rows start 2 bytes off
+    k = buf[8:n + 8].view(B, H, T, D)
+    with pytest.raises(MXNetError, match='16-byte aligned'):
+        fa.flash_attention_forward(q, k, k)
+    # a row stride that is no multiple of 8 elements
+    wide = torch.randn(B, H, T, D + 4, generator=gen,
+                       device='cuda').to(torch.bfloat16)
+    with pytest.raises(MXNetError, match='16-byte aligned'):
+        fa.flash_attention_forward(wide[..., :D], k, k)
+    out, lse = fa.flash_attention_forward(k, k, k)
+    with pytest.raises(MXNetError, match='16-byte aligned'):
+        fa.flash_attention_backward(k, k, k, None, False, 0.0, None, out,
+                                    lse, q)
+    # the SIMT kernel takes them
+    fa.flash_attention_forward(q, k, k, _variant='simt')
+    torch.cuda.synchronize()

@@ -115,3 +115,38 @@ def test_per_head_mask_matches_per_batch_mask():
     a = fa.flash_attention(q, k, v, key_mask=m)
     b = fa.flash_attention(q, k, v, key_mask=m.repeat_interleave(H, dim=0))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('dtype,D,variant', [
+    (torch.bfloat16, 16, 'tc'), (torch.bfloat16, 32, 'tc'),
+    (torch.bfloat16, 64, 'tc'), (torch.bfloat16, 128, 'tc'),
+    (torch.bfloat16, 8, 'simt'), (torch.float32, 64, 'simt'),
+    (torch.float32, 8, 'simt')])
+def test_kernel_variant_routes_by_dtype_and_head_dim(dtype, D, variant):
+    assert fa.kernel_variant(dtype, D) == variant
+
+
+def test_tensor_core_alignment_check():
+    """The tensor-core kernels copy 16 bytes at a time: every (B, H, T) row
+    must start on 16 bytes; dims of length 1 do not count."""
+    n = 2 * 3 * 20 * 64
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16)
+    assert fa._tc_aligned(buf[:n].view(2, 3, 20, 64))
+    assert not fa._tc_aligned(buf[1:n + 1].view(2, 3, 20, 64))
+    # the head views of a (B, T, 3*H*D) projection are aligned
+    qkv = torch.zeros(2, 20, 3 * 3 * 64, dtype=torch.bfloat16)
+    for part in qkv.chunk(3, dim=-1):
+        assert fa._tc_aligned(part.reshape(2, 20, 3, 64).permute(0, 2, 1, 3))
+    assert not fa._tc_aligned(torch.zeros(2, 3, 20, 68,
+                                          dtype=torch.bfloat16)[..., :64])
+    assert fa._tc_aligned(torch.zeros(64 * 21, dtype=torch.bfloat16)
+                          .as_strided((1, 1, 20, 64), (3, 5, 64, 1)))
+
+
+def test_private_variant_changes_nothing_on_the_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _qkv())
+    want = fa.flash_attention_forward(q, k, v)
+    for variant in ('simt', 'tc'):
+        got = fa.flash_attention_forward(q, k, v, _variant=variant)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

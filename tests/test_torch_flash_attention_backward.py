@@ -10,6 +10,8 @@ Function) and the JAX ``flash_attention`` (its custom_vjp) with the same
 cotangent. Inputs come from numpy with a seed. Every row keeps at least
 one key.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as onp
@@ -128,3 +130,76 @@ def test_function_saves_what_the_backward_needs():
     assert all(t.grad is not None for t in (q, k, v))
     assert m.grad is None
     assert set(_build.launch_counts.values()) == {0}
+
+
+def test_split_bf16_represents_x_to_2_pow_minus_16():
+    """hi + lo (two bf16 terms) is within 2**-16 |x| of an f32 x over a
+    wide range of magnitudes, and hi is x rounded to bf16."""
+    rng = onp.random.RandomState(7)
+    x = torch.from_numpy((rng.randn(4096) * 10.0 ** rng.uniform(
+        -30, 30, 4096)).astype(onp.float32))
+    hi, lo = fa.split_bf16(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, x.to(torch.bfloat16))
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -16 * x.double().abs()).all())
+
+
+def _bf16_exact(a):
+    """numpy f32 values rounded to bf16, kept in f32"""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _dkv_split_emulation(q, k, v, km, causal, dropout_p, seed, out, lse, do):
+    """The tensor-core dk/dv kernel's arithmetic in plain PyTorch: p, dp and
+    ds in f32 as the plain backward computes them; dv and dk from the
+    two-term bf16 split of p*keep and of ds, each term multiplied in f32
+    against the bf16-exact dO or q (an mma with bf16 operands and f32
+    sums). Returns (dk, dv) in f32."""
+    Bq, Hq, Tq, Dq = q.shape
+    Tk = k.shape[2]
+    p = torch.exp(fa._scores(q, k, km, causal) - lse[..., None])
+    dp = torch.einsum('bhqd,bhkd->bhqk', do, v)
+    pv = p
+    if dropout_p > 0.0:
+        keep = fa._keep_multipliers(seed, Bq, Hq, Tq, Tk, dropout_p,
+                                    q.device)
+        pv, dp = p * keep, dp * keep
+    delta = (do * out).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * (1.0 / math.sqrt(Dq))
+
+    def split_product(x, y):           # sum over q rows of x^T y
+        return sum(torch.einsum('bhqk,bhqd->bhkd', term.float(), y)
+                   for term in fa.split_bf16(x))
+    return split_product(ds, q), split_product(pv, do)
+
+
+@pytest.mark.parametrize('T,causal,mask_kind,dropout_p', CASES)
+def test_dkv_split_arithmetic_matches_pallas_kernel(T, causal, mask_kind,
+                                                    dropout_p):
+    """The precision decision of the tensor-core dk/dv kernel, held on the
+    CPU: with inputs that bf16 represents exactly, the JAX kernel's f32
+    products are the products the card computes, and the split's error
+    (about 2**-17 relative) stays inside the file's grad bound."""
+    q, k, v, do = (_bf16_exact(a) for a in _inputs(T, seed=5))
+    m = _mask(mask_kind, T)
+    tm = None if m is None else torch.from_numpy(m)
+    seed = SEED if dropout_p else None
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = fa.flash_attention_forward(tq, tk, tv, key_mask=tm,
+                                          causal=causal, dropout_p=dropout_p,
+                                          dropout_seed=seed)
+    km_t, _ = fa._normalize_mask(tm, B, H, T)
+    dk, dv = _dkv_split_emulation(tq, tk, tv, km_t, causal, dropout_p, seed,
+                                  out, lse, tdo)
+    km = _additive_bh(m)
+    flat = [jnp.asarray(a.reshape(B * H, T, D))
+            for a in (q, k, v, out.numpy(), do)]
+    _, j_dk, j_dv = pa._fa_backward(
+        flat[0], flat[1], flat[2], None if km is None else jnp.asarray(km),
+        jnp.full((1, 1), SEED, jnp.uint32), causal, dropout_p, True,
+        flat[3], jnp.asarray(lse.numpy().reshape(B * H, T)), flat[4])
+    for name, t, j in (('dk', dk, j_dk), ('dv', dv, j_dv)):
+        onp.testing.assert_allclose(
+            t.numpy(), onp.asarray(j).reshape(B, H, T, D), rtol=RTOL,
+            atol=ATOL, err_msg=name)
