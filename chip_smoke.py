@@ -13,13 +13,16 @@
    against its plain PyTorch version on the same inputs on the card, at
    the main paths' shapes (B = 8, T in {128, 512}, bf16 and f32;
    attention also causal, with a key mask, with dropout, at a ragged T,
-   at the serving shapes B in {1, 8} x T in {64, 256}, and at D = 128),
-   with the tolerance stated beside each comparison. The forward and the
-   dk/dv kernel each have a tensor-core variant (bf16) and a SIMT one
+   at the serving shapes B in {1, 8} x T in {64, 256}, and at D = 128;
+   FFN1 over M in {64, 200, 1024, 4096}, K in {768, 72}, N in {3072, 100}),
+   with the tolerance stated beside each comparison. The forward, dq and
+   dk/dv kernels each have a tensor-core variant (bf16) and a SIMT one
    (f32, D = 8, and the first design, reachable at bf16 through a private
-   argument): every case checks that exactly one launch of the expected
-   variant ran, and both variants are held against the plain version and
-   timed at the main shape in this run. Times each kernel, its plain
+   argument); FFN1 has a wgmma + TMA variant (bf16, K a multiple of 8),
+   the first WMMA design (other bf16, and forced) and a SIMT one (f32).
+   Every case checks that exactly one launch of each expected kernel and
+   variant ran, and the old and new variants are held against the plain
+   version and timed at the main shape in this run. Times each kernel, its plain
    version and one PyTorch library call that computes the same function
    (a yardstick only: the port never calls it) as device time from
    torch.profiler's CUDA trace (CUDA events where the trace has none),
@@ -29,7 +32,7 @@
    InferenceEngine with both fused-kernel knobs on. The launch counters
    are set to 0 just before 64 ragged requests from 4 client threads and
    read just after: every kernel must have run 12, 24 and 12 times per
-   dispatch, every flash forward on the tensor-core variant. One request
+   dispatch, every flash forward and FFN1 on the tensor-core variant. One request
    is checked against the same weights in f32 on the CPU through the
    plain versions, and again with both knobs off.
    A profiled dispatch of the largest bucket (8 x 512) prints where the
@@ -43,7 +46,8 @@
    gluon.Trainer/AdamW (multi_precision): a warm-up step, then 5 timed
    steps with the launch counters set to 0 just before and read just
    after (12 forward, 12 dq, 12 dk/dv, 24 LayerNorm and 12 FFN1 launches
-   per step; every forward and dk/dv on the tensor-core variant), step
+   per step; every forward, dq, dk/dv and FFN1 on the tensor-core
+   variant), step
    time, samples/s and MFU, and a profiled step.
 6. NDArray phase: MXNet's imperative API (mx.nd, mx.autograd) on the
    card with user kernels compiled by NVRTC (mx.rtc, the counterpart of
@@ -240,12 +244,14 @@ def kernel_phase(card):
         return ts, key_mask, opt.get('causal', False), p, \
             (1234 if p else None), variant, tag
 
-    def one_launch(kernel, variant):
-        """the call launched exactly one ``kernel`` of ``variant``"""
+    def one_launch(variant, *kernels):
+        """the call launched exactly one of each of ``kernels``, of
+        ``variant``, and nothing else"""
         got = dict(_build.variant_counts)
-        want = {k: int(k == f'{kernel}.{variant}') for k in got}
-        check(got == want, f'variant counts {got}, expected one {kernel}.'
-              f'{variant}')
+        names = {f'{k}.{variant}' for k in kernels}
+        want = {k: int(k in names) for k in got}
+        check(got == want, f'variant counts {got}, expected one each of '
+              f'{sorted(names)}')
 
     for B, T, dtype, opt in cases:
         (q, k, v), key_mask, causal, p, seed, variant, tag = case_inputs(
@@ -254,7 +260,7 @@ def kernel_phase(card):
         out, lse = fa.flash_attention_forward(q, k, v, key_mask, causal, p,
                                               seed, _variant=variant)
         torch.cuda.synchronize()
-        one_launch('flash_attn_fwd', variant)
+        one_launch(variant, 'flash_attn_fwd')
         km, _ = fa._normalize_mask(key_mask, B, H, T)
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, km, causal,
                                                         p, seed)
@@ -275,8 +281,8 @@ def kernel_phase(card):
         old_ms=old_ms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
         **times)
 
-    # ---- K2, K3: flash-attention backward (dq; dk and dv). The dk/dv
-    # kernel routes like the forward; dq has one variant (SIMT).
+    # ---- K2, K3: flash-attention backward (dq; dk and dv). Both kernels
+    # route like the forward, to one variant.
     for B, T, dtype, opt in cases:
         (q, k, v, do), key_mask, causal, p, seed, variant, tag = case_inputs(
             B, T, dtype, opt, 4)
@@ -287,7 +293,7 @@ def kernel_phase(card):
                                             seed, out, lse, do,
                                             _variant=variant)
         torch.cuda.synchronize()
-        one_launch('flash_attn_bwd_dkv', variant)
+        one_launch(variant, 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
         km, _ = fa._normalize_mask(key_mask, B, H, T)
         want = fa.flash_attention_backward_reference(q, k, v, km, causal, p,
                                                      seed, out, lse, do)
@@ -295,8 +301,8 @@ def kernel_phase(card):
                         **TOL[str(dtype)[6:]])
                 for n, g, w in zip('qkv', grads, want)]
     # timed at the training path's shape: bf16, B=8, T=512, with a float
-    # additive key mask as the valid_length mask is; the SIMT dk/dv kernel
-    # in the same run
+    # additive key mask as the valid_length mask is; the SIMT dq and dk/dv
+    # kernels in the same run
     valid = torch.randint(T // 2, T + 1, (B,), generator=gen, device=dev)
     fmask = torch.where(torch.arange(T, device=dev)[None, :] < valid[:, None],
                         0.0, -1e30).float()
@@ -325,8 +331,9 @@ def kernel_phase(card):
         check(us > 0, f'no device time for {kname} in the trace')
         return us / 20 / 1e3
     for name, kname, old_kname, flops, nbytes, err in (
-            ('flash_attn_bwd_dq', 'flash_bwd_dq_kernel', None,
-             6 * B * H * T * T * D, 5 * io + rows_f32, errs[0]),
+            ('flash_attn_bwd_dq', 'flash_bwd_dq_tc_kernel',
+             'flash_bwd_dq_kernel', 6 * B * H * T * T * D, 5 * io + rows_f32,
+             errs[0]),
             ('flash_attn_bwd_dkv', 'flash_bwd_dkv_tc_kernel',
              'flash_bwd_dkv_kernel', 8 * B * H * T * T * D,
              6 * io + rows_f32, max(errs[1:]))):
@@ -335,9 +342,7 @@ def kernel_phase(card):
             route='cuda', source='mxnet_tpu_torch/csrc/flash_attn_bwd.cu',
             replaces='mxnet_tpu/ops/pallas_attention.py:' +
             ('283' if name.endswith('dq') else '319'),
-            variant='tc' if old_kname else 'simt',
-            old_ms=trace_ms(per_kernel_simt, old_kname) if old_kname
-            else None,
+            variant='tc', old_ms=trace_ms(per_kernel_simt, old_kname),
             max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
             ms=trace_ms(per_kernel, kname),
             how=f'profiler/{plain_how}/{library_how}',
@@ -378,32 +383,49 @@ def kernel_phase(card):
         replaces='mxnet_tpu/ops/pallas_layernorm.py:33',
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
-    # ---- C: fused FFN1 dense + bias + GELU
-    for B, T, dtype in [(8, 128, torch.float32), (8, 512, torch.float32),
-                        (8, 128, torch.bfloat16), (8, 512, torch.bfloat16)]:
-        x = randn(B * T, C, dtype=dtype)
-        w = randn(FF, C, dtype=dtype, scale=0.02)
-        b = randn(FF, dtype=dtype, scale=0.02)
-        out = fused_ffn.fused_dense_gelu(x, w, b)
+    # ---- C: fused FFN1 dense + bias + GELU. bf16 with K a multiple of 8
+    # routes to the wgmma + TMA kernel (the serving buckets' M from 64 to
+    # 4096, ragged M, N and K), other bf16 K to the WMMA kernel, f32 to the
+    # SIMT one; {'variant': 'wmma'} forces the first design at bf16. The
+    # main shape (training's M = B*T = 4096, and serving's largest bucket)
+    # is last and timed.
+    ffn_cases = [(M, K, N, torch.bfloat16, None)
+                 for M in (64, 200, 1024, 4096) for K in (C, 72)
+                 for N in (FF, 100) if (M, K, N) != (4096, C, FF)] + \
+        [(200, 70, 100, torch.bfloat16, None),
+         (4096, C, FF, torch.bfloat16, 'wmma'),
+         (1024, C, FF, torch.float32, None),
+         (4096, C, FF, torch.float32, None),
+         (4096, C, FF, torch.bfloat16, None)]
+    for M, K, N, dtype, forced in ffn_cases:
+        x = randn(M, K, dtype=dtype)
+        w = randn(N, K, dtype=dtype, scale=0.02)
+        b = randn(N, dtype=dtype, scale=0.02)
+        variant = forced or fused_ffn.kernel_variant(dtype, K)
+        _build.reset_launch_counts()
+        out = fused_ffn.fused_dense_gelu(x, w, b, _variant=forced)
         torch.cuda.synchronize()
+        one_launch(variant, 'dense_gelu')
         ref = fused_ffn.dense_gelu_reference(x, w, b)
-        err = compare(f'dense_gelu M={B * T} K={C} N={FF} {str(dtype)[6:]}',
-                      out, ref, **TOL[str(dtype)[6:]])
+        err = compare(f'dense_gelu M={M} K={K} N={N} {str(dtype)[6:]} '
+                      f'[{variant}]', out, ref, **TOL[str(dtype)[6:]])
+    # the main shape: the wgmma kernel, then the WMMA kernel it replaced
     times = timings(lambda: fused_ffn.fused_dense_gelu(x, w, b),
                     lambda: fused_ffn.dense_gelu_reference(x, w, b),
                     lambda: F.gelu(F.linear(x, w, b)))
-    M = B * T
-    b_ms, b_by = bound_ms(2 * M * FF * C,
-                          (M * C + FF * C + FF + M * FF) * x.element_size(),
+    old_ms, _ = time_ms(lambda: fused_ffn.fused_dense_gelu(
+        x, w, b, _variant='wmma'))
+    b_ms, b_by = bound_ms(2 * M * N * K,
+                          (M * K + N * K + N + M * N) * x.element_size(),
                           PEAK_BF16)
     rows['dense_gelu'] = dict(
-        route='cuda', variant='wmma', old_ms=None,
+        route='cuda', variant='tc', old_ms=old_ms,
         source='mxnet_tpu_torch/csrc/dense_gelu.cu',
         replaces='mxnet_tpu/ops/pallas_ffn.py:48',
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
 
     for name, r in rows.items():
-        old = (f', the SIMT kernel it replaced {r["old_ms"]:.4f} ms'
+        old = (f', the kernel it replaced {r["old_ms"]:.4f} ms'
                if r['old_ms'] is not None else '')
         print(f'  timing {name} (bf16, B=8 T=512) on {card}: device time '
               f'(kernel/plain/library from {r["how"]}) kernel '
@@ -415,7 +437,8 @@ def kernel_phase(card):
 
 
 _FAMILIES = (('flash_attn_fwd', ('flash_fwd_kernel', 'flash_fwd_tc_kernel')),
-             ('flash_attn_bwd_dq', ('flash_bwd_dq_kernel',)),
+             ('flash_attn_bwd_dq', ('flash_bwd_dq_kernel',
+                                    'flash_bwd_dq_tc_kernel')),
              ('flash_attn_bwd_dkv', ('flash_bwd_dkv_kernel',
                                      'flash_bwd_dkv_tc_kernel')),
              ('fused_add_layernorm', ('_add_ln_fwd',)),
@@ -542,10 +565,8 @@ def serving_phase(card):
                            'fused_add_layernorm': 2 * L * dispatches,
                            'dense_gelu': L * dispatches},
               f'launch counts {launches} for {dispatches} dispatches')
-        check(variants == {'flash_attn_fwd.tc': L * dispatches,
-                           'flash_attn_fwd.simt': 0,
-                           'flash_attn_bwd_dkv.tc': 0,
-                           'flash_attn_bwd_dkv.simt': 0},
+        check(variants == {k: L * dispatches if k in (
+            'flash_attn_fwd.tc', 'dense_gelu.tc') else 0 for k in variants},
               f'variant counts {variants} for {dispatches} dispatches')
         print(f'  served {len(requests)} requests in {wall:.3f} s: '
               f'{len(requests) / wall:.2f} requests/s, '
@@ -723,10 +744,8 @@ def training_phase(card, steps=5, batch=8, seq=512):
                        'fused_add_layernorm': 2 * L * steps,
                        'dense_gelu': L * steps},
           f'launch counts {launches} for {steps} steps')
-    check(variants == {'flash_attn_fwd.tc': L * steps,
-                       'flash_attn_fwd.simt': 0,
-                       'flash_attn_bwd_dkv.tc': L * steps,
-                       'flash_attn_bwd_dkv.simt': 0},
+    check(variants == {k: L * steps if k.endswith('.tc') else 0
+                       for k in variants},
           f'variant counts {variants} for {steps} steps')
     names = list(params)
     still = [names[i] for i, st in trainer._states.items()
@@ -1017,7 +1036,8 @@ def main():
     tc = [e for e in report if '_tc_kernel' in e]
     print('ptxas, tensor-core kernels: ' + (' | '.join(tc) or
                                             'not rebuilt in this process'))
-    for name in ('flash_fwd_tc_kernel<Li64>', 'flash_bwd_dkv_tc_kernel<Li64>'):
+    for name in ('flash_fwd_tc_kernel<Li64>', 'flash_bwd_dq_tc_kernel<Li64>',
+                 'flash_bwd_dkv_tc_kernel<Li64>', 'dense_gelu_tc_kernel'):
         line = next((e for e in tc if name in e), None)
         check(not tc or (line is not None and
                          ' 0 bytes spill stores, 0 bytes spill loads' in line),

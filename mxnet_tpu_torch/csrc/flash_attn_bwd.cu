@@ -15,20 +15,33 @@
 // forward kernel uses (counter_keep.cuh), so the two agree bit for bit.
 //
 // What bounds it on the H100: at the BERT-base training shape (B=8, H=12,
-// T=512, D=64, bf16) the dq kernel does 6*BH*T^2*D = 9.66 GFLOP (s, dp, dq)
-// and moves q, k, v, dO, lse, delta, the mask and dq, about 38 MB if dq
-// were f32 (11.5 us at 3.35 TB/s, 9.8 us at the 989 TFLOP/s bf16 peak); the
-// dk/dv kernel does 8*BH*T^2*D = 12.9 GFLOP (s, dv, dp, dk) over about
-// 51 MB (15.2 us). Both are bound by bytes at the bf16 peak; at the
-// 67 TFLOP/s f32 SIMT rate the same work takes 144 us and 192 us.
+// T=512, D=64, bf16) the dq kernel does 6*BH*T^2*D = 9.66 GFLOP (s, dp, dq:
+// 9.8 us at the 989 TFLOP/s bf16 peak) and moves q, k, v, dO, lse, delta,
+// the mask and dq once, 31.9 MB (9.5 us at 3.35 TB/s); the dk/dv kernel
+// does 8*BH*T^2*D = 12.9 GFLOP (13.0 us) over 38.1 MB (11.4 us). Both are
+// bound by operations, barely: they need the tensor cores and their copies
+// in flight. At the 67 TFLOP/s f32 SIMT rate the same work takes 144 us
+// and 192 us. The ds split makes the tensor-core kernels do 4/3 (dq) and
+// 3/2 (dk/dv) of that work.
 //
 // Design: the TPU grids carry the dq (and dk, dv) sums across a sequential
 // grid axis in VMEM scratch; here one block owns one output tile and loops
 // over the other axis itself, keeping its sums in registers and storing
 // once, with no atomics, so a gradient is the same from run to run.
-//  - dq (flash_bwd_dq_kernel): one block per (batch*head, 64-row q tile),
-//    looping over 64-key tiles staged through shared memory; scalar f32
-//    FMAs out of shared memory (the first design).
+//  - dq, bf16 and D in {16, 32, 64, 128} (flash_bwd_dq_tc_kernel): one
+//    block of four warps per (batch*head, 64-row q tile), each warp owning
+//    16 q rows, whose Q and dO A fragments, lse and delta it loads once and
+//    keeps in registers. 64-key tiles of K, V and the mask row come through
+//    a two-stage ring of 16-byte cp.async copies. S = Q.K^T and
+//    dP = dO.V^T run on mma.sync (exact bf16 operands, f32 sums: the
+//    reference's f32 products up to summation order); ds is formed on
+//    their accumulators and becomes, in registers, the A fragment of
+//    dQ += dS.K, with K as B by ldmatrix.trans. ds is f32 in the
+//    reference, so it is split into two bf16 terms (as below) and both are
+//    multiplied.
+//  - dq, f32 or D = 8 (flash_bwd_dq_kernel): one block per (batch*head,
+//    64-row q tile), looping over 64-key tiles staged through shared
+//    memory; scalar f32 FMAs out of shared memory (the first design).
 //  - dk/dv, bf16 and D in {16, 32, 64, 128} (flash_bwd_dkv_tc_kernel): one
 //    block of four warps per (batch*head, 64-key tile), each warp owning 16
 //    keys, looping over 64-row q tiles that come through a two-stage ring
@@ -47,7 +60,8 @@
 //    arithmetic; the split keeps it.
 //  - dk/dv, f32 or D = 8 (flash_bwd_dkv_kernel): the first design, scalar
 //    f32 FMAs out of shared memory.
-// The wrapper routes by dtype and D; that is not a fallback on failure.
+// The wrapper routes both kernels of one backward by dtype and D to the
+// same variant; that is not a fallback on failure.
 // Under a causal mask, tiles that the cut removes whole are skipped: their
 // p is exactly 0, so they would add exact zeros. Rows at or past Tq and
 // keys at or past Tk are masked in the kernel instead of padded. q, k, v,
@@ -577,7 +591,201 @@ int dispatch_dkv_tc(int D, const BwdArgs& a, int B, cudaStream_t stream) {
   }
 }
 
-// which: 0 = dq, 1 = dk/dv, 2 = dk/dv on the tensor cores (bf16 only)
+// --------------------------------------------------- dq on the tensor cores
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdArgs a) {
+  using namespace mma_tiles;
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  constexpr int LD = D + 8;    // padded row
+  constexpr int KD = D / 16;   // k-steps of Q.K^T and dO.V^T
+  constexpr int ND = D / 8;    // n-tiles of dQ
+  constexpr int NK = BK / 8;   // n-tiles of S and dP, one per 8 keys
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BQ x LD
+  __nv_bfloat16* dOs = Qs + BQ * LD;                                 // BQ x LD
+  __nv_bfloat16* Ks = dOs + BQ * LD;                                 // 2 x BK x LD
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;                              // 2 x BK x LD
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * BK * LD);           // 2 x BK: mask
+  float* Ls = Ms + 2 * BK;                                           // BQ: lse
+  float* Dl = Ls + BQ;                                               // BQ: delta
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BQ;
+  const int b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs.b + h * a.vs.h;
+  const float* mrow =
+      a.kmask ? static_cast<const float*>(a.kmask) + (long long)(bh / a.mask_div) * a.Tk : nullptr;
+
+  // one commit group per key tile: K, V and the mask row into a stage
+  auto load_kv = [&](int kb, int stage) {
+    const int k0 = kb * BK;
+    load_tile<BK, D, TC_THREADS>(Ks + stage * BK * LD, kp, a.ks.t, k0, a.Tk);
+    load_tile<BK, D, TC_THREADS>(Vs + stage * BK * LD, vp, a.vs.t, k0, a.Tk);
+    if (mrow != nullptr) load_row<TC_THREADS>(Ms + stage * BK, mrow, k0, BK, a.Tk);
+    cp_async_commit();
+  };
+  load_tile<BQ, D, TC_THREADS>(Qs, static_cast<const __nv_bfloat16*>(a.q) + b * a.qs.b +
+                                       h * a.qs.h, a.qs.t, q0, a.Tq);
+  load_tile<BQ, D, TC_THREADS>(dOs, static_cast<const __nv_bfloat16*>(a.dout) + b * a.dos.b +
+                                        h * a.dos.h, a.dos.t, q0, a.Tq);
+  load_row<TC_THREADS>(Ls, static_cast<const float*>(a.lse) + (long long)bh * a.Tq, q0, BQ, a.Tq);
+  load_row<TC_THREADS>(Dl, static_cast<const float*>(a.delta) + (long long)bh * a.Tq, q0, BQ,
+                       a.Tq);
+  int nkb = (a.Tk + BK - 1) / BK;
+  if (a.causal) nkb = min(nkb, (min(q0 + BQ, a.Tq) + BK - 1) / BK);  // later keys are cut
+  if (nkb > 0)
+    load_kv(0, 0);                     // the first group holds Q, dO, lse and delta too
+  else
+    cp_async_commit();
+
+  // the warp's rows wrow + {g, g + 8}: Q's and dO's A fragments, lse and
+  // delta, loaded once
+  const int wrow = q0 + warp * 16;
+  const int row0 = wrow + (lane >> 2);
+  uint32_t qf[KD][4], of[KD][4];
+  float lse_r[2], del_r[2];
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int stage = kb & 1, k0 = kb * BK;
+    if (kb + 1 < nkb) {
+      load_kv(kb + 1, stage ^ 1);      // in flight while this tile is multiplied
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kb == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        ldsm_x4(qf[kk], a_addr(Qs, LD, warp * 16, kk * 16, lane));
+        ldsm_x4(of[kk], a_addr(dOs, LD, warp * 16, kk * 16, lane));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        lse_r[i] = Ls[warp * 16 + (lane >> 2) + 8 * i];
+        del_r[i] = Dl[warp * 16 + (lane >> 2) + 8 * i];
+      }
+    }
+    const __nv_bfloat16* Kt = Ks + stage * BK * LD;
+    const __nv_bfloat16* Vt = Vs + stage * BK * LD;
+    const float* Mt = Ms + stage * BK;
+
+    // S = Q.K^T and dP = dO.V^T: exact bf16 operands, f32 sums
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int p = 0; p < NK / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b_addr_nk(Kt, LD, p * 16, kk * 16, lane));
+        mma_bf16(s[2 * p], qf[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * p + 1], qf[kk], bf[2], bf[3]);
+        ldsm_x4(bf, b_addr_nk(Vt, LD, p * 16, kk * 16, lane));
+        mma_bf16(dp[2 * p], of[kk], bf[0], bf[1]);
+        mma_bf16(dp[2 * p + 1], of[kk], bf[2], bf[3]);
+      }
+    }
+
+    // per element (fragment rows are q rows, columns keys): _masked_scores
+    // in its order (scale; keys at or past Tk get -1e30; the additive mask,
+    // staged as 0 past Tk; the causal cut), p = exp(s - lse), dp *= keep,
+    // ds = p * (dp - delta) * scale, left in s. The edge and cut branches
+    // are uniform over the warp.
+    const bool edge = k0 + BK > a.Tk;
+    const bool cut = a.causal && k0 + BK - 1 > wrow;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const float2 mv = mrow != nullptr ? *reinterpret_cast<const float2*>(Mt + j * 8 + 2 * t)
+                                        : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, qpos = row0 + 8 * i, kpos = k0 + j * 8 + 2 * t + (e & 1);
+        float x = __fmul_rn(s[j][e], a.scale);   // not fused with + mask
+        if (edge && kpos >= a.Tk) x = NEG_INF;
+        x += (e & 1) ? mv.y : mv.x;
+        if (cut && qpos < kpos) x = NEG_INF;
+        const float p = expf(x - lse_r[i]);
+        s[j][e] = p * (dp[j][e] * keep_mul(a, bh, qpos, kpos) - del_r[i]) * a.scale;
+      }
+    }
+
+    // dQ += dS.K. The reference multiplies f32 ds by K in f32: ds is split
+    // into two bf16 terms, hi + lo, both multiplied against the exact bf16
+    // K with f32 sums. The dS fragments of keys 16kk.. are the A fragments
+    // of k-step kk; K (keys by D) is B by ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 2 * kk + (i >> 1), e = (i & 1) * 2;
+        split_bf16(s[j][e], s[j][e + 1], hi[i], lo[i]);
+      }
+#pragma unroll
+      for (int p = 0; p < ND / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, b_addr_kn(Kt, LD, kk * 16, p * 16, lane));
+        mma_bf16(dq[2 * p], hi, bf[0], bf[1]);
+        mma_bf16(dq[2 * p], lo, bf[0], bf[1]);
+        mma_bf16(dq[2 * p + 1], hi, bf[2], bf[3]);
+        mma_bf16(dq[2 * p + 1], lo, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();                   // every warp is done with this stage
+  }
+  cp_async_wait<0>();                  // nothing left in flight (no key tile at all)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row < a.Tq) {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out0) + b * a.os.b + h * a.os.h +
+                           (long long)row * a.os.t + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+            __floats2bfloat162_rn(dq[n][2 * i], dq[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dq_tc(const BwdArgs& a, int B, cudaStream_t stream) {
+  constexpr int LD = D + 8;
+  const size_t smem =
+      sizeof(__nv_bfloat16) * (2 * BQ * LD + 4 * BK * LD) + sizeof(float) * (2 * BK + 2 * BQ);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * a.H, (a.Tq + BQ - 1) / BQ);
+  flash_bwd_dq_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_dq_tc(int D, const BwdArgs& a, int B, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_dq_tc<16>(a, B, stream);
+    case 32: return launch_dq_tc<32>(a, B, stream);
+    case 64: return launch_dq_tc<64>(a, B, stream);
+    case 128: return launch_dq_tc<128>(a, B, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// which: 0 = dq, 1 = dk/dv, 2 = dk/dv on the tensor cores, 3 = dq on the
+// tensor cores (2 and 3 bf16 only)
 int run(int which, int dtype, int D, const void* q, const void* k, const void* v,
         const void* kmask, const void* dout, const void* lse, const void* delta, void* out0,
         void* out1, int B, int H, int Tq, int Tk, const long long* st, int mask_div, float scale,
@@ -589,7 +797,10 @@ int run(int which, int dtype, int D, const void* q, const void* k, const void* v
             Strides{st[12], st[13], st[14]}, mask_div, scale, causal, seed, thresh, keep_scale,
             use_dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (which == 2) return dtype == 1 ? dispatch_dkv_tc(D, a, B, s) : (int)cudaErrorInvalidValue;
+  if (which >= 2) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return which == 2 ? dispatch_dkv_tc(D, a, B, s) : dispatch_dq_tc(D, a, B, s);
+  }
   if (dtype == 0) return dispatch_d<float>(which == 1, D, a, B, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(which == 1, D, a, B, s);
   return (int)cudaErrorInvalidValue;
@@ -635,5 +846,19 @@ extern "C" int mxtt_flash_attn_bwd_dkv_tc(int dtype, int D, const void* q, const
                                           unsigned int seed, unsigned int thresh,
                                           float keep_scale, int use_dropout, void* stream) {
   return run(2, dtype, D, q, k, v, kmask, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
+             mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+}
+
+// The tensor-core dq kernel: dtype must be 1 (bfloat16) and D one of 16,
+// 32, 64, 128; q, k, v, dO and dq's rows 16-byte aligned. Arguments as for
+// mxtt_flash_attn_bwd_dq.
+extern "C" int mxtt_flash_attn_bwd_dq_tc(int dtype, int D, const void* q, const void* k,
+                                         const void* v, const void* kmask, const void* dout,
+                                         const void* lse, const void* delta, void* dq, int B,
+                                         int H, int Tq, int Tk, const long long* strides,
+                                         int mask_div, float scale, int causal,
+                                         unsigned int seed, unsigned int thresh,
+                                         float keep_scale, int use_dropout, void* stream) {
+  return run(3, dtype, D, q, k, v, kmask, dout, lse, delta, dq, nullptr, B, H, Tq, Tk, strides,
              mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
 }

@@ -16,8 +16,8 @@ PyTorch, as the JAX package left them to XLA).
 ``optimizer_ops`` holds the optimizers' update math (plain PyTorch).
 
 ``launch_counts`` counts each kernel's launches, ``variant_counts`` the
-launches of the flash forward and dk/dv kernels by variant (see
-``_build``).
+launches of the flash forward, dq, dk/dv and FFN1 kernels by variant
+(see ``_build``).
 """
 from ._build import launch_counts, reset_launch_counts, variant_counts
 from . import (attention, elemwise, flash_attention, fused_ffn,

@@ -14,8 +14,10 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``launch_counts`` holds one plain integer per kernel. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels. ``variant_counts`` splits the
-launches of the two kernels that come in two variants (flash forward and
-dk/dv: ``'tc'`` on the tensor cores, ``'simt'`` the first design).
+launches of the kernels that come in several variants: the flash forward,
+dq and dk/dv (``'tc'`` on the tensor cores, ``'simt'`` the first design)
+and FFN1 (``'tc'`` wgmma + TMA, ``'wmma'`` the first bf16 design,
+``'simt'`` f32).
 """
 from __future__ import annotations
 
@@ -45,7 +47,10 @@ launch_counts = {'flash_attn_fwd': 0, 'flash_attn_bwd_dq': 0,
                  'flash_attn_bwd_dkv': 0, 'fused_add_layernorm': 0,
                  'dense_gelu': 0}
 variant_counts = {'flash_attn_fwd.tc': 0, 'flash_attn_fwd.simt': 0,
-                  'flash_attn_bwd_dkv.tc': 0, 'flash_attn_bwd_dkv.simt': 0}
+                  'flash_attn_bwd_dq.tc': 0, 'flash_attn_bwd_dq.simt': 0,
+                  'flash_attn_bwd_dkv.tc': 0, 'flash_attn_bwd_dkv.simt': 0,
+                  'dense_gelu.tc': 0, 'dense_gelu.wmma': 0,
+                  'dense_gelu.simt': 0}
 
 _lock = threading.Lock()
 _libs = {}

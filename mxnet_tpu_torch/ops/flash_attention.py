@@ -13,12 +13,12 @@ tensors they are ``flash_attention_reference`` and
 ``flash_attention_backward_reference``, which do the same arithmetic in
 torch f32. There is no fallback from one to the other.
 
-The forward and the dk/dv kernel each come in two variants, chosen by
+The forward, dq and dk/dv kernels each come in two variants, chosen by
 ``kernel_variant`` from the dtype and the head dim alone: ``'tc'`` runs
 the products on the tensor cores (bf16, D a multiple of 16, 16-byte
 aligned rows, else the wrapper raises), ``'simt'`` is the first design in
-scalar f32 FMAs (f32, or D = 8). ``_build.variant_counts`` records which
-one each launch took.
+scalar f32 FMAs (f32, or D = 8). The backward's two kernels take one
+variant. ``_build.variant_counts`` records which one each launch took.
 
 Attention dropout is the JAX package's counter hash (``counter_keep``):
 the keep mask is a pure function of (seed, batch*head, row, col), so the
@@ -55,14 +55,14 @@ def dropout_threshold(rate):
 
 def kernel_variant(dtype, D):
     """'tc' (tensor cores) for bfloat16 at a head dim in ``TC_HEAD_DIMS``,
-    else 'simt': the kernel the forward and dk/dv wrappers launch."""
+    else 'simt': the kernel the forward, dq and dk/dv wrappers launch."""
     return 'tc' if dtype == torch.bfloat16 and D in TC_HEAD_DIMS else 'simt'
 
 
 def split_bf16(x):
     """(hi, lo) bf16 with hi = bf16(x) and lo = bf16(x - hi): the two terms
-    the tensor-core dk/dv kernel multiplies in place of one f32 operand
-    (p*keep and ds). hi + lo is within 2**-16 |x| of x."""
+    the tensor-core dq and dk/dv kernels multiply in place of one f32
+    operand (ds; p*keep). hi + lo is within 2**-16 |x| of x."""
     hi = x.to(torch.bfloat16)
     return hi, (x - hi.float()).to(torch.bfloat16)
 
@@ -321,7 +321,7 @@ def _bwd_fn(name):
     fn = getattr(_build.library('flash_attn_bwd.cu'), name)
     if fn.argtypes is None:
         i, vp = ctypes.c_int, ctypes.c_void_p
-        outs = [vp] if name.endswith('_dq') else [vp, vp]
+        outs = [vp] if '_bwd_dq' in name else [vp, vp]
         fn.argtypes = [i, i] + [vp] * 7 + outs + [i] * 4 + [vp] + \
             [i, ctypes.c_float, i, ctypes.c_uint, ctypes.c_uint,
              ctypes.c_float, i, vp]
@@ -331,8 +331,8 @@ def _bwd_fn(name):
 
 def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
                 lse, do, variant=None):
-    """The dq kernel, then the dk/dv kernel (``variant`` as for the
-    forward), on the current stream."""
+    """The dq kernel, then the dk/dv kernel, both of one variant (picked
+    as for the forward), on the current stream."""
     _check_kernel_inputs(q, k, v, ('dO', do), ('out', out))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -343,28 +343,27 @@ def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
     # delta = rowsum(dO * O) in f32: XLA outside the kernels in JAX too
     delta = (do.float() * out.float()).sum(-1).reshape(B * H, Tq)
     dq, dk, dv = _like_bthd(q), _like_bthd(k), _like_bthd(v)
-    dkv_variant = _pick_variant(
+    variant = _pick_variant(
         q, (('q', q), ('k', k), ('v', v), ('dO', do)), variant)
+    suffix = '_tc' if variant == 'tc' else ''
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
               v.data_ptr(), kmask.data_ptr() if kmask is not None else None,
               do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (mask_div, 1.0 / math.sqrt(D), int(bool(causal)),
             *_dropout_args(dropout_p, seed), stream)
-    dkv_fn = 'mxtt_flash_attn_bwd_dkv' + ('_tc' if dkv_variant == 'tc'
-                                          else '')
-    for name, outs, count in (
-            ('mxtt_flash_attn_bwd_dq', (dq,), 'flash_attn_bwd_dq'),
-            (dkv_fn, (dk, dv), 'flash_attn_bwd_dkv')):
+    for count, outs in (('flash_attn_bwd_dq', (dq,)),
+                        ('flash_attn_bwd_dkv', (dk, dv))):
         st = []
         for t in (q, k, v, do, outs[0]):
             st += [t.stride(0), t.stride(1), t.stride(2)]
         strides = (ctypes.c_longlong * 15)(*st)
+        name = f'mxtt_{count}{suffix}'
         rc = _bwd_fn(name)(*common, *(t.data_ptr() for t in outs), B, H,
                            Tq, Tk, strides, *tail)
         _build.check(rc, name)
         _build.launch_counts[count] += 1
-    _build.variant_counts[f'flash_attn_bwd_dkv.{dkv_variant}'] += 1
+        _build.variant_counts[f'{count}.{variant}'] += 1
     return dq, dk, dv
 
 
@@ -418,7 +417,8 @@ def flash_attention_backward(q, k, v, key_mask, causal, dropout_p,
                              dropout_seed, out, lse, do, _variant=None):
     """(dq, dk, dv) in the input dtypes, as ``_fa_backward`` returns them:
     the two backward kernels for CUDA tensors, the plain version for CPU
-    tensors. ``_variant`` picks the dk/dv kernel as for the forward."""
+    tensors. ``_variant`` picks the dq and dk/dv kernels as for the
+    forward."""
     km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
                                              dropout_seed)
     return _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out,

@@ -3,10 +3,12 @@ residual+LayerNorm; FFN1) against their plain PyTorch versions, on the
 card, at small and ragged shapes that chip_smoke.py does not reach (head
 dims 8 to 128, sequence lengths and widths that divide no tile), and the
 gradients of their autograd Functions against plain autograd. The flash
-forward and dk/dv kernels come in two variants (tensor cores for bf16 at
-D a multiple of 16, SIMT otherwise); the tests pin which one each dtype
-and head dim takes, hold both against the plain versions, and check that
-the tensor-core kernels refuse a view whose rows are not 16-byte aligned.
+forward, dq and dk/dv kernels come in two variants (tensor cores for bf16
+at D a multiple of 16, SIMT otherwise), FFN1 in three (wgmma + TMA for
+bf16 with K a multiple of 8, the first WMMA design for other bf16, SIMT for
+f32); the tests pin which one each dtype and shape takes, hold each
+against the plain versions, and check that the tensor-core kernels refuse
+a view that is not 16-byte aligned.
 
 These tests need a CUDA device and carry the ``cuda`` marker; without a
 card they skip. On the card, from the root of the checkout (the file
@@ -137,8 +139,11 @@ def test_flash_attention_backward_is_deterministic(gen):
     q, k, v, do, m = _attn_inputs(gen, B, H, T, T, D, torch.bfloat16)
     out, lse = fa.flash_attention_forward(q, k, v, key_mask=m,
                                           dropout_p=0.1, dropout_seed=5)
+    _build.reset_launch_counts()
     runs = [fa.flash_attention_backward(q, k, v, m, False, 0.1, 5, out, lse,
                                         do) for _ in range(2)]
+    assert _build.variant_counts['flash_attn_bwd_dq.tc'] == 2
+    assert _build.variant_counts['flash_attn_bwd_dkv.tc'] == 2
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
@@ -222,12 +227,29 @@ def test_each_dtype_and_head_dim_takes_its_variant(gen, dtype, D, variant):
     out, lse = fa.flash_attention_forward(q, k, v)
     fa.flash_attention_backward(q, k, v, None, False, 0.0, None, out, lse, do)
     torch.cuda.synchronize()
-    other = 'simt' if variant == 'tc' else 'tc'
     assert _build.variant_counts == {
-        f'flash_attn_fwd.{variant}': 1, f'flash_attn_fwd.{other}': 0,
-        f'flash_attn_bwd_dkv.{variant}': 1, f'flash_attn_bwd_dkv.{other}': 0}
+        k: int(k in (f'flash_attn_fwd.{variant}',
+                     f'flash_attn_bwd_dq.{variant}',
+                     f'flash_attn_bwd_dkv.{variant}'))
+        for k in _build.variant_counts}
     assert _build.launch_counts['flash_attn_fwd'] == 1
+    assert _build.launch_counts['flash_attn_bwd_dq'] == 1
     assert _build.launch_counts['flash_attn_bwd_dkv'] == 1
+
+
+@pytest.mark.parametrize('dtype,K,variant', [
+    (torch.bfloat16, 768, 'tc'), (torch.bfloat16, 72, 'tc'),
+    (torch.bfloat16, 70, 'wmma'), (torch.float32, 768, 'simt')])
+def test_each_dtype_and_k_takes_its_ffn_variant(gen, dtype, K, variant):
+    x = torch.randn(30, K, generator=gen, device='cuda').to(dtype)
+    w = (torch.randn(50, K, generator=gen, device='cuda') * 0.05).to(dtype)
+    b = torch.zeros(50, device='cuda').to(dtype)
+    _build.reset_launch_counts()
+    fused_ffn.fused_dense_gelu(x, w, b)
+    torch.cuda.synchronize()
+    assert _build.variant_counts == {
+        k: int(k == f'dense_gelu.{variant}') for k in _build.variant_counts}
+    assert _build.launch_counts['dense_gelu'] == 1
 
 
 @pytest.mark.parametrize('D', [64, 128])
@@ -238,13 +260,14 @@ def test_simt_variant_at_bf16_matches_plain(gen, D):
     q, k, v, do, m = _attn_inputs(gen, B, H, T, T, D, torch.bfloat16)
     out, lse = fa.flash_attention_forward(q, k, v, key_mask=m, dropout_p=0.1,
                                           dropout_seed=3, _variant='simt')
-    _, dk, dv = fa.flash_attention_backward(q, k, v, m, False, 0.1, 3, out,
-                                            lse, do, _variant='simt')
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, m, False, 0.1, 3, out,
+                                             lse, do, _variant='simt')
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, m, False, 0.1, 3)
     torch.testing.assert_close(out, ref_out, **TOL[torch.bfloat16])
-    _, want_dk, want_dv = fa.flash_attention_backward_reference(
+    want_dq, want_dk, want_dv = fa.flash_attention_backward_reference(
         q, k, v, m, False, 0.1, 3, out, lse, do)
+    torch.testing.assert_close(dq, want_dq, **TOL[torch.bfloat16])
     torch.testing.assert_close(dk, want_dk, **TOL[torch.bfloat16])
     torch.testing.assert_close(dv, want_dv, **TOL[torch.bfloat16])
 
@@ -266,6 +289,66 @@ def test_tensor_core_kernels_refuse_unaligned_views(gen):
     with pytest.raises(MXNetError, match='16-byte aligned'):
         fa.flash_attention_backward(k, k, k, None, False, 0.0, None, out,
                                     lse, q)
-    # the SIMT kernel takes them
+    # the SIMT kernels take them
     fa.flash_attention_forward(q, k, k, _variant='simt')
+    fa.flash_attention_backward(k, k, k, None, False, 0.0, None, out, lse, q,
+                                _variant='simt')
+    # FFN1: x or w 2 bytes off a 16-byte address; the WMMA kernel takes them
+    K = 64
+    x = buf[1:16 * K + 1].view(16, K)
+    w = buf[8:32 * K + 8].view(32, K)
+    b = torch.zeros(32, device='cuda', dtype=torch.bfloat16)
+    with pytest.raises(MXNetError, match='x is not 16-byte aligned'):
+        fused_ffn.fused_dense_gelu(x, w, b)
+    with pytest.raises(MXNetError, match='w is not 16-byte aligned'):
+        fused_ffn.fused_dense_gelu(w[:16], x, b[:16])
+    fused_ffn.fused_dense_gelu(x, w, b, _variant='wmma')
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize('D', [16, 32, 64, 128])
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_dq_kernel(gen, D, causal):
+    """The tensor-core dq kernel, ragged and masked, with dropout 0.2,
+    against the plain backward."""
+    B, H, Tq, Tk = 2, 3, 70, 100
+    q, k, v, do, m = _attn_inputs(gen, B, H, Tq, Tk, D, torch.bfloat16)
+    if causal:
+        k, v, Tk, m = k[:, :, :Tq], v[:, :, :Tq], Tq, m[:, :Tq].contiguous()
+    out, lse = fa.flash_attention_forward(q, k, v, key_mask=m, causal=causal,
+                                          dropout_p=0.2, dropout_seed=9)
+    _build.reset_launch_counts()
+    dq, _, _ = fa.flash_attention_backward(q, k, v, m, causal, 0.2, 9, out,
+                                           lse, do)
+    torch.cuda.synchronize()
+    assert _build.variant_counts['flash_attn_bwd_dq.tc'] == 1
+    want_dq, _, _ = fa.flash_attention_backward_reference(
+        q, k, v, m, causal, 0.2, 9, out, lse, do)
+    torch.testing.assert_close(dq, want_dq, **TOL[torch.bfloat16], msg='dq')
+
+
+@pytest.mark.parametrize('M,K,N,dtype,variant', [
+    (64, 768, 3072, torch.bfloat16, None),
+    (200, 768, 3072, torch.bfloat16, None),
+    (1024, 768, 3072, torch.bfloat16, None),
+    (200, 72, 100, torch.bfloat16, None),
+    (300, 768, 1000, torch.bfloat16, None),
+    (130, 8, 9, torch.bfloat16, None),
+    (130, 70, 100, torch.bfloat16, None),
+    (200, 768, 3072, torch.bfloat16, 'wmma'),
+    (200, 72, 100, torch.float32, None)])
+def test_fused_ffn_kernel_variants(gen, M, K, N, dtype, variant):
+    """Each FFN1 kernel against the plain version: serving's and training's
+    widths at several M; ragged M, N and K (the tc kernel's TMA zero-fills
+    past the edges, and an N that is no multiple of 8 is stored from the
+    registers); the WMMA kernel by routing (K = 70) and forced."""
+    x = torch.randn(M, K, generator=gen, device='cuda').to(dtype)
+    w = (torch.randn(N, K, generator=gen, device='cuda') * 0.05).to(dtype)
+    b = (torch.randn(N, generator=gen, device='cuda') * 0.1).to(dtype)
+    _build.reset_launch_counts()
+    out = fused_ffn.fused_dense_gelu(x, w, b, _variant=variant)
+    torch.cuda.synchronize()
+    want = variant or fused_ffn.kernel_variant(dtype, K)
+    assert _build.variant_counts[f'dense_gelu.{want}'] == 1
+    torch.testing.assert_close(out, fused_ffn.dense_gelu_reference(x, w, b),
+                               **TOL[dtype])

@@ -203,3 +203,70 @@ def test_dkv_split_arithmetic_matches_pallas_kernel(T, causal, mask_kind,
         onp.testing.assert_allclose(
             t.numpy(), onp.asarray(j).reshape(B, H, T, D), rtol=RTOL,
             atol=ATOL, err_msg=name)
+
+
+def _dq_split_emulation(q, k, v, km, causal, dropout_p, seed, out, lse, do):
+    """The tensor-core dq kernel's arithmetic in plain PyTorch: p, dp and ds
+    in f32 as the plain backward computes them; dq from the two-term bf16
+    split of ds, each term multiplied in f32 against the bf16-exact k (an
+    mma with bf16 operands and f32 sums). Returns dq in f32."""
+    Bq, Hq, Tq, Dq = q.shape
+    Tk = k.shape[2]
+    p = torch.exp(fa._scores(q, k, km, causal) - lse[..., None])
+    dp = torch.einsum('bhqd,bhkd->bhqk', do, v)
+    if dropout_p > 0.0:
+        dp = dp * fa._keep_multipliers(seed, Bq, Hq, Tq, Tk, dropout_p,
+                                       q.device)
+    delta = (do * out).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * (1.0 / math.sqrt(Dq))
+    return sum(torch.einsum('bhqk,bhkd->bhqd', term.float(), k)
+               for term in fa.split_bf16(ds))
+
+
+@pytest.mark.parametrize('T,causal,mask_kind,dropout_p', CASES)
+def test_dq_split_arithmetic_matches_pallas_kernel(T, causal, mask_kind,
+                                                   dropout_p):
+    """The precision decision of the tensor-core dq kernel, held on the CPU:
+    with inputs that bf16 represents exactly, the JAX kernel's f32 products
+    are the products the card computes, and splitting the f32 ds into two
+    bf16 terms stays inside the file's grad bound."""
+    q, k, v, do = (_bf16_exact(a) for a in _inputs(T, seed=6))
+    m = _mask(mask_kind, T)
+    tm = None if m is None else torch.from_numpy(m)
+    seed = SEED if dropout_p else None
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = fa.flash_attention_forward(tq, tk, tv, key_mask=tm,
+                                          causal=causal, dropout_p=dropout_p,
+                                          dropout_seed=seed)
+    km_t, _ = fa._normalize_mask(tm, B, H, T)
+    dq = _dq_split_emulation(tq, tk, tv, km_t, causal, dropout_p, seed, out,
+                             lse, tdo)
+    km = _additive_bh(m)
+    flat = [jnp.asarray(a.reshape(B * H, T, D))
+            for a in (q, k, v, out.numpy(), do)]
+    j_dq, _, _ = pa._fa_backward(
+        flat[0], flat[1], flat[2], None if km is None else jnp.asarray(km),
+        jnp.full((1, 1), SEED, jnp.uint32), causal, dropout_p, True,
+        flat[3], jnp.asarray(lse.numpy().reshape(B * H, T)), flat[4])
+    onp.testing.assert_allclose(
+        dq.numpy(), onp.asarray(j_dq).reshape(B, H, T, D), rtol=RTOL,
+        atol=ATOL, err_msg='dq')
+
+
+def test_backward_refuses_an_unaligned_dO_for_the_tensor_cores():
+    """One variant serves both backward kernels: the tensor-core dq and
+    dk/dv kernels copy dO 16 bytes at a time, so a dO view whose rows start
+    off 16 bytes is refused before either launches; the SIMT kernels take
+    it."""
+    from mxnet_tpu_torch.base import MXNetError
+    Bq, Hq, T, Dq = 1, 2, 16, 64
+    n = Bq * Hq * T * Dq
+    q = torch.zeros(Bq, Hq, T, Dq, dtype=torch.bfloat16)
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16)
+    do = buf[1:n + 1].view(Bq, Hq, T, Dq)
+    named = (('q', q), ('k', q), ('v', q), ('dO', do))
+    with pytest.raises(MXNetError, match='dO rows are not 16-byte aligned'):
+        fa._pick_variant(q, named, None)
+    assert fa._pick_variant(q, named, 'simt') == 'simt'
+    assert fa._pick_variant(q, named[:3] + (('dO', buf[:n].view(
+        Bq, Hq, T, Dq)),), None) == 'tc'

@@ -58,7 +58,8 @@ def _ffn_inputs(M, K, N, seed):
             (rng.randn(N) * 0.1).astype(onp.float32))
 
 
-@pytest.mark.parametrize('M,K,N', [(8, 128, 256), (20, 96, 200)])
+@pytest.mark.parametrize('M,K,N', [(8, 128, 256), (20, 96, 200),
+                                   (200, 72, 100)])
 def test_fused_ffn_matches_pallas(M, K, N):
     x, w, b = _ffn_inputs(M, K, N, 3)
     want = j_fused_ffn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
@@ -221,7 +222,8 @@ def test_fused_layernorm_bf16_backward_uses_the_bf16_sum():
     assert off_f32 > off_bf16, (off_f32, off_bf16)
 
 
-@pytest.mark.parametrize('M,K,N', [(8, 128, 256), (20, 96, 200)])
+@pytest.mark.parametrize('M,K,N', [(8, 128, 256), (20, 96, 200),
+                                   (200, 72, 100)])
 def test_fused_ffn_gradients_match_pallas(M, K, N):
     x, w, b = _ffn_inputs(M, K, N, 13)
     cot = onp.random.RandomState(14).randn(M, N).astype(onp.float32)
@@ -233,3 +235,65 @@ def test_fused_ffn_gradients_match_pallas(M, K, N):
         # the grad bound of tests/test_autotune.py:280
         onp.testing.assert_allclose(t.numpy(), onp.asarray(j), rtol=2e-5,
                                     atol=2e-5, err_msg=f'd{name}')
+
+
+# ---- FFN1's kernel routing, decided from dtype and K on any device
+
+@pytest.mark.parametrize('dtype,K,variant', [
+    (torch.bfloat16, 768, 'tc'), (torch.bfloat16, 72, 'tc'),
+    (torch.bfloat16, 8, 'tc'), (torch.bfloat16, 70, 'wmma'),
+    (torch.bfloat16, 100, 'wmma'), (torch.float32, 768, 'simt'),
+    (torch.float32, 72, 'simt')])
+def test_ffn_kernel_variant_routes_by_dtype_and_k(dtype, K, variant):
+    from mxnet_tpu_torch.ops.fused_ffn import kernel_variant
+    assert kernel_variant(dtype, K) == variant
+
+
+@pytest.mark.parametrize('dtype,K,forced,want', [
+    (torch.bfloat16, 768, None, 'tc'), (torch.bfloat16, 768, 'wmma', 'wmma'),
+    (torch.bfloat16, 768, 'tc', 'tc'), (torch.bfloat16, 70, None, 'wmma'),
+    (torch.bfloat16, 70, 'tc', 'refused'), (torch.bfloat16, 768, 'simt',
+                                            'refused'),
+    (torch.float32, 768, 'wmma', 'refused'), (torch.float32, 768, None,
+                                              'simt'),
+    (torch.bfloat16, 768, 'mma', 'unknown')])
+def test_ffn_private_variant_is_checked(dtype, K, forced, want):
+    """``_variant`` may name only a kernel that takes the inputs: 'wmma' at
+    bf16 (for timing the first design beside the new one), never 'tc' at a
+    K that is no multiple of 8 nor a bf16 kernel for f32."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.fused_ffn import _pick_variant
+    x = torch.zeros(4, K, dtype=dtype)
+    w = torch.zeros(6, K, dtype=dtype)
+    if want in ('refused', 'unknown'):
+        with pytest.raises(MXNetError, match='does not take' if
+                           want == 'refused' else 'unknown kernel variant'):
+            _pick_variant(x, w, forced)
+    else:
+        assert _pick_variant(x, w, forced) == want
+
+
+def test_ffn_tensor_core_kernel_refuses_an_offset_view():
+    """The tc kernel's tensor maps need x and w on 16-byte aligned
+    addresses: a view that starts 2 bytes into its buffer is refused; the
+    first bf16 design takes it."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.fused_ffn import _pick_variant
+    M, K, N = 4, 72, 6
+    buf = torch.zeros(N * K + 8, dtype=torch.bfloat16)
+    x_off = buf[1:M * K + 1].view(M, K)
+    w = torch.zeros(N, K, dtype=torch.bfloat16)
+    with pytest.raises(MXNetError, match='x is not 16-byte aligned'):
+        _pick_variant(x_off, w, None)
+    with pytest.raises(MXNetError, match='w is not 16-byte aligned'):
+        _pick_variant(w, buf[1:N * K + 1].view(N, K), None)
+    assert _pick_variant(x_off, w, 'wmma') == 'wmma'
+    assert _pick_variant(buf[8:M * K + 8].view(M, K), w, None) == 'tc'
+
+
+def test_ffn_private_variant_changes_nothing_on_the_cpu():
+    x, w, b = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _ffn_inputs(20, 72, 100, 15))
+    want = fused_dense_gelu(x, w, b)
+    for variant in ('tc', 'wmma'):
+        assert torch.equal(fused_dense_gelu(x, w, b, _variant=variant), want)
