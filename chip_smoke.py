@@ -67,7 +67,24 @@
    profiled step, the host cost of one NDArray op, and checks two
    semantics on the card (a launch into a reshape leaves its source
    unchanged; a second backward leaves the gradients).
-7. Prints the kernels' JSON line (each row with its variant and, for a
+7. Compiled-step phase (the last to run): parallel.ShardedTrainStep, the flagship's entry
+   point, whose step (forward, backward, AdamW) is one CUDA graph
+   replayed per call. First, at hidden 128 and 2 layers in f32 with
+   dropout 0, 5 steps of the captured step and 5 of the Trainer with its
+   captured fused update, each against the Trainer's per-parameter loop
+   on the card (loss rel 1e-5 at every step, parameters' rel Frobenius
+   1e-4). Then BERT-base at full width in bf16 with dropout 0.1 on the
+   flagship batch: 3 warm-up steps (call 1 runs eagerly and captures)
+   and 10 timed ones with finite losses and every master moving; the
+   attention seeds two replays draw, read back from the card, differ;
+   the launch counters show the eager step and the capture (2 per layer
+   of each kernel, 4 of LayerNorm), and a profiler trace of 3 replays
+   counts exactly 12 launches of the flash forward, dq, dk/dv and FFN1
+   kernels and 24 of LayerNorm per replay. Prints the step time (median
+   and spread of 3 calls) beside the Trainer loop's, and the device's
+   busy time and idle share. The kernel phase also times the flash
+   forward, dq and dk/dv with dropout 0.1, their seed read by pointer.
+8. Prints the kernels' JSON line (each row with its variant and, for a
    redesigned kernel, the time of the one it replaced, old_ms) and, last,
    the result line.
 
@@ -123,21 +140,57 @@ def _dev_us(evt):
     return t if t is not None else getattr(evt, 'self_cuda_time_total', 0)
 
 
-def profile_device(fn, iters):
+def profile_device(fn, iters, expect=()):
     """torch.profiler CUDA trace of ``iters`` calls: {kernel name: total
-    device microseconds} and the host seconds the calls took."""
+    device microseconds} and the host seconds the calls took. A trace
+    taken after one of CUDA-graph replays can come back without the
+    kernels that ran (seen on the card: an empty trace, then whole ones);
+    where a kernel named in ``expect`` is missing, the trace is taken
+    again, up to 3 times, and the retry is printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        per_kernel = {e.key: _dev_us(e) for e in prof.key_averages()
+                      if _dev_us(e) > 0}
+        missing = [k for k in expect if not any(k in n for n in per_kernel)]
+        if not missing:
+            break
+        print(f'  (profiler trace {attempt + 1} lacks {missing}: taken '
+              f'again)')
+    return per_kernel, wall
+
+
+def steps_ms(step, steps):
+    """Host ms per step over ``steps`` calls of ``step``, between
+    synchronizes."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def kernel_launches(fn, iters):
+    """{kernel name: launches} in torch.profiler's CUDA trace of ``iters``
+    calls of ``fn`` (kernels replayed from a CUDA graph included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return ({e.key: _dev_us(e) for e in prof.key_averages()
-             if _dev_us(e) > 0}, wall)
+    return {e.key: e.count for e in prof.key_averages() if _dev_us(e) > 0}
 
 
 def time_ms(fn, iters=20):
@@ -275,11 +328,16 @@ def kernel_phase(card):
         q, k, v, _variant='simt'))
     nbytes = 4 * q.numel() * q.element_size() + B * H * T * 4
     b_ms, b_by = bound_ms(4 * B * H * T * T * D, nbytes, PEAK_BF16)
+    # with dropout 0.1, the seed drawn on the card and read by pointer
+    seed_t = torch.randint(0, 2 ** 32, (1,), generator=gen, device=dev,
+                           dtype=torch.int64)
+    drop_ms, _ = time_ms(lambda: fa.flash_attention_forward(
+        q, k, v, None, False, 0.1, seed_t))
     rows['flash_attn_fwd'] = dict(
         route='cuda', source='mxnet_tpu_torch/csrc/flash_attn_fwd.cu',
         replaces='mxnet_tpu/ops/pallas_attention.py:171', variant='tc',
         old_ms=old_ms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        **times)
+        dropout_ms=drop_ms, **times)
 
     # ---- K2, K3: flash-attention backward (dq; dk and dv). Both kernels
     # route like the forward, to one variant.
@@ -311,8 +369,17 @@ def kernel_phase(card):
     def backward(variant=None):
         return fa.flash_attention_backward(q, k, v, fmask, False, 0.0, None,
                                            out, lse, do, _variant=variant)
-    per_kernel, _ = profile_device(backward, 20)
-    per_kernel_simt, _ = profile_device(lambda: backward('simt'), 20)
+    tc_names = ('flash_bwd_dq_tc_kernel', 'flash_bwd_dkv_tc_kernel')
+    per_kernel, _ = profile_device(backward, 20, tc_names)
+    per_kernel_simt, _ = profile_device(
+        lambda: backward('simt'), 20,
+        ('flash_bwd_dq_kernel', 'flash_bwd_dkv_kernel'))
+    out_d, lse_d = fa.flash_attention_forward(q, k, v, fmask, False, 0.1,
+                                              seed_t)
+    per_kernel_drop, _ = profile_device(
+        lambda: fa.flash_attention_backward(q, k, v, fmask, False, 0.1,
+                                            seed_t, out_d, lse_d, do), 20,
+        tc_names)
     bwd_stream_ms = stream_ms(backward)
     km, _ = fa._normalize_mask(fmask, B, H, T)
     plain_ms, plain_how = time_ms(
@@ -343,6 +410,7 @@ def kernel_phase(card):
             replaces='mxnet_tpu/ops/pallas_attention.py:' +
             ('283' if name.endswith('dq') else '319'),
             variant='tc', old_ms=trace_ms(per_kernel_simt, old_kname),
+            dropout_ms=trace_ms(per_kernel_drop, kname),
             max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
             ms=trace_ms(per_kernel, kname),
             how=f'profiler/{plain_how}/{library_how}',
@@ -427,6 +495,9 @@ def kernel_phase(card):
     for name, r in rows.items():
         old = (f', the kernel it replaced {r["old_ms"]:.4f} ms'
                if r['old_ms'] is not None else '')
+        if 'dropout_ms' in r:
+            old += (f', with dropout 0.1 (seed by device pointer) '
+                    f'{r["dropout_ms"]:.4f} ms')
         print(f'  timing {name} (bf16, B=8 T=512) on {card}: device time '
               f'(kernel/plain/library from {r["how"]}) kernel '
               f'[{r["variant"]}] {r["ms"]:.4f} ms{old}, plain '
@@ -468,6 +539,7 @@ def device_breakdown(label, fn, card, iters):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     print(f'  top kernels per {label}: ' + '; '.join(
         f'{n[:60]} {us / iters / 1e3:.3f} ms' for n, us in top))
+    return dict(host_ms=per, busy_ms=busy, idle=max(0.0, 1 - busy / per))
 
 
 def dispatch_breakdown(engine, card, batch=8, seq=512, iters=3):
@@ -717,7 +789,8 @@ def training_phase(card, steps=5, batch=8, seq=512):
         return loss.detach()
 
     warm = float(step())
-    masters0 = {i: st[0].clone() for i, st in trainer._states.items()}
+    states = trainer._updater.states
+    masters0 = {i: st[0].clone() for i, st in states.items()}
     torch.cuda.synchronize()
     # the main path's run: counters at 0 just before, read just after
     mt.ops.reset_launch_counts()
@@ -748,7 +821,7 @@ def training_phase(card, steps=5, batch=8, seq=512):
                        for k in variants},
           f'variant counts {variants} for {steps} steps')
     names = list(params)
-    still = [names[i] for i, st in trainer._states.items()
+    still = [names[i] for i, st in states.items()
              if torch.equal(st[0], masters0[i])]
     check(not still, f'parameters that did not move: {still}')
 
@@ -766,10 +839,13 @@ def training_phase(card, steps=5, batch=8, seq=512):
     tokens = batch * seq
     flops = (6 * P_body * tokens + 6 * P_head * batch * nmask
              + 6 * P_pool * batch + 12 * L * cfg['hidden'] * seq * tokens)
-    step_s = wall / steps
+    # two more calls of the same steps: host time moves between calls
+    calls = [wall / steps * 1e3] + [steps_ms(step, steps) for _ in range(2)]
+    step_s = sorted(calls)[1] / 1e3
     mfu = flops / step_s / PEAK_BF16
     print(f'  {steps} AdamW steps at B={batch} T={seq} on {card}: '
-          f'{step_s * 1e3:.3f} ms per step (host clock between '
+          f'{step_s * 1e3:.3f} ms per step, the median of 3 calls '
+          f'({", ".join(f"{c:.3f}" for c in calls)} ms; host clock between '
           f'synchronizes), {batch / step_s:.3f} samples/s, '
           f'{flops / 1e12:.4f} TFLOP per step, MFU {mfu:.4%} of 989 '
           f'TFLOP/s bf16')
@@ -784,16 +860,248 @@ def training_phase(card, steps=5, batch=8, seq=512):
     ev[1].record()
     loss.backward()
     ev[2].record()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
     trainer.step(1)
+    host_update_ms = (time.perf_counter() - h0) * 1e3
     net.zero_grad(set_to_none=False)
     ev[3].record()
     ev[3].synchronize()
     phases = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    check(trainer._fused[1] is not None, 'the fused update was not captured')
     print(f'  one step by phase (CUDA events) on {card}: forward+loss '
           f'{phases[0]:.3f} ms, backward {phases[1]:.3f} ms, AdamW update '
-          f'{phases[2]:.3f} ms')
-    return launches, dict(step_ms=step_s * 1e3, samples_per_s=batch / step_s,
-                          mfu=mfu, parity=parity)
+          f'{phases[2]:.3f} ms (the fused update, one CUDA-graph replay; '
+          f'{host_update_ms:.3f} ms of host time in trainer.step)')
+    return launches, dict(step_ms=step_s * 1e3, calls_ms=calls,
+                          samples_per_s=batch / step_s, mfu=mfu,
+                          update_ms=phases[2], update_host_ms=host_update_ms,
+                          parity=parity)
+
+
+# the captured step and the Trainer's captured fused update against the
+# Trainer's per-parameter loop on the same card, f32 with TF32 off and
+# dropout 0 (chosen before the first run): the same arithmetic in another
+# order, so the loss agrees to f32 rounding and the parameters to a few
+# roundings over 5 AdamW steps
+CAPTURE_TOL = {'loss_rel': 1e-5, 'param_rel_fro': 1e-4}
+
+
+def _rel_fro(got, want):
+    got = [a.detach().float() for a in got]
+    want = [b.detach().float() for b in want]
+    num = sum(float((a - b).square().sum()) for a, b in zip(got, want))
+    return (num / sum(float(b.square().sum()) for b in want)) ** 0.5
+
+
+def capture_parity(card, steps=5, batch=8, seq=128):
+    """BertForPretraining at hidden 128, 2 layers (BERT-base's vocabulary
+    and positions), numpy weights, dropout 0, f32: 5 AdamW steps through
+    the captured ShardedTrainStep and through the Trainer's captured fused
+    update, each against the Trainer's per-parameter loop (eager)."""
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config,
+                                             bert_pretrain_loss)
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    cfg = dict(bert_base_config(), hidden=128, layers=2, heads=2,
+               intermediate=512, dropout=0.0)
+    data, _ = pretraining_batch(cfg, batch, seq, SEED + 2)
+    t = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    ins = [t['tokens'], t['types'], t['valid'], t['mpos']]
+    labs = [t['labels'], t['nsp']]
+    kw = {'learning_rate': 1e-3, 'wd': 0.01}
+    arrays = {}
+
+    def model():
+        net = BertForPretraining(cfg, device='cuda')
+        if not arrays:
+            arrays.update(random_bert_arrays(net))
+        net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+        return net.train()
+
+    def trainer_run(fused):
+        net = model()
+        trainer = gluon.Trainer(gluon.collect_params(net), 'adamw', kw)
+        trainer.optimizer.fused_update = fused
+        losses = []
+        for _ in range(steps):
+            net.zero_grad(set_to_none=False)
+            loss = bert_pretrain_loss(*net(*ins), *labs)
+            loss.backward()
+            trainer.step(1)
+            losses.append(float(loss.detach()))
+        if fused:
+            check(trainer._fused[1] is not None,
+                  'the fused update was not captured')
+        return net, losses
+
+    def step_run():
+        net = model()
+        step = parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
+                                         kw)
+        losses = [float(step(ins, labs)) for _ in range(steps)]
+        check(len(step._graphs) == 1, 'the step was not captured once')
+        return net, losses
+
+    ref_net, ref = trainer_run(False)
+    out = {}
+    for label, (net, losses) in (('captured ShardedTrainStep', step_run()),
+                                 ('Trainer, captured fused update',
+                                  trainer_run(True))):
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        rel = _rel_fro(list(net.parameters()), list(ref_net.parameters()))
+        ok = loss_rel <= CAPTURE_TOL['loss_rel'] and \
+            rel <= CAPTURE_TOL['param_rel_fro']
+        print(f'  capture vs eager on {card}, hidden 128, 2 layers, f32, '
+              f'dropout 0, {steps} AdamW steps: {label} losses {losses} vs '
+              f'the per-parameter loop {ref}: max loss rel {loss_rel:.2e}, '
+              f'parameters rel Frobenius {rel:.2e}; tolerance {CAPTURE_TOL} '
+              f'-> {"ok" if ok else "FAIL"}')
+        check(ok, f'{label} disagrees with the eager Trainer loop')
+        out[label] = dict(loss_rel=loss_rel, param_rel_fro=rel)
+    return out
+
+
+def compiled_step_phase(card, warmup=3, timed=10, batch=8, seq=512):
+    """The flagship's entry point: ShardedTrainStep(net, bert_pretrain_loss,
+    'adamw', {'learning_rate': 1e-4}) on BERT-base BertForPretraining at
+    full width, bf16, dropout 0.1 drawn on the card, the flagship batch;
+    call 1 runs eagerly and captures, every later call replays."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config,
+                                             bert_pretrain_loss)
+    from mxnet_tpu_torch.ops import attention as attn_ops
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+
+    os.environ['MXTPU_PALLAS_LN'] = '1'
+    os.environ['MXTPU_PALLAS_FFN'] = '1'
+    print(f'compiled-step phase on {card}: parallel.ShardedTrainStep, one '
+          f'CUDA graph per input signature')
+    parity = capture_parity(card)
+    torch.cuda.empty_cache()
+
+    cfg = bert_base_config()
+    L = cfg['layers']
+    gen = torch.Generator('cuda').manual_seed(SEED + 3)
+    net = BertForPretraining(dict(cfg, dropout=0.1), dtype=torch.bfloat16,
+                             device='cuda', generator=gen)
+    net.load_state_dict(params_from_mxnet_tpu(random_bert_arrays(net), net))
+    step = parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
+                                     {'learning_rate': 1e-4, 'wd': 0.01})
+    data, nmask = pretraining_batch(cfg, batch, seq, SEED)
+    t = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    ins = [t['tokens'], t['types'], t['valid'], t['mpos']]
+    labs = [t['labels'], t['nsp']]
+
+    # a probe copies each attention-dropout seed the step draws into a
+    # buffer outside the graph, so the host can read what a replay drew
+    probe = torch.zeros(L, dtype=torch.int64, device='cuda')
+    drawn = [0]
+    draw = attn_ops._dropout_seed
+
+    def probed(generator, device):
+        seed = draw(generator, device)
+        probe[drawn[0] % L].copy_(seed[0])
+        drawn[0] += 1
+        return seed
+    attn_ops._dropout_seed = probed
+    try:
+        # the path's run: counters at 0 before call 1 (eager step and
+        # capture, the host calls counted), read after the last replay
+        mt.ops.reset_launch_counts()
+        for k in attn_ops.route_counts:
+            attn_ops.route_counts[k] = 0
+        t0 = time.perf_counter()
+        warm = [float(step(ins, labs))]
+        first_s = time.perf_counter() - t0
+        seeds = []
+        for _ in range(warmup - 1):
+            warm.append(float(step(ins, labs)))
+            seeds.append(probe.cpu().tolist())
+    finally:
+        attn_ops._dropout_seed = draw
+    check(drawn[0] == 2 * L, f'{drawn[0]} seeds drawn in the eager step '
+          f'and the capture, expected {2 * L}')
+    fresh = all(a != b for a, b in zip(*seeds))
+    print(f'  attention seeds drawn on the card, read back after two '
+          f'replays: {seeds[0][:3]}... then {seeds[1][:3]}... -> '
+          f'{"fresh on each replay" if fresh else "REPEATED"}')
+    check(fresh, 'a replay reused the previous replay\'s dropout seeds')
+
+    masters0 = {n: m.clone() for n, m in step._master.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(ins, labs) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    launches = dict(mt.ops.launch_counts)
+    variants = dict(mt.ops.variant_counts)
+    routes = dict(attn_ops.route_counts)
+    print(f'  losses: warm-up {warm} (call 1, eager and capture: '
+          f'{first_s:.1f} s), timed {losses}')
+    print(f'  host launches (eager step + capture; replays launch from the '
+          f'graph) launches={launches} variants={variants} routes={routes}')
+    check(all(onp.isfinite(x) for x in warm + losses), 'non-finite loss')
+    check(len(step._graphs) == 1, f'{len(step._graphs)} graphs captured')
+    check(routes['flash'] == 2 * L, f'flash route {routes}')
+    check(launches == {'flash_attn_fwd': 2 * L, 'flash_attn_bwd_dq': 2 * L,
+                       'flash_attn_bwd_dkv': 2 * L,
+                       'fused_add_layernorm': 4 * L, 'dense_gelu': 2 * L},
+          f'launch counts {launches} for the eager step and the capture')
+    check(variants == {k: 2 * L if k.endswith('.tc') else 0
+                       for k in variants}, f'variant counts {variants}')
+    still = [n for n, m in step._master.items() if torch.equal(m,
+                                                              masters0[n])]
+    check(not still, f'masters that did not move: {still}')
+
+    # each replay's kernels, by name, from the profiler's CUDA trace
+    replays = 3
+    names = kernel_launches(lambda: step(ins, labs), replays)
+    want = {'flash_fwd_tc_kernel': L, 'flash_bwd_dq_tc_kernel': L,
+            'flash_bwd_dkv_tc_kernel': L, 'dense_gelu_tc_kernel': L,
+            '_add_ln_fwd': 2 * L}
+    per_replay = {k: sum(c for n, c in names.items() if k in n) / replays
+                  for k in want}
+    print(f'  kernel launches per replay (profiler, {replays} replays): '
+          f'{per_replay}')
+    check(per_replay == want, f'launches per replay {per_replay}, expected '
+          f'{want}')
+
+    calls = [wall / timed * 1e3] + [
+        steps_ms(lambda: step(ins, labs), timed) for _ in range(2)]
+    step_ms = sorted(calls)[1]
+    print(f'  {timed} captured steps at B={batch} T={seq} on {card}: '
+          f'{step_ms:.3f} ms per step, the median of 3 calls '
+          f'({", ".join(f"{c:.3f}" for c in calls)} ms), '
+          f'{batch / step_ms * 1e3:.3f} samples/s')
+    busy = device_breakdown(f'captured step b{batch}_s{seq}',
+                            lambda: step(ins, labs), card, 3)
+    bytes_state = step.opt_state_bytes_per_device()
+    print(f'  state on the card: parameters '
+          f'{step.param_bytes_per_device() / 2 ** 20:.1f} MiB, masters + '
+          f'moments {bytes_state / 2 ** 20:.1f} MiB; peak allocated '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    per_path = {'flash_attn_fwd': launches['flash_attn_fwd'],
+                'flash_attn_bwd_dq': launches['flash_attn_bwd_dq'],
+                'flash_attn_bwd_dkv': launches['flash_attn_bwd_dkv'],
+                'fused_add_layernorm': launches['fused_add_layernorm'],
+                'dense_gelu': launches['dense_gelu']}
+    replay_by_row = {'flash_attn_fwd': per_replay['flash_fwd_tc_kernel'],
+                     'flash_attn_bwd_dq': per_replay['flash_bwd_dq_tc_kernel'],
+                     'flash_attn_bwd_dkv':
+                         per_replay['flash_bwd_dkv_tc_kernel'],
+                     'fused_add_layernorm': per_replay['_add_ln_fwd'],
+                     'dense_gelu': per_replay['dense_gelu_tc_kernel']}
+    return per_path, replay_by_row, dict(
+        step_ms=step_ms, calls_ms=calls, losses=warm + losses,
+        busy=busy, parity=parity)
 
 
 # user kernels against their plain versions on the card (chosen before the
@@ -883,7 +1191,7 @@ def ndarray_phase(card, steps=5):
 
         def launch(k=kernels[name], args=args, grid=grid, block=block):
             k.launch(args, ctx, grid, block)
-        per_kernel, _ = profile_device(launch, 20)
+        per_kernel, _ = profile_device(launch, 20, (name,))
         k_us = per_kernel.get(name, 0.0)
         check(k_us > 0, f'no device time for {name} in the trace')
         copy_ms = (sum(per_kernel.values()) - k_us) / 20 / 1e3
@@ -1047,12 +1355,18 @@ def main():
     serving, _stats, _rps = serving_phase(card)
     training, _train = training_phase(card)
     user, nd_ops, user_rows, _nd = ndarray_phase(card)
-    # launches: the serving, training and ndarray runs', each counted
-    # from 0 just before its run
+    # last: the traces taken after its graph replays are the least sure
+    compiled, per_replay, _compiled = compiled_step_phase(card)
+    # launches: the serving, training, compiled-step and ndarray runs',
+    # each counted from 0 just before its run (the compiled step's are its
+    # eager first step and its capture; each replay relaunches them from
+    # the graph, per_replay of them, counted in the profiler's trace)
     by_path = {name: {'serving': serving[name], 'training': training[name],
+                      'compiled_step': compiled[name],
                       'ndarray': nd_ops[name]} for name in rows}
     for name in user_rows:
-        by_path[name] = {'serving': 0, 'training': 0, 'ndarray': user[name]}
+        by_path[name] = {'serving': 0, 'training': 0, 'compiled_step': 0,
+                         'ndarray': user[name]}
     kernels = [dict(name=name, route=r['route'], variant=r['variant'],
                     source=r['source'], replaces=r['replaces'],
                     launches=sum(by_path[name].values()),
@@ -1061,7 +1375,11 @@ def main():
                     old_ms=r['old_ms'], plain_ms=r['plain_ms'],
                     bound_ms=r['bound_ms'],
                     bound_by=r['bound_by'], library_ms=r['library_ms'],
-                    **({'via': r['via']} if 'via' in r else {}))
+                    **({'via': r['via']} if 'via' in r else {}),
+                    **({'dropout_ms': r['dropout_ms']}
+                       if 'dropout_ms' in r else {}),
+                    **({'launches_per_replay': per_replay[name]}
+                       if name in per_replay else {}))
                for name, r in {**rows, **user_rows}.items()]
     print(card)
     print(json.dumps({'kernels': kernels}))

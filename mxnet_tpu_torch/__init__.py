@@ -9,21 +9,23 @@ Entry points run on the card unless the caller asks for the CPU
 (``device='cpu'``, ``ctx=mx.cpu()``); with no CUDA device they raise.
 
 It serves ``models.bert.BertModel`` through ``serving.InferenceEngine``
-and trains ``models.bert.BertForPretraining`` through ``gluon.Trainer``
-(AdamW) on five hand-written kernels (see ``ops``), and runs MXNet's
-imperative API (``nd``, ``autograd``) with user kernels compiled by
-NVRTC (``rtc``).
+and trains ``models.bert.BertForPretraining`` on five hand-written
+kernels (see ``ops``), through ``gluon.Trainer`` (SGD, NAG, Adam, AdamW,
+LAMB and the ``lr_scheduler``s, its update one captured program) or
+through ``parallel.ShardedTrainStep``, the whole step captured as one
+CUDA graph. It runs MXNet's imperative API (``nd``, ``autograd``) with
+user kernels compiled by NVRTC (``rtc``).
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
     num_gpus, tpu
 from . import (autograd, config, context, engine, gluon, initializer,
-               models, ndarray, ops, optimizer, random, rtc, serialization,
-               serving, weights)
+               lr_scheduler, models, ndarray, ops, optimizer, parallel,
+               random, rtc, serialization, serving, weights)
 from . import ndarray as nd
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'autograd', 'config', 'context',
-           'engine', 'gluon', 'initializer', 'models', 'nd', 'ndarray',
-           'ops', 'optimizer', 'random', 'rtc', 'serialization', 'serving',
-           'weights']
+           'engine', 'gluon', 'initializer', 'lr_scheduler', 'models', 'nd',
+           'ndarray', 'ops', 'optimizer', 'parallel', 'random', 'rtc',
+           'serialization', 'serving', 'weights']

@@ -80,3 +80,6 @@ _register('MXTPU_SERVE_QUEUE_LIMIT', int, 256,
 _register('MXTPU_SERVE_DRAIN_SECONDS', float, 10.0,
           'Graceful-drain budget: how long drain() waits for in-flight '
           'requests before giving up.')
+_register('MXTPU_REMAT', str, 'none',
+          "Activation remat policy of ShardedTrainStep: only 'none' is "
+          'ported; any other policy raises (ROADMAP queue 1 item 7).')

@@ -105,7 +105,8 @@ struct BwdArgs {
   int mask_div;
   float scale;
   int causal;
-  uint32_t seed, thresh;
+  const uint32_t* seed;  // device pointer, read once per block
+  uint32_t thresh;
   float keep_scale;
   int use_dropout;
 };
@@ -121,9 +122,10 @@ __device__ __forceinline__ float prob(float dot, const BwdArgs& a, const float* 
 }
 
 // the dropout multiplier of one element: keep/(1-rate), or 1 without dropout
-__device__ __forceinline__ float keep_mul(const BwdArgs& a, int bh, int qpos, int kpos) {
+__device__ __forceinline__ float keep_mul(const BwdArgs& a, uint32_t seed, int bh, int qpos,
+                                          int kpos) {
   if (!a.use_dropout) return 1.f;
-  return counter_keep(a.seed, (uint32_t)bh, (uint32_t)qpos, (uint32_t)kpos, a.thresh)
+  return counter_keep(seed, (uint32_t)bh, (uint32_t)qpos, (uint32_t)kpos, a.thresh)
              ? a.keep_scale
              : 0.f;
 }
@@ -179,6 +181,7 @@ __device__ __forceinline__ void two_products(const float* Qs, const float* dOs, 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdArgs a) {
   static_assert(D % 4 == 0, "D must split over 4 threads");
+  const uint32_t seed = a.use_dropout ? *a.seed : 0u;  // the dropout seed, read once
   constexpr int DP = D / 4;            // dq columns per thread
   constexpr int KLD = D + 1;           // padded K/V rows: no bank conflicts in the products
   constexpr int SLD = BK + 1;
@@ -234,7 +237,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdArgs a) 
         const int r = ty * 4 + i, c = tx + 16 * j;
         const int qpos = q0 + r, kpos = k0 + c;
         const float p = prob(sacc[i][j], a, mrow, qpos, kpos, lse_s[r]);
-        const float dp = pacc[i][j] * keep_mul(a, bh, qpos, kpos);
+        const float dp = pacc[i][j] * keep_mul(a, seed, bh, qpos, kpos);
         dSs[r * SLD + c] = p * (dp - delta_s[r]) * a.scale;
       }
     }
@@ -262,6 +265,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdArgs a) 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdArgs a) {
   static_assert(D % 4 == 0, "D must split over 4 threads");
+  const uint32_t seed = a.use_dropout ? *a.seed : 0u;  // the dropout seed, read once
   constexpr int DP = D / 4;
   constexpr int KLD = D + 1;
   constexpr int SLD = BK + 1;
@@ -319,7 +323,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdArgs a)
         float pv = 0.f, ds = 0.f;      // rows past Tq contribute nothing
         if (qpos < a.Tq) {
           const float p = prob(sacc[i][j], a, mrow, qpos, kpos, lse_s[r]);
-          const float km = keep_mul(a, bh, qpos, kpos);
+          const float km = keep_mul(a, seed, bh, qpos, kpos);
           pv = p * km;
           ds = p * (pacc[i][j] * km - delta_s[r]) * a.scale;
         }
@@ -390,6 +394,7 @@ template <int D>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdArgs a) {
   using namespace mma_tiles;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
+  const uint32_t seed = a.use_dropout ? *a.seed : 0u;  // the dropout seed, read once
   constexpr int LD = D + 8;    // padded row
   constexpr int KD = D / 16;   // k-steps of K.Q^T and V.dO^T
   constexpr int ND = D / 8;    // n-tiles of dK and dV
@@ -504,7 +509,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
         float x = kvalid[i] ? __fmul_rn(s[j][e], a.scale) + mval[i] : NEG_INF;
         if (cut && qpos < key0 + 8 * i) x = NEG_INF;
         const float p = expf(x - ((e & 1) ? lv.y : lv.x));
-        const float km = keep_mul(a, bh, qpos, key0 + 8 * i);
+        const float km = keep_mul(a, seed, bh, qpos, key0 + 8 * i);
         s[j][e] = p * km;
         dp[j][e] = p * (dp[j][e] * km - ((e & 1) ? dv2.y : dv2.x)) * a.scale;
       }
@@ -596,6 +601,7 @@ template <int D>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdArgs a) {
   using namespace mma_tiles;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
+  const uint32_t seed = a.use_dropout ? *a.seed : 0u;  // the dropout seed, read once
   constexpr int LD = D + 8;    // padded row
   constexpr int KD = D / 16;   // k-steps of Q.K^T and dO.V^T
   constexpr int ND = D / 8;    // n-tiles of dQ
@@ -717,7 +723,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
         x += (e & 1) ? mv.y : mv.x;
         if (cut && qpos < kpos) x = NEG_INF;
         const float p = expf(x - lse_r[i]);
-        s[j][e] = p * (dp[j][e] * keep_mul(a, bh, qpos, kpos) - del_r[i]) * a.scale;
+        s[j][e] = p * (dp[j][e] * keep_mul(a, seed, bh, qpos, kpos) - del_r[i]) * a.scale;
       }
     }
 
@@ -789,8 +795,8 @@ int dispatch_dq_tc(int D, const BwdArgs& a, int B, cudaStream_t stream) {
 int run(int which, int dtype, int D, const void* q, const void* k, const void* v,
         const void* kmask, const void* dout, const void* lse, const void* delta, void* out0,
         void* out1, int B, int H, int Tq, int Tk, const long long* st, int mask_div, float scale,
-        int causal, unsigned int seed, unsigned int thresh, float keep_scale, int use_dropout,
-        void* stream) {
+        int causal, const unsigned int* seed, unsigned int thresh, float keep_scale,
+        int use_dropout, void* stream) {
   BwdArgs a{q, k, v, kmask, dout, lse, delta, out0, out1, H, Tq, Tk,
             Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
             Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
@@ -811,13 +817,16 @@ int run(int which, int dtype, int D, const void* q, const void* k, const void* v
 // dtype: 0 = float32, 1 = bfloat16. kmask may be null (no mask); its row for
 // batch*head bh is bh / mask_div. lse and delta are (B*H, Tq) float32,
 // contiguous. strides holds 15 (batch, head, seq) element strides: q, k, v,
-// dO, then the output(s) (dq; or dk and dv, which share one layout).
+// dO, then the output(s) (dq; or dk and dv, which share one layout). seed
+// points at the dropout seed on the device (its first 32-bit word), read
+// once per block and only when use_dropout is set, so a seed drawn on the
+// device and a replayed CUDA graph never pass through the host.
 // Returns cudaGetLastError().
 extern "C" int mxtt_flash_attn_bwd_dq(int dtype, int D, const void* q, const void* k,
                                       const void* v, const void* kmask, const void* dout,
                                       const void* lse, const void* delta, void* dq, int B, int H,
                                       int Tq, int Tk, const long long* strides, int mask_div,
-                                      float scale, int causal, unsigned int seed,
+                                      float scale, int causal, const unsigned int* seed,
                                       unsigned int thresh, float keep_scale, int use_dropout,
                                       void* stream) {
   return run(0, dtype, D, q, k, v, kmask, dout, lse, delta, dq, nullptr, B, H, Tq, Tk,
@@ -828,9 +837,9 @@ extern "C" int mxtt_flash_attn_bwd_dkv(int dtype, int D, const void* q, const vo
                                        const void* v, const void* kmask, const void* dout,
                                        const void* lse, const void* delta, void* dk, void* dv,
                                        int B, int H, int Tq, int Tk, const long long* strides,
-                                       int mask_div, float scale, int causal, unsigned int seed,
-                                       unsigned int thresh, float keep_scale, int use_dropout,
-                                       void* stream) {
+                                       int mask_div, float scale, int causal,
+                                       const unsigned int* seed, unsigned int thresh,
+                                       float keep_scale, int use_dropout, void* stream) {
   return run(1, dtype, D, q, k, v, kmask, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
              mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
 }
@@ -843,7 +852,7 @@ extern "C" int mxtt_flash_attn_bwd_dkv_tc(int dtype, int D, const void* q, const
                                           const void* lse, const void* delta, void* dk, void* dv,
                                           int B, int H, int Tq, int Tk, const long long* strides,
                                           int mask_div, float scale, int causal,
-                                          unsigned int seed, unsigned int thresh,
+                                          const unsigned int* seed, unsigned int thresh,
                                           float keep_scale, int use_dropout, void* stream) {
   return run(2, dtype, D, q, k, v, kmask, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
              mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
@@ -857,7 +866,7 @@ extern "C" int mxtt_flash_attn_bwd_dq_tc(int dtype, int D, const void* q, const 
                                          const void* lse, const void* delta, void* dq, int B,
                                          int H, int Tq, int Tk, const long long* strides,
                                          int mask_div, float scale, int causal,
-                                         unsigned int seed, unsigned int thresh,
+                                         const unsigned int* seed, unsigned int thresh,
                                          float keep_scale, int use_dropout, void* stream) {
   return run(3, dtype, D, q, k, v, kmask, dout, lse, delta, dq, nullptr, B, H, Tq, Tk, strides,
              mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);

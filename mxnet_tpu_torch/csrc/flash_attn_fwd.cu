@@ -84,9 +84,10 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ kmask, T* __restrict__ o, float* __restrict__ lse,
                  int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
-                 int mask_div, float scale, int causal, uint32_t seed, uint32_t thresh,
-                 float keep_scale, int use_dropout) {
+                 int mask_div, float scale, int causal, const uint32_t* __restrict__ seed_ptr,
+                 uint32_t thresh, float keep_scale, int use_dropout) {
   static_assert(D % 4 == 0, "D must split over 4 threads");
+  const uint32_t seed = use_dropout ? *seed_ptr : 0u;  // the dropout seed, read once
   constexpr int DP = D / 4;            // output columns per thread
   constexpr int KLD = D + 1;           // padded K row: no bank conflicts in the score loop
   constexpr int SLD = BK + 1;
@@ -214,7 +215,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
            int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
-           int mask_div, float scale, int causal, uint32_t seed, uint32_t thresh,
+           int mask_div, float scale, int causal, const uint32_t* seed, uint32_t thresh,
            float keep_scale, int use_dropout, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * D + BK * (D + 1) + BK * D + BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
@@ -231,7 +232,7 @@ int launch(const void* q, const void* k, const void* v, const void* kmask, void*
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, const void* kmask, void* o,
                void* lse, int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
-               Strides os, int mask_div, float scale, int causal, uint32_t seed,
+               Strides os, int mask_div, float scale, int causal, const uint32_t* seed,
                uint32_t thresh, float keep_scale, int use_dropout, cudaStream_t stream) {
 #define MXTT_FA_CASE(DD)                                                                     \
   case DD:                                                                                   \
@@ -258,10 +259,11 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ kmask,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int Tq, int Tk,
                     Strides qs, Strides ks, Strides vs, Strides os, int mask_div, float scale,
-                    int causal, uint32_t seed, uint32_t thresh, float keep_scale,
-                    int use_dropout) {
+                    int causal, const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
+                    float keep_scale, int use_dropout) {
   using namespace mma_tiles;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
+  const uint32_t seed = use_dropout ? *seed_ptr : 0u;  // the dropout seed, read once
   constexpr int LD = D + 8;    // padded row
   constexpr int KD = D / 16;   // k-steps of Q.K^T
   constexpr int ND = D / 8;    // n-tiles of P.V
@@ -462,7 +464,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
               int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
-              int mask_div, float scale, int causal, uint32_t seed, uint32_t thresh,
+              int mask_div, float scale, int causal, const uint32_t* seed, uint32_t thresh,
               float keep_scale, int use_dropout, cudaStream_t stream) {
   constexpr int LD = D + 8;
   const size_t smem = sizeof(__nv_bfloat16) * (BQ * LD + 4 * BK * LD) + sizeof(float) * 2 * BK;
@@ -482,7 +484,9 @@ int launch_tc(const void* q, const void* k, const void* v, const void* kmask, vo
 
 // dtype: 0 = float32, 1 = bfloat16. kmask may be null (no mask); its row for
 // batch*head bh is bh / mask_div (mask_div = H for a per-batch mask).
-// lse is (B*H, Tq) float32, contiguous. Returns cudaGetLastError().
+// lse is (B*H, Tq) float32, contiguous. seed points at the dropout seed on
+// the device (its first 32-bit word), read once per block and only when
+// use_dropout is set. Returns cudaGetLastError().
 extern "C" int mxtt_flash_attn_fwd(int dtype, int D, const void* q, const void* k,
                                    const void* v, const void* kmask, void* o, void* lse, int B,
                                    int H, int Tq, int Tk, long long q_sb, long long q_sh,
@@ -490,7 +494,7 @@ extern "C" int mxtt_flash_attn_fwd(int dtype, int D, const void* q, const void* 
                                    long long k_st, long long v_sb, long long v_sh,
                                    long long v_st, long long o_sb, long long o_sh,
                                    long long o_st, int mask_div, float scale, int causal,
-                                   unsigned int seed, unsigned int thresh, float keep_scale,
+                                   const unsigned int* seed, unsigned int thresh, float keep_scale,
                                    int use_dropout, void* stream) {
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st},
       os{o_sb, o_sh, o_st};
@@ -515,7 +519,7 @@ extern "C" int mxtt_flash_attn_fwd_tc(int dtype, int D, const void* q, const voi
                                       long long k_sh, long long k_st, long long v_sb,
                                       long long v_sh, long long v_st, long long o_sb,
                                       long long o_sh, long long o_st, int mask_div, float scale,
-                                      int causal, unsigned int seed, unsigned int thresh,
+                                      int causal, const unsigned int* seed, unsigned int thresh,
                                       float keep_scale, int use_dropout, void* stream) {
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st},

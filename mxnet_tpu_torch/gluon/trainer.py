@@ -9,11 +9,30 @@ trainer.py``).
 
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and applies
 one optimizer update to every parameter that requires a gradient, as the
-JAX Trainer does to every parameter whose ``grad_req`` is not 'null'. A
-parameter that took no part in the loss (``.grad`` is None, e.g.
-``type_embed.weight`` when no token types are fed) is updated with a zero
-gradient, as the JAX Trainer updates its zero-filled gradient buffer:
-AdamW's decoupled weight decay still shrinks it.
+JAX Trainer does to every parameter whose ``grad_req`` is not 'null'.
+
+Gradient buffers. The JAX Trainer reads each parameter's gradient
+buffer, which a backward pass overwrites only where the loss reached the
+parameter. The port keeps one buffer per parameter in the same role:
+before each update it copies every ``.grad`` that is set into its buffer,
+and a parameter whose ``.grad`` is None (the loss has not reached it
+since ``zero_grad(set_to_none=True)``, torch's default) is updated with
+what its buffer holds: its last gradient, zero if it never had one.
+``zero_grad(set_to_none=False)`` zeroes the ``.grad`` tensors instead,
+as the JAX ``Parameter.zero_grad()`` zeroes the buffer.
+
+The fused update. An optimizer with ``fused_update = True`` (SGD, NAG,
+Adam, AdamW, LAMB) has every parameter's update run as one program, the
+JAX Trainer's ``_fused_apply``: the per-step scalars (each parameter's
+lr and wd, its update count t, rescale_grad) go into one device vector
+that the optimizer reads in place of its Python values, as the JAX
+Trainer feeds them to its trace. On the card the program is captured once
+per (parameters, optimizer class, dtypes) as a CUDA graph, after one
+eager run that is that step's update, and replayed on every later step;
+weights, masters and states are updated in place by the replay, so they
+must stay the same tensors (a ``set_states_bytes`` recaptures). On the
+CPU the same program runs eagerly. Any other optimizer takes the
+per-parameter loop (``Updater``), as in JAX.
 
 Single device only: the kvstore types 'device' and 'local' (and None) are
 accepted and mean nothing; a distributed kvstore, gradient compression and
@@ -24,10 +43,20 @@ from __future__ import annotations
 
 import torch
 
+from .._capture import DeviceScalars, capture
 from ..base import MXNetError
+from ..serialization import atomic_write_file
 from .. import optimizer as opt
 
 __all__ = ['Trainer']
+
+
+def _to_device(state, device):
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if isinstance(state, (list, tuple)):
+        return tuple(_to_device(s, device) for s in state)
+    return state
 
 
 class Trainer:
@@ -64,7 +93,9 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
-        self._states = {}
+        self._updater = opt.get_updater(self._optimizer)
+        self._grads = {}       # index -> the gradient buffer the update reads
+        self._fused = None     # [signature, graph, scalars, program]
 
     @property
     def optimizer(self):
@@ -80,8 +111,8 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """One update of every parameter, its gradient scaled by
         1/batch_size. ``ignore_stale_grad`` is accepted and changes
-        nothing, as in the JAX Trainer: a gradient the loss did not reach
-        is updated as zero either way."""
+        nothing, as in the JAX Trainer: a parameter the loss did not reach
+        is updated with what its gradient buffer holds."""
         self.update(batch_size, ignore_stale_grad)
 
     def update(self, batch_size, ignore_stale_grad=False):
@@ -90,11 +121,122 @@ class Trainer:
 
     @torch.no_grad()
     def _update(self):
-        o = self._optimizer
+        items = self._gather_grads()
+        if not self._fused_apply(items):
+            for i, p, g in items:
+                self._updater(i, g, p)
+
+    def _gather_grads(self):
+        """[(index, parameter, gradient buffer)] of the trainable
+        parameters, every ``.grad`` that is set copied into its buffer."""
+        items, dst, src = [], [], []
         for i, p in enumerate(self._params):
             if not p.requires_grad:
                 continue
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            if i not in self._states:
-                self._states[i] = o.create_state_multi_precision(i, p)
-            o.update_multi_precision(i, p, g, self._states[i])
+            buf = self._grads.get(i)
+            if buf is None:
+                buf = self._grads[i] = torch.zeros_like(
+                    p, memory_format=torch.contiguous_format)
+            if p.grad is not None:
+                dst.append(buf)
+                src.append(p.grad)
+            items.append((i, p, buf))
+        if dst:
+            torch._foreach_copy_(dst, src)
+        return items
+
+    def _fused_apply(self, items):
+        """Every update as one program (see the module docstring). False
+        when the optimizer does not declare ``fused_update``: the caller
+        then runs the per-parameter loop."""
+        if not items:
+            return True
+        o = self._optimizer
+        if not getattr(o, 'fused_update', False):
+            return False
+        updater = self._updater
+        indices = [i for i, _, _ in items]
+        for i, p, _ in items:
+            if i not in updater.states:
+                updater.states[i] = o.create_state_multi_precision(i, p)
+                updater.states_synced[i] = True
+        # host-side per-step scalars, the counts first (as JAX does)
+        for i in indices:
+            o._update_count(i)
+        values = o._get_lrs(indices) + o._get_wds(indices) + \
+            [o._index_update_count[i] for i in indices] + [o.rescale_grad]
+        device = items[0][1].device
+        sig = (tuple(indices), o.__class__,
+               tuple(p.dtype for _, p, _ in items), device)
+        if self._fused is None or self._fused[0] != sig:
+            scalars = DeviceScalars(len(values), device)
+            self._fused = [sig, None, scalars,
+                           self._program(items, scalars.values)]
+        _, graph, scalars, program = self._fused
+        scalars.write(values)
+        if device.type != 'cuda':
+            program()
+        elif graph is None:
+            # the warm-up run is this step's update; later steps replay
+            self._fused[1], _, _ = capture(program, device, warm_up=True)
+        else:
+            graph.replay()
+        return True
+
+    def _program(self, items, scalars):
+        """The fused update over ``items``: the optimizer's own
+        ``update_multi_precision`` for each parameter, with its scalar
+        accessors shadowed by entries of the device vector ``scalars``
+        (lrs, wds, ts, rescale_grad) while it runs, as the JAX Trainer
+        shadows them while it traces."""
+        o = self._optimizer
+        n = len(items)
+        pos = {i: k for k, (i, _, _) in enumerate(items)}
+        lrs, wds, ts = scalars[:n], scalars[n:2 * n], scalars[2 * n:3 * n]
+        rescale = scalars[3 * n]
+        states = [self._updater.states[i] for i, _, _ in items]
+
+        class _Counts:
+            def __getitem__(self, idx):
+                return ts[pos[idx]]
+
+        def program():
+            saved = (o._index_update_count, o.rescale_grad)
+            o._get_lr = lambda idx: lrs[pos[idx]]
+            o._get_wd = lambda idx: wds[pos[idx]]
+            o._update_count = lambda idx: None
+            o._index_update_count = _Counts()
+            o.rescale_grad = rescale
+            try:
+                for (i, p, g), st in zip(items, states):
+                    o.update_multi_precision(i, p, g, st)
+            finally:
+                for name in ('_get_lr', '_get_wd', '_update_count'):
+                    o.__dict__.pop(name, None)
+                o._index_update_count, o.rescale_grad = saved
+        return program
+
+    def get_states_bytes(self):
+        """The states payload as bytes: {index: state as numpy} and the
+        pickled optimizer (update counts, rescale_grad, schedule)."""
+        return self._updater.get_states(dump_optimizer=True)
+
+    def set_states_bytes(self, states):
+        """Restore a ``get_states_bytes`` payload: the states go to their
+        parameters' devices, the optimizer gets the live parameters back,
+        and the fused update is recaptured over the new state tensors."""
+        self._updater.set_states(states)
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
+        self._updater.states = {
+            i: _to_device(s, self._params[i].device)
+            for i, s in self._updater.states.items()}
+        self._fused = None
+
+    def save_states(self, fname):
+        """Atomic: a temporary file, then ``os.replace``."""
+        atomic_write_file(fname, self.get_states_bytes())
+
+    def load_states(self, fname):
+        with open(fname, 'rb') as f:
+            self.set_states_bytes(f.read())

@@ -42,11 +42,15 @@ def _as_key_padding_mask(mask, N, Tk):
 
 
 def _dropout_seed(generator, device):
-    """One uint32 seed drawn on the generator's own device (the tensors'
-    device when there is no generator), brought to the host once."""
+    """One uint32 seed in a one-element int64 tensor, drawn on the
+    generator's own device (the tensors' device when there is no
+    generator) and left there, as the JAX package draws its seed with
+    ``jax.random.bits``: no host sync, so a CUDA graph that draws it
+    replays with a fresh seed when the generator is registered with the
+    graph (or is the device's default generator)."""
     dev = generator.device if generator is not None else device
-    return int(torch.randint(0, 2 ** 32, (1,), generator=generator,
-                             device=dev, dtype=torch.int64).item())
+    return torch.randint(0, 2 ** 32, (1,), generator=generator, device=dev,
+                         dtype=torch.int64)
 
 
 def multi_head_attention(query, key, value, mask=None, num_heads=1,

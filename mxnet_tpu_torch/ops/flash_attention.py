@@ -22,7 +22,13 @@ variant. ``_build.variant_counts`` records which one each launch took.
 
 Attention dropout is the JAX package's counter hash (``counter_keep``):
 the keep mask is a pure function of (seed, batch*head, row, col), so the
-kernel, the plain version and the Pallas kernel agree bit for bit.
+kernel, the plain version and the Pallas kernel agree bit for bit. The
+seed lives on the device, as the Pallas kernels' ``seed_ref`` operand
+does: ``dropout_seed`` is a one-element int64 (or int32) tensor, whose low
+32 bits the kernels read once per block through a pointer, so a seed drawn
+on the card never passes through the host and a CUDA graph that draws it
+replays with a fresh one. A Python int is accepted too and put in a device
+tensor first, which is refused inside a CUDA-graph capture.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ from . import _build
 __all__ = ['flash_attention', 'flash_attention_forward',
            'flash_attention_backward', 'flash_attention_reference',
            'flash_attention_backward_reference', 'counter_keep',
-           'dropout_threshold', 'split_bf16', 'kernel_variant',
+           'dropout_threshold', 'seed_tensor', 'split_bf16',
+           'kernel_variant',
            'KERNEL_HEAD_DIMS', 'TC_HEAD_DIMS']
 
 _NEG_INF = -1e30
@@ -79,8 +86,12 @@ def counter_keep(seed, bh, rows, cols, rate):
     """keep/(1-rate) multipliers (f32) from broadcastable integer tensors
     (bh, rows, cols): the JAX package's ``_counter_keep`` (murmur3
     finalizer over the global element coordinates), in int64 arithmetic
-    masked to 32 bits."""
-    seed = int(seed) & _MASK32
+    masked to 32 bits. ``seed`` is an int or a one-element integer tensor
+    on the coordinates' device (read there, with no host sync)."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(-1)[:1].to(torch.int64) & _MASK32
+    else:
+        seed = int(seed) & _MASK32
     rows = torch.as_tensor(rows, dtype=torch.int64) & _MASK32
     cols = torch.as_tensor(cols, dtype=torch.int64) & _MASK32
     bh = torch.as_tensor(bh, dtype=torch.int64) & _MASK32
@@ -96,10 +107,34 @@ def counter_keep(seed, bh, rows, cols, rate):
     return keep * float(onp.float32(1.0 / (1.0 - rate)))
 
 
-def _seed_int(dropout_seed):
+_SEED_DTYPES = (torch.int64, torch.int32)
+
+
+def seed_tensor(dropout_seed, device):
+    """``dropout_seed`` as a one-element int64/int32 tensor on ``device``:
+    a tensor already there is used as it is (its first element); an int,
+    a numpy value or a tensor elsewhere is copied there, which is refused
+    while the current stream is being captured into a CUDA graph (the
+    copy would be frozen into the graph, or would sync)."""
+    device = torch.device(device)
     if isinstance(dropout_seed, torch.Tensor):
-        dropout_seed = dropout_seed.reshape(-1)[0].item()
-    return int(onp.asarray(dropout_seed).reshape(-1)[0]) & _MASK32
+        if dropout_seed.dtype not in _SEED_DTYPES:
+            raise MXNetError(f"flash_attention: dropout_seed must be an "
+                             f"int64 or int32 tensor, got "
+                             f"{dropout_seed.dtype}")
+        t = dropout_seed.reshape(-1)[:1]
+        if t.numel() != 1:
+            raise MXNetError("flash_attention: dropout_seed is empty")
+        if t.device == device:
+            return t
+    else:
+        t = torch.tensor([int(onp.asarray(dropout_seed).reshape(-1)[0]) &
+                          _MASK32], dtype=torch.int64)
+    if device.type == 'cuda' and torch.cuda.is_current_stream_capturing():
+        raise MXNetError("flash_attention: a dropout_seed on the host cannot "
+                         "be captured into a CUDA graph; draw it on the "
+                         "device (a one-element int64 tensor)")
+    return t.to(device)
 
 
 def _normalize_mask(key_mask, B, H, Tk):
@@ -142,7 +177,7 @@ def _keep_multipliers(dropout_seed, B, H, Tq, Tk, rate, dev):
     bh = torch.arange(B * H, device=dev).reshape(B, H, 1, 1)
     rows = torch.arange(Tq, device=dev).reshape(1, 1, Tq, 1)
     cols = torch.arange(Tk, device=dev).reshape(1, 1, 1, Tk)
-    return counter_keep(_seed_int(dropout_seed), bh, rows, cols,
+    return counter_keep(seed_tensor(dropout_seed, dev), bh, rows, cols,
                         rate).to(dev)
 
 
@@ -269,10 +304,11 @@ def _pick_variant(q, named, forced):
 
 
 def _dropout_args(dropout_p, seed):
-    """(seed, uint32 threshold, keep scale, flag) as the kernels take them."""
+    """(seed pointer, uint32 threshold, keep scale, flag) as the kernels
+    take them; ``seed`` is the device tensor of ``_prepare``."""
     if dropout_p <= 0.0:
-        return 0, 0, 1.0, 0
-    return (seed, dropout_threshold(dropout_p),
+        return None, 0, 1.0, 0
+    return (seed.data_ptr(), dropout_threshold(dropout_p),
             float(onp.float32(1.0 / (1.0 - dropout_p))), 1)
 
 
@@ -299,8 +335,8 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed,
     if fn.argtypes is None:
         ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, i, i, i, i] + \
-            [ll] * 12 + [i, ctypes.c_float, i, ctypes.c_uint,
-                         ctypes.c_uint, ctypes.c_float, i, vp]
+            [ll] * 12 + [i, ctypes.c_float, i, vp, ctypes.c_uint,
+                         ctypes.c_float, i, vp]
         fn.restype = ctypes.c_int
     strides = []
     for t in (q, k, v, o):
@@ -323,8 +359,8 @@ def _bwd_fn(name):
         i, vp = ctypes.c_int, ctypes.c_void_p
         outs = [vp] if '_bwd_dq' in name else [vp, vp]
         fn.argtypes = [i, i] + [vp] * 7 + outs + [i] * 4 + [vp] + \
-            [i, ctypes.c_float, i, ctypes.c_uint, ctypes.c_uint,
-             ctypes.c_float, i, vp]
+            [i, ctypes.c_float, i, vp, ctypes.c_uint, ctypes.c_float, i,
+             vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -370,7 +406,8 @@ def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
 def _prepare(q, k, key_mask, dropout_p, dropout_seed):
     """Checks the device and the dropout arguments; returns (mask as
     (rows, Tk) f32 additive or None, rows-per-mask divisor, dropout_p,
-    uint32 seed)."""
+    the seed as a one-element tensor on q's device, or None without
+    dropout)."""
     if not q.is_cuda and q.device.type != 'cpu':
         raise MXNetError(f"flash_attention: unsupported device {q.device}")
     dropout_p = float(dropout_p)
@@ -378,7 +415,7 @@ def _prepare(q, k, key_mask, dropout_p, dropout_seed):
         raise ValueError("dropout_p > 0 requires dropout_seed")
     B, H = q.shape[:2]
     km, mask_div = _normalize_mask(key_mask, B, H, k.shape[2])
-    seed = _seed_int(dropout_seed) if dropout_p > 0.0 else 0
+    seed = seed_tensor(dropout_seed, q.device) if dropout_p > 0.0 else None
     return km, mask_div, dropout_p, seed
 
 
@@ -427,21 +464,21 @@ def flash_attention_backward(q, k, v, key_mask, causal, dropout_p,
 
 class _FlashAttention(torch.autograd.Function):
     """The counterpart of the JAX ``_flash`` custom_vjp: the forward saves
-    q, k, v, the normalised mask, the seed, out and lse; the backward runs
-    the two backward kernels (the plain version on the CPU). The mask and
-    the seed get no gradient."""
+    q, k, v, the normalised mask, the seed tensor, out and lse; the
+    backward runs the two backward kernels (the plain version on the CPU)
+    with the same seed tensor. The mask and the seed get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, km, mask_div, causal, dropout_p, seed):
         out, lse = _forward(q, k, v, km, mask_div, causal, dropout_p, seed)
-        ctx.save_for_backward(q, k, v, km, out, lse)
-        ctx.args = (mask_div, causal, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, km, seed, out, lse)
+        ctx.args = (mask_div, causal, dropout_p)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, km, out, lse = ctx.saved_tensors
-        mask_div, causal, dropout_p, seed = ctx.args
+        q, k, v, km, seed, out, lse = ctx.saved_tensors
+        mask_div, causal, dropout_p = ctx.args
         if do.stride(-1) != 1 or (
                 do.is_cuda and kernel_variant(do.dtype, do.shape[-1]) == 'tc'
                 and not _tc_aligned(do)):

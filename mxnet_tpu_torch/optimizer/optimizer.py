@@ -1,20 +1,33 @@
-"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``).
+"""Optimizers (counterpart of ``mxnet_tpu/optimizer/optimizer.py``; ref:
+python/mxnet/optimizer/optimizer.py).
 
 The stateful Optimizer API of the JAX package: a registry, per-parameter
-lr/wd multipliers, update counts and multi-precision master weights,
-over torch tensors updated in place. The math lives in
-``ops/optimizer_ops.py``. Only AdamW is ported so far; ``create`` of any
-other name raises and lists what is ported, and so does an
-``lr_scheduler``.
+lr/wd multipliers, update counts, an optional ``lr_scheduler``,
+multi-precision master weights and the ``Updater`` the Trainer keeps its
+states in, over torch tensors updated in place. The math lives in
+``ops/optimizer_ops.py``.
+
+``fused_update = True`` marks an optimizer whose ``update()`` is pure
+tensor math over (weight, grad, state) and the per-step scalars (lr, wd,
+the update count t, rescale_grad), read only through ``_get_lr``,
+``_get_wd``, ``_index_update_count`` and ``rescale_grad``. The Trainer
+then runs every parameter's update as one program: captured once as a
+CUDA graph on the card, with those scalars in device tensors that the
+host rewrites before each replay. Ported so far: SGD, NAG, Adam, AdamW
+and LAMB; ``create`` of any other name raises and lists them.
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as onp
 import torch
 
 from ..base import MXNetError
 from ..ops import optimizer_ops as O
 
-__all__ = ['Optimizer', 'AdamW', 'register', 'create']
+__all__ = ['Optimizer', 'SGD', 'NAG', 'Adam', 'AdamW', 'LAMB', 'Updater',
+           'get_updater', 'register', 'create']
 
 _REG = {}
 
@@ -40,26 +53,41 @@ def _cg(v):
     return -1.0 if v is None else v
 
 
-class Optimizer:
-    """Base optimizer: rescale_grad, wd, clip_gradient, the learning rate,
-    update counts, lr_mult/wd_mult (read from ``param_dict``'s parameters,
-    1.0 where a parameter has none) and ``multi_precision``, which keeps an
-    f32 master copy of every f16/bf16 weight."""
+def _zeros32(weight):
+    return torch.zeros(weight.shape, dtype=torch.float32,
+                       device=weight.device)
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, lr_scheduler=None, multi_precision=False,
-                 param_dict=None):
-        if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not ported yet; set the rate "
-                             "with set_learning_rate")
+
+class Optimizer:
+    """Base optimizer: rescale_grad, wd, clip_gradient, the learning rate
+    (or an ``lr_scheduler`` of the update count), update counts from
+    ``begin_num_update``, lr/wd multipliers (a parameter's own
+    ``lr_mult``/``wd_mult`` in ``param_dict``, else ``set_lr_mult`` /
+    ``set_wd_mult`` by index or name) and ``multi_precision``, which keeps
+    an f32 master copy of every f16/bf16 weight."""
+
+    fused_update = False
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 begin_num_update=0, multi_precision=False, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
-        self.num_update = 0
+        self.lr_mult = {}
+        self.wd_mult = {}
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
         self._index_update_count = {}
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
+        self.idx2name = dict(param_idx2name or {})
         self.param_dict = param_dict if param_dict else {}
+
+    create_optimizer = staticmethod(create)
 
     def create_state(self, index, weight):
         return None
@@ -89,28 +117,167 @@ class Optimizer:
             self.update(index, weight, grad, state)
 
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("LRScheduler of the optimizer has already been "
+                             "defined")
         self.lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """As MXNet: names not ending in ``_weight`` get wd_mult 0, then
+        ``args_wd_mult`` overrides."""
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not n.endswith('_weight')}
+        self.wd_mult.update(args_wd_mult)
+
     def _update_count(self, index):
-        count = self._index_update_count.get(index, 0) + 1
-        self._index_update_count[index] = count
-        self.num_update = max(count, self.num_update)
+        for idx in index if isinstance(index, (list, tuple)) else [index]:
+            count = self._index_update_count.get(idx, self.begin_num_update)
+            self._index_update_count[idx] = count + 1
+            self.num_update = max(count + 1, self.num_update)
+
+    def _mult(self, index, own, table):
+        if index in self.param_dict:
+            return getattr(self.param_dict[index], own, 1.0)
+        if index in table:
+            return table[index]
+        if index in self.idx2name:
+            return table.get(self.idx2name[index], 1.0)
+        return 1.0
+
+    def _get_lrs(self, indices):
+        lr = self.learning_rate
+        return [lr * self._mult(i, 'lr_mult', self.lr_mult) for i in indices]
 
     def _get_lr(self, index):
-        return self.lr * getattr(self.param_dict.get(index), 'lr_mult', 1.0)
+        return self._get_lrs([index])[0]
+
+    def _get_wds(self, indices):
+        return [self.wd * self._mult(i, 'wd_mult', self.wd_mult)
+                for i in indices]
 
     def _get_wd(self, index):
-        return self.wd * getattr(self.param_dict.get(index), 'wd_mult', 1.0)
+        return self._get_wds([index])[0]
+
+    def __getstate__(self):
+        # param_dict holds live parameters; the Trainer re-attaches them
+        ret = self.__dict__.copy()
+        ret['param_dict'] = {}
+        return ret
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.param_dict = {}
+
+
+@register
+class SGD(Optimizer):
+    """SGD with momentum (ref: optimizer.py:526). ``lazy_update`` is
+    accepted and changes nothing: the port has no row-sparse gradients."""
+    fused_update = True
+
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return _zeros32(weight) if self.momentum != 0.0 else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=_cg(self.clip_gradient))
+        if state is not None:
+            new_w, new_mom = O.sgd_mom_update(weight, grad, state,
+                                              momentum=self.momentum, **kw)
+            state.copy_(new_mom)
+        else:
+            new_w = O.sgd_update(weight, grad, **kw)
+        weight.copy_(new_w)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov momentum (plain SGD when momentum is 0)."""
+    fused_update = True
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return _zeros32(weight) if self.momentum != 0.0 else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=_cg(self.clip_gradient))
+        if state is not None:
+            new_w, new_mom = O.nag_mom_update(weight, grad, state,
+                                              momentum=self.momentum, **kw)
+            state.copy_(new_mom)
+        else:
+            new_w = O.sgd_update(weight, grad, **kw)
+        weight.copy_(new_w)
+
+
+@register
+class Adam(Optimizer):
+    """Adam with the bias correction folded into lr (ref:
+    optimizer.py:1547); wd is added to the gradient."""
+    fused_update = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        coef1 = 1. - self.beta1 ** t
+        coef2 = 1. - self.beta2 ** t
+        # ** 0.5, not math.sqrt: t may be a device tensor
+        lr_t = lr * coef2 ** 0.5 / coef1
+        mean, var = state
+        new_w, new_mean, new_var = O.adam_update(
+            weight, grad, mean, var, lr=lr_t, beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon, wd=wd,
+            rescale_grad=self.rescale_grad,
+            clip_gradient=_cg(self.clip_gradient))
+        weight.copy_(new_w)
+        mean.copy_(new_mean)
+        var.copy_(new_var)
 
 
 @register
 class AdamW(Optimizer):
     """Decoupled weight decay Adam (the JAX package's AdamW: no bias
-    correction, the decay scaled by lr)."""
+    correction, the decay scaled by lr; ref: src/operator/contrib/
+    adamw.cc)."""
+    fused_update = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, eta=1.0, **kwargs):
@@ -121,10 +288,7 @@ class AdamW(Optimizer):
         self.eta = eta
 
     def create_state(self, index, weight):
-        return (torch.zeros(weight.shape, dtype=torch.float32,
-                            device=weight.device),
-                torch.zeros(weight.shape, dtype=torch.float32,
-                            device=weight.device))
+        return (_zeros32(weight), _zeros32(weight))
 
     @torch.no_grad()
     def update(self, index, weight, grad, state):
@@ -138,3 +302,103 @@ class AdamW(Optimizer):
         weight.copy_(new_w)
         mean.copy_(new_mean)
         var.copy_(new_var)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise Adaptive Moments for Batch training (ref:
+    optimizer.py:1250): phase 1, the weight's and the update's norms,
+    phase 2 with their trust ratio."""
+    fused_update = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        mean, var = state
+        g_update, new_mean, new_var = O.lamb_update_phase1(
+            weight, grad, mean, var, beta1=self.beta1, beta2=self.beta2,
+            epsilon=self.epsilon, t=t, bias_correction=self.bias_correction,
+            wd=wd, rescale_grad=self.rescale_grad,
+            clip_gradient=_cg(self.clip_gradient))
+        mean.copy_(new_mean)
+        var.copy_(new_var)
+        r1 = torch.linalg.vector_norm(weight.to(torch.float32))
+        r2 = torch.linalg.vector_norm(g_update)
+        weight.copy_(O.lamb_update_phase2(
+            weight, g_update, r1, r2, lr=lr,
+            lower_bound=_cg(self.lower_bound),
+            upper_bound=_cg(self.upper_bound)))
+
+
+def _npify(s):
+    if isinstance(s, torch.Tensor):
+        return s.detach().cpu().numpy()
+    if isinstance(s, (list, tuple)):
+        return tuple(_npify(x) for x in s)
+    return s
+
+
+def _tensorify(s):
+    if isinstance(s, onp.ndarray):
+        return torch.from_numpy(onp.array(s))
+    if isinstance(s, (list, tuple)):
+        return tuple(_tensorify(x) for x in s)
+    return s
+
+
+class Updater:
+    """Applies an optimizer to (index, grad, weight) and keeps each
+    index's state (ref: optimizer.py:2070). ``get_states`` pickles a dict
+    {index: state as numpy arrays}, paired with the optimizer when
+    ``dump_optimizer``; ``set_states`` takes either form, its states as
+    CPU tensors (the Trainer moves them to the parameters' devices)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        self.states_synced = {}
+
+    def __call__(self, index, grad, weight):
+        if not isinstance(index, (list, tuple)):
+            index, grad, weight = [index], [grad], [weight]
+        for i, g, w in zip(index, grad, weight):
+            if i not in self.states:
+                self.states[i] = \
+                    self.optimizer.create_state_multi_precision(i, w)
+                self.states_synced[i] = True
+            self.optimizer.update_multi_precision(i, w, g, self.states[i])
+
+    def set_states(self, states):
+        loaded = pickle.loads(states)
+        if isinstance(loaded, tuple) and len(loaded) == 2 and \
+                isinstance(loaded[1], Optimizer):
+            loaded, self.optimizer = loaded
+        self.states = {k: _tensorify(v) for k, v in loaded.items()}
+        self.states_synced = dict.fromkeys(self.states, False)
+
+    def get_states(self, dump_optimizer=False):
+        states = {k: _npify(v) for k, v in self.states.items()}
+        if dump_optimizer:
+            return pickle.dumps((states, self.optimizer))
+        return pickle.dumps(states)
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

@@ -29,7 +29,9 @@ not carried over. Everything here is host-side numpy.
 from __future__ import annotations
 
 import io
+import os
 import struct
+import tempfile
 from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as onp
@@ -255,3 +257,24 @@ def load_params_dict(buf: bytes, strip_arg_aux: bool = True):
             all(k.startswith(('arg:', 'aux:')) for k in out):
         out = {k.split(':', 1)[1]: v for k, v in out.items()}
     return out
+
+
+def atomic_write_file(path: str, data: bytes) -> None:
+    """Crash-safe write of one file: a temporary file in the same
+    directory, fsync, then one ``os.replace``, so a kill mid-write leaves
+    the previous contents (or no file), never a truncated one."""
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + '.tmp-',
+                               dir=d)
+    try:
+        with os.fdopen(fd, 'wb') as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise

@@ -352,3 +352,116 @@ def test_fused_ffn_kernel_variants(gen, M, K, N, dtype, variant):
     assert _build.variant_counts[f'dense_gelu.{want}'] == 1
     torch.testing.assert_close(out, fused_ffn.dense_gelu_reference(x, w, b),
                                **TOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_kernels_read_their_seed_from_the_device(gen, dtype):
+    """The forward, dq and dk/dv kernels take the dropout seed by device
+    pointer: a seed drawn on the card (int64, or its low word as int32)
+    and the same seed given as an int give bit-identical outputs, and the
+    kernels hold against the plain versions with that tensor."""
+    B, H, T, D = 2, 3, 70, 64
+    q, k, v, do = (torch.randn(B, H, T, D, generator=gen,
+                               device='cuda').to(dtype) for _ in range(4))
+    seed = torch.randint(0, 2 ** 32, (1,), generator=gen, device='cuda',
+                         dtype=torch.int64)
+    as_int = int(seed.item())
+    for s in (seed, seed.to(torch.int32)):
+        out, lse = fa.flash_attention_forward(q, k, v, None, False, 0.1, s)
+        out_i, lse_i = fa.flash_attention_forward(q, k, v, None, False, 0.1,
+                                                  as_int)
+        torch.testing.assert_close(out, out_i, rtol=0, atol=0)
+        grads = fa.flash_attention_backward(q, k, v, None, False, 0.1, s,
+                                            out, lse, do)
+        grads_i = fa.flash_attention_backward(q, k, v, None, False, 0.1,
+                                              as_int, out, lse, do)
+        for g, gi in zip(grads, grads_i):
+            torch.testing.assert_close(g, gi, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, None, False, 0.1,
+                                                seed)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+    want = fa.flash_attention_backward_reference(q, k, v, None, False, 0.1,
+                                                 seed, out, lse, do)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+
+
+def _small_bert(gen_seed, **kw):
+    import numpy as onp
+    from mxnet_tpu_torch.models.bert import BertForPretraining
+    cfg = dict(vocab_size=512, hidden=128, layers=2, heads=2,
+               intermediate=512, max_len=128, type_vocab=2, dropout=0.0)
+    net = BertForPretraining(cfg, device='cuda', **kw)
+    rng = onp.random.RandomState(gen_seed)
+    with torch.no_grad():
+        for _, p in sorted(net.named_parameters()):
+            p.copy_(torch.from_numpy(
+                (rng.randn(*p.shape) * 0.02).astype('float32')))
+    rng = onp.random.RandomState(gen_seed + 1)
+    B, T, M = 4, 64, 8
+    ins = [rng.randint(0, 512, (B, T)), onp.zeros((B, T), 'int64'),
+           rng.randint(T // 2, T + 1, B).astype('float32'),
+           onp.stack([rng.choice(T, M, replace=False) for _ in range(B)])]
+    labs = [rng.randint(0, 512, (B, M)), rng.randint(0, 2, B)]
+    return net, [torch.from_numpy(a).cuda() for a in ins], \
+        [torch.from_numpy(a).cuda() for a in labs]
+
+
+def _rel_fro(a, b):
+    a, b = [x.detach().float() for x in a], [y.detach().float() for y in b]
+    num = sum(float((x - y).square().sum()) for x, y in zip(a, b))
+    return (num / sum(float(y.square().sum()) for y in b)) ** 0.5
+
+
+def test_compiled_step_replay_matches_the_eager_trainer(gen):
+    """ShardedTrainStep on the card (f32, TF32 off, dropout 0): call 1 runs
+    eagerly and captures, call 2 replays the graph. Both hold against the
+    Trainer's per-parameter loop on the same card: loss rel 1e-5, the
+    parameters' rel Frobenius 1e-4."""
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.models.bert import bert_pretrain_loss
+    net_s, ins, labs = _small_bert(0)
+    net_t, _, _ = _small_bert(0)
+    step = parallel.ShardedTrainStep(net_s, bert_pretrain_loss, 'adamw',
+                                     {'learning_rate': 1e-3, 'wd': 0.01})
+    trainer = gluon.Trainer(gluon.collect_params(net_t), 'adamw',
+                            {'learning_rate': 1e-3, 'wd': 0.01})
+    trainer.optimizer.fused_update = False
+    net_t.train()
+    for i in range(3):
+        ls = float(step(ins, labs))
+        net_t.zero_grad(set_to_none=False)
+        loss = bert_pretrain_loss(*net_t(*ins), *labs)
+        loss.backward()
+        trainer.step(1)
+        lt = float(loss.detach())
+        assert abs(ls - lt) <= 1e-5 * abs(lt), (i, ls, lt)
+    assert len(step._graphs) == 1
+    assert _rel_fro(list(net_s.parameters()),
+                    list(net_t.parameters())) <= 1e-4
+
+
+def test_trainer_fused_update_replay_matches_the_loop(gen):
+    """The Trainer's fused AdamW (multi_precision, bf16 weights): step 1
+    runs eagerly and captures, steps 2-3 replay; the per-parameter loop on
+    the same gradients gives the same masters (rel Frobenius 1e-6)."""
+    from mxnet_tpu_torch import gluon
+    ps = [torch.nn.Parameter(torch.randn(*s, generator=gen, device='cuda')
+                             .to(torch.bfloat16)) for s in ((7, 5), (5,))]
+    qs = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    kw = {'learning_rate': 1e-2, 'wd': 0.01, 'multi_precision': True}
+    fused, loop = gluon.Trainer(ps, 'adamw', kw), gluon.Trainer(qs, 'adamw',
+                                                                kw)
+    loop.optimizer.fused_update = False
+    for _ in range(3):
+        for p, q in zip(ps, qs):
+            g = torch.randn(p.shape, generator=gen, device='cuda').to(
+                torch.bfloat16)
+            p.grad, q.grad = g, g.clone()
+        fused.step(2)
+        loop.step(2)
+    assert fused._fused[1] is not None
+    a = [st[0] for _, st in sorted(fused._updater.states.items())]
+    b = [st[0] for _, st in sorted(loop._updater.states.items())]
+    assert _rel_fro(a, b) <= 1e-6

@@ -150,3 +150,64 @@ def test_private_variant_changes_nothing_on_the_cpu():
         got = fa.flash_attention_forward(q, k, v, _variant=variant)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('seed', [42, 2 ** 32 - 5])
+def test_seed_as_tensor_equals_seed_as_int(seed):
+    """The seed lives on the device as a one-element int64 (or int32)
+    tensor, the kernels' operand; an int is put in such a tensor. Both
+    give the same keep mask, so the same output and gradients, and the
+    Pallas kernel given the same seed agrees."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(7))
+    as_int = fa.flash_attention(q, k, v, dropout_p=0.3, dropout_seed=seed)
+    as_i64 = fa.flash_attention(q, k, v, dropout_p=0.3,
+                                dropout_seed=torch.tensor([seed]))
+    torch.testing.assert_close(as_i64, as_int, rtol=0, atol=0)
+    low32 = torch.tensor([seed], dtype=torch.int64).to(torch.int32)
+    as_i32 = fa.flash_attention(q, k, v, dropout_p=0.3, dropout_seed=low32)
+    torch.testing.assert_close(as_i32, as_int, rtol=0, atol=0)
+    keep_t = fa._keep_multipliers(torch.tensor([seed]), B, H, T, T, 0.3,
+                                  torch.device('cpu'))
+    keep_i = fa._keep_multipliers(seed, B, H, T, T, 0.3, torch.device('cpu'))
+    torch.testing.assert_close(keep_t, keep_i, rtol=0, atol=0)
+    j_out = pa.flash_attention(*(jnp.asarray(a) for a in _qkv(7)),
+                               dropout_p=0.3, dropout_seed=seed,
+                               interpret=True)
+    onp.testing.assert_allclose(as_i64.numpy(), onp.asarray(j_out),
+                                rtol=RTOL, atol=ATOL)
+
+
+def test_seed_tensor_checks_its_argument():
+    dev = torch.device('cpu')
+    t = torch.tensor([7, 8])
+    assert fa.seed_tensor(t, dev).tolist() == [7]
+    assert fa.seed_tensor(5, dev).dtype == torch.int64
+    assert fa.seed_tensor(2 ** 33 + 3, dev).tolist() == [3]
+    from mxnet_tpu_torch.base import MXNetError
+    with pytest.raises(MXNetError, match='int64 or int32'):
+        fa.seed_tensor(torch.tensor([1.0]), dev)
+
+
+def test_dropout_seed_is_drawn_with_no_host_sync(monkeypatch):
+    """``_dropout_seed`` draws the seed on the generator's device and
+    leaves it there: nothing reads a tensor back to the host (which
+    would be a sync on the card, illegal in a CUDA-graph capture), and the
+    attention op hands the tensor to the flash route as it is."""
+    from mxnet_tpu_torch.ops import attention as attn
+
+    def refuse(*a, **k):
+        raise AssertionError('host sync')
+    gen = torch.Generator().manual_seed(3)
+    monkeypatch.setattr(torch.Tensor, 'item', refuse)
+    monkeypatch.setattr(torch.Tensor, 'tolist', refuse)
+    monkeypatch.setattr(torch.Tensor, '__int__', refuse)
+    s1 = attn._dropout_seed(gen, torch.device('cpu'))
+    s2 = attn._dropout_seed(gen, torch.device('cpu'))
+    assert s1.shape == (1,) and s1.dtype == torch.int64
+    assert not torch.equal(s1, s2)
+    assert bool(((s1 >= 0) & (s1 < 2 ** 32)).all())
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9))
+    dropped = fa.flash_attention(q, k, v, dropout_p=0.2, dropout_seed=s1)
+    monkeypatch.undo()
+    torch.testing.assert_close(dropped, fa.flash_attention(
+        q, k, v, dropout_p=0.2, dropout_seed=int(s1)), rtol=0, atol=0)

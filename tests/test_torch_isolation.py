@@ -60,6 +60,19 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert not bad, bad
 
 
+def test_the_import_check_covers_the_training_step_modules():
+    """The compiled step and the optimizer stack are port modules like
+    the others: the import check above reads them, and none of them pulls
+    in the JAX package when imported."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ('parallel/__init__.py', 'parallel/mesh.py',
+                 'parallel/step.py', 'lr_scheduler.py', '_capture.py',
+                 'optimizer/optimizer.py', 'ops/optimizer_ops.py',
+                 'gluon/trainer.py'):
+        assert os.path.join('mxnet_tpu_torch', name) in rel, name
+    assert mt.parallel.ShardedTrainStep and mt.lr_scheduler.CosineScheduler
+
+
 def test_forbidden_name_check_is_not_a_prefix_check():
     assert 'mxnet_tpu_torch'.split('.')[0] not in FORBIDDEN
     assert 'mxnet_tpu.ops'.split('.')[0] in FORBIDDEN
@@ -91,6 +104,10 @@ def test_entry_points_refuse_a_missing_card(device):
         mt.nd.array([1.0], ctx=mt.gpu(0))
     with pytest.raises(MXNetError, match='no CUDA device'):
         mt.rtc.CudaModule('extern "C" __global__ void k() {}')
+    # the compiled step's mesh holds the card unless the CPU is named
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        mt.parallel.make_mesh(devices=None if device is None else [device])
+    assert mt.parallel.make_mesh(devices=['cpu']).device.type == 'cpu'
 
 
 def test_weights_follow_the_module_device():

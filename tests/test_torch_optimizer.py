@@ -106,10 +106,13 @@ def test_lr_and_wd_multipliers_come_from_the_parameter():
 
 def test_create_refuses_what_is_not_ported():
     assert isinstance(topt.create('adamw'), topt.AdamW)
-    with pytest.raises(MXNetError, match=r"'sgd' is not ported.*adamw"):
-        topt.create('sgd')
-    with pytest.raises(MXNetError, match='lr_scheduler'):
-        topt.create('adamw', lr_scheduler=object())
+    for name in ('sgd', 'nag', 'adam', 'lamb'):
+        assert type(topt.create(name)).__name__.lower() == name
+    with pytest.raises(MXNetError,
+                       match=r"'rmsprop' is not ported.*adamw.*sgd"):
+        topt.create('rmsprop')
+    with pytest.raises(MXNetError, match=r"'signum' is not ported"):
+        topt.create('signum')
 
 
 @pytest.mark.parametrize('call', ['step', 'update'])
@@ -135,3 +138,254 @@ def test_ignore_stale_grad_is_accepted_and_changes_nothing(call):
     for a, b in zip(*results):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert not torch.equal(results[0][1], torch.from_numpy(s0))
+
+
+# ---- every optimizer_ops function against JAX, its per-step scalars as
+# Python floats and as 0-d tensors (what a captured update reads)
+
+_SCALARS = ('lr', 'wd', 'rescale_grad', 't')
+
+
+def _operands(seed):
+    rng = onp.random.RandomState(seed)
+    shape = (5, 7)
+    f = lambda s=1.0: rng.randn(*shape).astype(onp.float32) * s  # noqa
+    w, w32 = f(), f()
+    return {'w': w, 'g': f(3), 's': f(0.1), 'v': onp.abs(f(0.1)),
+            'w16': w32, 'g16': f(3), 'w32': w32, 'u': f(0.5),
+            'r1': onp.float32(2.5), 'r2': onp.float32(0.7)}
+
+
+_OPS = {
+    'sgd_update': ('w g', dict(lr=0.1, wd=0.01, rescale_grad=0.5,
+                               clip_gradient=0.3)),
+    'sgd_mom_update': ('w g s', dict(lr=0.1, momentum=0.9, wd=0.01,
+                                     rescale_grad=0.5)),
+    'mp_sgd_update': ('w16 g16 w32', dict(lr=0.1, wd=0.01,
+                                          rescale_grad=0.5)),
+    'mp_sgd_mom_update': ('w16 g16 s w32', dict(lr=0.1, momentum=0.9,
+                                                wd=0.01)),
+    'nag_mom_update': ('w g s', dict(lr=0.1, momentum=0.9, wd=0.01,
+                                     clip_gradient=2.0)),
+    'adam_update': ('w g s v', dict(lr=0.01, wd=0.01, rescale_grad=0.5,
+                                    clip_gradient=1.0)),
+    'adamw_update': ('w g s v', dict(lr=0.01, wd=0.01, rescale_grad=0.5,
+                                     eta=0.7)),
+    'lamb_update_phase1': ('w g s v', dict(t=3, wd=0.01, rescale_grad=0.5)),
+    'lamb_update_phase2': ('w u r1 r2', dict(lr=0.01, lower_bound=0.1,
+                                             upper_bound=10.0)),
+}
+
+
+def _to_jax(name, a):
+    x = jnp.asarray(a)
+    return x.astype('bfloat16') if name.endswith('16') else x
+
+
+def _to_torch(name, a):
+    x = torch.as_tensor(onp.asarray(a))
+    return x.to(torch.bfloat16) if name.endswith('16') else x
+
+
+def _tensor_scalars(kw, scalars, make=torch.tensor):
+    """kw with its per-step scalars as 0-d f32 arrays of ``make``'s kind
+    in 'tensor' mode: JAX then computes with f32 scalars too (as its fused
+    Trainer does with traced ones), so both sides round alike, e.g. in
+    1 - beta2 ** t."""
+    if scalars == 'float':
+        return dict(kw)
+    return {k: make(float(v), dtype=getattr(torch if make is torch.tensor
+                                            else jnp, 'float32'))
+            if k in _SCALARS else v for k, v in kw.items()}
+
+
+def _assert_like(t, j):
+    t = t if isinstance(t, (list, tuple)) else (t,)
+    j = j if isinstance(j, (list, tuple)) else (j,)
+    assert len(t) == len(j)
+    for a, b in zip(t, j):
+        if isinstance(a, (list, tuple)):
+            _assert_like(a, b)
+            continue
+        b = onp.asarray(b.astype(jnp.float32) if b.dtype == jnp.bfloat16
+                        else b)
+        if a.dtype == torch.bfloat16:
+            assert b.dtype == onp.float32
+            onp.testing.assert_allclose(a.float().numpy(), b, rtol=2 ** -7,
+                                        atol=0)
+        else:
+            assert a.dtype == torch.float32
+            onp.testing.assert_allclose(a.numpy(), b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize('scalars', ['float', 'tensor'])
+@pytest.mark.parametrize('name', sorted(_OPS))
+def test_update_op_matches_jax(name, scalars):
+    args, kw = _OPS[name]
+    data = _operands(sorted(_OPS).index(name))
+    jargs = [_to_jax(a, data[a]) for a in args.split()]
+    targs = [_to_torch(a, data[a]) for a in args.split()]
+    want = getattr(jops, name)(*jargs, **_tensor_scalars(kw, scalars,
+                                                         jnp.asarray))
+    got = getattr(tops, name)(*targs, **_tensor_scalars(kw, scalars))
+    _assert_like(got, want)
+
+
+def _lists(seed, n=3):
+    rng = onp.random.RandomState(seed)
+    shapes = [(4, 3), (6,), (2, 5)]
+    mk = lambda s=1.0: [rng.randn(*sh).astype(onp.float32) * s  # noqa
+                        for sh in shapes[:n]]
+    return dict(w=mk(), g=mk(3), s=mk(0.1), v=[onp.abs(x) for x in mk(0.1)],
+                w32=mk(), lrs=[0.1, 0.05, 0.02], wds=[0.0, 0.01, 0.1],
+                etas=[1.0, 0.5, 0.8], t=[1, 2, 5])
+
+
+_MULTI = {
+    'multi_sgd_update': ('w g', 'lrs wds', dict(rescale_grad=0.5)),
+    'multi_sgd_mom_update': ('w g s', 'lrs wds', dict(momentum=0.9)),
+    'multi_mp_sgd_update': ('w16 g16 w32', 'lrs wds',
+                            dict(clip_gradient=1.0)),
+    'multi_mp_sgd_mom_update': ('w16 g16 s w32', 'lrs wds',
+                                dict(momentum=0.8)),
+    'preloaded_multi_sgd_update': ('w g', 'lrs wds', dict(rescale_grad=0.5)),
+    'preloaded_multi_sgd_mom_update': ('w g s', 'lrs wds',
+                                       dict(momentum=0.9)),
+    'preloaded_multi_mp_sgd_update': ('w16 g16 w32', 'lrs wds', {}),
+    'preloaded_multi_mp_sgd_mom_update': ('w16 g16 s w32', 'lrs wds',
+                                          dict(momentum=0.9)),
+    'multi_lamb_update': ('w g s v', 'lrs wds t',
+                          dict(rescale_grad=0.5, lower_bound=0.01)),
+    'multi_adamw_update': ('w g s v', 'rescale lrs etas wds',
+                           dict(clip_gradient=2.0)),
+}
+
+
+def _multi_args(spec, data, scalar_spec, scalars, to_jax):
+    out = []
+    for a in spec.split():
+        base = a.replace('16', '') if a != 'w32' else 'w32'
+        src = data[base] if a in ('w16', 'g16') else data[a]
+        conv = _to_jax if to_jax else _to_torch
+        out.append([conv(a, x) for x in src])
+    preloaded = 'preloaded' in scalar_spec[0]
+    for a in scalar_spec[1].split():
+        if a == 'rescale':
+            out.append(jnp.float32(0.5) if to_jax else torch.tensor(0.5))
+            continue
+        vals = data[a]
+        if to_jax:
+            out.append(jnp.asarray(vals, jnp.float32) if preloaded
+                       else vals)
+        elif preloaded or scalars == 'tensor':
+            out.append(torch.tensor(vals, dtype=torch.float32))
+        else:
+            out.append(vals)
+    return out
+
+
+@pytest.mark.parametrize('scalars', ['float', 'tensor'])
+@pytest.mark.parametrize('name', sorted(_MULTI))
+def test_multi_tensor_op_matches_jax(name, scalars):
+    """The multi-tensor updates over 3 tensors of different shapes; lrs,
+    wds (and etas, step counts) per tensor, as Python lists or as device
+    vectors (the ``preloaded_*`` contract always takes vectors)."""
+    tensors, scal, kw = _MULTI[name]
+    data = _lists(sorted(_MULTI).index(name))
+    jargs = _multi_args(tensors, data, (name, scal), scalars, True)
+    targs = _multi_args(tensors, data, (name, scal), scalars, False)
+    want = getattr(jops, name)(*jargs, **kw)
+    got = getattr(tops, name)(*targs, **kw)
+    _assert_like(got, want)
+
+
+def test_multi_adamw_skips_a_non_finite_scale_on_the_device():
+    data = _lists(99)
+    ws = [torch.from_numpy(x) for x in data['w']]
+    gs = [torch.from_numpy(x) for x in data['g']]
+    ms = [torch.from_numpy(x) for x in data['s']]
+    vs = [torch.from_numpy(x) for x in data['v']]
+    out = tops.multi_adamw_update(ws, gs, ms, vs, torch.tensor(float('inf')),
+                                  data['lrs'], data['etas'], data['wds'])
+    for new, old in zip(out, (ws, ms, vs)):
+        for a, b in zip(new, old):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_multi_sum_sq_and_all_finite_match_jax():
+    data = _lists(7)
+    arrs = data['w'] + [data['g'][0].astype('float32')]
+    jw = [jnp.asarray(a).astype('bfloat16') if i == 1 else jnp.asarray(a)
+          for i, a in enumerate(arrs)]
+    tw = [_to_torch('x16' if i == 1 else 'x', a)
+          for i, a in enumerate(arrs)]
+    _assert_like(tops.multi_sum_sq(*tw), jops.multi_sum_sq(*jw))
+    assert float(tops.all_finite(*tw)) == float(jops.all_finite(*jw)) == 1.0
+    bad = arrs[0].copy()
+    bad[1, 1] = onp.nan
+    assert float(tops.all_finite(tw[1], torch.from_numpy(bad))) == \
+        float(jops.all_finite(jw[1], jnp.asarray(bad))) == 0.0
+
+
+_CLASSES = {
+    'sgd': dict(learning_rate=0.05, momentum=0.9, wd=0.01),
+    'sgd0': dict(learning_rate=0.05, wd=0.01),
+    'nag': dict(learning_rate=0.05, momentum=0.9, wd=0.01),
+    'adam': dict(learning_rate=1e-2, wd=0.01, clip_gradient=2.0),
+    'lamb': dict(learning_rate=1e-2, wd=0.01, lower_bound=1e-3,
+                 upper_bound=10.0),
+}
+
+
+@pytest.mark.parametrize('multi_precision', [False, True])
+@pytest.mark.parametrize('opt', sorted(_CLASSES))
+def test_optimizer_class_matches_jax_class(opt, multi_precision):
+    """create(name) of SGD (with and without momentum), NAG, Adam and LAMB
+    over 5 updates of a bf16 weight, with and without an f32 master."""
+    w0, grads = _problem(4, steps=5)
+    kw = dict(_CLASSES[opt], rescale_grad=0.5,
+              multi_precision=multi_precision)
+    name = opt.rstrip('0')
+    jo, to = jopt.create(name, **kw), topt.create(name, **kw)
+    assert to.fused_update is True
+    jw = nd.array(w0).astype('bfloat16')
+    tw = torch.from_numpy(w0).to(torch.bfloat16)
+    js = jo.create_state_multi_precision(0, jw)
+    ts = to.create_state_multi_precision(0, tw)
+    for g in grads:
+        jo.update_multi_precision(0, jw, nd.array(g).astype('bfloat16'), js)
+        to.update_multi_precision(0, tw, torch.from_numpy(g).to(
+            torch.bfloat16), ts)
+    assert to.num_update == jo.num_update == len(grads)
+    onp.testing.assert_allclose(tw.float().numpy(),
+                                jw.astype('float32').asnumpy(),
+                                rtol=2 ** -7, atol=1e-6)
+
+    def leaves(s):
+        if isinstance(s, (list, tuple)):
+            return [x for y in s for x in leaves(y)]
+        return [] if s is None else [s]
+    jl, tl = leaves(js), leaves(ts)
+    assert len(jl) == len(tl)
+    for a, b in zip(tl, jl):
+        assert a.dtype == torch.float32
+        onp.testing.assert_allclose(a.numpy(), b.asnumpy(), rtol=1e-5,
+                                    atol=1e-6)
+
+
+def test_updater_payload_round_trip():
+    """``Updater.get_states`` pickles {index: numpy state}, with the
+    optimizer when asked; ``set_states`` takes both forms back."""
+    import pickle
+    w = torch.ones(3)
+    o = topt.create('adam', learning_rate=0.1)
+    up = topt.get_updater(o)
+    up(0, torch.full((3,), 0.5), w)
+    plain = pickle.loads(up.get_states())
+    assert list(plain) == [0] and all(isinstance(x, onp.ndarray)
+                                      for x in plain[0])
+    other = topt.get_updater(topt.create('adam'))
+    other.set_states(up.get_states(dump_optimizer=True))
+    assert other.optimizer.num_update == 1 and other.optimizer.lr == 0.1
+    for a, b in zip(other.states[0], up.states[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
