@@ -67,7 +67,26 @@
    profiled step, the host cost of one NDArray op, and checks two
    semantics on the card (a launch into a reshape leaves its source
    unchanged; a second backward leaves the gradients).
-7. Compiled-step phase (the last to run): parallel.ShardedTrainStep, the flagship's entry
+7. Gluon phase: MXNet's Gluon API on the card. First the parity checks:
+   one SGD step of resnet50_v1 (B = 2, 224 x 224) in bf16, unit by unit
+   (each of its layers and bottlenecks on the input and upstream gradient
+   the f32 step on the CPU gave it) against f32 on the CPU, with the whole
+   step end to end printed beside the CPU's own bf16 step; then
+   resnet18_v1 (thumbnail, B = 8, 32 x 32) in f32 with TF32 off, the
+   whole step, card against CPU. Then (b) bench.py's _resnet_report
+   program as written (resnet50_v1, Xavier, cast to bf16,
+   ShardedTrainStep with SGD momentum 0.9, lr 0.1, B = 64, 224 x 224): 2
+   warm-up and 3 x 8 timed steps, the step time (median and spread of the
+   3), images/s, a profiled step (busy time, idle share, top kernels), and
+   (a) the imperative Gluon loop (autograd.record, SoftmaxCrossEntropyLoss,
+   backward, Trainer.step) on the same net, unhybridized and hybridized
+   (forward and backward as CUDA graphs), 5 steps each, median of 3; and
+   the hybridized predict-mode forward at B = 64 bitwise equal to the
+   unhybridized one, one graph per key. The five kernels' launch counters
+   are set to 0 before (b) and must read 0 after (a): this path runs
+   none of them (its convolutions, pooling and BatchNorm are stock
+   PyTorch/cuDNN ops, as the JAX package leaves them to XLA).
+8. Compiled-step phase (the last to run): parallel.ShardedTrainStep, the flagship's entry
    point, whose step (forward, backward, AdamW) is one CUDA graph
    replayed per call. First, at hidden 128 and 2 layers in f32 with
    dropout 0, 5 steps of the captured step and 5 of the Trainer with its
@@ -84,12 +103,13 @@
    and spread of 3 calls) beside the Trainer loop's, and the device's
    busy time and idle share. The kernel phase also times the flash
    forward, dq and dk/dv with dropout 0.1, their seed read by pointer.
-8. Prints the kernels' JSON line (each row with its variant and, for a
+9. Prints the kernels' JSON line (each row with its variant and, for a
    redesigned kernel, the time of the one it replaced, old_ms) and, last,
    the result line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -516,6 +536,9 @@ _FAMILIES = (('flash_attn_fwd', ('flash_fwd_kernel', 'flash_fwd_tc_kernel')),
              ('dense_gelu', ('dense_gelu_',)),
              ('rtc user kernels', ('gelu_fwd', 'gelu_bwd', 'scale_add',
                                    'block_double', 'rowsum')),
+             ('batch_norm', ('batch_norm_',)),
+             ('layout conversions', ('nchwToNhwc', 'nhwcToNchw')),
+             ('pooling', ('max_pool', 'avg_pool', 'adaptive_')),
              ('library GEMMs', ('gemm', 'nvjet', 'cutlass', 'xmma')))
 
 
@@ -1322,6 +1345,481 @@ def ndarray_phase(card, steps=5):
         loss_rel=loss_rel, grad_rel_fro=rel_fro)
 
 
+# Gluon parity on the card (chosen before the first run; PERF.md section
+# 2 says why the bf16 check is made block by block):
+# - bf16: one SGD step of resnet50_v1 at B = 2, 224 x 224, its units (the
+#   stem's layers, the 16 bottlenecks, the pooling, the classifier, the
+#   loss) each run in bf16 on the card on the input and the upstream
+#   gradient that the f32 step on the CPU gave that unit, rounded to bf16,
+#   against the same unit in f32 on the CPU on those rounded values, all
+#   with the same (bf16) weights: the loss within loss_rel, every
+#   gradient's cosine >= grad_min_cos, the running statistics within
+#   stats_rel, each gradient's rel Frobenius within grad_rel_fro. A
+#   gradient that bf16 itself cannot bring within grad_rel_fro (torch's
+#   CPU bf16 kernels, on the same unit and values, give more) is named in
+#   the output and held to GLUON_BF16_OVER times the CPU's bf16 figure
+#   instead; that factor lies between the sound readings and those of the
+#   planted faults (GLUON_BF16_FAULTS, PERF.md section 6), and every run
+#   checks that each planted fault fails the bounds. The biases of the
+#   1x1 convolutions BottleneckV1 puts before a BatchNorm are left out:
+#   their exact gradient is 0 in training mode. The whole step end to end
+#   in bf16 is printed beside the CPU's own bf16 step, not held to
+#   bounds: in training mode the f32 network itself takes a 0.3% change
+#   of its input to a 35% change of its stage-4 features.
+# - f32: resnet18_v1 (thumbnail) at B = 8, 32 x 32, TF32 off, the whole
+#   step on the card against the CPU.
+GLUON_BF16_TOL = {'loss_rel': 0.01, 'grad_rel_fro': 0.1,
+                  'grad_min_cos': 0.95, 'stats_rel': 0.02}
+GLUON_BF16_OVER = 1.15
+# faults planted in the card's BatchNorm (a plain version of
+# torch.native_batch_norm, which ops.nn.batch_norm calls): the control
+# 'plain' is sound and must pass; the others must fail
+GLUON_BF16_FAULTS = ('plain', 'statistics detached', 'variance detached')
+GLUON_F32_TOL = {'loss_rel': 1e-5, 'grad_rel_fro': 1e-4}
+_ZERO_GRAD = ('body.0.bias', 'body.6.bias')
+
+
+def _gluon_step(net, x, y, trainer=None):
+    """One step of the imperative Gluon loop on ``net``: the loss, every
+    gradient and (after the step) the running statistics, on the host."""
+    from mxnet_tpu_torch import autograd, gluon
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    if trainer is None:
+        trainer = gluon.Trainer(net.collect_params(), 'sgd',
+                                {'learning_rate': 0.1, 'momentum': 0.9})
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    params = net._collect_params_with_prefix()
+    grads = {k: p.grad().asnumpy() for k, p in params.items()
+             if p.grad_req != 'null'}
+    trainer.step(x.shape[0])
+    stats = {k: p.data().asnumpy() for k, p in params.items()
+             if p.grad_req == 'null'}
+    return loss.asnumpy(), grads, stats
+
+
+def _nets(make, x, ctxs, seed):
+    """One net per context, with the same Xavier weights (drawn on the CPU
+    from ``seed``, then rounded to bf16), placed by one forward."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd
+    mt.random.seed(seed)
+    nets = []
+    for ctx in ctxs:
+        net = make()
+        net.initialize(mt.init.Xavier(), ctx=ctx)
+        net(nd.array(x, ctx=ctx))
+        nets.append(net)
+    src = nets[0]._collect_params_with_prefix()
+    for net in nets[1:]:
+        for k, p in net._collect_params_with_prefix().items():
+            p.set_data(src[k].data())
+    return nets
+
+
+def _bf16(a):
+    import torch
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def _compare(grads, want, stats, want_stats, skip=()):
+    """(worst rel Frobenius by name, min cosine, worst stats rel)."""
+    import numpy as onp
+    rel, cos = {}, []
+    for k, g in grads.items():
+        if k.endswith(skip):
+            continue
+        a = onp.asarray(g, onp.float64).ravel()
+        b = onp.asarray(want[k], onp.float64).ravel()
+        rel[k] = onp.linalg.norm(a - b) / onp.linalg.norm(b)
+        cos.append(a @ b / (onp.linalg.norm(a) * onp.linalg.norm(b)))
+    srel = [onp.linalg.norm(stats[k] - want_stats[k]) /
+            onp.linalg.norm(want_stats[k]) for k in stats]
+    return rel, min(cos), max(srel or [0.0])
+
+
+def _units(net):
+    f = net.features
+    units = [('stem conv', f[0]), ('stem bn', f[1]), ('stem relu', f[2]),
+             ('stem pool', f[3])]
+    for s in range(4, 8):
+        units += [(f'stage{s - 3} block{i}', b) for i, b in enumerate(f[s])]
+    return units + [('pool', f[8]), ('classifier', net.output)]
+
+
+def _unit_step(unit, x, g, label_grads=None):
+    """Training-mode forward of one unit on tensor ``x`` and its backward
+    from ``g``: ({param: grad}, {stat: value}) on the host."""
+    import torch
+    unit.train()
+    with torch.enable_grad():
+        out = unit(x)
+        ps = [(n, p) for n, p in unit.named_parameters() if p.requires_grad]
+        gs = torch.autograd.grad(out, [p for _, p in ps], grad_outputs=g) \
+            if ps else []
+    return ({n: gr.float().cpu().numpy() for (n, _), gr in zip(ps, gs)},
+            {n: p.detach().float().cpu().numpy()
+             for n, p in unit.named_parameters() if not p.requires_grad})
+
+
+@contextlib.contextmanager
+def _planted_batch_norm(fault):
+    """torch.native_batch_norm replaced, for the port's BatchNorm, by a
+    plain version (f32 statistics) with ``fault`` planted: 'plain' plants
+    none; 'statistics detached' drops the batch statistics from the
+    backward; 'variance detached' drops the variance's term only."""
+    import torch
+    if fault is None:
+        yield
+        return
+    native = torch.native_batch_norm
+
+    def plain(x, w, b, rm, rv, training, momentum, eps):
+        dims = [0] + list(range(2, x.dim()))
+        sh = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        mean = xf.mean(dims)
+        invstd = torch.rsqrt(xf.var(dims, correction=0) + eps)
+        m, s = mean, invstd
+        if fault == 'statistics detached':
+            m, s = m.detach(), s.detach()
+        elif fault == 'variance detached':
+            s = s.detach()
+        y = (xf - m.reshape(sh)) * s.reshape(sh)
+        if w is not None:
+            y = y * w.float().reshape(sh)
+        if b is not None:
+            y = y + b.float().reshape(sh)
+        return y.to(x.dtype), mean.detach(), invstd.detach()
+    torch.native_batch_norm = plain
+    try:
+        yield
+    finally:
+        torch.native_batch_norm = native
+
+
+def _hold_bf16_units(readings, tol):
+    """``check`` every unit's reading against the bf16 bounds; returns the
+    gradients held to GLUON_BF16_OVER times the CPU's bf16 figure and the
+    largest share of its bound any gradient used."""
+    over, share = [], 0.0
+    for name, rel, rel_cpu, cos, srel in readings:
+        check(cos >= tol['grad_min_cos'], f'bf16 {name}: gradient cosine '
+              f'{cos:.5f} under {tol["grad_min_cos"]}')
+        check(srel <= tol['stats_rel'], f'bf16 {name}: running statistics '
+              f'rel {srel:.3e} over {tol["stats_rel"]}')
+        for k, e in rel.items():
+            bound = tol['grad_rel_fro']
+            if rel_cpu[k] > bound:
+                bound = GLUON_BF16_OVER * rel_cpu[k]
+                over.append(f'{name} {k}')
+            check(e <= bound, f'bf16 {name} {k}: gradient rel Frobenius '
+                  f'{e:.3e} over {bound:.3e}')
+            share = max(share, e / bound)
+    return over, share
+
+
+def gluon_bf16_parity(card, shape=(2, 3, 224, 224), device='cuda'):
+    """The bf16 check of GLUON_BF16_TOL, block by block, the planted
+    faults of GLUON_BF16_FAULTS, and the end-to-end step printed beside
+    the CPU's own bf16 step. ``device`` 'cpu' runs the bf16 side on the
+    CPU (a dry run: the 'card' readings are then the CPU's bf16)."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    ctx = mt.gpu(0) if device == 'cuda' else mt.cpu()
+    rng = onp.random.RandomState(SEED + 4)
+    x = _bf16(rng.randn(*shape).astype(onp.float32))
+    y = rng.randint(0, 1000, shape[0]).astype(onp.int32)
+    make = lambda: resnet50_v1(classes=1000)      # noqa: E731
+    # the f32 reference with hooks, a second f32 copy and a CPU bf16 copy
+    # per unit, and the card's bf16 net: all from one set of weights
+    ref, ref_u, cpu16, net = _nets(make, x, [mt.cpu()] * 3 + [ctx],
+                                   SEED + 5)
+    for n in (ref, ref_u, cpu16, net):
+        n.cast('bfloat16')        # every copy holds the rounded weights
+    for n in (ref, ref_u):
+        n.cast('float32')
+    tol = GLUON_BF16_TOL
+    ins, outs = [], []
+
+    def hook(m, i, o):
+        ins.append(i[0].detach())
+        o.retain_grad()
+        outs.append(o)
+    handles = [u.register_forward_hook(hook) for _, u in _units(ref)]
+    ref.train()
+    with torch.enable_grad():
+        logits = ref(torch.from_numpy(x))
+        logits.retain_grad()
+        logp = torch.log_softmax(logits, -1)
+        (-logp.gather(1, torch.from_numpy(y).long()[:, None])).sum() \
+            .backward()
+    for h in handles:
+        h.detach()
+    units = []
+    for (name, u16), (_, uref), (_, ucpu16), xin, o in zip(
+            _units(net), _units(ref_u), _units(cpu16), ins, outs):
+        xb, gb = xin.bfloat16(), o.grad.bfloat16()
+        g_ref, s_ref = _unit_step(uref, xb.float(), gb.float())
+        if not g_ref:
+            continue
+        g_cpu, _ = _unit_step(ucpu16, xb, gb)
+        rel_cpu, _, _ = _compare(g_cpu, g_ref, {}, {}, _ZERO_GRAD)
+        stats0 = [p.detach().clone() for p in u16.parameters()
+                  if not p.requires_grad]
+        units.append((name, u16, xb.to(device), gb.to(device), g_ref, s_ref,
+                      rel_cpu, stats0))
+
+    def card_readings(fault=None):
+        """(name, rel by gradient, CPU bf16 rel, cosine, stats rel) per
+        unit, each unit's running statistics as they were before."""
+        rows = []
+        with _planted_batch_norm(fault):
+            for name, u16, xb, gb, g_ref, s_ref, rel_cpu, stats0 in units:
+                with torch.no_grad():
+                    for p, s0 in zip((p for p in u16.parameters()
+                                      if not p.requires_grad), stats0):
+                        p.copy_(s0)
+                g_card, s_card = _unit_step(u16, xb, gb)
+                rel, cos, srel = _compare(g_card, g_ref, s_card, s_ref,
+                                          _ZERO_GRAD)
+                rows.append((name, rel, rel_cpu, cos, srel))
+        return rows
+
+    def summary(rows):
+        return '; '.join(f'{n} {max(r.values()):.3f}/'
+                         f'{max(rc.values()):.3f}' for n, r, rc, _, _ in rows)
+    sound = card_readings()
+    worst_rel = max(max(r.values()) for _, r, _, _, _ in sound)
+    worst_cos = min(c for _, _, _, c, _ in sound)
+    worst_stats = max(s for _, _, _, _, s in sound)
+    # the loss on the classifier's output, rounded to bf16
+    lg = torch.from_numpy(_bf16(logits.detach().numpy()))
+    yt = torch.from_numpy(y).long()[:, None]
+    loss_card = -torch.log_softmax(lg.bfloat16().to(device), -1).gather(
+        1, yt.to(device)).float().cpu()
+    loss_ref = -torch.log_softmax(lg, -1).gather(1, yt)
+    loss_rel = float((loss_card - loss_ref).abs().max() /
+                     loss_ref.abs().max())
+    print(f'  parity, resnet50_v1 B=2 224x224 block by block, bf16 {device} '
+          f'vs f32 CPU on the same bf16 inputs, upstream gradients and '
+          f'weights on {card}: loss rel {loss_rel:.2e}, min cosine '
+          f'{worst_cos:.5f}, running statistics rel {worst_stats:.2e}, '
+          f'worst gradient rel Frobenius {worst_rel:.3e}; worst per unit, '
+          f'card/CPU bf16: {summary(sound)}; tolerance {tol}, over '
+          f'{tol["grad_rel_fro"]} where the CPU bf16 is: '
+          f'{GLUON_BF16_OVER} x the CPU bf16')
+    ratios = sorted(((r[k] / rc[k], f'{n} {k}') for n, r, rc, _, _ in sound
+                     for k in r if rc[k] > tol['grad_rel_fro']),
+                    reverse=True)
+    print(f'  gradients over {tol["grad_rel_fro"]} in the CPU bf16, card/CPU '
+          f'bf16 ratio: ' + ', '.join(f'{k} {q:.3f}' for q, k in ratios))
+    check(loss_rel <= tol['loss_rel'], f'bf16 resnet50_v1 loss rel '
+          f'{loss_rel:.3e} over {tol["loss_rel"]}')
+    over, share = _hold_bf16_units(sound, tol)
+    print(f'  -> ok: every bound held (at most {share:.2f} of a bound); '
+          f'{len(over)} gradients held to {GLUON_BF16_OVER} x the CPU bf16: '
+          f'{", ".join(over)}')
+    faults = {}
+    for fault in GLUON_BF16_FAULTS:
+        rows = card_readings(fault)
+        try:
+            _hold_bf16_units(rows, tol)
+            err = None
+        except RuntimeError as e:
+            err = str(e)
+        ratio = max((r[k] / rc[k] for _, r, rc, _, _ in rows for k in r
+                     if rc[k] > tol['grad_rel_fro']), default=0.0)
+        faults[fault] = dict(caught=err is not None, max_rel=max(
+            max(r.values()) for _, r, _, _, _ in rows),
+            min_cos=min(c for _, _, _, c, _ in rows),
+            max_over_ratio=ratio)
+        print(f'  planted fault {fault!r} in the card\'s BatchNorm: worst '
+              f'per unit, card/CPU bf16: {summary(rows)}; largest card/CPU '
+              f'ratio over {tol["grad_rel_fro"]}: {ratio:.3f}; '
+              f'{"fails the bounds: " + err if err else "passes the bounds"}')
+        check((err is not None) == (fault != 'plain'),
+              f'planted fault {fault!r}: the bf16 check '
+              f'{"caught the sound control" if err else "missed it"}')
+
+    # the end-to-end step in bf16, the card and the CPU, against f32
+    f32, cpu16, net = _nets(make, x, [mt.cpu(), mt.cpu(), ctx], SEED + 5)
+    for n in (f32, cpu16, net):
+        n.cast('bfloat16')
+    f32.cast('float32')
+    e2e = {}
+    loss32, g32, s32 = _gluon_step(f32, nd.array(x, ctx=mt.cpu()),
+                                   nd.array(y, ctx=mt.cpu()))
+    for label, n, c in (('card', net, ctx), ('CPU', cpu16, mt.cpu())):
+        loss, g, st = _gluon_step(n, nd.array(x, ctx=c, dtype='bfloat16'),
+                                  nd.array(y, ctx=c))
+        rel, cos, srel = _compare(g, g32, st, s32, _ZERO_GRAD)
+        e2e[label] = dict(loss_rel=float(onp.abs(loss - loss32).max() /
+                                         onp.abs(loss32).max()),
+                          grad_rel_fro=float(max(rel.values())),
+                          grad_min_cos=float(cos), stats_rel=float(srel))
+    print(f'  end to end (the whole step in bf16 vs f32 on the CPU, not '
+          f'held to bounds): card {e2e["card"]}, the CPU\'s own bf16 '
+          f'{e2e["CPU"]}')
+    return dict(loss_rel=loss_rel, grad_min_cos=worst_cos,
+                stats_rel=worst_stats, grad_rel_fro=worst_rel,
+                over=over, faults=faults, end_to_end=e2e)
+
+
+def gluon_f32_parity(card, shape=(8, 3, 32, 32)):
+    """The f32 check of GLUON_F32_TOL: the whole step, card vs CPU."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    rng = onp.random.RandomState(SEED + 7)
+    x = rng.randn(*shape).astype(onp.float32)
+    y = rng.randint(0, 10, shape[0]).astype(onp.int32)
+    ref, net = _nets(lambda: resnet18_v1(classes=10, thumbnail=True), x,
+                     [mt.cpu(), mt.gpu(0)], SEED + 8)
+    loss, g, st = _gluon_step(net, nd.array(x, ctx=mt.gpu(0)),
+                              nd.array(y, ctx=mt.gpu(0)))
+    loss_c, g_c, st_c = _gluon_step(ref, nd.array(x, ctx=mt.cpu()),
+                                    nd.array(y, ctx=mt.cpu()))
+    rel, cos, srel = _compare(g, g_c, st, st_c)
+    loss_rel = float(onp.abs(loss - loss_c).max() / onp.abs(loss_c).max())
+    worst = max(rel, key=rel.get)
+    tol = GLUON_F32_TOL
+    ok = loss_rel <= tol['loss_rel'] and rel[worst] <= tol['grad_rel_fro']
+    print(f'  parity, resnet18_v1 thumbnail B=8 32x32, f32 card (TF32 off) '
+          f'vs CPU on {card}: loss rel {loss_rel:.2e}, worst gradient rel '
+          f'Frobenius {rel[worst]:.2e} ({worst}), min cosine {cos:.7f}, '
+          f'running statistics rel {srel:.2e}; tolerance {tol} -> '
+          f'{"ok" if ok else "FAIL"}')
+    check(ok, 'f32 resnet18_v1 on the card disagrees with the CPU')
+    return dict(loss_rel=loss_rel, grad_rel_fro=rel[worst], stats_rel=srel)
+
+
+def gluon_parity(card):
+    return {'bf16': gluon_bf16_parity(card), 'f32': gluon_f32_parity(card)}
+
+
+def gluon_phase(card, batch=64, warmup=2, timed=8, loop_steps=5):
+    """MXNet's Gluon front end on the card: (b) bench.py's _resnet_report
+    program (ResNet-50 v1, Xavier, bf16, the compiled step with SGD),
+    then (a) the imperative Gluon loop on the same net, unhybridized and
+    hybridized, and predict mode through hybridize()."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.parallel import ShardedTrainStep
+
+    print(f'gluon phase on {card}: the Gluon API (Block, hybridize, '
+          f'model zoo) on the card; ResNet-50 v1 at B={batch}, 224x224, '
+          f'bf16')
+    parity = gluon_parity(card)
+    torch.cuda.empty_cache()
+    mx.ops.reset_launch_counts()
+
+    # (b) bench.py:195-219 as written, the mesh line left out (one card)
+    mx.random.seed(SEED + 6)
+    net = resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier())
+    net.cast('bfloat16')
+
+    def loss_fn(logits, labels):
+        logp = nd.log_softmax(logits, axis=-1)
+        return -nd.mean(nd.pick(logp, labels, axis=-1))
+
+    step = ShardedTrainStep(net, loss_fn, 'sgd',
+                            {'learning_rate': 0.1, 'momentum': 0.9})
+    rng = onp.random.RandomState(0)
+    x = nd.array(rng.randn(batch, 3, 224, 224).astype(onp.float32))
+    y = nd.array(rng.randint(0, 1000, (batch,)).astype(onp.int32))
+    t0 = time.perf_counter()
+    warm = []
+    for _ in range(warmup):
+        v = float(step([x], [y]).asnumpy())
+        check(onp.isfinite(v), 'non-finite resnet loss')
+        warm.append(v)
+    first_s = time.perf_counter() - t0
+    calls, losses = [], []
+    for _ in range(3):
+        t0 = time.time()
+        for _ in range(timed):
+            loss = step([x], [y])
+        losses.append(float(loss.asnumpy()))
+        calls.append((time.time() - t0) / timed * 1e3)
+    step_ms = sorted(calls)[1]
+    check(all(onp.isfinite(v) for v in losses), 'non-finite resnet loss')
+    check(len(step._graphs) == 1, f'{len(step._graphs)} graphs captured')
+    print(f'  (b) bench.py _resnet_report program: warm-up losses {warm} '
+          f'({first_s:.1f} s: call 1 eager and capture), losses after each '
+          f'call of {timed} {losses}')
+    print(f'  (b) {timed} captured steps at B={batch} on {card}: '
+          f'{step_ms:.3f} ms per step, the median of 3 calls '
+          f'({", ".join(f"{c:.3f}" for c in calls)} ms; spread '
+          f'{max(calls) - min(calls):.3f} ms), '
+          f'{batch / step_ms * 1e3:.1f} images/s')
+    busy = device_breakdown(f'ResNet-50 captured step b{batch}',
+                            lambda: step([x], [y]), card, 3)
+
+    # (a) the imperative Gluon loop on the same net, bf16
+    xb = x.astype('bfloat16')
+    trainer = gluon.Trainer(net.collect_params(), 'sgd',
+                            {'learning_rate': 0.1, 'momentum': 0.9})
+    loss_g = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loop_step():
+        with autograd.record():
+            loss = loss_g(net(xb), y)
+        loss.backward()
+        trainer.step(batch)
+        return loss
+
+    loop = {}
+    for hybrid in (False, True):
+        net.hybridize(hybrid)
+        warm_l = [float(loop_step().mean().asscalar()) for _ in range(2)]
+        ms = [steps_ms(loop_step, loop_steps) for _ in range(3)]
+        last = float(loop_step().mean().asscalar())
+        check(all(onp.isfinite(v) for v in warm_l + [last]),
+              'non-finite loss in the Gluon loop')
+        label = 'hybridized' if hybrid else 'not hybridized'
+        loop[label] = sorted(ms)[1]
+        print(f'  (a) imperative Gluon loop, {label}, {loop_steps} steps at '
+              f'B={batch} bf16 on {card}: {loop[label]:.3f} ms per step, '
+              f'the median of 3 calls ({", ".join(f"{m:.3f}" for m in ms)}'
+              f' ms); losses {warm_l} ... {last}')
+    graphs_train = net._cached_op.num_graphs
+    busy_loop = device_breakdown(f'hybridized Gluon loop step b{batch}',
+                                 loop_step, card, 3)
+
+    # predict mode: hybridized against the same blocks unhybridized
+    net.hybridize(False)
+    eager = net(xb).asnumpy()
+    net.hybridize()
+    first = net(xb).asnumpy()
+    replay = net(xb).asnumpy()
+    graphs = net._cached_op.num_graphs
+    same = onp.array_equal(first, eager) and onp.array_equal(replay, eager)
+    print(f'  (a) predict mode at B={batch}: hybridized (warm-up, then '
+          f'replay) vs unhybridized forward bitwise '
+          f'{"equal" if same else "DIFFERENT"}; graphs captured: {graphs} '
+          f'(predict), {graphs_train} (training loop, forward and '
+          f'backward)')
+    check(same, 'hybridized predict differs from the unhybridized forward')
+    check(graphs == 1 and graphs_train == 1, 'unexpected graph counts')
+    launches = dict(mx.ops.launch_counts)
+    check(not any(launches.values()), f'the Gluon path launched {launches}')
+    return launches, dict(step_ms=step_ms, calls_ms=calls,
+                          images_per_s=batch / step_ms * 1e3, busy=busy,
+                          loop_ms=loop, busy_loop=busy_loop,
+                          parity=parity)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1331,6 +1829,8 @@ def main():
     from mxnet_tpu_torch.ops import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # an eager run and a capture must pick the same algorithms
+    torch.backends.cudnn.benchmark = False
 
     card = card_line()
     print(f'card: {card} ({torch.cuda.get_device_name(0)}, torch '
@@ -1355,6 +1855,7 @@ def main():
     serving, _stats, _rps = serving_phase(card)
     training, _train = training_phase(card)
     user, nd_ops, user_rows, _nd = ndarray_phase(card)
+    gluon, _gluon = gluon_phase(card)
     # last: the traces taken after its graph replays are the least sure
     compiled, per_replay, _compiled = compiled_step_phase(card)
     # launches: the serving, training, compiled-step and ndarray runs',
@@ -1363,10 +1864,11 @@ def main():
     # the graph, per_replay of them, counted in the profiler's trace)
     by_path = {name: {'serving': serving[name], 'training': training[name],
                       'compiled_step': compiled[name],
-                      'ndarray': nd_ops[name]} for name in rows}
+                      'ndarray': nd_ops[name], 'gluon': gluon.get(name, 0)}
+               for name in rows}
     for name in user_rows:
         by_path[name] = {'serving': 0, 'training': 0, 'compiled_step': 0,
-                         'ndarray': user[name]}
+                         'ndarray': user[name], 'gluon': 0}
     kernels = [dict(name=name, route=r['route'], variant=r['variant'],
                     source=r['source'], replaces=r['replaces'],
                     launches=sum(by_path[name].values()),

@@ -14,7 +14,9 @@ kernels (see ``ops``), through ``gluon.Trainer`` (SGD, NAG, Adam, AdamW,
 LAMB and the ``lr_scheduler``s, its update one captured program) or
 through ``parallel.ShardedTrainStep``, the whole step captured as one
 CUDA graph. It runs MXNet's imperative API (``nd``, ``autograd``) with
-user kernels compiled by NVRTC (``rtc``).
+user kernels compiled by NVRTC (``rtc``), and MXNet's Gluon API
+(``gluon``: Blocks with deferred initialisation, ``hybridize()`` as CUDA
+graphs, the layers and losses, the vision model zoo's ResNets).
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
@@ -23,9 +25,10 @@ from . import (autograd, config, context, engine, gluon, initializer,
                lr_scheduler, models, ndarray, ops, optimizer, parallel,
                random, rtc, serialization, serving, weights)
 from . import ndarray as nd
+from . import initializer as init
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'autograd', 'config', 'context',
-           'engine', 'gluon', 'initializer', 'lr_scheduler', 'models', 'nd',
+           'engine', 'gluon', 'init', 'initializer', 'lr_scheduler', 'models', 'nd',
            'ndarray', 'ops', 'optimizer', 'parallel', 'random', 'rtc',
            'serialization', 'serving', 'weights']

@@ -22,7 +22,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ['DeviceScalars', 'capture', 'module_generators']
+__all__ = ['DeviceScalars', 'capture', 'module_generators',
+           'graph_generators']
 
 
 class DeviceScalars:
@@ -60,6 +61,19 @@ def module_generators(module):
         if isinstance(g, torch.Generator) and g.device.type == 'cuda':
             gens[id(g)] = g
     return list(gens.values())
+
+
+def graph_generators(module, device):
+    """``module_generators`` and the port's own generator of ``device``
+    (``random.generator``, which ``nd.dropout`` draws from; made now if
+    it is not yet, since the capture's warm-up may be its first use), once
+    each."""
+    from . import random as _random
+    gens = module_generators(module)
+    own = _random.generator(device)
+    if all(g is not own for g in gens):
+        gens.append(own)
+    return gens
 
 
 def capture(fn, device, generators=(), warm_up=False):

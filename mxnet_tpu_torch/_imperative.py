@@ -15,7 +15,9 @@ JAX package's ``jax.vjp`` tape) does differently from torch is kept here:
   memory;
 - gradients go into ``arr.grad`` by its ``grad_req`` ('write'
   overwrites, 'add' accumulates, 'null' skips), in the grad buffer's
-  dtype, never into torch's own ``.grad``;
+  dtype, never into torch's own ``.grad``, except for a Gluon
+  Parameter's ``data()``, whose gradient buffer is its tensor's
+  ``.grad`` (``gluon.parameter.ParamArray``);
 - ``backward()`` on a head that was never recorded does nothing;
 - ``backward()`` without ``retain_graph`` consumes the head's graph: the
   recorded outputs it reached are detached, so a second ``backward()``
@@ -64,7 +66,8 @@ def leaf_tensor(arr):
     t = arr._data
     if not t.requires_grad and (t.is_floating_point() or t.is_complex()):
         t = arr._data = t.detach().requires_grad_()
-    tape.variables[id(arr)] = (arr, t)
+    # a Parameter's data() arrays are many views of one variable
+    tape.variables[getattr(arr, '_tape_key', id(arr))] = (arr, t)
     return t
 
 
@@ -159,6 +162,10 @@ def _seed(head, hg):
 
 
 def _write_grad(arr, g):
+    write = getattr(arr, '_tape_write', None)
+    if write is not None:
+        write(g)
+        return
     buf = arr._grad
     g = g.detach().to(buf._data.dtype)
     if arr._grad_req == 'add':
@@ -178,7 +185,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     outs = [h._data for h, _ in live]
     nodes = None if retain_graph else _graph_nodes(outs)
     variables = [(a, t) for a, t in tape.variables.values()
-                 if a._grad is not None and a._grad_req != 'null']
+                 if a._grad_req != 'null' and a._grad is not None]
     if variables:
         rec = state.is_recording
         state.is_recording = False

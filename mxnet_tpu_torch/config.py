@@ -83,3 +83,10 @@ _register('MXTPU_SERVE_DRAIN_SECONDS', float, 10.0,
 _register('MXTPU_REMAT', str, 'none',
           "Activation remat policy of ShardedTrainStep: only 'none' is "
           'ported; any other policy raises (ROADMAP queue 1 item 7).')
+_register('MXNET_HOME', str, os.path.join(os.path.expanduser('~'), '.mxnet'),
+          'Data directory: the model zoo looks for pretrained weights in '
+          'its models/ folder.')
+_register('MXNET_GLUON_REPO', str, '',
+          'A local directory holding gluon/models/<name>-<hash>.params, '
+          'where the model zoo also looks for pretrained weights (the '
+          'port downloads nothing).')

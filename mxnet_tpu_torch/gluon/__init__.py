@@ -1,11 +1,18 @@
-"""Gluon-style layers as PyTorch modules, the parameter collection and the
-Trainer (counterpart of ``mxnet_tpu/gluon``). ``hybridize()``/CachedOp has
-no counterpart: a runner calls the module under
-``torch.inference_mode()``; a training loop uses ``torch.autograd`` in
-place of ``mx.autograd.record()`` and ``module.train()`` in place of its
-train mode."""
-from . import nn
-from .parameter import collect_params
+"""Gluon, MXNet's imperative high-level API (counterpart of
+``mxnet_tpu/gluon``): Parameters, Blocks and hybridize, the layers, the
+losses, the Trainer and the vision model zoo. ``collect_params(module)``
+keys a plain ``torch.nn.Module``'s parameters by structured name (the
+BERT models)."""
+from .parameter import (Parameter, Constant, ParameterDict,
+                        DeferredInitializationError, collect_params)
+from .block import Block, HybridBlock, SymbolBlock
 from .trainer import Trainer
+from . import nn
+from . import loss
+from . import utils
+from . import model_zoo
 
-__all__ = ['nn', 'collect_params', 'Trainer']
+__all__ = ['Parameter', 'Constant', 'ParameterDict',
+           'DeferredInitializationError', 'collect_params', 'Block',
+           'HybridBlock', 'SymbolBlock', 'Trainer', 'nn', 'loss', 'utils',
+           'model_zoo']

@@ -1,0 +1,590 @@
+"""Block, HybridBlock and the CachedOp counterpart (counterpart of
+``mxnet_tpu/gluon/block.py``, ref: python/mxnet/gluon/block.py:229 (Block),
+:827 (HybridBlock), src/imperative/cached_op.cc).
+
+A Block is a ``torch.nn.Module``, so every entry point of the port that
+takes a module takes one (``parallel.ShardedTrainStep``, ``gluon.Trainer``,
+``serving.BlockRunner``, ``weights.params_from_mxnet_tpu``). Its Gluon
+Parameters register their tensors on it under their attribute names, so
+``named_parameters()`` yields the JAX package's structured names. The
+names, prefixes and ``_BlockScope`` counters are MXNet's.
+
+Two kinds of call:
+
+- with NDArrays (MXNet's entry): NDArrays come back. Inside
+  ``autograd.record()`` the call is recorded on ``mx.autograd``'s tape:
+  a later ``backward()`` writes each Parameter's gradient into its
+  tensor's ``.grad``. Outside it nothing is recorded (``torch.no_grad``).
+- with torch tensors (PyTorch's entry, and every call a Block makes of
+  its children): tensors come back, and torch's own grad mode decides
+  what is recorded.
+
+Training mode, one rule for both. A layer that behaves differently in
+training (BatchNorm, Dropout) reads its module's ``training`` flag; an
+``nd`` op a ``hybrid_forward`` calls itself (``F.dropout``,
+``F.batch_norm`` with ``training=None``) reads ``autograd.is_training()``,
+as MXNet's ops do. A call with NDArrays first sets the module flag on the
+block and its children from ``autograd.is_training()`` (True inside
+``record()``), and leaves it so, so both agree; a call with tensors
+leaves the flag as the caller set it (a new module trains, as torch's
+do). ``ShardedTrainStep`` sets both for its forward and loss (``train()``
+and autograd's flag, as the JAX step does); ``BlockRunner`` calls
+``eval()`` and leaves autograd's flag off.
+
+``HybridBlock.forward(x, *args)`` gives ``hybrid_forward(F, x, *args,
+**params)`` the layer's parameter tensors and ``F = nd``, whose ops take
+tensors and return tensors. Deferred initialisation happens in a
+layer's first forward: its ``_infer_param_shapes`` sets the shapes from
+the input, and the Parameters are initialised as ``initialize`` asked.
+
+``hybridize()``. The outermost hybridized block of a call keeps one entry
+per key, as ``CachedOp.__call__`` keys its compiles: the inputs' shapes
+and dtypes, the training flag, whether autograd records, and the
+parameters' names. On the card:
+
+- without autograd (predict mode, or ``autograd.train_mode()`` outside
+  ``record()``, or tensors under ``no_grad``) the forward is captured as
+  one CUDA graph (``_capture.capture``): the key's first call runs
+  eagerly on the capture stream (kernels and cuDNN plans are set up
+  there, deferred parameters placed) and is that call's result, later
+  calls copy the inputs into the graph's buffers, replay it and return
+  clones of its outputs. BatchNorm's running statistics are updated in
+  place by each replay; the blocks' dropout generators are registered
+  with the graph, so each replay draws new noise.
+- under autograd the forward and the backward are captured as two CUDA
+  graphs by ``torch.cuda.make_graphed_callables``: its warm-up runs the
+  block three times, so the parameters that the forward writes
+  (grad_req 'null': the running statistics) are restored after it, and
+  the key's first call is the first replay. A block that holds its own
+  CUDA generator, has forward hooks, takes non-tensor arguments, or
+  whose forward draws from the port's generator (``F.dropout``, rrelu:
+  one forward under ``no_grad`` shows it, its writes undone) runs
+  eagerly here instead: ``make_graphed_callables`` registers only the
+  default generator, refuses hooks, and takes tensors only.
+
+Nested hybridized blocks inside such a call run as part of it; a block
+called inside another capture (``ShardedTrainStep``'s) runs plain. On
+the CPU ``hybridize()`` changes nothing: the same forward runs eagerly.
+``SymbolBlock``, ``export`` and subgraph backends wait for the Symbol
+API (ROADMAP queue 1 item 15).
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import re
+import threading
+from collections import OrderedDict
+
+import numpy as onp
+import torch
+
+from ..base import MXNetError, state
+from ..ndarray.ndarray import NDArray
+from .. import ndarray as nd
+from .. import _imperative
+from .. import autograd as _autograd
+from .. import random as _random
+from .._capture import capture, graph_generators, module_generators
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, _load_into)
+
+__all__ = ['Block', 'HybridBlock', 'SymbolBlock', 'CachedOp']
+
+
+class _BlockScope:
+    """Name scope manager (ref: block.py _BlockScope)."""
+
+    _current = threading.local()
+    _global_counter = {}
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = getattr(_BlockScope._current, 'value', None)
+        if current is None:
+            if prefix is None:
+                count = _BlockScope._global_counter.get(hint, 0)
+                _BlockScope._global_counter[hint] = count + 1
+                prefix = f"{hint}{count}_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = f"{hint}{count}_"
+            current._counter[hint] = count + 1
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, 'value', None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, *exc):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+_plain = threading.local()   # depth of calls that must not use a cache
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Blocks called inside run their forward as it is, without their
+    hybridize cache (a caller that captures the block itself)."""
+    _plain.depth = getattr(_plain, 'depth', 0) + 1
+    try:
+        yield
+    finally:
+        _plain.depth -= 1
+
+
+def _has_ndarray(args):
+    return any(isinstance(a, NDArray) for a in args)
+
+
+def _map_out(out, fn):
+    if isinstance(out, (list, tuple)):
+        return type(out)(fn(o) for o in out)
+    return fn(out)
+
+
+class Block(torch.nn.Module):
+    """Base building block (ref: gluon/block.py:229); see the module
+    docstring for calls and modes."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__()
+        self._empty_prefix = prefix == ''
+        self._prefix, self._params = _BlockScope.create(
+            prefix, params, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith('_') \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._reg_params = OrderedDict()
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        return self._scope
+
+    @property
+    def params(self):
+        return self._params
+
+    @property
+    def _children(self):
+        return OrderedDict((k, m) for k, m in self._modules.items()
+                           if m is not None)
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            reg = self.__dict__.get('_reg_params')
+            if reg is not None:
+                reg[name] = value
+                self._parameters[name] = value.tensor
+            object.__setattr__(self, name, value)
+            return
+        super().__setattr__(name, value)
+
+    def _apply(self, fn, recurse=True):
+        # torch may swap a tensor for a new one (.to() across devices):
+        # the Parameter follows its registered tensor
+        ret = super()._apply(fn, recurse)
+        for name, p in self._reg_params.items():
+            t = self._parameters.get(name)
+            if t is not None and t is not p._var:
+                p._var = t
+        return ret
+
+    def collect_params(self, select=None) -> ParameterDict:
+        """This block's and its children's Parameters by prefixed name;
+        ``select`` a regular expression the names must match."""
+        ret = ParameterDict(self._params.prefix)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
+        for child in self._children.values():
+            if isinstance(child, Block):
+                ret.update(child.collect_params(select=select))
+        return ret
+
+    def _collect_params_with_prefix(self, prefix=''):
+        """{structured name: Parameter}, shared ones under every name."""
+        if prefix:
+            prefix += '.'
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            if isinstance(child, Block):
+                ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def register_child(self, block, name=None):
+        self.add_module(name if name is not None else
+                        str(len(self._modules)), block)
+
+    def register_forward_hook(self, hook):
+        """hook(block, inputs, output) after each forward."""
+        from .utils import HookHandle
+        return HookHandle(super().register_forward_hook(hook))
+
+    def register_forward_pre_hook(self, hook):
+        """hook(block, inputs) before each forward."""
+        from .utils import HookHandle
+        return HookHandle(super().register_forward_pre_hook(hook))
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children.values():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        for child in self._children.values():
+            if isinstance(child, Block):
+                child.cast(dtype)
+        for param in self.params.values():
+            param.cast(dtype)
+
+    def __call__(self, *args, **kwargs):
+        if _has_ndarray(args):
+            self.train(state.is_training)
+        return super().__call__(*args, **kwargs)
+
+    def forward(self, *args):
+        raise NotImplementedError
+
+    def summary(self, *inputs):
+        """Print each Parameter's shape and count, and the total."""
+        lines = [f"{type(self).__name__} summary:"]
+        total = 0
+        for name, p in self.collect_params().items():
+            n = int(onp.prod(p.shape)) if p.shape else 0
+            total += n
+            lines.append(f"  {name}: {p.shape} ({n} params)")
+        lines.append(f"Total params: {total}")
+        print('\n'.join(lines))
+
+    # --- serialization (ref: block.py:417,473) --------------------------
+    def save_parameters(self, filename, deduplicate=False):
+        """The reference's binary .params format, keyed by structured
+        name, which the JAX package (and MXNet) reads; bfloat16 is
+        written as float32."""
+        from ..serialization import atomic_write_file, save_ndarray_file
+        params = self._collect_params_with_prefix()
+        if deduplicate:
+            seen, uniq = set(), {}
+            for key, val in params.items():
+                if id(val) not in seen:
+                    seen.add(id(val))
+                    uniq[key] = val
+            params = uniq
+        arg_dict = {key: val.data().asnumpy() for key, val in params.items()}
+        atomic_write_file(filename, save_ndarray_file(arg_dict))
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source='current'):
+        """Load a .params file (the JAX package's, MXNet's or this
+        one's) by structured name; values take the parameters' dtypes."""
+        from ..serialization import load_params_dict
+        with open(filename, 'rb') as f:
+            loaded = load_params_dict(f.read())
+        params = self._collect_params_with_prefix()
+        for name, param in params.items():
+            if name not in loaded:
+                if not allow_missing:
+                    raise MXNetError(f"Parameter '{name}' is missing in "
+                                     f"file '{filename}'")
+                continue
+            _load_into(param, loaded[name], ctx)
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise MXNetError(f"extra parameters in file: {sorted(extra)}")
+
+    save_params = save_parameters
+    load_params = load_parameters
+
+    def __repr__(self):
+        s = f"{type(self).__name__}("
+        for name, child in self._children.items():
+            s += f"\n  ({name}): {repr(child)}"
+        return s + (")" if not self._children else "\n)")
+
+
+class HybridBlock(Block):
+    """A block whose forward can be captured (ref: block.py:827)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._active = False
+        self._cached_op = None
+        self._flags = {}
+
+    def hybridize(self, active=True, backend=None, clear=True, **kwargs):
+        """Ref: block.py:1043. ``static_alloc``/``static_shape`` are
+        accepted: a CUDA graph is both. Subgraph backends are not
+        ported (ROADMAP queue 1 item 15)."""
+        if backend is not None:
+            raise MXNetError(f"hybridize(backend={backend!r}): subgraph "
+                             f"backends are not ported (ROADMAP queue 1 "
+                             f"item 15)")
+        self._active = active
+        self._flags.update(kwargs)
+        if clear:
+            self._cached_op = None
+        super().hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        self._cached_op = None
+        super().cast(dtype)
+
+    def __deepcopy__(self, memo):
+        """Copies drop the cache (its graphs hold this block's tensors)."""
+        new = object.__new__(type(self))
+        memo[id(self)] = new
+        for k, v in self.__dict__.items():
+            object.__setattr__(new, k, None if k == '_cached_op'
+                               else copy.deepcopy(v, memo))
+        return new
+
+    def __call__(self, *args, **kwargs):
+        if not _has_ndarray(args):
+            return self._call_tensors(args, kwargs)
+        self.train(state.is_training)
+        recording = state.is_recording
+        datas = [(_imperative.leaf_tensor(a) if recording and
+                  a._grad is not None else a._data)
+                 if isinstance(a, NDArray) else a for a in args]
+        if recording:
+            with torch.enable_grad():
+                out = self._call_tensors(datas, kwargs)
+            # after the forward: it places deferred parameters
+            for p in self._collect_params_with_prefix().values():
+                if p._ready and p._grad_req != 'null':
+                    _imperative.leaf_tensor(p.data())
+        else:
+            with torch.no_grad():
+                out = self._call_tensors(datas, kwargs)
+
+        def wrap(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            arr = NDArray(t)
+            if recording and t.requires_grad:
+                _imperative.record_output(arr)
+            return arr
+        return _map_out(out, wrap)
+
+    def _call_tensors(self, args, kwargs):
+        if self._active and not kwargs and \
+                getattr(_plain, 'depth', 0) == 0 and \
+                any(isinstance(a, torch.Tensor) and a.is_cuda
+                    for a in args) and \
+                not torch.cuda.is_current_stream_capturing():
+            if self._cached_op is None:
+                self._cached_op = CachedOp(self)
+            return self._cached_op(args)
+        return super().__call__(*args, **kwargs)
+
+    def forward(self, x, *args):
+        """``hybrid_forward(nd, x, *args, **params)`` with the layer's
+        parameter tensors (ref: block.py:1156)."""
+        params = OrderedDict()
+        for name, p in self._reg_params.items():
+            if not p._ready:
+                if p._deferred_init and not p._is_materialized():
+                    self._infer_param_shapes(x, args)
+                p._check_initialized()
+            params[name] = p._var
+        return self.hybrid_forward(nd, x, *args, **params)
+
+    def _infer_param_shapes(self, x, args):
+        raise DeferredInitializationError(
+            f"{type(self).__name__} has uninitialized parameters and no "
+            "shape inference; initialize with explicit in_units/in_channels")
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+    def infer_shape(self, *args):
+        """Place deferred parameters by one forward in predict mode."""
+        with _autograd.pause():
+            self(*args)
+
+    def export(self, path, epoch=0, **kwargs):
+        raise MXNetError("export: the Symbol API is not ported (ROADMAP "
+                         "queue 1 item 15); save_parameters writes the "
+                         "weights")
+
+    def optimize_for(self, x, *args, backend=None, **kwargs):
+        self.hybridize(True, backend=backend, **kwargs)
+        return self(x, *args)
+
+
+class _Graphed(torch.nn.Module):
+    """The block as ``make_graphed_callables`` wants it: no hooks of its
+    own, the block's parameters as its own, the block's plain forward."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.block = block
+
+    def forward(self, *xs):
+        with plain_calls():
+            return torch.nn.Module.__call__(self.block, *xs)
+
+
+class CachedOp:
+    """The hybridized forward of one HybridBlock on the card (ref:
+    src/imperative/cached_op.cc): one entry per key (see the module
+    docstring), ``num_graphs`` of them."""
+
+    def __init__(self, block):
+        self.block = block
+        self._cache = {}
+
+    @property
+    def num_graphs(self):
+        return len(self._cache)
+
+    def __call__(self, args):
+        block = self.block
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        grad = torch.is_grad_enabled() and (
+            any(p.requires_grad for p in block.parameters()) or
+            any(t.requires_grad for t in tensors))
+        key = (tuple((tuple(a.shape), a.dtype, a.requires_grad)
+                     if isinstance(a, torch.Tensor) else repr(a)
+                     for a in args),
+               block.training, grad, torch.is_inference_mode_enabled(),
+               tuple(block._collect_params_with_prefix()))
+        entry = self._cache.get(key)
+        if entry is not None:
+            return entry(args)
+        device = tensors[0].device
+        if grad:
+            entry, out = self._build_graphed(args, device)
+        else:
+            entry, out = self._build_graph(args, device)
+        self._cache[key] = entry
+        return out
+
+    def _build_graph(self, args, device):
+        block = self.block
+        static = [a.detach().clone() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+
+        def fn():
+            with torch.no_grad(), plain_calls():
+                return torch.nn.Module.__call__(block, *static)
+        graph, out, first = capture(fn, device,
+                                    graph_generators(block, device),
+                                    warm_up=True)
+
+        def replay(new_args):
+            for buf, a in zip(static, new_args):
+                if isinstance(a, torch.Tensor):
+                    buf.copy_(a)
+            graph.replay()
+            return _map_out(out, torch.Tensor.clone)
+        replay.graph = graph
+        return replay, first
+
+    def _build_graphed(self, args, device):
+        block = self.block
+
+        def run(new_args):
+            with plain_calls():
+                return torch.nn.Module.__call__(block, *new_args)
+        if (any(not isinstance(a, torch.Tensor) for a in args) or
+                module_generators(block) or
+                any(m._forward_hooks or m._forward_pre_hooks
+                    for m in block.modules())):
+            return run, run(args)
+        if any(not p._is_materialized() for p in
+               block._collect_params_with_prefix().values()):
+            # a forward in predict mode (it writes nothing) places the
+            # deferred parameters outside the capture
+            training = block.training
+            with plain_calls(), torch.no_grad():
+                torch.nn.Module.__call__(block.eval(), *args)
+            block.train(training)
+        written = [p for p in block.parameters() if not p.requires_grad]
+        saved = [p.detach().clone() for p in written]
+        # an nd op of the forward may draw from the port's generator
+        # (F.dropout, rrelu), which make_graphed_callables cannot register:
+        # one forward shows whether it does, and then the key runs eagerly
+        own = _random.generator(device)
+        before = own.get_state()
+        with plain_calls(), torch.no_grad():
+            torch.nn.Module.__call__(block, *args)
+        draws = not torch.equal(own.get_state(), before)
+        own.set_state(before)
+        with torch.no_grad():
+            for p, s in zip(written, saved):
+                p.copy_(s)
+        if draws:
+            return run, run(args)
+        adapter = _Graphed(block)
+        adapter.train(block.training)
+        sample = tuple(a.detach().clone().requires_grad_(a.requires_grad)
+                       for a in args)
+        try:
+            graphed = torch.cuda.make_graphed_callables(
+                adapter, sample, allow_unused_input=True)
+        except Exception as e:
+            raise MXNetError(f"CUDA graph capture of {block.name} failed: "
+                             f"{type(e).__name__}: {e}") from e
+        with torch.no_grad():
+            for p, s in zip(written, saved):
+                p.copy_(s)
+
+        def run(new_args):
+            return _map_out(graphed(*new_args), torch.Tensor.clone)
+        return run, run(args)
+
+
+class SymbolBlock(HybridBlock):
+    """Waits for the Symbol API (ROADMAP queue 1 item 15)."""
+
+    def __init__(self, *args, **kwargs):
+        raise MXNetError("SymbolBlock: the Symbol API is not ported "
+                         "(ROADMAP queue 1 item 15)")
+
+    @staticmethod
+    def imports(*args, **kwargs):
+        raise MXNetError("SymbolBlock.imports: the Symbol API is not "
+                         "ported (ROADMAP queue 1 item 15)")
+

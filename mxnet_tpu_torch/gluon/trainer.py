@@ -1,11 +1,19 @@
 """Gluon Trainer on one device (counterpart of ``mxnet_tpu/gluon/
 trainer.py``).
 
-    trainer = gluon.Trainer(gluon.collect_params(net), 'adamw',
-                            {'learning_rate': 1e-4, 'wd': 0.01})
-    loss.backward()            # torch.autograd in place of mx.autograd
+    trainer = gluon.Trainer(net.collect_params(), 'sgd',
+                            {'learning_rate': 0.1, 'momentum': 0.9})
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
     trainer.step(batch_size)
-    net.zero_grad(set_to_none=False)
+
+The parameters are a Gluon Block's (``net.collect_params()``, a
+ParameterDict, or a list of its Parameters) or ``torch.nn.Parameter``s
+(``gluon.collect_params(module)`` of the BERT models, trained with
+``torch.autograd``'s ``loss.backward()``). Either way the gradient is read
+from the tensor's ``.grad``, where ``mx.autograd``'s backward writes a
+Gluon Parameter's by its ``grad_req`` and torch's backward accumulates.
 
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and applies
 one optimizer update to every parameter that requires a gradient, as the
@@ -47,6 +55,7 @@ from .._capture import DeviceScalars, capture
 from ..base import MXNetError
 from ..serialization import atomic_write_file
 from .. import optimizer as opt
+from .parameter import Parameter, tensor_of
 
 __all__ = ['Trainer']
 
@@ -63,13 +72,13 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore='device', compression_params=None,
                  update_on_kvstore=None):
-        if isinstance(params, dict):
+        if hasattr(params, 'values'):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
             raise ValueError("First argument must be a list or dict of "
                              "Parameters")
         for p in params:
-            if not isinstance(p, torch.nn.Parameter):
+            if not isinstance(p, (Parameter, torch.nn.Parameter)):
                 raise ValueError(f"First argument must contain Parameters, "
                                  f"got {type(p)}")
         if kvstore not in ('device', 'local', None):
@@ -130,7 +139,10 @@ class Trainer:
         """[(index, parameter, gradient buffer)] of the trainable
         parameters, every ``.grad`` that is set copied into its buffer."""
         items, dst, src = [], [], []
-        for i, p in enumerate(self._params):
+        for i, param in enumerate(self._params):
+            if isinstance(param, Parameter):
+                param._check_initialized()
+            p = tensor_of(param)
             if not p.requires_grad:
                 continue
             buf = self._grads.get(i)
@@ -229,7 +241,7 @@ class Trainer:
         self._optimizer = self._updater.optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
         self._updater.states = {
-            i: _to_device(s, self._params[i].device)
+            i: _to_device(s, tensor_of(self._params[i]).device)
             for i, s in self._updater.states.items()}
         self._fused = None
 

@@ -95,10 +95,12 @@ class NDArray:
 
     # ---- host interop -----------------------------------------------------
     def asnumpy(self) -> onp.ndarray:
+        """A copy on the host: a parameter's tensor (``Parameter.data()``)
+        is updated in place, so a host array must not alias it."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
-        return t.cpu().numpy()
+        return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
 
     def asscalar(self):
         return self.asnumpy().item()
@@ -430,7 +432,15 @@ def _wrap(data) -> NDArray:
 
 
 def _invoke(fn, *args, **kwargs):
-    """Eager dispatch of an op over tensors on NDArray arguments."""
+    """Eager dispatch of an op over tensors on NDArray arguments. Called
+    with torch tensors and no NDArray (a HybridBlock's ``hybrid_forward``
+    given ``F = nd``, a loss function inside the compiled step), the op
+    runs on them as they are and returns tensors."""
+    if not any(isinstance(a, NDArray) for a in args) and \
+            not any(isinstance(v, NDArray) for v in kwargs.values()) and (
+                any(isinstance(a, torch.Tensor) for a in args) or
+                any(isinstance(v, torch.Tensor) for v in kwargs.values())):
+        return fn(*args, **kwargs)
     out, recording = _imperative.invoke(fn, args, kwargs)
     if isinstance(out, tuple):
         outs = tuple(NDArray(o) for o in out)

@@ -1,5 +1,5 @@
-"""Neural-network ops on the BERT serving and training paths (counterpart
-of ``mxnet_tpu/ops/nn.py``), with the JAX package's arithmetic:
+"""Neural-network ops (counterpart of ``mxnet_tpu/ops/nn.py``), with the
+JAX package's arithmetic:
 
 - ``fully_connected`` accumulates in f32 and casts to the input dtype
   before the bias is added;
@@ -20,8 +20,32 @@ another signature, the registered op is a separate function:
 ``dropout_op`` is ``nd.dropout(data, p, mode, axes)``, active in autograd
 train mode or with ``mode='always'``, its mask drawn from the generator
 of the input's device (``random.generator``).
+
+The vision ops (``convolution``, ``deconvolution``, ``pooling``,
+``batch_norm``, ``instance_norm``, ``group_norm``), which the JAX package
+leaves to XLA, are stock PyTorch ops here (cuDNN on the card):
+
+- ``convolution``/``deconvolution`` accumulate in f32 and return the data
+  dtype (cuDNN and the CPU kernels do so for bf16); the bias is added in
+  the same kernel, before that rounding, where the JAX package rounds
+  first and adds the bias in the data dtype (the same in f32);
+- ``pooling``: the 'full' (ceil) convention by explicit right padding, as
+  the JAX package pads, so a last window that starts in the padding is
+  kept (torch's ``ceil_mode`` drops it); 'avg' divides by the whole
+  window with ``count_include_pad``, else by the cells inside the input;
+- ``batch_norm`` normalises with the batch's biased variance in training
+  mode and returns the new running statistics, updated with the biased
+  batch variance and ``momentum`` the share of the old value, in the
+  statistics' dtype, as ``mxnet_tpu/ops/nn.py:282-293`` does (torch's
+  own update uses the unbiased variance and ``1 - momentum``). One
+  ``torch.native_batch_norm`` call normalises and returns the batch's
+  mean and 1/sqrt(var + eps), taken in f32 (the JAX package takes them
+  in the data's dtype); the variance for the update is recovered from
+  the latter, so the data is read once.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +56,15 @@ from .. import random as _random
 
 __all__ = ['fully_connected', 'activation', 'layer_norm', 'add_layer_norm',
            'dense_gelu', 'embedding', 'softmax', 'log_softmax', 'dropout',
-           'dropout_op', 'one_hot', 'blockgrad']
+           'dropout_op', 'one_hot', 'blockgrad', 'identity', 'convolution',
+           'deconvolution', 'pooling', 'leaky_relu', 'batch_norm',
+           'instance_norm', 'group_norm', 'softmax_cross_entropy']
+
+
+def _tensor(x):
+    # a Gluon Parameter passed where a tensor is expected (models/bert.py
+    # hands its layers' parameters to the fused seams)
+    return getattr(x, 'tensor', x)
 
 
 @register_op()
@@ -84,6 +116,7 @@ def add_layer_norm(x, res, gamma, beta, eps=1e-5):
     """LN(x + res), the transformer residual epilogue. With
     ``MXTPU_PALLAS_LN=1`` and CUDA tensors it is the fused Triton kernel
     (ops/fused_layernorm.py); otherwise the plain path."""
+    gamma, beta = _tensor(gamma), _tensor(beta)
     if _config.get('MXTPU_PALLAS_LN') and x.is_cuda:
         from .fused_layernorm import fused_add_layer_norm
         return fused_add_layer_norm(x, res, gamma, beta, eps)
@@ -94,6 +127,7 @@ def dense_gelu(x, weight, bias):
     """FFN1: gelu(x @ W.T + b). With ``MXTPU_PALLAS_FFN=1`` and CUDA
     tensors it is the fused CUDA kernel (ops/fused_ffn.py); otherwise the
     plain Dense-then-GELU path."""
+    weight, bias = _tensor(weight), _tensor(bias)
     if _config.get('MXTPU_PALLAS_FFN') and x.is_cuda:
         from .fused_ffn import fused_dense_gelu
         return fused_dense_gelu(x, weight, bias)
@@ -137,11 +171,12 @@ def log_softmax(data, axis=-1, temperature=None):
     return torch.log_softmax(data, dim=axis)
 
 
-def dropout(data, p=0.5, training=False, generator=None):
+def dropout(data, p=0.5, training=False, generator=None, axes=()):
     """Zero each element with probability ``p`` and scale the rest by
-    1/(1-p), active only when ``training``. The keep mask is drawn from
-    ``generator``, which must live on data's device (None draws from that
-    device's default generator)."""
+    1/(1-p), active only when ``training``; ``axes`` share one mask value
+    along each listed axis. The keep mask is drawn from ``generator``,
+    which must live on data's device (None draws from that device's
+    default generator)."""
     if not training or p <= 0.0:
         return data
     if generator is not None and generator.device.type != data.device.type:
@@ -149,24 +184,20 @@ def dropout(data, p=0.5, training=False, generator=None):
                          f"tensor on {data.device}; the noise is drawn on "
                          f"the tensor's device")
     keep = 1.0 - p
-    mask = (torch.rand(data.shape, generator=generator, device=data.device)
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    mask = (torch.rand(shape, generator=generator, device=data.device)
             < keep).to(data.dtype)
     return data * mask / keep
 
 
 def dropout_op(data, p=0.5, mode='training', axes=(), cudnn_off=False):
     """``nd.dropout`` (ref: src/operator/nn/dropout.cc): active only in
-    autograd train mode or with ``mode='always'``; ``axes`` share one mask
-    value along each listed axis."""
-    if not (state.is_training or mode == 'always') or p <= 0.0:
-        return data
-    keep = 1.0 - p
-    shape = list(data.shape)
-    for a in axes:
-        shape[a] = 1
-    mask = (torch.rand(shape, generator=_random.generator(data.device),
-                       device=data.device) < keep).to(data.dtype)
-    return data * mask / keep
+    autograd train mode or with ``mode='always'``, drawing from the port's
+    generator of the input's device."""
+    return dropout(data, p, state.is_training or mode == 'always',
+                   _random.generator(data.device), axes)
 
 
 register_op('dropout')(dropout_op)
@@ -185,3 +216,217 @@ def one_hot(indices, depth=0, on_value=1.0, off_value=0.0, dtype='float32'):
 @register_op()
 def blockgrad(data):
     return data.detach()
+
+
+@register_op()
+def identity(data):
+    return data
+
+
+def _tup(v, n):
+    if v is None:
+        return (0,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    v = tuple(int(x) for x in v)
+    return v * n if len(v) == 1 else v
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register_op()
+def convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=0, num_group=1,
+                no_bias=False, layout='NCHW'):
+    """1D/2D/3D convolution over (N, C, *spatial), weight (O, C/g, *k)
+    (ref: src/operator/nn/convolution.cc)."""
+    nd = data.dim() - 2
+    stride = _tup(stride, nd) if stride is not None else (1,) * nd
+    dilate = _tup(dilate, nd) if dilate is not None else (1,) * nd
+    b = None if no_bias or bias is None else bias
+    return _CONV[nd](data, weight, b, stride=stride, padding=_tup(pad, nd),
+                     dilation=dilate, groups=num_group)
+
+
+@register_op()
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=0,
+                  num_group=1, no_bias=False, target_shape=None,
+                  layout='NCHW'):
+    """Transposed convolution, weight (C_in, O/g, *k), ``adj`` extra rows
+    on the right (ref: src/operator/nn/deconvolution.cc)."""
+    nd = data.dim() - 2
+    stride = _tup(stride, nd) if stride is not None else (1,) * nd
+    dilate = _tup(dilate, nd) if dilate is not None else (1,) * nd
+    adj = _tup(adj, nd) if adj is not None else (0,) * nd
+    b = None if no_bias or bias is None else bias
+    return _CONV_T[nd](data, weight, b, stride=stride,
+                       padding=_tup(pad, nd), output_padding=adj,
+                       groups=num_group, dilation=dilate)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+@register_op()
+def pooling(data, kernel=None, pool_type='max', global_pool=False,
+            stride=None, pad=None, pooling_convention='valid',
+            count_include_pad=True, layout='NCHW'):
+    """Max/avg/sum/lp pooling over (N, C, *spatial) (ref:
+    src/operator/nn/pooling.cc); see the module docstring for the edges."""
+    nd = data.dim() - 2
+    axes = tuple(range(2, 2 + nd))
+    if global_pool:
+        if pool_type == 'max':
+            return data.amax(dim=axes, keepdim=True)
+        return data.mean(dim=axes, keepdim=True)
+    kernel = _tup(kernel, nd)
+    stride = _tup(stride, nd) if stride is not None else (1,) * nd
+    pad = _tup(pad, nd)
+    extra = [0] * nd
+    if pooling_convention == 'full':
+        for i in range(nd):
+            size = data.shape[2 + i] + 2 * pad[i]
+            out = -(-(size - kernel[i]) // stride[i]) + 1
+            extra[i] = max(0, (out - 1) * stride[i] + kernel[i] - size)
+    if pool_type == 'max':
+        if not any(extra) and all(2 * p <= k for p, k in zip(pad, kernel)):
+            return _MAX_POOL[nd](data, kernel, stride, padding=pad)
+        fill = float('-inf') if data.is_floating_point() else \
+            torch.iinfo(data.dtype).min
+        return _MAX_POOL[nd](_pad_right(data, pad, extra, fill), kernel,
+                             stride)
+    if pool_type not in ('avg', 'sum', 'lp'):
+        raise MXNetError(f"unknown pool_type {pool_type}")
+    window = math.prod(kernel)
+    src = data.abs() ** 2 if pool_type == 'lp' else data
+    summed = _AVG_POOL[nd](_pad_right(src, pad, extra, 0.0), kernel,
+                           stride) * window
+    if pool_type == 'sum':
+        return summed
+    if pool_type == 'lp':
+        return summed ** 0.5
+    if count_include_pad:
+        return summed / window
+    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                      device=data.device)
+    counts = _AVG_POOL[nd](_pad_right(ones, pad, extra, 0.0), kernel,
+                           stride) * window
+    return summed / counts
+
+
+def _pad_right(x, pad, extra, value):
+    """x padded by ``pad`` on both sides of each spatial axis and
+    ``extra`` more on the right."""
+    flat = []
+    for p, e in zip(reversed(pad), reversed(extra)):
+        flat += [p, p + e]
+    if not any(flat):
+        return x
+    return F.pad(x, flat, mode='constant', value=value)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register_op()
+def leaky_relu(data, gamma=None, act_type='leaky', slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """leaky/prelu/elu/selu/gelu/rrelu (ref: src/operator/leaky_relu.cc);
+    rrelu draws its slopes from the input device's generator in autograd
+    train mode."""
+    if act_type == 'leaky':
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == 'prelu':
+        g = gamma
+        if g.dim() == 1 and data.dim() > 1:
+            g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data >= 0, data, g * data)
+    if act_type == 'elu':
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == 'selu':
+        return _SELU_SCALE * torch.where(data >= 0, data,
+                                         _SELU_ALPHA * torch.expm1(data))
+    if act_type == 'gelu':
+        return F.gelu(data, approximate='none')
+    if act_type == 'rrelu':
+        if state.is_training:
+            s = torch.rand(data.shape, generator=_random.generator(
+                data.device), device=data.device, dtype=data.dtype)
+            s = s * (upper_bound - lower_bound) + lower_bound
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data >= 0, data, s * data)
+    raise MXNetError(f"unknown act_type {act_type}")
+
+
+@register_op(num_outputs=3)
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, training=None):
+    """(out, new moving mean, new moving var) (ref:
+    src/operator/nn/batch_norm.cc). ``training`` (default: autograd train
+    mode) normalises with the batch's statistics and updates the moving
+    ones; otherwise the moving ones normalise and come back unchanged.
+    The new statistics carry no gradient."""
+    if training is None:
+        training = state.is_training
+    axis = axis % data.dim()
+    if axis != 1:
+        out, m, v = batch_norm(data.movedim(axis, 1), gamma, beta,
+                               moving_mean, moving_var, eps, momentum,
+                               fix_gamma, use_global_stats, output_mean_var,
+                               1, training)
+        return out.movedim(1, axis), m, v
+    weight = None if fix_gamma else gamma
+    if not training or use_global_stats:
+        out = torch.batch_norm(data, weight, beta, moving_mean, moving_var,
+                               False, 0.0, eps, False)
+        return out, moving_mean, moving_var
+    out, mean, invstd = torch.native_batch_norm(data, weight, beta, None,
+                                                None, True, 0.0, eps)
+    with torch.no_grad():
+        var = invstd.detach().double().pow(-2).sub(eps).clamp_min(0)
+        mean = mean.detach().to(moving_mean.dtype)
+        var = var.to(moving_var.dtype)
+        new_mean = momentum * moving_mean + (1 - momentum) * mean
+        new_var = momentum * moving_var + (1 - momentum) * var
+    return out, new_mean, new_var
+
+
+@register_op()
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalise each (sample, channel) over its spatial axes (ref:
+    src/operator/instance_norm.cc)."""
+    axes = tuple(range(2, data.dim()))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = data.var(dim=axes, correction=0, keepdim=True)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    shape = (1, data.shape[1]) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register_op()
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Normalise each group of channels of a sample (ref:
+    src/operator/nn/group_norm.cc)."""
+    n, c = data.shape[:2]
+    x = data.reshape((n, num_groups, c // num_groups) + data.shape[2:])
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, correction=0, keepdim=True)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    shape = (1, c) + (1,) * (data.dim() - 2)
+    return x * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register_op()
+def softmax_cross_entropy(data, label):
+    """Summed cross entropy of softmax(data) against integer labels (ref:
+    src/operator/softmax_output.cc)."""
+    logp = torch.log_softmax(data, dim=-1)
+    return -logp.gather(-1, label.to(torch.int64)[..., None]).sum()

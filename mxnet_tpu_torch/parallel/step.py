@@ -34,6 +34,19 @@ tensors from one call to the next.
 
 On the CPU the same step runs eagerly on every call.
 
+A Gluon block (``gluon.HybridBlock``, e.g. the model zoo's ResNets) is
+taken as it is: its forward updates BatchNorm's running statistics in
+place, inside the captured graph on each replay (the JAX step threads
+them out of its program as ``f_params``); parameters still deferred are
+placed by one forward in predict mode before the first step; floating
+inputs are cast to the dtype of the block's parameters (after
+``net.cast('bfloat16')`` a float32 batch would reach a bfloat16
+convolution, which the JAX package's step refuses); the block's
+hybridize cache stays out of the step, which captures the block itself.
+A ``loss_fn`` written on ``mx.nd`` ops gets tensors (the ops take them),
+and with NDArray inputs the loss comes back as an NDArray, as bench.py's
+``_resnet_report`` calls it.
+
 Not ported, each refused by name: a mesh of more than one device and
 ``param_specs`` (ROADMAP queue 1 item 6), ZeRO-3 and ``MXTPU_REMAT``
 (item 7), ``compression_params`` and ``hierarchy`` (item 8), ``guard``
@@ -45,11 +58,13 @@ import pickle
 
 import numpy as onp
 import torch
+from torch.nn.parameter import UninitializedParameter
 
 from .. import config as _config
-from .. import random as _random
-from .._capture import DeviceScalars, capture, module_generators
-from ..base import MXNetError
+from .._capture import DeviceScalars, capture, graph_generators
+from ..base import MXNetError, state
+from ..gluon.block import Block, plain_calls
+from ..ndarray.ndarray import NDArray
 from .mesh import make_mesh
 
 __all__ = ['ShardedTrainStep', 'rename_states', 'STATES_FORMAT']
@@ -140,6 +155,8 @@ def _as_list(x):
 
 
 def _as_tensor(x):
+    if isinstance(x, NDArray):
+        return x._data
     return torch.from_numpy(onp.asarray(x)) if isinstance(
         x, (onp.ndarray, onp.generic)) else x
 
@@ -211,10 +228,16 @@ class ShardedTrainStep:
                if isinstance(m, torch.nn.Embedding)):
             raise MXNetError("ShardedTrainStep: sparse gradients are not "
                              "ported (ROADMAP queue 1 item 12)")
-        params = list(block.parameters())
+        params = [p for p in block.parameters()
+                  if not isinstance(p, UninitializedParameter)]
         if not params:
-            raise MXNetError("ShardedTrainStep: the block has no parameters")
+            raise MXNetError("ShardedTrainStep: the block has no "
+                             "initialized parameters")
         self.device = params[0].device
+        # a Gluon block's floating inputs take its parameters' dtype
+        self._input_dtype = next(
+            (p.dtype for p in params if p.is_floating_point()), None) \
+            if isinstance(block, Block) else None
         self.mesh = mesh if mesh is not None else \
             make_mesh(devices=[self.device])
         if any(d != self.device for d in self.mesh.devices.flat):
@@ -261,16 +284,20 @@ class ShardedTrainStep:
         returns the loss. Allocates nothing that outlives it and reads
         the rate from the device scalar, so it can be captured."""
         params = [p for _, p in self._trainable]
-        prev = self.block.training
+        prev, prev_flag = self.block.training, state.is_training
+        # layers read the module flag, nd ops autograd's (as the JAX step
+        # sets it around the forward and the loss)
         self.block.train()
+        state.is_training = True
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), plain_calls():
                 out = self.block(*inputs)
                 outs = out if isinstance(out, (list, tuple)) else (out,)
                 loss = self.loss_fn(*outs, *labels).mean()
                 grads = torch.autograd.grad(loss, params, allow_unused=True)
         finally:
             self.block.train(prev)
+            state.is_training = prev_flag
         with torch.no_grad():
             gs = [g.to(torch.float32) if g is not None else
                   torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -285,9 +312,11 @@ class ShardedTrainStep:
         return loss.detach()
 
     def __call__(self, inputs, labels, lr=None):
-        inputs = [_as_tensor(x) for x in _as_list(inputs)]
+        nd_in = any(isinstance(x, NDArray) for x in _as_list(inputs))
+        inputs = [self._cast(_as_tensor(x)) for x in _as_list(inputs)]
         labels = [_as_tensor(x) for x in _as_list(labels)]
         if self._trainable is None:
+            self._place_deferred(inputs)
             self._build()
         self._lr.write([self.lr if lr is None else lr])
         if self.device.type != 'cuda':
@@ -296,7 +325,27 @@ class ShardedTrainStep:
         else:
             loss = self._replay(inputs, labels)
         self._step_count += 1
-        return loss
+        return NDArray(loss) if nd_in else loss
+
+    def _cast(self, x):
+        if self._input_dtype is not None and x.is_floating_point() and \
+                x.dtype != self._input_dtype:
+            return x.to(self._input_dtype)
+        return x
+
+    def _place_deferred(self, inputs):
+        """One forward in predict mode, without gradients, places the
+        parameters whose shapes wait for an input (Gluon's deferred
+        initialisation)."""
+        if not any(isinstance(p, UninitializedParameter)
+                   for p in self.block.parameters()):
+            return
+        prev = self.block.training
+        try:
+            with torch.no_grad(), plain_calls():
+                self.block.eval()(*[x.to(self.device) for x in inputs])
+        finally:
+            self.block.train(prev)
 
     def _replay(self, inputs, labels):
         sig = tuple((tuple(x.shape), x.dtype) for x in inputs) + \
@@ -305,12 +354,9 @@ class ShardedTrainStep:
         if entry is None:
             ins = [x.to(self.device).clone() for x in inputs]
             labs = [x.to(self.device).clone() for x in labels]
-            gens = module_generators(self.block)
-            own = _random._generators.get(('cuda', self.device.index or 0))
-            if own is not None and all(g is not own for g in gens):
-                gens.append(own)
-            graph, loss, first = capture(lambda: self._step(ins, labs),
-                                         self.device, gens, warm_up=True)
+            graph, loss, first = capture(
+                lambda: self._step(ins, labs), self.device,
+                graph_generators(self.block, self.device), warm_up=True)
             self._graphs[sig] = (graph, ins, labs, loss)
             return first
         graph, ins, labs, loss = entry

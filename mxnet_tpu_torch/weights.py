@@ -2,8 +2,12 @@
 
 Parameters are keyed by the JAX package's structured names (those of
 ``Block._collect_params_with_prefix``, e.g. ``encoder.0.ln1.gamma``),
-which are the port modules' ``named_parameters()`` names too. Every
-mismatch — a missing or extra key, a shape that differs — raises.
+which are the port modules' ``named_parameters()`` names too: for a Gluon
+net (the model zoo's ResNets) these include BatchNorm's
+``running_mean``/``running_var``, carried like any parameter. Every
+mismatch — a missing or extra key, a shape that differs, a parameter
+still waiting for its shape (deferred initialisation: run one forward
+first) — raises.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ from typing import Dict
 
 import numpy as onp
 import torch
+from torch.nn.parameter import UninitializedParameter
 
 from .base import MXNetError
 from .serialization import load_params_dict
@@ -31,6 +36,10 @@ def params_from_mxnet_tpu(arrays: Dict[str, onp.ndarray],
                          f"extra {extra}")
     out = {}
     for name, p in expected.items():
+        if isinstance(p, UninitializedParameter):
+            raise MXNetError(f"parameter {name!r} has no shape yet "
+                             f"(deferred initialisation): run one forward "
+                             f"before loading")
         a = onp.asarray(arrays[name])
         if tuple(a.shape) != tuple(p.shape):
             raise MXNetError(f"parameter {name!r}: shape {a.shape} in the "
