@@ -27,16 +27,33 @@
    (a yardstick only: the port never calls it) as device time from
    torch.profiler's CUDA trace (CUDA events where the trace has none),
    and computes each kernel's bound from the H100 SXM data sheet.
-4. Serving phase: BERT-base at full width, weights drawn with numpy from
-   a fixed seed (Normal(0.02)) and cast to bf16 on the card, served by
-   InferenceEngine with both fused-kernel knobs on. The launch counters
-   are set to 0 just before 64 ragged requests from 4 client threads and
-   read just after: every kernel must have run 12, 24 and 12 times per
-   dispatch, every flash forward and FFN1 on the tensor-core variant. One request
-   is checked against the same weights in f32 on the CPU through the
-   plain versions, and again with both knobs off.
-   A profiled dispatch of the largest bucket (8 x 512) prints where the
-   device time goes and the device's idle share.
+4. Serving phase: the serving recipe, InferenceEngine(BlockRunner(net))
+   then serving.warmup(engine), on BERT-base at full width, weights drawn
+   with numpy from a fixed seed (Normal(0.02)) and cast to bf16 on the
+   card, both fused-kernel knobs on, buckets T in {64, 128, 256, 512} x
+   B in {1, 2, 4, 8}. BlockRunner hybridizes the model; first, with
+   hybridize(False), each bucket's eager output and the eager dispatch
+   breakdown. Then the main path: the launch counters are set to 0, the
+   compile ledger armed, warmup captures one CUDA graph per bucket (16,
+   with 16 serving:warmup_* ledger entries, its seconds, memory_reserved
+   and the graph pools' bytes printed), and 64 ragged requests from 4
+   client threads replay them: the burst adds no ledger entry, no
+   recompile warning and no graph, and the counters, which move only at
+   warmup (each bucket's eager run and capture: 2 x 12 x 16 flash and
+   FFN1 launches, twice that of LayerNorm, all on the tensor-core
+   variants), do not move. Requests/s, p50 and p99; a profiler trace of
+   3 replays of the 8 x 512 bucket counts 12, 24 and 12 launches per
+   dispatch. Every bucket's replay is bitwise its eager output, and the
+   pinned output copy bitwise the pageable one (the two copies timed).
+   The captured dispatch breakdown (host ms, device busy ms, idle share)
+   is printed beside the eager one, and two host steps of a dispatch
+   (the CachedOp key, the token upload) are timed alone. With telemetry and tracing armed, a
+   second burst's Prometheus serving counters equal engine.stats() and
+   its serving.dispatch spans the dispatches; one 8 x 512 dispatch is
+   timed armed and disarmed. One request is checked against the same
+   weights in f32 on the CPU through the plain versions, and again with
+   both knobs off after hybridize() (its bucket captured anew on the
+   engine's worker thread; a trace shows no LayerNorm or FFN1 launch).
 5. Training phase: BERT-base BertForPretraining at full width in bf16,
    the same numpy weights, both knobs on, so all five kernels run. First
    one step at B = 2 with dropout 0 against the same weights in f32 on the
@@ -565,11 +582,12 @@ def device_breakdown(label, fn, card, iters):
     return dict(host_ms=per, busy_ms=busy, idle=max(0.0, 1 - busy / per))
 
 
-def dispatch_breakdown(engine, card, batch=8, seq=512, iters=3):
+def dispatch_breakdown(engine, card, label, batch=8, seq=512, iters=3):
     """One dispatch of the largest bucket (tokens in, output back to the
-    host included)."""
-    device_breakdown(f'dispatch b{batch}_s{seq}',
-                     lambda: engine.run_bucket(batch, seq), card, iters)
+    host included): host ms, device busy ms and idle share."""
+    return device_breakdown(f'dispatch b{batch}_s{seq}, {label}',
+                            lambda: engine.run_bucket(batch, seq), card,
+                            iters)
 
 
 def random_bert_arrays(net):
@@ -587,87 +605,278 @@ def random_bert_arrays(net):
     return arrays
 
 
+# the serving kernels' names in a profiler trace, by launch-counter name
+SERVE_KERNELS = {'flash_attn_fwd': 'flash_fwd_tc_kernel',
+                 'fused_add_layernorm': '_add_ln_fwd',
+                 'dense_gelu': 'dense_gelu_tc_kernel'}
+
+
+def replay_launches(engine, batch, seq, replays=3):
+    """{launch-counter name: launches per dispatch} of the serving
+    kernels in a profiler trace of ``replays`` dispatches of one bucket
+    (a replayed graph's kernels are in the trace; the wrappers' counters
+    do not move)."""
+    names = kernel_launches(lambda: engine.run_bucket(batch, seq), replays)
+    return {k: sum(c for n, c in names.items() if v in n) / replays
+            for k, v in SERVE_KERNELS.items()}
+
+
+def copy_back_ms(shape, iters=20):
+    """Host ms of one copy of an f32 device tensor of ``shape`` to the
+    host: pageable (``.cpu()``) and into a kept pinned buffer
+    (``non_blocking`` copy, then a wait on its event), alternated."""
+    import torch
+    out = torch.randn(shape, device='cuda')
+    buf = torch.empty(shape, pin_memory=True)
+    done = torch.cuda.Event()
+
+    def pageable():
+        out.cpu()
+
+    def pinned():
+        buf.copy_(out, non_blocking=True)
+        done.record()
+        done.synchronize()
+    times = {'pageable': [], 'pinned': []}
+    for fn in (pageable, pinned):
+        fn()
+    for _ in range(2):
+        for name, fn in (('pageable', pageable), ('pinned', pinned),
+                         ('pinned', pinned), ('pageable', pageable)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            times[name].append((time.perf_counter() - t0) / iters * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
 def serving_phase(card):
+    """The serving recipe: InferenceEngine(BlockRunner(net)) hybridizes
+    BERT-base, serving.warmup captures one CUDA graph per bucket, and
+    every request replays one. See the module docstring, item 4."""
+    import warnings
     import numpy as onp
     import torch
     import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.models.bert import BertModel, bert_base_config
     from mxnet_tpu_torch.ops import attention as attn_ops
     from mxnet_tpu_torch.weights import params_from_mxnet_tpu
 
+    comp = telemetry.compile
     os.environ['MXTPU_PALLAS_LN'] = '1'
     os.environ['MXTPU_PALLAS_FFN'] = '1'
     cfg = bert_base_config()
+    L = cfg['layers']
     net = BertModel(**cfg, dtype=torch.bfloat16, device='cuda')
     arrays = random_bert_arrays(net)
     net.load_state_dict(params_from_mxnet_tpu(arrays, net))
     engine = mt.serving.InferenceEngine(
         mt.serving.BlockRunner(net), seq_buckets='64,128,256,512',
         batch_buckets='1,2,4,8')
+    grid = engine.bucket_grid()
+    check(net._active, 'BlockRunner did not hybridize the block')
     try:
-        t0 = time.perf_counter()
-        rep = mt.serving.warmup(engine)
-        print(f'serving phase on {card}: BERT-base bf16, warmup of '
-              f'{len(rep["buckets"])} buckets took '
-              f'{time.perf_counter() - t0:.2f} s')
+        # eager first (hybridize(False)): each bucket's output, and the
+        # eager dispatch breakdown
+        net.hybridize(False)
+        eager = {(b, s): engine.runner(onp.full((b, s), 7, 'int32')).copy()
+                 for b, s in grid}
+        eager_bd = dispatch_breakdown(engine, card, 'eager (hybridize(False))')
+        net.hybridize()
 
-        rng = onp.random.RandomState(SEED)
-        requests = [rng.randint(1, cfg['vocab_size'], int(n)).tolist()
-                    for n in rng.randint(8, 513, 64)]
-        results, errors = [None] * len(requests), []
-
-        def client(idx):
-            try:
-                handles = [(i, engine.submit_async(requests[i])) for i in idx]
-                for i, h in handles:
-                    results[i] = engine.result(h, timeout=300.0)
-            except Exception as e:                    # noqa: BLE001
-                errors.append(e)
-
-        threads = [threading.Thread(target=client,
-                                    args=(range(t, len(requests), 4),))
-                   for t in range(4)]
-        # the main path's run: counters at 0 just before, read just after
-        batches0 = engine.stats()['batches']
+        # the main path's run, warmup and burst: counters at 0 just before
+        comp.enable()
+        comp.clear(ledger='')
         mt.ops.reset_launch_counts()
         for k in attn_ops.route_counts:
             attn_ops.route_counts[k] = 0
         t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
+        rep = mt.serving.warmup(engine)
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        pools = net._cached_op.memory_pools().get('cuda_graphs', {})
+        ledger = comp.ledger()
+        warm_sites = sorted(e['site'] for e in ledger
+                            if e['site'].startswith('serving:warmup_'))
+        caps = [e['seconds']['capture'] for e in ledger
+                if e['site'].startswith('serving:warmup_')]
+        print(f'serving phase on {card}: BERT-base bf16, warmup of '
+              f'{len(rep["buckets"])} buckets took {warm_s:.2f} s '
+              f'({net._cached_op.num_graphs} CUDA graphs; compile ledger: '
+              f'{len(ledger)} entries, {len(warm_sites)} serving:warmup_*, '
+              f'capture seconds {sum(caps):.3f} in all, largest '
+              f'{max(caps):.3f}); memory_reserved after warmup '
+              f'{reserved / 2**20:.1f} MiB, graph pools '
+              f'{sum(pools.values()) / 2**20:.1f} MiB over {len(pools)} '
+              f'graphs')
+        check(net._cached_op.num_graphs == len(grid) == 16,
+              f'{net._cached_op.num_graphs} graphs for {len(grid)} buckets')
+        check(warm_sites == sorted(f'serving:warmup_b{b}_s{s}'
+                                   for b, s in grid),
+              f'ledger serving:warmup_* sites {warm_sites}')
+        check(comp.validate_ledger(ledger) == [], 'ledger fails validation')
+        after_warmup = dict(mt.ops.launch_counts)
+
+        rng = onp.random.RandomState(SEED)
+        requests = [rng.randint(1, cfg['vocab_size'], int(n)).tolist()
+                    for n in rng.randint(8, 513, 64)]
+
+        def burst():
+            results, errors = [None] * len(requests), []
+
+            def client(idx):
+                try:
+                    handles = [(i, engine.submit_async(requests[i]))
+                               for i in idx]
+                    for i, h in handles:
+                        results[i] = engine.result(h, timeout=300.0)
+                except Exception as e:                # noqa: BLE001
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client,
+                                        args=(range(t, len(requests), 4),))
+                       for t in range(4)]
+            b0 = engine.stats()['batches']
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            check(not any(t.is_alive() for t in threads), 'a client hung')
+            check(not errors, f'client errors: {errors!r}')
+            check(all(r is not None for r in results),
+                  'a request went unanswered')
+            return results, wall, engine.stats()['batches'] - b0
+
+        n_ledger = len(comp.ledger())
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            results, wall, dispatches = burst()
         launches = dict(mt.ops.launch_counts)
         variants = dict(mt.ops.variant_counts)
         routes = dict(attn_ops.route_counts)
         stats = engine.stats()
-        dispatches = stats['batches'] - batches0
-
-        check(not any(t.is_alive() for t in threads), 'a client hung')
-        check(not errors, f'client errors: {errors!r}')
-        check(all(r is not None for r in results), 'a request went unanswered')
+        recompiles = [w for w in caught
+                      if type(w.message).__name__ == 'RecompileWarning']
         for req, out in zip(requests, results):
             check(out.shape == (len(req), cfg['hidden']),
                   f'output shape {out.shape} for length {len(req)}')
             check(bool(onp.isfinite(out).all()), 'non-finite output')
-        L = cfg['layers']
-        print(f'  dispatches={dispatches} launches={launches} '
-              f'variants={variants} routes={routes}')
+        print(f'  burst: {len(requests)} requests in {dispatches} '
+              f'dispatches; compile ledger {n_ledger} -> '
+              f'{len(comp.ledger())} entries, {len(recompiles)} recompile '
+              f'warnings, {net._cached_op.num_graphs} graphs; launch '
+              f'counters {launches} (moved only at warmup: eager run and '
+              f'capture of each bucket), variants {variants}, routes '
+              f'{routes}')
+        check(len(comp.ledger()) == n_ledger and not recompiles,
+              'the burst captured or compiled')
+        check(net._cached_op.num_graphs == 16, 'the burst added a graph')
+        check(launches == after_warmup, 'a replay moved the launch counters')
         check(routes['flash'] > 0, 'attention never took the flash route')
-        check(launches == {'flash_attn_fwd': L * dispatches,
+        check(launches == {'flash_attn_fwd': 2 * L * 16,
                            'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
-                           'fused_add_layernorm': 2 * L * dispatches,
-                           'dense_gelu': L * dispatches},
-              f'launch counts {launches} for {dispatches} dispatches')
-        check(variants == {k: L * dispatches if k in (
+                           'fused_add_layernorm': 4 * L * 16,
+                           'dense_gelu': 2 * L * 16},
+              f'launch counts {launches} for the warmup of 16 buckets')
+        check(variants == {k: 2 * L * 16 if k in (
             'flash_attn_fwd.tc', 'dense_gelu.tc') else 0 for k in variants},
-              f'variant counts {variants} for {dispatches} dispatches')
+              f'variant counts {variants}')
         print(f'  served {len(requests)} requests in {wall:.3f} s: '
               f'{len(requests) / wall:.2f} requests/s, '
               f'p50 {stats["p50_ms"]} ms, p99 {stats["p99_ms"]} ms, '
               f'shed {stats["shed"]} on {card}')
-        dispatch_breakdown(engine, card)
+        per_replay = replay_launches(engine, 8, 512)
+        print(f'  kernel launches per dispatch (profiler, 3 replays of '
+              f'b8_s512): {per_replay}')
+        check(per_replay == {'flash_attn_fwd': L, 'fused_add_layernorm':
+                             2 * L, 'dense_gelu': L},
+              f'launches per replay {per_replay}')
+
+        # captured against eager, bitwise, per bucket; pinned against
+        # pageable, bitwise
+        for b, s in grid:
+            got = engine.runner(onp.full((b, s), 7, 'int32'))
+            check(onp.array_equal(got, eager[(b, s)]),
+                  f'bucket b{b}_s{s}: the replay differs from eager')
+        mat = onp.full((8, 512), 7, 'int32')
+        was = engine.runner.pinned
+        check(was, 'the runner copies through pageable memory')
+        pinned = engine.runner(mat).copy()
+        engine.runner.pinned = False
+        pageable = engine.runner(mat)
+        engine.runner.pinned = was
+        check(onp.array_equal(pinned, pageable),
+              'the pinned copy differs from the pageable one')
+        copy = copy_back_ms((8, 512, cfg['hidden']))
+        print(f'  all 16 buckets: replay bitwise equal to eager; pinned copy '
+              f'bitwise equal to pageable; copy of one 8 x 512 x 768 f32 '
+              f'output: pinned {copy["pinned"]:.3f} ms, pageable '
+              f'{copy["pageable"]:.3f} ms (median of 4 x 20) on {card}')
+        cap_bd = dispatch_breakdown(engine, card,
+                                    'captured (graph replay, pinned copy)')
+
+        # two of the host steps around a replay, timed alone
+        def host_us(fn, n=200):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return (time.perf_counter() - t0) / n * 1e6
+        tok = torch.from_numpy(mat).to('cuda')
+        with torch.inference_mode():
+            key_us = host_us(lambda: net._cached_op.key((tok,)))
+        upload_us = host_us(lambda: torch.from_numpy(mat).to('cuda'))
+        print(f'  host time of one 8 x 512 dispatch step on {card}: the '
+              f'CachedOp key {key_us:.1f} us, the token upload '
+              f'{upload_us:.1f} us')
+
+        # telemetry armed: its counters against engine.stats(), its spans
+        # against the dispatches, and the hook cost per dispatch
+        def per_dispatch_ms(n=20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                engine.run_bucket(8, 512)
+            return (time.perf_counter() - t0) / n * 1e3
+        cost = {'disarmed': [], 'armed': []}
+        for armed in (False, True, True, False):
+            (telemetry.enable if armed else telemetry.disable)()
+            (telemetry.trace.enable if armed else telemetry.trace.disable)()
+            cost['armed' if armed else 'disarmed'].append(per_dispatch_ms())
+        telemetry.reset()
+        telemetry.trace.clear()
+        telemetry.enable()
+        telemetry.trace.enable()
+        before = engine.stats()
+        _, wall2, dispatches2 = burst()
+        after = engine.stats()
+        prom = telemetry.prometheus()
+        spans = [e for e in telemetry.trace.chrome_events()
+                 if e['ph'] == 'B' and e['name'] == 'serving.dispatch']
+        telemetry.disable()
+        telemetry.trace.disable()
+
+        def prom_value(metric):
+            return sum(float(line.rsplit(' ', 1)[1])
+                       for line in prom.splitlines()
+                       if line.startswith(metric + '{'))
+        got = {k: prom_value(f'mxnet_tpu_serving_{k}_total')
+               for k in ('requests', 'batches')}
+        want = {k: after[k] - before[k] for k in ('requests', 'batches')}
+        print(f'  telemetry armed: burst of {len(requests)} in '
+              f'{wall2:.3f} s; prometheus {got} vs engine.stats() {want}; '
+              f'{len(spans)} serving.dispatch spans for {dispatches2} '
+              f'dispatches; one b8_s512 dispatch {sorted(cost["disarmed"])} '
+              f'ms disarmed, {sorted(cost["armed"])} ms armed on {card}')
+        check(got == want, f'prometheus {got} != engine.stats() {want}')
+        check(len(spans) == dispatches2,
+              f'{len(spans)} spans for {dispatches2} dispatches')
 
         # one request against the same weights in f32 on the CPU (plain
         # versions throughout); bf16 through 12 layers is expected to
@@ -692,12 +901,26 @@ def serving_phase(card):
             check(ok, f'{name} disagrees with the f32 CPU reference')
 
         agree('served bf16, all three kernels', results[0])
+        # flash only: a captured bucket keeps its route, so the flip is
+        # followed by hybridize(), which drops the graphs; the request's
+        # bucket is captured again, on the engine's worker thread
         os.environ['MXTPU_PALLAS_LN'] = '0'
         os.environ['MXTPU_PALLAS_FFN'] = '0'
+        net.hybridize()
         agree('served bf16, flash only', engine.submit(req, timeout=300.0))
+        flash_only = replay_launches(engine, 1, s)
+        print(f'  flash only, launches per dispatch (profiler, 3 replays of '
+              f'b1_s{s}): {flash_only}')
+        check(flash_only == {'flash_attn_fwd': L, 'fused_add_layernorm': 0,
+                             'dense_gelu': 0},
+              f'flash-only launches per replay {flash_only}')
     finally:
         engine.drain()
-    return launches, stats, len(requests) / wall
+        comp.disable()
+        comp.clear(ledger='')
+    return (launches, per_replay,
+            dict(stats, rps=len(requests) / wall, eager=eager_bd,
+                 captured=cap_bd))
 
 
 def pretraining_batch(cfg, batch, seq, seed):
@@ -1852,16 +2075,17 @@ def main():
               f'{name} spills or is missing: {line}')
 
     rows = kernel_phase(card)
-    serving, _stats, _rps = serving_phase(card)
+    serving, serve_replay, _serving = serving_phase(card)
     training, _train = training_phase(card)
     user, nd_ops, user_rows, _nd = ndarray_phase(card)
     gluon, _gluon = gluon_phase(card)
     # last: the traces taken after its graph replays are the least sure
     compiled, per_replay, _compiled = compiled_step_phase(card)
     # launches: the serving, training, compiled-step and ndarray runs',
-    # each counted from 0 just before its run (the compiled step's are its
-    # eager first step and its capture; each replay relaunches them from
-    # the graph, per_replay of them, counted in the profiler's trace)
+    # each counted from 0 just before its run (serving's are its warmup's
+    # eager runs and captures, the compiled step's its eager first step
+    # and its capture; each replay relaunches them from the graph, the
+    # per-dispatch and per-replay counts from the profiler's trace)
     by_path = {name: {'serving': serving[name], 'training': training[name],
                       'compiled_step': compiled[name],
                       'ndarray': nd_ops[name], 'gluon': gluon.get(name, 0)}
@@ -1881,7 +2105,9 @@ def main():
                     **({'dropout_ms': r['dropout_ms']}
                        if 'dropout_ms' in r else {}),
                     **({'launches_per_replay': per_replay[name]}
-                       if name in per_replay else {}))
+                       if name in per_replay else {}),
+                    **({'launches_per_serving_dispatch': serve_replay[name]}
+                       if name in serve_replay else {}))
                for name, r in {**rows, **user_rows}.items()]
     print(card)
     print(json.dumps({'kernels': kernels}))

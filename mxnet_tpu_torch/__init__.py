@@ -16,14 +16,17 @@ through ``parallel.ShardedTrainStep``, the whole step captured as one
 CUDA graph. It runs MXNet's imperative API (``nd``, ``autograd``) with
 user kernels compiled by NVRTC (``rtc``), and MXNet's Gluon API
 (``gluon``: Blocks with deferred initialisation, ``hybridize()`` as CUDA
-graphs, the layers and losses, the vision model zoo's ResNets).
+graphs, the layers and losses, the vision model zoo's ResNets). Serving
+replays one CUDA graph per bucket through ``hybridize()``; serving and
+training report into ``telemetry`` (metrics, spans, the flight recorder,
+memory watermarks and the compile ledger), off by default.
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
     num_gpus, tpu
 from . import (autograd, config, context, engine, gluon, initializer,
                lr_scheduler, models, ndarray, ops, optimizer, parallel,
-               random, rtc, serialization, serving, weights)
+               random, rtc, serialization, serving, telemetry, weights)
 from . import ndarray as nd
 from . import initializer as init
 
@@ -31,4 +34,4 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'autograd', 'config', 'context',
            'engine', 'gluon', 'init', 'initializer', 'lr_scheduler', 'models', 'nd',
            'ndarray', 'ops', 'optimizer', 'parallel', 'random', 'rtc',
-           'serialization', 'serving', 'weights']
+           'serialization', 'serving', 'telemetry', 'weights']

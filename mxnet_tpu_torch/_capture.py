@@ -11,16 +11,21 @@ from one step to the next lives in tensors the graph reads:
 - ``capture``: runs a function once under ``torch.cuda.graph`` on a side
   stream and returns the graph and the function's outputs, which are the
   graph's static output tensors. A failure raises ``MXNetError``: nothing
-  falls back to eager on the card.
+  falls back to eager on the card. The capture's seconds go to the
+  compile ledger (``telemetry.compile.report``) after the capture has
+  ended, as a ``capture`` phase of the window the caller opened.
 
 On the CPU nothing is captured: the same function runs eagerly, with the
 scalars in a CPU tensor.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from .base import MXNetError
+from .telemetry import compile as _compile
 
 __all__ = ['DeviceScalars', 'capture', 'module_generators',
            'graph_generators']
@@ -95,6 +100,7 @@ def capture(fn, device, generators=(), warm_up=False):
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
+    t0 = time.perf_counter()
     try:
         with torch.cuda.graph(graph, stream=stream):
             out = fn()
@@ -102,4 +108,5 @@ def capture(fn, device, generators=(), warm_up=False):
         raise MXNetError(f"CUDA graph capture failed: {type(e).__name__}: "
                          f"{e}") from e
     current.wait_stream(stream)
+    _compile.report('capture', time.perf_counter() - t0, 'capture')
     return graph, out, first

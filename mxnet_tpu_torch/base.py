@@ -15,7 +15,7 @@ import numpy as onp
 import torch
 
 __all__ = ['MXNetError', 'OpDef', 'register_op', 'get_op', 'list_ops',
-           'state', 'torch_dtype']
+           'state', 'telem_flags', 'torch_dtype']
 
 
 class MXNetError(RuntimeError):
@@ -81,3 +81,9 @@ class _ThreadLocalState(threading.local):
 
 
 state = _ThreadLocalState()
+
+# PROCESS-wide telemetry gate (shared across threads, unlike the autograd
+# flags above): written by telemetry.enable()/disable(), read inline by
+# every instrumented path, so a disabled run pays one dict lookup per site
+# and records nothing.
+telem_flags = {'on': False}

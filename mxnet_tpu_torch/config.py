@@ -90,3 +90,65 @@ _register('MXNET_GLUON_REPO', str, '',
           'A local directory holding gluon/models/<name>-<hash>.params, '
           'where the model zoo also looks for pretrained weights (the '
           'port downloads nothing).')
+_register('MXNET_TPU_TELEMETRY', _bool, False,
+          'Enable the runtime telemetry registry (telemetry.metrics): '
+          'compile, serving, step and trace metrics with Prometheus, JSON '
+          'and chrome-trace export. Off: instrumented paths take a single '
+          'flag-check fast path.')
+_register('MXTPU_TRACE', _bool, False,
+          'Enable span tracing (telemetry.trace): nested chrome-trace B/E '
+          'spans over the step and dispatch lifecycle in per-thread ring '
+          'buffers, plus the crash-time flight recorder. Off: every span '
+          'site takes a single flag-check fast path and allocates nothing.')
+_register('MXTPU_TRACE_RING', int, 16384,
+          'Span-trace ring capacity in events PER THREAD. A full ring '
+          'overwrites its oldest events (dropped whole spans are counted '
+          'in mxnet_tpu_trace_dropped_spans_total).')
+_register('MXTPU_FLIGHT_STEPS', int, 64,
+          'Flight recorder depth: per-step span summaries (+ loss and '
+          'guard flags) retained for the crash-time dump.')
+_register('MXTPU_FLIGHT_DIR', str, '',
+          'Directory for flight-recorder, OOM and compile-ledger dumps. '
+          'Empty (default): the system temp directory. Ignored for the '
+          'flight dump when MXTPU_FLIGHT_PATH names an explicit file.')
+_register('MXTPU_FLIGHT_PATH', str, '',
+          'Explicit path of the flight-recorder post-mortem JSON. Empty '
+          '(default): MXTPU_FLIGHT_DIR/mxtpu_flight-<pid>.json.')
+_register('MXNET_TPU_RECOMPILE_WARN_THRESHOLD', int, 3,
+          'Telemetry recompile detector: warn (once per churn episode) '
+          'when one compile site, e.g. a hybridized block, compiles more '
+          'than this many times.')
+_register('MXTPU_MEMORY', _bool, False,
+          'Enable memory watermark sampling (telemetry.memory): per-step '
+          'live/peak device-memory samples from torch.cuda.memory_stats '
+          'on the card, else the sum over the registered pools, plus '
+          'host RSS, into a bounded ring and mxnet_tpu_memory_* gauges. '
+          'Off: the per-step hook is one dict check and allocates '
+          'nothing. The OOM forensics guard is always armed.')
+_register('MXTPU_MEMORY_RING', int, 256,
+          'Watermark ring depth: memory samples retained for the OOM '
+          'post-mortem.')
+_register('MXTPU_MEMORY_EVERY', int, 1,
+          'Memory sampling cadence: one watermark sample every this many '
+          'steps.')
+_register('MXTPU_MEMORY_LEAK_STEPS', int, 8,
+          'Leak detector: this many CONSECUTIVE samples of monotonic '
+          'live-bytes growth latch one memory.leak_suspected flight note.')
+_register('MXTPU_MEMORY_LEAK_BYTES', int, 1 << 20,
+          'Leak detector: minimum total live-bytes growth over the '
+          'MXTPU_MEMORY_LEAK_STEPS window before the latch fires.')
+_register('MXTPU_COMPILE_LEDGER', str, '',
+          'Arm the compile ledger (telemetry.compile): every CUDA-graph '
+          'capture, kernel build (nvcc, Triton) and NVRTC compile appends '
+          'a structured signature + seconds entry to a bounded in-memory '
+          'ring and, when this names a path ("1"/"on": '
+          'MXTPU_FLIGHT_DIR/mxtpu_compile_ledger-<pid>.jsonl), an on-disk '
+          'JSONL ledger. Empty (default): disarmed.')
+_register('MXTPU_COMPILE_CACHE_DIR', str, '',
+          'Directory of the built kernel libraries (default: '
+          'build/mxnet_tpu_torch at the root of the checkout); '
+          'telemetry.compile.persistent_cache_stats counts its hits, '
+          'misses and bytes.')
+_register('MXTPU_SERVE_WATCHDOG_SECONDS', float, 0.0,
+          'Serving watchdog deadline: nonzero needs resilience.watchdog, '
+          'which is not ported (ROADMAP queue 1 item 9) and raises.')

@@ -62,6 +62,10 @@ parameters' names. On the card:
   eagerly here instead: ``make_graphed_callables`` registers only the
   default generator, refuses hooks, and takes tensors only.
 
+Each new key is a compile of site ``cachedop:<block name>`` for the
+compile ledger (``telemetry.compile``; the capture's seconds and the
+inputs' signature), or for the compile counters when the ledger is
+disarmed and telemetry on; a call that finds its key counts a cache hit.
 Nested hybridized blocks inside such a call run as part of it; a block
 called inside another capture (``ShardedTrainStep``'s) runs plain. On
 the CPU ``hybridize()`` changes nothing: the same forward runs eagerly.
@@ -74,18 +78,21 @@ import contextlib
 import copy
 import re
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as onp
 import torch
 
-from ..base import MXNetError, state
+from ..base import MXNetError, state, telem_flags as _telem
 from ..ndarray.ndarray import NDArray
 from .. import ndarray as nd
 from .. import _imperative
 from .. import autograd as _autograd
 from .. import random as _random
 from .._capture import capture, graph_generators, module_generators
+from ..telemetry import compile as _compile, memory as _memory, \
+    metrics as _metrics
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, _load_into)
 
@@ -152,6 +159,13 @@ def plain_calls():
         yield
     finally:
         _plain.depth -= 1
+
+
+def _capturable(args):
+    """Whether a hybridized call with ``args`` goes through its CachedOp:
+    a CUDA tensor among them, and no capture already under way."""
+    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args) \
+        and not torch.cuda.is_current_stream_capturing()
 
 
 def _has_ndarray(args):
@@ -270,11 +284,14 @@ class Block(torch.nn.Module):
                 child.hybridize(active, **kwargs)
 
     def cast(self, dtype):
+        """Cast every parameter to ``dtype``; the block remembers it
+        (``ShardedTrainStep`` casts a cast block's floating inputs)."""
         for child in self._children.values():
             if isinstance(child, Block):
                 child.cast(dtype)
         for param in self.params.values():
             param.cast(dtype)
+        self._cast_dtype = dtype
 
     def __call__(self, *args, **kwargs):
         if _has_ndarray(args):
@@ -409,10 +426,7 @@ class HybridBlock(Block):
 
     def _call_tensors(self, args, kwargs):
         if self._active and not kwargs and \
-                getattr(_plain, 'depth', 0) == 0 and \
-                any(isinstance(a, torch.Tensor) and a.is_cuda
-                    for a in args) and \
-                not torch.cuda.is_current_stream_capturing():
+                getattr(_plain, 'depth', 0) == 0 and _capturable(args):
             if self._cached_op is None:
                 self._cached_op = CachedOp(self)
             return self._cached_op(args)
@@ -469,7 +483,14 @@ class _Graphed(torch.nn.Module):
 class CachedOp:
     """The hybridized forward of one HybridBlock on the card (ref:
     src/imperative/cached_op.cc): one entry per key (see the module
-    docstring), ``num_graphs`` of them."""
+    docstring), ``num_graphs`` of them.
+
+    Each new key is one compile of site ``cachedop:<block name>``: its
+    capture's seconds and the inputs' signature go to the compile ledger
+    (``telemetry.compile``), or, with the ledger disarmed and telemetry
+    on, to the per-site compile counters; a call that finds its key
+    counts a cache hit. The predict graphs' memory pools are reported to
+    ``telemetry.memory`` as the ``cuda_graphs`` pool."""
 
     def __init__(self, block):
         self.block = block
@@ -479,27 +500,75 @@ class CachedOp:
     def num_graphs(self):
         return len(self._cache)
 
-    def __call__(self, args):
+    def key(self, args):
+        """The cache key of a call: the arguments' shapes, dtypes and
+        requires_grad (a non-tensor by its repr), the block's training
+        flag, whether autograd records, inference mode, and the
+        parameters' structured names (never the block's prefix)."""
         block = self.block
-        tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        grad = torch.is_grad_enabled() and (
-            any(p.requires_grad for p in block.parameters()) or
-            any(t.requires_grad for t in tensors))
-        key = (tuple((tuple(a.shape), a.dtype, a.requires_grad)
-                     if isinstance(a, torch.Tensor) else repr(a)
-                     for a in args),
-               block.training, grad, torch.is_inference_mode_enabled(),
-               tuple(block._collect_params_with_prefix()))
+        grad = self._grad(args)
+        return (tuple((tuple(a.shape), a.dtype, a.requires_grad)
+                      if isinstance(a, torch.Tensor) else repr(a)
+                      for a in args),
+                block.training, grad, torch.is_inference_mode_enabled(),
+                tuple(block._collect_params_with_prefix()))
+
+    def _grad(self, args):
+        return torch.is_grad_enabled() and (
+            any(p.requires_grad for p in self.block.parameters()) or
+            any(a.requires_grad for a in args
+                if isinstance(a, torch.Tensor)))
+
+    def __call__(self, args):
+        key = self.key(args)
+        _, training, grad, inference, _ = key
         entry = self._cache.get(key)
+        site = f'cachedop:{self.block.name}'
         if entry is not None:
+            if _telem['on']:
+                _metrics.record_cache_hit(site)
             return entry(args)
-        device = tensors[0].device
-        if grad:
-            entry, out = self._build_graphed(args, device)
-        else:
-            entry, out = self._build_graph(args, device)
+        device = next(a for a in args if isinstance(a, torch.Tensor)).device
+        cctx = _compile.begin(site)
+        t0 = time.perf_counter()
+        try:
+            if grad:
+                entry, out = self._build_graphed(args, device)
+            else:
+                entry, out = self._build_graph(args, device)
+        except BaseException:
+            _compile.abort(cctx)
+            raise
+        if cctx is not None:
+            _compile.set_signature(cctx, _compile.signature(
+                [_compile.array_sig(f'in{i}', a) for i, a in enumerate(args)],
+                {'training': training, 'grad': grad,
+                 'inference': inference}))
+            _compile.end(cctx)
+        elif _telem['on']:
+            _metrics.record_compile(site, repr(key[0]),
+                                    time.perf_counter() - t0)
+        if not self._cache:
+            _memory.register_provider(self)
         self._cache[key] = entry
         return out
+
+    def memory_pools(self):
+        """{'cuda_graphs': {'<block>:<n>': bytes}}: the bytes the
+        allocator holds in each predict graph's private memory pool
+        (``torch.cuda.memory_snapshot()`` segments of that pool)."""
+        pools = {tuple(e.graph.pool()): n
+                 for n, e in enumerate(self._cache.values())
+                 if getattr(e, 'graph', None) is not None}
+        if not pools:
+            return {}
+        held = dict.fromkeys(pools.values(), 0)
+        for seg in torch.cuda.memory_snapshot():
+            n = pools.get(tuple(seg.get('segment_pool_id') or ()))
+            if n is not None:
+                held[n] += int(seg.get('total_size', 0))
+        return {'cuda_graphs': {f'{self.block.name}:{n}': b
+                                for n, b in held.items()}}
 
     def _build_graph(self, args, device):
         block = self.block

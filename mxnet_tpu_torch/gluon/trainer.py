@@ -42,17 +42,32 @@ must stay the same tensors (a ``set_states_bytes`` recaptures). On the
 CPU the same program runs eagerly. Any other optimizer takes the
 per-parameter loop (``Updater``), as in JAX.
 
+Telemetry, as the JAX Trainer reports it: ``step`` runs under a
+``step.dispatch`` span with the update in ``optimizer.update`` (the fused
+program's call in ``optimizer.fused``) and the OOM guard, then
+``memory.on_step`` and ``flight.record_step``; with telemetry on, the
+interval between two steps goes to ``telemetry.record_step`` (the first
+interval, and any longer than 20x the running mean — a pause, a
+capture — are left out; ``reset_step_timer()`` forgets the last step),
+and the fused update's capture is a compile of site
+``trainer:fused_update`` (the compile ledger when armed, else the
+compile counters).
+
 Single device only: the kvstore types 'device' and 'local' (and None) are
 accepted and mean nothing; a distributed kvstore, gradient compression and
-update_on_kvstore raise. The guard, elastic, ZeRO and telemetry hooks of
-the JAX Trainer are not ported.
+update_on_kvstore raise. The guard, elastic and ZeRO hooks of the JAX
+Trainer are not ported.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 from .._capture import DeviceScalars, capture
-from ..base import MXNetError
+from ..base import MXNetError, telem_flags as _telem
+from ..telemetry import compile as _compile, flight as _flight, \
+    memory as _memory, metrics as _metrics, trace as _trace
 from ..serialization import atomic_write_file
 from .. import optimizer as opt
 from .parameter import Parameter, tensor_of
@@ -105,6 +120,8 @@ class Trainer:
         self._updater = opt.get_updater(self._optimizer)
         self._grads = {}       # index -> the gradient buffer the update reads
         self._fused = None     # [signature, graph, scalars, program]
+        self._telem_last_step = None
+        self._telem_step_ema = None
 
     @property
     def optimizer(self):
@@ -122,7 +139,35 @@ class Trainer:
         1/batch_size. ``ignore_stale_grad`` is accepted and changes
         nothing, as in the JAX Trainer: a parameter the loss did not reach
         is updated with what its gradient buffer holds."""
-        self.update(batch_size, ignore_stale_grad)
+        if _telem['on']:
+            self._time_step(batch_size)
+        with _trace.span('step.dispatch'):
+            self._optimizer.rescale_grad = self._scale / batch_size
+            with _trace.span('optimizer.update'), \
+                    _memory.oom_guard('step.dispatch'):
+                self._update()
+        _memory.on_step(self._optimizer.num_update)
+        _flight.record_step(self._optimizer.num_update)
+
+    def _time_step(self, batch_size):
+        now = time.perf_counter()
+        last, ema = self._telem_last_step, self._telem_step_ema
+        self._telem_last_step = now
+        if last is None:
+            return
+        dt = now - last
+        if ema is None:
+            # the first interval seeds the filter but is not recorded: it
+            # typically holds the capture (and may hold a pause)
+            self._telem_step_ema = dt
+        elif dt <= 20.0 * ema:
+            _metrics.record_step(dt, batch_size)
+            self._telem_step_ema = 0.9 * ema + 0.1 * dt
+
+    def reset_step_timer(self):
+        """Forget the previous step() timestamp so an intervening pause
+        (validation pass, checkpoint save) is not measured as step time."""
+        self._telem_last_step = None
 
     def update(self, batch_size, ignore_stale_grad=False):
         self._optimizer.rescale_grad = self._scale / batch_size
@@ -186,14 +231,35 @@ class Trainer:
                            self._program(items, scalars.values)]
         _, graph, scalars, program = self._fused
         scalars.write(values)
-        if device.type != 'cuda':
-            program()
-        elif graph is None:
-            # the warm-up run is this step's update; later steps replay
-            self._fused[1], _, _ = capture(program, device, warm_up=True)
-        else:
-            graph.replay()
+        with _trace.span('optimizer.fused'):
+            if device.type != 'cuda':
+                program()
+            elif graph is None:
+                # the warm-up run is this step's update; later steps replay
+                self._fused[1] = self._capture(program, device, items)
+            else:
+                graph.replay()
         return True
+
+    def _capture(self, program, device, items):
+        site = 'trainer:fused_update'
+        cctx = _compile.begin(site)
+        t0 = time.perf_counter()
+        try:
+            graph, _, _ = capture(program, device, warm_up=True)
+        except BaseException:
+            _compile.abort(cctx)
+            raise
+        if cctx is not None:
+            _compile.set_signature(cctx, _compile.signature(
+                [_compile.array_sig(f'param{i}', p) for i, p, _ in items],
+                {'optimizer': self._optimizer.__class__.__name__,
+                 'params': len(items)}))
+            _compile.end(cctx)
+        elif _telem['on']:
+            _metrics.record_compile(site, repr(self._fused[0][:3]),
+                                    time.perf_counter() - t0)
+        return graph
 
     def _program(self, items, scalars):
         """The fused update over ``items``: the optimizer's own

@@ -2,6 +2,16 @@
 ``BertSelfAttention``, ``BertLayer``, ``BertModel``, ``BertForPretraining``
 and its loss).
 
+The four models are Gluon ``HybridBlock``s built as the JAX package
+builds them: the same children in the same name scopes, so the prefixed
+names (``collect_params()``) and the structured ones
+(``_collect_params_with_prefix()``, which ``named_parameters()`` yields
+too) are the JAX model's; ``encoder`` is a ``HybridSequential`` with
+prefix ``encoder_``. ``hybridize()`` makes a call with CUDA tensors
+outside autograd one CUDA graph per input signature (``gluon/block.py``),
+which is how ``serving.BlockRunner`` serves ``BertModel``; inside another
+capture (``ShardedTrainStep``'s) a block runs plain.
+
 Each encoder layer runs qkv Dense, ``multi_head_attention`` (the flash
 kernel on CUDA), proj, ``add_layer_norm`` (the fused LayerNorm kernel
 when ``MXTPU_PALLAS_LN=1``), ``dense_gelu`` (the fused FFN1 kernel when
@@ -10,14 +20,19 @@ as the JAX model. Activations run in the parameters' dtype; LayerNorm
 statistics in f32. Dropout and attention dropout are active in training
 mode (``module.train()``), their noise drawn from ``generator`` on the
 model's device.
+
+Besides the JAX constructors' arguments each model takes the port's
+``device`` (built there at once, on the card unless ``device='cpu'``;
+weights zero until an initializer or a weight file fills them),
+``dtype`` and ``generator``.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from ..context import resolve_device
 from ..gluon import nn
+from ..gluon.block import HybridBlock
 from ..ops import attention as attn_ops
 from ..ops import nn as F
 
@@ -31,19 +46,20 @@ def bert_base_config():
                 intermediate=3072, max_len=512, type_vocab=2)
 
 
-class BertSelfAttention(tnn.Module):
+class BertSelfAttention(HybridBlock):
     def __init__(self, hidden, heads, dropout=0.1, device=None,
-                 dtype=torch.float32, generator=None):
-        super().__init__()
+                 dtype=torch.float32, generator=None, **kwargs):
+        super().__init__(**kwargs)
         self._heads = heads
         self._hidden = hidden
         self._attn_dropout = dropout
         self.generator = generator
-        self.qkv = nn.Dense(3 * hidden, flatten=False, in_units=hidden,
-                            device=device, dtype=dtype)
-        self.proj = nn.Dense(hidden, flatten=False, in_units=hidden,
-                             device=device, dtype=dtype)
-        self.dropout = nn.Dropout(dropout, generator=generator)
+        with self.name_scope():
+            self.qkv = nn.Dense(3 * hidden, flatten=False, in_units=hidden,
+                                prefix='qkv_', device=device, dtype=dtype)
+            self.proj = nn.Dense(hidden, flatten=False, in_units=hidden,
+                                 prefix='proj_', device=device, dtype=dtype)
+            self.dropout = nn.Dropout(dropout, generator=generator)
 
     def forward(self, x, mask=None):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
@@ -54,20 +70,21 @@ class BertSelfAttention(tnn.Module):
         return self.dropout(self.proj(out))
 
 
-class BertLayer(tnn.Module):
+class BertLayer(HybridBlock):
     def __init__(self, hidden, heads, intermediate, dropout=0.1, device=None,
-                 dtype=torch.float32, generator=None):
-        super().__init__()
+                 dtype=torch.float32, generator=None, **kwargs):
+        super().__init__(**kwargs)
         kw = dict(device=device, dtype=dtype)
-        self.attention = BertSelfAttention(hidden, heads, dropout,
-                                           generator=generator, **kw)
-        self.ln1 = nn.LayerNorm(in_channels=hidden, **kw)
-        self.ffn1 = nn.Dense(intermediate, flatten=False, in_units=hidden,
-                             **kw)
-        self.ffn2 = nn.Dense(hidden, flatten=False, in_units=intermediate,
-                             **kw)
-        self.ln2 = nn.LayerNorm(in_channels=hidden, **kw)
-        self.dropout = nn.Dropout(dropout, generator=generator)
+        with self.name_scope():
+            self.attention = BertSelfAttention(hidden, heads, dropout,
+                                               generator=generator, **kw)
+            self.ln1 = nn.LayerNorm(in_channels=hidden, **kw)
+            self.ffn1 = nn.Dense(intermediate, flatten=False,
+                                 in_units=hidden, prefix='ffn1_', **kw)
+            self.ffn2 = nn.Dense(hidden, flatten=False,
+                                 in_units=intermediate, prefix='ffn2_', **kw)
+            self.ln2 = nn.LayerNorm(in_channels=hidden, **kw)
+            self.dropout = nn.Dropout(dropout, generator=generator)
 
     @staticmethod
     def _add_ln(ln, x, sub):
@@ -83,27 +100,33 @@ class BertLayer(tnn.Module):
         return self._add_ln(self.ln2, x, h)
 
 
-class BertModel(tnn.Module):
-    """Returns (sequence output (N, T, hidden), pooled (N, hidden)).
-    Built on the CUDA device unless ``device='cpu'`` is given."""
+class BertModel(HybridBlock):
+    """Returns (sequence output (N, T, hidden), pooled (N, hidden))."""
 
     def __init__(self, vocab_size=30522, hidden=768, layers=12, heads=12,
                  intermediate=3072, max_len=512, type_vocab=2, dropout=0.1,
-                 device=None, dtype=torch.float32, generator=None):
-        super().__init__()
-        dev = resolve_device(device)
-        kw = dict(device=dev, dtype=dtype)
+                 device=None, dtype=torch.float32, generator=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self._hidden = hidden
-        self.word_embed = nn.Embedding(vocab_size, hidden, **kw)
-        self.pos_embed = nn.Embedding(max_len, hidden, **kw)
-        self.type_embed = nn.Embedding(type_vocab, hidden, **kw)
-        self.embed_ln = nn.LayerNorm(in_channels=hidden, **kw)
-        self.embed_dropout = nn.Dropout(dropout, generator=generator)
-        self.encoder = tnn.ModuleList(
-            BertLayer(hidden, heads, intermediate, dropout,
-                      generator=generator, **kw) for _ in range(layers))
-        self.pooler = nn.Dense(hidden, flatten=False, in_units=hidden,
-                               activation='tanh', **kw)
+        with self.name_scope():
+            self.word_embed = nn.Embedding(vocab_size, hidden,
+                                           prefix='word_embed_', **kw)
+            self.pos_embed = nn.Embedding(max_len, hidden,
+                                          prefix='pos_embed_', **kw)
+            self.type_embed = nn.Embedding(type_vocab, hidden,
+                                           prefix='type_embed_', **kw)
+            self.embed_ln = nn.LayerNorm(in_channels=hidden, **kw)
+            self.embed_dropout = nn.Dropout(dropout, generator=generator)
+            self.encoder = nn.HybridSequential(prefix='encoder_')
+            with self.encoder.name_scope():
+                for _ in range(layers):
+                    self.encoder.add(BertLayer(hidden, heads, intermediate,
+                                               dropout, generator=generator,
+                                               **kw))
+            self.pooler = nn.Dense(hidden, flatten=False, in_units=hidden,
+                                   activation='tanh', prefix='pooler_', **kw)
 
     def forward(self, tokens, token_types=None, valid_length=None):
         T = tokens.shape[1]
@@ -134,28 +157,30 @@ def _gather_positions(seq, positions):
     return torch.gather(seq, 1, idx)
 
 
-class BertForPretraining(tnn.Module):
+class BertForPretraining(HybridBlock):
     """MLM + NSP heads on BertModel (the pretraining objective). Parameter
     names (``bert.*``, ``mlm_dense.*``, ``mlm_ln.gamma/beta``,
     ``mlm_decoder.*``, ``nsp.*``) are the JAX model's structured names.
     ``config`` is a ``bert_base_config()``-style dict (it may carry
-    ``dropout``). Built on the CUDA device unless ``device='cpu'``."""
+    ``dropout``)."""
 
     def __init__(self, config=None, device=None, dtype=torch.float32,
-                 generator=None):
-        super().__init__()
+                 generator=None, **kwargs):
+        super().__init__(**kwargs)
         cfg = dict(config or bert_base_config())
         self._cfg = cfg
-        dev = resolve_device(device)
-        kw = dict(device=dev, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         hidden = cfg['hidden']
-        self.bert = BertModel(**cfg, generator=generator, **kw)
-        self.mlm_dense = nn.Dense(hidden, flatten=False, in_units=hidden,
-                                  activation='gelu', **kw)
-        self.mlm_ln = nn.LayerNorm(in_channels=hidden, **kw)
-        self.mlm_decoder = nn.Dense(cfg['vocab_size'], flatten=False,
-                                    in_units=hidden, **kw)
-        self.nsp = nn.Dense(2, in_units=hidden, **kw)
+        with self.name_scope():
+            self.bert = BertModel(**cfg, generator=generator, **kw)
+            self.mlm_dense = nn.Dense(hidden, flatten=False, in_units=hidden,
+                                      activation='gelu',
+                                      prefix='mlm_dense_', **kw)
+            self.mlm_ln = nn.LayerNorm(in_channels=hidden, **kw)
+            self.mlm_decoder = nn.Dense(cfg['vocab_size'], flatten=False,
+                                        in_units=hidden,
+                                        prefix='mlm_decoder_', **kw)
+            self.nsp = nn.Dense(2, in_units=hidden, prefix='nsp_', **kw)
 
     def forward(self, tokens, token_types=None, valid_length=None,
                 masked_positions=None):

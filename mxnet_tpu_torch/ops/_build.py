@@ -3,10 +3,14 @@
 Each source under ``mxnet_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
-Libraries go to ``build/mxnet_tpu_torch/`` at the root of the checkout,
-named by a hash of their source, and are built at first use: every
-source is started at once, one ``nvcc`` each. Nothing is built when this
-module is imported.
+Libraries go to ``build/mxnet_tpu_torch/`` at the root of the checkout
+(``MXTPU_COMPILE_CACHE_DIR`` where set), named by a hash of their
+source, and are built at first use: every source is started at once, one
+``nvcc`` each. Nothing is built when this module is imported. Each
+library found there counts as a hit of the build directory, each
+``nvcc`` run as a miss, and the batch's seconds go to the compile ledger
+as a ``build`` phase (``telemetry.compile``); ``triton_first_launch``
+does the same for a Triton kernel's JIT compile.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises when that is not 0.
@@ -28,17 +32,17 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 from ..base import MXNetError
+from ..telemetry import compile as _compile
 
 __all__ = ['launch_counts', 'variant_counts', 'reset_launch_counts',
            'library', 'build_all', 'ptxas_report', 'check', 'SOURCES',
-           'BUILD_DIR']
+           'build_dir', 'triton_first_launch']
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build',
-                         'mxnet_tpu_torch')
 SOURCES = ('flash_attn_fwd.cu', 'flash_attn_bwd.cu', 'dense_gelu.cu')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
@@ -55,6 +59,14 @@ variant_counts = {'flash_attn_fwd.tc': 0, 'flash_attn_fwd.simt': 0,
 _lock = threading.Lock()
 _libs = {}
 _ptxas = {}
+_triton_seen = set()
+
+
+def build_dir():
+    """Where libraries are built and looked for:
+    ``MXTPU_COMPILE_CACHE_DIR`` where set, else ``build/mxnet_tpu_torch``
+    at the root of the checkout (``telemetry.compile.cache_dir``)."""
+    return _compile.cache_dir()
 
 
 def reset_launch_counts():
@@ -84,7 +96,7 @@ def _target(src):
         with open(os.path.join(CSRC_DIR, name), 'rb') as f:
             digest.update(f.read())
     stem = os.path.splitext(src)[0]
-    return os.path.join(BUILD_DIR, f'{stem}-{digest.hexdigest()[:12]}.so')
+    return os.path.join(build_dir(), f'{stem}-{digest.hexdigest()[:12]}.so')
 
 
 def build_all():
@@ -94,12 +106,15 @@ def build_all():
         todo = [s for s in SOURCES if s not in _libs]
         if not todo:
             return dict(_libs)
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(build_dir(), exist_ok=True)
         procs = {}
+        t0 = time.perf_counter()
         for src in todo:
             out = _target(src)
             if os.path.exists(out):
+                _compile.cache_event(hit=True)
                 continue
+            _compile.cache_event(hit=False)
             tmp = f'{out}.{os.getpid()}.tmp'
             procs[src] = (subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, '-o', tmp,
@@ -116,9 +131,31 @@ def build_all():
             os.replace(tmp, out)
         if failed:
             raise MXNetError('nvcc failed for ' + '\n'.join(failed))
+        if procs:
+            built = sorted(procs)
+            _compile.report('build', time.perf_counter() - t0,
+                            'kernel:' + ','.join(built),
+                            lambda: _compile.signature(
+                                [_compile.arg_sig(s) for s in built],
+                                {'nvcc': ' '.join(NVCC_FLAGS)}))
         for src in todo:
             _libs[src] = ctypes.CDLL(_target(src))
         return dict(_libs)
+
+
+def triton_first_launch(name, key, launch):
+    """Run ``launch()``; the first time ``(name, key)`` is seen (``key``
+    the arguments Triton specializes a kernel on), its seconds, Triton's
+    JIT compile included, go to the compile ledger as a ``build``
+    phase."""
+    if (name, key) in _triton_seen:
+        return launch()
+    t0 = time.perf_counter()
+    out = launch()
+    _triton_seen.add((name, key))
+    _compile.report('build', time.perf_counter() - t0, f'kernel:{name}',
+                    lambda: _compile.signature(flags={'triton': repr(key)}))
+    return out
 
 
 def library(src):

@@ -99,8 +99,13 @@ def _launch(x, res, gamma, beta, eps):
     n_rows = x.numel() // C
     block_c = triton.next_power_of_2(C)
     grid = (triton.cdiv(n_rows, _ROWS),)
-    kernel[grid](x, res, gamma, beta, out, n_rows, C, float(eps),
-                 BLOCK_C=block_c, ROWS=_ROWS, num_warps=4)
+    # Triton specializes on the dtypes, the constexprs, and each integer
+    # argument's being 1 or a multiple of 16
+    key = (x.dtype, block_c, n_rows == 1, n_rows % 16 == 0, C % 16 == 0)
+    _build.triton_first_launch(
+        'fused_add_layernorm', key, lambda: kernel[grid](
+            x, res, gamma, beta, out, n_rows, C, float(eps),
+            BLOCK_C=block_c, ROWS=_ROWS, num_warps=4))
     _build.launch_counts['fused_add_layernorm'] += 1
     return out
 

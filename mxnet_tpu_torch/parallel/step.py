@@ -34,14 +34,26 @@ tensors from one call to the next.
 
 On the CPU the same step runs eagerly on every call.
 
+Telemetry, as the JAX step reports it, all of it on the host side of a
+call and none inside the capture: each call runs under a
+``step.dispatch`` span (the replay under ``step.compiled`` and the OOM
+guard), the first call for a signature is a compile of site
+``step:train_step`` (the compile ledger when armed, else the compile
+counters), and each call ends with ``memory.on_step`` and
+``flight.record_step``, whose loss stays the device tensor it is (the
+recorder reads it only when asked), so the step stays free of host
+syncs.
+
 A Gluon block (``gluon.HybridBlock``, e.g. the model zoo's ResNets) is
 taken as it is: its forward updates BatchNorm's running statistics in
 place, inside the captured graph on each replay (the JAX step threads
 them out of its program as ``f_params``); parameters still deferred are
-placed by one forward in predict mode before the first step; floating
-inputs are cast to the dtype of the block's parameters (after
-``net.cast('bfloat16')`` a float32 batch would reach a bfloat16
-convolution, which the JAX package's step refuses); the block's
+placed by one forward in predict mode before the first step; after
+``net.cast(dtype)`` its floating inputs are cast to that dtype (a
+float32 batch would reach a bfloat16 convolution, which the JAX
+package's step refuses; a block built in its dtype, as the BERT models
+are, takes its inputs as they come, so a float32 ``valid_length`` stays
+exact); the block's
 hybridize cache stays out of the step, which captures the block itself.
 A ``loss_fn`` written on ``mx.nd`` ops gets tensors (the ops take them),
 and with NDArray inputs the loss comes back as an NDArray, as bench.py's
@@ -55,6 +67,7 @@ Not ported, each refused by name: a mesh of more than one device and
 from __future__ import annotations
 
 import pickle
+import time
 
 import numpy as onp
 import torch
@@ -62,9 +75,11 @@ from torch.nn.parameter import UninitializedParameter
 
 from .. import config as _config
 from .._capture import DeviceScalars, capture, graph_generators
-from ..base import MXNetError, state
+from ..base import MXNetError, state, telem_flags as _telem, torch_dtype
 from ..gluon.block import Block, plain_calls
 from ..ndarray.ndarray import NDArray
+from ..telemetry import compile as _compile, flight as _flight, \
+    memory as _memory, metrics as _metrics, trace as _trace
 from .mesh import make_mesh
 
 __all__ = ['ShardedTrainStep', 'rename_states', 'STATES_FORMAT']
@@ -234,10 +249,10 @@ class ShardedTrainStep:
             raise MXNetError("ShardedTrainStep: the block has no "
                              "initialized parameters")
         self.device = params[0].device
-        # a Gluon block's floating inputs take its parameters' dtype
-        self._input_dtype = next(
-            (p.dtype for p in params if p.is_floating_point()), None) \
+        # a cast Gluon block's floating inputs take the dtype it was cast to
+        cast = getattr(block, '_cast_dtype', None) \
             if isinstance(block, Block) else None
+        self._input_dtype = None if cast is None else torch_dtype(cast)
         self.mesh = mesh if mesh is not None else \
             make_mesh(devices=[self.device])
         if any(d != self.device for d in self.mesh.devices.flat):
@@ -313,18 +328,24 @@ class ShardedTrainStep:
 
     def __call__(self, inputs, labels, lr=None):
         nd_in = any(isinstance(x, NDArray) for x in _as_list(inputs))
-        inputs = [self._cast(_as_tensor(x)) for x in _as_list(inputs)]
-        labels = [_as_tensor(x) for x in _as_list(labels)]
-        if self._trainable is None:
-            self._place_deferred(inputs)
-            self._build()
-        self._lr.write([self.lr if lr is None else lr])
-        if self.device.type != 'cuda':
-            loss = self._step([x.to(self.device) for x in inputs],
-                              [x.to(self.device) for x in labels])
-        else:
-            loss = self._replay(inputs, labels)
+        with _trace.span('step.dispatch', step=self._step_count):
+            inputs = [self._cast(_as_tensor(x)) for x in _as_list(inputs)]
+            labels = [_as_tensor(x) for x in _as_list(labels)]
+            if self._trainable is None:
+                with _trace.span('optimizer.state_init'):
+                    self._place_deferred(inputs)
+                    self._build()
+            self._lr.write([self.lr if lr is None else lr])
+            if self.device.type != 'cuda':
+                with _trace.span('step.compiled'), \
+                        _memory.oom_guard('step.dispatch'):
+                    loss = self._step([x.to(self.device) for x in inputs],
+                                      [x.to(self.device) for x in labels])
+            else:
+                loss = self._replay(inputs, labels)
         self._step_count += 1
+        _memory.on_step(self._step_count)
+        _flight.record_step(self._step_count, loss=loss)
         return NDArray(loss) if nd_in else loss
 
     def _cast(self, x):
@@ -352,17 +373,43 @@ class ShardedTrainStep:
             (len(inputs),) + tuple((tuple(x.shape), x.dtype) for x in labels)
         entry = self._graphs.get(sig)
         if entry is None:
-            ins = [x.to(self.device).clone() for x in inputs]
-            labs = [x.to(self.device).clone() for x in labels]
-            graph, loss, first = capture(
-                lambda: self._step(ins, labs), self.device,
-                graph_generators(self.block, self.device), warm_up=True)
+            site = 'step:train_step'
+            cctx = _compile.begin(site)
+            t0 = time.perf_counter()
+            try:
+                with _trace.span('h2d.batch_put'):
+                    ins = [x.to(self.device).clone() for x in inputs]
+                    labs = [x.to(self.device).clone() for x in labels]
+                with _trace.span('step.compiled'), \
+                        _memory.oom_guard('step.dispatch'):
+                    graph, loss, first = capture(
+                        lambda: self._step(ins, labs), self.device,
+                        graph_generators(self.block, self.device),
+                        warm_up=True)
+            except BaseException:
+                _compile.abort(cctx)
+                raise
+            if cctx is not None:
+                _compile.set_signature(cctx, _compile.signature(
+                    [_compile.array_sig(f'input{i}', x)
+                     for i, x in enumerate(ins)] +
+                    [_compile.array_sig(f'label{i}', x)
+                     for i, x in enumerate(labs)],
+                    {'optimizer': self._opt_update.__name__,
+                     'params': len(self._trainable)}))
+                _compile.end(cctx)
+            elif _telem['on']:
+                _metrics.record_compile(site, repr(sig),
+                                        time.perf_counter() - t0)
             self._graphs[sig] = (graph, ins, labs, loss)
             return first
         graph, ins, labs, loss = entry
-        for buf, x in zip(ins + labs, inputs + labels):
-            buf.copy_(x, non_blocking=True)
-        graph.replay()
+        with _trace.span('h2d.batch_put'):
+            for buf, x in zip(ins + labs, inputs + labels):
+                buf.copy_(x, non_blocking=True)
+        with _trace.span('step.compiled'), \
+                _memory.oom_guard('step.dispatch'):
+            graph.replay()
         return loss.clone()
 
     # ------------------------------------------------------------------

@@ -45,15 +45,18 @@ the JAX package's ``CudaModule``.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import numbers
 import os
 import re
 import threading
+import time
 from typing import NamedTuple
 
 import torch
 
 from .base import MXNetError
+from .telemetry import compile as _compile
 from .ndarray.ndarray import NDArray
 
 __all__ = ['CudaModule', 'CudaKernel', 'pallas_op', 'parse_signature',
@@ -247,7 +250,8 @@ class CudaModule:
     functions without ``extern "C"`` (e.g. ``'axpy<float>'``);
     ``get_kernel`` finds them by that name. Needs a card: without one it
     raises ``MXNetError``. A failed compile raises ``MXNetError`` with
-    NVRTC's log.
+    NVRTC's log. The compile's seconds go to the compile ledger
+    (``telemetry.compile``) as a ``build`` phase.
     """
 
     def __init__(self, source, options=(), exports=()):
@@ -259,6 +263,7 @@ class CudaModule:
         if isinstance(exports, str):
             exports = (exports,)
         nv, _ = _libs()
+        t0 = time.perf_counter()
         dev = torch.cuda.current_device()
         opts = ([f'--gpu-architecture={_arch(dev)}', '--std=c++17'] +
                 [f'-I{d}' for d in _cuda_include_dirs()] + list(options))
@@ -297,6 +302,12 @@ class CudaModule:
         finally:
             nv.nvrtcDestroyProgram(ctypes.byref(prog))
         self.options = tuple(opts)
+        _compile.report('build', time.perf_counter() - t0,
+                        'rtc:' + (','.join(exports) or 'module'),
+                        lambda: _compile.signature(flags={
+                            'options': ' '.join(opts),
+                            'source_sha1': hashlib.sha1(
+                                source.encode()).hexdigest()[:16]}))
         self._modules = {}
         self._mod_lock = threading.Lock()
 

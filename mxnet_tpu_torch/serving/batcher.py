@@ -14,11 +14,23 @@ the JAX package's formation rules:
   (``MXTPU_SERVE_BATCH_BUCKETS``), so the shapes the card sees are
   exactly ``len(seq_buckets) x len(batch_buckets)``, all visited by
   ``serving.warmup``;
-- dispatch goes through ``BlockRunner``; ``torch.cuda.OutOfMemoryError``
+- dispatch goes through ``BlockRunner``, which hybridizes its block, so
+  on the card each bucket replays one captured CUDA graph, under the
+  OOM guard: an allocator failure (``telemetry.memory.is_oom_error``)
   sheds that batch with ``RequestShed`` instead of killing the replica.
 
 Padding is exact: batch-dim pad rows are dropped by the slicer, and a
-per-position output is sliced back to the request's true length.
+per-position output is sliced back to the request's true length (each
+request's result is its own copy).
+
+Telemetry, as the JAX engine reports it: every dispatch runs under a
+``serving.dispatch`` span (labels ``engine``, ``batch``, ``seq``,
+``fill``) and ``memory.oom_guard('serving.dispatch')``; with telemetry
+on, the queue-depth gauge, the shed counter (by reason) and, per
+completed batch, the requests, batches and bucket-hit counters and the
+fill-ratio and latency histograms; every shed is a ``serving.shed``
+flight note. The JAX engine's stall watchdog waits for
+``resilience.watchdog`` (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -29,9 +41,11 @@ import time as _time
 import numpy as onp
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, telem_flags as _telem
 from .. import config as _config
 from ..context import resolve_device
+from ..telemetry import flight as _flight, memory as _memory, \
+    metrics as _metrics, trace as _trace
 
 __all__ = ['ServeError', 'RequestShed', 'RequestTooLarge',
            'parse_buckets', 'seq_bucket_for', 'batch_bucket_for',
@@ -83,26 +97,59 @@ def batch_bucket_for(n, buckets):
 
 
 class BlockRunner:
-    """Runs one module on (batch, seq) token matrices under
-    ``torch.inference_mode()``, on the card unless ``device='cpu'``.
-    Returns the first output as a numpy array (bfloat16 comes back as
-    float32, which numpy can hold)."""
+    """Serves one block on (batch, seq) token matrices under
+    ``torch.inference_mode()``, on the card unless ``device='cpu'``, as
+    the JAX runner does: it calls ``block.hybridize()`` (a Gluon block;
+    a plain module runs as it is), so on the card every bucket shape is
+    captured once as a CUDA graph and replayed afterwards (on the CPU
+    hybridize changes nothing).
+
+    Returns the first output as a float32 numpy array (bfloat16 is cast
+    on the device). On the card the output comes back through a pinned
+    host buffer kept per output shape: the device-side cast, one
+    ``non_blocking`` copy into the buffer, then a wait on that copy's
+    event alone. The values are bit for bit those of
+    ``out.float().cpu().numpy()`` (the pageable copy, taken where
+    ``pinned`` is False: on the CPU),
+    and the array is a view of the buffer, valid until the next call
+    with the same bucket shape (``InferenceEngine`` copies each
+    request's rows out before its next dispatch)."""
 
     def __init__(self, block, dtype='int32', device=None):
         self.device = resolve_device(device)
         self.block = block.to(self.device).eval()
         self.dtype = dtype
+        self.pinned = self.device.type == 'cuda'
+        self._host = {}        # (shape, dtype) -> (pinned buffer, event)
+        hybridize = getattr(block, 'hybridize', None)
+        if hybridize is not None:
+            hybridize()
 
     def __call__(self, mat):
         tokens = torch.from_numpy(onp.asarray(mat, self.dtype)).to(
             self.device)
         with torch.inference_mode():
             out = self.block(tokens)
-        if isinstance(out, (list, tuple)):
-            out = out[0]
-        if out.dtype in (torch.bfloat16, torch.float16):
-            out = out.float()
-        return out.cpu().numpy()
+            if isinstance(out, (list, tuple)):
+                out = out[0]
+            if out.dtype in (torch.bfloat16, torch.float16):
+                out = out.float()
+            if not self.pinned:
+                return out.cpu().numpy()
+            buf, copied = self._host_buffer(out)
+            buf.copy_(out, non_blocking=True)
+            copied.record()
+        copied.synchronize()
+        return buf.numpy()
+
+    def _host_buffer(self, out):
+        key = (tuple(out.shape), out.dtype)
+        entry = self._host.get(key)
+        if entry is None:
+            entry = self._host[key] = (
+                torch.empty(out.shape, dtype=out.dtype, pin_memory=True),
+                torch.cuda.Event())
+        return entry
 
 
 class _Request:
@@ -120,11 +167,23 @@ class _Request:
 class InferenceEngine:
     """The continuous batcher: ``submit()`` blocks the calling thread
     until its request's batch has been formed, dispatched and sliced; one
-    worker thread owns batch formation."""
+    worker thread owns batch formation, and so every dispatch (and any
+    capture of a bucket warmup did not see): client threads never touch
+    the card. ``watchdog_seconds`` (or ``MXTPU_SERVE_WATCHDOG_SECONDS``)
+    must be 0: the stall watchdog is not ported (ROADMAP queue 1 item
+    9)."""
 
     def __init__(self, runner, seq_buckets=None, batch_buckets=None,
                  deadline_ms=None, queue_limit=None, admission=None,
-                 pad_value=0, dtype='int32', name='serve'):
+                 pad_value=0, dtype='int32', name='serve',
+                 watchdog_seconds=None):
+        if watchdog_seconds is None:
+            watchdog_seconds = _config.get('MXTPU_SERVE_WATCHDOG_SECONDS')
+        if watchdog_seconds and float(watchdog_seconds) > 0:
+            raise MXNetError(
+                f"InferenceEngine(watchdog_seconds={watchdog_seconds}): "
+                f"the serving watchdog needs resilience.watchdog, which "
+                f"is not ported (ROADMAP queue 1 item 9)")
         self.runner = runner
         self.name = name
         self.dtype = onp.dtype(dtype)
@@ -178,19 +237,21 @@ class InferenceEngine:
         if self.admission is not None:
             reason = self.admission()
             if reason:
-                self._shed(1)
+                self._shed(1, reason)
                 raise RequestShed(f"admission refused: {reason}")
         req = _Request(data)
         with self._cv:
             if not self._running:
-                self._shed(1)
+                self._shed(1, 'draining')
                 raise RequestShed("replica draining")
             if self._n_pending >= self.queue_limit:
-                self._shed(1)
+                self._shed(1, 'queue_full')
                 raise RequestShed(f"queue full ({self.queue_limit} pending)")
             self._pending[s].append(req)
             self._n_pending += 1
             self.requests += 1
+            if _telem['on']:
+                self._gauge_depth()
             self._cv.notify()
         return req
 
@@ -211,7 +272,11 @@ class InferenceEngine:
     def run_bucket(self, batch, seq):
         """Dispatch one dummy batch of an exact bucket shape straight
         through the runner (the warmup path — no queue)."""
-        self.runner(onp.full((batch, seq), self.pad_value, self.dtype))
+        mat = onp.full((batch, seq), self.pad_value, self.dtype)
+        with _trace.span('serving.dispatch', engine=self.name,
+                         batch=batch, seq=seq, warmup=True), \
+                _memory.oom_guard('serving.dispatch'):
+            self.runner(mat)
 
     def drain(self, timeout=None):
         """Stop admitting, finish every in-flight request, park the
@@ -226,6 +291,8 @@ class InferenceEngine:
             self._cv.notify_all()
         self._worker.join(timeout=timeout)
         return flushed
+
+    close = drain
 
     # -- stats -------------------------------------------------------------
 
@@ -248,9 +315,18 @@ class InferenceEngine:
 
     # -- worker ------------------------------------------------------------
 
-    def _shed(self, n):
+    def _gauge_depth(self):
+        _metrics.set_gauge('mxnet_tpu_serving_queue_depth',
+                           self._n_pending, engine=self.name)
+
+    def _shed(self, n, reason):
         with self._cv:              # re-entrant: some callers hold it
             self.shed += n
+        _flight.note('serving.shed', engine=self.name, count=n,
+                     reason=reason)
+        if _telem['on']:
+            _metrics.counter('mxnet_tpu_serving_shed_total').inc(
+                n, engine=self.name, reason=reason)
 
     def _pick_locked(self, now):
         """The bucket to dispatch now, or (None, wait_seconds)."""
@@ -282,6 +358,8 @@ class InferenceEngine:
                 while dq and len(reqs) < self.max_batch:
                     reqs.append(dq.popleft())
                 self._n_pending -= len(reqs)
+                if _telem['on']:
+                    self._gauge_depth()
             self._dispatch(s, reqs)
 
     def _dispatch(self, s, reqs):
@@ -290,28 +368,46 @@ class InferenceEngine:
         for i, r in enumerate(reqs):
             mat[i, :r.length] = r.data
         try:
-            out = onp.asarray(self.runner(mat))
-        except torch.cuda.OutOfMemoryError as e:
-            # the replica survives allocator exhaustion: the batch sheds
-            self._shed(len(reqs))
-            self._fail(reqs, RequestShed(f"out of device memory: {e!r}"))
-            return
-        except Exception as e:                      # noqa: BLE001
-            # the worker must keep serving: the error goes to the callers
-            self._fail(reqs, e)
+            with _trace.span('serving.dispatch', engine=self.name,
+                             batch=b, seq=s, fill=len(reqs)), \
+                    _memory.oom_guard('serving.dispatch'):
+                out = onp.asarray(self.runner(mat))
+        except BaseException as e:                  # noqa: BLE001
+            if _memory.is_oom_error(e):
+                # the replica survives allocator exhaustion: the dump
+                # was written by the guard; the batch sheds
+                self._shed(len(reqs), 'oom')
+                err = RequestShed(f"out of device memory: {e!r}")
+            else:
+                # the worker must keep serving: the error goes to the
+                # callers
+                err = e if isinstance(e, Exception) else ServeError(repr(e))
+            for r in reqs:
+                r.error = err
+                r.event.set()
+            if not isinstance(e, Exception):
+                raise
             return
         now = _time.monotonic()
         per_position = out.ndim >= 2 and out.shape[1] == s
         for i, r in enumerate(reqs):
-            r.result = out[i, :r.length] if per_position else out[i]
+            # a copy: the runner may hand back a buffer it reuses
+            r.result = onp.array(out[i, :r.length] if per_position
+                                 else out[i])
             r.event.set()
         with self._cv:
             for r in reqs:
                 self._latencies.append(now - r.enqueued)
             self.batches += 1
-
-    @staticmethod
-    def _fail(reqs, err):
-        for r in reqs:
-            r.error = err
-            r.event.set()
+        if _telem['on']:
+            _metrics.counter('mxnet_tpu_serving_requests_total').inc(
+                len(reqs), engine=self.name)
+            _metrics.counter('mxnet_tpu_serving_batches_total').inc(
+                1, engine=self.name)
+            _metrics.counter('mxnet_tpu_serving_bucket_hits_total').inc(
+                1, engine=self.name, batch=b, seq=s)
+            _metrics.observe('mxnet_tpu_serving_batch_fill_ratio',
+                             len(reqs) / float(b), engine=self.name)
+            for r in reqs:
+                _metrics.observe('mxnet_tpu_serving_latency_seconds',
+                                 now - r.enqueued, engine=self.name)

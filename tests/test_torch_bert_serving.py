@@ -247,3 +247,45 @@ def test_padding_is_invisible_to_the_caller():
         onp.testing.assert_array_equal(out, solo)
     finally:
         eng.drain()
+
+
+# ---------------------------------------------------------------------------
+# the models are HybridBlocks named as the JAX package names them
+# ---------------------------------------------------------------------------
+
+def _names_below_root(net):
+    """collect_params() names without the model's own auto prefix (which
+    depends on how many models were built before)."""
+    root = net.prefix
+    names = list(net.collect_params().keys())
+    assert all(n.startswith(root) for n in names)
+    return [n[len(root):] for n in names]
+
+
+@pytest.mark.parametrize('model', ['BertModel', 'BertForPretraining'])
+def test_hybrid_bert_names_match_jax(model):
+    """The port's BERT models are HybridBlocks with the JAX models'
+    children in the same name scopes: the structured names (and their
+    order), the prefixed names below the model's own prefix, the encoder
+    as a HybridSequential 'encoder_', and named_parameters() all agree."""
+    import mxnet_tpu.models.bert as jbert
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+    import mxnet_tpu_torch.models.bert as tbert
+    if model == 'BertModel':
+        jnet, tnet = jbert.BertModel(**CFG), tbert.BertModel(**CFG,
+                                                            device='cpu')
+    else:
+        jnet = jbert.BertForPretraining(dict(CFG, type_vocab=2))
+        tnet = tbert.BertForPretraining(dict(CFG, type_vocab=2),
+                                        device='cpu')
+    assert isinstance(tnet, HybridBlock)
+    jstruct = list(jnet._collect_params_with_prefix())
+    assert list(tnet._collect_params_with_prefix()) == jstruct
+    assert [n for n, _ in tnet.named_parameters()] == jstruct
+    assert _names_below_root(tnet) == _names_below_root(jnet)
+    bert = tnet if model == 'BertModel' else tnet.bert
+    assert isinstance(bert.encoder, nn.HybridSequential)
+    assert bert.encoder.prefix == bert.prefix + 'encoder_'
+    assert all(isinstance(m, HybridBlock) for m in bert.encoder)
+    assert bert.encoder[0].attention.qkv.prefix.endswith(
+        'encoder_bertlayer0_bertselfattention0_qkv_')
