@@ -54,7 +54,31 @@
    weights in f32 on the CPU through the plain versions, and again with
    both knobs off after hybridize() (its bucket captured anew on the
    engine's worker thread; a trace shows no LayerNorm or FFN1 launch).
-5. Training phase: BERT-base BertForPretraining at full width in bf16,
+5. Front phase: the serving replica's front door. Two BERT-base bf16
+   replicas, each its own BertModel with the serving phase's weights and
+   both knobs on, each InferenceEngine(BlockRunner(net)) warmed (16 CUDA
+   graphs each; the launch counters set to 0 just before, so the front's
+   launches are the two warmups') behind serving.PredictServer on
+   127.0.0.1, telemetry and tracing armed. Checks, in order: /predict of
+   one sequence and of a list equals the in-process engine's output for
+   the same sequences bitwise after the JSON round trip; /metrics carries
+   the engine's counters; /healthz['memory'] is the allocator's live
+   bytes; memory_admission below the live bytes answers 503 and the
+   engine's dispatch count does not move; /reload by path with a second
+   weight set serves that set's eager forward bitwise with no new ledger
+   entry and every parameter's storage in place; /reload {"ns", "step"}
+   on a corrupted step directory answers 409; quantize_weights('int8') on
+   the second replica (its output drift against bf16 printed); a profiler
+   trace of 3 HTTP requests of 512 tokens counts 12 / 24 / 12 launches of
+   the flash forward, LayerNorm and FFN1 kernels per request; the
+   CachedOp key's host time rebuilt per call (as before its names were
+   kept) and now; then a serving.Router over both replicas takes 32
+   requests (lengths uniform in 8..512, numpy seed) from 4 client
+   threads, and /drain goes to replica 0 once a quarter are answered: 0
+   failed requests, at least one failover, the drained listener closed.
+   Prints requests/s over HTTP, HTTP p50/p99, the engine's p50, and the
+   JSON encode time of one response at four lengths.
+6. Training phase: BERT-base BertForPretraining at full width in bf16,
    the same numpy weights, both knobs on, so all five kernels run. First
    one step at B = 2 with dropout 0 against the same weights in f32 on the
    CPU through the plain versions (loss, and every gradient). Then, with
@@ -66,7 +90,7 @@
    per step; every forward, dq, dk/dv and FFN1 on the tensor-core
    variant), step
    time, samples/s and MFU, and a profiled step.
-6. NDArray phase: MXNet's imperative API (mx.nd, mx.autograd) on the
+7. NDArray phase: MXNet's imperative API (mx.nd, mx.autograd) on the
    card with user kernels compiled by NVRTC (mx.rtc, the counterpart of
    the JAX package's pallas_op). Compiles the five user kernels of
    mxnet_tpu_torch/test_utils.py (scale_add, block_double, rowsum, GELU
@@ -84,7 +108,7 @@
    profiled step, the host cost of one NDArray op, and checks two
    semantics on the card (a launch into a reshape leaves its source
    unchanged; a second backward leaves the gradients).
-7. Gluon phase: MXNet's Gluon API on the card. First the parity checks:
+8. Gluon phase: MXNet's Gluon API on the card. First the parity checks:
    one SGD step of resnet50_v1 (B = 2, 224 x 224) in bf16, unit by unit
    (each of its layers and bottlenecks on the input and upstream gradient
    the f32 step on the CPU gave it) against f32 on the CPU, with the whole
@@ -103,7 +127,7 @@
    are set to 0 before (b) and must read 0 after (a): this path runs
    none of them (its convolutions, pooling and BatchNorm are stock
    PyTorch/cuDNN ops, as the JAX package leaves them to XLA).
-8. Compiled-step phase (the last to run): parallel.ShardedTrainStep, the flagship's entry
+9. Compiled-step phase (the last to run): parallel.ShardedTrainStep, the flagship's entry
    point, whose step (forward, backward, AdamW) is one CUDA graph
    replayed per call. First, at hidden 128 and 2 layers in f32 with
    dropout 0, 5 steps of the captured step and 5 of the Trainer with its
@@ -117,10 +141,13 @@
    of each kernel, 4 of LayerNorm), and a profiler trace of 3 replays
    counts exactly 12 launches of the flash forward, dq, dk/dv and FFN1
    kernels and 24 of LayerNorm per replay. Prints the step time (median
-   and spread of 3 calls) beside the Trainer loop's, and the device's
-   busy time and idle share. The kernel phase also times the flash
+   and spread of 3 calls) beside the Trainer loop's, the device's busy
+   time and idle share, and telemetry.attribution.report over the flight
+   recorder's records of 8 traced steps (each followed by its loss read):
+   its buckets sum to the host clock's time per step within 1%, its MFU
+   printed beside the phase's own. The kernel phase also times the flash
    forward, dq and dk/dv with dropout 0.1, their seed read by pointer.
-9. Prints the kernels' JSON line (each row with its variant and, for a
+10. Prints the kernels' JSON line (each row with its variant and, for a
    redesigned kernel, the time of the one it replaced, old_ms) and, last,
    the result line.
 
@@ -590,11 +617,11 @@ def dispatch_breakdown(engine, card, label, batch=8, seq=512, iters=3):
                             iters)
 
 
-def random_bert_arrays(net):
-    """Normal(0.02) for every weight, drawn with numpy from SEED; gamma,
-    beta and biases keep their constructed one/zero."""
+def random_bert_arrays(net, seed=SEED):
+    """Normal(0.02) for every weight, drawn with numpy from ``seed``;
+    gamma, beta and biases keep their constructed one/zero."""
     import numpy as onp
-    rng = onp.random.RandomState(SEED)
+    rng = onp.random.RandomState(seed)
     arrays = {}
     for name, p in net.named_parameters():
         if name.endswith('weight'):
@@ -923,6 +950,382 @@ def serving_phase(card):
                  captured=cap_bd))
 
 
+FRONT_BUCKETS = dict(seq_buckets='64,128,256,512', batch_buckets='1,2,4,8')
+FRONT_TIMEOUT = 300.0      # seconds, every HTTP call and wait of the phase
+
+
+def front_phase(card, burst_n=32, clients=4):
+    """The serving replica's front door: two BERT-base bf16 replicas, each
+    InferenceEngine(BlockRunner(net)) behind serving.PredictServer on
+    loopback, and a serving.Router over both. See the module docstring,
+    item 5."""
+    import tempfile
+    import urllib.request
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import serving, telemetry
+    from mxnet_tpu_torch.checkpoint import manifest as mf
+    from mxnet_tpu_torch.models.bert import BertModel, bert_base_config
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+
+    comp = telemetry.compile
+    os.environ['MXTPU_PALLAS_LN'] = '1'
+    os.environ['MXTPU_PALLAS_FFN'] = '1'
+    cfg = bert_base_config()
+    L, H = cfg['layers'], cfg['hidden']
+    host = '127.0.0.1'
+
+    def bert(seed):
+        net = BertModel(**cfg, dtype=torch.bfloat16, device='cuda')
+        net.load_state_dict(params_from_mxnet_tpu(
+            random_bert_arrays(net, seed), net))
+        return net
+
+    def ask(port, path, doc=None):
+        return serving.http_json(host, port, path, doc,
+                                 timeout=FRONT_TIMEOUT)
+
+    def cachedop_entries():
+        return [e for e in comp.ledger() if e['site'].startswith('cachedop:')]
+
+    telemetry.reset()
+    telemetry.enable()
+    telemetry.trace.clear()
+    telemetry.trace.enable()
+    comp.enable()
+    comp.clear(ledger='')
+    engines, servers = [], []
+    tmp = tempfile.TemporaryDirectory(prefix='mxtt-front-')
+    try:
+        # the main path's run: the counters at 0 just before the replicas
+        # are built and warmed (each bucket's eager run and capture); the
+        # HTTP dispatches replay the graphs
+        mt.ops.reset_launch_counts()
+        nets = []
+        for i in range(2):
+            net = bert(SEED)
+            eng = serving.InferenceEngine(serving.BlockRunner(net),
+                                          name=f'front{i}', **FRONT_BUCKETS)
+            nets.append(net)
+            engines.append(eng)
+            t0 = time.perf_counter()
+            serving.warmup(eng)
+            warm_s = time.perf_counter() - t0
+            check(net._cached_op.num_graphs == 16,
+                  f'replica {i}: {net._cached_op.num_graphs} graphs')
+            servers.append(serving.PredictServer(eng, port=0, block=net))
+            print(f'front phase on {card}: replica {i} (BERT-base bf16) '
+                  f'warmed {net._cached_op.num_graphs} CUDA graphs in '
+                  f'{warm_s:.2f} s; PredictServer on {host}:'
+                  f'{servers[-1].port}')
+        check(len(cachedop_entries()) == 32,
+              f'{len(cachedop_entries())} cachedop: ledger entries for two '
+              f'warmups of 16 buckets')
+        after_warmup = dict(mt.ops.launch_counts)
+        ports = [s.port for s in servers]
+        rng = onp.random.RandomState(SEED + 7)
+
+        # /predict, one sequence and a list (one sequence per seq bucket,
+        # so each is a batch of one, as the in-process submit below is):
+        # bitwise the engine's own result after the JSON round trip
+        seqs = [rng.randint(1, cfg['vocab_size'], n).tolist()
+                for n in (40, 100, 200, 400)]
+        st, one = ask(ports[0], '/predict', {'inputs': seqs[0]})
+        check(st == 200, f'/predict answered {st}: {one}')
+        st, many = ask(ports[0], '/predict', {'inputs': seqs})
+        check(st == 200, f'/predict (list) answered {st}')
+        direct = [engines[0].submit(s, timeout=FRONT_TIMEOUT) for s in seqs]
+        for g, w in zip([one['outputs']] + many['outputs'],
+                        [direct[0]] + direct):
+            g = onp.asarray(g)
+            check(g.shape == w.shape and onp.array_equal(
+                g, w.astype(onp.float64)),
+                  f'HTTP output {g.shape} differs from the in-process '
+                  f'engine\'s {w.shape}')
+        print(f'  /predict single and list ({[len(s) for s in seqs]} '
+              f'tokens): bitwise the in-process engine\'s outputs after the '
+              f'JSON round trip')
+
+        # /metrics carries the engine's counters
+        with urllib.request.urlopen(f'http://{host}:{ports[0]}/metrics',
+                                    timeout=FRONT_TIMEOUT) as r:
+            prom = r.read().decode()
+
+        def prom_value(metric, engine):
+            return sum(float(line.rsplit(' ', 1)[1])
+                       for line in prom.splitlines()
+                       if line.startswith(metric + '{')
+                       and f'engine="{engine}"' in line)
+        stats0 = engines[0].stats()
+        scraped = {k: prom_value(f'mxnet_tpu_serving_{k}_total', 'front0')
+                   for k in ('requests', 'batches')}
+        check(scraped == {k: stats0[k] for k in ('requests', 'batches')},
+              f'/metrics {scraped} vs engine.stats() {stats0}')
+        print(f'  /metrics: mxnet_tpu_serving_{{requests,batches}}_total '
+              f'{scraped} = engine.stats()')
+
+        # /healthz['memory'] is the allocator's live bytes
+        m0 = torch.cuda.memory_allocated()
+        st, health = ask(ports[0], '/healthz')
+        m1 = torch.cuda.memory_allocated()
+        mem = health['memory']
+        check(st == 200 and mem['source'] == 'memory_stats' and
+              min(m0, m1) <= mem['live_bytes'] <= max(m0, m1),
+              f'/healthz memory {mem} vs allocated {m0}, {m1}')
+        print(f'  /healthz memory: live {mem["live_bytes"] / 2**20:.1f} MiB '
+              f'(torch.cuda.memory_allocated {m0 / 2**20:.1f} MiB), peak '
+              f'{mem["peak_bytes"] / 2**20:.1f} MiB, source {mem["source"]}')
+
+        # admission below the live bytes: 503, shed before the device
+        before = engines[0].stats()
+        engines[0].admission = serving.memory_admission(
+            mem['live_bytes'] / 2 / 2**20)
+        st, doc = ask(ports[0], '/predict', {'inputs': seqs[0]})
+        engines[0].admission = None
+        after = engines[0].stats()
+        check(st == 503 and 'memory_pressure' in doc['error'],
+              f'admission answered {st}: {doc}')
+        check(after['batches'] == before['batches'] and
+              after['requests'] == before['requests'] and
+              after['shed'] == before['shed'] + 1,
+              f'the shed request reached the engine: {before} -> {after}')
+        print(f'  memory_admission at half the live bytes: 503 '
+              f'({doc["error"]}); dispatches {before["batches"]} -> '
+              f'{after["batches"]}')
+
+        # /reload by path: a second weight set copied into the captured
+        # graphs' parameters; no capture; the second set's eager output
+        donor = bert(SEED + 1)
+        path = os.path.join(tmp.name, 'second.params')
+        donor.save_parameters(path)
+        caps = len(cachedop_entries())
+        n_ledger = len(comp.ledger())
+        ptrs = {n: p.data_ptr() for n, p in nets[0].named_parameters()}
+        st, doc = ask(ports[0], '/reload', {'path': path})
+        check(st == 200 and doc['reloaded'], f'/reload answered {st} {doc}')
+        st, doc = ask(ports[0], '/predict', {'inputs': seqs[1]})
+        check(st == 200, f'/predict after /reload answered {st}')
+        padded = onp.zeros((1, 128), 'int32')
+        padded[0, :len(seqs[1])] = seqs[1]
+        donor.eval()
+        counted = dict(mt.ops.launch_counts)
+        with torch.inference_mode():
+            eager = donor(torch.from_numpy(padded).cuda())[0][
+                0, :len(seqs[1])].float().cpu().numpy()
+        # the reference's eager launches are not the path's
+        reference = {k: mt.ops.launch_counts[k] - counted[k]
+                     for k in counted}
+        check(onp.array_equal(onp.asarray(doc['outputs']),
+                              eager.astype(onp.float64)),
+              'the reloaded replica differs from the second set\'s eager '
+              'forward')
+        check(len(comp.ledger()) == n_ledger and
+              len(cachedop_entries()) == caps, '/reload captured a graph')
+        check({n: p.data_ptr() for n, p in nets[0].named_parameters()}
+              == ptrs, '/reload moved a parameter\'s storage')
+        del donor
+        print(f'  /reload by path: the replayed graphs serve the second '
+              f'weight set, bitwise its eager forward; compile ledger '
+              f'{n_ledger} -> {len(comp.ledger())} entries; parameters in '
+              f'place')
+
+        # /reload {"ns", "step"} on a corrupted step directory: 409
+        servers[0].replica_root = tmp.name
+        d = os.path.join(tmp.name, 'serving', mf.step_dir_name(7))
+        os.makedirs(d)
+        with open(path, 'rb') as f:
+            data = f.read()
+        with open(os.path.join(d, 'weights.params'), 'wb') as f:
+            f.write(data[:-1] + bytes([data[-1] ^ 0xFF]))
+        mf.write_manifest(d, {'step': 7, 'blobs': [{
+            'name': 'weights', 'file': 'weights.params',
+            'bytes': len(data), 'sha256': mf.sha256_bytes(data)}]})
+        st, doc = ask(ports[0], '/reload', {'ns': 'serving', 'step': 7})
+        check(st == 409, f'/reload of a corrupted step answered {st} {doc}')
+        print(f'  /reload {{"ns", "step"}} on a corrupted step directory: '
+              f'{st} ({doc["error"][:70]}...)')
+
+        # int8 weights on the second replica: the drift against bf16
+        st, bf16_out = ask(ports[1], '/predict', {'inputs': seqs[2]})
+        serving.quantize_weights(nets[1], 'int8')
+        st2, int8_out = ask(ports[1], '/predict', {'inputs': seqs[2]})
+        check(st == st2 == 200, 'predict around quantize_weights failed')
+        a = onp.asarray(bf16_out['outputs'])
+        b = onp.asarray(int8_out['outputs'])
+        drift = float(onp.abs(b - a).max())
+        rel = float(onp.linalg.norm(b - a) / onp.linalg.norm(a))
+        check(bool(onp.isfinite(b).all()) and drift > 0,
+              f'int8 output drift {drift}')
+        check(len(cachedop_entries()) == caps, 'quantize captured a graph')
+        print(f'  quantize_weights(int8) on replica 1: output drift against '
+              f'bf16 max_abs {drift:.4f}, rel_fro {rel:.5f} (length '
+              f'{len(seqs[2])}); no capture')
+
+        # the JSON encode of one response, and the kernels of one HTTP
+        # dispatch
+        enc = []
+        for s in seqs:
+            out = engines[1].submit(s, timeout=FRONT_TIMEOUT)
+            t0 = time.perf_counter()
+            body = serving.PredictServer._json('200 OK', {
+                'outputs': serving.PredictServer.encode_outputs([out], True),
+                'latency_ms': 0.0})[2]
+            enc.append(((time.perf_counter() - t0) * 1e3, len(s),
+                        len(body)))
+        long_req = rng.randint(1, cfg['vocab_size'], 512).tolist()
+        names = kernel_launches(
+            lambda: ask(ports[1], '/predict', {'inputs': long_req}), 3)
+        per_http = {k: sum(c for n, c in names.items() if v in n) / 3
+                    for k, v in SERVE_KERNELS.items()}
+        print(f'  kernel launches per HTTP /predict of 512 tokens (profiler, '
+              f'3 requests): {per_http}')
+        check(per_http == {'flash_attn_fwd': L, 'fused_add_layernorm':
+                           2 * L, 'dense_gelu': L},
+              f'launches per HTTP dispatch {per_http}')
+
+        # the CachedOp key's host time: as it was built before the names
+        # were kept (every parameter's structured name on every call), and
+        # now
+        tok = torch.from_numpy(padded).cuda()
+        op = nets[0]._cached_op
+
+        def key_rebuilt():
+            return (tuple((tuple(a.shape), a.dtype, a.requires_grad)
+                          for a in (tok,)), nets[0].training, False,
+                    torch.is_inference_mode_enabled(),
+                    tuple(nets[0]._collect_params_with_prefix()))
+
+        def host_us(fn, n=200):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return (time.perf_counter() - t0) / n * 1e6
+        with torch.inference_mode():
+            check(key_rebuilt() == op.key((tok,)), 'the key changed')
+            key_old = min(host_us(key_rebuilt) for _ in range(2))
+            key_new = min(host_us(lambda: op.key((tok,))) for _ in range(2))
+        print(f'  host time of the CachedOp key on {card}: rebuilt per call '
+              f'{key_old:.1f} us, names kept {key_new:.1f} us (best of 2 x '
+              f'200)')
+
+        # the burst: a Router over both replicas; /drain to replica 0 once
+        # a quarter of the requests are answered
+        router = serving.Router(endpoints=[(host, p) for p in ports],
+                                timeout=FRONT_TIMEOUT)
+        reqs = [rng.randint(1, cfg['vocab_size'], int(n)).tolist()
+                for n in rng.randint(8, 513, burst_n)]
+        results, lat, errors = [None] * burst_n, [None] * burst_n, []
+        done = [0]
+        lock = threading.Lock()
+        quarter = threading.Event()
+
+        def client(idx):
+            for i in idx:
+                t0 = time.perf_counter()
+                try:
+                    results[i] = router.predict(reqs[i])
+                except Exception as e:                # noqa: BLE001
+                    errors.append(repr(e))
+                    continue
+                lat[i] = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    done[0] += 1
+                    if done[0] >= burst_n // 4:
+                        quarter.set()
+
+        b0 = [e.stats()['batches'] for e in engines]
+        threads = [threading.Thread(target=client,
+                                    args=(range(t, burst_n, clients),))
+                   for t in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        check(quarter.wait(FRONT_TIMEOUT), 'the burst stalled')
+        drained_at = done[0]
+        st, _ = ask(ports[0], '/drain', {})
+        check(st == 200, f'/drain answered {st}')
+        for t in threads:
+            t.join(timeout=FRONT_TIMEOUT)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), 'a client hung')
+        deadline = time.monotonic() + 60
+        while servers[0]._server is not None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(servers[0]._server is None,
+              'the drained replica kept listening')
+        failed = len(errors) + sum(r is None for r in results)
+        disp = [e.stats()['batches'] - b for e, b in zip(engines, b0)]
+        print(f'  burst through the Router: {burst_n} requests (lengths '
+              f'8..512) from {clients} client threads, /drain to replica 0 '
+              f'after {drained_at} answers: {failed} failed, '
+              f'{router.failovers} failovers, ejected {router.ejected()}, '
+              f'dispatches per replica {disp}')
+        check(failed == 0, f'{failed} requests failed: {errors[:3]}')
+        check(router.failovers >= 1, 'no request failed over')
+        for q, o in zip(reqs, results):
+            o = onp.asarray(o)
+            check(o.shape == (len(q), H) and bool(onp.isfinite(o).all()),
+                  f'bad output {o.shape} for a request of {len(q)} tokens')
+        lats = sorted(lat)
+        p50 = lats[len(lats) // 2]
+        p99 = lats[min(len(lats) - 1, int(0.99 * len(lats)))]
+        stats1 = engines[1].stats()
+        print(f'  over HTTP on {card}: {burst_n / wall:.2f} requests/s, p50 '
+              f'{p50:.3f} ms, p99 {p99:.3f} ms (client clock, failovers '
+              f'included); engine p50 {stats1["p50_ms"]} ms, p99 '
+              f'{stats1["p99_ms"]} ms (replica 1, enqueue to result); JSON '
+              f'encode of one response: ' + ', '.join(
+                  f'{n} tokens {ms:.3f} ms ({nb / 1e6:.2f} MB)'
+                  for ms, n, nb in enc))
+        launches = {k: v - reference[k]
+                    for k, v in mt.ops.launch_counts.items()}
+        check(launches == after_warmup, 'an HTTP dispatch moved the launch '
+              'counters (a capture outside warmup)')
+        check(launches == {'flash_attn_fwd': 2 * 2 * L * 16,
+                           'flash_attn_bwd_dq': 0, 'flash_attn_bwd_dkv': 0,
+                           'fused_add_layernorm': 2 * 4 * L * 16,
+                           'dense_gelu': 2 * 2 * L * 16},
+              f'front launch counts {launches} for two warmups')
+    finally:
+        for s in servers:
+            s.stop()
+        for e in engines:
+            e.drain()
+        telemetry.disable()
+        telemetry.trace.disable()
+        telemetry.trace.clear()
+        comp.disable()
+        comp.clear(ledger='')
+        tmp.cleanup()
+    return launches, per_http, dict(
+        rps=burst_n / wall, p50_ms=p50, p99_ms=p99,
+        engine_p50_ms=stats1['p50_ms'], encode=enc, key_us=(key_old,
+                                                            key_new),
+        int8_drift=drift, failovers=router.failovers)
+
+
+def honest_flops(params, cfg, batch, seq, nmask):
+    """bench.py's FLOP count of one BERT pretraining step (forward and
+    backward): embeddings do no matmul work, the MLM head runs on the
+    masked positions only, pooler and NSP on one position per sequence;
+    6 FLOPs per parameter per token, and 12*L*hidden*T per token for
+    attention."""
+    def psize(keys):
+        return sum(p.numel() for n, p in params.items()
+                   if any(k in n for k in keys))
+    P = psize([''])
+    P_embed = psize(['word_embed', 'pos_embed', 'type_embed'])
+    P_head = psize(['mlm_'])
+    P_pool = psize(['pooler', 'nsp'])
+    P_body = P - P_embed - P_head - P_pool
+    tokens = batch * seq
+    return (6 * P_body * tokens + 6 * P_head * batch * nmask
+            + 6 * P_pool * batch
+            + 12 * cfg['layers'] * cfg['hidden'] * seq * tokens)
+
+
 def pretraining_batch(cfg, batch, seq, seed):
     """The flagship batch of bench.py: random tokens, token types 0,
     valid_length in [seq/2, seq], 72 masked positions per row (15% of 512
@@ -1071,20 +1474,7 @@ def training_phase(card, steps=5, batch=8, seq=512):
              if torch.equal(st[0], masters0[i])]
     check(not still, f'parameters that did not move: {still}')
 
-    # bench.py's FLOP accounting: embeddings do no matmul work, the MLM
-    # head runs on the masked positions only, pooler and NSP on one
-    # position per sequence; 12*L*hidden*T per token for attention
-    def psize(keys):
-        return sum(p.numel() for n, p in params.items()
-                   if any(k in n for k in keys))
-    P = psize([''])
-    P_embed = psize(['word_embed', 'pos_embed', 'type_embed'])
-    P_head = psize(['mlm_'])
-    P_pool = psize(['pooler', 'nsp'])
-    P_body = P - P_embed - P_head - P_pool
-    tokens = batch * seq
-    flops = (6 * P_body * tokens + 6 * P_head * batch * nmask
-             + 6 * P_pool * batch + 12 * L * cfg['hidden'] * seq * tokens)
+    flops = honest_flops(params, cfg, batch, seq, nmask)
     # two more calls of the same steps: host time moves between calls
     calls = [wall / steps * 1e3] + [steps_ms(step, steps) for _ in range(2)]
     step_s = sorted(calls)[1] / 1e3
@@ -1327,6 +1717,9 @@ def compiled_step_phase(card, warmup=3, timed=10, batch=8, seq=512):
           f'{step_ms:.3f} ms per step, the median of 3 calls '
           f'({", ".join(f"{c:.3f}" for c in calls)} ms), '
           f'{batch / step_ms * 1e3:.3f} samples/s')
+    attr = step_attribution(step, ins, labs,
+                            honest_flops(dict(net.named_parameters()), cfg,
+                                         batch, seq, nmask), step_ms, card)
     busy = device_breakdown(f'captured step b{batch}_s{seq}',
                             lambda: step(ins, labs), card, 3)
     bytes_state = step.opt_state_bytes_per_device()
@@ -1347,7 +1740,46 @@ def compiled_step_phase(card, warmup=3, timed=10, batch=8, seq=512):
                      'dense_gelu': per_replay['dense_gelu_tc_kernel']}
     return per_path, replay_by_row, dict(
         step_ms=step_ms, calls_ms=calls, losses=warm + losses,
-        busy=busy, parity=parity)
+        busy=busy, parity=parity, attribution=attr)
+
+
+def step_attribution(step, ins, labs, flops, step_ms, card, steps=8):
+    """telemetry.attribution.report over the flight recorder's records
+    of ``steps`` traced calls of the compiled step, each followed by its
+    loss read; its buckets must sum to the host clock's time per step
+    between the reads within 1%. Prints its MFU beside the phase's own
+    (bench.py's FLOP count over the median step time)."""
+    from mxnet_tpu_torch import telemetry
+    flight, trace = telemetry.flight, telemetry.trace
+    flight.get().clear()
+    trace.clear()
+    trace.enable()
+    try:
+        marks = []
+        for _ in range(steps):
+            float(step(ins, labs))
+            marks.append(time.perf_counter())
+        records = flight.get().steps()
+    finally:
+        trace.disable()
+        trace.clear()
+        flight.get().clear()
+    rep = telemetry.attribution.report(records, flops_per_step=flops,
+                                       peak_flops=PEAK_BF16)
+    wall_ms = (marks[-1] - marks[0]) / (steps - 1) * 1e3
+    total = sum(rep['buckets_ms'].values())
+    phase_mfu = flops / (step_ms / 1e3) / PEAK_BF16 * 100
+    print('  attribution over the flight recorder (' + '; '.join(
+        telemetry.attribution.format_table(rep).splitlines()[:7]) + ')')
+    print(f'  attribution on {card}: buckets sum {total:.3f} ms against the '
+          f'host clock\'s {wall_ms:.3f} ms a step between loss reads '
+          f'({abs(total - wall_ms) / wall_ms:.2%} apart, limit 1%); honest '
+          f'MFU {rep["mfu_percent"]:.2f}% by attribution, '
+          f'{phase_mfu:.2f}% by the phase\'s median step')
+    check(abs(total - wall_ms) <= 0.01 * wall_ms,
+          f'attribution buckets {total:.3f} ms vs wall {wall_ms:.3f} ms')
+    return dict(wall_ms=wall_ms, buckets_ms=rep['buckets_ms'],
+                mfu_percent=rep['mfu_percent'], phase_mfu_percent=phase_mfu)
 
 
 # user kernels against their plain versions on the card (chosen before the
@@ -2076,23 +2508,27 @@ def main():
 
     rows = kernel_phase(card)
     serving, serve_replay, _serving = serving_phase(card)
+    front, front_http, _front = front_phase(card)
     training, _train = training_phase(card)
     user, nd_ops, user_rows, _nd = ndarray_phase(card)
     gluon, _gluon = gluon_phase(card)
     # last: the traces taken after its graph replays are the least sure
     compiled, per_replay, _compiled = compiled_step_phase(card)
-    # launches: the serving, training, compiled-step and ndarray runs',
-    # each counted from 0 just before its run (serving's are its warmup's
-    # eager runs and captures, the compiled step's its eager first step
-    # and its capture; each replay relaunches them from the graph, the
-    # per-dispatch and per-replay counts from the profiler's trace)
-    by_path = {name: {'serving': serving[name], 'training': training[name],
+    # launches: the serving, front, training, compiled-step and ndarray
+    # runs', each counted from 0 just before its run (serving's and the
+    # front's are their warmups' eager runs and captures, the compiled
+    # step's its eager first step and its capture; each replay relaunches
+    # them from the graph, the per-dispatch and per-replay counts from the
+    # profiler's trace)
+    by_path = {name: {'serving': serving[name], 'front': front[name],
+                      'training': training[name],
                       'compiled_step': compiled[name],
                       'ndarray': nd_ops[name], 'gluon': gluon.get(name, 0)}
                for name in rows}
     for name in user_rows:
-        by_path[name] = {'serving': 0, 'training': 0, 'compiled_step': 0,
-                         'ndarray': user[name], 'gluon': 0}
+        by_path[name] = {'serving': 0, 'front': 0, 'training': 0,
+                         'compiled_step': 0, 'ndarray': user[name],
+                         'gluon': 0}
     kernels = [dict(name=name, route=r['route'], variant=r['variant'],
                     source=r['source'], replaces=r['replaces'],
                     launches=sum(by_path[name].values()),
@@ -2107,7 +2543,9 @@ def main():
                     **({'launches_per_replay': per_replay[name]}
                        if name in per_replay else {}),
                     **({'launches_per_serving_dispatch': serve_replay[name]}
-                       if name in serve_replay else {}))
+                       if name in serve_replay else {}),
+                    **({'launches_per_http_dispatch': front_http[name]}
+                       if name in front_http else {}))
                for name, r in {**rows, **user_rows}.items()]
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -17,21 +17,26 @@ CUDA graph. It runs MXNet's imperative API (``nd``, ``autograd``) with
 user kernels compiled by NVRTC (``rtc``), and MXNet's Gluon API
 (``gluon``: Blocks with deferred initialisation, ``hybridize()`` as CUDA
 graphs, the layers and losses, the vision model zoo's ResNets). Serving
-replays one CUDA graph per bucket through ``hybridize()``; serving and
-training report into ``telemetry`` (metrics, spans, the flight recorder,
-memory watermarks and the compile ledger), off by default.
+replays one CUDA graph per bucket through ``hybridize()``, behind
+``serving.PredictServer`` (HTTP /predict, /reload, /drain) and
+``serving.Router``; serving and training report into ``telemetry``
+(metrics, spans, the flight recorder, memory watermarks, the compile
+ledger, attribution, the fleet monitor and the /metrics endpoint), off
+by default.
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
     num_gpus, tpu
-from . import (autograd, config, context, engine, gluon, initializer,
-               lr_scheduler, models, ndarray, ops, optimizer, parallel,
-               random, rtc, serialization, serving, telemetry, weights)
+from . import (autograd, checkpoint, config, context, engine, gluon,
+               initializer, lr_scheduler, models, ndarray, ops, optimizer,
+               parallel, random, rtc, serialization, serving, telemetry,
+               weights)
 from . import ndarray as nd
 from . import initializer as init
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
-           'gpu', 'num_gpus', 'tpu', 'autograd', 'config', 'context',
+           'gpu', 'num_gpus', 'tpu', 'autograd', 'checkpoint', 'config',
+           'context',
            'engine', 'gluon', 'init', 'initializer', 'lr_scheduler', 'models', 'nd',
            'ndarray', 'ops', 'optimizer', 'parallel', 'random', 'rtc',
            'serialization', 'serving', 'telemetry', 'weights']

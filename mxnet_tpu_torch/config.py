@@ -152,3 +152,73 @@ _register('MXTPU_COMPILE_CACHE_DIR', str, '',
 _register('MXTPU_SERVE_WATCHDOG_SECONDS', float, 0.0,
           'Serving watchdog deadline: nonzero needs resilience.watchdog, '
           'which is not ported (ROADMAP queue 1 item 9) and raises.')
+_register('MXNET_TPU_PROC_ID', int, -1,
+          "This process's rank. -1 (default): 0. The observability "
+          'endpoint serves on MXTPU_METRICS_PORT + rank.')
+_register('MXTPU_HEARTBEAT_SECONDS', float, 1.0,
+          'Membership heartbeat period (parallel.dist, not ported: ROADMAP '
+          'queue 1 item 10). The fleet monitor derives its default stale '
+          'threshold from it (3x).')
+_register('MXTPU_METRICS_PORT', int, 0,
+          'Base TCP port of the per-process observability endpoint '
+          '(telemetry.server): rank r serves GET /metrics (Prometheus '
+          'exposition), /healthz (health document) and /flight '
+          '(on-demand flight-recorder dump) on base + r. 0 (default): no '
+          'server. Binds localhost-only unless MXTPU_METRICS_BIND says '
+          'otherwise, and answers with bounded handler threads.')
+_register('MXTPU_METRICS_BIND', str, '127.0.0.1',
+          'Bind address of the observability endpoint and the predict '
+          'server. The default stays loopback-only; set 0.0.0.0 '
+          'deliberately when a scraper or router lives off-host.')
+_register('MXTPU_FLEET_WINDOW', int, 32,
+          'Rolling window (snapshots per rank) the fleet anomaly '
+          'detectors baseline over: step-time regression and loss-spike '
+          'statistics are computed against this many recent snapshots.')
+_register('MXTPU_FLEET_REGRESSION_FACTOR', float, 2.0,
+          "Fleet detector: a rank's step wall time above this multiple "
+          'of its own rolling baseline is flagged as a step-time '
+          'regression (flight note fleet.step_regression).')
+_register('MXTPU_FLEET_STRAGGLER_FACTOR', float, 1.5,
+          "Fleet detector: a rank's step wall time above this multiple "
+          'of the fleet median is flagged as a straggler (flight note '
+          'fleet.straggler).')
+_register('MXTPU_FLEET_STALE_SECONDS', float, 0.0,
+          'Fleet detector: a rank whose newest telemetry snapshot is '
+          'older than this is flagged as stale/straggling even if its '
+          'last reported step time was healthy. 0 (default): 3x the '
+          'heartbeat period.')
+_register('MXTPU_FLEET_LOSS_SPIKE_SIGMA', float, 6.0,
+          'Fleet detector: a reported loss above the rolling mean plus '
+          'this many rolling standard deviations (window '
+          'MXTPU_FLEET_WINDOW, minimum 8 samples) is flagged as a loss '
+          'spike (flight note fleet.loss_spike).')
+_register('MXTPU_FLEET_IMBALANCE_FACTOR', float, 1.5,
+          'Fleet detector: max/min ratio of per-rank comm bytes per '
+          'step above this is flagged as a collective imbalance '
+          '(flight note fleet.comm_imbalance).')
+_register('MXTPU_FLEET_MEMORY_IMBALANCE_FACTOR', float, 1.5,
+          'Fleet detector: max/min ratio of per-rank live device memory '
+          'above this is flagged as a memory imbalance on the fattest '
+          'rank (flight note fleet.memory_imbalance).')
+_register('MXTPU_SERVE_PORT', int, 0,
+          'Port of the predict server (serving.PredictServer) when its '
+          'caller names none. 0 (default): a free port, read back from '
+          'the server.')
+_register('MXTPU_SERVE_QUANTIZE', str, '',
+          "Weight quantization for the predict path, read by "
+          "serving.quantize_weights when its caller names no mode: '' "
+          "(default, full precision), 'bf16' (cast parameters to "
+          "bfloat16: 2x residency), or 'int8' (snap float weights to the "
+          "block-scaled int8 codec's value grid, stored in the "
+          "parameters' own dtype).")
+_register('MXTPU_SERVE_MEMORY_LIMIT_MB', float, 0.0,
+          'Admission control from memory observability: when live '
+          'device bytes (telemetry.memory.health_fields) exceed this, '
+          'predicts shed with 503 until pressure clears. 0 = off.')
+_register('MXTPU_SERVE_EJECT_FAILURES', int, 2,
+          'Router ejection threshold: this many CONSECUTIVE failed '
+          'predicts (connect refused, 5xx, shed) ejects a replica from '
+          'rotation for MXTPU_SERVE_READMIT_SECONDS.')
+_register('MXTPU_SERVE_READMIT_SECONDS', float, 5.0,
+          'How long an ejected replica sits out before the router '
+          'probes it back in (the next routed predict is the probe).')

@@ -76,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import re
 import threading
 import time
@@ -148,6 +149,16 @@ class _BlockScope:
 
 
 _plain = threading.local()   # depth of calls that must not use a cache
+
+# The blocks' structure version: a new value whenever any Block gains,
+# loses or replaces a child or a Parameter (after the change). A CachedOp
+# keeps its block's parameter names with the version it read them at.
+_versions = itertools.count(1)
+_structure = [0]
+
+
+def _structure_changed():
+    _structure[0] = next(_versions)
 
 
 @contextlib.contextmanager
@@ -222,8 +233,21 @@ class Block(torch.nn.Module):
                 reg[name] = value
                 self._parameters[name] = value.tensor
             object.__setattr__(self, name, value)
+            _structure_changed()
             return
+        child = isinstance(value, torch.nn.Module) or \
+            name in self.__dict__.get('_modules', ())
         super().__setattr__(name, value)
+        if child:
+            _structure_changed()
+
+    def __delattr__(self, name):
+        super().__delattr__(name)
+        _structure_changed()
+
+    def add_module(self, name, module):
+        super().add_module(name, module)
+        _structure_changed()
 
     def _apply(self, fn, recurse=True):
         # torch may swap a tensor for a new one (.to() across devices):
@@ -495,10 +519,23 @@ class CachedOp:
     def __init__(self, block):
         self.block = block
         self._cache = {}
+        self._names = None
+        self._names_at = None
 
     @property
     def num_graphs(self):
         return len(self._cache)
+
+    def param_names(self):
+        """The block's parameters' structured names, walked once and
+        kept until a Block gains, loses or replaces a child or a
+        Parameter (``cast`` and ``hybridize(clear=True)`` drop the
+        whole CachedOp)."""
+        at = _structure[0]
+        if self._names_at != at:
+            self._names = tuple(self.block._collect_params_with_prefix())
+            self._names_at = at
+        return self._names
 
     def key(self, args):
         """The cache key of a call: the arguments' shapes, dtypes and
@@ -511,7 +548,7 @@ class CachedOp:
                       if isinstance(a, torch.Tensor) else repr(a)
                       for a in args),
                 block.training, grad, torch.is_inference_mode_enabled(),
-                tuple(block._collect_params_with_prefix()))
+                self.param_names())
 
     def _grad(self, args):
         return torch.is_grad_enabled() and (

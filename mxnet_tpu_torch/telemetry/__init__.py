@@ -15,9 +15,14 @@ the card's numbers).
   detector and the always-armed OOM guard.
 - ``telemetry.compile`` — the compile ledger over CUDA-graph captures,
   kernel builds and NVRTC compiles (``MXTPU_COMPILE_LEDGER``).
-
-The JAX package's ``attribution``, ``fleet`` and ``server`` (the
-/metrics HTTP endpoint) are not ported yet (ROADMAP queue 1 item 4a).
+- ``telemetry.attribution`` — the flight recorder's step records into
+  the input/h2d/collective/host-sync/compute breakdown and honest MFU.
+- ``telemetry.fleet`` — per-rank snapshots merged into a fleet view with
+  skew and the streaming straggler/regression/loss-spike/imbalance
+  detectors (fed by ``ingest``; the membership heartbeat waits for
+  ROADMAP queue 1 item 10).
+- ``telemetry.server`` — the per-process /metrics + /healthz + /flight
+  HTTP endpoint (``MXTPU_METRICS_PORT``, off by default).
 """
 from .metrics import *  # noqa: F401,F403  (the registry API)
 from .metrics import (  # noqa: F401  (non-__all__ names used by tests)
@@ -28,5 +33,9 @@ from . import trace          # noqa: F401
 from . import memory         # noqa: F401
 from . import compile        # noqa: F401  (shadows the builtin only here)
 from . import flight         # noqa: F401
+from . import attribution    # noqa: F401
+from . import fleet          # noqa: F401
+from . import server         # noqa: F401
 
-__all__ = list(_metrics_all) + ['trace', 'memory', 'compile', 'flight']
+__all__ = list(_metrics_all) + ['trace', 'memory', 'compile', 'flight',
+                                'attribution', 'fleet', 'server']

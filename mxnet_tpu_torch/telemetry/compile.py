@@ -61,7 +61,7 @@ __all__ = [
     'cache_event', 'cache_dir',
     'signature', 'arg_sig', 'array_sig', 'fingerprint', 'diff_signatures',
     'ledger', 'ledger_path', 'default_ledger_path',
-    'in_flight', 'step_fields', 'health_fields',
+    'in_flight', 'step_fields', 'snapshot_fields', 'health_fields',
     'persistent_cache_stats',
     'validate_ledger_entry', 'validate_ledger',
     'LEDGER_SCHEMA', 'PHASES',
@@ -577,6 +577,18 @@ def step_fields():
         return None
     _last['fresh'] = False
     return _last['fields']
+
+
+def snapshot_fields():
+    """The fleet-snapshot payload: cumulative compile count and seconds
+    and the open compile window, or None while disarmed."""
+    if not _state['on']:
+        return None
+    out = {'n': _totals['n'], 'seconds': round(_totals['seconds'], 3)}
+    fl = in_flight()
+    if fl is not None:
+        out['in_flight'] = fl
+    return out
 
 
 def health_fields():

@@ -48,7 +48,7 @@ __all__ = [
     'register_pool', 'register_provider', 'pool_nbytes',
     'entry_nbytes', 'pools', 'tracked_bytes', 'live_bytes',
     'device_memory_stats', 'host_rss_bytes',
-    'on_step', 'sample', 'step_fields',
+    'on_step', 'sample', 'step_fields', 'snapshot_fields',
     'health_fields', 'watermarks', 'peak_bytes', 'leak_state',
     'is_oom_error', 'oom_guard', 'dump_oom', 'default_oom_path',
     'validate_oom_dump', 'top_arrays',
@@ -400,6 +400,16 @@ def step_fields():
     if not _state['on']:
         return None
     return _last['fields']
+
+
+def snapshot_fields():
+    """The fleet-snapshot payload: ``{'live', 'peak', 'rss'}`` bytes, or
+    None while disarmed / before the first sample."""
+    f = step_fields()
+    if f is None:
+        return None
+    return {'live': f['device_bytes'], 'peak': f['peak_bytes'],
+            'rss': f['host_rss_bytes']}
 
 
 def health_fields():

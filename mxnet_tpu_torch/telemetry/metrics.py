@@ -36,7 +36,7 @@ from ..base import MXNetError, telem_flags as _telem
 __all__ = [
     'enable', 'disable', 'enabled', 'reset', 'report', 'dump', 'prometheus',
     'chrome_events', 'counter', 'gauge', 'histogram', 'inc', 'set_gauge',
-    'observe', 'value', 'series', 'record_compile',
+    'observe', 'value', 'series', 'remove_series', 'record_compile',
     'record_cache_hit', 'record_step',
     'recent_samples_per_second', 'set_step_flops',
     'set_recompile_threshold', 'RecompileWarning',
@@ -80,6 +80,18 @@ class Metric:
     def labelsets(self):
         with self._lock:
             return list(self._values)
+
+    def remove_matching(self, **labels):
+        """Drop every recorded labelset whose labels are a superset of
+        ``labels`` (``remove_matching(rank=3)`` retires all of a departed
+        rank's series whatever their other labels). Returns the number of
+        series removed."""
+        want = set(_label_key(labels))
+        with self._lock:
+            gone = [key for key in self._values if want <= set(key)]
+            for key in gone:
+                del self._values[key]
+        return len(gone)
 
     def _fmt_labels(self, key: Tuple) -> str:
         if not key:
@@ -202,6 +214,15 @@ def value(name: str, **labels):
     with _lock:
         m = _metrics.get(name)
     return None if m is None else m.value(**labels)
+
+
+def remove_series(name: str, **labels):
+    """Retire every labelset of ``name`` matching the ``labels`` subset
+    (no-op for an unregistered metric): the fleet monitor evicts a
+    departed rank's gauge rows with it."""
+    with _lock:
+        m = _metrics.get(name)
+    return 0 if m is None else m.remove_matching(**labels)
 
 
 def series(name: str):

@@ -907,3 +907,78 @@ def test_deferred_parameters_get_gradients_in_their_first_step():
     for k, want in grads[mj].items():
         assert onp.abs(want).sum() > 0, k
         close(grads[mt][k], want, 1e-5, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the CachedOp key: the parameter names are walked once, not per call
+# ---------------------------------------------------------------------------
+
+def _keyed_net():
+    net = tgluon.nn.HybridSequential(prefix='keynet_')
+    with net.name_scope():
+        net.add(tgluon.nn.Dense(4, in_units=3),
+                tgluon.nn.Dense(2, in_units=4))
+    net.initialize()
+    return net, tgluon.block.CachedOp(net), (torch.ones(2, 3),)
+
+
+def test_cachedop_key_is_unchanged_and_not_rebuilt_for_an_unchanged_block(
+        monkeypatch):
+    net, op, args = _keyed_net()
+    net(mt.nd.ones((2, 3)))            # predict mode from here on
+    key = op.key(args)
+    walks = []
+    walk = tgluon.block.Block._collect_params_with_prefix
+
+    def counted(self, prefix=''):
+        walks.append(prefix)
+        return walk(self, prefix)
+    monkeypatch.setattr(tgluon.block.Block, '_collect_params_with_prefix',
+                        counted)
+    for _ in range(5):
+        net(mt.nd.ones((2, 3)))        # train() and the flags: no change
+        assert op.key(args) == key
+    assert walks == []
+    assert key[-1] == ('0.weight', '0.bias', '1.weight', '1.bias')
+
+
+def test_cachedop_key_changes_when_a_parameter_is_added():
+    net, op, args = _keyed_net()
+    extra = tgluon.Parameter('extra', shape=(1,))
+    key = op.key(args)
+    net[0].extra = extra
+    new = op.key(args)
+    assert new != key and '0.extra' in new[-1]
+
+
+def test_cachedop_key_changes_when_a_child_is_swapped():
+    net, op, args = _keyed_net()
+    swap = tgluon.nn.Dense(2, in_units=4, use_bias=False)
+    inner = tgluon.nn.HybridSequential()
+    leaf = tgluon.nn.Dense(1, in_units=2)
+    key = op.key(args)                  # after every block was built
+    net.register_child(swap, '1')
+    new = op.key(args)
+    assert new != key and new[-1] == ('0.weight', '0.bias', '1.weight')
+    # a child registered further down changes the outer block's key too
+    net.register_child(inner, '2')
+    assert op.key(args) == new
+    inner.add(leaf)
+    assert op.key(args)[-1] == ('0.weight', '0.bias', '1.weight',
+                                '2.0.weight', '2.0.bias')
+    net.extra = tgluon.nn.Dense(1, in_units=2, prefix='extra_')
+    assert op.key(args)[-1][-2:] == ('extra.weight', 'extra.bias')
+
+
+def test_cast_and_hybridize_clear_drop_the_kept_names():
+    net, _op, _args = _keyed_net()
+    net.hybridize()
+    net._cached_op = tgluon.block.CachedOp(net)
+    net._cached_op.param_names()
+    net.hybridize(clear=False)
+    assert net._cached_op is not None
+    net.hybridize()
+    assert net._cached_op is None
+    net._cached_op = tgluon.block.CachedOp(net)
+    net.cast('bfloat16')
+    assert net._cached_op is None

@@ -73,6 +73,40 @@ def test_the_import_check_covers_the_training_step_modules():
     assert mt.parallel.ShardedTrainStep and mt.lr_scheduler.CosineScheduler
 
 
+def test_the_import_check_covers_the_serving_front_modules():
+    """The serving front, its telemetry and the modules it stands on are
+    port modules like the others: the import check reads them, and
+    importing them pulls in no jax and nothing of the JAX package (checked
+    in a fresh interpreter, against what it had loaded before)."""
+    import subprocess
+    import sys
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    new = ('serving/server.py', 'serving/fleet.py', 'telemetry/server.py',
+           'telemetry/fleet.py', 'telemetry/attribution.py',
+           'parallel/compression.py', 'checkpoint/__init__.py',
+           'checkpoint/manifest.py')
+    for name in new:
+        assert os.path.join('mxnet_tpu_torch', name) in rel, name
+    code = ('import sys\n'
+            'before = set(sys.modules)\n'
+            'import mxnet_tpu_torch.serving.server, '
+            'mxnet_tpu_torch.serving.fleet, '
+            'mxnet_tpu_torch.telemetry.server, '
+            'mxnet_tpu_torch.telemetry.fleet, '
+            'mxnet_tpu_torch.telemetry.attribution, '
+            'mxnet_tpu_torch.parallel.compression, '
+            'mxnet_tpu_torch.checkpoint.manifest\n'
+            'bad = sorted(m for m in set(sys.modules) - before '
+            'if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))\n'
+            'print(bad)\n')
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
+
+
 def test_forbidden_name_check_is_not_a_prefix_check():
     assert 'mxnet_tpu_torch'.split('.')[0] not in FORBIDDEN
     assert 'mxnet_tpu.ops'.split('.')[0] in FORBIDDEN

@@ -196,3 +196,58 @@ def test_a_real_allocator_failure_sheds_and_the_next_request_is_served(
         assert onp.isfinite(out).all()
     finally:
         engine.drain()
+
+
+def _arrays(net, seed):
+    rng = onp.random.RandomState(seed)
+    return {n: (rng.standard_normal(tuple(p.shape)).astype('float32') *
+                onp.float32(0.02)) if n.endswith('weight')
+            else p.detach().float().cpu().numpy()
+            for n, p in net.named_parameters()}
+
+
+def test_reload_over_http_into_captured_graphs_needs_no_recapture(tmp_path):
+    """PredictServer's /reload on a warmed, hybridized bf16 BERT: the new
+    weights are copied into the parameters' storage, so the captured
+    graphs serve them (bitwise the eager forward with those weights) and
+    the compile ledger gains no cachedop: entry."""
+    net = _net()
+    engine = _engine(net)
+    srv = None
+    try:
+        comp.enable()
+        serving.warmup(engine)
+        caps = [e for e in comp.ledger() if e['site'].startswith('cachedop:')]
+        assert len(caps) == len(engine.bucket_grid())
+        donor = BertModel(**CFG, dtype=torch.bfloat16, device='cuda')
+        donor.load_state_dict(params_from_mxnet_tpu(_arrays(donor, 9),
+                                                    donor))
+        path = str(tmp_path / 'donor.params')
+        donor.save_parameters(path)
+        ptrs = {n: p.data_ptr() for n, p in net.named_parameters()}
+        srv = serving.PredictServer(engine, port=0, block=net)
+        req = [int(t) for t in _mat(1, 100, seed=4)[0]]
+        st, before = serving.http_json('127.0.0.1', srv.port, '/predict',
+                                       {'inputs': req}, timeout=60.0)
+        assert st == 200
+        st, doc = serving.http_json('127.0.0.1', srv.port, '/reload',
+                                    {'path': path}, timeout=60.0)
+        assert st == 200 and doc['reloaded']
+        st, after = serving.http_json('127.0.0.1', srv.port, '/predict',
+                                      {'inputs': req}, timeout=60.0)
+        assert st == 200
+        assert {n: p.data_ptr() for n, p in net.named_parameters()} == ptrs
+        assert [e for e in comp.ledger()
+                if e['site'].startswith('cachedop:')] == caps
+        assert after['outputs'] != before['outputs']
+        padded = onp.zeros((1, 128), 'int32')
+        padded[0, :100] = req
+        donor.eval()
+        with torch.inference_mode():
+            want = donor(torch.from_numpy(padded).cuda())[0][0, :100]
+        want = want.float().cpu().numpy().astype(onp.float64)
+        assert onp.array_equal(onp.asarray(after['outputs']), want)
+    finally:
+        if srv is not None:
+            srv.stop()
+        engine.drain()
