@@ -21,8 +21,14 @@
    argument); FFN1 has a wgmma + TMA variant (bf16, K a multiple of 8),
    the first WMMA design (other bf16, and forced) and a SIMT one (f32).
    Every case checks that exactly one launch of each expected kernel and
-   variant ran, and the old and new variants are held against the plain
-   version and timed at the main shape in this run. Times each kernel, its plain
+   variant ran, in the case's dtype, and the old and new variants are
+   held against the plain version and timed at the main shape in this
+   run. The flash forward, dq, dk/dv and FFN1 kernels also run in float16
+   (AMP's GPU target) at the main shapes, with and without dropout and
+   with a key mask, each against its plain version (atol 2e-3 + rtol
+   2e-3, twice float16's epsilon) and timed beside the bf16 kernel; the
+   float16 backward also where ds passes float16's 65504 (a dO of order
+   2**13, as a loss scale gives). Times each kernel, its plain
    version and one PyTorch library call that computes the same function
    (a yardstick only: the port never calls it) as device time from
    torch.profiler's CUDA trace (CUDA events where the trace has none),
@@ -90,6 +96,26 @@
    per step; every forward, dq, dk/dv and FFN1 on the tensor-core
    variant), step
    time, samples/s and MFU, and a profiled step.
+6a. AMP phase (MXNet's automatic mixed precision, after the training
+   phase): BERT-base BertForPretraining with f32 parameters. One step at
+   B = 2 (dropout 0) under amp.init('bfloat16') and under
+   amp.init('float16') on the card, each against the same f32 CPU
+   reference as the training phase's parity. A Dense hybridized before
+   amp.init is captured anew after it and after _deinit (3 graphs).
+   Then the flagship batch with AdamW, the recipe as MXNet writes it
+   (autograd.record, amp.scale_loss(loss, trainer) as s: s.backward(),
+   trainer.step(B)): 5 steps under bfloat16 (scale 1), and 5 under float16
+   with the dynamic scaler from 2**16 (warm-up steps back it off until the
+   first update; step 3's gradient is planted non-finite: the parameters
+   and update counts stay, the scale halves, and the next step updates
+   again), each with the counters at 0 just before (12 forward, dq and
+   dk/dv launches a step on the tensor cores in the target dtype, no
+   LayerNorm or FFN1), step time (median of 3 calls), samples/s and a
+   profiled step; the overflow check's host ms; one float16 step with
+   MXTPU_PALLAS_LN=1 (24 LayerNorm launches in the promoted f32); and a
+   predict forward of the model cast to float16 with both knobs on (12
+   forward and FFN1, 24 LayerNorm launches in float16) against the f32
+   model.
 7. NDArray phase: MXNet's imperative API (mx.nd, mx.autograd) on the
    card with user kernels compiled by NVRTC (mx.rtc, the counterpart of
    the JAX package's pallas_op). Compiles the five user kernels of
@@ -147,9 +173,11 @@
    its buckets sum to the host clock's time per step within 1%, its MFU
    printed beside the phase's own. The kernel phase also times the flash
    forward, dq and dk/dv with dropout 0.1, their seed read by pointer.
-10. Prints the kernels' JSON line (each row with its variant and, for a
-   redesigned kernel, the time of the one it replaced, old_ms) and, last,
-   the result line.
+10. Prints the kernels' JSON line (each row with its variant and dtype
+   and, for a redesigned kernel, the time of the one it replaced, old_ms;
+   the float16 routes as rows of their own, named kernel[float16], whose
+   launches are the AMP phase's float16 ones) and, last, the result
+   line.
 
 Any failed check raises: the script exits non-zero and prints no result.
 """
@@ -304,7 +332,8 @@ def timings(kernel, plain, library):
 # f32 differs only by summation order; bf16 outputs may differ by one or
 # two bf16 ulps (2**-8 relative) where the two round differently
 TOL = {'float32': dict(atol=1e-4, rtol=1e-4),
-       'bfloat16': dict(atol=1e-2, rtol=1.6e-2)}
+       'bfloat16': dict(atol=1e-2, rtol=1.6e-2),
+       'float16': dict(atol=2e-3, rtol=2e-3)}
 # one BERT-base training step in bf16 on the card against f32 on the CPU
 # (chosen before the first run; see PERF.md section 2)
 TRAIN_TOL = {'loss_rel': 0.01, 'grad_rel_fro': 0.1, 'grad_min_cos': 0.95}
@@ -343,8 +372,14 @@ def kernel_phase(card):
              (8, 512, torch.bfloat16, {'variant': 'simt'}),
              (8, 200, torch.bfloat16, {'variant': 'simt', 'mask': True,
                                        'dropout_p': 0.1})] + \
+        [(8, 512, torch.float16, opt) for opt in (
+            {}, {'mask': True}, {'dropout_p': 0.1}, {'causal': True},
+            {'D': 128, 'mask': True})] + \
+        [(8, 200, torch.float16, {'mask': True, 'causal': True,
+                                  'dropout_p': 0.1})] + \
         [(B, T, torch.bfloat16, {}) for B in (1, 8) for T in (64, 256)] + \
         [(8, 512, torch.bfloat16, {})]          # the main shape, timed
+    errs16 = {}                                 # float16 main-shape errors
 
     def case_inputs(B, T, dtype, opt, n):
         Dc = opt.get('D', D)
@@ -361,14 +396,17 @@ def kernel_phase(card):
         return ts, key_mask, opt.get('causal', False), p, \
             (1234 if p else None), variant, tag
 
-    def one_launch(variant, *kernels):
+    def one_launch(variant, dtype, *kernels):
         """the call launched exactly one of each of ``kernels``, of
-        ``variant``, and nothing else"""
+        ``variant``, on ``dtype`` inputs, and nothing else"""
         got = dict(_build.variant_counts)
         names = {f'{k}.{variant}' for k in kernels}
         want = {k: int(k in names) for k in got}
         check(got == want, f'variant counts {got}, expected one each of '
               f'{sorted(names)}')
+        want_dt = {f'{k}.{str(dtype)[6:]}': 1 for k in kernels}
+        check(_build.dtype_counts == want_dt, f'dtype counts '
+              f'{_build.dtype_counts}, expected {want_dt}')
 
     for B, T, dtype, opt in cases:
         (q, k, v), key_mask, causal, p, seed, variant, tag = case_inputs(
@@ -377,13 +415,15 @@ def kernel_phase(card):
         out, lse = fa.flash_attention_forward(q, k, v, key_mask, causal, p,
                                               seed, _variant=variant)
         torch.cuda.synchronize()
-        one_launch(variant, 'flash_attn_fwd')
+        one_launch(variant, dtype, 'flash_attn_fwd')
         km, _ = fa._normalize_mask(key_mask, B, H, T)
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, km, causal,
                                                         p, seed)
         tol = TOL[str(dtype)[6:]]
         err = compare(f'flash_attn_fwd {tag} out', out, ref_out, **tol)
         compare(f'flash_attn_fwd {tag} lse', lse, ref_lse, **TOL['float32'])
+        if dtype == torch.float16 and not opt:
+            errs16['flash_attn_fwd'] = err
     # the main shape: the tensor-core kernel, then the SIMT one it replaced
     times = timings(lambda: fa.flash_attention_forward(q, k, v),
                     lambda: fa.flash_attention_reference(q, k, v),
@@ -400,8 +440,19 @@ def kernel_phase(card):
     rows['flash_attn_fwd'] = dict(
         route='cuda', source='mxnet_tpu_torch/csrc/flash_attn_fwd.cu',
         replaces='mxnet_tpu/ops/pallas_attention.py:171', variant='tc',
-        old_ms=old_ms, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        dropout_ms=drop_ms, **times)
+        dtype='bfloat16', old_ms=old_ms, max_abs_err=err, bound_ms=b_ms,
+        bound_by=b_by, dropout_ms=drop_ms, **times)
+    # the float16 route at the same shape (AMP's float16 target): the same
+    # bytes and operations, the same 989 TFLOP/s peak
+    q16, k16, v16 = (t.to(torch.float16) for t in (q, k, v))
+    rows['flash_attn_fwd[float16]'] = dict(
+        rows['flash_attn_fwd'], dtype='float16', old_ms=None,
+        max_abs_err=errs16['flash_attn_fwd'],
+        dropout_ms=time_ms(lambda: fa.flash_attention_forward(
+            q16, k16, v16, None, False, 0.1, seed_t))[0],
+        **timings(lambda: fa.flash_attention_forward(q16, k16, v16),
+                  lambda: fa.flash_attention_reference(q16, k16, v16),
+                  lambda: F.scaled_dot_product_attention(q16, k16, v16)))
 
     # ---- K2, K3: flash-attention backward (dq; dk and dv). Both kernels
     # route like the forward, to one variant.
@@ -415,13 +466,40 @@ def kernel_phase(card):
                                             seed, out, lse, do,
                                             _variant=variant)
         torch.cuda.synchronize()
-        one_launch(variant, 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
+        one_launch(variant, dtype, 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
         km, _ = fa._normalize_mask(key_mask, B, H, T)
         want = fa.flash_attention_backward_reference(q, k, v, km, causal, p,
                                                      seed, out, lse, do)
         errs = [compare(f'flash_attn_bwd {tag} d{n}', g, w,
                         **TOL[str(dtype)[6:]])
                 for n, g, w in zip('qkv', grads, want)]
+        if dtype == torch.float16 and not opt:
+            errs16['flash_attn_bwd_dq'] = errs[0]
+            errs16['flash_attn_bwd_dkv'] = max(errs[1:])
+    # float16 with ds past 65504: dO of order 2**13 (a loss scale) times v
+    # of order 300, q and k of order 1e-3 so that dq and dk stay finite;
+    # the tolerance adds the split's 2**-22 on each f32 term over T terms
+    qb, kb, vb, dob = (randn(8, H, 512, D, dtype=torch.float32, scale=sc)
+                       .half() for sc in (1e-3, 1e-3, 300.0, 8192.0))
+    kmb, _ = fa._normalize_mask(torch.arange(512, device=dev)[None, :] <
+                                torch.tensor([512, 300] * 4, device=dev)[
+                                    :, None], 8, H, 512)
+    ob, lb = fa.flash_attention_forward(qb, kb, vb, kmb)
+    got = fa.flash_attention_backward(qb, kb, vb, kmb, False, 0.0, None, ob,
+                                      lb, dob)
+    want = fa.flash_attention_backward_reference(qb, kb, vb, kmb, False,
+                                                 0.0, None, ob, lb, dob)
+    pb = torch.exp(fa._scores(qb, kb, kmb, False) - lb[..., None])
+    big = float((pb * torch.einsum('bhqd,bhkd->bhqk', dob.float(),
+                                   vb.float())).abs().max()) * 2 / D ** 0.5
+    check(big > 65504, f'the planted ds reaches only {big:.0f}')
+    for n, g, w, other in (('q', got[0], want[0], kb),
+                           ('k', got[1], want[1], qb)):
+        check(bool(torch.isfinite(w).all()), f'plain d{n} not finite')
+        compare(f'flash_attn_bwd float16, ds up to {big:.3g} d{n}', g, w,
+                atol=max(2e-3, big * float(other.float().abs().max()) *
+                         2 ** -22 * 512 ** 0.5), rtol=2e-3)
+    del qb, kb, vb, dob, ob, lb, pb, got, want
     # timed at the training path's shape: bf16, B=8, T=512, with a float
     # additive key mask as the valid_length mask is; the SIMT dq and dk/dv
     # kernels in the same run
@@ -444,16 +522,36 @@ def kernel_phase(card):
         lambda: fa.flash_attention_backward(q, k, v, fmask, False, 0.1,
                                             seed_t, out_d, lse_d, do), 20,
         tc_names)
+    # the float16 kernels at the same shape, with and without dropout
+    q16, k16, v16, do16 = (t.to(torch.float16) for t in (q, k, v, do))
+    out16, lse16 = fa.flash_attention_forward(q16, k16, v16, fmask)
+    out16_d, lse16_d = fa.flash_attention_forward(q16, k16, v16, fmask,
+                                                  False, 0.1, seed_t)
+    per_kernel16, _ = profile_device(
+        lambda: fa.flash_attention_backward(q16, k16, v16, fmask, False, 0.0,
+                                            None, out16, lse16, do16), 20,
+        tc_names)
+    per_kernel16_drop, _ = profile_device(
+        lambda: fa.flash_attention_backward(q16, k16, v16, fmask, False, 0.1,
+                                            seed_t, out16_d, lse16_d, do16),
+        20, tc_names)
     bwd_stream_ms = stream_ms(backward)
     km, _ = fa._normalize_mask(fmask, B, H, T)
     plain_ms, plain_how = time_ms(
         lambda: fa.flash_attention_backward_reference(
             q, k, v, km, False, 0.0, None, out, lse, do))
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=fmask.to(dtype)[:, None, None, :])
-    library_ms, library_how = time_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qs, ks, vs), do, retain_graph=True))
+    plain16_ms, _ = time_ms(
+        lambda: fa.flash_attention_backward_reference(
+            q16, k16, v16, km, False, 0.0, None, out16, lse16, do16))
+
+    def sdpa_backward_ms(q, k, v, do):
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=fmask.to(q.dtype)[:, None, None, :])
+        return time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs), do, retain_graph=True))
+    library_ms, library_how = sdpa_backward_ms(q, k, v, do)
+    library16_ms, _ = sdpa_backward_ms(q16, k16, v16, do16)
     io = q.numel() * q.element_size()          # one (B, H, T, D) tensor
     rows_f32 = 2 * B * H * T * 4 + fmask.numel() * 4   # lse, delta, mask
 
@@ -473,13 +571,21 @@ def kernel_phase(card):
             route='cuda', source='mxnet_tpu_torch/csrc/flash_attn_bwd.cu',
             replaces='mxnet_tpu/ops/pallas_attention.py:' +
             ('283' if name.endswith('dq') else '319'),
-            variant='tc', old_ms=trace_ms(per_kernel_simt, old_kname),
+            variant='tc', dtype='bfloat16',
+            old_ms=trace_ms(per_kernel_simt, old_kname),
             dropout_ms=trace_ms(per_kernel_drop, kname),
             max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
             ms=trace_ms(per_kernel, kname),
             how=f'profiler/{plain_how}/{library_how}',
             stream_ms=bwd_stream_ms,
             plain_ms=plain_ms, library_ms=library_ms)
+        rows[f'{name}[float16]'] = dict(
+            rows[name], dtype='float16', old_ms=None,
+            dropout_ms=trace_ms(per_kernel16_drop, kname),
+            max_abs_err=errs16[name], ms=trace_ms(per_kernel16, kname),
+            stream_ms=stream_ms(lambda: fa.flash_attention_backward(
+                q16, k16, v16, fmask, False, 0.0, None, out16, lse16, do16)),
+            plain_ms=plain16_ms, library_ms=library16_ms)
     delta_us = sum(t for n, t in per_kernel.items()
                    if 'flash_bwd' not in n) / 20
     print(f'  flash_attn_bwd: delta = rowsum(dO*O) and the allocations take '
@@ -510,7 +616,7 @@ def kernel_phase(card):
     b_ms, b_by = bound_ms(7 * N * C, (3 * N * C + 2 * C) * x.element_size(),
                           PEAK_F32)
     rows['fused_add_layernorm'] = dict(
-        route='triton', variant='triton', old_ms=None,
+        route='triton', variant='triton', dtype='bfloat16', old_ms=None,
         source='mxnet_tpu_torch/ops/fused_layernorm.py',
         replaces='mxnet_tpu/ops/pallas_layernorm.py:33',
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
@@ -528,6 +634,10 @@ def kernel_phase(card):
          (4096, C, FF, torch.bfloat16, 'wmma'),
          (1024, C, FF, torch.float32, None),
          (4096, C, FF, torch.float32, None),
+         (200, 70, 100, torch.float16, None),
+         (1024, 72, 100, torch.float16, None),
+         (4096, C, FF, torch.float16, 'wmma'),
+         (4096, C, FF, torch.float16, None),
          (4096, C, FF, torch.bfloat16, None)]
     for M, K, N, dtype, forced in ffn_cases:
         x = randn(M, K, dtype=dtype)
@@ -537,10 +647,12 @@ def kernel_phase(card):
         _build.reset_launch_counts()
         out = fused_ffn.fused_dense_gelu(x, w, b, _variant=forced)
         torch.cuda.synchronize()
-        one_launch(variant, 'dense_gelu')
+        one_launch(variant, dtype, 'dense_gelu')
         ref = fused_ffn.dense_gelu_reference(x, w, b)
         err = compare(f'dense_gelu M={M} K={K} N={N} {str(dtype)[6:]} '
                       f'[{variant}]', out, ref, **TOL[str(dtype)[6:]])
+        if (M, K, N, dtype, forced) == (4096, C, FF, torch.float16, None):
+            errs16['dense_gelu'] = err
     # the main shape: the wgmma kernel, then the WMMA kernel it replaced
     times = timings(lambda: fused_ffn.fused_dense_gelu(x, w, b),
                     lambda: fused_ffn.dense_gelu_reference(x, w, b),
@@ -551,10 +663,18 @@ def kernel_phase(card):
                           (M * K + N * K + N + M * N) * x.element_size(),
                           PEAK_BF16)
     rows['dense_gelu'] = dict(
-        route='cuda', variant='tc', old_ms=old_ms,
+        route='cuda', variant='tc', dtype='bfloat16', old_ms=old_ms,
         source='mxnet_tpu_torch/csrc/dense_gelu.cu',
         replaces='mxnet_tpu/ops/pallas_ffn.py:48',
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **times)
+    x16, w16, b16 = (t.to(torch.float16) for t in (x, w, b))
+    rows['dense_gelu[float16]'] = dict(
+        rows['dense_gelu'], dtype='float16', max_abs_err=errs16['dense_gelu'],
+        old_ms=time_ms(lambda: fused_ffn.fused_dense_gelu(
+            x16, w16, b16, _variant='wmma'))[0],
+        **timings(lambda: fused_ffn.fused_dense_gelu(x16, w16, b16),
+                  lambda: fused_ffn.dense_gelu_reference(x16, w16, b16),
+                  lambda: F.gelu(F.linear(x16, w16, b16))))
 
     for name, r in rows.items():
         old = (f', the kernel it replaced {r["old_ms"]:.4f} ms'
@@ -562,7 +682,8 @@ def kernel_phase(card):
         if 'dropout_ms' in r:
             old += (f', with dropout 0.1 (seed by device pointer) '
                     f'{r["dropout_ms"]:.4f} ms')
-        print(f'  timing {name} (bf16, B=8 T=512) on {card}: device time '
+        print(f'  timing {name} ({r["dtype"]}, B=8 T=512) on {card}: '
+              f'device time '
               f'(kernel/plain/library from {r["how"]}) kernel '
               f'[{r["variant"]}] {r["ms"]:.4f} ms{old}, plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms; '
@@ -586,10 +707,55 @@ _FAMILIES = (('flash_attn_fwd', ('flash_fwd_kernel', 'flash_fwd_tc_kernel')),
              ('library GEMMs', ('gemm', 'nvjet', 'cutlass', 'xmma')))
 
 
-def device_breakdown(label, fn, card, iters):
+_OP_NAMES = (
+    # PyTorch kernels name the op in a functor or a kernel of their own
+    ('embedding_backward', 'embedding backward'),
+    ('indexing_backward', 'embedding backward'),
+    ('index_put', 'index_put (embedding backward)'),
+    ('gelu_backward', 'GELU backward'),
+    ('GeluBackward', 'GELU backward'),
+    ('GeluCUDAKernel', 'GELU'),
+    ('layer_norm_grad', 'LayerNorm backward'),
+    ('LayerNormBackward', 'LayerNorm backward'),
+    ('GammaBeta', 'LayerNorm backward (gamma, beta)'),
+    ('layer_norm', 'LayerNorm'),
+    ('LayerNorm', 'LayerNorm'),
+    ('softmax_warp_backward', 'log_softmax backward'),
+    ('cunn_SoftMaxBackward', 'log_softmax backward'),
+    ('softmax', 'log_softmax'),
+    ('SoftMax', 'log_softmax'),
+    ('multi_tensor_apply', 'multi-tensor (foreach) ops'),
+    ('reduce_kernel', 'reductions (sums: bias grads, LayerNorm stats, norms)'),
+    ('erf', 'erf (GELU)'),
+    ('exp_kernel', 'exp'),
+    ('sqrt', 'sqrt (AdamW)'),
+    ('div_true', 'div (AdamW)'),
+    ('Functor_add', 'add'),
+    ('AddFunctor', 'add'),
+    ('MulFunctor', 'mul'),
+    ('Functor_mul', 'mul'),
+    ('direct_copy', 'copy / dtype cast'),
+    ('copy_kernel', 'copy / dtype cast'),
+    ('CatArrayBatchedCopy', 'cat'),
+    ('where', 'where'),
+    ('fill', 'fill / zero'),
+    ('gather', 'gather'),
+    ('scatter', 'scatter'),
+    ('elementwise_kernel', 'other elementwise'),
+)
+
+
+def op_of(kernel):
+    """The op a PyTorch kernel's name says it computes (first match of
+    _OP_NAMES), else the name's first 60 characters."""
+    return next((op for pat, op in _OP_NAMES if pat in kernel), kernel[:60])
+
+
+def device_breakdown(label, fn, card, iters, other_by_op=False):
     """Device time of one call of ``fn`` by kernel family, from
     torch.profiler's CUDA trace, and the device's idle share: one minus
-    the kernels' summed time over the call's host time."""
+    the kernels' summed time over the call's host time. With
+    ``other_by_op``, the family 'other' is also broken down by op."""
     per_kernel, wall = profile_device(fn, iters)
     fam = {}
     for name, us in per_kernel.items():
@@ -606,7 +772,19 @@ def device_breakdown(label, fn, card, iters):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     print(f'  top kernels per {label}: ' + '; '.join(
         f'{n[:60]} {us / iters / 1e3:.3f} ms' for n, us in top))
-    return dict(host_ms=per, busy_ms=busy, idle=max(0.0, 1 - busy / per))
+    out = dict(host_ms=per, busy_ms=busy, idle=max(0.0, 1 - busy / per),
+               families=fam)
+    if other_by_op:
+        ops = {}
+        for name, us in per_kernel.items():
+            if not any(p in name for _, pats in _FAMILIES for p in pats):
+                op = op_of(name)
+                ops[op] = ops.get(op, 0.0) + us / iters / 1e3
+        out['other_by_op'] = ops
+        print(f'  "other" of {label} by op: ' + '; '.join(
+            f'{op} {ms:.3f} ms' for op, ms in
+            sorted(ops.items(), key=lambda kv: -kv[1])))
+    return out
 
 
 def dispatch_breakdown(engine, card, label, batch=8, seq=512, iters=3):
@@ -1187,13 +1365,14 @@ def front_phase(card, burst_n=32, clients=4):
         # the CachedOp key's host time: as it was built before the names
         # were kept (every parameter's structured name on every call), and
         # now
+        from mxnet_tpu_torch.amp.amp import patch_epoch as amp_epoch
         tok = torch.from_numpy(padded).cuda()
         op = nets[0]._cached_op
 
         def key_rebuilt():
             return (tuple((tuple(a.shape), a.dtype, a.requires_grad)
                           for a in (tok,)), nets[0].training, False,
-                    torch.is_inference_mode_enabled(),
+                    torch.is_inference_mode_enabled(), amp_epoch(),
                     tuple(nets[0]._collect_params_with_prefix()))
 
         def host_us(fn, n=200):
@@ -1354,30 +1533,45 @@ def _key_bias_zeroed(name, g, hidden):
     return g
 
 
-def training_parity(cfg, arrays, card, seq=512, batch=2):
-    """One step's loss and gradients on the card (bf16, all five kernels,
-    dropout 0) against the same weights in f32 on the CPU through the
-    plain versions."""
+def parity_step(cfg, arrays, dev, dtype, seq=512, batch=2):
+    """(loss, {name: f32 gradient on the CPU}) of one step at dropout 0 of
+    BertForPretraining with ``arrays`` in ``dtype`` on ``dev``, on the
+    flagship-style batch drawn from SEED + 1 (the key third of each qkv
+    bias zeroed, see _key_bias_zeroed)."""
     import torch
     from mxnet_tpu_torch.models.bert import (BertForPretraining,
                                              bert_pretrain_loss)
     from mxnet_tpu_torch.weights import params_from_mxnet_tpu
     data, _ = pretraining_batch(cfg, batch, seq, SEED + 1)
-    cfg0 = dict(cfg, dropout=0.0)
-    out = {}
-    for dev, dtype in (('cuda', torch.bfloat16), ('cpu', torch.float32)):
-        net = BertForPretraining(cfg0, dtype=dtype, device=dev).train()
-        net.load_state_dict(params_from_mxnet_tpu(arrays, net))
-        t = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-        mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
-        loss = bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
-        loss.backward()
-        out[dev] = (float(loss.detach()), {
-            n: _key_bias_zeroed(n, p.grad.detach().float().cpu(),
-                                cfg['hidden'])
-            for n, p in net.named_parameters()})
-        del net, mlm, nsp, loss
-    (lg, gg), (lc, gc) = out['cuda'], out['cpu']
+    net = BertForPretraining(dict(cfg, dropout=0.0), dtype=dtype,
+                             device=dev).train()
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    t = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
+    loss = bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
+    loss.backward()
+    return float(loss.detach()), {
+        n: _key_bias_zeroed(n, p.grad.detach().float().cpu(), cfg['hidden'])
+        for n, p in net.named_parameters()}
+
+
+_CPU_REF = []
+
+
+def cpu_reference(cfg, arrays):
+    """parity_step in f32 on the CPU through the plain versions, run once
+    and kept: the training and AMP phases hold the card against it."""
+    import torch
+    if not _CPU_REF:
+        _CPU_REF.append(parity_step(cfg, arrays, 'cpu', torch.float32))
+    return _CPU_REF[0]
+
+
+def hold_parity(label, got, want, tol):
+    """loss rel, gradients' rel Frobenius and least cosine of the card's
+    step ``got`` against the CPU's ``want``, each within ``tol``."""
+    import torch
+    (lg, gg), (lc, gc) = got, want
     loss_rel = abs(lg - lc) / abs(lc)
     num = sum(float((gg[n] - gc[n]).square().sum()) for n in gc)
     den = sum(float(gc[n].square().sum()) for n in gc)
@@ -1385,17 +1579,27 @@ def training_parity(cfg, arrays, card, seq=512, batch=2):
     cos = {n: float(torch.nn.functional.cosine_similarity(
         gg[n].flatten(), gc[n].flatten(), dim=0)) for n in gc}
     worst = min(cos, key=cos.get)
-    ok = loss_rel <= TRAIN_TOL['loss_rel'] and \
-        rel_fro <= TRAIN_TOL['grad_rel_fro'] and \
-        cos[worst] >= TRAIN_TOL['grad_min_cos']
-    print(f'  parity, one step at B={batch} T={seq} (dropout 0), bf16 on the '
-          f'card vs f32 CPU plain: loss {lg:.5f} vs {lc:.5f} (rel '
+    ok = loss_rel <= tol['loss_rel'] and \
+        rel_fro <= tol['grad_rel_fro'] and \
+        cos[worst] >= tol['grad_min_cos']
+    print(f'  parity, {label}: loss {lg:.5f} vs {lc:.5f} (rel '
           f'{loss_rel:.2e}), gradients rel_fro_err={rel_fro:.4f}, least '
-          f'cosine {cos[worst]:.5f} ({worst}); tolerance {TRAIN_TOL} '
-          f'(key third of each qkv bias left out: its gradient is zero in '
-          f'exact arithmetic) -> {"ok" if ok else "FAIL"}')
-    check(ok, 'training step disagrees with the f32 CPU reference')
+          f'cosine {cos[worst]:.5f} ({worst}); tolerance {tol} (key third '
+          f'of each qkv bias left out: its gradient is zero in exact '
+          f'arithmetic) -> {"ok" if ok else "FAIL"}')
+    check(ok, f'{label} disagrees with the f32 CPU reference')
     return dict(loss_rel=loss_rel, rel_fro=rel_fro, min_cos=cos[worst])
+
+
+def training_parity(cfg, arrays, card, seq=512, batch=2):
+    """One step's loss and gradients on the card (bf16, all five kernels,
+    dropout 0) against the same weights in f32 on the CPU through the
+    plain versions."""
+    import torch
+    got = parity_step(cfg, arrays, 'cuda', torch.bfloat16, seq, batch)
+    return hold_parity(f'one step at B={batch} T={seq} (dropout 0), bf16 on '
+                       f'the card vs f32 CPU plain', got,
+                       cpu_reference(cfg, arrays), TRAIN_TOL)
 
 
 def training_phase(card, steps=5, batch=8, seq=512):
@@ -1513,6 +1717,331 @@ def training_phase(card, steps=5, batch=8, seq=512):
                           samples_per_s=batch / step_s, mfu=mfu,
                           update_ms=phases[2], update_host_ms=host_update_ms,
                           parity=parity)
+
+
+# AMP on the card (chosen before the first run; PERF.md section 2): one step
+# at B = 2, dropout 0, under amp.init(target) against the f32 CPU reference
+# of the same weights and batch (no AMP there). bfloat16: the bound of the
+# bf16 training step; float16 keeps 3 more significand bits and AMP rounds
+# only the products' inputs, so its bound is tighter
+AMP_TOL = {'bfloat16': TRAIN_TOL,
+           'float16': {'loss_rel': 0.005, 'grad_rel_fro': 0.05,
+                       'grad_min_cos': 0.98}}
+# a BERT-base cast to float16 against the f32 model, one predict forward:
+# the serving bound (PERF.md section 2)
+HALF_TOL = 0.05
+
+
+def _amp_counts(L, steps, dtype):
+    """The launch, variant and dtype counts of ``steps`` AMP steps: the
+    flash forward, dq and dk/dv once a layer a step on the tensor cores,
+    in ``dtype``; no LayerNorm or FFN1 launch (both knobs off)."""
+    n = L * steps
+    fl = ('flash_attn_fwd', 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
+    return ({k: n if k in fl else 0 for k in
+             ('flash_attn_fwd', 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv',
+              'fused_add_layernorm', 'dense_gelu')},
+            {f'{k}.{dtype}': n for k in fl})
+
+
+def amp_phase(card, steps=5, batch=8, seq=512):
+    """MXNet's AMP recipe on BERT-base at full width and depth, f32
+    parameters: parity at B = 2 under each target; a block hybridized
+    before amp.init recaptured after it; then, on the flagship batch with
+    AdamW, ``steps`` steps of ``with autograd.record(): ...; with
+    amp.scale_loss(loss, trainer) as s: s.backward(); trainer.step(B)``
+    under amp.init('bfloat16') and under amp.init('float16') (the dynamic
+    scaler from 2**16, one step's gradient planted non-finite), one step
+    with the fused LayerNorm on, and a predict forward of the model cast
+    to float16 with both knobs on. Returns ({kernel: launches},
+    {kernel.dtype: launches}, figures) of those main runs."""
+    import numpy as onp
+    import torch
+    from mxnet_tpu_torch import amp, autograd, gluon
+    from mxnet_tpu_torch.amp import amp as amp_mod
+    from mxnet_tpu_torch.gluon.parameter import tensor_of
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config,
+                                             bert_pretrain_loss)
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+
+    cfg = bert_base_config()
+    L = cfg['layers']
+    knobs = {k: os.environ.get(k) for k in ('MXTPU_PALLAS_LN',
+                                            'MXTPU_PALLAS_FFN')}
+    os.environ['MXTPU_PALLAS_LN'] = '0'
+    os.environ['MXTPU_PALLAS_FFN'] = '0'
+    print(f'AMP phase on {card}: BertForPretraining (BERT-base), f32 '
+          f'parameters, amp.init in bfloat16 and float16, flash attention '
+          f'on, the LayerNorm and FFN1 knobs off unless said')
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    net = BertForPretraining(dict(cfg, dropout=0.1), device='cuda',
+                             generator=gen)
+    arrays = random_bert_arrays(net)
+    ref = cpu_reference(cfg, arrays)
+    figures = {'parity': {}}
+    for target in ('bfloat16', 'float16'):
+        amp.init(target)
+        try:
+            got = parity_step(cfg, arrays, 'cuda', torch.float32)
+        finally:
+            amp_mod._deinit()
+        figures['parity'][target] = hold_parity(
+            f'one step at B=2 T={seq} (dropout 0) under amp.init({target!r}) '
+            f'on the card vs f32 CPU plain', got, ref, AMP_TOL[target])
+
+    # a block hybridized before amp.init: its predict graph is not replayed
+    # after amp.init nor after _deinit (the patch epoch is in the key)
+    blk = gluon.nn.Dense(768, in_units=768, device='cuda')
+    blk.initialize()
+    blk.hybridize()
+    xb = torch.randn(64, 768, generator=gen, device='cuda')
+    graphs = []
+    with torch.no_grad():
+        y0 = blk(xb)
+        graphs.append(blk._cached_op.num_graphs)
+        amp.init('bfloat16')
+        try:
+            y1 = blk(xb)
+            y1b = blk(xb)               # a replay of the new graph
+            graphs.append(blk._cached_op.num_graphs)
+        finally:
+            amp_mod._deinit()
+        y2 = blk(xb)
+        graphs.append(blk._cached_op.num_graphs)
+    torch.cuda.synchronize()
+    print(f'  recapture: graphs of the hybridized Dense before amp.init, '
+          f'after it and after _deinit: {graphs}; outputs {y0.dtype}, '
+          f'{y1.dtype}, {y2.dtype}')
+    check(graphs == [1, 2, 3], f'graphs {graphs}: expected a new capture at '
+          f'amp.init and at _deinit')
+    check(y1.dtype == y1b.dtype == torch.bfloat16 and torch.equal(y1, y1b),
+          'the graph captured under amp.init does not run in bf16')
+    check(y0.dtype == y2.dtype == torch.float32 and torch.equal(y0, y2),
+          'after _deinit the block does not run as before amp.init')
+    del blk
+
+    data, nmask = pretraining_batch(cfg, batch, seq, SEED)
+    t = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    params = gluon.collect_params(net)
+    tensors = [tensor_of(p) for p in params.values()]
+    flops = honest_flops(params, cfg, batch, seq, nmask)
+    launches = dict.fromkeys(_build.launch_counts, 0)
+    dtypes = {}
+
+    def take_counts():
+        for k, n in _build.launch_counts.items():
+            launches[k] += n
+        for k, n in _build.dtype_counts.items():
+            dtypes[k] = dtypes.get(k, 0) + n
+
+    def make_step(trainer):
+        def step(plant=False):
+            with autograd.record():
+                mlm, nsp = net(t['tokens'], t['types'], t['valid'],
+                               t['mpos'])
+                loss = bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
+            if plant:
+                tensors[0].grad.view(-1)[0] = float('inf')
+            trainer.step(batch)
+            net.zero_grad(set_to_none=False)
+            return loss.detach()
+        return step
+
+    def timed(step, target, losses, wall):
+        losses = [float(x) for x in losses]
+        check(all(onp.isfinite(x) for x in losses), f'non-finite loss '
+              f'{losses}')
+        calls = [wall / steps * 1e3] + [steps_ms(step, steps)
+                                        for _ in range(2)]
+        step_s = sorted(calls)[1] / 1e3
+        print(f'  amp.init({target!r}), {steps} AdamW steps at B={batch} '
+              f'T={seq} on {card}: losses {losses}; {step_s * 1e3:.3f} ms '
+              f'per step, the median of 3 calls '
+              f'({", ".join(f"{c:.3f}" for c in calls)} ms; '
+              f'host clock between synchronizes), {batch / step_s:.3f} '
+              f'samples/s, MFU {flops / step_s / PEAK_BF16:.4%} of 989 '
+              f'TFLOP/s')
+        bd = device_breakdown(f'AMP {target} step b{batch}_s{seq}', step,
+                              card, 1, other_by_op=True)
+        return dict(step_ms=step_s * 1e3, calls_ms=calls,
+                    samples_per_s=batch / step_s,
+                    mfu=flops / step_s / PEAK_BF16, **bd)
+
+    def hold_counts(target):
+        want, want_dt = _amp_counts(L, steps, target)
+        got = dict(_build.launch_counts)
+        variants = {k: n for k, n in _build.variant_counts.items() if n}
+        print(f'  amp.init({target!r}) launches={got} '
+              f'dtypes={dict(_build.dtype_counts)} variants={variants} over '
+              f'{steps} steps')
+        check(got == want, f'launch counts {got}, expected {want}')
+        check(_build.dtype_counts == want_dt,
+              f'dtype counts {_build.dtype_counts}, expected {want_dt}')
+        check(variants == {f'{k}.tc': L * steps for k in (
+            'flash_attn_fwd', 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')},
+            f'variants {variants}')
+        take_counts()
+
+    # ---- bfloat16: scale 1, no overflow check
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    net.train()
+    amp.init('bfloat16')
+    try:
+        trainer = gluon.Trainer(params, 'adamw',
+                                {'learning_rate': 1e-4, 'wd': 0.01})
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        check(scaler.loss_scale == 1.0 and not scaler.dynamic,
+              f'bf16 scaler {scaler.loss_scale} dynamic={scaler.dynamic}')
+        step = make_step(trainer)
+        step()                          # the fused update's capture
+        before = [x.detach().clone() for x in tensors]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hold_counts('bfloat16')
+        still = [n for n, a, b in zip(params, tensors, before)
+                 if torch.equal(a, b)]
+        check(not still, f'parameters that did not move: {still}')
+        del before
+        figures['bfloat16'] = timed(step, 'bfloat16', losses, wall)
+    finally:
+        amp_mod._deinit()
+
+    # ---- float16: the dynamic scaler from 2**16, step 3's gradient
+    # planted non-finite
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    amp.init('float16')
+    try:
+        trainer = gluon.Trainer(params, 'adamw',
+                                {'learning_rate': 1e-4, 'wd': 0.01})
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        check(scaler.loss_scale == 2.0 ** 16 and scaler.dynamic,
+              f'float16 scaler {scaler.loss_scale} '
+              f'dynamic={scaler.dynamic}')
+        step = make_step(trainer)
+        opt = trainer.optimizer
+        # warm-up: the scale backs off while the scaled gradients overflow
+        # float16; the first clean step captures the fused update
+        scales = [scaler.loss_scale]
+        for _ in range(16):
+            n0 = opt.num_update
+            step()
+            scales.append(scaler.loss_scale)
+            if opt.num_update > n0:
+                break
+        print(f'  float16 warm-up: loss scale {scales} (a halving per '
+              f'skipped step) until the first update')
+        check(opt.num_update == 1, f'no clean float16 step in 16: scales '
+              f'{scales}')
+        graph = trainer._fused[1]       # the fused update's one capture
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(steps):
+            n0, s0 = opt.num_update, scaler.loss_scale
+            if i == 2:
+                counts0 = dict(opt._index_update_count)
+                before = [x.detach().clone() for x in tensors]
+            losses.append(step(plant=(i == 2)))
+            if i == 2:
+                torch.cuda.synchronize()
+                moved = [n for n, a, b in zip(params, tensors, before)
+                         if not torch.equal(a, b)]
+                print(f'  planted inf on step 3: loss scale {s0} -> '
+                      f'{scaler.loss_scale}, update count {n0} -> '
+                      f'{opt.num_update}, parameters moved: {len(moved)}')
+                check(not moved and opt.num_update == n0 and
+                      dict(opt._index_update_count) == counts0 and
+                      scaler.loss_scale == s0 / 2,
+                      'the planted non-finite gradient was not skipped')
+                del before
+            else:
+                check(opt.num_update == n0 + 1 and scaler.loss_scale == s0,
+                      f'float16 step {i + 1} did not update (scale {s0} -> '
+                      f'{scaler.loss_scale})')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(trainer._fused[1] is graph, 'a new loss scale recaptured the '
+              'fused update')
+        hold_counts('float16')
+        figures['float16'] = timed(step, 'float16', losses, wall)
+        # the scaler's overflow check alone: every buffer's finiteness
+        # reduced on the card, one sync
+        bufs = list(trainer._grads.values())
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(10):
+            scaler.has_overflow(bufs)
+        figures['overflow_check_ms'] = (time.perf_counter() - h0) * 100
+        print(f'  the dynamic scaler\'s overflow check over {len(bufs)} '
+              f'gradient buffers: {figures["overflow_check_ms"]:.3f} ms of '
+              f'host time (one sync each; mean of 10)')
+
+        # one step with the fused LayerNorm: x f32, res float16, promoted
+        os.environ['MXTPU_PALLAS_LN'] = '1'
+        _build.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        ln = (_build.launch_counts['fused_add_layernorm'],
+              dict(_build.dtype_counts).get('fused_add_layernorm.float32'))
+        print(f'  one float16 AMP step with MXTPU_PALLAS_LN=1: LayerNorm '
+              f'launches {ln[0]}, in float32: {ln[1]}')
+        check(ln == (2 * L, 2 * L), f'LayerNorm launches {ln}')
+        take_counts()
+    finally:
+        os.environ['MXTPU_PALLAS_LN'] = '0'
+        amp_mod._deinit()
+
+    # ---- a model cast to float16: FFN1 (C) and LayerNorm (B) in float16
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    net.eval()
+    half = BertForPretraining(dict(cfg, dropout=0.0), dtype=torch.float16,
+                              device='cuda').eval()
+    half.load_state_dict(params_from_mxnet_tpu(arrays, half))
+    args = (t['tokens'], t['types'], t['valid'], t['mpos'])
+    with torch.no_grad():
+        want = net(*args)[0].float()
+        os.environ['MXTPU_PALLAS_LN'] = '1'
+        os.environ['MXTPU_PALLAS_FFN'] = '1'
+        try:
+            _build.reset_launch_counts()
+            got = half(*args)[0]
+            torch.cuda.synchronize()
+        finally:
+            os.environ['MXTPU_PALLAS_LN'] = '0'
+            os.environ['MXTPU_PALLAS_FFN'] = '0'
+    dt_half = dict(_build.dtype_counts)
+    rel = float((got.float() - want).norm() / want.norm())
+    print(f'  BERT-base cast to float16, one predict forward at B={batch} '
+          f'T={seq}, both knobs on: launches {dict(_build.launch_counts)}, '
+          f'dtypes {dt_half}; MLM logits vs the f32 model rel Frobenius '
+          f'{rel:.4f} (tolerance {HALF_TOL})')
+    check(dt_half == {'flash_attn_fwd.float16': L,
+                      'fused_add_layernorm.float16': 2 * L,
+                      'dense_gelu.float16': L}, f'dtype counts {dt_half}')
+    check(_build.variant_counts['dense_gelu.tc'] == L, 'FFN1 not on tc')
+    check(bool(torch.isfinite(got).all()) and rel <= HALF_TOL,
+          f'the float16 model disagrees with f32: rel {rel}')
+    take_counts()
+    figures['half_rel'] = rel
+    del half, net
+    torch.cuda.empty_cache()
+    for k, v in knobs.items():          # as the phases before left them
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return launches, dtypes, figures
 
 
 # the captured step and the Trainer's captured fused update against the
@@ -1721,7 +2250,8 @@ def compiled_step_phase(card, warmup=3, timed=10, batch=8, seq=512):
                             honest_flops(dict(net.named_parameters()), cfg,
                                          batch, seq, nmask), step_ms, card)
     busy = device_breakdown(f'captured step b{batch}_s{seq}',
-                            lambda: step(ins, labs), card, 3)
+                            lambda: step(ins, labs), card, 3,
+                            other_by_op=True)
     bytes_state = step.opt_state_bytes_per_device()
     print(f'  state on the card: parameters '
           f'{step.param_bytes_per_device() / 2 ** 20:.1f} MiB, masters + '
@@ -2499,8 +3029,11 @@ def main():
     tc = [e for e in report if '_tc_kernel' in e]
     print('ptxas, tensor-core kernels: ' + (' | '.join(tc) or
                                             'not rebuilt in this process'))
-    for name in ('flash_fwd_tc_kernel<Li64>', 'flash_bwd_dq_tc_kernel<Li64>',
-                 'flash_bwd_dkv_tc_kernel<Li64>', 'dense_gelu_tc_kernel'):
+    for name in [f'{k}<{e}Li64>' for e in ('13__nv_bfloat16', '6__half')
+                 for k in ('flash_fwd_tc_kernel', 'flash_bwd_dq_tc_kernel',
+                           'flash_bwd_dkv_tc_kernel')] + [
+            f'dense_gelu_tc_kernel<{e}>' for e in ('13__nv_bfloat16',
+                                                   '6__half')]:
         line = next((e for e in tc if name in e), None)
         check(not tc or (line is not None and
                          ' 0 bytes spill stores, 0 bytes spill loads' in line),
@@ -2510,6 +3043,7 @@ def main():
     serving, serve_replay, _serving = serving_phase(card)
     front, front_http, _front = front_phase(card)
     training, _train = training_phase(card)
+    amp_launches, amp_dtypes, _amp = amp_phase(card)
     user, nd_ops, user_rows, _nd = ndarray_phase(card)
     gluon, _gluon = gluon_phase(card)
     # last: the traces taken after its graph replays are the least sure
@@ -2520,16 +3054,31 @@ def main():
     # step's its eager first step and its capture; each replay relaunches
     # them from the graph, the per-dispatch and per-replay counts from the
     # profiler's trace)
-    by_path = {name: {'serving': serving[name], 'front': front[name],
-                      'training': training[name],
-                      'compiled_step': compiled[name],
-                      'ndarray': nd_ops[name], 'gluon': gluon.get(name, 0)}
-               for name in rows}
+    # the AMP runs' float16 launches go to the [float16] rows where a
+    # kernel has one, the rest of theirs to the kernel's own row
+    paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
+             'ndarray', 'gluon')
+    by_path = {}
+    for name in rows:
+        base, f16 = name.split('[')[0], name.endswith('[float16]')
+        n16 = amp_dtypes.get(f'{base}.float16', 0) \
+            if f'{base}[float16]' in rows else 0
+        by_path[name] = dict.fromkeys(paths, 0)
+        if f16:
+            by_path[name]['amp'] = n16
+            continue
+        by_path[name].update(
+            serving=serving[name], front=front[name],
+            training=training[name], amp=amp_launches[name] - n16,
+            compiled_step=compiled[name], ndarray=nd_ops[name],
+            gluon=gluon.get(name, 0))
     for name in user_rows:
-        by_path[name] = {'serving': 0, 'front': 0, 'training': 0,
-                         'compiled_step': 0, 'ndarray': user[name],
-                         'gluon': 0}
+        by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
+    idle = [n for n, paths_n in by_path.items()
+            if not sum(paths_n.values())]
+    check(not idle, f'kernels no main path launched: {idle}')
     kernels = [dict(name=name, route=r['route'], variant=r['variant'],
+                    **({'dtype': r['dtype']} if 'dtype' in r else {}),
                     source=r['source'], replaces=r['replaces'],
                     launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],

@@ -22,21 +22,22 @@ replays one CUDA graph per bucket through ``hybridize()``, behind
 ``serving.Router``; serving and training report into ``telemetry``
 (metrics, spans, the flight recorder, memory watermarks, the compile
 ledger, attribution, the fleet monitor and the /metrics endpoint), off
-by default.
+by default. ``amp`` (also ``contrib.amp``) is MXNet's automatic mixed
+precision in bfloat16 or float16, with the dynamic loss scaler.
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
     num_gpus, tpu
-from . import (autograd, checkpoint, config, context, engine, gluon,
-               initializer, lr_scheduler, models, ndarray, ops, optimizer,
-               parallel, random, rtc, serialization, serving, telemetry,
-               weights)
+from . import (amp, autograd, checkpoint, config, context, contrib, engine,
+               gluon, initializer, lr_scheduler, models, ndarray, ops,
+               optimizer, parallel, random, rtc, serialization, serving,
+               telemetry, weights)
 from . import ndarray as nd
 from . import initializer as init
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
-           'gpu', 'num_gpus', 'tpu', 'autograd', 'checkpoint', 'config',
-           'context',
+           'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',
+           'config', 'context', 'contrib',
            'engine', 'gluon', 'init', 'initializer', 'lr_scheduler', 'models', 'nd',
            'ndarray', 'ops', 'optimizer', 'parallel', 'random', 'rtc',
            'serialization', 'serving', 'telemetry', 'weights']

@@ -3,7 +3,7 @@
 //
 // Replaces: mxnet_tpu/ops/pallas_ffn.py _ffn_kernel (:48-55, launched by
 // _fwd_impl). As there, the matrix product runs in the kernel's own body
-// with bf16 (or f32) operands and f32 sums, the bias is added in f32, the
+// with bf16, f16 (or f32) operands and f32 sums, the bias is added in f32, the
 // exact GELU 0.5*s*(1+erf(s/sqrt(2))) is taken in f32, and the result is
 // stored once in x's dtype, so the (M, N) pre-activation never goes to
 // device memory.
@@ -16,19 +16,21 @@
 // Three kernels, routed by the wrapper on dtype and K (not a fallback: a
 // CUDA tensor always launches one of them, or the wrapper raises):
 //
-// dense_gelu_tc_kernel, bf16 with K a multiple of 8 (a tensor map's rows
-// must be 16-byte strided): one block per 128 x 128 output tile, of two
+// dense_gelu_tc_kernel, bf16 or f16 (one template over the element type)
+// with K a multiple of 8 (a tensor map's rows must be 16-byte strided):
+// one block per 128 x 128 output tile, of two
 // consumer warpgroups and one producer warp. The producer's one thread
 // issues TMA loads (cp.async.bulk.tensor.2d) of 64-deep K slices of x
 // (128 x 64) and W (128 x 64) into a ring of three stages, each slice
 // 128-byte swizzled, completion counted by an mbarrier per stage ("full").
 // Each consumer owns 64 rows: per k16 step one
-// wgmma.mma_async.m64n128k16.f32.bf16.bf16 with A and B read from shared
+// wgmma.mma_async.m64n128k16.f32.bf16.bf16 (or .f16.f16) with A and B read
+// from shared
 // memory through descriptors in the same swizzle mode, both K-major (W's
 // (N, K) Dense layout is K-major for B), and frees a stage through a second
 // mbarrier ("empty") once the wgmma group that read it has completed. The
 // epilogue adds the bias and takes erf-GELU on the accumulators in
-// registers, in f32, and packs bf16 pairs into a 128-byte-swizzled tile in
+// registers, in f32, and packs 16-bit pairs into a 128-byte-swizzled tile in
 // shared memory (ring stage 0, free by then) that two TMA stores write out:
 // no f32 value goes through shared memory, and the stores are whole
 // 128-byte rows. The block uses 97 KB of shared memory and at most 112
@@ -43,10 +45,15 @@
 // time through the CUDA runtime: no -lcuda link) and passed as
 // __grid_constant__ parameters.
 //
-// dense_gelu_bf16_kernel (the first design, bf16 at any K): one block per
-// 64x64 tile, K stepped by 32 through shared memory with plain loads, four
-// warps of WMMA 16x16x16 bf16 fragments, accumulators through shared
-// memory to the epilogue. No pipelining.
+// dense_gelu_16_kernel (the first design, bf16 or f16 at any K): one block
+// per 64x64 tile, K stepped by 32 through shared memory with plain loads,
+// four warps of WMMA 16x16x16 16-bit fragments, accumulators through
+// shared memory to the epilogue. No pipelining.
+//
+// float16 changes nothing in the designs: its operands are exact in the
+// products' f32 sums as bf16's are, and the epilogue is the same f32 math
+// before the cast to x's dtype (a result above 65504 becomes inf there,
+// as it does in the JAX kernel's cast).
 //
 // dense_gelu_f32_kernel, f32: the same tiling, 256 threads each owning a
 // 4x4 block of outputs in scalar FMAs.
@@ -54,8 +61,11 @@
 #include <cuda.h>   // CUtensorMap and its enums only; no libcuda link
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -67,23 +77,51 @@ __device__ __forceinline__ float gelu_erf(float s) {
   return 0.5f * s * (1.0f + erff(s * 0.70710678118654752440f));
 }
 
-// ---------------------------------------------------------------- bfloat16
-constexpr int LDS = BKS + 8;   // bf16 row stride: 80 bytes, keeps 32-byte fragment alignment
+template <typename T>
+constexpr bool is_f16 = std::is_same<T, __half>::value;
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// round to nearest even, as astype does
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (is_f16<T>)
+    return __float2half_rn(x);
+  else
+    return __float2bfloat16(x);
+}
+
+// two f32 -> one register of two 16-bit values (round to nearest even),
+// x0 in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x0, float x1) {
+  if constexpr (is_f16<T>) {
+    __half2 v = __floats2half2_rn(x0, x1);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// ---------------------------------------------------- bfloat16 and float16
+constexpr int LDS = BKS + 8;   // 16-bit row stride: 80 bytes, keeps 32-byte fragment alignment
 constexpr int LDC = BN + 4;    // f32 accumulator tile stride
 
+template <typename T>
 __global__ void __launch_bounds__(128)
-dense_gelu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                       int M, int N, int K) {
+dense_gelu_16_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
+                     T* __restrict__ out, int M, int N, int K) {
   using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[BM * LDS];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BN * LDS];
+  __shared__ __align__(128) T As[BM * LDS];
+  __shared__ __align__(128) T Bs[BN * LDS];
   __shared__ __align__(128) float Cs[BM * LDC];
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const T zero = from_f32<T>(0.f);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
 #pragma unroll
@@ -102,8 +140,8 @@ dense_gelu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16*
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BKS; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDS + kk, LDS);
@@ -130,8 +168,8 @@ dense_gelu_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16*
     const int r = i / BN, cc = i % BN;
     const int gm = m0 + r, gn = n0 + cc;
     if (gm < M && gn < N) {
-      const float s = Cs[r * LDC + cc] + __bfloat162float(bias[gn]);
-      out[(long long)gm * N + gn] = __float2bfloat16(gelu_erf(s));
+      const float s = Cs[r * LDC + cc] + to_f32(bias[gn]);
+      out[(long long)gm * N + gn] = from_f32<T>(gelu_erf(s));
     }
   }
 }
@@ -193,13 +231,13 @@ namespace tc {
 
 constexpr int TM = 128;           // a block's output tile: 128 x 128
 constexpr int TN = 128;
-constexpr int BKT = 64;           // K slice: 64 bf16 = 128 bytes, one swizzle row
+constexpr int BKT = 64;           // K slice: 64 16-bit values = 128 bytes, one swizzle row
 constexpr int STAGES = 3;
 constexpr int THREADS = 288;      // warpgroups 0, 1: consumers (64 rows each); warp 8: producer
 constexpr int A_BYTES = TM * BKT * 2;                  // 16 KB of x
 constexpr int B_BYTES = TN * BKT * 2;                  // 16 KB of W
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int OUT_BOX = TM * 128;                      // 128 rows x 64 bf16 of out
+constexpr int OUT_BOX = TM * 128;                      // 128 rows x 64 values of out
 constexpr int BAR_OFFSET = STAGES * STAGE_BYTES;
 // the ring (stage 0 doubles as the out tile once the products are done),
 // two mbarriers a stage, and 1 KB to align the base to 1024 bytes, as the
@@ -273,13 +311,6 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// two f32 -> one register of two bf16 (round to nearest even), x0 in the
-// low half
-__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma
 template <int N>
@@ -304,45 +335,53 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // d (64 x 128, f32, the warpgroup's fragment) += A (64 x 16) . B (16 x 128),
-// A and B bf16 from shared memory, both K-major
+// A and B 16-bit (TY: bf16 or f16) from shared memory, both K-major
+#define MXTT_WGMMA_M64N128K16(TY)                                                         \
+  asm volatile(                                                                           \
+      "{\n"                                                                               \
+      ".reg .pred p;\n"                                                                   \
+      "setp.ne.b32 p, %66, 0;\n"                                                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31, "                                         \
+      " %32, %33, %34, %35, %36, %37, %38, %39, "                                         \
+      " %40, %41, %42, %43, %44, %45, %46, %47, "                                         \
+      " %48, %49, %50, %51, %52, %53, %54, %55, "                                         \
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "                                        \
+      "%64, %65, p, 1, 1, 0, 0;\n"                                                        \
+      "}\n"                                                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),\
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),\
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),     \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),     \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),     \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),     \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),     \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),     \
+        "+f"(d[62]), "+f"(d[63])                                                          \
+      : "l"(da), "l"(db), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (is_f16<T>)
+    MXTT_WGMMA_M64N128K16("f16");
+  else
+    MXTT_WGMMA_M64N128K16("bf16");
 }
+#undef MXTT_WGMMA_M64N128K16
 
 // One block per 128 x 128 output tile; two blocks share an SM, so one's
 // epilogue runs while the other's products do.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 dense_gelu_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap,
-                     const __grid_constant__ CUtensorMap omap,
-                     const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                     int M, int N, int K, int tma_out) {
+                     const __grid_constant__ CUtensorMap omap, const T* __restrict__ bias,
+                     T* __restrict__ out, int M, int N, int K, int tma_out) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -396,7 +435,7 @@ dense_gelu_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKT / 16; ++kk) wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
+    for (int kk = 0; kk < BKT / 16; ++kk) wgmma_m64n128k16<T>(acc, da + 2 * kk, db + 2 * kk);
     wgmma_commit();
     fence_regs(acc);
     // the previous slice's products have completed: free its stage
@@ -413,7 +452,7 @@ dense_gelu_tc_kernel(const __grid_constant__ CUtensorMap xmap,
 
   // epilogue on the accumulators: element 4n + 2i + e of the 64 x 128
   // product is row 16 * warp + g + 8i, column 8n + 2t + e (g = lane / 4,
-  // t = lane % 4). Bias, then GELU, in f32; one bf16 pair per (n, i). One
+  // t = lane % 4). Bias, then GELU, in f32; one 16-bit pair per (n, i). One
   // column group n at a time: its accumulators pass through an asm after
   // the last group's stores, so the groups' temporaries never overlap.
   if (tma_out) {
@@ -427,15 +466,15 @@ dense_gelu_tc_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
       for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[4 * n + e]));
       const int col = n0 + n * 8 + 2 * (lane & 3);
-      const float b0 = col < N ? __bfloat162float(bias[col]) : 0.f;
-      const float b1 = col + 1 < N ? __bfloat162float(bias[col + 1]) : 0.f;
+      const float b0 = col < N ? to_f32(bias[col]) : 0.f;
+      const float b1 = col + 1 < N ? to_f32(bias[col + 1]) : 0.f;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = 64 * wg + wrow + 8 * i;
         st_shared(smem + (n >> 3) * OUT_BOX + r * 128 + (((n & 7) ^ (r & 7)) << 4) +
                       (lane & 3) * 4,
-                  pack_bf16(gelu_erf(acc[4 * n + 2 * i] + b0),
-                            gelu_erf(acc[4 * n + 2 * i + 1] + b1)));
+                  pack2<T>(gelu_erf(acc[4 * n + 2 * i] + b0),
+                           gelu_erf(acc[4 * n + 2 * i + 1] + b1)));
       }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -456,15 +495,15 @@ dense_gelu_tc_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[4 * n + e]));
       const int col = n0 + n * 8 + 2 * (lane & 3);
       if (col >= N) continue;
-      const float b0 = __bfloat162float(bias[col]);
-      const float b1 = col + 1 < N ? __bfloat162float(bias[col + 1]) : 0.f;
+      const float b0 = to_f32(bias[col]);
+      const float b1 = col + 1 < N ? to_f32(bias[col + 1]) : 0.f;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = m0 + 64 * wg + wrow + 8 * i;
         if (row >= M) continue;
-        __nv_bfloat16* dst = out + (long long)row * N + col;
-        dst[0] = __float2bfloat16(gelu_erf(acc[4 * n + 2 * i] + b0));
-        if (col + 1 < N) dst[1] = __float2bfloat16(gelu_erf(acc[4 * n + 2 * i + 1] + b1));
+        T* dst = out + (long long)row * N + col;
+        dst[0] = from_f32<T>(gelu_erf(acc[4 * n + 2 * i] + b0));
+        if (col + 1 < N) dst[1] = from_f32<T>(gelu_erf(acc[4 * n + 2 * i + 1] + b1));
       }
     }
   }
@@ -491,37 +530,41 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// a (rows, cols) row-major bf16 matrix, moved in boxes of box_rows x 64,
-// 128-byte swizzled; loads read zero past its edges, stores write nothing
-bool encode(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+// a (rows, cols) row-major 16-bit matrix of type dt, moved in boxes of
+// box_rows x 64, 128-byte swizzled; loads read zero past its edges, stores
+// write nothing
+bool encode(CUtensorMap* map, CUtensorMapDataType dt, const void* base, int rows, int cols,
+            int box_rows) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)BKT, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+  return fn(map, dt, 2, const_cast<void*>(base), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <typename T>
 int launch(const void* x, const void* w, const void* bias, void* out, int M, int N, int K,
            cudaStream_t stream) {
+  const CUtensorMapDataType dt =
+      is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // out goes through TMA stores where its rows are 16-byte strided
   const int tma_out = N % 8 == 0;
   CUtensorMap xmap, wmap, omap;
-  if (!encode(&xmap, x, M, K, TM) || !encode(&wmap, w, N, K, TN) ||
-      (tma_out && !encode(&omap, out, M, N, TM)))
+  if (!encode(&xmap, dt, x, M, K, TM) || !encode(&wmap, dt, w, N, K, TN) ||
+      (tma_out && !encode(&omap, dt, out, M, N, TM)))
     return (int)cudaErrorInvalidValue;
   if (!tma_out) omap = xmap;           // not read
-  cudaError_t err = cudaFuncSetAttribute(dense_gelu_tc_kernel,
+  cudaError_t err = cudaFuncSetAttribute(dense_gelu_tc_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-  dense_gelu_tc_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      xmap, wmap, omap, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
-      M, N, K, tma_out);
+  dense_gelu_tc_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      xmap, wmap, omap, static_cast<const T*>(bias), static_cast<T*>(out), M, N, K, tma_out);
   return (int)cudaGetLastError();
 }
 
@@ -529,8 +572,9 @@ int launch(const void* x, const void* w, const void* bias, void* out, int M, int
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x (M, K), w (N, K), bias (N), out (M, N),
-// all contiguous and of one dtype. Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. x (M, K), w (N, K), bias
+// (N), out (M, N), all contiguous and of one dtype. Returns
+// cudaGetLastError().
 extern "C" int mxtt_dense_gelu(int dtype, const void* x, const void* w, const void* bias,
                                void* out, int M, int N, int K, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -540,21 +584,28 @@ extern "C" int mxtt_dense_gelu(int dtype, const void* x, const void* w, const vo
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(bias), static_cast<float*>(out), M, N, K);
   } else if (dtype == 1) {
-    dense_gelu_bf16_kernel<<<grid, 128, 0, st>>>(
+    dense_gelu_16_kernel<__nv_bfloat16><<<grid, 128, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
         static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), M, N, K);
+  } else if (dtype == 2) {
+    dense_gelu_16_kernel<__half><<<grid, 128, 0, st>>>(
+        static_cast<const __half*>(x), static_cast<const __half*>(w),
+        static_cast<const __half*>(bias), static_cast<__half*>(out), M, N, K);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// The wgmma + TMA kernel: bf16 x (M, K), w (N, K), bias (N), out (M, N),
-// contiguous, x and w 16-byte aligned, K a multiple of 8. Returns
-// cudaGetLastError() (or cudaErrorInvalidValue where a tensor map cannot
-// be encoded).
-extern "C" int mxtt_dense_gelu_tc(const void* x, const void* w, const void* bias, void* out,
-                                  int M, int N, int K, void* stream) {
+// The wgmma + TMA kernel: dtype 1 (bfloat16) or 2 (float16); x (M, K), w
+// (N, K), bias (N), out (M, N), contiguous, x and w 16-byte aligned, K a
+// multiple of 8. Returns cudaGetLastError() (or cudaErrorInvalidValue where
+// a tensor map cannot be encoded).
+extern "C" int mxtt_dense_gelu_tc(int dtype, const void* x, const void* w, const void* bias,
+                                  void* out, int M, int N, int K, void* stream) {
   if (K % 8 != 0) return (int)cudaErrorInvalidValue;
-  return tc::launch(x, w, bias, out, M, N, K, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return tc::launch<__nv_bfloat16>(x, w, bias, out, M, N, K, st);
+  if (dtype == 2) return tc::launch<__half>(x, w, bias, out, M, N, K, st);
+  return (int)cudaErrorInvalidValue;
 }

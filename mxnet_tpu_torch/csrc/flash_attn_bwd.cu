@@ -60,6 +60,23 @@
 //    arithmetic; the split keeps it.
 //  - dk/dv, f32 or D = 8 (flash_bwd_dkv_kernel): the first design, scalar
 //    f32 FMAs out of shared memory.
+// - float16 (the same tensor-core kernels, one template over the element
+//   type): S and dP are again exact products, but the f32 operands of dV
+//   and dK (p*keep, ds) and of dQ (ds) cannot be split into two f16 terms
+//   as they are: f16 overflows above 65504, and under the f16 AMP recipe
+//   dO carries the loss scale (2^16), so ds above 65504 is the normal
+//   case. Of the two ways out, running those products on TF32 mma
+//   (m16n8k8) would need ds in another fragment layout (columns t and
+//   t + 4, not 2t and 2t + 1: a shuffle per element) and K, Q and dO as
+//   32-bit values in shared memory (twice the tiles); scaling keeps the
+//   layout and the tiles. So each A row (a q row for dQ, a key for dK and
+//   dV) is scaled by a power of two before the split (mma_tiles.cuh
+//   f16_rescale): E, the largest exponent of the row's values over the
+//   tiles so far, sets the unit 2^(E - 14) of the row's f32 sums, which are
+//   rescaled, exactly, when E grows. Every scaled value is below 2^15, so
+//   hi = f16(x), lo = f16(x - hi) keep 22 significand bits and flush only
+//   values 2^40 below the row's largest; the stores scale back. The
+//   bfloat16 kernels are the same code without the scaling.
 // The wrapper routes both kernels of one backward by dtype and D to the
 // same variant; that is not a fallback on failure.
 // Under a causal mask, tiles that the cut removes whole are skipped: their
@@ -72,6 +89,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "counter_keep.cuh"
@@ -86,11 +104,15 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 struct Strides {
@@ -390,7 +412,7 @@ int dispatch_d(bool dkv, int D, const BwdArgs& a, int B, cudaStream_t stream) {
 // ------------------------------------------------ dk/dv on the tensor cores
 constexpr int TC_THREADS = 128;  // four warps of 16 keys each
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdArgs a) {
   using namespace mma_tiles;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
@@ -400,11 +422,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
   constexpr int ND = D / 8;    // n-tiles of dK and dV
   constexpr int NQ = BQ / 8;   // n-tiles of S^T and dP^T, one per 8 q rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BK x LD
-  __nv_bfloat16* Vs = Ks + BK * LD;                                  // BK x LD
-  __nv_bfloat16* Qs = Vs + BK * LD;                                  // 2 x BQ x LD
-  __nv_bfloat16* dOs = Qs + 2 * BQ * LD;                             // 2 x BQ x LD
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);          // 2 x BQ: lse
+  E* Ks = reinterpret_cast<E*>(smem_raw);                   // BK x LD
+  E* Vs = Ks + BK * LD;                                     // BK x LD
+  E* Qs = Vs + BK * LD;                                     // 2 x BQ x LD
+  E* dOs = Qs + 2 * BQ * LD;                                // 2 x BQ x LD
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // 2 x BQ: lse
   float* Dl = Ls + 2 * BQ;                                           // 2 x BQ: delta
 
   const int bh = blockIdx.x;
@@ -412,9 +434,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
   const int b = bh / a.H, h = bh % a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const __nv_bfloat16* dop =
-      static_cast<const __nv_bfloat16*>(a.dout) + b * a.dos.b + h * a.dos.h;
+  const E* qp = static_cast<const E*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const E* dop = static_cast<const E*>(a.dout) + b * a.dos.b + h * a.dos.h;
   const float* lsep = static_cast<const float*>(a.lse) + (long long)bh * a.Tq;
   const float* delp = static_cast<const float*>(a.delta) + (long long)bh * a.Tq;
   const float* mrow =
@@ -440,10 +461,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
     load_row<TC_THREADS>(Dl + stage * BQ, delp, q0, BQ, a.Tq);
     cp_async_commit();
   };
-  load_tile<BK, D, TC_THREADS>(Ks, static_cast<const __nv_bfloat16*>(a.k) + b * a.ks.b +
-                                       h * a.ks.h, a.ks.t, k0, a.Tk);
-  load_tile<BK, D, TC_THREADS>(Vs, static_cast<const __nv_bfloat16*>(a.v) + b * a.vs.b +
-                                       h * a.vs.h, a.vs.t, k0, a.Tk);
+  load_tile<BK, D, TC_THREADS>(Ks, static_cast<const E*>(a.k) + b * a.ks.b + h * a.ks.h,
+                               a.ks.t, k0, a.Tk);
+  load_tile<BK, D, TC_THREADS>(Vs, static_cast<const E*>(a.v) + b * a.vs.b + h * a.vs.h,
+                               a.vs.t, k0, a.Tk);
   const int nqb = (a.Tq + BQ - 1) / BQ;
   const int qb0 = a.causal ? k0 / BQ : 0;     // rows before k0 see none of these keys
   if (qb0 < nqb)
@@ -456,6 +477,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  // f16 only: each key's exponents of ds and p*keep so far (f16_rescale)
+  int ek[2] = {F16_MIN_EXP, F16_MIN_EXP}, ev[2] = {F16_MIN_EXP, F16_MIN_EXP};
 
   for (int qb = qb0; qb < nqb; ++qb) {
     const int stage = (qb - qb0) & 1, q0 = qb * BQ;
@@ -466,12 +489,12 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* Qt = Qs + stage * BQ * LD;
-    const __nv_bfloat16* dOt = dOs + stage * BQ * LD;
+    const E* Qt = Qs + stage * BQ * LD;
+    const E* dOt = dOs + stage * BQ * LD;
     const float* Lt = Ls + stage * BQ;
     const float* Dt = Dl + stage * BQ;
 
-    // S^T = K.Q^T and dP^T = V.dO^T: exact bf16 operands, f32 sums
+    // S^T = K.Q^T and dP^T = V.dO^T: exact 16-bit operands, f32 sums
     float s[NQ][4], dp[NQ][4];
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
@@ -486,11 +509,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
       for (int p = 0; p < NQ / 2; ++p) {
         uint32_t bf[4];
         ldsm_x4(bf, b_addr_nk(Qt, LD, p * 16, kk * 16, lane));
-        mma_bf16(s[2 * p], kf, bf[0], bf[1]);
-        mma_bf16(s[2 * p + 1], kf, bf[2], bf[3]);
+        mma16<E>(s[2 * p], kf, bf[0], bf[1]);
+        mma16<E>(s[2 * p + 1], kf, bf[2], bf[3]);
         ldsm_x4(bf, b_addr_nk(dOt, LD, p * 16, kk * 16, lane));
-        mma_bf16(dp[2 * p], vf, bf[0], bf[1]);
-        mma_bf16(dp[2 * p + 1], vf, bf[2], bf[3]);
+        mma16<E>(dp[2 * p], vf, bf[0], bf[1]);
+        mma16<E>(dp[2 * p + 1], vf, bf[2], bf[3]);
       }
     }
 
@@ -523,32 +546,36 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
     }
 
     // dV += (P*keep)^T.dO and dK += dS^T.Q. The reference multiplies
-    // these f32 operands in f32: each is split into two bf16 terms, hi +
-    // lo, both multiplied against the exact bf16 dO or Q with f32 sums.
-    // The S^T and dP^T fragments of q rows 16kk.. are the A fragments of
-    // k-step kk.
+    // these f32 operands in f32: each is split into two 16-bit terms, hi +
+    // lo, both multiplied against the exact dO or Q with f32 sums (in f16
+    // after each key's scale, see the header). The S^T and dP^T fragments
+    // of q rows 16kk.. are the A fragments of k-step kk.
+    if constexpr (is_f16<E>) {
+      f16_rescale(s, dv, ev);
+      f16_rescale(dp, dk, ek);
+    }
 #pragma unroll
     for (int kk = 0; kk < NQ / 2; ++kk) {
       uint32_t ph[4], pl[4], sh[4], sl[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int j = 2 * kk + (i >> 1), e = (i & 1) * 2;
-        split_bf16(s[j][e], s[j][e + 1], ph[i], pl[i]);
-        split_bf16(dp[j][e], dp[j][e + 1], sh[i], sl[i]);
+        split2<E>(s[j][e], s[j][e + 1], ph[i], pl[i]);
+        split2<E>(dp[j][e], dp[j][e + 1], sh[i], sl[i]);
       }
 #pragma unroll
       for (int p = 0; p < ND / 2; ++p) {
         uint32_t bf[4];
         ldsm_x4_t(bf, b_addr_kn(dOt, LD, kk * 16, p * 16, lane));
-        mma_bf16(dv[2 * p], ph, bf[0], bf[1]);
-        mma_bf16(dv[2 * p], pl, bf[0], bf[1]);
-        mma_bf16(dv[2 * p + 1], ph, bf[2], bf[3]);
-        mma_bf16(dv[2 * p + 1], pl, bf[2], bf[3]);
+        mma16<E>(dv[2 * p], ph, bf[0], bf[1]);
+        mma16<E>(dv[2 * p], pl, bf[0], bf[1]);
+        mma16<E>(dv[2 * p + 1], ph, bf[2], bf[3]);
+        mma16<E>(dv[2 * p + 1], pl, bf[2], bf[3]);
         ldsm_x4_t(bf, b_addr_kn(Qt, LD, kk * 16, p * 16, lane));
-        mma_bf16(dk[2 * p], sh, bf[0], bf[1]);
-        mma_bf16(dk[2 * p], sl, bf[0], bf[1]);
-        mma_bf16(dk[2 * p + 1], sh, bf[2], bf[3]);
-        mma_bf16(dk[2 * p + 1], sl, bf[2], bf[3]);
+        mma16<E>(dk[2 * p], sh, bf[0], bf[1]);
+        mma16<E>(dk[2 * p], sl, bf[0], bf[1]);
+        mma16<E>(dk[2 * p + 1], sh, bf[2], bf[3]);
+        mma16<E>(dk[2 * p + 1], sl, bf[2], bf[3]);
       }
     }
     __syncthreads();                   // every warp is done with this stage
@@ -560,44 +587,47 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(const BwdA
     const int kpos = key0 + 8 * i;
     if (kpos < a.Tk) {
       const long long at = b * a.os.b + h * a.os.h + kpos * a.os.t + 2 * t;
-      __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(a.out0) + at;
-      __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(a.out1) + at;
+      E* dkp = static_cast<E*>(a.out0) + at;
+      E* dvp = static_cast<E*>(a.out1) + at;
+      float uk = 1.f, uv = 1.f;        // f16: the sums' units
+      if constexpr (is_f16<E>) {
+        uk = exp2i(ek[i] - F16_TOP);
+        uv = exp2i(ev[i] - F16_TOP);
+      }
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(dkp + n * 8) =
-            __floats2bfloat162_rn(dk[n][2 * i], dk[n][2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dvp + n * 8) =
-            __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+        store2<E>(dkp + n * 8, dk[n][2 * i] * uk, dk[n][2 * i + 1] * uk);
+        store2<E>(dvp + n * 8, dv[n][2 * i] * uv, dv[n][2 * i + 1] * uv);
       }
     }
   }
 }
 
-template <int D>
+template <typename E, int D>
 int launch_dkv_tc(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr int LD = D + 8;
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (2 * BK * LD + 4 * BQ * LD) + sizeof(float) * 4 * BQ;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+  const size_t smem = sizeof(E) * (2 * BK * LD + 4 * BQ * LD) + sizeof(float) * 4 * BQ;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<E, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * a.H, (a.Tk + BK - 1) / BK);
-  flash_bwd_dkv_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(a);
+  flash_bwd_dkv_tc_kernel<E, D><<<grid, TC_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <typename E>
 int dispatch_dkv_tc(int D, const BwdArgs& a, int B, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_dkv_tc<16>(a, B, stream);
-    case 32: return launch_dkv_tc<32>(a, B, stream);
-    case 64: return launch_dkv_tc<64>(a, B, stream);
-    case 128: return launch_dkv_tc<128>(a, B, stream);
+    case 16: return launch_dkv_tc<E, 16>(a, B, stream);
+    case 32: return launch_dkv_tc<E, 32>(a, B, stream);
+    case 64: return launch_dkv_tc<E, 64>(a, B, stream);
+    case 128: return launch_dkv_tc<E, 128>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // --------------------------------------------------- dq on the tensor cores
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdArgs a) {
   using namespace mma_tiles;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
@@ -607,11 +637,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
   constexpr int ND = D / 8;    // n-tiles of dQ
   constexpr int NK = BK / 8;   // n-tiles of S and dP, one per 8 keys
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BQ x LD
-  __nv_bfloat16* dOs = Qs + BQ * LD;                                 // BQ x LD
-  __nv_bfloat16* Ks = dOs + BQ * LD;                                 // 2 x BK x LD
-  __nv_bfloat16* Vs = Ks + 2 * BK * LD;                              // 2 x BK x LD
-  float* Ms = reinterpret_cast<float*>(Vs + 2 * BK * LD);           // 2 x BK: mask
+  E* Qs = reinterpret_cast<E*>(smem_raw);                  // BQ x LD
+  E* dOs = Qs + BQ * LD;                                   // BQ x LD
+  E* Ks = dOs + BQ * LD;                                   // 2 x BK x LD
+  E* Vs = Ks + 2 * BK * LD;                                // 2 x BK x LD
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // 2 x BK: mask
   float* Ls = Ms + 2 * BK;                                           // BQ: lse
   float* Dl = Ls + BQ;                                               // BQ: delta
 
@@ -620,8 +650,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
   const int b = bh / a.H, h = bh % a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs.b + h * a.vs.h;
+  const E* kp = static_cast<const E*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const E* vp = static_cast<const E*>(a.v) + b * a.vs.b + h * a.vs.h;
   const float* mrow =
       a.kmask ? static_cast<const float*>(a.kmask) + (long long)(bh / a.mask_div) * a.Tk : nullptr;
 
@@ -633,10 +663,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
     if (mrow != nullptr) load_row<TC_THREADS>(Ms + stage * BK, mrow, k0, BK, a.Tk);
     cp_async_commit();
   };
-  load_tile<BQ, D, TC_THREADS>(Qs, static_cast<const __nv_bfloat16*>(a.q) + b * a.qs.b +
-                                       h * a.qs.h, a.qs.t, q0, a.Tq);
-  load_tile<BQ, D, TC_THREADS>(dOs, static_cast<const __nv_bfloat16*>(a.dout) + b * a.dos.b +
-                                        h * a.dos.h, a.dos.t, q0, a.Tq);
+  load_tile<BQ, D, TC_THREADS>(Qs, static_cast<const E*>(a.q) + b * a.qs.b + h * a.qs.h,
+                               a.qs.t, q0, a.Tq);
+  load_tile<BQ, D, TC_THREADS>(dOs, static_cast<const E*>(a.dout) + b * a.dos.b + h * a.dos.h,
+                               a.dos.t, q0, a.Tq);
   load_row<TC_THREADS>(Ls, static_cast<const float*>(a.lse) + (long long)bh * a.Tq, q0, BQ, a.Tq);
   load_row<TC_THREADS>(Dl, static_cast<const float*>(a.delta) + (long long)bh * a.Tq, q0, BQ,
                        a.Tq);
@@ -658,6 +688,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  int eq[2] = {F16_MIN_EXP, F16_MIN_EXP};   // f16 only: each row's ds exponent so far
 
   for (int kb = 0; kb < nkb; ++kb) {
     const int stage = kb & 1, k0 = kb * BK;
@@ -680,11 +711,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
         del_r[i] = Dl[warp * 16 + (lane >> 2) + 8 * i];
       }
     }
-    const __nv_bfloat16* Kt = Ks + stage * BK * LD;
-    const __nv_bfloat16* Vt = Vs + stage * BK * LD;
+    const E* Kt = Ks + stage * BK * LD;
+    const E* Vt = Vs + stage * BK * LD;
     const float* Mt = Ms + stage * BK;
 
-    // S = Q.K^T and dP = dO.V^T: exact bf16 operands, f32 sums
+    // S = Q.K^T and dP = dO.V^T: exact 16-bit operands, f32 sums
     float s[NK][4], dp[NK][4];
 #pragma unroll
     for (int j = 0; j < NK; ++j)
@@ -696,11 +727,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
       for (int p = 0; p < NK / 2; ++p) {
         uint32_t bf[4];
         ldsm_x4(bf, b_addr_nk(Kt, LD, p * 16, kk * 16, lane));
-        mma_bf16(s[2 * p], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * p + 1], qf[kk], bf[2], bf[3]);
+        mma16<E>(s[2 * p], qf[kk], bf[0], bf[1]);
+        mma16<E>(s[2 * p + 1], qf[kk], bf[2], bf[3]);
         ldsm_x4(bf, b_addr_nk(Vt, LD, p * 16, kk * 16, lane));
-        mma_bf16(dp[2 * p], of[kk], bf[0], bf[1]);
-        mma_bf16(dp[2 * p + 1], of[kk], bf[2], bf[3]);
+        mma16<E>(dp[2 * p], of[kk], bf[0], bf[1]);
+        mma16<E>(dp[2 * p + 1], of[kk], bf[2], bf[3]);
       }
     }
 
@@ -728,25 +759,27 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
     }
 
     // dQ += dS.K. The reference multiplies f32 ds by K in f32: ds is split
-    // into two bf16 terms, hi + lo, both multiplied against the exact bf16
-    // K with f32 sums. The dS fragments of keys 16kk.. are the A fragments
-    // of k-step kk; K (keys by D) is B by ldmatrix.trans.
+    // into two 16-bit terms, hi + lo, both multiplied against the exact K
+    // with f32 sums (in f16 after each row's scale, see the header). The
+    // dS fragments of keys 16kk.. are the A fragments of k-step kk; K
+    // (keys by D) is B by ldmatrix.trans.
+    if constexpr (is_f16<E>) f16_rescale(s, dq, eq);
 #pragma unroll
     for (int kk = 0; kk < NK / 2; ++kk) {
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int j = 2 * kk + (i >> 1), e = (i & 1) * 2;
-        split_bf16(s[j][e], s[j][e + 1], hi[i], lo[i]);
+        split2<E>(s[j][e], s[j][e + 1], hi[i], lo[i]);
       }
 #pragma unroll
       for (int p = 0; p < ND / 2; ++p) {
         uint32_t bf[4];
         ldsm_x4_t(bf, b_addr_kn(Kt, LD, kk * 16, p * 16, lane));
-        mma_bf16(dq[2 * p], hi, bf[0], bf[1]);
-        mma_bf16(dq[2 * p], lo, bf[0], bf[1]);
-        mma_bf16(dq[2 * p + 1], hi, bf[2], bf[3]);
-        mma_bf16(dq[2 * p + 1], lo, bf[2], bf[3]);
+        mma16<E>(dq[2 * p], hi, bf[0], bf[1]);
+        mma16<E>(dq[2 * p], lo, bf[0], bf[1]);
+        mma16<E>(dq[2 * p + 1], hi, bf[2], bf[3]);
+        mma16<E>(dq[2 * p + 1], lo, bf[2], bf[3]);
       }
     }
     __syncthreads();                   // every warp is done with this stage
@@ -757,41 +790,46 @@ __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(const BwdAr
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row < a.Tq) {
-      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out0) + b * a.os.b + h * a.os.h +
-                           (long long)row * a.os.t + 2 * t;
+      E* dst = static_cast<E*>(a.out0) + b * a.os.b + h * a.os.h + (long long)row * a.os.t +
+               2 * t;
+      float u = 1.f;                   // f16: the sums' unit
+      if constexpr (is_f16<E>) u = exp2i(eq[i] - F16_TOP);
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-            __floats2bfloat162_rn(dq[n][2 * i], dq[n][2 * i + 1]);
+      for (int n = 0; n < ND; ++n) store2<E>(dst + n * 8, dq[n][2 * i] * u, dq[n][2 * i + 1] * u);
     }
   }
 }
 
-template <int D>
+template <typename E, int D>
 int launch_dq_tc(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr int LD = D + 8;
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (2 * BQ * LD + 4 * BK * LD) + sizeof(float) * (2 * BK + 2 * BQ);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>,
+  const size_t smem = sizeof(E) * (2 * BQ * LD + 4 * BK * LD) + sizeof(float) * (2 * BK + 2 * BQ);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<E, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * a.H, (a.Tq + BQ - 1) / BQ);
-  flash_bwd_dq_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(a);
+  flash_bwd_dq_tc_kernel<E, D><<<grid, TC_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <typename E>
 int dispatch_dq_tc(int D, const BwdArgs& a, int B, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_dq_tc<16>(a, B, stream);
-    case 32: return launch_dq_tc<32>(a, B, stream);
-    case 64: return launch_dq_tc<64>(a, B, stream);
-    case 128: return launch_dq_tc<128>(a, B, stream);
+    case 16: return launch_dq_tc<E, 16>(a, B, stream);
+    case 32: return launch_dq_tc<E, 32>(a, B, stream);
+    case 64: return launch_dq_tc<E, 64>(a, B, stream);
+    case 128: return launch_dq_tc<E, 128>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename E>
+int dispatch_tc(bool dkv, int D, const BwdArgs& a, int B, cudaStream_t s) {
+  return dkv ? dispatch_dkv_tc<E>(D, a, B, s) : dispatch_dq_tc<E>(D, a, B, s);
+}
+
 // which: 0 = dq, 1 = dk/dv, 2 = dk/dv on the tensor cores, 3 = dq on the
-// tensor cores (2 and 3 bf16 only)
+// tensor cores (2 and 3 bf16 and f16 only)
 int run(int which, int dtype, int D, const void* q, const void* k, const void* v,
         const void* kmask, const void* dout, const void* lse, const void* delta, void* out0,
         void* out1, int B, int H, int Tq, int Tk, const long long* st, int mask_div, float scale,
@@ -804,17 +842,19 @@ int run(int which, int dtype, int D, const void* q, const void* k, const void* v
             use_dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (which >= 2) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-    return which == 2 ? dispatch_dkv_tc(D, a, B, s) : dispatch_dq_tc(D, a, B, s);
+    if (dtype == 1) return dispatch_tc<__nv_bfloat16>(which == 2, D, a, B, s);
+    if (dtype == 2) return dispatch_tc<__half>(which == 2, D, a, B, s);
+    return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0) return dispatch_d<float>(which == 1, D, a, B, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(which == 1, D, a, B, s);
+  if (dtype == 2) return dispatch_d<__half>(which == 1, D, a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. kmask may be null (no mask); its row for
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. kmask may be null (no mask); its row for
 // batch*head bh is bh / mask_div. lse and delta are (B*H, Tq) float32,
 // contiguous. strides holds 15 (batch, head, seq) element strides: q, k, v,
 // dO, then the output(s) (dq; or dk and dv, which share one layout). seed
@@ -844,7 +884,7 @@ extern "C" int mxtt_flash_attn_bwd_dkv(int dtype, int D, const void* q, const vo
              mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
 }
 
-// The tensor-core dk/dv kernel: dtype must be 1 (bfloat16) and D one of
+// The tensor-core dk/dv kernel: dtype must be 1 (bfloat16) or 2 (float16) and D one of
 // 16, 32, 64, 128; q, k, v, dO and the outputs' rows 16-byte aligned.
 // Arguments as for mxtt_flash_attn_bwd_dkv.
 extern "C" int mxtt_flash_attn_bwd_dkv_tc(int dtype, int D, const void* q, const void* k,
@@ -858,7 +898,7 @@ extern "C" int mxtt_flash_attn_bwd_dkv_tc(int dtype, int D, const void* q, const
              mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
 }
 
-// The tensor-core dq kernel: dtype must be 1 (bfloat16) and D one of 16,
+// The tensor-core dq kernel: dtype must be 1 (bfloat16) or 2 (float16) and D one of 16,
 // 32, 64, 128; q, k, v, dO and dq's rows 16-byte aligned. Arguments as for
 // mxtt_flash_attn_bwd_dq.
 extern "C" int mxtt_flash_attn_bwd_dq_tc(int dtype, int D, const void* q, const void* k,

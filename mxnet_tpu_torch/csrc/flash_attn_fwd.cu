@@ -22,14 +22,15 @@
 // Two kernels, routed by the wrapper on dtype and head dim (not a
 // fallback: a CUDA tensor always launches one of them, or raises):
 //
-// flash_fwd_tc_kernel, bf16 and D in {16, 32, 64, 128}: the tensor-core
-// design. One block of four warps per (batch*head, 64-row q tile); each
-// warp owns 16 q rows. The two products have bf16 operands and f32 sums
-// in the JAX kernel (S = Q.K^T; P cast to v's dtype before P.V), so
-// mma.sync.m16n8k16 bf16 -> f32 computes them as the reference does: Q's
+// flash_fwd_tc_kernel, bf16 or f16 and D in {16, 32, 64, 128}: the
+// tensor-core design, one template over the element type. One block of
+// four warps per (batch*head, 64-row q tile); each warp owns 16 q rows.
+// The two products have 16-bit operands and f32 sums in the JAX kernel
+// (S = Q.K^T; P cast to v's dtype before P.V), so mma.sync.m16n8k16
+// bf16 (or f16) -> f32 computes them as the reference does: Q's
 // A fragments stay in registers for the whole key loop, K and V come from
 // shared memory through ldmatrix (V transposed by ldmatrix.trans), and
-// the S accumulator turns into the bf16 A fragments of P.V in registers,
+// the S accumulator turns into the 16-bit A fragments of P.V in registers,
 // so P never touches shared memory. The online softmax runs on the
 // accumulator's registers, its row max and row sum shuffled across the
 // four lanes that share a row. 64-key tiles of K, V and the mask row come
@@ -43,8 +44,13 @@
 // descriptor or swizzle that is slightly off gives silently wrong tiles;
 // wgmma is a later redesign.
 //
-// flash_fwd_kernel, f32 (any listed D) and bf16 at D = 8: the first
-// design, scalar f32 FMAs out of shared memory.
+// flash_fwd_kernel, f32 (any listed D), and bf16 and f16 at D = 8: the
+// first design, scalar f32 FMAs out of shared memory.
+//
+// float16 needs nothing of its own here: P is at most the dropout keep
+// scale, the cast P -> f16 before P.V is what the JAX kernel does, and
+// o = acc / l is no larger than the largest |v|. The float16 backward's
+// products do (flash_attn_bwd.cu).
 //
 // In both, there is no head grouping and no padding to a block multiple:
 // the ragged edge of q and k is masked in the kernel. q, k, v and o are
@@ -54,6 +60,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "counter_keep.cuh"
@@ -68,11 +75,15 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 struct Strides {
@@ -253,11 +264,11 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* k
 // ------------------------------------------------------------ tensor cores
 constexpr int TC_THREADS = 128;  // four warps of 16 q rows each
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ kmask,
-                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int Tq, int Tk,
+flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, const float* __restrict__ kmask,
+                    E* __restrict__ o, float* __restrict__ lse, int H, int Tq, int Tk,
                     Strides qs, Strides ks, Strides vs, Strides os, int mask_div, float scale,
                     int causal, const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
                     float keep_scale, int use_dropout) {
@@ -270,18 +281,18 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   constexpr int NK = BK / 8;   // n-tiles of Q.K^T, one per 8 keys
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BQ x LD
-  __nv_bfloat16* Ks = Qs + BQ * LD;                                  // 2 x BK x LD
-  __nv_bfloat16* Vs = Ks + 2 * BK * LD;                              // 2 x BK x LD
-  float* Ms = reinterpret_cast<float*>(Vs + 2 * BK * LD);           // 2 x BK
+  E* Qs = reinterpret_cast<E*>(smem_raw);                  // BQ x LD
+  E* Ks = Qs + BQ * LD;                                    // 2 x BK x LD
+  E* Vs = Ks + 2 * BK * LD;                                // 2 x BK x LD
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // 2 x BK
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
   const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const __nv_bfloat16* kp = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vp = v + b * vs.b + h * vs.h;
+  const E* kp = k + b * ks.b + h * ks.h;
+  const E* vp = v + b * vs.b + h * vs.h;
   const float* mrow = kmask ? kmask + (long long)(bh / mask_div) * Tk : nullptr;
 
   // one commit group per key tile: K, V and the mask row into a stage
@@ -320,11 +331,11 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], a_addr(Qs, LD, warp * 16, kk * 16, lane));
     }
-    const __nv_bfloat16* Kt = Ks + stage * BK * LD;
-    const __nv_bfloat16* Vt = Vs + stage * BK * LD;
+    const E* Kt = Ks + stage * BK * LD;
+    const E* Vt = Vs + stage * BK * LD;
     const float* Mt = Ms + stage * BK;
 
-    // S = Q.K^T: bf16 operands, f32 sums
+    // S = Q.K^T: 16-bit operands, f32 sums
     float s[NK][4];
 #pragma unroll
     for (int j = 0; j < NK; ++j)
@@ -336,8 +347,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       for (int p = 0; p < NK / 2; ++p) {
         uint32_t bf[4];
         ldsm_x4(bf, b_addr_nk(Kt, LD, p * 16, kk * 16, lane));
-        mma_bf16(s[2 * p], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * p + 1], qf[kk], bf[2], bf[3]);
+        mma16<E>(s[2 * p], qf[kk], bf[0], bf[1]);
+        mma16<E>(s[2 * p + 1], qf[kk], bf[2], bf[3]);
       }
     }
 
@@ -426,21 +437,21 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         }
     }
 
-    // P.V: P cast to bf16 (v's dtype); the S fragments of keys 16kk.. are
-    // the A fragment of k-step kk
+    // P.V: P cast to v's dtype; the S fragments of keys 16kk.. are the A
+    // fragment of k-step kk
 #pragma unroll
     for (int kk = 0; kk < NK / 2; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pa[0] = pack2<E>(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack2<E>(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack2<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack2<E>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int p = 0; p < ND / 2; ++p) {
         uint32_t bf[4];
         ldsm_x4_t(bf, b_addr_kn(Vt, LD, kk * 16, p * 16, lane));
-        mma_bf16(acc[2 * p], pa, bf[0], bf[1]);
-        mma_bf16(acc[2 * p + 1], pa, bf[2], bf[3]);
+        mma16<E>(acc[2 * p], pa, bf[0], bf[1]);
+        mma16<E>(acc[2 * p + 1], pa, bf[2], bf[3]);
       }
     }
     __syncthreads();                   // every warp is done with this stage
@@ -451,38 +462,56 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     const int row = row0 + i * 8;
     if (row < Tq) {
       const float safe_l = fmaxf(l_i[i], 1e-30f);
-      __nv_bfloat16* orow = o + b * os.b + h * os.h + (long long)row * os.t + 2 * t;
+      E* orow = o + b * os.b + h * os.h + (long long)row * os.t + 2 * t;
 #pragma unroll
       for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-            __floats2bfloat162_rn(acc[n][2 * i] / safe_l, acc[n][2 * i + 1] / safe_l);
+        store2<E>(orow + n * 8, acc[n][2 * i] / safe_l, acc[n][2 * i + 1] / safe_l);
       if (t == 0) lse[(long long)bh * Tq + row] = m_i[i] + logf(safe_l);
     }
   }
 }
 
-template <int D>
+template <typename E, int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
               int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
               int mask_div, float scale, int causal, const uint32_t* seed, uint32_t thresh,
               float keep_scale, int use_dropout, cudaStream_t stream) {
   constexpr int LD = D + 8;
-  const size_t smem = sizeof(__nv_bfloat16) * (BQ * LD + 4 * BK * LD) + sizeof(float) * 2 * BK;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+  const size_t smem = sizeof(E) * (BQ * LD + 4 * BK * LD) + sizeof(float) * 2 * BK;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<E, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_fwd_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmask),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Tq, Tk, qs, ks, vs, os,
-      mask_div, scale, causal, seed, thresh, keep_scale, use_dropout);
+  flash_fwd_tc_kernel<E, D><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<const float*>(kmask), static_cast<E*>(o), static_cast<float*>(lse), H, Tq,
+      Tk, qs, ks, vs, os, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int dispatch_tc(int D, const void* q, const void* k, const void* v, const void* kmask, void* o,
+                void* lse, int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
+                Strides os, int mask_div, float scale, int causal, const uint32_t* seed,
+                uint32_t thresh, float keep_scale, int use_dropout, cudaStream_t stream) {
+#define MXTT_FA_TC_CASE(DD)                                                                  \
+  case DD:                                                                                   \
+    return launch_tc<E, DD>(q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,  \
+                            scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+  switch (D) {
+    MXTT_FA_TC_CASE(16)
+    MXTT_FA_TC_CASE(32)
+    MXTT_FA_TC_CASE(64)
+    MXTT_FA_TC_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MXTT_FA_TC_CASE
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. kmask may be null (no mask); its row for
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. kmask may be null (no mask); its row for
 // batch*head bh is bh / mask_div (mask_div = H for a per-batch mask).
 // lse is (B*H, Tq) float32, contiguous. seed points at the dropout seed on
 // the device (its first 32-bit word), read once per block and only when
@@ -507,11 +536,15 @@ extern "C" int mxtt_flash_attn_fwd(int dtype, int D, const void* q, const void* 
     return dispatch_d<__nv_bfloat16>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
                                      mask_div, scale, causal, seed, thresh, keep_scale,
                                      use_dropout, st);
+  if (dtype == 2)
+    return dispatch_d<__half>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,
+                              scale, causal, seed, thresh, keep_scale, use_dropout, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel: dtype must be 1 (bfloat16) and D one of 16, 32,
-// 64, 128; q, k, v and o rows 16-byte aligned. Arguments as above.
+// The tensor-core kernel: dtype must be 1 (bfloat16) or 2 (float16) and D
+// one of 16, 32, 64, 128; q, k, v and o rows 16-byte aligned. Arguments as
+// above.
 extern "C" int mxtt_flash_attn_fwd_tc(int dtype, int D, const void* q, const void* k,
                                       const void* v, const void* kmask, void* o, void* lse,
                                       int B, int H, int Tq, int Tk, long long q_sb,
@@ -521,21 +554,16 @@ extern "C" int mxtt_flash_attn_fwd_tc(int dtype, int D, const void* q, const voi
                                       long long o_sh, long long o_st, int mask_div, float scale,
                                       int causal, const unsigned int* seed, unsigned int thresh,
                                       float keep_scale, int use_dropout, void* stream) {
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st},
       os{o_sb, o_sh, o_st};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MXTT_FA_TC_CASE(DD)                                                                  \
-  case DD:                                                                                   \
-    return launch_tc<DD>(q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,     \
-                         scale, causal, seed, thresh, keep_scale, use_dropout, st);
-  switch (D) {
-    MXTT_FA_TC_CASE(16)
-    MXTT_FA_TC_CASE(32)
-    MXTT_FA_TC_CASE(64)
-    MXTT_FA_TC_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef MXTT_FA_TC_CASE
+  if (dtype == 1)
+    return dispatch_tc<__nv_bfloat16>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
+                                      mask_div, scale, causal, seed, thresh, keep_scale,
+                                      use_dropout, st);
+  if (dtype == 2)
+    return dispatch_tc<__half>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
+                               mask_div, scale, causal, seed, thresh, keep_scale, use_dropout,
+                               st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -39,8 +39,9 @@ the input, and the Parameters are initialised as ``initialize`` asked.
 
 ``hybridize()``. The outermost hybridized block of a call keeps one entry
 per key, as ``CachedOp.__call__`` keys its compiles: the inputs' shapes
-and dtypes, the training flag, whether autograd records, and the
-parameters' names. On the card:
+and dtypes, the training flag, whether autograd records, the AMP
+patch epoch (a graph captured before ``amp.init()`` is not replayed after
+it, nor the other way round) and the parameters' names. On the card:
 
 - without autograd (predict mode, or ``autograd.train_mode()`` outside
   ``record()``, or tensors under ``no_grad``) the forward is captured as
@@ -89,6 +90,7 @@ from ..base import MXNetError, state, telem_flags as _telem
 from ..ndarray.ndarray import NDArray
 from .. import ndarray as nd
 from .. import _imperative
+from ..amp import amp as _amp
 from .. import autograd as _autograd
 from .. import random as _random
 from .._capture import capture, graph_generators, module_generators
@@ -540,15 +542,17 @@ class CachedOp:
     def key(self, args):
         """The cache key of a call: the arguments' shapes, dtypes and
         requires_grad (a non-tensor by its repr), the block's training
-        flag, whether autograd records, inference mode, and the
-        parameters' structured names (never the block's prefix)."""
+        flag, whether autograd records, inference mode, the AMP patch
+        epoch (``amp.init``/``_deinit`` change the ops a forward runs, as
+        in the JAX package's key) and the parameters' structured names
+        (never the block's prefix)."""
         block = self.block
         grad = self._grad(args)
         return (tuple((tuple(a.shape), a.dtype, a.requires_grad)
                       if isinstance(a, torch.Tensor) else repr(a)
                       for a in args),
                 block.training, grad, torch.is_inference_mode_enabled(),
-                self.param_names())
+                _amp.patch_epoch(), self.param_names())
 
     def _grad(self, args):
         return torch.is_grad_enabled() and (
@@ -558,7 +562,7 @@ class CachedOp:
 
     def __call__(self, args):
         key = self.key(args)
-        _, training, grad, inference, _ = key
+        _, training, grad, inference, _, _ = key
         entry = self._cache.get(key)
         site = f'cachedop:{self.block.name}'
         if entry is not None:

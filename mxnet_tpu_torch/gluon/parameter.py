@@ -25,7 +25,8 @@ functions take it in the tensor's place (``__torch_function__``:
 ``t.copy_(param)``), and ``grad`` reads as torch's: None while the tensor
 has no ``.grad``, else an accessor that gives the NDArray when called
 (``p.grad()``, MXNet) and stands for the gradient tensor otherwise.
-``p.grad = None`` clears the tensor's ``.grad``.
+``p.grad = None`` clears the tensor's ``.grad``. ``copy.deepcopy`` of a
+block gives each Parameter a tensor and a gradient of its own.
 
 Device. A Parameter whose shape is known is placed when its block is
 built, on the block's ``device`` or the current context's (``gpu(0)``
@@ -39,6 +40,7 @@ as in MXNet.
 """
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
 
 import numpy as onp
@@ -145,6 +147,19 @@ class Parameter:
             if self._home is not None:
                 init_mod.Zero()(init_mod.InitDesc(name), self._var)
                 self._ready = True
+
+    def __deepcopy__(self, memo):
+        """A copy with a tensor and a gradient of its own, as the JAX
+        Parameter's deep copy (``amp.convert_hybrid_block`` clones a model
+        with ``copy.deepcopy``): torch's Parameter copy leaves ``.grad``
+        behind, so the gradient is carried over here."""
+        new = object.__new__(type(self))
+        memo[id(self)] = new
+        for k, v in self.__dict__.items():
+            new.__dict__[k] = copy.deepcopy(v, memo)
+        if self._var.grad is not None:
+            new._var.grad = copy.deepcopy(self._var.grad, memo)
+        return new
 
     # ---- the tensor ---------------------------------------------------
     @property

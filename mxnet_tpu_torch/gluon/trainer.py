@@ -29,12 +29,12 @@ what its buffer holds: its last gradient, zero if it never had one.
 ``zero_grad(set_to_none=False)`` zeroes the ``.grad`` tensors instead,
 as the JAX ``Parameter.zero_grad()`` zeroes the buffer.
 
-The fused update. An optimizer with ``fused_update = True`` (SGD, NAG,
-Adam, AdamW, LAMB) has every parameter's update run as one program, the
-JAX Trainer's ``_fused_apply``: the per-step scalars (each parameter's
-lr and wd, its update count t, rescale_grad) go into one device vector
-that the optimizer reads in place of its Python values, as the JAX
-Trainer feeds them to its trace. On the card the program is captured once
+The fused update. An optimizer with ``fused_update = True`` (all but
+LARS, SGLD and Nadam, as in the JAX package) has every parameter's
+update run as one program, the JAX Trainer's ``_fused_apply``: the
+per-step scalars (each parameter's lr and wd, its update count t,
+rescale_grad) go into one device vector that the optimizer reads in
+place of its Python values, as the JAX Trainer feeds them to its trace. On the card the program is captured once
 per (parameters, optimizer class, dtypes) as a CUDA graph, after one
 eager run that is that step's update, and replayed on every later step;
 weights, masters and states are updated in place by the replay, so they
@@ -53,10 +53,18 @@ and the fused update's capture is a compile of site
 ``trainer:fused_update`` (the compile ledger when armed, else the
 compile counters).
 
+AMP, as in the JAX Trainer: after ``amp.init_trainer(trainer)``,
+``amp.scale_loss`` sets ``_scale`` to the original scale over the loss
+scale, so ``rescale_grad`` (a device scalar of the captured update, so a
+new loss scale recaptures nothing) divides the scaled gradients back.
+With a dynamic scaler each update first reduces the finiteness of every
+gradient buffer on the device (one host sync); a non-finite one skips the
+update, update counts included, and halves the scale.
+
 Single device only: the kvstore types 'device' and 'local' (and None) are
 accepted and mean nothing; a distributed kvstore, gradient compression and
 update_on_kvstore raise. The guard, elastic and ZeRO hooks of the JAX
-Trainer are not ported.
+Trainer are not ported (ROADMAP queue 1 items 6-9).
 """
 from __future__ import annotations
 
@@ -176,6 +184,15 @@ class Trainer:
     @torch.no_grad()
     def _update(self):
         items = self._gather_grads()
+        # AMP's dynamic loss scaling: on a non-finite gradient the update
+        # is skipped (no update count moves) and the scale shrinks,
+        # decided before the fused update replays
+        scaler = getattr(self, '_amp_loss_scaler', None)
+        if scaler is not None and scaler.dynamic:
+            overflow = scaler.has_overflow([g for _, _, g in items])
+            scaler.update_scale(overflow)
+            if overflow:
+                return
         if not self._fused_apply(items):
             for i, p, g in items:
                 self._updater(i, g, p)

@@ -33,6 +33,7 @@ import torch
 from ..context import resolve_device
 from ..gluon import nn
 from ..gluon.block import HybridBlock
+from .. import ndarray as nd
 from ..ops import attention as attn_ops
 from ..ops import nn as F
 
@@ -193,25 +194,21 @@ class BertForPretraining(HybridBlock):
         return mlm, self.nsp(pooled)
 
 
-def _pick(data, index):
-    """data[..., index] along the last axis, the index clipped to range."""
-    idx = index.to(torch.int64).clamp(0, data.shape[-1] - 1)
-    return torch.gather(data, -1, idx[..., None])[..., 0]
-
-
 def masked_cross_entropy(logits, labels):
     """Mean cross entropy over the positions where labels >= 0 (-1 marks
-    padding / unmasked)."""
-    logp = F.log_softmax(logits, axis=-1)
-    valid = labels >= 0
-    safe = torch.where(valid, labels, torch.zeros_like(labels))
-    token_loss = -_pick(logp, safe) * valid
-    return token_loss.sum() / (valid.sum() + 1e-6)
+    padding / unmasked). Through the ``nd`` ops the JAX function calls,
+    so ``amp.init`` reaches them as it does there (``log_softmax``,
+    ``sum`` in f32)."""
+    logp = nd.log_softmax(logits, axis=-1)
+    valid = (labels >= 0).to(logp.dtype)
+    safe = nd.where(valid, labels, nd.zeros_like(labels))
+    token_loss = -nd.pick(logp, safe, axis=-1) * valid
+    return nd.sum(token_loss) / (nd.sum(valid) + 1e-6)
 
 
 def bert_pretrain_loss(mlm_logits, nsp_logits, labels, nsp_labels):
     """Masked-LM + NSP cross entropy, each a mean. labels: (N, M) with -1
     where there is nothing to predict."""
     mlm_loss = masked_cross_entropy(mlm_logits, labels)
-    nsp_logp = F.log_softmax(nsp_logits, axis=-1)
-    return mlm_loss + (-_pick(nsp_logp, nsp_labels)).mean()
+    nsp_logp = nd.log_softmax(nsp_logits, axis=-1)
+    return mlm_loss + nd.mean(-nd.pick(nsp_logp, nsp_labels, axis=-1))

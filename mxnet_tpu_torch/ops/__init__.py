@@ -17,9 +17,10 @@ PyTorch, as the JAX package left them to XLA).
 
 ``launch_counts`` counts each kernel's launches, ``variant_counts`` the
 launches of the flash forward, dq, dk/dv and FFN1 kernels by variant
-(see ``_build``).
+and ``dtype_counts`` by dtype (see ``_build``).
 """
-from ._build import launch_counts, reset_launch_counts, variant_counts
+from ._build import (dtype_counts, launch_counts, reset_launch_counts,
+                     variant_counts)
 from . import (attention, elemwise, flash_attention, fused_ffn,
                fused_layernorm, index, init, matrix, nn, optimizer_ops,
                reduce)
@@ -27,4 +28,4 @@ from . import (attention, elemwise, flash_attention, fused_ffn,
 __all__ = ['attention', 'elemwise', 'flash_attention', 'fused_ffn',
            'fused_layernorm', 'index', 'init', 'matrix', 'nn',
            'optimizer_ops', 'reduce', 'launch_counts', 'reset_launch_counts',
-           'variant_counts']
+           'variant_counts', 'dtype_counts']

@@ -20,8 +20,10 @@ where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels. ``variant_counts`` splits the
 launches of the kernels that come in several variants: the flash forward,
 dq and dk/dv (``'tc'`` on the tensor cores, ``'simt'`` the first design)
-and FFN1 (``'tc'`` wgmma + TMA, ``'wmma'`` the first bf16 design,
-``'simt'`` f32).
+and FFN1 (``'tc'`` wgmma + TMA, ``'wmma'`` the first 16-bit design,
+``'simt'`` f32). ``dtype_counts`` splits every kernel's launches by the
+inputs' dtype (``'flash_attn_fwd.float16'``); ``count_launch`` moves all
+three.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ import time
 from ..base import MXNetError
 from ..telemetry import compile as _compile
 
-__all__ = ['launch_counts', 'variant_counts', 'reset_launch_counts',
+__all__ = ['launch_counts', 'variant_counts', 'dtype_counts',
+           'count_launch', 'reset_launch_counts',
            'library', 'build_all', 'ptxas_report', 'check', 'SOURCES',
            'build_dir', 'triton_first_launch']
 
@@ -55,6 +58,7 @@ variant_counts = {'flash_attn_fwd.tc': 0, 'flash_attn_fwd.simt': 0,
                   'flash_attn_bwd_dkv.tc': 0, 'flash_attn_bwd_dkv.simt': 0,
                   'dense_gelu.tc': 0, 'dense_gelu.wmma': 0,
                   'dense_gelu.simt': 0}
+dtype_counts = {}
 
 _lock = threading.Lock()
 _libs = {}
@@ -73,6 +77,17 @@ def reset_launch_counts():
     for counts in (launch_counts, variant_counts):
         for k in counts:
             counts[k] = 0
+    dtype_counts.clear()
+
+
+def count_launch(kernel, variant, dtype):
+    """One launch of ``kernel`` (in ``variant``, for a kernel that has
+    variants) on ``dtype`` inputs."""
+    launch_counts[kernel] += 1
+    if variant is not None:
+        variant_counts[f'{kernel}.{variant}'] += 1
+    key = f'{kernel}.{str(dtype)[len("torch."):]}'
+    dtype_counts[key] = dtype_counts.get(key, 0) + 1
 
 
 def _nvcc():

@@ -15,10 +15,18 @@ torch f32. There is no fallback from one to the other.
 
 The forward, dq and dk/dv kernels each come in two variants, chosen by
 ``kernel_variant`` from the dtype and the head dim alone: ``'tc'`` runs
-the products on the tensor cores (bf16, D a multiple of 16, 16-byte
-aligned rows, else the wrapper raises), ``'simt'`` is the first design in
-scalar f32 FMAs (f32, or D = 8). The backward's two kernels take one
-variant. ``_build.variant_counts`` records which one each launch took.
+the products on the tensor cores (bfloat16 or float16, D a multiple of
+16, 16-byte aligned rows, else the wrapper raises), ``'simt'`` is the
+first design in scalar f32 FMAs (f32, or D = 8). The backward's two
+kernels take one variant. ``_build.variant_counts`` records which one
+each launch took, ``_build.dtype_counts`` in which dtype.
+
+In float16 the tensor-core backward cannot split its f32 operands (ds,
+and p*keep) into two float16 terms as the bfloat16 kernels do: float16
+overflows above 65504, and under the float16 AMP recipe dO carries the
+loss scale, so ds reaches that. ``split_f16`` gives the kernels' answer:
+each row is scaled by a power of two that brings its largest magnitude
+into [2**14, 2**15) before the split, and the product is scaled back.
 
 Attention dropout is the JAX package's counter hash (``counter_keep``):
 the keep mask is a pure function of (seed, batch*head, row, col), so the
@@ -45,14 +53,17 @@ __all__ = ['flash_attention', 'flash_attention_forward',
            'flash_attention_backward', 'flash_attention_reference',
            'flash_attention_backward_reference', 'counter_keep',
            'dropout_threshold', 'seed_tensor', 'split_bf16',
-           'kernel_variant',
+           'split_f16', 'kernel_variant',
            'KERNEL_HEAD_DIMS', 'TC_HEAD_DIMS']
 
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 TC_HEAD_DIMS = (16, 32, 64, 128)       # the tensor-core variants' head dims
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TC_DTYPES = (torch.bfloat16, torch.float16)
+F16_TOP = 14         # split_f16 scales a row's largest |x| below 2**15
+F16_MIN_EXP = -100   # the least row exponent split_f16 scales by
 
 
 def dropout_threshold(rate):
@@ -61,9 +72,10 @@ def dropout_threshold(rate):
 
 
 def kernel_variant(dtype, D):
-    """'tc' (tensor cores) for bfloat16 at a head dim in ``TC_HEAD_DIMS``,
-    else 'simt': the kernel the forward, dq and dk/dv wrappers launch."""
-    return 'tc' if dtype == torch.bfloat16 and D in TC_HEAD_DIMS else 'simt'
+    """'tc' (tensor cores) for bfloat16 and float16 at a head dim in
+    ``TC_HEAD_DIMS``, else 'simt': the kernel the forward, dq and dk/dv
+    wrappers launch."""
+    return 'tc' if dtype in _TC_DTYPES and D in TC_HEAD_DIMS else 'simt'
 
 
 def split_bf16(x):
@@ -72,6 +84,25 @@ def split_bf16(x):
     operand (ds; p*keep). hi + lo is within 2**-16 |x| of x."""
     hi = x.to(torch.bfloat16)
     return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def split_f16(x):
+    """(hi, lo, e): the float16 tensor-core backward's split of an f32
+    operand, row by row (the last dim). e (int32, one per row) is the
+    exponent of the row's largest |x|, at least ``F16_MIN_EXP``; with
+    y = x * 2**(F16_TOP - e), whose magnitudes are below 2**15,
+    hi = f16(y) and lo = f16(y - hi), so x = (hi + lo) * 2**(e - F16_TOP)
+    within 2**-22 |x| plus 2**-25 of the scale (where y is subnormal in
+    float16). The kernels multiply both terms against the exact float16
+    operand with f32 sums and scale the sum back by 2**(e - F16_TOP); a
+    non-finite x stays non-finite. In the kernels e is the largest
+    exponent of the tiles seen so far along the row (the sums rescaled
+    when it grows); over one tile, as here, it is the row's."""
+    m = x.abs().amax(-1, keepdim=True)
+    e = (torch.frexp(m)[1] - 1).clamp_min(F16_MIN_EXP)   # floor(log2 m)
+    y = x * torch.exp2((F16_TOP - e).to(torch.float32))
+    hi = y.to(torch.float16)
+    return hi, (y - hi.float()).to(torch.float16), e[..., 0]
 
 
 def _mul32(a, c):
@@ -249,8 +280,8 @@ def _check_kernel_inputs(q, k, v, *more):
             raise MXNetError(f"flash_attention: {name} needs a unit "
                              f"stride on D")
     if q.dtype not in _DTYPE_CODE:
-        raise MXNetError(f"flash_attention kernel takes float32 or "
-                         f"bfloat16, got {q.dtype}")
+        raise MXNetError(f"flash_attention kernel takes float32, bfloat16 "
+                         f"or float16, got {q.dtype}")
     B, H, _, D = q.shape
     if k.shape[:2] != (B, H) or v.shape != k.shape or k.shape[3] != D:
         raise MXNetError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -273,7 +304,7 @@ def _check_rows(name, t, q, BH, Tq):
 
 
 def _tc_aligned(t):
-    """Whether every (B, H, T) row of a bf16 tensor starts on 16 bytes, as
+    """Whether every (B, H, T) row of a 16-bit tensor starts on 16 bytes, as
     the tensor-core kernels' 16-byte copies need: the base, and the
     strides of the dims longer than 1, in multiples of 8 elements."""
     return t.data_ptr() % 16 == 0 and all(
@@ -291,8 +322,8 @@ def _pick_variant(q, named, forced):
     if variant == 'tc':
         if kernel_variant(q.dtype, D) != 'tc':
             raise MXNetError(f"flash_attention: the tensor-core kernel takes "
-                             f"bfloat16 with a head dim in {TC_HEAD_DIMS}, "
-                             f"got {q.dtype}, D={D}")
+                             f"bfloat16 or float16 with a head dim in "
+                             f"{TC_HEAD_DIMS}, got {q.dtype}, D={D}")
         for name, t in named:
             if not _tc_aligned(t):
                 raise MXNetError(
@@ -348,8 +379,7 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed,
             *_dropout_args(dropout_p, seed),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, f'flash_attn_fwd ({variant})')
-    _build.launch_counts['flash_attn_fwd'] += 1
-    _build.variant_counts[f'flash_attn_fwd.{variant}'] += 1
+    _build.count_launch('flash_attn_fwd', variant, q.dtype)
     return o, lse.reshape(B, H, Tq)
 
 
@@ -398,8 +428,7 @@ def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
         rc = _bwd_fn(name)(*common, *(t.data_ptr() for t in outs), B, H,
                            Tq, Tk, strides, *tail)
         _build.check(rc, name)
-        _build.launch_counts[count] += 1
-        _build.variant_counts[f'{count}.{variant}'] += 1
+        _build.count_launch(count, variant, q.dtype)
     return dq, dk, dv
 
 

@@ -4,10 +4,11 @@ version, and the autograd Function around them (counterpart of
 bound and their designs are described in ``csrc/dense_gelu.cu``.
 
 Three kernels, chosen by ``kernel_variant`` from the dtype and K alone:
-``'tc'`` (wgmma fed by TMA; bf16 with K a multiple of 8, x and w on
-16-byte aligned addresses, else the wrapper raises), ``'wmma'`` (the first
-bf16 design, any K) and ``'simt'`` (f32). ``_build.variant_counts``
-records which one each launch took.
+``'tc'`` (wgmma fed by TMA; bfloat16 or float16 with K a multiple of 8, x
+and w on 16-byte aligned addresses, else the wrapper raises), ``'wmma'``
+(the first 16-bit design, any K) and ``'simt'`` (f32).
+``_build.variant_counts`` records which one each launch took,
+``_build.dtype_counts`` in which dtype.
 
 The backward is ``_bwd``'s math in plain PyTorch, as the JAX package's is
 plain ``jnp`` outside any Pallas kernel: it saves only (x, w, b) and
@@ -29,14 +30,15 @@ __all__ = ['fused_dense_gelu', 'dense_gelu_reference',
            'dense_gelu_backward', 'kernel_variant']
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)
 
 
 def kernel_variant(dtype, K):
-    """'tc' (wgmma + TMA) for bfloat16 with K a multiple of 8 (a tensor
-    map's rows are 16-byte strided), 'wmma' for bfloat16 at any other K,
-    else 'simt': the kernel the wrapper launches."""
-    if dtype == torch.bfloat16:
+    """'tc' (wgmma + TMA) for bfloat16 and float16 with K a multiple of 8
+    (a tensor map's rows are 16-byte strided), 'wmma' for those at any
+    other K, else 'simt': the kernel the wrapper launches."""
+    if dtype in _HALF:
         return 'tc' if K % 8 == 0 else 'wmma'
     return 'simt'
 
@@ -46,8 +48,8 @@ def _pick_variant(x, w, forced):
     one. Raises where the named kernel cannot take the inputs."""
     K = x.shape[-1]
     variant = forced or kernel_variant(x.dtype, K)
-    takes = {'tc': x.dtype == torch.bfloat16 and K % 8 == 0,
-             'wmma': x.dtype == torch.bfloat16,
+    takes = {'tc': x.dtype in _HALF and K % 8 == 0,
+             'wmma': x.dtype in _HALF,
              'simt': x.dtype == torch.float32}
     if variant not in takes:
         raise MXNetError(f"fused_dense_gelu: unknown kernel variant "
@@ -78,8 +80,8 @@ def _launch(x, w, b, variant=None):
         raise MXNetError("fused_dense_gelu: all inputs must be on CUDA")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype or b.dtype != x.dtype:
         raise MXNetError(f"fused_dense_gelu: x, w, b must share one dtype "
-                         f"of float32/bfloat16, got {x.dtype}, {w.dtype}, "
-                         f"{b.dtype}")
+                         f"of float32/bfloat16/float16, got {x.dtype}, "
+                         f"{w.dtype}, {b.dtype}")
     K = x.shape[-1]
     if w.dim() != 2 or w.shape[1] != K or b.shape != (w.shape[0],):
         raise MXNetError(f"fused_dense_gelu: w {tuple(w.shape)} / b "
@@ -96,21 +98,15 @@ def _launch(x, w, b, variant=None):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if variant == 'tc':
         fn = lib.mxtt_dense_gelu_tc
-        if fn.argtypes is None:
-            fn.argtypes = [vp, vp, vp, vp, i, i, i, vp]
-            fn.restype = ctypes.c_int
-        rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                M, N, K, stream)
     else:
         fn = lib.mxtt_dense_gelu
-        if fn.argtypes is None:
-            fn.argtypes = [i, vp, vp, vp, vp, i, i, i, vp]
-            fn.restype = ctypes.c_int
-        rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-                b.data_ptr(), out.data_ptr(), M, N, K, stream)
+    if fn.argtypes is None:
+        fn.argtypes = [i, vp, vp, vp, vp, i, i, i, vp]
+        fn.restype = ctypes.c_int
+    rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), M, N, K, stream)
     _build.check(rc, f'dense_gelu ({variant})')
-    _build.launch_counts['dense_gelu'] += 1
-    _build.variant_counts[f'dense_gelu.{variant}'] += 1
+    _build.count_launch('dense_gelu', variant, x.dtype)
     return out
 
 

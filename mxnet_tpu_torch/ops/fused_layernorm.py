@@ -106,7 +106,7 @@ def _launch(x, res, gamma, beta, eps):
         'fused_add_layernorm', key, lambda: kernel[grid](
             x, res, gamma, beta, out, n_rows, C, float(eps),
             BLOCK_C=block_c, ROWS=_ROWS, num_warps=4))
-    _build.launch_counts['fused_add_layernorm'] += 1
+    _build.count_launch('fused_add_layernorm', None, x.dtype)
     return out
 
 
@@ -156,8 +156,13 @@ class _FusedAddLayerNorm(torch.autograd.Function):
 def fused_add_layer_norm(x, res, gamma, beta, eps=1e-5):
     """LN(x + res) * gamma + beta in one pass over the rows, differentiable
     in x, res, gamma and beta: the Triton kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    plain version for a CPU tensor. x and res are first promoted to
+    ``torch.result_type(x, res)``, as ``x + res`` is (under AMP the f32
+    residual stream meets a low-precision sublayer output), and the
+    output has that dtype."""
     if not x.is_cuda and x.device.type != 'cpu':
         raise MXNetError(f"fused_add_layer_norm: unsupported device "
                          f"{x.device}")
-    return _FusedAddLayerNorm.apply(x, res, gamma, beta, float(eps))
+    dt = torch.result_type(x, res)
+    return _FusedAddLayerNorm.apply(x.to(dt), res.to(dt), gamma, beta,
+                                    float(eps))

@@ -21,13 +21,16 @@ import torch
 
 __all__ = ['sgd_update', 'sgd_mom_update', 'mp_sgd_update',
            'mp_sgd_mom_update', 'nag_mom_update', 'adam_update',
-           'adamw_update', 'lamb_update_phase1', 'lamb_update_phase2',
-           'multi_sum_sq', 'all_finite', 'multi_sgd_update',
+           'adamw_update', 'ftrl_update', 'rmsprop_update',
+           'rmspropalex_update', 'signsgd_update', 'signum_update',
+           'adagrad_update', 'adadelta_update', 'ftml_update',
+           'lamb_update_phase1', 'lamb_update_phase2', 'multi_sum_sq',
+           'all_finite', 'multi_sgd_update',
            'multi_sgd_mom_update', 'multi_mp_sgd_update',
            'multi_mp_sgd_mom_update', 'preloaded_multi_sgd_update',
            'preloaded_multi_sgd_mom_update', 'preloaded_multi_mp_sgd_update',
            'preloaded_multi_mp_sgd_mom_update', 'multi_lamb_update',
-           'multi_adamw_update']
+           'multi_lans_update', 'multi_adamw_update']
 
 
 def _on(v):
@@ -131,6 +134,99 @@ def adamw_update(weight, grad, mean, var, rescale_grad=1.0, lr=0.001,
     new_w = w32 - eta * (lr * new_mean / (torch.sqrt(new_var) + epsilon)
                          + wd * lr * w32)
     return new_w.to(weight.dtype), new_mean, new_var
+
+
+def _clip_weights(w, clip_weights):
+    if clip_weights is not None and clip_weights > 0:
+        return w.clamp(-clip_weights, clip_weights)
+    return w
+
+
+def ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
+                rescale_grad=1.0, clip_gradient=-1.0):
+    """FTRL-proximal: (new weight, new z, new n)."""
+    g = _grad_prep(grad, rescale_grad, clip_gradient)
+    w32 = weight.to(torch.float32)
+    new_n = n + torch.square(g)
+    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / lr
+    new_z = z + g - sigma * w32
+    new_w = torch.where(
+        torch.abs(new_z) <= lamda1, torch.zeros_like(new_z),
+        -(new_z - torch.sign(new_z) * lamda1)
+        / ((beta + torch.sqrt(new_n)) / lr + wd))
+    return new_w.to(weight.dtype), new_z, new_n
+
+
+def rmsprop_update(weight, grad, n, lr=0.001, gamma1=0.9, epsilon=1e-8,
+                   wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                   clip_weights=-1.0):
+    g = _grad_prep(grad, rescale_grad, clip_gradient, wd, weight)
+    new_n = (1 - gamma1) * torch.square(g) + gamma1 * n
+    new_w = weight.to(torch.float32) - lr * g / torch.sqrt(new_n + epsilon)
+    return _clip_weights(new_w, clip_weights).to(weight.dtype), new_n
+
+
+def rmspropalex_update(weight, grad, n, g_acc, delta, lr=0.001, gamma1=0.95,
+                       gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0, clip_weights=-1.0):
+    """Centered RMSProp (Graves 2013): (new weight, n, g, delta)."""
+    g = _grad_prep(grad, rescale_grad, clip_gradient, wd, weight)
+    new_n = (1 - gamma1) * torch.square(g) + gamma1 * n
+    new_g = (1 - gamma1) * g + gamma1 * g_acc
+    new_delta = gamma2 * delta - lr * g / torch.sqrt(
+        new_n - torch.square(new_g) + epsilon)
+    new_w = weight.to(torch.float32) + new_delta
+    return (_clip_weights(new_w, clip_weights).to(weight.dtype), new_n,
+            new_g, new_delta)
+
+
+def signsgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    g = _grad_prep(grad, rescale_grad, clip_gradient)
+    w32 = weight.to(torch.float32)
+    return (w32 - lr * (torch.sign(g) + wd * w32)).to(weight.dtype)
+
+
+def signum_update(weight, grad, mom, lr=0.01, momentum=0.9, wd=0.0,
+                  rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
+    g = _grad_prep(grad, rescale_grad, clip_gradient, wd, weight)
+    new_mom = momentum * mom - (1 - momentum) * g
+    w32 = weight.to(torch.float32)
+    new_w = (1 - lr * wd_lh) * w32 + lr * torch.sign(new_mom)
+    return new_w.to(weight.dtype), new_mom
+
+
+def adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    g = _grad_prep(grad, rescale_grad, clip_gradient, wd, weight)
+    new_hist = history + torch.square(g)
+    new_w = weight.to(torch.float32) - \
+        lr * g / (torch.sqrt(new_hist) + epsilon)
+    return new_w.to(weight.dtype), new_hist
+
+
+def adadelta_update(weight, grad, acc_g, acc_delta, rho=0.9, epsilon=1e-5,
+                    wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    g = _grad_prep(grad, rescale_grad, clip_gradient, wd, weight)
+    new_acc_g = rho * acc_g + (1 - rho) * torch.square(g)
+    delta = torch.sqrt(acc_delta + epsilon) / \
+        torch.sqrt(new_acc_g + epsilon) * g
+    new_acc_delta = rho * acc_delta + (1 - rho) * torch.square(delta)
+    new_w = weight.to(torch.float32) - delta
+    return new_w.to(weight.dtype), new_acc_g, new_acc_delta
+
+
+def ftml_update(weight, grad, d, v, z, lr=0.01, beta1=0.6, beta2=0.999,
+                epsilon=1e-8, t=1, wd=0.0, rescale_grad=1.0, clip_grad=-1.0):
+    """Follow the Moving Leader: (new weight, d, v, z)."""
+    g = _grad_prep(grad, rescale_grad, clip_grad, wd, weight)
+    new_v = beta2 * v + (1 - beta2) * torch.square(g)
+    d_t = (1 - beta1 ** t) / lr * \
+        (torch.sqrt(new_v / (1 - beta2 ** t)) + epsilon)
+    sigma = d_t - beta1 * d
+    new_z = beta1 * z + (1 - beta1) * g - sigma * weight.to(torch.float32)
+    new_w = -new_z / d_t
+    return new_w.to(weight.dtype), d_t, new_v, new_z
 
 
 def lamb_update_phase1(weight, grad, mean, var, beta1=0.9, beta2=0.999,
@@ -316,6 +412,45 @@ def multi_lamb_update(weights, grads, means, vars_, lrs, wds, step_count,
     outs = [_lamb_one(w, g, m, v, lrs[i], wds[i], beta1, beta2, epsilon,
                       step_count[i], bias_correction, rescale_grad,
                       clip_gradient, lower_bound, upper_bound)
+            for i, (w, g, m, v) in enumerate(zip(
+                _as_list(weights), _as_list(grads), _as_list(means),
+                _as_list(vars_)))]
+    return ([o[0] for o in outs], [o[1] for o in outs],
+            [o[2] for o in outs])
+
+
+def _lans_one(w, g, m, v, lr, wd, beta1, beta2, epsilon, t,
+              rescale_grad, clip_gradient):
+    """One tensor of multi_lans_update: the gradient normalised by its
+    norm, Adam's moments with bias correction, and two trust ratios, one
+    for the momentum term and one for the gradient term."""
+    g32 = _grad_prep(g, rescale_grad, clip_gradient)
+    g32 = g32 / torch.linalg.vector_norm(g32).clamp_min(1e-12)
+    w32 = w.to(torch.float32)
+    m_new = beta1 * m + (1 - beta1) * g32
+    v_new = beta2 * v + (1 - beta2) * torch.square(g32)
+    mhat = m_new / (1 - beta1 ** t)
+    vhat = v_new / (1 - beta2 ** t)
+    r1 = torch.linalg.vector_norm(w32)
+    upd_m = mhat / (torch.sqrt(vhat) + epsilon) + wd * w32
+    upd_g = g32 / (torch.sqrt(vhat) + epsilon) + wd * w32
+    rm = torch.linalg.vector_norm(upd_m)
+    rg = torch.linalg.vector_norm(upd_g)
+    one = torch.ones_like(r1)
+    ratio_m = torch.where((r1 > 0) & (rm > 0), r1 / rm, one)
+    ratio_g = torch.where((r1 > 0) & (rg > 0), r1 / rg, one)
+    new_w = (w32 - lr * (beta1 * ratio_m * upd_m
+                         + (1 - beta1) * ratio_g * upd_g)).to(w.dtype)
+    return new_w, m_new, v_new
+
+
+def multi_lans_update(weights, grads, means, vars_, lrs, wds, step_count,
+                      beta1=0.9, beta2=0.999, epsilon=1e-6,
+                      rescale_grad=1.0, clip_gradient=-1.0):
+    """LANS over N tensors (ref: contrib/multi_lans.cc); ``step_count``
+    holds each tensor's t."""
+    outs = [_lans_one(w, g, m, v, lrs[i], wds[i], beta1, beta2, epsilon,
+                      step_count[i], rescale_grad, clip_gradient)
             for i, (w, g, m, v) in enumerate(zip(
                 _as_list(weights), _as_list(grads), _as_list(means),
                 _as_list(vars_)))]

@@ -13,8 +13,11 @@ the update count t, rescale_grad), read only through ``_get_lr``,
 ``_get_wd``, ``_index_update_count`` and ``rescale_grad``. The Trainer
 then runs every parameter's update as one program: captured once as a
 CUDA graph on the card, with those scalars in device tensors that the
-host rewrites before each replay. Ported so far: SGD, NAG, Adam, AdamW
-and LAMB; ``create`` of any other name raises and lists them.
+host rewrites before each replay. Every optimizer of the JAX package is
+ported, each with its ``fused_update`` flag: LARS (it reads norms on the
+host), SGLD (it draws noise) and Nadam (Python state moves each update)
+take the per-parameter loop. ``create`` of any other name raises and
+lists them.
 """
 from __future__ import annotations
 
@@ -26,8 +29,10 @@ import torch
 from ..base import MXNetError
 from ..ops import optimizer_ops as O
 
-__all__ = ['Optimizer', 'SGD', 'NAG', 'Adam', 'AdamW', 'LAMB', 'Updater',
-           'get_updater', 'register', 'create']
+__all__ = ['Optimizer', 'SGD', 'NAG', 'Adam', 'AdamW', 'LAMB', 'Signum',
+           'FTML', 'LARS', 'SGLD', 'AdaGrad', 'RMSProp', 'AdaDelta', 'Ftrl',
+           'Adamax', 'Nadam', 'DCASGD', 'Test', 'Updater', 'get_updater',
+           'register', 'create']
 
 _REG = {}
 
@@ -345,6 +350,358 @@ class LAMB(Optimizer):
             weight, g_update, r1, r2, lr=lr,
             lower_bound=_cg(self.lower_bound),
             upper_bound=_cg(self.upper_bound)))
+
+
+@register
+class Signum(Optimizer):
+    """Signum: the sign of a momentum (signSGD without momentum; ref:
+    optimizer.py:672)."""
+    fused_update = True
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return _zeros32(weight) if self.momentum != 0.0 else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=_cg(self.clip_gradient))
+        if state is not None:
+            new_w, new_mom = O.signum_update(weight, grad, state,
+                                             momentum=self.momentum,
+                                             wd_lh=self.wd_lh, **kw)
+            state.copy_(new_mom)
+        else:
+            new_w = O.signsgd_update(weight, grad, **kw)
+        weight.copy_(new_w)
+
+
+@register
+class FTML(Optimizer):
+    """Follow the Moving Leader (ref: optimizer.py FTML)."""
+    fused_update = True
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight), _zeros32(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        d, v, z = state
+        new = O.ftml_update(
+            weight, grad, d, v, z, lr=self._get_lr(index), beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon,
+            t=self._index_update_count[index], wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad, clip_grad=_cg(self.clip_gradient))
+        for dst, src in zip((weight, d, v, z), new):
+            dst.copy_(src)
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling (ref: optimizer.py:797): lr scaled
+    by eta * |w| / (|g| + wd |w| + epsilon). The norms are read on the
+    host, so it takes the per-parameter loop, as in the JAX package."""
+
+    def __init__(self, momentum=0.0, eta=0.001, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return _zeros32(weight) if self.momentum != 0.0 else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        w_norm = float(torch.linalg.vector_norm(weight.to(torch.float32)))
+        g_norm = float(torch.linalg.vector_norm(
+            grad.to(torch.float32) * self.rescale_grad))
+        if w_norm > 0 and g_norm > 0:
+            lr = lr * self.eta * w_norm / (g_norm + wd * w_norm +
+                                           self.epsilon)
+        kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
+                  clip_gradient=_cg(self.clip_gradient))
+        if state is not None:
+            new_w, new_mom = O.sgd_mom_update(weight, grad, state,
+                                              momentum=self.momentum, **kw)
+            state.copy_(new_mom)
+        else:
+            new_w = O.sgd_update(weight, grad, **kw)
+        weight.copy_(new_w)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half a gradient step plus
+    Normal(0, sqrt(lr)) noise, drawn from the port's generator on the
+    parameter's device (``random.generator``, seeded by ``mx.random.seed``).
+    It draws, so it takes the per-parameter loop, as in the JAX package."""
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        from .. import random as _random
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        g = grad.to(torch.float32) * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        noise = torch.randn(weight.shape, dtype=torch.float32,
+                            device=weight.device,
+                            generator=_random.generator(weight.device))
+        w32 = weight.to(torch.float32)
+        weight.copy_(w32 - lr / 2 * (g + wd * w32) + noise * lr ** 0.5)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (ref: optimizer.py AdaGrad); ``eps`` is its epsilon."""
+    fused_update = True
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros32(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        new_w, new_hist = O.adagrad_update(
+            weight, grad, state, lr=self._get_lr(index),
+            epsilon=self.float_stable_eps, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=_cg(self.clip_gradient))
+        weight.copy_(new_w)
+        state.copy_(new_hist)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain or ``centered`` (Graves 2013), with an optional
+    ``clip_weights`` (ref: optimizer.py RMSProp)."""
+    fused_update = True
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros32(weight), _zeros32(weight), _zeros32(weight))
+        return _zeros32(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), gamma1=self.gamma1,
+                  epsilon=self.epsilon, wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=_cg(self.clip_gradient),
+                  clip_weights=_cg(self.clip_weights))
+        if not self.centered:
+            new_w, new_n = O.rmsprop_update(weight, grad, state, **kw)
+            weight.copy_(new_w)
+            state.copy_(new_n)
+            return
+        new = O.rmspropalex_update(weight, grad, *state, gamma2=self.gamma2,
+                                   **kw)
+        for dst, src in zip((weight,) + tuple(state), new):
+            dst.copy_(src)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (ref: optimizer.py AdaDelta): no learning rate."""
+    fused_update = True
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        acc_g, acc_delta = state
+        new = O.adadelta_update(
+            weight, grad, acc_g, acc_delta, rho=self.rho,
+            epsilon=self.epsilon, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=_cg(self.clip_gradient))
+        for dst, src in zip((weight, acc_g, acc_delta), new):
+            dst.copy_(src)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (ref: optimizer.py Ftrl)."""
+    fused_update = True
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        z, n = state
+        new = O.ftrl_update(
+            weight, grad, z, n, lr=self._get_lr(index), lamda1=self.lamda1,
+            beta=self.beta, wd=self._get_wd(index),
+            rescale_grad=self.rescale_grad,
+            clip_gradient=_cg(self.clip_gradient))
+        for dst, src in zip((weight, z, n), new):
+            dst.copy_(src)
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax, Adam's infinity-norm variant (ref: optimizer.py Adamax)."""
+    fused_update = True
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        # not in place: lr may be an entry of the captured update's
+        # scalar vector
+        lr = self._get_lr(index) / (1. - self.beta1 ** t)
+        m, u = state
+        g = O._grad_prep(grad, self.rescale_grad, _cg(self.clip_gradient),
+                         self._get_wd(index), weight)
+        m.copy_(self.beta1 * m + (1. - self.beta1) * g)
+        u.copy_(torch.maximum(self.beta2 * u, torch.abs(g)))
+        weight.copy_(weight.to(torch.float32) - lr * m / (u + 1e-8))
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum (ref: optimizer.py Nadam). Its momentum
+    schedule is Python state that moves at every update, so it takes the
+    per-parameter loop, as in the JAX package."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.
+
+    def create_state(self, index, weight):
+        return (_zeros32(weight), _zeros32(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        t = self._index_update_count[index]
+        g = O._grad_prep(grad, self.rescale_grad, _cg(self.clip_gradient),
+                         self._get_wd(index), weight)
+        momentum_t = self.beta1 * (1. - 0.5 * 0.96 ** (t *
+                                                       self.schedule_decay))
+        momentum_t_1 = self.beta1 * (
+            1. - 0.5 * 0.96 ** ((t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m, v = state
+        m.copy_(self.beta1 * m + (1. - self.beta1) * g)
+        v.copy_(self.beta2 * v + (1. - self.beta2) * g * g)
+        grad_prime = g / (1. - self.m_schedule)
+        m_t_prime = m / (1. - m_schedule_next)
+        v_t_prime = v / (1. - self.beta2 ** t)
+        m_t_bar = (1. - momentum_t) * grad_prime + momentum_t_1 * m_t_prime
+        weight.copy_(weight.to(torch.float32) -
+                     lr * m_t_bar / (v_t_prime.sqrt() + self.epsilon))
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (ref: optimizer.py DCASGD): the
+    state keeps the previous weight."""
+    fused_update = True
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = weight.detach().clone()
+        return (None if self.momentum == 0.0 else _zeros32(weight), prev)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        g = grad.to(torch.float32) * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        mon, previous_weight = state
+        w32 = weight.to(torch.float32)
+        delta = -lr * (g + wd * w32 + self.lamda * g * g *
+                       (w32 - previous_weight))
+        if mon is not None:
+            mon.copy_(self.momentum * mon + delta)
+            delta = mon
+        previous_weight.copy_(weight)
+        weight.copy_(w32 + delta)
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: weight += rescale_grad * grad."""
+    fused_update = True
+
+    def create_state(self, index, weight):
+        return _zeros32(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        weight.copy_(weight + grad * self.rescale_grad)
 
 
 def _npify(s):

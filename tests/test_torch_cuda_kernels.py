@@ -1,14 +1,17 @@
 """The port's Hopper kernels (flash-attention forward, dq and dk/dv;
 residual+LayerNorm; FFN1) against their plain PyTorch versions, on the
 card, at small and ragged shapes that chip_smoke.py does not reach (head
-dims 8 to 128, sequence lengths and widths that divide no tile), and the
-gradients of their autograd Functions against plain autograd. The flash
-forward, dq and dk/dv kernels come in two variants (tensor cores for bf16
-at D a multiple of 16, SIMT otherwise), FFN1 in three (wgmma + TMA for
-bf16 with K a multiple of 8, the first WMMA design for other bf16, SIMT for
-f32); the tests pin which one each dtype and shape takes, hold each
-against the plain versions, and check that the tensor-core kernels refuse
-a view that is not 16-byte aligned.
+dims 8 to 128, sequence lengths and widths that divide no tile), in f32,
+bf16 and float16, and the gradients of their autograd Functions against
+plain autograd. The flash forward, dq and dk/dv kernels come in two
+variants (tensor cores for bf16 and float16 at D a multiple of 16, SIMT
+otherwise), FFN1 in three (wgmma + TMA for bf16 and float16 with K a
+multiple of 8, the first WMMA design for other K, SIMT for f32); the tests
+pin which one each dtype and shape takes, hold each against the plain
+versions, and check that the tensor-core kernels refuse a view that is
+not 16-byte aligned. The float16 backward is also held where ds exceeds
+float16's range (a large dO, as the float16 AMP recipe's loss scale
+gives).
 
 These tests need a CUDA device and carry the ``cuda`` marker; without a
 card they skip. On the card, from the root of the checkout (the file
@@ -26,9 +29,12 @@ from mxnet_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 # kernel vs plain version on the same inputs: f32 differs by summation
-# order only; bf16 outputs may differ by a bf16 ulp or two
+# order only; bf16 and float16 outputs may differ by an ulp or two of their
+# type (float16: twice its epsilon, 2**-9)
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-       torch.bfloat16: dict(atol=1e-2, rtol=1.6e-2)}
+       torch.bfloat16: dict(atol=1e-2, rtol=1.6e-2),
+       torch.float16: dict(atol=2e-3, rtol=2e-3)}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -39,7 +45,7 @@ def gen():
     return torch.Generator(device='cuda').manual_seed(0)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('D', [8, 32, 64, 128])
 @pytest.mark.parametrize('causal', [False, True])
 def test_flash_attention_kernel(gen, dtype, D, causal):
@@ -61,7 +67,7 @@ def test_flash_attention_kernel(gen, dtype, D, causal):
     torch.testing.assert_close(lse, ref_lse, **TOL[torch.float32])
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', DTYPES)
 def test_fused_layernorm_kernel(gen, dtype):
     x = torch.randn(7, 100, generator=gen, device='cuda').to(dtype)
     r = torch.randn(7, 100, generator=gen, device='cuda').to(dtype)
@@ -74,7 +80,7 @@ def test_fused_layernorm_kernel(gen, dtype):
         out, ref, atol=1e-4 if dtype == torch.float32 else 0.05, rtol=0)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', DTYPES)
 def test_fused_ffn_kernel(gen, dtype):
     x = torch.randn(3, 11, 40, generator=gen, device='cuda').to(dtype)
     w = (torch.randn(70, 40, generator=gen, device='cuda') * 0.1).to(dtype)
@@ -93,8 +99,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fused_layernorm.fused_add_layer_norm(x.t(), x.t(), torch.ones(
             4, device='cuda'), torch.zeros(4, device='cuda'))
     with pytest.raises(MXNetError, match='dtype'):
-        fused_ffn.fused_dense_gelu(x.half(), x.half(),
-                                   torch.zeros(4, device='cuda').half())
+        fused_ffn.fused_dense_gelu(x.double(), x.double(),
+                                   torch.zeros(4, device='cuda').double())
     q = torch.randn(1, 1, 4, 12, generator=gen, device='cuda')
     with pytest.raises(MXNetError, match='head dim'):
         fa.flash_attention(q, q, q)
@@ -111,7 +117,7 @@ def _attn_inputs(gen, B, H, Tq, Tk, D, dtype):
     return q, k, v, do, m
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('D', [8, 32, 64, 128])
 @pytest.mark.parametrize('causal,dropout_p', [(False, 0.0), (True, 0.2),
                                               (False, 0.2)])
@@ -193,7 +199,7 @@ def test_function_gradients_on_the_card_match_plain_autograd(gen):
             torch.testing.assert_close(t1.grad, t2.grad, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('D', [8, 32, 64, 128])
 @pytest.mark.parametrize('causal', [False, True])
 def test_flash_attention_dkv_kernel(gen, dtype, D, causal):
@@ -220,6 +226,7 @@ def test_flash_attention_dkv_kernel(gen, dtype, D, causal):
 @pytest.mark.parametrize('dtype,D,variant', [
     (torch.bfloat16, 16, 'tc'), (torch.bfloat16, 64, 'tc'),
     (torch.bfloat16, 128, 'tc'), (torch.bfloat16, 8, 'simt'),
+    (torch.float16, 64, 'tc'), (torch.float16, 8, 'simt'),
     (torch.float32, 64, 'simt'), (torch.float32, 128, 'simt')])
 def test_each_dtype_and_head_dim_takes_its_variant(gen, dtype, D, variant):
     q, k, v, do, _ = _attn_inputs(gen, 1, 2, 40, 40, D, dtype)
@@ -239,7 +246,8 @@ def test_each_dtype_and_head_dim_takes_its_variant(gen, dtype, D, variant):
 
 @pytest.mark.parametrize('dtype,K,variant', [
     (torch.bfloat16, 768, 'tc'), (torch.bfloat16, 72, 'tc'),
-    (torch.bfloat16, 70, 'wmma'), (torch.float32, 768, 'simt')])
+    (torch.bfloat16, 70, 'wmma'), (torch.float16, 768, 'tc'),
+    (torch.float16, 70, 'wmma'), (torch.float32, 768, 'simt')])
 def test_each_dtype_and_k_takes_its_ffn_variant(gen, dtype, K, variant):
     x = torch.randn(30, K, generator=gen, device='cuda').to(dtype)
     w = (torch.randn(50, K, generator=gen, device='cuda') * 0.05).to(dtype)
@@ -306,13 +314,14 @@ def test_tensor_core_kernels_refuse_unaligned_views(gen):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('D', [16, 32, 64, 128])
 @pytest.mark.parametrize('causal', [False, True])
-def test_flash_attention_dq_kernel(gen, D, causal):
+def test_flash_attention_dq_kernel(gen, dtype, D, causal):
     """The tensor-core dq kernel, ragged and masked, with dropout 0.2,
     against the plain backward."""
     B, H, Tq, Tk = 2, 3, 70, 100
-    q, k, v, do, m = _attn_inputs(gen, B, H, Tq, Tk, D, torch.bfloat16)
+    q, k, v, do, m = _attn_inputs(gen, B, H, Tq, Tk, D, dtype)
     if causal:
         k, v, Tk, m = k[:, :, :Tq], v[:, :, :Tq], Tq, m[:, :Tq].contiguous()
     out, lse = fa.flash_attention_forward(q, k, v, key_mask=m, causal=causal,
@@ -324,7 +333,67 @@ def test_flash_attention_dq_kernel(gen, D, causal):
     assert _build.variant_counts['flash_attn_bwd_dq.tc'] == 1
     want_dq, _, _ = fa.flash_attention_backward_reference(
         q, k, v, m, causal, 0.2, 9, out, lse, do)
-    torch.testing.assert_close(dq, want_dq, **TOL[torch.bfloat16], msg='dq')
+    torch.testing.assert_close(dq, want_dq, **TOL[dtype], msg='dq')
+
+
+@pytest.mark.parametrize('D', [64, 128])
+@pytest.mark.parametrize('causal,dropout_p', [(False, 0.0), (True, 0.1)])
+def test_float16_backward_takes_a_large_ds(gen, D, causal, dropout_p):
+    """ds above float16's 65504: dO of order 2**13 (a loss scale) times v
+    of order 300 makes dp, and with it ds, reach 1e5 or more, while k and q
+    of order 1e-3 keep dq and dk finite in float16. The float16
+    tensor-core kernels (their per-row power-of-two scale before the split)
+    give finite gradients that match the plain version."""
+    B, H, Tq, Tk = 2, 3, 70, 100
+    q, k, v, do, m = _attn_inputs(gen, B, H, Tq, Tk, D, torch.float32)
+    if causal:
+        k, v, Tk, m = k[:, :, :Tq], v[:, :, :Tq], Tq, m[:, :Tq].contiguous()
+    q, k = (q * 1e-3).half(), (k * 1e-3).half()
+    v, do = (v * 300).half(), (do * 8192).half()
+    seed = 5 if dropout_p else None
+    out, lse = fa.flash_attention_forward(q, k, v, key_mask=m, causal=causal,
+                                          dropout_p=dropout_p,
+                                          dropout_seed=seed)
+    got = fa.flash_attention_backward(q, k, v, m, causal, dropout_p, seed,
+                                      out, lse, do)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_reference(q, k, v, m, causal,
+                                                 dropout_p, seed, out, lse, do)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    p = torch.exp(fa._scores(q, k, m, causal) - lse[..., None])
+    dp = torch.einsum('bhqd,bhkd->bhqk', do.float(), v.float())
+    ds = p * (dp - delta) / D ** 0.5
+    big = float(ds.abs().max())
+    assert big > 65504
+    # each f32 term ds*k (ds*q) carries the split's 2**-22 of itself, and
+    # Tk (Tq) of them add with random signs: that, beside float16's
+    # rounding of the result
+    for name, g, w, other, n in (('q', got[0], want[0], k, Tk),
+                                 ('k', got[1], want[1], q, Tq)):
+        assert bool(torch.isfinite(w).all()), name
+        assert bool(torch.isfinite(g).all()), name
+        atol = big * float(other.float().abs().max()) * 2 ** -22 * n ** 0.5
+        torch.testing.assert_close(g, w, atol=max(atol, 2e-3), rtol=2e-3,
+                                   msg=f'd{name}')
+
+
+def test_fused_layernorm_promotes_mixed_dtypes(gen):
+    """An f32 residual stream and a float16 (or bf16) sublayer output, as
+    AMP gives: the kernel runs on both promoted to f32 and returns f32,
+    as LN(x + res) does."""
+    x = torch.randn(6, 96, generator=gen, device='cuda')
+    g = torch.rand(96, generator=gen, device='cuda') + 0.5
+    b = torch.randn(96, generator=gen, device='cuda')
+    for low in (torch.float16, torch.bfloat16):
+        r = torch.randn(6, 96, generator=gen, device='cuda').to(low)
+        _build.reset_launch_counts()
+        out = fused_layernorm.fused_add_layer_norm(x, r, g, b)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32
+        assert _build.dtype_counts == {'fused_add_layernorm.float32': 1}
+        torch.testing.assert_close(
+            out, fused_layernorm.add_layer_norm_reference(x, r.float(), g, b),
+            atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize('M,K,N,dtype,variant', [
@@ -336,6 +405,10 @@ def test_flash_attention_dq_kernel(gen, D, causal):
     (130, 8, 9, torch.bfloat16, None),
     (130, 70, 100, torch.bfloat16, None),
     (200, 768, 3072, torch.bfloat16, 'wmma'),
+    (1024, 768, 3072, torch.float16, None),
+    (130, 70, 100, torch.float16, None),
+    (300, 768, 1000, torch.float16, None),
+    (200, 768, 3072, torch.float16, 'wmma'),
     (200, 72, 100, torch.float32, None)])
 def test_fused_ffn_kernel_variants(gen, M, K, N, dtype, variant):
     """Each FFN1 kernel against the plain version: serving's and training's
@@ -354,7 +427,7 @@ def test_fused_ffn_kernel_variants(gen, M, K, N, dtype, variant):
                                **TOL[dtype])
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', DTYPES)
 def test_kernels_read_their_seed_from_the_device(gen, dtype):
     """The forward, dq and dk/dv kernels take the dropout seed by device
     pointer: a seed drawn on the card (int64, or its low word as int32)
@@ -465,3 +538,44 @@ def test_trainer_fused_update_replay_matches_the_loop(gen):
     a = [st[0] for _, st in sorted(fused._updater.states.items())]
     b = [st[0] for _, st in sorted(loop._updater.states.items())]
     assert _rel_fro(a, b) <= 1e-6
+
+
+def test_amp_loss_scale_change_recaptures_nothing(gen):
+    """Under amp.init('float16') the Trainer's fused update is captured
+    once: rescale_grad (original scale over the loss scale) is an entry of
+    its scalar vector, so three loss scales replay one graph, and their
+    scaled gradients give the unscaled run's weights; a non-finite
+    gradient skips the replay and halves the scale."""
+    from mxnet_tpu_torch import amp, gluon
+    from mxnet_tpu_torch.amp import amp as amp_mod
+    amp.init('float16')
+    try:
+        p = torch.nn.Parameter(torch.ones(64, device='cuda'))
+        ref = torch.nn.Parameter(torch.ones(64))
+        tr = amp.init_trainer(gluon.Trainer([p], 'adamw',
+                                            {'learning_rate': 0.1}))
+        ref_tr = gluon.Trainer([ref], 'adamw', {'learning_rate': 0.1})
+        captures = []
+        capture = tr._capture
+        tr._capture = lambda *a: captures.append(1) or capture(*a)
+        for scale in (2.0 ** 16, 2.0 ** 15, 2.0 ** 14):
+            tr._amp_loss_scaler.loss_scale = scale
+            with amp.scale_loss(torch.ones((), device='cuda'), tr):
+                pass
+            p.grad = torch.full((64,), 0.5 * scale, device='cuda')
+            tr.step(1)
+            ref.grad = torch.full((64,), 0.5)
+            ref_tr.step(1)
+        torch.cuda.synchronize()
+        assert len(captures) == 1
+        torch.testing.assert_close(p.detach().cpu(), ref.detach(),
+                                   rtol=1e-6, atol=1e-7)
+        before = p.detach().clone()
+        p.grad = torch.full((64,), float('inf'), device='cuda')
+        tr.step(1)
+        torch.cuda.synchronize()
+        assert torch.equal(p.detach(), before)
+        assert tr._amp_loss_scaler.loss_scale == 2.0 ** 13
+        assert tr.optimizer.num_update == 3
+    finally:
+        amp_mod._deinit()

@@ -101,6 +101,36 @@ def test_dropout_forward_matches_pallas_kernel():
     assert not torch.allclose(plain, t_out)
 
 
+# float16 (AMP's GPU target): outputs rounded to float16 by both sides may
+# differ by an ulp, so twice float16's epsilon
+F16_RTOL, F16_ATOL = 2e-3, 2e-3
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('mask_kind', [None, 'additive', 'bool'])
+@pytest.mark.parametrize('dropout_p', [0.0, 0.3])
+def test_float16_forward_matches_pallas_kernel(causal, mask_kind, dropout_p):
+    """float16 q, k, v through the Pallas kernel in interpret mode and the
+    port's plain version: P cast to float16 before P.V on both sides, the
+    output in float16, lse in f32."""
+    q, k, v = (a.astype(onp.float16) for a in _qkv(7))
+    m = _mask(mask_kind)
+    seed = 42 if dropout_p else None
+    j_out = pa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        key_mask=None if m is None else jnp.asarray(m), causal=causal,
+        dropout_p=dropout_p, dropout_seed=seed, interpret=True)
+    t_out, t_lse = fa.flash_attention_forward(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        key_mask=None if m is None else torch.from_numpy(m), causal=causal,
+        dropout_p=dropout_p, dropout_seed=seed)
+    assert j_out.dtype == jnp.float16 and t_out.dtype == torch.float16
+    assert t_lse.dtype == torch.float32
+    onp.testing.assert_allclose(t_out.float().numpy(),
+                                onp.asarray(j_out).astype(onp.float32),
+                                rtol=F16_RTOL, atol=F16_ATOL)
+
+
 def test_wrapper_argument_errors():
     q, k, v = (torch.from_numpy(a) for a in _qkv())
     with pytest.raises(ValueError, match='dropout_seed'):
@@ -120,7 +150,9 @@ def test_per_head_mask_matches_per_batch_mask():
 @pytest.mark.parametrize('dtype,D,variant', [
     (torch.bfloat16, 16, 'tc'), (torch.bfloat16, 32, 'tc'),
     (torch.bfloat16, 64, 'tc'), (torch.bfloat16, 128, 'tc'),
-    (torch.bfloat16, 8, 'simt'), (torch.float32, 64, 'simt'),
+    (torch.bfloat16, 8, 'simt'), (torch.float16, 16, 'tc'),
+    (torch.float16, 64, 'tc'), (torch.float16, 128, 'tc'),
+    (torch.float16, 8, 'simt'), (torch.float32, 64, 'simt'),
     (torch.float32, 8, 'simt')])
 def test_kernel_variant_routes_by_dtype_and_head_dim(dtype, D, variant):
     assert fa.kernel_variant(dtype, D) == variant

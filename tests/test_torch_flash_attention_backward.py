@@ -270,3 +270,140 @@ def test_backward_refuses_an_unaligned_dO_for_the_tensor_cores():
     assert fa._pick_variant(q, named, 'simt') == 'simt'
     assert fa._pick_variant(q, named[:3] + (('dO', buf[:n].view(
         Bq, Hq, T, Dq)),), None) == 'tc'
+
+
+# ---- float16 (AMP's GPU target)
+
+F16_RTOL, F16_ATOL = 2e-3, 2e-3     # twice float16's epsilon
+
+
+def _f16(a):
+    return a.astype(onp.float16)
+
+
+@pytest.mark.parametrize('T,causal,mask_kind,dropout_p', [
+    (20, False, None, 0.0), (33, True, 'additive', 0.3),
+    (33, False, 'bool', 0.0), (20, True, 'bool', 0.3)])
+def test_float16_backward_matches_pallas_kernels(T, causal, mask_kind,
+                                                  dropout_p):
+    """float16 q, k, v, dO through the JAX backward kernels in interpret
+    mode and the port's plain backward, each from the same forward's out
+    and lse: f32 arithmetic on both sides, dq, dk and dv in float16."""
+    q, k, v, do = (_f16(a) for a in _inputs(T, seed=8))
+    m = _mask(mask_kind, T)
+    tm = None if m is None else torch.from_numpy(m)
+    seed = SEED if dropout_p else None
+    out, lse = fa.flash_attention_forward(
+        *(torch.from_numpy(a) for a in (q, k, v)), key_mask=tm,
+        causal=causal, dropout_p=dropout_p, dropout_seed=seed)
+    assert out.dtype == torch.float16
+    km = _additive_bh(m)
+    flat = [jnp.asarray(a.reshape(B * H, T, D))
+            for a in (q, k, v, out.numpy(), do)]
+    j_grads = pa._fa_backward(
+        flat[0], flat[1], flat[2], None if km is None else jnp.asarray(km),
+        jnp.full((1, 1), SEED, jnp.uint32), causal, dropout_p, True,
+        flat[3], jnp.asarray(lse.numpy().reshape(B * H, T)), flat[4])
+    t_grads = fa.flash_attention_backward(
+        *(torch.from_numpy(a) for a in (q, k, v)), tm, causal, dropout_p,
+        seed, out, lse, torch.from_numpy(do))
+    for name, t, j in zip('qkv', t_grads, j_grads):
+        assert t.dtype == torch.float16 and j.dtype == jnp.float16
+        onp.testing.assert_allclose(
+            t.float().numpy(),
+            onp.asarray(j).astype(onp.float32).reshape(B, H, T, D),
+            rtol=F16_RTOL, atol=F16_ATOL, err_msg=f'd{name}')
+
+
+def test_split_f16_represents_x_to_2_pow_minus_22():
+    """Each row scaled by 2**(14 - e) has magnitudes below 2**15 (no
+    float16 overflow, whatever the row's range), and (hi + lo) scaled
+    back is within 2**-22 |x| plus 2**-25 of the scale, over rows whose
+    largest values span 1e-30 to 1e30."""
+    rng = onp.random.RandomState(9)
+    x = rng.randn(64, 80) * 10.0 ** rng.uniform(-30, 30, (64, 1))
+    x[3] = 0.0
+    x = torch.from_numpy(x.astype(onp.float32))
+    hi, lo, e = fa.split_f16(x)
+    assert hi.dtype == lo.dtype == torch.float16 and e.dtype == torch.int32
+    assert bool(torch.isfinite(hi).all()) and bool(torch.isfinite(lo).all())
+    assert float(hi.float().abs().max()) <= 2.0 ** 15
+    unit = torch.exp2((e - fa.F16_TOP).double())[:, None]
+    err = ((hi.double() + lo.double()) * unit - x.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs() +
+                 2.0 ** -25 * unit).all())
+    assert not bool(hi[3].any()) and not bool(lo[3].any())
+
+
+def _f16_dq_dk_emulation(q, k, v, km, causal, dropout_p, seed, out, lse, do):
+    """The float16 tensor-core dq and dk kernels' arithmetic in plain
+    PyTorch: ds in f32 as the plain backward computes it, each A row
+    (q rows for dq, keys for dk) split by ``split_f16`` into two float16
+    terms, each multiplied in f32 against the float16-exact k or q, the
+    sum scaled back by the row's 2**(e - 14). With T <= 64 the kernels
+    see one tile per row, as here. Returns (dq, dk) in f32."""
+    Bq, Hq, Tq, Dq = q.shape
+    Tk = k.shape[2]
+    p = torch.exp(fa._scores(q, k, km, causal) - lse[..., None])
+    dp = torch.einsum('bhqd,bhkd->bhqk', do.float(), v.float())
+    if dropout_p > 0.0:
+        dp = dp * fa._keep_multipliers(seed, Bq, Hq, Tq, Tk, dropout_p,
+                                       q.device)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * (1.0 / math.sqrt(Dq))
+
+    def split_product(x, y):            # x (rows, n) split by row, times y
+        hi, lo, e = fa.split_f16(x)
+        prod = sum(torch.einsum('bhrn,bhnd->bhrd', t.float(), y.float())
+                   for t in (hi, lo))
+        return prod * torch.exp2((e - fa.F16_TOP).float())[..., None]
+    return split_product(ds, k), split_product(ds.transpose(-1, -2), q)
+
+
+@pytest.mark.parametrize('do_scale', [1.0, 8192.0])
+@pytest.mark.parametrize('T,causal,mask_kind,dropout_p', [
+    (20, False, None, 0.0), (33, True, 'additive', 0.3),
+    (33, False, 'bool', 0.3)])
+def test_f16_split_arithmetic_matches_pallas_kernel(T, causal, mask_kind,
+                                                    dropout_p, do_scale):
+    """The precision decision of the float16 tensor-core dq and dk
+    kernels, held on the CPU against the JAX kernels in interpret mode on
+    the same float16 inputs (which multiply ds by k and q in f32). With
+    dO scaled by 8192 (a loss scale) and v by 300, ds passes float16's
+    65504 by far, and k and q of order 1e-3 keep dq and dk finite: the
+    JAX kernel's gradients are finite and the emulation matches them.
+    Tolerance: twice float16's epsilon, and an absolute part for the
+    split's 2**-22 on each f32 term, over T terms of random sign."""
+    q, k, v, do = _inputs(T, seed=10)
+    if do_scale > 1.0:
+        q, k, v = q * 1e-3, k * 1e-3, v * 300
+        do = do * do_scale
+    q, k, v, do = (_f16(a) for a in (q, k, v, do))
+    m = _mask(mask_kind, T)
+    tm = None if m is None else torch.from_numpy(m)
+    seed = SEED if dropout_p else None
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = fa.flash_attention_forward(tq, tk, tv, key_mask=tm,
+                                          causal=causal, dropout_p=dropout_p,
+                                          dropout_seed=seed)
+    km_t, _ = fa._normalize_mask(tm, B, H, T)
+    dq, dk = _f16_dq_dk_emulation(tq, tk, tv, km_t, causal, dropout_p, seed,
+                                  out, lse, tdo)
+    km = _additive_bh(m)
+    flat = [jnp.asarray(a.reshape(B * H, T, D))
+            for a in (q, k, v, out.numpy(), do)]
+    j_dq, j_dk, _ = pa._fa_backward(
+        flat[0], flat[1], flat[2], None if km is None else jnp.asarray(km),
+        jnp.full((1, 1), SEED, jnp.uint32), causal, dropout_p, True,
+        flat[3], jnp.asarray(lse.numpy().reshape(B * H, T)), flat[4])
+    p = torch.exp(fa._scores(tq, tk, km_t, causal) - lse[..., None])
+    dp = torch.einsum('bhqd,bhkd->bhqk', tdo.float(), tv.float())
+    big = float((p * dp).abs().max()) * 2 / math.sqrt(D)
+    if do_scale > 1.0:
+        assert big > 65504
+    for name, t, j, other in (('dq', dq, j_dq, tk), ('dk', dk, j_dk, tq)):
+        j = onp.asarray(j).astype(onp.float32).reshape(B, H, T, D)
+        assert onp.isfinite(j).all(), name
+        atol = big * float(other.float().abs().max()) * 2 ** -22 * T ** 0.5
+        onp.testing.assert_allclose(t.numpy(), j, rtol=F16_RTOL,
+                                    atol=max(atol, F16_ATOL), err_msg=name)

@@ -242,7 +242,8 @@ def test_fused_ffn_gradients_match_pallas(M, K, N):
 @pytest.mark.parametrize('dtype,K,variant', [
     (torch.bfloat16, 768, 'tc'), (torch.bfloat16, 72, 'tc'),
     (torch.bfloat16, 8, 'tc'), (torch.bfloat16, 70, 'wmma'),
-    (torch.bfloat16, 100, 'wmma'), (torch.float32, 768, 'simt'),
+    (torch.bfloat16, 100, 'wmma'), (torch.float16, 768, 'tc'),
+    (torch.float16, 70, 'wmma'), (torch.float32, 768, 'simt'),
     (torch.float32, 72, 'simt')])
 def test_ffn_kernel_variant_routes_by_dtype_and_k(dtype, K, variant):
     from mxnet_tpu_torch.ops.fused_ffn import kernel_variant
@@ -256,6 +257,8 @@ def test_ffn_kernel_variant_routes_by_dtype_and_k(dtype, K, variant):
                                             'refused'),
     (torch.float32, 768, 'wmma', 'refused'), (torch.float32, 768, None,
                                               'simt'),
+    (torch.float16, 768, None, 'tc'), (torch.float16, 768, 'wmma', 'wmma'),
+    (torch.float16, 768, 'simt', 'refused'),
     (torch.bfloat16, 768, 'mma', 'unknown')])
 def test_ffn_private_variant_is_checked(dtype, K, forced, want):
     """``_variant`` may name only a kernel that takes the inputs: 'wmma' at
@@ -297,3 +300,45 @@ def test_ffn_private_variant_changes_nothing_on_the_cpu():
     want = fused_dense_gelu(x, w, b)
     for variant in ('tc', 'wmma'):
         assert torch.equal(fused_dense_gelu(x, w, b, _variant=variant), want)
+
+
+# ---- float16 (AMP's GPU target) and mixed dtypes
+
+
+@pytest.mark.parametrize('M,K,N', [(8, 128, 256), (20, 96, 200)])
+def test_fused_ffn_float16_matches_pallas(M, K, N):
+    """C's plain version in float16 against the Pallas kernel in interpret
+    mode on the same float16 inputs: f32 products and GELU on both sides,
+    the output rounded to float16 (twice float16's epsilon)."""
+    x, w, b = (a.astype(onp.float16) for a in _ffn_inputs(M, K, N, 21))
+    want = j_fused_ffn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                       interpret=True)
+    got = fused_dense_gelu(*(torch.from_numpy(a) for a in (x, w, b)))
+    assert want.dtype == jnp.float16 and got.dtype == torch.float16
+    onp.testing.assert_allclose(got.float().numpy(),
+                                onp.asarray(want).astype(onp.float32),
+                                rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize('knob', ['0', '1'])
+@pytest.mark.parametrize('low', ['float16', 'bfloat16'])
+def test_add_layer_norm_promotes_mixed_dtypes_as_jax(monkeypatch, knob, low):
+    """AMP's residual seam: an f32 x and a low-precision res (a Dense
+    output under amp.init). Both packages compute LN(x + res) on the
+    promoted sum, in f32, on either route of the port (the fused wrapper
+    promotes before its kernel, the plain path by x + res); the result is
+    f32. The sum of an f32 and a rounded value is exact in both, so the
+    f32 bound holds."""
+    monkeypatch.setenv('MXTPU_PALLAS_LN', knob)
+    x, r, g, b = _ln_inputs((3, 10, 64), 22)
+    want = jnn.add_layer_norm(jnp.asarray(x), jnp.asarray(r).astype(low),
+                              jnp.asarray(g), jnp.asarray(b))
+    rt = torch.from_numpy(r).to(getattr(torch, low))
+    got = tnn.add_layer_norm(torch.from_numpy(x), rt, torch.from_numpy(g),
+                             torch.from_numpy(b))
+    direct = fused_add_layer_norm(torch.from_numpy(x), rt,
+                                  torch.from_numpy(g), torch.from_numpy(b))
+    assert want.dtype == jnp.float32
+    assert got.dtype == direct.dtype == torch.float32
+    onp.testing.assert_allclose(got.numpy(), onp.asarray(want), atol=2e-5)
+    onp.testing.assert_allclose(direct.numpy(), onp.asarray(want), atol=2e-5)

@@ -105,14 +105,16 @@ def test_lr_and_wd_multipliers_come_from_the_parameter():
 
 
 def test_create_refuses_what_is_not_ported():
+    """Every optimizer the JAX package registers is created by its name
+    (case-insensitive); a name neither package has raises and lists the
+    ported ones."""
     assert isinstance(topt.create('adamw'), topt.AdamW)
-    for name in ('sgd', 'nag', 'adam', 'lamb'):
+    for name in jopt.optimizer._REG.list():
         assert type(topt.create(name)).__name__.lower() == name
+    assert isinstance(topt.create('RMSProp'), topt.RMSProp)
     with pytest.raises(MXNetError,
-                       match=r"'rmsprop' is not ported.*adamw.*sgd"):
-        topt.create('rmsprop')
-    with pytest.raises(MXNetError, match=r"'signum' is not ported"):
-        topt.create('signum')
+                       match=r"'adabelief' is not ported.*adamw.*sgd"):
+        topt.create('adabelief')
 
 
 @pytest.mark.parametrize('call', ['step', 'update'])
@@ -153,7 +155,8 @@ def _operands(seed):
     w, w32 = f(), f()
     return {'w': w, 'g': f(3), 's': f(0.1), 'v': onp.abs(f(0.1)),
             'w16': w32, 'g16': f(3), 'w32': w32, 'u': f(0.5),
-            'r1': onp.float32(2.5), 'r2': onp.float32(0.7)}
+            'r1': onp.float32(2.5), 'r2': onp.float32(0.7),
+            'n': onp.abs(f(0.1))}
 
 
 _OPS = {
@@ -174,6 +177,22 @@ _OPS = {
     'lamb_update_phase1': ('w g s v', dict(t=3, wd=0.01, rescale_grad=0.5)),
     'lamb_update_phase2': ('w u r1 r2', dict(lr=0.01, lower_bound=0.1,
                                              upper_bound=10.0)),
+    'ftrl_update': ('w g s n', dict(lr=0.1, lamda1=0.05, beta=1.5, wd=0.01,
+                                    rescale_grad=0.5)),
+    'rmsprop_update': ('w g n', dict(lr=0.01, gamma1=0.8, wd=0.01,
+                                     clip_weights=1.5)),
+    'rmspropalex_update': ('w g n s u', dict(lr=0.01, wd=0.01,
+                                             rescale_grad=0.5,
+                                             clip_gradient=2.0)),
+    'signsgd_update': ('w g', dict(lr=0.1, wd=0.01, rescale_grad=0.5)),
+    'signum_update': ('w g s', dict(lr=0.1, momentum=0.8, wd=0.01,
+                                    wd_lh=0.05)),
+    'adagrad_update': ('w g n', dict(lr=0.1, wd=0.01, rescale_grad=0.5,
+                                     clip_gradient=1.0)),
+    'adadelta_update': ('w g n v', dict(rho=0.8, wd=0.01,
+                                        rescale_grad=0.5)),
+    'ftml_update': ('w g v n s', dict(lr=0.05, t=3, wd=0.01,
+                                      rescale_grad=0.5, clip_grad=2.0)),
 }
 
 
@@ -258,6 +277,8 @@ _MULTI = {
                           dict(rescale_grad=0.5, lower_bound=0.01)),
     'multi_adamw_update': ('w g s v', 'rescale lrs etas wds',
                            dict(clip_gradient=2.0)),
+    'multi_lans_update': ('w g s v', 'lrs wds t',
+                          dict(rescale_grad=0.5, clip_gradient=2.0)),
 }
 
 
@@ -389,3 +410,115 @@ def test_updater_payload_round_trip():
     assert other.optimizer.num_update == 1 and other.optimizer.lr == 0.1
     for a, b in zip(other.states[0], up.states[0]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# the optimizers ported with AMP: each class against the JAX class, f32
+# weights and gradients, 5 updates (rounding order only: 1e-6)
+_MORE_CLASSES = {
+    'signum': dict(learning_rate=0.05, momentum=0.9, wd=0.01, wd_lh=0.01),
+    'signum0': dict(learning_rate=0.05, momentum=0.0, wd=0.01),
+    'ftml': dict(learning_rate=0.05, wd=0.01, clip_gradient=2.0),
+    'lars': dict(learning_rate=0.05, momentum=0.9, wd=0.01),
+    'adagrad': dict(learning_rate=0.05, wd=0.01),
+    'rmsprop': dict(learning_rate=0.01, wd=0.01, clip_weights=2.0),
+    'rmsprop_centered': dict(learning_rate=0.01, wd=0.01, centered=True),
+    'adadelta': dict(wd=0.01, clip_gradient=2.0),
+    'ftrl': dict(learning_rate=0.1, wd=0.01),
+    'adamax': dict(learning_rate=0.01, wd=0.01, clip_gradient=2.0),
+    'nadam': dict(learning_rate=0.01, wd=0.01),
+    'dcasgd': dict(learning_rate=0.05, momentum=0.9, wd=0.01),
+    'dcasgd0': dict(learning_rate=0.05, wd=0.01),
+    'test': dict(),
+}
+
+
+@pytest.mark.parametrize('multi_precision', [False, True])
+@pytest.mark.parametrize('opt', sorted(_MORE_CLASSES))
+def test_more_optimizer_classes_match_jax_class(opt, multi_precision):
+    """create(name) over 5 updates of an f32 weight (with
+    ``multi_precision``, which an f32 weight ignores, and without): the
+    weight and every state within 1e-6, the update counts equal, and the
+    same ``fused_update`` flag as the JAX class."""
+    w0, grads = _problem(8, steps=5)
+    kw = dict(_MORE_CLASSES[opt], rescale_grad=0.5,
+              multi_precision=multi_precision)
+    name = opt.rstrip('0').replace('_centered', '')
+    jo, to = jopt.create(name, **kw), topt.create(name, **kw)
+    assert to.fused_update is jo.fused_update
+    jw, tw = nd.array(w0), torch.from_numpy(w0.copy())
+    js = jo.create_state_multi_precision(0, jw)
+    ts = to.create_state_multi_precision(0, tw)
+    for g in grads:
+        jo.update_multi_precision(0, jw, nd.array(g), js)
+        to.update_multi_precision(0, tw, torch.from_numpy(g), ts)
+    assert to.num_update == jo.num_update
+    onp.testing.assert_allclose(tw.numpy(), jw.asnumpy(), rtol=1e-6,
+                                atol=1e-6)
+
+    def leaves(s):
+        if isinstance(s, (list, tuple)):
+            return [x for y in s for x in leaves(y)]
+        return [] if s is None else [s]
+    jl, tl = leaves(js), leaves(ts)
+    assert len(jl) == len(tl)
+    for a, b in zip(tl, jl):
+        onp.testing.assert_allclose(a.numpy(), b.asnumpy(), rtol=1e-6,
+                                    atol=1e-6)
+
+
+@pytest.mark.parametrize('opt', ['signum', 'ftml', 'rmsprop', 'adamax',
+                                 'dcasgd', 'test'])
+def test_more_optimizers_run_fused_in_the_trainer(opt):
+    """The fused update (per-step scalars as device tensors, as the
+    captured program reads them) gives the per-parameter loop's weights
+    over 3 steps: to 1e-5, since its scalars are f32 values where the
+    loop's are Python floats (FTML's (1 - beta1**t) / lr moves most)."""
+    from mxnet_tpu_torch import gluon
+    rng = onp.random.RandomState(11)
+    w0 = rng.randn(4, 3).astype(onp.float32)
+    gs = [rng.randn(4, 3).astype(onp.float32) for _ in range(3)]
+    kw = dict(_MORE_CLASSES[opt])
+    outs = []
+    for fused in (True, False):
+        p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+        o = topt.create(opt, **kw)
+        o.fused_update = fused
+        trainer = gluon.Trainer([p], o)
+        for g in gs:
+            p.grad = torch.from_numpy(g.copy())
+            trainer.step(2)
+        assert (trainer._fused is not None) is fused
+        outs.append(p.detach().clone())
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-6)
+
+
+def test_sgld_noise_is_normal_with_variance_lr():
+    """SGLD's step is -lr/2 (g + wd w) plus Normal(0, sqrt(lr)) noise,
+    drawn from the port's generator: the JAX package draws other numbers
+    (ROADMAP queue 1 item 2), so the noise is held by its statistics on
+    a 200 x 200 weight: the mean within 4 standard errors of 0 and the
+    variance within 3% of lr. A second draw differs; the JAX step's
+    deterministic part is the port's."""
+    import mxnet_tpu_torch as mt
+    lr, wd = 0.01, 0.1
+    rng = onp.random.RandomState(12)
+    w0 = rng.randn(200, 200).astype(onp.float32)
+    g = rng.randn(200, 200).astype(onp.float32)
+    mt.random.seed(3)
+    to = topt.create('sgld', learning_rate=lr, wd=wd, rescale_grad=0.5)
+    assert to.fused_update is False
+    tw = torch.from_numpy(w0.copy())
+    to.update(0, tw, torch.from_numpy(g), None)
+    drift = w0 - lr / 2 * (g * 0.5 + wd * w0)
+    noise = tw.numpy().astype(onp.float64) - drift
+    n = noise.size
+    assert abs(noise.mean()) < 4 * (lr / n) ** 0.5
+    assert abs(noise.var() / lr - 1) < 0.03
+    tw2 = torch.from_numpy(w0.copy())
+    to.update(0, tw2, torch.from_numpy(g), None)
+    assert not torch.equal(tw, tw2)
+    jo = jopt.create('sgld', learning_rate=lr, wd=wd, rescale_grad=0.5)
+    jw = nd.array(w0)
+    jo.update(0, jw, nd.array(g), None)
+    jnoise = jw.asnumpy().astype(onp.float64) - drift
+    assert abs(jnoise.var() / lr - 1) < 0.03

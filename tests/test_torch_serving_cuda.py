@@ -68,17 +68,25 @@ def _engine(net, **kw):
                                    batch_buckets='1,2', **kw)
 
 
-def _kernels(fn, iters=2):
-    """{kernel of KERNELS: launches per call} from a profiler trace."""
+def _kernels(fn, iters=2, tries=3):
+    """{kernel of KERNELS: launches per call} from a profiler trace. Every
+    call launches the flash forward once a layer; a trace of CUDA-graph
+    replays that counts fewer came back short (seen on the card), and is
+    taken again, up to ``tries`` times, as chip_smoke.py does."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-    counts = {e.key: e.count for e in prof.key_averages()}
-    return {k: sum(c for n, c in counts.items() if k in n) / iters
-            for k in KERNELS}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()}
+        got = {k: sum(c for n, c in counts.items() if k in n) / iters
+               for k in KERNELS}
+        if got['flash_fwd_tc_kernel'] >= CFG['layers']:
+            break
+        print(f'profiler trace {attempt + 1} short ({got}): taken again')
+    return got
 
 
 def test_each_bucket_replay_is_bitwise_the_eager_forward():

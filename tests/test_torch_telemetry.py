@@ -1093,7 +1093,9 @@ def test_ledger_append_atomic_survives_kill(P, tmp_path, monkeypatch):
             raise OSError('killed mid-replace')
         return real_replace(src, dst)
     monkeypatch.setattr(os, 'replace', dying_replace)
-    P.compile._ledger_err['warned'] = False
+    # the flag is the package's, shared with every later test in the
+    # process: restored when the monkeypatch is undone
+    monkeypatch.setitem(P.compile._ledger_err, 'warned', False)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter('always')
         _entry(P, shape=(3, 4))
