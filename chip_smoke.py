@@ -173,7 +173,31 @@
    its buckets sum to the host clock's time per step within 1%, its MFU
    printed beside the phase's own. The kernel phase also times the flash
    forward, dq and dk/dv with dropout 0.1, their seed read by pointer.
-10. Prints the kernels' JSON line (each row with its variant and dtype
+11. dp phase (after the compiled-step phase): data parallelism and ZeRO-1
+   over torch.distributed. One process runs the reference: BERT-base
+   BertForPretraining in bf16 with both knobs on, attention dropout 0.1
+   from the shared stream of models.bert.dp_generators, hidden dropout
+   0, the flagship batch (B = 8, T = 512), 5 steps of ShardedTrainStep
+   (AdamW) and then 3 of the Trainer loop from the same weights. Then two
+   rank processes of this script (--dp-rank) share the one card over gloo
+   (asked for by name: NCCL refuses two ranks on one card), rendezvous
+   through a FileStore under build/, each with B = 4 of the same batch:
+   the same 5 steps with ZeRO-1 (the step captured in segments between
+   its collectives) and the same 3 Trainer steps (ZeRO-1 in the fused
+   update, step(batch_size) dividing the world's sum of the ranks' mean
+   gradients by 2). Per-step losses and the f32 masters' updates are held
+   to DP_TOL (chosen before the first run), each rank's launch counts to
+   the eager step, the captures and the Trainer's steps; each kernel the
+   path launches is held against its plain version at the rank's bh_base
+   (0 and 48); opt_state_bytes_per_device at dp 2 against dp 1, the
+   analytic ring bytes, the collectives' host ms and the step ms
+   (two ranks on one card: not a speed figure) are printed beside the
+   card; SyncBatchNorm in a small conv net at dp 2 against BatchNorm at
+   dp 1, f32 with TF32 off, outputs and running statistics within 1e-5.
+   With two or more cards it repeats the training part over NCCL, one
+   rank per card, up to 4; with one it prints "nccl: not run (1 card)".
+   A rank that fails or passes DP_TIMEOUT fails the script.
+12. Prints the kernels' JSON line (each row with its variant and dtype
    and, for a redesigned kernel, the time of the one it replaced, old_ms;
    the float16 routes as rows of their own, named kernel[float16], whose
    launches are the AMP phase's float16 ones) and, last, the result
@@ -3005,6 +3029,414 @@ def gluon_phase(card, batch=64, warmup=2, timed=8, loop_steps=5):
                           parity=parity)
 
 
+# --------------------------------------------------------------------------
+# dp phase: data parallelism and ZeRO-1 over torch.distributed
+# --------------------------------------------------------------------------
+
+# chosen before the first run (PERF.md section 2): two ranks at B = 4
+# against one process at B = 8 on the same weights, batches and attention
+# masks, in bf16 on the card; the ceiling is the bf16 training bound
+DP_TOL = {'loss_rel': 0.01, 'update_rel_fro': 0.1}
+DP_SBN_TOL = dict(atol=1e-5, rtol=1e-5)    # SyncBatchNorm, f32, TF32 off
+DP_TIMEOUT = 600.0       # seconds for a world of ranks, then all are killed
+DP_STEPS, DP_TRAINER_STEPS = 5, 3
+
+
+def _dp_timed(step, name, log):
+    """Wrap ``step``'s collective segment ``name`` so each call's host ms
+    (between synchronizes) lands in ``log[name]``."""
+    import torch
+    fn = getattr(step, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        log.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(step, name, timed)
+
+
+def dp_train(world, rank, work, device='cuda', cfg=None, batch=8, seq=512):
+    """One rank's share (at world 1 the whole) of the dp path: BERT-base
+    BertForPretraining in bf16, both knobs on, attention dropout 0.1 (the
+    shared stream of models.bert.dp_generators), hidden dropout 0, the
+    flagship batch's rows [rank * B/world, (rank + 1) * B/world); DP_STEPS
+    steps of ShardedTrainStep (AdamW, ZeRO-1 on by default at world > 1),
+    then DP_TRAINER_STEPS of the Trainer loop from the same initial
+    weights. Launch counters at 0 just before and read just after. Rank 0
+    (and world 1) saves the f32 masters after each part to ``work``."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon, parallel
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config,
+                                             bert_pretrain_loss,
+                                             dp_generators)
+    from mxnet_tpu_torch.parallel import collectives, dist
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    os.environ['MXTPU_PALLAS_LN'] = '1'
+    os.environ['MXTPU_PALLAS_FFN'] = '1'
+    cfg = cfg or bert_base_config()
+    dtype = torch.bfloat16 if device == 'cuda' else torch.float32
+    hidden, attn = dp_generators(SEED + 5, device)
+    net = BertForPretraining(dict(cfg, dropout=0.1), dtype=dtype,
+                             device=device, generator=hidden,
+                             attn_generator=attn)
+    for m in net.modules():
+        if isinstance(m, nn.Dropout):
+            m._rate = 0.0          # hidden dropout off; attention's 0.1
+    arrays = random_bert_arrays(net)
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    data, nmask = pretraining_batch(cfg, batch, seq, SEED)
+    b = batch // world
+    t = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to(device)
+         for k, v in data.items()}
+    ins = [t['tokens'], t['types'], t['valid'], t['mpos']]
+    labs = [t['labels'], t['nsp']]
+    mesh = parallel.make_mesh((world,), ('dp',)) if world > 1 else \
+        parallel.make_mesh(devices=[device])
+    step = parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
+                                     {'learning_rate': 1e-4, 'wd': 0.01},
+                                     mesh=mesh)
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    coll_ms = {}
+    mt.ops.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(DP_STEPS):
+        if i == 2 and world > 1:
+            # host ms of the collective segments, steps 3 on (replays)
+            for name in ('_dp_gather', '_dp_reduce', '_dp_gather_params'):
+                _dp_timed(step, name, coll_ms)
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(step(ins, labs)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # the f32 masters (the parameters themselves where f32), whole
+    step_masters = {n: step._logical(n, step._master.get(
+        n, step._local(n, p))) for n, p in step._trainable}
+    # the Trainer loop, the recipe as MXNet writes it: each rank's loss is
+    # its rows' mean, so the world's sum of gradients divides by world
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    attn.manual_seed(SEED + 6)
+    params = gluon.collect_params(net)
+    trainer = gluon.Trainer(params, 'adamw',
+                            {'learning_rate': 1e-4, 'wd': 0.01,
+                             'multi_precision': True})
+    tr_losses = []
+    for _ in range(DP_TRAINER_STEPS):
+        with autograd.record():
+            mlm, nsp = net(*ins)
+            loss = bert_pretrain_loss(mlm, nsp, *labs)
+        loss.backward()
+        trainer.step(world)
+        net.zero_grad(set_to_none=False)
+        lt = loss.detach().float().reshape(1)
+        if world > 1:
+            collectives.all_reduce_(lt)
+        tr_losses.append(float(lt) / world)
+    sync()
+    launches = dict(mt.ops.launch_counts)
+    states = trainer._whole_states() if trainer._zero_dims else \
+        trainer._updater.states
+    tr_masters = {}
+    for i, (n, p) in enumerate(params.items()):
+        low = trainer._optimizer._low_precision(p)
+        tr_masters[n] = (states[i][0] if low else p).detach().float() \
+            .cpu().numpy()
+    if rank == 0:
+        torch.save({'step': step_masters, 'trainer': tr_masters},
+                   os.path.join(work, f'masters_dp{world}.pt'))
+    return dict(
+        losses=losses, trainer_losses=tr_losses, step_ms=step_ms,
+        coll_ms=coll_ms, launches=launches, zero=step.zero,
+        trainer_zero=trainer._zero_active,
+        opt_bytes=step.opt_state_bytes_per_device(),
+        trainer_opt_bytes=trainer.opt_state_bytes_per_device(),
+        param_bytes=step.param_bytes_per_device(),
+        comm=step.comm_bytes_per_hop(), graphs=len(step._graphs),
+        backend=dist.backend(),
+        peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                  if device == 'cuda' else 0.0),
+        initial={n: a for n, a in arrays.items()} if world == 1 else None)
+
+
+def dp_kernel_checks(world, rank, batch=8, seq=512):
+    """Each kernel the dp path launches against its plain version on this
+    rank's shapes: the flash forward, dq and dk/dv with dropout 0.1 at
+    this rank's bh_base (rank * B/world * heads), LayerNorm and FFN1 on
+    the rank's rows. {kernel: max abs error}."""
+    import torch
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import fused_ffn, fused_layernorm
+    b, H, D, C = batch // world, 12, 64, 768
+    bh_base = rank * b * H
+    g = torch.Generator('cuda').manual_seed(SEED + 40 + rank)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device='cuda') * scale) \
+            .to(torch.bfloat16)
+    q, k, v, do = (rnd(b, H, seq, D) for _ in range(4))
+    valid = torch.randint(seq // 2, seq + 1, (b,), generator=g,
+                          device='cuda')
+    mask = torch.where(torch.arange(seq, device='cuda')[None] <
+                       valid[:, None], 0.0, -1e30)
+    seed = torch.randint(0, 2 ** 32, (1,), generator=g, device='cuda',
+                         dtype=torch.int64)
+    tol = TOL['bfloat16']
+    out, lse = fa.flash_attention_forward(q, k, v, mask, False, 0.1, seed,
+                                          bh_base=bh_base)
+    ref, _ = fa.flash_attention_reference(q, k, v, mask, False, 0.1, seed,
+                                          bh_base=bh_base)
+    errs = {'flash_attn_fwd': compare(
+        f'rank {rank} flash forward, bh_base {bh_base}', out, ref, **tol)}
+    got = fa.flash_attention_backward(q, k, v, mask, False, 0.1, seed, out,
+                                      lse, do, bh_base=bh_base)
+    want = fa.flash_attention_backward_reference(q, k, v, mask, False, 0.1,
+                                                 seed, out, lse, do,
+                                                 bh_base=bh_base)
+    errs['flash_attn_bwd_dq'] = compare(
+        f'rank {rank} dq, bh_base {bh_base}', got[0], want[0], **tol)
+    errs['flash_attn_bwd_dkv'] = max(
+        compare(f'rank {rank} d{n}, bh_base {bh_base}', a, w, **tol)
+        for n, a, w in zip('kv', got[1:], want[1:]))
+    x, r = rnd(b * seq, C), rnd(b * seq, C)
+    gamma, beta = rnd(C, scale=0.1) + 1, rnd(C, scale=0.1)
+    errs['fused_add_layernorm'] = compare(
+        f'rank {rank} LayerNorm', fused_layernorm.fused_add_layer_norm(
+            x, r, gamma, beta),
+        fused_layernorm.add_layer_norm_reference(x, r, gamma, beta), **tol)
+    w, bias = rnd(4 * C, C, scale=0.02), rnd(4 * C, scale=0.02)
+    errs['dense_gelu'] = compare(
+        f'rank {rank} FFN1', fused_ffn.fused_dense_gelu(x, w, bias),
+        fused_ffn.dense_gelu_reference(x, w, bias), **tol)
+    return errs
+
+
+def dp_sync_bn(world, rank, device='cuda', batch=8):
+    """A small conv net with SyncBatchNorm (BatchNorm at world 1) in f32,
+    one training forward on the rank's rows of a seeded batch: (outputs,
+    running means, running vars) as numpy."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import collectives
+    norm = nn.SyncBatchNorm if world > 1 else nn.BatchNorm
+    ctx = mt.gpu(0) if device == 'cuda' else mt.cpu()
+    with ctx:
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+                norm(in_channels=8), nn.Activation('relu'),
+                nn.Conv2D(8, 3, padding=1, in_channels=8),
+                norm(in_channels=8))
+        net.initialize()
+    rng = onp.random.RandomState(SEED + 7)
+    net.load_state_dict({n: torch.from_numpy(
+        rng.standard_normal(tuple(p.shape)).astype(onp.float32) * 0.3
+        if n.endswith('weight') else p.detach().cpu().numpy())
+        for n, p in net.named_parameters()})
+    x = rng.standard_normal((batch, 3, 16, 16)).astype(onp.float32)
+    b = batch // world
+    net.train()
+    with collectives.data_axis('dp'):
+        y = net(torch.from_numpy(x[rank * b:(rank + 1) * b]).to(device))
+    stats = {n: p.detach().cpu().numpy().copy()
+             for n, p in net.named_parameters() if 'running' in n}
+    return y.detach().cpu().numpy(), stats
+
+
+def dp_rank_main(rank, world, work, backend):
+    """A rank of the dp phase (chip_smoke.py --dp-rank R ...)."""
+    import pickle
+    import torch
+    from mxnet_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device('cuda', rank % torch.cuda.device_count()) \
+        if backend == 'nccl' else None
+    dist.init(coordinator=f'file://{work}/store_{backend}',
+              num_processes=world, process_id=rank, backend=backend,
+              device=dev, timeout=DP_TIMEOUT)
+    res = dp_train(world, rank, work)
+    res['kernels'] = dp_kernel_checks(world, rank)
+    res['bh_base'] = rank * (8 // world) * 12
+    if backend == 'gloo':
+        res['sbn'] = dp_sync_bn(world, rank)
+    with open(os.path.join(work, f'{backend}_rank{rank}.pkl'), 'wb') as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def _dp_world(world, backend, work):
+    """Spawn ``world`` ranks of this script; every rank is killed and the
+    phase fails at DP_TIMEOUT. Returns each rank's readings."""
+    import pickle
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--dp-rank', str(r),
+         '--dp-world', str(world), '--dp-dir', work, '--dp-backend',
+         backend], env=dict(os.environ, OMP_NUM_THREADS='4'))
+        for r in range(world)]
+    deadline = time.monotonic() + DP_TIMEOUT
+    codes = []
+    try:
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, deadline -
+                                                time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(codes == [0] * world, f'dp ranks over {backend} exited {codes} '
+          f'(None: killed at {DP_TIMEOUT:.0f} s)')
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f'{backend}_rank{r}.pkl'), 'rb') as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _update_rel_fro(got, want, initial):
+    """The rel Frobenius norm of the difference of two runs' updates from
+    ``initial``, over every tensor: |got - want| / |want - initial|."""
+    import numpy as onp
+    num = sum(float(onp.square(onp.asarray(got[n], onp.float64) -
+                               onp.asarray(want[n], onp.float64)).sum())
+              for n in want)
+    den = sum(float(onp.square(onp.asarray(want[n], onp.float64) -
+                               onp.asarray(initial[n], onp.float64)).sum())
+              for n in want)
+    return (num / den) ** 0.5
+
+
+def _hold_dp(label, ranks, ref, ref_masters, got_masters, card):
+    import numpy as onp
+    worst = 0.0
+    for key in ('losses', 'trainer_losses'):
+        for o in ranks:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(o[key], ref[key]))
+            worst = max(worst, rel)
+    upd = {k: _update_rel_fro(got_masters[k], ref_masters[k], ref['initial'])
+           for k in ('step', 'trainer')}
+    ok = worst <= DP_TOL['loss_rel'] and \
+        max(upd.values()) <= DP_TOL['update_rel_fro']
+    print(f'  {label} vs one process at B=8 (dp=1), on {card}: per-step '
+          f'loss rel err max {worst:.2e}; masters\' updates rel_fro '
+          f'step {upd["step"]:.4f}, Trainer {upd["trainer"]:.4f}; '
+          f'tolerance {DP_TOL} -> {"ok" if ok else "FAIL"}')
+    print(f'    losses: dp {ranks[0]["losses"]} / {ranks[0]["trainer_losses"]}'
+          f'; dp=1 {ref["losses"]} / {ref["trainer_losses"]}')
+    check(all(onp.isfinite(x) for o in ranks for x in o['losses']),
+          'non-finite dp loss')
+    check(ok, f'{label} disagrees with one process')
+    return dict(loss_rel=worst, **{f'update_rel_fro_{k}': v
+                                   for k, v in upd.items()})
+
+
+def dp_phase(card, world=2):
+    """Two ranks on the one card over gloo against one process (see the
+    module docstring, step 11). Returns ({kernel: launches summed over the
+    ranks}, {kernel: max abs error at bh_base != 0}, readings)."""
+    import shutil
+    import numpy as onp
+    import torch
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                        'dp_phase')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    print(f'dp phase on {card}: data parallelism and ZeRO-1 over '
+          f'torch.distributed; the reference is one process at B=8')
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref = dp_train(1, 0, work)
+    sbn_ref = dp_sync_bn(1, 0)
+    ref_masters = torch.load(os.path.join(work, 'masters_dp1.pt'),
+                             weights_only=False)
+    torch.cuda.empty_cache()
+    print(f'  dp=1: losses {ref["losses"]}, Trainer {ref["trainer_losses"]}, '
+          f'step ms {[round(x, 3) for x in ref["step_ms"]]}, peak '
+          f'{ref["peak_gib"]:.2f} GiB')
+    t0 = time.perf_counter()
+    ranks = _dp_world(world, 'gloo', work)
+    print(f'  world of {world} ranks on the one card over '
+          f'{ranks[0]["backend"]} (asked for by name: NCCL refuses two ranks '
+          f'on one card) in {time.perf_counter() - t0:.1f} s; every '
+          f'collective took the CUDA tensors as they are (gloo copies '
+          f'through host memory itself); ZeRO-1 '
+          f'{ranks[0]["zero"]} (step), {ranks[0]["trainer_zero"]} (Trainer); '
+          f'{ranks[0]["graphs"]} captured signature')
+    check(all(o['backend'] == 'gloo' and o['zero'] and o['trainer_zero']
+              for o in ranks), 'a rank is not on gloo with ZeRO-1')
+    got_masters = torch.load(os.path.join(work, f'masters_dp{world}.pt'),
+                             weights_only=False)
+    parity = _hold_dp(f'dp={world} over gloo', ranks, ref, ref_masters,
+                      got_masters, card)
+    L = 12
+    want = {'flash_attn_fwd': 2 * L + DP_TRAINER_STEPS * L,
+            'flash_attn_bwd_dq': 2 * L + DP_TRAINER_STEPS * L,
+            'flash_attn_bwd_dkv': 2 * L + DP_TRAINER_STEPS * L,
+            'fused_add_layernorm': 4 * L + 2 * DP_TRAINER_STEPS * L,
+            'dense_gelu': 2 * L + DP_TRAINER_STEPS * L}
+    for o in ranks:
+        check(o['launches'] == want, f'rank launches {o["launches"]}, '
+              f'expected {want} (the eager step and the capture, then the '
+              f'Trainer loop\'s steps)')
+    launches = {k: sum(o['launches'][k] for o in ranks) for k in want}
+    errs = {k: max(o['kernels'][k] for o in ranks if o['bh_base'])
+            for k in ranks[0]['kernels']}
+    print(f'  kernels vs plain at bh_base {[o["bh_base"] for o in ranks]}: '
+          f'max abs err over the ranks with bh_base != 0 {errs}')
+    ratio = ranks[0]['opt_bytes'] / ref['opt_bytes']
+    coll = {k: float(onp.median(v)) for k, v in ranks[0]['coll_ms'].items()}
+    rank_ms = float(onp.median(ranks[0]['step_ms'][2:]))
+    print(f'  {card}: opt_state_bytes_per_device {ranks[0]["opt_bytes"]} at '
+          f'dp={world} against {ref["opt_bytes"]} at dp=1 (ratio '
+          f'{ratio:.4f}; Trainer {ranks[0]["trainer_opt_bytes"]} against '
+          f'{ref["trainer_opt_bytes"]}); analytic ring bytes per step '
+          f'{ranks[0]["comm"]}; host ms a step of the collectives (median '
+          f'of steps 3-{DP_STEPS}, between synchronizes): {coll}')
+    print(f'  {card}: step ms {rank_ms:.3f} (median of steps 3-{DP_STEPS}; '
+          f'two ranks sharing one card over gloo, the collectives through '
+          f'host memory: not a speed figure) against {float(onp.median(ref["step_ms"][2:])):.3f} '
+          f'at dp=1; peak {ranks[0]["peak_gib"]:.2f} GiB a rank')
+    check(0.45 <= ratio <= 0.55, f'ZeRO-1 state ratio {ratio}')
+    out = onp.concatenate([o['sbn'][0] for o in ranks])
+    compare('SyncBatchNorm at dp=2 vs BatchNorm at dp=1, outputs',
+            torch.from_numpy(out), torch.from_numpy(sbn_ref[0]),
+            **DP_SBN_TOL)
+    for o in ranks:
+        for n, v in sbn_ref[1].items():
+            compare(f'SyncBatchNorm {n}, rank {ranks.index(o)}',
+                    torch.from_numpy(o['sbn'][1][n]), torch.from_numpy(v),
+                    **DP_SBN_TOL)
+    nccl = None
+    count = torch.cuda.device_count()
+    if count >= 2:
+        n = min(4, count)
+        nranks = _dp_world(n, 'nccl', work)
+        masters = torch.load(os.path.join(work, f'masters_dp{n}.pt'),
+                             weights_only=False)
+        nccl = _hold_dp(f'dp={n} over NCCL', nranks, ref, ref_masters,
+                        masters, card)
+        print(f'  nccl: ran on {n} cards, step ms '
+              f'{float(onp.median(nranks[0]["step_ms"][2:])):.3f}')
+    else:
+        print('  nccl: not run (1 card)')
+    return launches, errs, dict(parity=parity, ratio=ratio, coll_ms=coll,
+                                step_ms=rank_ms, nccl=nccl)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3048,6 +3480,7 @@ def main():
     gluon, _gluon = gluon_phase(card)
     # last: the traces taken after its graph replays are the least sure
     compiled, per_replay, _compiled = compiled_step_phase(card)
+    dp, dp_errs, _dp = dp_phase(card)
     # launches: the serving, front, training, compiled-step and ndarray
     # runs', each counted from 0 just before its run (serving's and the
     # front's are their warmups' eager runs and captures, the compiled
@@ -3057,7 +3490,7 @@ def main():
     # the AMP runs' float16 launches go to the [float16] rows where a
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
-             'ndarray', 'gluon')
+             'ndarray', 'gluon', 'dp')
     by_path = {}
     for name in rows:
         base, f16 = name.split('[')[0], name.endswith('[float16]')
@@ -3071,7 +3504,7 @@ def main():
             serving=serving[name], front=front[name],
             training=training[name], amp=amp_launches[name] - n16,
             compiled_step=compiled[name], ndarray=nd_ops[name],
-            gluon=gluon.get(name, 0))
+            gluon=gluon.get(name, 0), dp=dp.get(name, 0))
     for name in user_rows:
         by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
     idle = [n for n, paths_n in by_path.items()
@@ -3089,6 +3522,8 @@ def main():
                     **({'via': r['via']} if 'via' in r else {}),
                     **({'dropout_ms': r['dropout_ms']}
                        if 'dropout_ms' in r else {}),
+                    **({'dp_max_abs_err': dp_errs[name]}
+                       if name in dp_errs else {}),
                     **({'launches_per_replay': per_replay[name]}
                        if name in per_replay else {}),
                     **({'launches_per_serving_dispatch': serve_replay[name]}
@@ -3104,5 +3539,17 @@ def main():
     return 0
 
 
+def _rank_args(argv):
+    def arg(k):
+        return argv[argv.index(k) + 1]
+    return (int(arg('--dp-rank')), int(arg('--dp-world')), arg('--dp-dir'),
+            arg('--dp-backend'))
+
+
 if __name__ == '__main__':
+    if '--dp-rank' in sys.argv:
+        import torch
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.exit(dp_rank_main(*_rank_args(sys.argv)))
     sys.exit(main())

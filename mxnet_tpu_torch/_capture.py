@@ -81,7 +81,7 @@ def graph_generators(module, device):
     return gens
 
 
-def capture(fn, device, generators=(), warm_up=False):
+def capture(fn, device, generators=(), warm_up=False, stream=None):
     """(graph, out, first): fn's work captured into one ``CUDAGraph`` on a
     side stream, not run (``graph.replay()`` runs it), with ``out`` what
     fn returned during the capture, the graph's static outputs. With
@@ -89,9 +89,12 @@ def capture(fn, device, generators=(), warm_up=False):
     that kernels are built and libraries initialised outside the capture;
     ``first`` is what that run returned (None without it). ``generators``
     are registered with the graph, so each replay draws fresh numbers
-    from them (the device's default generator is registered by torch)."""
+    from them (the device's default generator is registered by torch).
+    ``stream`` is the side stream (a new one by default): graphs whose
+    backward continues another's forward are captured on one stream, the
+    one autograd runs that backward on."""
     current = torch.cuda.current_stream(device)
-    stream = torch.cuda.Stream(device)
+    stream = torch.cuda.Stream(device) if stream is None else stream
     stream.wait_stream(current)
     first = None
     if warm_up:

@@ -152,9 +152,54 @@ _register('MXTPU_COMPILE_CACHE_DIR', str, '',
 _register('MXTPU_SERVE_WATCHDOG_SECONDS', float, 0.0,
           'Serving watchdog deadline: nonzero needs resilience.watchdog, '
           'which is not ported (ROADMAP queue 1 item 9) and raises.')
+_register('MXNET_TPU_COORDINATOR', str, '',
+          'host:port of rank 0 for a multi-process world '
+          '(parallel.dist.init: a torch.distributed TCPStore there), or '
+          'file:///path for a FileStore rendezvous. Empty: fall back to '
+          'the DMLC_PS_ROOT_URI/_PORT drop-in names, then localhost:12345 '
+          'with a warning.')
+_register('MXNET_TPU_NUM_PROCS', int, 0,
+          'Total process count of a multi-process world. 0 (default): '
+          'fall back to DMLC_NUM_WORKER, then one process.')
 _register('MXNET_TPU_PROC_ID', int, -1,
-          "This process's rank. -1 (default): 0. The observability "
-          'endpoint serves on MXTPU_METRICS_PORT + rank.')
+          "This process's rank. -1 (default): fall back to DMLC_WORKER_ID, "
+          'then 0. The observability endpoint serves on MXTPU_METRICS_PORT '
+          '+ rank.')
+_register('MXTPU_DIST_INIT_RETRIES', int, 3,
+          'Bounded retries (exponential backoff) of the connection to rank '
+          "0's store in dist.init(): workers that start before rank 0 is "
+          'listening see a transient connection error, not a fatal one.')
+_register('MXTPU_HIERARCHICAL_DP', int, 0,
+          'Hierarchical dp decomposition (dist.dp_host_split): 0 (default) '
+          'detects hosts from the world, 1 forces the flat topology. A '
+          'forced split (N >= 2) raises: hierarchy is ROADMAP queue 1 '
+          'item 8.')
+
+
+def _zero_stage(s):
+    """MXTPU_ZERO value -> ZeRO stage int: 0/off/false -> 0, 1/on/true
+    -> 1, 3 -> 3 (the JAX package's parser; stage 3 raises in the port,
+    ROADMAP queue 1 item 7)."""
+    raw = str(s).strip().lower()
+    if raw in ('3',):
+        return 3
+    if raw in ('1', 'true', 'on', 'yes', 'y', 'enabled'):
+        return 1
+    if raw in ('0', 'false', 'off', '', 'no', 'n', 'none', 'disabled'):
+        return 0
+    raise ValueError(f"MXTPU_ZERO={s!r}: expected 0 (off), 1 (sharded "
+                     f"optimizer state) or 3 (sharded params + grads + "
+                     f"state / FSDP)")
+
+
+_register('MXTPU_ZERO', _zero_stage, 1,
+          'ZeRO stage of the data-parallel update. 1 (default whenever '
+          'the dp axis spans more than one rank): gradients '
+          'reduce-scatter over dp, each rank runs the optimizer on its '
+          '1/dp slice of the f32 masters and moments, and the updated '
+          'parameters all-gather back. 0 keeps the replicated update '
+          '(one all-reduce of the gradients). 3 raises (ROADMAP queue 1 '
+          'item 7).')
 _register('MXTPU_HEARTBEAT_SECONDS', float, 1.0,
           'Membership heartbeat period (parallel.dist, not ported: ROADMAP '
           'queue 1 item 10). The fleet monitor derives its default stale '

@@ -6,7 +6,9 @@
 // the murmur3 finalizer over the GLOBAL (batch*head, row, col) coordinates
 // of an attention element, in uint32 arithmetic that wraps the same way in
 // Mosaic, XLA and here. So the mask is a pure function of the seed and the
-// coordinates, whatever the tiling.
+// coordinates, whatever the tiling. Under data parallelism the kernels pass
+// bh as the rank's first global batch*head plus the local one, so two ranks
+// with one seed draw the masks of their own rows of the global batch.
 #pragma once
 
 #include <stdint.h>

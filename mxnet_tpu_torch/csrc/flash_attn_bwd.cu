@@ -131,6 +131,7 @@ struct BwdArgs {
   uint32_t thresh;
   float keep_scale;
   int use_dropout;
+  uint32_t bh_base;  // added to the local bh in the dropout hash
 };
 
 // _masked_scores for one element, then exp(s - lse)
@@ -147,7 +148,8 @@ __device__ __forceinline__ float prob(float dot, const BwdArgs& a, const float* 
 __device__ __forceinline__ float keep_mul(const BwdArgs& a, uint32_t seed, int bh, int qpos,
                                           int kpos) {
   if (!a.use_dropout) return 1.f;
-  return counter_keep(seed, (uint32_t)bh, (uint32_t)qpos, (uint32_t)kpos, a.thresh)
+  return counter_keep(seed, a.bh_base + (uint32_t)bh, (uint32_t)qpos, (uint32_t)kpos,
+                      a.thresh)
              ? a.keep_scale
              : 0.f;
 }
@@ -834,12 +836,12 @@ int run(int which, int dtype, int D, const void* q, const void* k, const void* v
         const void* kmask, const void* dout, const void* lse, const void* delta, void* out0,
         void* out1, int B, int H, int Tq, int Tk, const long long* st, int mask_div, float scale,
         int causal, const unsigned int* seed, unsigned int thresh, float keep_scale,
-        int use_dropout, void* stream) {
+        int use_dropout, unsigned int bh_base, void* stream) {
   BwdArgs a{q, k, v, kmask, dout, lse, delta, out0, out1, H, Tq, Tk,
             Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
             Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
             Strides{st[12], st[13], st[14]}, mask_div, scale, causal, seed, thresh, keep_scale,
-            use_dropout};
+            use_dropout, bh_base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (which >= 2) {
     if (dtype == 1) return dispatch_tc<__nv_bfloat16>(which == 2, D, a, B, s);
@@ -860,7 +862,9 @@ int run(int which, int dtype, int D, const void* q, const void* k, const void* v
 // dO, then the output(s) (dq; or dk and dv, which share one layout). seed
 // points at the dropout seed on the device (its first 32-bit word), read
 // once per block and only when use_dropout is set, so a seed drawn on the
-// device and a replayed CUDA graph never pass through the host.
+// device and a replayed CUDA graph never pass through the host. bh_base is
+// added to each block's batch*head index in the dropout hash (a rank's
+// first global batch*head under data parallelism; 0 otherwise).
 // Returns cudaGetLastError().
 extern "C" int mxtt_flash_attn_bwd_dq(int dtype, int D, const void* q, const void* k,
                                       const void* v, const void* kmask, const void* dout,
@@ -868,9 +872,10 @@ extern "C" int mxtt_flash_attn_bwd_dq(int dtype, int D, const void* q, const voi
                                       int Tq, int Tk, const long long* strides, int mask_div,
                                       float scale, int causal, const unsigned int* seed,
                                       unsigned int thresh, float keep_scale, int use_dropout,
-                                      void* stream) {
+                                      unsigned int bh_base, void* stream) {
   return run(0, dtype, D, q, k, v, kmask, dout, lse, delta, dq, nullptr, B, H, Tq, Tk,
-             strides, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+             strides, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, bh_base,
+             stream);
 }
 
 extern "C" int mxtt_flash_attn_bwd_dkv(int dtype, int D, const void* q, const void* k,
@@ -879,9 +884,10 @@ extern "C" int mxtt_flash_attn_bwd_dkv(int dtype, int D, const void* q, const vo
                                        int B, int H, int Tq, int Tk, const long long* strides,
                                        int mask_div, float scale, int causal,
                                        const unsigned int* seed, unsigned int thresh,
-                                       float keep_scale, int use_dropout, void* stream) {
+                                       float keep_scale, int use_dropout, unsigned int bh_base,
+                                       void* stream) {
   return run(1, dtype, D, q, k, v, kmask, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
-             mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+             mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, bh_base, stream);
 }
 
 // The tensor-core dk/dv kernel: dtype must be 1 (bfloat16) or 2 (float16) and D one of
@@ -893,9 +899,10 @@ extern "C" int mxtt_flash_attn_bwd_dkv_tc(int dtype, int D, const void* q, const
                                           int B, int H, int Tq, int Tk, const long long* strides,
                                           int mask_div, float scale, int causal,
                                           const unsigned int* seed, unsigned int thresh,
-                                          float keep_scale, int use_dropout, void* stream) {
+                                          float keep_scale, int use_dropout, unsigned int bh_base,
+                                          void* stream) {
   return run(2, dtype, D, q, k, v, kmask, dout, lse, delta, dk, dv, B, H, Tq, Tk, strides,
-             mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+             mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, bh_base, stream);
 }
 
 // The tensor-core dq kernel: dtype must be 1 (bfloat16) or 2 (float16) and D one of 16,
@@ -907,7 +914,8 @@ extern "C" int mxtt_flash_attn_bwd_dq_tc(int dtype, int D, const void* q, const 
                                          int H, int Tq, int Tk, const long long* strides,
                                          int mask_div, float scale, int causal,
                                          const unsigned int* seed, unsigned int thresh,
-                                         float keep_scale, int use_dropout, void* stream) {
+                                         float keep_scale, int use_dropout, unsigned int bh_base,
+                                         void* stream) {
   return run(3, dtype, D, q, k, v, kmask, dout, lse, delta, dq, nullptr, B, H, Tq, Tk, strides,
-             mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+             mask_div, scale, causal, seed, thresh, keep_scale, use_dropout, bh_base, stream);
 }

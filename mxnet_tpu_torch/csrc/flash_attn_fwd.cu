@@ -96,7 +96,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const float* __restrict__ kmask, T* __restrict__ o, float* __restrict__ lse,
                  int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
                  int mask_div, float scale, int causal, const uint32_t* __restrict__ seed_ptr,
-                 uint32_t thresh, float keep_scale, int use_dropout) {
+                 uint32_t thresh, float keep_scale, int use_dropout, uint32_t bh_base) {
   static_assert(D % 4 == 0, "D must split over 4 threads");
   const uint32_t seed = use_dropout ? *seed_ptr : 0u;  // the dropout seed, read once
   constexpr int DP = D / 4;            // output columns per thread
@@ -192,7 +192,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       psum += p;
       float pv = p;
       if (use_dropout)
-        pv = counter_keep(seed, (uint32_t)bh, grow, (uint32_t)(k0 + c), thresh) ? p * keep_scale
+        pv = counter_keep(seed, bh_base + (uint32_t)bh, grow, (uint32_t)(k0 + c), thresh)
+                 ? p * keep_scale
                                                                                 : 0.f;
       srow[c] = to_f32(from_f32<T>(pv));
     }
@@ -227,7 +228,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
            int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
            int mask_div, float scale, int causal, const uint32_t* seed, uint32_t thresh,
-           float keep_scale, int use_dropout, cudaStream_t stream) {
+           float keep_scale, int use_dropout, uint32_t bh_base, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * D + BK * (D + 1) + BK * D + BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -236,7 +237,8 @@ int launch(const void* q, const void* k, const void* v, const void* kmask, void*
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(kmask), static_cast<T*>(o), static_cast<float*>(lse), H, Tq,
-      Tk, qs, ks, vs, os, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout);
+      Tk, qs, ks, vs, os, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout,
+      bh_base);
   return (int)cudaGetLastError();
 }
 
@@ -244,11 +246,12 @@ template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, const void* kmask, void* o,
                void* lse, int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
                Strides os, int mask_div, float scale, int causal, const uint32_t* seed,
-               uint32_t thresh, float keep_scale, int use_dropout, cudaStream_t stream) {
+               uint32_t thresh, float keep_scale, int use_dropout, uint32_t bh_base,
+               cudaStream_t stream) {
 #define MXTT_FA_CASE(DD)                                                                     \
   case DD:                                                                                   \
     return launch<T, DD>(q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,     \
-                         scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+                         scale, causal, seed, thresh, keep_scale, use_dropout, bh_base, stream);
   switch (D) {
     MXTT_FA_CASE(8)
     MXTT_FA_CASE(16)
@@ -271,7 +274,7 @@ flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
                     E* __restrict__ o, float* __restrict__ lse, int H, int Tq, int Tk,
                     Strides qs, Strides ks, Strides vs, Strides os, int mask_div, float scale,
                     int causal, const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
-                    float keep_scale, int use_dropout) {
+                    float keep_scale, int use_dropout, uint32_t bh_base) {
   using namespace mma_tiles;
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   const uint32_t seed = use_dropout ? *seed_ptr : 0u;  // the dropout seed, read once
@@ -432,8 +435,9 @@ flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const uint32_t row = (uint32_t)(row0 + (e >> 1) * 8);
           const uint32_t col = (uint32_t)(k0 + j * 8 + 2 * t + (e & 1));
-          s[j][e] = counter_keep(seed, (uint32_t)bh, row, col, thresh) ? s[j][e] * keep_scale
-                                                                        : 0.f;
+          s[j][e] = counter_keep(seed, bh_base + (uint32_t)bh, row, col, thresh)
+                        ? s[j][e] * keep_scale
+                        : 0.f;
         }
     }
 
@@ -475,7 +479,7 @@ template <typename E, int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
               int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
               int mask_div, float scale, int causal, const uint32_t* seed, uint32_t thresh,
-              float keep_scale, int use_dropout, cudaStream_t stream) {
+              float keep_scale, int use_dropout, uint32_t bh_base, cudaStream_t stream) {
   constexpr int LD = D + 8;
   const size_t smem = sizeof(E) * (BQ * LD + 4 * BK * LD) + sizeof(float) * 2 * BK;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<E, D>,
@@ -485,7 +489,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* kmask, vo
   flash_fwd_tc_kernel<E, D><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
       static_cast<const float*>(kmask), static_cast<E*>(o), static_cast<float*>(lse), H, Tq,
-      Tk, qs, ks, vs, os, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout);
+      Tk, qs, ks, vs, os, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout,
+      bh_base);
   return (int)cudaGetLastError();
 }
 
@@ -493,11 +498,12 @@ template <typename E>
 int dispatch_tc(int D, const void* q, const void* k, const void* v, const void* kmask, void* o,
                 void* lse, int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
                 Strides os, int mask_div, float scale, int causal, const uint32_t* seed,
-                uint32_t thresh, float keep_scale, int use_dropout, cudaStream_t stream) {
+                uint32_t thresh, float keep_scale, int use_dropout, uint32_t bh_base,
+               cudaStream_t stream) {
 #define MXTT_FA_TC_CASE(DD)                                                                  \
   case DD:                                                                                   \
     return launch_tc<E, DD>(q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,  \
-                            scale, causal, seed, thresh, keep_scale, use_dropout, stream);
+                            scale, causal, seed, thresh, keep_scale, use_dropout, bh_base, stream);
   switch (D) {
     MXTT_FA_TC_CASE(16)
     MXTT_FA_TC_CASE(32)
@@ -515,7 +521,10 @@ int dispatch_tc(int D, const void* q, const void* k, const void* v, const void* 
 // batch*head bh is bh / mask_div (mask_div = H for a per-batch mask).
 // lse is (B*H, Tq) float32, contiguous. seed points at the dropout seed on
 // the device (its first 32-bit word), read once per block and only when
-// use_dropout is set. Returns cudaGetLastError().
+// use_dropout is set. bh_base is added to each block's batch*head index in
+// the dropout hash: a rank's first global batch*head under data
+// parallelism, so its masks are the one-device program's; 0 otherwise.
+// Returns cudaGetLastError().
 extern "C" int mxtt_flash_attn_fwd(int dtype, int D, const void* q, const void* k,
                                    const void* v, const void* kmask, void* o, void* lse, int B,
                                    int H, int Tq, int Tk, long long q_sb, long long q_sh,
@@ -524,21 +533,21 @@ extern "C" int mxtt_flash_attn_fwd(int dtype, int D, const void* q, const void* 
                                    long long v_st, long long o_sb, long long o_sh,
                                    long long o_st, int mask_div, float scale, int causal,
                                    const unsigned int* seed, unsigned int thresh, float keep_scale,
-                                   int use_dropout, void* stream) {
+                                   int use_dropout, unsigned int bh_base, void* stream) {
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st},
       os{o_sb, o_sh, o_st};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_d<float>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
                              mask_div, scale, causal, seed, thresh, keep_scale, use_dropout,
-                             st);
+                             bh_base, st);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
                                      mask_div, scale, causal, seed, thresh, keep_scale,
-                                     use_dropout, st);
+                                     use_dropout, bh_base, st);
   if (dtype == 2)
     return dispatch_d<__half>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,
-                              scale, causal, seed, thresh, keep_scale, use_dropout, st);
+                              scale, causal, seed, thresh, keep_scale, use_dropout, bh_base, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -553,17 +562,18 @@ extern "C" int mxtt_flash_attn_fwd_tc(int dtype, int D, const void* q, const voi
                                       long long v_sh, long long v_st, long long o_sb,
                                       long long o_sh, long long o_st, int mask_div, float scale,
                                       int causal, const unsigned int* seed, unsigned int thresh,
-                                      float keep_scale, int use_dropout, void* stream) {
+                                      float keep_scale, int use_dropout, unsigned int bh_base,
+                                      void* stream) {
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st},
       os{o_sb, o_sh, o_st};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return dispatch_tc<__nv_bfloat16>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
                                       mask_div, scale, causal, seed, thresh, keep_scale,
-                                      use_dropout, st);
+                                      use_dropout, bh_base, st);
   if (dtype == 2)
     return dispatch_tc<__half>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
                                mask_div, scale, causal, seed, thresh, keep_scale, use_dropout,
-                               st);
+                               bh_base, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -187,11 +187,32 @@ class BatchNorm(HybridBlock):
 
 
 class SyncBatchNorm(BatchNorm):
-    """Waits for data parallelism (ROADMAP queue 1 item 6)."""
+    """Cross-device BatchNorm (ref: src/operator/contrib/sync_batch_norm.cc).
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("SyncBatchNorm: cross-device BatchNorm waits for "
-                         "data parallelism (ROADMAP queue 1 item 6)")
+    Inside a world of more than one rank, under ``collectives.data_axis``
+    (the compiled step declares it around its forward), the batch
+    statistics are the world's (``ops.nn.sync_batch_norm_op``); otherwise
+    it is BatchNorm, as in the JAX package. ``num_devices`` is accepted
+    and unused: the world's size counts."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+        self._num_devices = num_devices
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        from ...parallel import collectives
+        axis_name = collectives.current_data_axis()
+        if axis_name is None:
+            return super().hybrid_forward(F, x, gamma, beta, running_mean,
+                                          running_var)
+        out, new_mean, new_var = F.sync_batch_norm_op(
+            x, gamma, beta, running_mean, running_var, axis_name=axis_name,
+            training=self.training, **self._kwargs)
+        if self.training and not self._kwargs['use_global_stats']:
+            with torch.no_grad():
+                running_mean.copy_(new_mean)
+                running_var.copy_(new_var)
+        return out
 
 
 class _Norm(HybridBlock):

@@ -61,10 +61,32 @@ With a dynamic scaler each update first reduces the finiteness of every
 gradient buffer on the device (one host sync); a non-finite one skips the
 update, update counts included, and halves the scale.
 
-Single device only: the kvstore types 'device' and 'local' (and None) are
-accepted and mean nothing; a distributed kvstore, gradient compression and
-update_on_kvstore raise. The guard, elastic and ZeRO hooks of the JAX
-Trainer are not ported (ROADMAP queue 1 items 6-9).
+Data parallelism. In a world of more than one rank (``parallel.dist``)
+each rank runs its forward and backward on its own rows of the global
+batch, and ``kvstore='device'`` (the default) or ``'local'`` reduces the
+gradients over the world before the update: summed, so ``step(batch_size)``
+takes the *global* batch size, as the JAX Trainer's global arrays do
+(classic MXNet ``dist_sync`` workers pass their local batch size and
+the kvstore's sum is rescaled by it; here the sum is divided once by the
+global count). ``kvstore=None`` reduces nothing. The parameters are
+broadcast from rank 0 when the Trainer is made (a parameter still
+deferred then, at its first step). ZeRO-1 is on by default at dp > 1
+(``MXTPU_ZERO``), in the fused update, as in the JAX Trainer's
+``_zero_layout``: each gradient is reduce-scattered along its ZeRO dim
+(the JAX step's ``compose_zero_spec``), the fused program updates the
+shard against shard-sized states (master and moments), and the
+parameters are all-gathered back; tensors that do not split evenly stay
+replicated (all-reduced, updated whole). An update that reads a norm of
+the whole weight (LAMB, ``Optimizer.whole_tensor``) and the
+per-parameter loop keep every state replicated. ``get_states_bytes``
+gathers the states to whole tensors (a collective: call it on every
+rank), so a payload restores at any dp, under ZeRO or not. Under AMP
+the finiteness of the local gradients is reduced over the world, so
+every rank skips the same step.
+
+The distributed kvstore types, gradient compression and
+update_on_kvstore raise (ROADMAP queue 1 item 8). The guard and elastic
+hooks of the JAX Trainer are not ported (items 9, 10).
 """
 from __future__ import annotations
 
@@ -72,8 +94,11 @@ import time
 
 import torch
 
+from .. import config as _config
 from .._capture import DeviceScalars, capture
 from ..base import MXNetError, telem_flags as _telem
+from ..parallel import collectives as _coll, dist as _dist
+from ..parallel.step import P, compose_zero_spec
 from ..telemetry import compile as _compile, flight as _flight, \
     memory as _memory, metrics as _metrics, trace as _trace
 from ..serialization import atomic_write_file
@@ -81,6 +106,14 @@ from .. import optimizer as opt
 from .parameter import Parameter, tensor_of
 
 __all__ = ['Trainer']
+
+
+def _leaves(state):
+    if isinstance(state, torch.Tensor):
+        yield state
+    elif isinstance(state, (list, tuple)):
+        for s in state:
+            yield from _leaves(s)
 
 
 def _to_device(state, device):
@@ -106,12 +139,16 @@ class Trainer:
                                  f"got {type(p)}")
         if kvstore not in ('device', 'local', None):
             raise MXNetError(f"kvstore {kvstore!r} is not ported: the port's "
-                             f"Trainer runs on one device ('device', "
-                             f"'local' or None)")
+                             f"Trainer reduces over the dp world with "
+                             f"'device' or 'local' (None: no reduction); "
+                             f"the distributed kvstores are ROADMAP queue 1 "
+                             f"item 8")
         if compression_params is not None:
-            raise MXNetError("gradient compression is not ported")
+            raise MXNetError("gradient compression is not ported (ROADMAP "
+                             "queue 1 item 8)")
         if update_on_kvstore:
-            raise MXNetError("update_on_kvstore is not ported")
+            raise MXNetError("update_on_kvstore is not ported (ROADMAP "
+                             "queue 1 item 8)")
         self._params = list(params)
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get('rescale_grad', 1.0))
@@ -130,6 +167,16 @@ class Trainer:
         self._fused = None     # [signature, graph, scalars, program]
         self._telem_last_step = None
         self._telem_step_ema = None
+        # the dp world: gradients reduced over it, ZeRO-1 states (see the
+        # module docstring)
+        self._reduce = _dist.num_workers() > 1 and kvstore is not None
+        self._zero_active = False
+        self._zero_dp = 1
+        self._zero_dims = {}     # index -> the dim its states shard along
+        self._zero_grads = {}    # index -> its reduce-scattered shard
+        self._broadcast = set()  # indices broadcast from rank 0
+        if self._reduce:
+            self._broadcast_params()
 
     @property
     def optimizer(self):
@@ -184,18 +231,156 @@ class Trainer:
     @torch.no_grad()
     def _update(self):
         items = self._gather_grads()
+        if self._reduce:
+            self._broadcast_params()
         # AMP's dynamic loss scaling: on a non-finite gradient the update
         # is skipped (no update count moves) and the scale shrinks,
         # decided before the fused update replays
         scaler = getattr(self, '_amp_loss_scaler', None)
         if scaler is not None and scaler.dynamic:
             overflow = scaler.has_overflow([g for _, _, g in items])
+            if self._reduce:
+                flag = torch.tensor([float(overflow)],
+                                    device=_dist.device())
+                overflow = bool(_coll.all_reduce_(flag, op='max').item())
             scaler.update_scale(overflow)
             if overflow:
                 return
+        if self._reduce:
+            items = self._reduce_grads(items)
         if not self._fused_apply(items):
             for i, p, g in items:
                 self._updater(i, g, p)
+        if self._zero_active:
+            self._gather_params()
+
+    # -- the dp world ---------------------------------------------------
+    def _broadcast_params(self):
+        """Rank 0's value of every parameter not broadcast yet (a deferred
+        one once it is placed)."""
+        for i, param in enumerate(self._params):
+            if i in self._broadcast:
+                continue
+            if isinstance(param, Parameter) and \
+                    not param._is_materialized():
+                continue
+            _coll.broadcast_(tensor_of(param).data)
+            self._broadcast.add(i)
+
+    def _zero_dim(self, p):
+        spec = compose_zero_spec(tuple(p.shape), P(), 'dp',
+                                 _dist.num_workers())
+        return None if spec is None else list(spec).index('dp')
+
+    def _shard(self, i, t):
+        """The ZeRO shard of index ``i``'s full-shaped ``t`` this rank
+        updates: a view, the ZeRO dim first."""
+        d = self._zero_dims[i]
+        s = t.shape[d] // self._zero_dp
+        return t.movedim(d, 0).narrow(0, _dist.rank() * s, s)
+
+    def _reduce_grads(self, items):
+        """The gradient buffers summed over the world, in f32:
+        reduce-scattered into f32 shards under ZeRO (the items then hold
+        the shard views and shard gradients), all-reduced otherwise (and
+        written back in the buffer's dtype)."""
+        o = self._optimizer
+        zero = bool(_config.get('MXTPU_ZERO')) and \
+            getattr(o, 'fused_update', False) and not o.whole_tensor
+        if zero != self._zero_active:
+            self._zero_active = zero
+            self._zero_dp = _dist.num_workers() if zero else 1
+            self._zero_dims = {}
+            self._fused = None
+            self._relayout_states()
+        out = []
+        for i, p, g in items:
+            if zero and i not in self._zero_dims:
+                d = self._zero_dim(p)
+                if d is not None:
+                    self._zero_dims[i] = d
+                    shard = g.movedim(d, 0).narrow(
+                        0, 0, g.shape[d] // self._zero_dp)
+                    self._zero_grads[i] = torch.empty(
+                        shard.shape, dtype=torch.float32, device=g.device)
+                    self._relayout_states(i)
+            if i in self._zero_dims:
+                d = self._zero_dims[i]
+                _coll.reduce_scatter_into(
+                    self._zero_grads[i],
+                    g.movedim(d, 0).to(torch.float32,
+                                       memory_format=torch.contiguous_format))
+                out.append((i, self._shard(i, p), self._zero_grads[i]))
+            else:
+                g32 = _coll.all_reduce_(g.float())
+                if g32 is not g:
+                    g.copy_(g32)
+                out.append((i, p, g))
+        return out
+
+    def _gather_params(self):
+        for i, d in self._zero_dims.items():
+            p = tensor_of(self._params[i])
+            buf = p.new_empty((self._zero_dp,) + tuple(
+                self._shard(i, p).shape))
+            _coll.all_gather_into(buf, self._shard(i, p.detach()))
+            p.detach().movedim(d, 0).copy_(
+                buf.reshape((-1,) + tuple(buf.shape[2:])))
+
+    def _state_map(self, i, fn):
+        """Index ``i``'s state with ``fn`` applied to each tensor leaf."""
+        def walk(s):
+            if isinstance(s, torch.Tensor):
+                return fn(s)
+            if isinstance(s, (list, tuple)):
+                return type(s)(walk(x) for x in s)
+            return s
+        return walk(self._updater.states[i])
+
+    def _relayout_states(self, only=None):
+        """States made whole-shaped (a restore, or before ZeRO) to the
+        ZeRO layout: weight-shaped leaves become this rank's shard."""
+        for i in list(self._updater.states):
+            if (only is not None and i != only) or i not in self._zero_dims:
+                continue
+            wshape = tuple(tensor_of(self._params[i]).shape)
+            self._updater.states[i] = self._state_map(
+                i, lambda s: self._shard(i, s).contiguous()
+                if tuple(s.shape) == wshape else s)
+
+    def _whole_states(self):
+        """{index: state} with every ZeRO shard gathered to its whole
+        tensor (a collective)."""
+        states = {}
+        for i in self._updater.states:
+            d = self._zero_dims.get(i)
+            if d is None:
+                states[i] = self._updater.states[i]
+                continue
+            sshape = tuple(self._zero_grads[i].shape)
+
+            def whole(s, d=d, sshape=sshape):
+                if tuple(s.shape) != sshape:
+                    return s
+                buf = s.new_empty((self._zero_dp,) + sshape)
+                _coll.all_gather_into(buf, s)
+                return buf.reshape((-1,) + sshape[1:]).movedim(0, d)
+            states[i] = self._state_map(i, whole)
+        return states
+
+    def opt_state_bytes_per_device(self):
+        """Bytes of optimizer state this rank holds (ZeRO-1: ~1/dp of the
+        replicated footprint, plus the tensors too small to shard)."""
+        return sum(t.numel() * t.element_size()
+                   for st in self._updater.states.values()
+                   for t in _leaves(st))
+
+    def param_bytes_per_device(self):
+        """Bytes of the parameters this rank holds (whole, in their
+        dtypes)."""
+        return sum(tensor_of(p).numel() * tensor_of(p).element_size()
+                   for p in self._params
+                   if not isinstance(p, Parameter) or p._is_materialized())
 
     def _gather_grads(self):
         """[(index, parameter, gradient buffer)] of the trainable
@@ -312,9 +497,17 @@ class Trainer:
         return program
 
     def get_states_bytes(self):
-        """The states payload as bytes: {index: state as numpy} and the
-        pickled optimizer (update counts, rescale_grad, schedule)."""
-        return self._updater.get_states(dump_optimizer=True)
+        """The states payload as bytes: {index: state as numpy, whole
+        tensors under ZeRO too} and the pickled optimizer (update counts,
+        rescale_grad, schedule)."""
+        if not self._zero_dims:
+            return self._updater.get_states(dump_optimizer=True)
+        held, self._updater.states = self._updater.states, \
+            self._whole_states()
+        try:
+            return self._updater.get_states(dump_optimizer=True)
+        finally:
+            self._updater.states = held
 
     def set_states_bytes(self, states):
         """Restore a ``get_states_bytes`` payload: the states go to their
@@ -326,6 +519,8 @@ class Trainer:
         self._updater.states = {
             i: _to_device(s, tensor_of(self._params[i]).device)
             for i, s in self._updater.states.items()}
+        if self._zero_dims:
+            self._relayout_states()
         self._fused = None
 
     def save_states(self, fname):

@@ -24,7 +24,17 @@ model's device.
 Besides the JAX constructors' arguments each model takes the port's
 ``device`` (built there at once, on the card unless ``device='cpu'``;
 weights zero until an initializer or a weight file fills them),
-``dtype`` and ``generator``.
+``dtype``, ``generator`` (hidden dropout) and ``attn_generator`` (the
+attention-dropout seeds; ``generator`` when not given).
+
+Under data parallelism the two streams must differ. The attention seed
+is drawn alike on every rank, since the kernels' mask is a hash of the
+global coordinates (``ops/attention.py``): ``BertSelfAttention`` marks
+its generator ``generator_replicated``, and ``ShardedTrainStep``
+broadcasts such generators' state from rank 0 at build. Hidden dropout
+draws one mask per local element, so its stream is per rank, as a
+global-batch draw gives each example its own mask. ``dp_generators``
+makes the pair.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ from ..ops import nn as F
 
 __all__ = ['bert_base_config', 'BertSelfAttention', 'BertLayer',
            'BertModel', 'BertForPretraining', 'masked_cross_entropy',
-           'bert_pretrain_loss']
+           'bert_pretrain_loss', 'dp_generators']
 
 
 def bert_base_config():
@@ -47,14 +57,32 @@ def bert_base_config():
                 intermediate=3072, max_len=512, type_vocab=2)
 
 
+def dp_generators(seed, device=None):
+    """(hidden, attention) generators on ``device`` for a rank of a
+    data-parallel world: the attention stream seeded ``seed`` on every
+    rank, the hidden stream ``seed + 1 + rank``, one per rank."""
+    from ..parallel import dist
+    dev = resolve_device(device)
+    hidden = torch.Generator(dev).manual_seed(seed + 1 + dist.rank())
+    return hidden, torch.Generator(dev).manual_seed(seed)
+
+
 class BertSelfAttention(HybridBlock):
+    # every rank draws the attention seed from one stream (see the module
+    # docstring): the compiled step broadcasts this generator at dp > 1
+    generator_replicated = True
+
     def __init__(self, hidden, heads, dropout=0.1, device=None,
-                 dtype=torch.float32, generator=None, **kwargs):
+                 dtype=torch.float32, generator=None, attn_generator=None,
+                 **kwargs):
         super().__init__(**kwargs)
         self._heads = heads
         self._hidden = hidden
         self._attn_dropout = dropout
-        self.generator = generator
+        # the attention seeds' stream; the hidden dropout's is the
+        # Dropout child's
+        self.generator = generator if attn_generator is None \
+            else attn_generator
         with self.name_scope():
             self.qkv = nn.Dense(3 * hidden, flatten=False, in_units=hidden,
                                 prefix='qkv_', device=device, dtype=dtype)
@@ -73,12 +101,14 @@ class BertSelfAttention(HybridBlock):
 
 class BertLayer(HybridBlock):
     def __init__(self, hidden, heads, intermediate, dropout=0.1, device=None,
-                 dtype=torch.float32, generator=None, **kwargs):
+                 dtype=torch.float32, generator=None, attn_generator=None,
+                 **kwargs):
         super().__init__(**kwargs)
         kw = dict(device=device, dtype=dtype)
         with self.name_scope():
-            self.attention = BertSelfAttention(hidden, heads, dropout,
-                                               generator=generator, **kw)
+            self.attention = BertSelfAttention(
+                hidden, heads, dropout, generator=generator,
+                attn_generator=attn_generator, **kw)
             self.ln1 = nn.LayerNorm(in_channels=hidden, **kw)
             self.ffn1 = nn.Dense(intermediate, flatten=False,
                                  in_units=hidden, prefix='ffn1_', **kw)
@@ -107,7 +137,7 @@ class BertModel(HybridBlock):
     def __init__(self, vocab_size=30522, hidden=768, layers=12, heads=12,
                  intermediate=3072, max_len=512, type_vocab=2, dropout=0.1,
                  device=None, dtype=torch.float32, generator=None,
-                 **kwargs):
+                 attn_generator=None, **kwargs):
         super().__init__(**kwargs)
         kw = dict(device=resolve_device(device), dtype=dtype)
         self._hidden = hidden
@@ -123,9 +153,10 @@ class BertModel(HybridBlock):
             self.encoder = nn.HybridSequential(prefix='encoder_')
             with self.encoder.name_scope():
                 for _ in range(layers):
-                    self.encoder.add(BertLayer(hidden, heads, intermediate,
-                                               dropout, generator=generator,
-                                               **kw))
+                    self.encoder.add(BertLayer(
+                        hidden, heads, intermediate, dropout,
+                        generator=generator, attn_generator=attn_generator,
+                        **kw))
             self.pooler = nn.Dense(hidden, flatten=False, in_units=hidden,
                                    activation='tanh', prefix='pooler_', **kw)
 
@@ -166,14 +197,15 @@ class BertForPretraining(HybridBlock):
     ``dropout``)."""
 
     def __init__(self, config=None, device=None, dtype=torch.float32,
-                 generator=None, **kwargs):
+                 generator=None, attn_generator=None, **kwargs):
         super().__init__(**kwargs)
         cfg = dict(config or bert_base_config())
         self._cfg = cfg
         kw = dict(device=resolve_device(device), dtype=dtype)
         hidden = cfg['hidden']
         with self.name_scope():
-            self.bert = BertModel(**cfg, generator=generator, **kw)
+            self.bert = BertModel(**cfg, generator=generator,
+                                  attn_generator=attn_generator, **kw)
             self.mlm_dense = nn.Dense(hidden, flatten=False, in_units=hidden,
                                       activation='gelu',
                                       prefix='mlm_dense_', **kw)

@@ -9,6 +9,14 @@ library call. A kernel failure raises: there is no quiet fallback.
 ``route_counts`` records each call's route (``'flash'`` is the JAX
 package's ``'pallas'``, ``'plain'`` its ``'xla'``), so a run can show
 that it took the kernel.
+
+Attention dropout draws one seed from ``generator`` on either route and
+keeps an element by the counter hash of the flash kernels
+(``flash_attention.counter_keep``) at its (batch*head, row, col), so the
+plain route on the CPU draws the masks the kernels draw on the card. In
+a world of more than one rank the batch*head index is the global one
+(``bh_base = rank * N * H``, N the rank's batch), as the JAX package's
+program over the global batch hashes it.
 """
 from __future__ import annotations
 
@@ -53,14 +61,22 @@ def _dropout_seed(generator, device):
                          dtype=torch.int64)
 
 
+def _world_bh_base(N, H):
+    """This rank's first global batch*head: rank * N * H (0 outside a
+    world; every rank holds N rows)."""
+    from ..parallel import dist
+    return dist.rank() * N * H
+
+
 def multi_head_attention(query, key, value, mask=None, num_heads=1,
                          dropout_p=0.0, causal=False, generator=None,
                          dropout_seed=None):
     """Fused MHA on (N, T, H*D) q/k/v. ``dropout_p`` applies attention
-    dropout (the caller passes 0 outside training). On the flash route its
-    seed is ``dropout_seed`` when given (the counterpart of JAX's
-    ``dropout_key``), else drawn from ``generator``; the plain route draws
-    its keep mask from ``generator`` on the tensors' device."""
+    dropout (the caller passes 0 outside training). Its seed is
+    ``dropout_seed`` when given (the counterpart of JAX's
+    ``dropout_key``), else drawn from ``generator``; the keep mask is the
+    counter hash over (batch*head, row, col), the batch*head index the
+    global one in a world of ranks."""
     N, Tq, tot = query.shape
     H = num_heads
     D = tot // H
@@ -73,14 +89,16 @@ def multi_head_attention(query, key, value, mask=None, num_heads=1,
     if kpm is not None and not kpm.is_floating_point():
         kpm = kpm.to(torch.bool)
 
+    seed, bh_base = None, 0
+    if dropout_p > 0.0:
+        seed = dropout_seed if dropout_seed is not None else \
+            _dropout_seed(generator, query.device)
+        bh_base = _world_bh_base(N, H)
     if query.is_cuda and (mask is None or kpm is not None):
         from .flash_attention import flash_attention
-        seed = None
-        if dropout_p > 0.0:
-            seed = dropout_seed if dropout_seed is not None else \
-                _dropout_seed(generator, query.device)
         out = flash_attention(q, k, v, key_mask=kpm, causal=causal,
-                              dropout_p=dropout_p, dropout_seed=seed)
+                              dropout_p=dropout_p, dropout_seed=seed,
+                              bh_base=bh_base)
         route_counts['flash'] += 1
         return out.permute(0, 2, 1, 3).reshape(N, Tq, tot)
 
@@ -98,9 +116,9 @@ def multi_head_attention(query, key, value, mask=None, num_heads=1,
             scores = torch.where(mask.to(torch.bool), scores, -1e30)
     att = torch.softmax(scores, dim=-1).to(q.dtype)
     if dropout_p > 0.0:
-        keep = torch.rand(att.shape, generator=generator,
-                          device=att.device) >= dropout_p
-        att = torch.where(keep, att / (1.0 - dropout_p),
-                          torch.zeros_like(att)).to(q.dtype)
+        from .flash_attention import _keep_multipliers, seed_tensor
+        keep = _keep_multipliers(seed_tensor(seed, att.device), N, H, Tq, Tk,
+                                 dropout_p, att.device, bh_base)
+        att = (att.float() * keep).to(q.dtype)
     out = torch.einsum('nhqk,nhkd->nhqd', att, v)
     return out.permute(0, 2, 1, 3).reshape(N, Tq, tot)

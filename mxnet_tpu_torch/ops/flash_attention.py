@@ -37,6 +37,14 @@ does: ``dropout_seed`` is a one-element int64 (or int32) tensor, whose low
 on the card never passes through the host and a CUDA graph that draws it
 replays with a fresh one. A Python int is accepted too and put in a device
 tensor first, which is refused inside a CUDA-graph capture.
+
+Under data parallelism each rank holds its rows of the global batch, and
+the JAX package's program hashes the global batch*head index. ``bh_base``
+(a rank's first global batch*head, ``rank * local batch * heads``; 0 by
+default) is added to the local index in the hash, in the kernels and the
+plain versions alike, so two ranks with one seed draw the masks the
+one-device program draws for their rows. ``bh_base = 0`` is bit for bit
+the hash without it. The key mask's rows stay local.
 """
 from __future__ import annotations
 
@@ -203,9 +211,19 @@ def _scores(q, k, key_mask, causal):
     return s
 
 
-def _keep_multipliers(dropout_seed, B, H, Tq, Tk, rate, dev):
-    """(B, H, Tq, Tk) keep/(1-rate) multipliers over global coordinates."""
-    bh = torch.arange(B * H, device=dev).reshape(B, H, 1, 1)
+def _bh_base(bh_base):
+    """``bh_base`` as the kernels' uint32 (the hash wraps mod 2**32)."""
+    bh_base = int(bh_base)
+    if bh_base < 0:
+        raise ValueError(f"flash_attention: bh_base must be >= 0, got "
+                         f"{bh_base}")
+    return bh_base & _MASK32
+
+
+def _keep_multipliers(dropout_seed, B, H, Tq, Tk, rate, dev, bh_base=0):
+    """(B, H, Tq, Tk) keep/(1-rate) multipliers over global coordinates,
+    the batch*head index counted from ``bh_base``."""
+    bh = bh_base + torch.arange(B * H, device=dev).reshape(B, H, 1, 1)
     rows = torch.arange(Tq, device=dev).reshape(1, 1, Tq, 1)
     cols = torch.arange(Tk, device=dev).reshape(1, 1, 1, Tk)
     return counter_keep(seed_tensor(dropout_seed, dev), bh, rows, cols,
@@ -213,11 +231,12 @@ def _keep_multipliers(dropout_seed, B, H, Tq, Tk, rate, dev):
 
 
 def flash_attention_reference(q, k, v, key_mask=None, causal=False,
-                              dropout_p=0.0, dropout_seed=None):
+                              dropout_p=0.0, dropout_seed=None, bh_base=0):
     """Plain PyTorch version of the forward kernel: the same arithmetic in
     f32, with the whole key range as one tile. Returns (out (B, H, Tq, D)
     in q's dtype, lse (B, H, Tq) f32). ``key_mask`` is additive f32 of
-    shape (B, Tk) or (B*H, Tk), or None."""
+    shape (B, Tk) or (B*H, Tk), or None; ``bh_base`` as for
+    ``flash_attention``."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     s = _scores(q, k, key_mask, causal)
@@ -226,7 +245,7 @@ def flash_attention_reference(q, k, v, key_mask=None, causal=False,
     l = p.sum(-1, keepdim=True)
     if dropout_p > 0.0:
         p = p * _keep_multipliers(dropout_seed, B, H, Tq, Tk, dropout_p,
-                                  q.device)
+                                  q.device, _bh_base(bh_base))
     acc = torch.einsum('bhqk,bhkd->bhqd', p.to(v.dtype).float(), v.float())
     safe_l = l.clamp_min(1e-30)
     out = (acc / safe_l).to(q.dtype)
@@ -235,7 +254,8 @@ def flash_attention_reference(q, k, v, key_mask=None, causal=False,
 
 
 def flash_attention_backward_reference(q, k, v, key_mask, causal, dropout_p,
-                                       dropout_seed, out, lse, do):
+                                       dropout_seed, out, lse, do,
+                                       bh_base=0):
     """Plain PyTorch version of the two backward kernels (``_fa_backward``):
     p = exp(s - lse) from the forward's lse, dp = dO.v^T, dp *= keep under
     dropout, ds = p * (dp - delta) * scale with delta = rowsum(dO * O),
@@ -252,7 +272,7 @@ def flash_attention_backward_reference(q, k, v, key_mask, causal, dropout_p,
     pv = p
     if dropout_p > 0.0:
         keep = _keep_multipliers(dropout_seed, B, H, Tq, Tk, dropout_p,
-                                 q.device)
+                                 q.device, _bh_base(bh_base))
         pv = p * keep
         dp = dp * keep
     delta = (do32 * out.float()).sum(-1, keepdim=True)
@@ -334,13 +354,14 @@ def _pick_variant(q, named, forced):
     return variant
 
 
-def _dropout_args(dropout_p, seed):
-    """(seed pointer, uint32 threshold, keep scale, flag) as the kernels
-    take them; ``seed`` is the device tensor of ``_prepare``."""
+def _dropout_args(dropout_p, seed, bh_base):
+    """(seed pointer, uint32 threshold, keep scale, flag, bh_base) as the
+    kernels take them; ``seed`` is the device tensor of ``_prepare``."""
     if dropout_p <= 0.0:
-        return None, 0, 1.0, 0
+        return None, 0, 1.0, 0, 0
     return (seed.data_ptr(), dropout_threshold(dropout_p),
-            float(onp.float32(1.0 / (1.0 - dropout_p))), 1)
+            float(onp.float32(1.0 / (1.0 - dropout_p))), 1,
+            _bh_base(bh_base))
 
 
 def _like_bthd(t):
@@ -352,7 +373,7 @@ def _like_bthd(t):
 
 
 def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed,
-            variant=None):
+            variant=None, bh_base=0):
     _check_kernel_inputs(q, k, v)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -367,7 +388,7 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed,
         ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, i, i, i, i] + \
             [ll] * 12 + [i, ctypes.c_float, i, vp, ctypes.c_uint,
-                         ctypes.c_float, i, vp]
+                         ctypes.c_float, i, ctypes.c_uint, vp]
         fn.restype = ctypes.c_int
     strides = []
     for t in (q, k, v, o):
@@ -376,7 +397,7 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed,
             v.data_ptr(), kmask.data_ptr() if kmask is not None else None,
             o.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, *strides, mask_div,
             1.0 / math.sqrt(D), int(bool(causal)),
-            *_dropout_args(dropout_p, seed),
+            *_dropout_args(dropout_p, seed, bh_base),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, f'flash_attn_fwd ({variant})')
     _build.count_launch('flash_attn_fwd', variant, q.dtype)
@@ -390,13 +411,13 @@ def _bwd_fn(name):
         outs = [vp] if '_bwd_dq' in name else [vp, vp]
         fn.argtypes = [i, i] + [vp] * 7 + outs + [i] * 4 + [vp] + \
             [i, ctypes.c_float, i, vp, ctypes.c_uint, ctypes.c_float, i,
-             vp]
+             ctypes.c_uint, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
-                lse, do, variant=None):
+                lse, do, variant=None, bh_base=0):
     """The dq kernel, then the dk/dv kernel, both of one variant (picked
     as for the forward), on the current stream."""
     _check_kernel_inputs(q, k, v, ('dO', do), ('out', out))
@@ -417,7 +438,7 @@ def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
               v.data_ptr(), kmask.data_ptr() if kmask is not None else None,
               do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (mask_div, 1.0 / math.sqrt(D), int(bool(causal)),
-            *_dropout_args(dropout_p, seed), stream)
+            *_dropout_args(dropout_p, seed, bh_base), stream)
     for count, outs in (('flash_attn_bwd_dq', (dq,)),
                         ('flash_attn_bwd_dkv', (dk, dv))):
         st = []
@@ -448,39 +469,44 @@ def _prepare(q, k, key_mask, dropout_p, dropout_seed):
     return km, mask_div, dropout_p, seed
 
 
-def _forward(q, k, v, km, mask_div, causal, dropout_p, seed, variant=None):
+def _forward(q, k, v, km, mask_div, causal, dropout_p, seed, variant=None,
+             bh_base=0):
     """(out, lse): the forward kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if q.is_cuda:
         return _launch(q, k, v, km, mask_div, causal, dropout_p, seed,
-                       variant)
-    return flash_attention_reference(q, k, v, km, causal, dropout_p, seed)
+                       variant, bh_base)
+    return flash_attention_reference(q, k, v, km, causal, dropout_p, seed,
+                                     bh_base)
 
 
 def _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out, lse, do,
-              variant=None):
+              variant=None, bh_base=0):
     """(dq, dk, dv): the two backward kernels for CUDA tensors, the plain
     version for CPU tensors."""
     if q.is_cuda:
         return _launch_bwd(q, k, v, km, mask_div, causal, dropout_p, seed,
-                           out, lse, do, variant)
+                           out, lse, do, variant, bh_base)
     return flash_attention_backward_reference(q, k, v, km, causal, dropout_p,
-                                              seed, out, lse, do)
+                                              seed, out, lse, do, bh_base)
 
 
 def flash_attention_forward(q, k, v, key_mask=None, causal=False,
-                            dropout_p=0.0, dropout_seed=None, _variant=None):
+                            dropout_p=0.0, dropout_seed=None, _variant=None,
+                            bh_base=0):
     """(out (B, H, Tq, D), lse (B, H, Tq) f32): the forward's two outputs,
     as ``_fa_forward`` returns them, with no gradient. ``_variant``
     ('simt' or 'tc') overrides ``kernel_variant`` on the card, so that
     both kernels can be held against each other; nothing else passes it."""
     km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
                                              dropout_seed)
-    return _forward(q, k, v, km, mask_div, causal, dropout_p, seed, _variant)
+    return _forward(q, k, v, km, mask_div, causal, dropout_p, seed, _variant,
+                    bh_base)
 
 
 def flash_attention_backward(q, k, v, key_mask, causal, dropout_p,
-                             dropout_seed, out, lse, do, _variant=None):
+                             dropout_seed, out, lse, do, _variant=None,
+                             bh_base=0):
     """(dq, dk, dv) in the input dtypes, as ``_fa_backward`` returns them:
     the two backward kernels for CUDA tensors, the plain version for CPU
     tensors. ``_variant`` picks the dq and dk/dv kernels as for the
@@ -488,7 +514,7 @@ def flash_attention_backward(q, k, v, key_mask, causal, dropout_p,
     km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
                                              dropout_seed)
     return _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out,
-                     lse, do, _variant)
+                     lse, do, _variant, bh_base)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -498,30 +524,33 @@ class _FlashAttention(torch.autograd.Function):
     with the same seed tensor. The mask and the seed get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, km, mask_div, causal, dropout_p, seed):
-        out, lse = _forward(q, k, v, km, mask_div, causal, dropout_p, seed)
+    def forward(ctx, q, k, v, km, mask_div, causal, dropout_p, seed,
+                bh_base):
+        out, lse = _forward(q, k, v, km, mask_div, causal, dropout_p, seed,
+                            bh_base=bh_base)
         ctx.save_for_backward(q, k, v, km, seed, out, lse)
-        ctx.args = (mask_div, causal, dropout_p)
+        ctx.args = (mask_div, causal, dropout_p, bh_base)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, km, seed, out, lse = ctx.saved_tensors
-        mask_div, causal, dropout_p = ctx.args
+        mask_div, causal, dropout_p, bh_base = ctx.args
         if do.stride(-1) != 1 or (
                 do.is_cuda and kernel_variant(do.dtype, do.shape[-1]) == 'tc'
                 and not _tc_aligned(do)):
             do = do.contiguous()
         dq, dk, dv = _backward(q, k, v, km, mask_div, causal, dropout_p,
-                               seed, out, lse, do)
-        return dq, dk, dv, None, None, None, None, None
+                               seed, out, lse, do, bh_base=bh_base)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, key_mask=None, causal=False, dropout_p=0.0,
-                    dropout_seed=None):
+                    dropout_seed=None, bh_base=0):
     """Flash attention over (B, H, T, D) q/k/v; returns (B, H, Tq, D),
-    differentiable in q, k and v."""
+    differentiable in q, k and v. ``bh_base`` offsets the batch*head
+    index of the dropout hash (see the module docstring)."""
     km, mask_div, dropout_p, seed = _prepare(q, k, key_mask, dropout_p,
                                              dropout_seed)
     return _FlashAttention.apply(q, k, v, km, mask_div, bool(causal),
-                                 dropout_p, seed)
+                                 dropout_p, seed, _bh_base(bh_base))

@@ -41,7 +41,14 @@ leaves to XLA, are stock PyTorch ops here (cuDNN on the card):
   ``torch.native_batch_norm`` call normalises and returns the batch's
   mean and 1/sqrt(var + eps), taken in f32 (the JAX package takes them
   in the data's dtype); the variance for the update is recovered from
-  the latter, so the data is read once.
+  the latter, so the data is read once;
+- ``sync_batch_norm_op`` (SyncBatchNorm's op) takes the batch's moments
+  over the data axis of the world, ``psum`` of the per-channel sum and
+  sum of squares and the count, the JAX op's arithmetic (biased variance
+  as E[x^2] - mean^2, in f32). Its backward all-reduces the two
+  per-channel gradient sums the normalisation needs (in JAX, autodiff
+  through ``psum`` gives that); gamma's and beta's gradients are the
+  rank's own rows' (the step's or Trainer's reduction sums them).
 """
 from __future__ import annotations
 
@@ -58,7 +65,8 @@ __all__ = ['fully_connected', 'activation', 'layer_norm', 'add_layer_norm',
            'dense_gelu', 'embedding', 'softmax', 'log_softmax', 'dropout',
            'dropout_op', 'one_hot', 'blockgrad', 'identity', 'convolution',
            'deconvolution', 'pooling', 'leaky_relu', 'batch_norm',
-           'instance_norm', 'group_norm', 'softmax_cross_entropy']
+           'instance_norm', 'group_norm', 'softmax_cross_entropy',
+           'sync_batch_norm_op']
 
 
 def _tensor(x):
@@ -396,6 +404,81 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         new_mean = momentum * moving_mean + (1 - momentum) * mean
         new_var = momentum * moving_var + (1 - momentum) * var
     return out, new_mean, new_var
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Normalisation by the world's batch moments over channel dim 1;
+    returns (out, mean, biased var), the last two without gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        from ..parallel import collectives as _coll
+        dims = [0] + list(range(2, x.dim()))
+        x32 = x.float()
+        n_local = x.numel() // x.shape[1]
+        stats = torch.cat([x32.sum(dims), x32.square().sum(dims),
+                           x32.new_full((1,), float(n_local))])
+        _coll.all_reduce_(stats)
+        c = x.shape[1]
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = stats[c:2 * c] / n - mean.square()
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        xhat = (x32 - mean.reshape(shape)) * invstd.reshape(shape)
+        out = xhat * gamma.float().reshape(shape) + \
+            beta.float().reshape(shape)
+        ctx.save_for_backward(xhat, invstd, gamma, n)
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        from ..parallel import collectives as _coll
+        xhat, invstd, gamma, n = ctx.saved_tensors
+        dims = [0] + list(range(2, xhat.dim()))
+        dy = dout.float()
+        c = xhat.shape[1]
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        dbeta, dgamma = local[:c].clone(), local[c:].clone()
+        _coll.all_reduce_(local)
+        shape = (1, c) + (1,) * (xhat.dim() - 2)
+        dx = (gamma.float() * invstd).reshape(shape) / n * (
+            n * dy - local[:c].reshape(shape) -
+            xhat * local[c:].reshape(shape))
+        return (dx.to(dout.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(gamma.dtype), None)
+
+
+@register_op(num_outputs=3)
+def sync_batch_norm_op(data, gamma, beta, moving_mean, moving_var,
+                       axis_name=None, eps=1e-3, momentum=0.9,
+                       fix_gamma=False, use_global_stats=False, axis=1,
+                       training=None):
+    """Cross-device BatchNorm (ref: src/operator/contrib/sync_batch_norm.cc;
+    ``mxnet_tpu/ops/nn.py`` ``sync_batch_norm_op``): in training the batch
+    statistics are the world's, reduced over ``axis_name``; with no axis
+    or a world of one it is ``batch_norm``. Returns (out, new moving mean,
+    new moving var)."""
+    from ..parallel import collectives as _coll
+    if training is None:
+        training = state.is_training
+    if axis_name is None or _coll.axis_size(axis_name) == 1 or \
+            not training or use_global_stats:
+        return batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
+                          momentum, fix_gamma, use_global_stats, False, axis,
+                          training)
+    axis = axis % data.dim()
+    x = data.movedim(axis, 1) if axis != 1 else data
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    out, mean, var = _SyncBatchNorm.apply(x, gamma, beta, float(eps))
+    with torch.no_grad():
+        new_mean = momentum * moving_mean + \
+            (1 - momentum) * mean.to(moving_mean.dtype)
+        new_var = momentum * moving_var + \
+            (1 - momentum) * var.to(moving_var.dtype)
+    return (out.movedim(1, axis) if axis != 1 else out), new_mean, new_var
 
 
 @register_op()

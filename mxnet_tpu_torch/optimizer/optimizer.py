@@ -69,9 +69,12 @@ class Optimizer:
     ``begin_num_update``, lr/wd multipliers (a parameter's own
     ``lr_mult``/``wd_mult`` in ``param_dict``, else ``set_lr_mult`` /
     ``set_wd_mult`` by index or name) and ``multi_precision``, which keeps
-    an f32 master copy of every f16/bf16 weight."""
+    an f32 master copy of every f16/bf16 weight. ``whole_tensor`` marks an
+    update that reads a norm of the whole weight (LAMB): the Trainer's
+    ZeRO-1 then keeps its states replicated."""
 
     fused_update = False
+    whole_tensor = False
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -315,6 +318,7 @@ class LAMB(Optimizer):
     optimizer.py:1250): phase 1, the weight's and the update's norms,
     phase 2 with their trust ratio."""
     fused_update = True
+    whole_tensor = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-6, lower_bound=None, upper_bound=None,

@@ -876,8 +876,6 @@ def test_symbol_api_refusals():
     net = tgluon.nn.Dense(2, in_units=2)
     with pytest.raises(MXNetError, match='item 15'):
         net.export('x')
-    with pytest.raises(MXNetError, match='item 6'):
-        tgluon.nn.SyncBatchNorm()
 
 
 def test_bert_layers_are_the_gluon_blocks():

@@ -48,6 +48,44 @@ def _imported_modules(path):
             yield node.args[0].value
 
 
+DP_MODULES = ('resilience/__init__.py', 'resilience/retry.py',
+              'parallel/dist.py', 'parallel/collectives.py',
+              'parallel/mesh.py', 'parallel/step.py')
+
+
+@pytest.mark.parametrize('module', DP_MODULES)
+def test_dp_modules_import_no_jax(module):
+    """The data-parallel slice's modules are the port's own: each is
+    among the files checked above and imports neither jax nor the
+    reference package."""
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize('test_file', ['test_torch_dist.py',
+                                       'test_torch_zero1.py',
+                                       'test_torch_dp_bert.py'])
+def test_dp_worker_scripts_import_only_the_port_and_numpy(test_file):
+    """The ranks the dp tests spawn run a worker that imports the port,
+    numpy, torch and the standard library only."""
+    with open(os.path.join(ROOT, 'tests', test_file)) as f:
+        tree = ast.parse(f.read())
+    worker = next(n.value.value for n in tree.body
+                  if isinstance(n, ast.Assign) and
+                  getattr(n.targets[0], 'id', None) == 'WORKER')
+    mods = set()
+    for node in ast.walk(ast.parse(worker)):
+        if isinstance(node, ast.Import):
+            mods |= {a.name.split('.')[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module.split('.')[0])
+    assert mods <= {'mxnet_tpu_torch', 'numpy', 'torch', 'os', 'sys',
+                    'pickle', 'time'}, mods
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 15 and os.path.exists(files[-1])
