@@ -173,6 +173,27 @@
    its buckets sum to the host clock's time per step within 1%, its MFU
    printed beside the phase's own. The kernel phase also times the flash
    forward, dq and dk/dv with dropout 0.1, their seed read by pointer.
+10. Autotune phase: every built tensor-core tile of the flash forward,
+   dq and dk/dv kernels (ops.flash_attention.TILES; bf16 and float16, a
+   ragged T, a float key mask, dropout 0.1) against the plain version,
+   the tile forced through autotune.forced and read back from
+   ops.tile_counts; then autotune.sweep_flash_attention at the compiled
+   step's shape (B = 8, H = 12, T = 512, D = 64, bf16, the valid_length
+   float mask, dropout 0.1), which prunes tiles that spill (registers and
+   local bytes from cudaFuncGetAttributes, each named), holds each
+   candidate against the plain version and times it (CUDA events, the
+   median of MXTPU_AUTOTUNE_REPS), writing the winners to a DB under
+   build/autotune; bench.py's own call (batch 1, f32: one SIMT tile); a
+   fresh resolve reads the winner back with source 'db'.
+10a. Remat phase: the compiled step (BERT-base bf16, dropout 0.1, both
+   knobs on) under MXTPU_REMAT none, layer and aggressive at B = 8 and
+   B = 32: the eager first call and capture and 3 replays, held against
+   'none' (REMAT_TOL), the peak bytes of a replay plus the graph pool, the
+   step ms (median of 3 calls of 3 replays), and at B = 8 the flash
+   forward's launches per replay (12, or 24 with a recompute); every run
+   at the (64, 64) tile. Then path (b): the step at B = 8 with
+   MXTPU_AUTOTUNE_DIR naming the sweep's DB, against the default tile
+   (TUNED_TOL), its compile signature naming the db decision.
 11. dp phase (after the compiled-step phase): data parallelism and ZeRO-1
    over torch.distributed. One process runs the reference: BERT-base
    BertForPretraining in bf16 with both knobs on, attention dropout 0.1
@@ -194,6 +215,12 @@
    (two ranks on one card: not a speed figure) are printed beside the
    card; SyncBatchNorm in a small conv net at dp 2 against BatchNorm at
    dp 1, f32 with TF32 off, outputs and running statistics within 1e-5.
+   Each rank then runs path (c): ZeRO-3 in ShardedTrainStep (eager,
+   uncaptured: gloo cannot be captured) from the same weights, rows and
+   attention masks, DP_STEPS steps, held to DP_TOL against its ZeRO-1
+   run; the parameter bytes a rank holds over ZeRO-1's within
+   [0.45, 0.55]; the layer groups, the group all-gathers a step and
+   their host ms printed.
    With two or more cards it repeats the training part over NCCL, one
    rank per card, up to 4; with one it prints "nccl: not run (1 card)".
    A rank that fails or passes DP_TIMEOUT fails the script.
@@ -830,7 +857,8 @@ def random_bert_arrays(net, seed=SEED):
             arrays[name] = (rng.standard_normal(tuple(p.shape))
                             .astype(onp.float32) * onp.float32(0.02))
         else:
-            arrays[name] = p.detach().float().cpu().numpy()
+            # a copy: on the CPU numpy() would share the parameter's storage
+            arrays[name] = p.detach().float().cpu().numpy().copy()
     return arrays
 
 
@@ -3036,6 +3064,324 @@ def gluon_phase(card, batch=64, warmup=2, timed=8, loop_steps=5):
 # chosen before the first run (PERF.md section 2): two ranks at B = 4
 # against one process at B = 8 on the same weights, batches and attention
 # masks, in bf16 on the card; the ceiling is the bf16 training bound
+# the memory and tile knobs' phases (chosen before their first run; see
+# PERF.md section 2): remat against 'none' within the capture-vs-eager
+# bound; the autotuned step against the default tile within the bf16
+# training bound's loss; ZeRO-3 against ZeRO-1 within DP_TOL
+REMAT_TOL = {'loss_rel': 1e-5, 'param_abs': 1e-4}
+TUNED_TOL = {'loss_rel': 0.01}
+REMAT_POLICIES = ('none', 'layer', 'aggressive')
+
+
+def tile_checks(card, B=2, H=12, T=300):
+    """Every built tensor-core tile of the flash forward, dq and dk/dv
+    kernels (flash_attention.TILES), bf16 and float16, at a ragged T with
+    a float key mask and dropout 0.1, against the plain version; the tile
+    forced through the autotuner's seam and read back from the launch
+    counts. {kernel: worst max abs error}."""
+    import torch
+    from mxnet_tpu_torch.ops import _build, autotune
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator('cuda').manual_seed(SEED + 50)
+    worst, n = {}, 0
+    for dtype in (torch.bfloat16, torch.float16):
+        tol = TOL[str(dtype)[6:]]
+        for kind, kernels, table in (
+                ('fwd', ('flash_attn_fwd',), fa.TILES['fwd']),
+                ('bwd', ('flash_attn_bwd_dq', 'flash_attn_bwd_dkv'),
+                 fa.TILES['dq'])):
+            for tile, dims in sorted(table.items()):
+                for D in dims:
+                    q, k, v, do = (torch.randn(B, H, T, D, generator=g,
+                                               device='cuda').to(dtype)
+                                   for _ in range(4))
+                    valid = torch.tensor([T, T // 2 + 7], device='cuda')
+                    mask = torch.where(torch.arange(T, device='cuda')[None]
+                                       < valid[:, None], 0.0, -1e30)
+                    seed = torch.tensor([SEED + n], device='cuda')
+                    out, lse = fa.flash_attention_reference(
+                        q, k, v, mask, False, 0.1, seed)
+                    _build.reset_launch_counts()
+                    with autotune.forced(autotune.KERNEL_FA, kind,
+                                         (1,) + tile):
+                        if kind == 'fwd':
+                            got = fa.flash_attention_forward(
+                                q, k, v, mask, False, 0.1, seed)[:1]
+                            want = (out,)
+                        else:
+                            got = fa.flash_attention_backward(
+                                q, k, v, mask, False, 0.1, seed, out, lse, do)
+                            want = fa.flash_attention_backward_reference(
+                                q, k, v, mask, False, 0.1, seed, out, lse, do)
+                    torch.cuda.synchronize()
+                    t = f'{tile[0]}x{tile[1]}'
+                    check(_build.tile_counts == {f'{kn}.{t}': 1
+                                                 for kn in kernels},
+                          f'{kind} at {t} D={D} ran {_build.tile_counts}')
+                    # dq is the dq kernel's; dk and dv the dk/dv kernel's
+                    owners = (kernels[0],) + (kernels[-1],) * 2
+                    for kn, a, b in zip(owners, got, want):
+                        err = float((a.float() - b.float()).abs().max())
+                        ok = bool(((a.float() - b.float()).abs() <=
+                                   tol['atol'] + tol['rtol'] *
+                                   b.float().abs()).all())
+                        check(ok, f'{kn} tile {t} D={D} {dtype} disagrees '
+                              f'with plain (max abs {err:.3e})')
+                        key = f'{kn}[{str(dtype)[6:]}]'
+                        worst[key] = max(worst.get(key, 0.0), err)
+                    n += 1
+    print(f'  every built tile against the plain version on {card}: {n} '
+          f'(kernel, tile, D, dtype) cases at B={B} H={H} T={T}, float mask, '
+          f'dropout 0.1, tolerance {TOL["bfloat16"]} (bf16) / '
+          f'{TOL["float16"]} (float16); worst max abs err {worst}')
+    return worst
+
+
+def _sweep_rows(rep, kind, dtype, D):
+    """One line per candidate of a measured sweep: its time, its error
+    against the plain version, its kernels' registers and spills."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    r = rep[kind]
+    for row in r['ranking']:
+        tile = tuple(row['blocks'][1:])
+        regs = []
+        if fa.kernel_variant(dtype, D) == 'tc':
+            for kernel in (('fwd',) if kind == 'fwd' else ('dq', 'dkv')):
+                a = fa.tile_attributes(kernel, dtype, D, tile)
+                regs.append(f'{kernel} {a["registers"]} regs '
+                            f'{a["local_bytes"]} B local')
+        print(f'    {kind} {tile[0]}x{tile[1]}: '
+              + (f'{row["median_ms"]:.4f} ms' if 'median_ms' in row
+                 else row.get('error', 'not timed'))
+              + f', max abs err {row.get("max_abs_err", float("nan")):.3e}'
+              + f', analytic {row["analytic_ms"]:.4f} ms'
+              + (f'; {", ".join(regs)}' if regs else ''))
+    for tile, why in r['registers']['pruned'].items():
+        print(f'    {kind} {tile}: pruned before timing: {why}')
+    print(f'    {kind}: {r["candidates"]} candidates, {r["pruned"]} pruned '
+          f'by the static rules (G > 1, tiles not built, ...); winner '
+          f'{r["winner"]} ({r["source"]})')
+
+
+def autotune_phase(card, work):
+    """The flash-attention tile autotuner on the card: every built tile
+    against the plain version; the measured sweep at the compiled step's
+    shape (B = 8 -> BH = 96, T = 512, D = 64, bf16, the valid_length float
+    mask, dropout 0.1) and at bench.py's own call (batch 1, f32: the SIMT
+    kernel's one tile), into a DB under ``work``; a fresh resolve reads
+    the winner back with source 'db'."""
+    import numpy as onp
+    import torch
+    from mxnet_tpu_torch.models.bert import bert_base_config
+    from mxnet_tpu_torch.ops import autotune
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    print(f'autotune phase on {card}: the flash kernels\' tiles')
+    worst = tile_checks(card)
+    data, _ = pretraining_batch(bert_base_config(), 8, 512, SEED)
+    mask = torch.where(torch.arange(512)[None] <
+                       torch.from_numpy(data['valid'])[:, None], 0.0, -1e30)
+    rep = autotune.sweep_flash_attention(
+        batch=8, heads=12, seq=512, head_dim=64, dtype=torch.bfloat16,
+        key_mask=mask, dropout_p=0.1, db_dir=work)
+    check(rep['mode'] == 'measured', f'sweep mode {rep["mode"]}')
+    print(f'  sweep at B=8 H=12 T=512 D=64 bf16, float mask, dropout 0.1 '
+          f'on {card} ({rep["sweep_seconds"]:.1f} s, median of '
+          f'MXTPU_AUTOTUNE_REPS calls each, CUDA events):')
+    for kind in ('fwd', 'bwd'):
+        _sweep_rows(rep, kind, torch.bfloat16, 64)
+        rows = rep[kind]['ranking']
+        check(rep[kind]['registers']['checked'], 'registers unchecked')
+        check(not [x for x in rows if 'error' in x],
+              f'{kind} candidates disagree with the plain version: {rows}')
+    rep32 = autotune.sweep_flash_attention(batch=1, heads=12, seq=512,
+                                           head_dim=64, dtype=torch.float32,
+                                           db_dir=work)
+    for kind in ('fwd', 'bwd'):
+        _sweep_rows(rep32, kind, torch.float32, 64)
+        check(rep32[kind]['candidates'] == 1 and rep32[kind]['winner'] ==
+              [1, 64, 64], f'bench.py\'s f32 sweep {rep32[kind]}')
+    os.environ['MXTPU_AUTOTUNE_DIR'] = work
+    autotune.clear()
+    try:
+        got = fa._block_sizes(96, 512, 512, 64, torch.bfloat16, 'fwd')
+        dec = autotune.decisions()[
+            f'{autotune.KERNEL_FA}:{rep["fwd"]["signature"]}']
+    finally:
+        del os.environ['MXTPU_AUTOTUNE_DIR']
+        autotune.clear()
+    print(f'  a fresh resolve with MXTPU_AUTOTUNE_DIR set: {got}, {dec}')
+    check(list(got) == rep['fwd']['winner'] and dec['source'] == 'db',
+          f'resolve {got} {dec}, the sweep\'s winner {rep["fwd"]["winner"]}')
+    fwd = {tuple(r['blocks']): r for r in rep['fwd']['ranking']}
+    bwd = {tuple(r['blocks']): r for r in rep['bwd']['ranking']}
+    return dict(tiles=worst, fwd=fwd, bwd=bwd,
+                winner={k: rep[k]['winner'] for k in ('fwd', 'bwd')},
+                f32=rep32['fwd']['ranking'][0],
+                sweep_s=rep['sweep_seconds'])
+
+
+def _bert_policy_step(cfg, arrays, batch, seq):
+    """BERT-base bf16, dropout 0.1 (hidden and attention, one generator
+    seeded alike for every run), both knobs on, ShardedTrainStep with
+    AdamW; the flagship batch's first ``batch`` rows (tiled past 8)."""
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models.bert import BertForPretraining, \
+        bert_pretrain_loss
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    gen = torch.Generator('cuda').manual_seed(SEED + 8)
+    net = BertForPretraining(dict(cfg, dropout=0.1), dtype=torch.bfloat16,
+                             device='cuda', generator=gen)
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    step = parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
+                                     {'learning_rate': 1e-4, 'wd': 0.01})
+    data, _ = pretraining_batch(cfg, batch, seq, SEED)
+    t = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    return net, step, [t['tokens'], t['types'], t['valid'], t['mpos']], \
+        [t['labels'], t['nsp']]
+
+
+def remat_phase(card, tuned_dir, replays=3):
+    """Path (a): the compiled step under MXTPU_REMAT none, layer and
+    aggressive at B = 8 and B = 32 (T = 512, BERT-base bf16, dropout
+    0.1): the eager first call and capture, 3 replays held against
+    'none', the peak bytes of a replay plus the graph pool, the step ms
+    (median of 3 calls of 3 replays), A's launches per replay. Path (b):
+    the same step at B = 8 with MXTPU_AUTOTUNE_DIR naming the sweep's DB,
+    against the default tile. Launch counts at 0 before each path's
+    runs, read after (the eager steps and captures)."""
+    import gc
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models.bert import BertForPretraining, \
+        bert_base_config
+    from mxnet_tpu_torch.ops import _build
+    os.environ['MXTPU_PALLAS_LN'] = '1'
+    os.environ['MXTPU_PALLAS_FFN'] = '1'
+    cfg = bert_base_config()
+    L = cfg['layers']
+    print(f'remat phase on {card}: MXTPU_REMAT none / layer / aggressive')
+    arrays = random_bert_arrays(BertForPretraining(
+        cfg, dtype=torch.bfloat16, device='cuda'))
+    runs, remat_launches, tuned = {}, {}, None
+    for batch in (8, 32):
+        for policy in REMAT_POLICIES + (('tuned',) if batch == 8 else ()):
+            os.environ['MXTPU_REMAT'] = 'none' if policy == 'tuned' \
+                else policy
+            if policy == 'tuned':
+                os.environ['MXTPU_AUTOTUNE_DIR'] = tuned_dir
+            gc.collect()
+            torch.cuda.empty_cache()
+            net, step, ins, labs = _bert_policy_step(cfg, arrays, batch, 512)
+            torch.cuda.synchronize()
+            mt.ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            losses = [float(step(ins, labs))]      # eager, then the capture
+            # the eager step's and the capture's peak (the activations the
+            # policy keeps, and the update's temporaries)
+            eager_peak = torch.cuda.max_memory_allocated()
+            launches = dict(mt.ops.launch_counts)
+            tiles = dict(_build.tile_counts)
+            losses += [float(step(ins, labs)) for _ in range(replays)]
+            # on the host: a copy kept on the card would add to the next
+            # run's peaks
+            params = {n: p.detach().float().cpu()
+                      for n, p in net.named_parameters()}
+            torch.cuda.synchronize()
+            # the checkpoint's frames form reference cycles: collect them
+            # before reading what a replay holds
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step(ins, labs)
+            torch.cuda.synchronize()
+            replay_peak = torch.cuda.max_memory_allocated()
+            pool = torch.cuda.memory_reserved() - \
+                torch.cuda.memory_allocated()
+            calls = sorted(steps_ms(lambda: step(ins, labs), 3)
+                           for _ in range(3))
+            r = dict(losses=losses, params=params, launches=launches,
+                     tiles=tiles, peak=replay_peak + pool,
+                     replay_peak=replay_peak, pool=pool,
+                     eager_peak=eager_peak, ms=calls[1],
+                     calls=calls, stats=step.stats(),
+                     sig=step.signature(ins, labs)['flags'])
+            if batch == 8:
+                names = kernel_launches(lambda: step(ins, labs), 3)
+                r['a_per_replay'] = sum(
+                    c for n, c in names.items()
+                    if 'flash_fwd_tc_kernel' in n) / 3
+            runs[(batch, policy)] = r
+            print(f'  B={batch} {policy}: losses {[round(x, 5) for x in losses]}'
+                  f'; {r["ms"]:.3f} ms a step (median of 3 calls of 3: '
+                  f'{", ".join(f"{c:.3f}" for c in calls)}); peak '
+                  f'{r["peak"] / 2 ** 30:.3f} GiB (a replay\'s '
+                  f'{replay_peak / 2 ** 30:.3f} + graph pool '
+                  f'{pool / 2 ** 30:.3f}); the eager step and capture\'s '
+                  f'peak {eager_peak / 2 ** 30:.3f} GiB; launches '
+                  f'{launches}; tiles '
+                  f'{tiles}' + (f'; A per replay {r["a_per_replay"]}'
+                                if 'a_per_replay' in r else ''))
+            if policy == 'tuned':
+                del os.environ['MXTPU_AUTOTUNE_DIR']
+            del net, step, ins, labs
+        os.environ['MXTPU_REMAT'] = 'none'
+    # the default tile everywhere the knobs are unset
+    for key, r in runs.items():
+        if key[1] != 'tuned':
+            check(set(t.split('.')[-1] for t in r['tiles']) == {'64x64'},
+                  f'{key} ran tiles {r["tiles"]}')
+    for batch in (8, 32):
+        base = runs[(batch, 'none')]
+        for policy in ('layer', 'aggressive'):
+            r = runs[(batch, policy)]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(r['losses'], base['losses']))
+            dp = max(float((r['params'][n] - base['params'][n]).abs().max())
+                     for n in base['params'])
+            r['loss_rel'], r['param_abs'] = rel, dp
+            ok = rel <= REMAT_TOL['loss_rel'] and \
+                dp <= REMAT_TOL['param_abs']
+            print(f'  B={batch} {policy} vs none after the eager step and '
+                  f'{replays} replays: loss rel err {rel:.2e}, parameters max '
+                  f'abs {dp:.2e}; tolerance {REMAT_TOL} -> '
+                  f'{"ok" if ok else "FAIL"}')
+            check(ok, f'remat {policy} at B={batch} disagrees with none')
+            check(r['sig']['remat'] == policy, f'signature {r["sig"]}')
+    for policy in REMAT_POLICIES:
+        r = runs[(8, policy)]
+        a = r['launches']['flash_attn_fwd']
+        want = 2 * L if policy == 'none' else 4 * L
+        check(a == want, f'{policy}: {a} forward launches in the eager step '
+              f'and the capture, expected {want}')
+        check(r['a_per_replay'] == want // 2,
+              f'{policy}: A per replay {r["a_per_replay"]}')
+        for k, v in r['launches'].items():
+            remat_launches[k] = remat_launches.get(k, 0) + v
+    t = runs[(8, 'tuned')]
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(t['losses'], runs[(8, 'none')]['losses']))
+    flags = t['sig']['autotune'] or {}
+    ok = rel <= TUNED_TOL['loss_rel']
+    print(f'  path (b), MXTPU_AUTOTUNE_DIR set: tiles {t["tiles"]}, loss rel '
+          f'err against the default tile {rel:.2e}; tolerance {TUNED_TOL} -> '
+          f'{"ok" if ok else "FAIL"}; signature\'s autotune flags {flags}')
+    check(ok, 'the autotuned step disagrees with the default tile')
+    check(any(v.startswith('db:') for v in flags.values()),
+          f'the signature names no db decision: {flags}')
+    for key in ((8, 'layer'), (8, 'aggressive'), (32, 'layer'),
+                (32, 'aggressive')):
+        r, base = runs[key], runs[(key[0], 'none')]
+        print(f'  B={key[0]} {key[1]}: peak {r["peak"] / base["peak"]:.3f}x '
+              f'none\'s (eager step and capture '
+              f'{r["eager_peak"] / base["eager_peak"]:.3f}x), step '
+              f'{r["ms"] / base["ms"]:.3f}x none\'s')
+    return remat_launches, dict(t['launches']), dict(
+        runs={f'{b}/{p}': {k: v for k, v in r.items() if k != 'params'}
+              for (b, p), r in runs.items()}, tuned_loss_rel=rel)
+
+
 DP_TOL = {'loss_rel': 0.01, 'update_rel_fro': 0.1}
 DP_SBN_TOL = dict(atol=1e-5, rtol=1e-5)    # SyncBatchNorm, f32, TF32 off
 DP_TIMEOUT = 600.0       # seconds for a world of ranks, then all are killed
@@ -3148,10 +3494,14 @@ def dp_train(world, rank, work, device='cuda', cfg=None, batch=8, seq=512):
         low = trainer._optimizer._low_precision(p)
         tr_masters[n] = (states[i][0] if low else p).detach().float() \
             .cpu().numpy()
+    zero3 = dp_zero3(world, rank, work, cfg, arrays, ins, labs, device) \
+        if world > 1 else None
+    if zero3 is not None:
+        zero3['zero1_param_bytes'] = step.param_bytes_per_device()
     if rank == 0:
         torch.save({'step': step_masters, 'trainer': tr_masters},
                    os.path.join(work, f'masters_dp{world}.pt'))
-    return dict(
+    return dict(zero3=zero3,
         losses=losses, trainer_losses=tr_losses, step_ms=step_ms,
         coll_ms=coll_ms, launches=launches, zero=step.zero,
         trainer_zero=trainer._zero_active,
@@ -3163,6 +3513,64 @@ def dp_train(world, rank, work, device='cuda', cfg=None, batch=8, seq=512):
         peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
                   if device == 'cuda' else 0.0),
         initial={n: a for n, a in arrays.items()} if world == 1 else None)
+
+
+def dp_zero3(world, rank, work, cfg, arrays, ins, labs, device='cuda'):
+    """Path (c): ZeRO-3 in ShardedTrainStep at this rank, on the ZeRO-1
+    run's weights, batch rows and attention masks (a fresh model with the
+    same dp_generators seeds, hidden dropout 0), DP_STEPS steps, eager
+    and uncaptured; the launch counters at 0 before and read after. Rank
+    0 saves its f32 masters, gathered whole, to ``work``."""
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_pretrain_loss,
+                                             dp_generators)
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    hidden, attn = dp_generators(SEED + 5, device)
+    cuda = device == 'cuda'
+    net = BertForPretraining(dict(cfg, dropout=0.1),
+                             dtype=torch.bfloat16 if cuda else torch.float32,
+                             device=device, generator=hidden,
+                             attn_generator=attn)
+    for m in net.modules():
+        if isinstance(m, nn.Dropout):
+            m._rate = 0.0
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    step = parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
+                                     {'learning_rate': 1e-4, 'wd': 0.01},
+                                     mesh=parallel.make_mesh((world,),
+                                                             ('dp',)),
+                                     zero=3)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mt.ops.reset_launch_counts()
+    losses, step_ms, gather_ms, gathers = [], [], [], []
+    for _ in range(DP_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(step(ins, labs)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        st = step.stats()
+        gather_ms.append(st['gather_ms'])
+        gathers.append(st['gathers'])
+    launches = dict(mt.ops.launch_counts)
+    masters = {n: step._logical(n, step._master.get(n, step._local(n, p)))
+               for n, p in step._trainable}
+    if rank == 0:
+        torch.save(masters, os.path.join(work, f'masters_zero3_dp{world}.pt'))
+    return dict(losses=losses, step_ms=step_ms, gather_ms=gather_ms,
+                gathers=gathers, launches=launches, stats=step.stats(),
+                param_bytes=step.param_bytes_per_device(),
+                opt_bytes=step.opt_state_bytes_per_device(),
+                modes=sorted({v['mode'] for v in
+                              step.zero3_layouts.values()}),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+                if cuda else 0.0)
 
 
 def dp_kernel_checks(world, rank, batch=8, seq=512):
@@ -3344,6 +3752,59 @@ def _hold_dp(label, ranks, ref, ref_masters, got_masters, card):
                                    for k, v in upd.items()})
 
 
+def _hold_zero3(ranks, ref, zero1_masters, work, world, card):
+    """Path (c) against ZeRO-1 on the same ranks (DP_TOL): per-step losses,
+    the f32 masters' updates; the parameter bytes a rank holds, stage 3
+    over stage 1, in [0.45, 0.55]; the step uncaptured. Returns ({kernel:
+    launches summed over the ranks}, readings)."""
+    import numpy as onp
+    import torch
+    z = [o['zero3'] for o in ranks]
+    rel = max(abs(a - b) / abs(b) for o, zo in zip(ranks, z)
+              for a, b in zip(zo['losses'], o['losses']))
+    masters = torch.load(os.path.join(work, f'masters_zero3_dp{world}.pt'),
+                         weights_only=False)
+    upd = _update_rel_fro(masters, zero1_masters['step'], ref['initial'])
+    ratio = z[0]['param_bytes'] / z[0]['zero1_param_bytes']
+    ok = rel <= DP_TOL['loss_rel'] and upd <= DP_TOL['update_rel_fro']
+    gms = float(onp.median(z[0]['gather_ms'][1:]))
+    print(f'  path (c), ZeRO-3 at dp={world} over gloo vs ZeRO-1 on the same '
+          f'ranks, weights, rows and masks, on {card}: per-step loss rel err '
+          f'max {rel:.2e}; masters\' updates rel_fro {upd:.4f}; tolerance '
+          f'{DP_TOL} -> {"ok" if ok else "FAIL"}')
+    print(f'    ZeRO-3 losses {z[0]["losses"]}; ZeRO-1 {ranks[0]["losses"]}')
+    print(f'    captured: {z[0]["stats"]["captured"]} (eager: gloo cannot be '
+          f'captured and a gather sits before every layer group); layouts '
+          f'{z[0]["modes"]}; {z[0]["stats"]["layer_groups"]} layer groups, '
+          f'{z[0]["gathers"]} group all-gathers a step (forward and '
+          f'backward), their host ms a step {[round(x, 1) for x in z[0]["gather_ms"]]} '
+          f'(median of steps 2-{DP_STEPS} {gms:.1f}); step ms '
+          f'{[round(x, 1) for x in z[0]["step_ms"]]}; parameter bytes a rank '
+          f'{z[0]["param_bytes"]} against ZeRO-1\'s '
+          f'{z[0]["zero1_param_bytes"]} (ratio {ratio:.4f}); optimizer '
+          f'state {z[0]["opt_bytes"]}; peak {z[0]["peak_gib"]:.2f} GiB a '
+          f'rank; launches {z[0]["launches"]}')
+    check(all(onp.isfinite(x) for zo in z for x in zo['losses']),
+          'non-finite ZeRO-3 loss')
+    check(ok, 'ZeRO-3 disagrees with ZeRO-1')
+    check(0.45 <= ratio <= 0.55, f'ZeRO-3 parameter bytes ratio {ratio}')
+    check(all(zo['stats']['captured'] is False for zo in z),
+          'the stage-3 step claims to be captured')
+    L = 12
+    want = {'flash_attn_fwd': DP_STEPS * L, 'flash_attn_bwd_dq': DP_STEPS * L,
+            'flash_attn_bwd_dkv': DP_STEPS * L,
+            'fused_add_layernorm': 2 * DP_STEPS * L,
+            'dense_gelu': DP_STEPS * L}
+    for zo in z:
+        check(zo['launches'] == want, f'ZeRO-3 launches {zo["launches"]}, '
+              f'expected {want} (every step eager)')
+    launches = {k: sum(zo['launches'][k] for zo in z) for k in want}
+    return launches, dict(loss_rel=rel, update_rel_fro=upd, ratio=ratio,
+                          gather_ms=gms, gathers=z[0]['gathers'][-1],
+                          layer_groups=z[0]['stats']['layer_groups'],
+                          step_ms=float(onp.median(z[0]['step_ms'][1:])))
+
+
 def dp_phase(card, world=2):
     """Two ranks on the one card over gloo against one process (see the
     module docstring, step 11). Returns ({kernel: launches summed over the
@@ -3420,6 +3881,7 @@ def dp_phase(card, world=2):
             compare(f'SyncBatchNorm {n}, rank {ranks.index(o)}',
                     torch.from_numpy(o['sbn'][1][n]), torch.from_numpy(v),
                     **DP_SBN_TOL)
+    zero3 = _hold_zero3(ranks, ref, got_masters, work, world, card)
     nccl = None
     count = torch.cuda.device_count()
     if count >= 2:
@@ -3434,7 +3896,24 @@ def dp_phase(card, world=2):
     else:
         print('  nccl: not run (1 card)')
     return launches, errs, dict(parity=parity, ratio=ratio, coll_ms=coll,
-                                step_ms=rank_ms, nccl=nccl)
+                                step_ms=rank_ms, nccl=nccl,
+                                zero3=zero3[1]), zero3[0]
+
+
+# the tiled kernels' rows, and the sweep's ranking each reads its times from
+TILED = {'flash_attn_fwd': 'fwd', 'flash_attn_bwd_dq': 'bwd',
+         'flash_attn_bwd_dkv': 'bwd'}
+
+
+def _tile_fields(name, sweep):
+    """The tile each path of a tiled kernel's row runs at, and the
+    sweep's per-tile times at the compiled step's shape (the backward's
+    cover the dq and dk/dv kernels together)."""
+    kind = TILED[name]
+    return dict(default='64x64', autotuned='x'.join(
+        map(str, sweep['winner'][kind][1:])),
+        sweep_ms={f'{b[1]}x{b[2]}': r.get('median_ms')
+                  for b, r in sweep[kind].items()})
 
 
 def main():
@@ -3461,7 +3940,10 @@ def main():
     tc = [e for e in report if '_tc_kernel' in e]
     print('ptxas, tensor-core kernels: ' + (' | '.join(tc) or
                                             'not rebuilt in this process'))
-    for name in [f'{k}<{e}Li64>' for e in ('13__nv_bfloat16', '6__half')
+    # the default tile at D = 64; autotune_phase prunes and names any other
+    # tile that spills
+    for name in [f'{k}<{e}Li64ELi64ELi64E>' for e in ('13__nv_bfloat16',
+                                                      '6__half')
                  for k in ('flash_fwd_tc_kernel', 'flash_bwd_dq_tc_kernel',
                            'flash_bwd_dkv_tc_kernel')] + [
             f'dense_gelu_tc_kernel<{e}>' for e in ('13__nv_bfloat16',
@@ -3480,7 +3962,13 @@ def main():
     gluon, _gluon = gluon_phase(card)
     # last: the traces taken after its graph replays are the least sure
     compiled, per_replay, _compiled = compiled_step_phase(card)
-    dp, dp_errs, _dp = dp_phase(card)
+    tune_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'build', 'autotune')
+    import shutil
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    tuned_sweep = autotune_phase(card, tune_dir)
+    remat, tuned, _remat = remat_phase(card, tune_dir)
+    dp, dp_errs, _dp, zero3 = dp_phase(card)
     # launches: the serving, front, training, compiled-step and ndarray
     # runs', each counted from 0 just before its run (serving's and the
     # front's are their warmups' eager runs and captures, the compiled
@@ -3490,7 +3978,7 @@ def main():
     # the AMP runs' float16 launches go to the [float16] rows where a
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
-             'ndarray', 'gluon', 'dp')
+             'ndarray', 'gluon', 'dp', 'remat', 'autotune', 'zero3')
     by_path = {}
     for name in rows:
         base, f16 = name.split('[')[0], name.endswith('[float16]')
@@ -3504,7 +3992,9 @@ def main():
             serving=serving[name], front=front[name],
             training=training[name], amp=amp_launches[name] - n16,
             compiled_step=compiled[name], ndarray=nd_ops[name],
-            gluon=gluon.get(name, 0), dp=dp.get(name, 0))
+            gluon=gluon.get(name, 0), dp=dp.get(name, 0),
+            remat=remat.get(name, 0), autotune=tuned.get(name, 0),
+            zero3=zero3.get(name, 0))
     for name in user_rows:
         by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
     idle = [n for n, paths_n in by_path.items()
@@ -3529,7 +4019,9 @@ def main():
                     **({'launches_per_serving_dispatch': serve_replay[name]}
                        if name in serve_replay else {}),
                     **({'launches_per_http_dispatch': front_http[name]}
-                       if name in front_http else {}))
+                       if name in front_http else {}),
+                    **({'tiles': _tile_fields(name, tuned_sweep)}
+                       if name in TILED else {}))
                for name, r in {**rows, **user_rows}.items()]
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -80,9 +80,73 @@ _register('MXTPU_SERVE_QUEUE_LIMIT', int, 256,
 _register('MXTPU_SERVE_DRAIN_SECONDS', float, 10.0,
           'Graceful-drain budget: how long drain() waits for in-flight '
           'requests before giving up.')
-_register('MXTPU_REMAT', str, 'none',
-          "Activation remat policy of ShardedTrainStep: only 'none' is "
-          'ported; any other policy raises (ROADMAP queue 1 item 7).')
+
+
+def _remat_policy(s):
+    """MXTPU_REMAT value -> policy name (the JAX package's parser): none
+    (save what autograd saves), layer (save only the products without
+    batch dims), aggressive (save nothing: recompute the forward in the
+    backward)."""
+    raw = str(s).strip().lower()
+    if raw in ('', '0', 'off', 'false', 'no', 'n', 'none', 'disabled'):
+        return 'none'
+    if raw in ('layer', '1', 'on', 'true', 'yes', 'y'):
+        return 'layer'
+    if raw in ('aggressive', 'full', '2'):
+        return 'aggressive'
+    raise ValueError(f"MXTPU_REMAT={s!r}: expected none (default), "
+                     f"layer, or aggressive")
+
+
+_register('MXTPU_REMAT', _remat_policy, 'none',
+          "Activation remat policy of ShardedTrainStep's forward: 'none' "
+          "(default) keeps what autograd saves (under ZeRO-3 the gathered "
+          'parameters are still regathered, never kept); \'layer\' runs '
+          'each layer (each child of the sequential containers: BERT\'s '
+          'encoder layers) under torch.utils.checkpoint with a selective '
+          'policy that saves only the outputs of the products without '
+          'batch dims (aten.mm/addmm, the Dense layers) and recomputes the '
+          "rest (attention, LayerNorm, GELU, dropout); 'aggressive' saves "
+          'nothing of a layer but its inputs. The dropout generators\' '
+          'states are replayed, so a recompute draws the masks the '
+          'forward drew.')
+_register('MXTPU_FA_G', int, 0,
+          'Explicit flash-attention FORWARD head-group size. Highest rung '
+          'of the ops/autotune precedence ladder: env override > '
+          'tuning-DB winner > built-in defaults. 0 (default) = unset. The '
+          "port's kernels give each batch*head slice its own blocks, so "
+          'any other value clamps to 1 (the clamp is recorded).')
+_register('MXTPU_FA_BQ', int, 0,
+          'Explicit flash-attention forward query tile (rows per block). '
+          '0 = unset (tuning DB, then the default 64). A tile that is '
+          'not built or not legal for the shape clamps to the default '
+          '(recorded in autotune.decisions()).')
+_register('MXTPU_FA_BK', int, 0,
+          'Explicit flash-attention forward key tile (keys per loop '
+          'step). 0 = unset (tuning DB, then the default 64).')
+_register('MXTPU_FA_BWD_G', int, 0,
+          'Explicit flash-attention BACKWARD head-group size (the dq and '
+          'dk/dv kernels). 0 = unset; any other value clamps to 1.')
+_register('MXTPU_FA_BWD_BQ', int, 0,
+          'Explicit flash-attention backward query tile: the dq '
+          "kernel's rows per block and the dk/dv kernel's rows per loop "
+          'step. 0 = unset (tuning DB, then the default 64).')
+_register('MXTPU_FA_BWD_BK', int, 0,
+          "Explicit flash-attention backward key tile: the dq kernel's "
+          "keys per loop step and the dk/dv kernel's keys per block. "
+          '0 = unset (tuning DB, then the default 64).')
+_register('MXTPU_AUTOTUNE_DIR', str, '',
+          'Directory of the kernel-autotuner tuning DB '
+          '(mxtpu_autotune.json, atomic JSON keyed by device kind + '
+          'kernel + shape signature, the JAX package\'s format). When '
+          'set, the flash-attention tile of each shape comes from the DB '
+          'winner (env overrides still win); populate it with '
+          'ops.autotune.sweep_flash_attention(). Empty (default): DB '
+          'lookups off, the default tile applies.')
+_register('MXTPU_AUTOTUNE_REPS', int, 5,
+          'Measured-sweep repetitions per candidate: each surviving tile '
+          'is built and warmed outside the timed window, then timed this '
+          'many times with CUDA events; the median decides the winner.')
 _register('MXNET_HOME', str, os.path.join(os.path.expanduser('~'), '.mxnet'),
           'Data directory: the model zoo looks for pretrained weights in '
           'its models/ folder.')
@@ -178,8 +242,7 @@ _register('MXTPU_HIERARCHICAL_DP', int, 0,
 
 def _zero_stage(s):
     """MXTPU_ZERO value -> ZeRO stage int: 0/off/false -> 0, 1/on/true
-    -> 1, 3 -> 3 (the JAX package's parser; stage 3 raises in the port,
-    ROADMAP queue 1 item 7)."""
+    -> 1, 3 -> 3 (the JAX package's parser)."""
     raw = str(s).strip().lower()
     if raw in ('3',):
         return 3
@@ -198,8 +261,11 @@ _register('MXTPU_ZERO', _zero_stage, 1,
           'reduce-scatter over dp, each rank runs the optimizer on its '
           '1/dp slice of the f32 masters and moments, and the updated '
           'parameters all-gather back. 0 keeps the replicated update '
-          '(one all-reduce of the gradients). 3 raises (ROADMAP queue 1 '
-          'item 7).')
+          '(one all-reduce of the gradients). 3 (ShardedTrainStep) also '
+          "shards the parameters between steps: each layer group is "
+          'all-gathered before its first use and regathered in the '
+          "backward; the Trainer's stage 3 raises (ROADMAP queue 1 item "
+          '7).')
 _register('MXTPU_HEARTBEAT_SECONDS', float, 1.0,
           'Membership heartbeat period (parallel.dist, not ported: ROADMAP '
           'queue 1 item 10). The fleet monitor derives its default stale '

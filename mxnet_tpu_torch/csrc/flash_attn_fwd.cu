@@ -22,9 +22,12 @@
 // Two kernels, routed by the wrapper on dtype and head dim (not a
 // fallback: a CUDA tensor always launches one of them, or raises):
 //
-// flash_fwd_tc_kernel, bf16 or f16 and D in {16, 32, 64, 128}: the
-// tensor-core design, one template over the element type. One block of
-// four warps per (batch*head, 64-row q tile); each warp owns 16 q rows.
+// flash_fwd_tc_kernel (flash_fwd_tc.cuh), bf16 or f16 and D in {16, 32,
+// 64, 128}: the tensor-core design, one template over the element type,
+// the head dim and the tile (BQ, BK). One block of BQ / 16 warps per
+// (batch*head, BQ-row q tile); each warp owns 16 q rows. The default tile
+// (64, 64), four warps, is built here for every D; flash_attn_fwd_tiles.cu
+// builds the others the autotuner may pick (ops/autotune.py).
 // The two products have 16-bit operands and f32 sums in the JAX kernel
 // (S = Q.K^T; P cast to v's dtype before P.V), so mma.sync.m16n8k16
 // bf16 (or f16) -> f32 computes them as the reference does: Q's
@@ -33,7 +36,7 @@
 // the S accumulator turns into the 16-bit A fragments of P.V in registers,
 // so P never touches shared memory. The online softmax runs on the
 // accumulator's registers, its row max and row sum shuffled across the
-// four lanes that share a row. 64-key tiles of K, V and the mask row come
+// four lanes that share a row. BK-key tiles of K, V and the mask row come
 // through a two-stage ring of 16-byte cp.async copies, so tile j+1 is in
 // flight while tile j is multiplied; rows are padded by 16 bytes in
 // shared memory so ldmatrix is free of bank conflicts. The softmax takes
@@ -65,6 +68,12 @@
 
 #include "counter_keep.cuh"
 #include "mma_tiles.cuh"
+
+// the tensor-core kernel (flash_fwd_tc.cuh) at its default tile, for every
+// tensor-core head dim; flash_attn_fwd_tiles.cu builds the other tiles
+#define MXTT_FWD_TILES \
+  MXTT_TILE(16, 64, 64) MXTT_TILE(32, 64, 64) MXTT_TILE(64, 64, 64) MXTT_TILE(128, 64, 64)
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -264,257 +273,6 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* k
 #undef MXTT_FA_CASE
 }
 
-// ------------------------------------------------------------ tensor cores
-constexpr int TC_THREADS = 128;  // four warps of 16 q rows each
-
-template <typename E, int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                    const E* __restrict__ v, const float* __restrict__ kmask,
-                    E* __restrict__ o, float* __restrict__ lse, int H, int Tq, int Tk,
-                    Strides qs, Strides ks, Strides vs, Strides os, int mask_div, float scale,
-                    int causal, const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
-                    float keep_scale, int use_dropout, uint32_t bh_base) {
-  using namespace mma_tiles;
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  const uint32_t seed = use_dropout ? *seed_ptr : 0u;  // the dropout seed, read once
-  constexpr int LD = D + 8;    // padded row
-  constexpr int KD = D / 16;   // k-steps of Q.K^T
-  constexpr int ND = D / 8;    // n-tiles of P.V
-  constexpr int NK = BK / 8;   // n-tiles of Q.K^T, one per 8 keys
-  constexpr float LOG2E = 1.4426950408889634f;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  E* Qs = reinterpret_cast<E*>(smem_raw);                  // BQ x LD
-  E* Ks = Qs + BQ * LD;                                    // 2 x BK x LD
-  E* Vs = Ks + 2 * BK * LD;                                // 2 x BK x LD
-  float* Ms = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // 2 x BK
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
-  const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const E* kp = k + b * ks.b + h * ks.h;
-  const E* vp = v + b * vs.b + h * vs.h;
-  const float* mrow = kmask ? kmask + (long long)(bh / mask_div) * Tk : nullptr;
-
-  // one commit group per key tile: K, V and the mask row into a stage
-  auto load_kv = [&](int kb, int stage) {
-    const int k0 = kb * BK;
-    load_tile<BK, D, TC_THREADS>(Ks + stage * BK * LD, kp, ks.t, k0, Tk);
-    load_tile<BK, D, TC_THREADS>(Vs + stage * BK * LD, vp, vs.t, k0, Tk);
-    if (mrow != nullptr) load_row<TC_THREADS>(Ms + stage * BK, mrow, k0, BK, Tk);
-    cp_async_commit();
-  };
-  load_tile<BQ, D, TC_THREADS>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, Tq);
-  load_kv(0, 0);                       // the first group holds Q too
-
-  // the warp's rows wrow + {g, g + 8}; Q's A fragments, loaded once
-  const int wrow = q0 + warp * 16;
-  const int row0 = wrow + (lane >> 2);
-  uint32_t qf[KD][4];
-  float acc[ND][4];
-  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int nkb = (Tk + BK - 1) / BK;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int stage = kb & 1, k0 = kb * BK;
-    if (kb + 1 < nkb) {
-      load_kv(kb + 1, stage ^ 1);      // in flight while this tile is multiplied
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kb == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], a_addr(Qs, LD, warp * 16, kk * 16, lane));
-    }
-    const E* Kt = Ks + stage * BK * LD;
-    const E* Vt = Vs + stage * BK * LD;
-    const float* Mt = Ms + stage * BK;
-
-    // S = Q.K^T: 16-bit operands, f32 sums
-    float s[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int p = 0; p < NK / 2; ++p) {
-        uint32_t bf[4];
-        ldsm_x4(bf, b_addr_nk(Kt, LD, p * 16, kk * 16, lane));
-        mma16<E>(s[2 * p], qf[kk], bf[0], bf[1]);
-        mma16<E>(s[2 * p + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
-
-    // _masked_scores in its order: scale; keys at or past Tk get -1e30
-    // (only the last tile has any); the additive mask (staged as 0 past Tk,
-    // so those keys stay at -1e30); the causal cut (only tiles that reach
-    // past the warp's first row). Each branch is uniform over the warp.
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);  // not fused with + mask
-    if (k0 + BK > Tk) {
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + j * 8 + 2 * t + (e & 1) >= Tk) s[j][e] = NEG_INF;
-    }
-    if (mrow != nullptr) {
-#pragma unroll
-      for (int j = 0; j < NK; ++j) {
-        const float2 mv = *reinterpret_cast<const float2*>(Mt + j * 8 + 2 * t);
-        s[j][0] += mv.x;
-        s[j][1] += mv.y;
-        s[j][2] += mv.x;
-        s[j][3] += mv.y;
-      }
-    }
-    if (causal && k0 + BK - 1 > wrow) {
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (row0 + (e >> 1) * 8 < k0 + j * 8 + 2 * t + (e & 1)) s[j][e] = NEG_INF;
-    }
-
-    // the online softmax: the tile's row max, shuffled across the four
-    // lanes of a row; l sums the undropped p. exp(x) is taken as
-    // exp2(x * log2(e)): one MUFU.EX2 and a multiply where expf adds a
-    // range reduction, within a few f32 ulps of expf (x = s - m is exact,
-    // and 0 for a row that is all -1e30, as in the reference)
-    float mc[2] = {NEG_INF, NEG_INF}, alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mc[e >> 1] = fmaxf(mc[e >> 1], s[j][e]);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
-      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
-      const float m_new = fmaxf(m_i[i], mc[i]);
-      alpha[i] = exp2f((m_i[i] - m_new) * LOG2E);
-      m_i[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[j][e] - m_i[e >> 1]) * LOG2E);
-        psum[e >> 1] += p;
-        s[j][e] = p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-      l_i[i] = l_i[i] * alpha[i] + psum[i];
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-    // dropout scales only what P.V sees
-    if (use_dropout) {
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t row = (uint32_t)(row0 + (e >> 1) * 8);
-          const uint32_t col = (uint32_t)(k0 + j * 8 + 2 * t + (e & 1));
-          s[j][e] = counter_keep(seed, bh_base + (uint32_t)bh, row, col, thresh)
-                        ? s[j][e] * keep_scale
-                        : 0.f;
-        }
-    }
-
-    // P.V: P cast to v's dtype; the S fragments of keys 16kk.. are the A
-    // fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < NK / 2; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack2<E>(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack2<E>(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack2<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack2<E>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int p = 0; p < ND / 2; ++p) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, b_addr_kn(Vt, LD, kk * 16, p * 16, lane));
-        mma16<E>(acc[2 * p], pa, bf[0], bf[1]);
-        mma16<E>(acc[2 * p + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();                   // every warp is done with this stage
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
-    if (row < Tq) {
-      const float safe_l = fmaxf(l_i[i], 1e-30f);
-      E* orow = o + b * os.b + h * os.h + (long long)row * os.t + 2 * t;
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-        store2<E>(orow + n * 8, acc[n][2 * i] / safe_l, acc[n][2 * i + 1] / safe_l);
-      if (t == 0) lse[(long long)bh * Tq + row] = m_i[i] + logf(safe_l);
-    }
-  }
-}
-
-template <typename E, int D>
-int launch_tc(const void* q, const void* k, const void* v, const void* kmask, void* o, void* lse,
-              int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
-              int mask_div, float scale, int causal, const uint32_t* seed, uint32_t thresh,
-              float keep_scale, int use_dropout, uint32_t bh_base, cudaStream_t stream) {
-  constexpr int LD = D + 8;
-  const size_t smem = sizeof(E) * (BQ * LD + 4 * BK * LD) + sizeof(float) * 2 * BK;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<E, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  flash_fwd_tc_kernel<E, D><<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<const float*>(kmask), static_cast<E*>(o), static_cast<float*>(lse), H, Tq,
-      Tk, qs, ks, vs, os, mask_div, scale, causal, seed, thresh, keep_scale, use_dropout,
-      bh_base);
-  return (int)cudaGetLastError();
-}
-
-template <typename E>
-int dispatch_tc(int D, const void* q, const void* k, const void* v, const void* kmask, void* o,
-                void* lse, int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
-                Strides os, int mask_div, float scale, int causal, const uint32_t* seed,
-                uint32_t thresh, float keep_scale, int use_dropout, uint32_t bh_base,
-               cudaStream_t stream) {
-#define MXTT_FA_TC_CASE(DD)                                                                  \
-  case DD:                                                                                   \
-    return launch_tc<E, DD>(q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,  \
-                            scale, causal, seed, thresh, keep_scale, use_dropout, bh_base, stream);
-  switch (D) {
-    MXTT_FA_TC_CASE(16)
-    MXTT_FA_TC_CASE(32)
-    MXTT_FA_TC_CASE(64)
-    MXTT_FA_TC_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef MXTT_FA_TC_CASE
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. kmask may be null (no mask); its row for
@@ -548,32 +306,5 @@ extern "C" int mxtt_flash_attn_fwd(int dtype, int D, const void* q, const void* 
   if (dtype == 2)
     return dispatch_d<__half>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os, mask_div,
                               scale, causal, seed, thresh, keep_scale, use_dropout, bh_base, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The tensor-core kernel: dtype must be 1 (bfloat16) or 2 (float16) and D
-// one of 16, 32, 64, 128; q, k, v and o rows 16-byte aligned. Arguments as
-// above.
-extern "C" int mxtt_flash_attn_fwd_tc(int dtype, int D, const void* q, const void* k,
-                                      const void* v, const void* kmask, void* o, void* lse,
-                                      int B, int H, int Tq, int Tk, long long q_sb,
-                                      long long q_sh, long long q_st, long long k_sb,
-                                      long long k_sh, long long k_st, long long v_sb,
-                                      long long v_sh, long long v_st, long long o_sb,
-                                      long long o_sh, long long o_st, int mask_div, float scale,
-                                      int causal, const unsigned int* seed, unsigned int thresh,
-                                      float keep_scale, int use_dropout, unsigned int bh_base,
-                                      void* stream) {
-  const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st}, vs{v_sb, v_sh, v_st},
-      os{o_sb, o_sh, o_st};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dispatch_tc<__nv_bfloat16>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
-                                      mask_div, scale, causal, seed, thresh, keep_scale,
-                                      use_dropout, bh_base, st);
-  if (dtype == 2)
-    return dispatch_tc<__half>(D, q, k, v, kmask, o, lse, B, H, Tq, Tk, qs, ks, vs, os,
-                               mask_div, scale, causal, seed, thresh, keep_scale, use_dropout,
-                               bh_base, st);
   return (int)cudaErrorInvalidValue;
 }

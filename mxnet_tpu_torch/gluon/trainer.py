@@ -80,7 +80,9 @@ replicated (all-reduced, updated whole). An update that reads a norm of
 the whole weight (LAMB, ``Optimizer.whole_tensor``) and the
 per-parameter loop keep every state replicated. ``get_states_bytes``
 gathers the states to whole tensors (a collective: call it on every
-rank), so a payload restores at any dp, under ZeRO or not. Under AMP
+rank), so a payload restores at any dp, under ZeRO or not. Stage 3
+(``MXTPU_ZERO=3``), the weights themselves sharded, raises at dp > 1
+(ROADMAP queue 1 item 7; ``ShardedTrainStep`` runs it). Under AMP
 the finiteness of the local gradients is reduced over the world, so
 every rank skips the same step.
 
@@ -285,8 +287,15 @@ class Trainer:
         the shard views and shard gradients), all-reduced otherwise (and
         written back in the buffer's dtype)."""
         o = self._optimizer
-        zero = bool(_config.get('MXTPU_ZERO')) and \
-            getattr(o, 'fused_update', False) and not o.whole_tensor
+        stage = _config.get('MXTPU_ZERO')
+        if stage == 3:
+            raise MXNetError(
+                "Trainer: MXTPU_ZERO=3 shards the weights between steps, "
+                "which the eager forward would need gathered on every "
+                "module; the Trainer's stage 3 is not ported (ROADMAP queue "
+                "1 item 7). ShardedTrainStep(..., zero=3) runs it")
+        zero = stage > 0 and getattr(o, 'fused_update', False) and \
+            not o.whole_tensor
         if zero != self._zero_active:
             self._zero_active = zero
             self._zero_dp = _dist.num_workers() if zero else 1

@@ -15,17 +15,21 @@ PyTorch, as the JAX package left them to XLA).
 
 ``optimizer_ops`` holds the optimizers' update math (plain PyTorch).
 
+``autotune`` picks the flash kernels' tile per shape (the counterpart of
+``ops/autotune.py``).
+
 ``launch_counts`` counts each kernel's launches, ``variant_counts`` the
-launches of the flash forward, dq, dk/dv and FFN1 kernels by variant
-and ``dtype_counts`` by dtype (see ``_build``).
+launches of the flash forward, dq, dk/dv and FFN1 kernels by variant,
+``dtype_counts`` by dtype and ``tile_counts`` the flash kernels' by tile
+(see ``_build``).
 """
 from ._build import (dtype_counts, launch_counts, reset_launch_counts,
-                     variant_counts)
-from . import (attention, elemwise, flash_attention, fused_ffn,
+                     tile_counts, variant_counts)
+from . import (attention, autotune, elemwise, flash_attention, fused_ffn,
                fused_layernorm, index, init, matrix, nn, optimizer_ops,
                reduce)
 
-__all__ = ['attention', 'elemwise', 'flash_attention', 'fused_ffn',
-           'fused_layernorm', 'index', 'init', 'matrix', 'nn',
+__all__ = ['attention', 'autotune', 'elemwise', 'flash_attention',
+           'fused_ffn', 'fused_layernorm', 'index', 'init', 'matrix', 'nn',
            'optimizer_ops', 'reduce', 'launch_counts', 'reset_launch_counts',
-           'variant_counts', 'dtype_counts']
+           'variant_counts', 'dtype_counts', 'tile_counts']

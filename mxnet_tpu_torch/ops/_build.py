@@ -22,8 +22,9 @@ launches of the kernels that come in several variants: the flash forward,
 dq and dk/dv (``'tc'`` on the tensor cores, ``'simt'`` the first design)
 and FFN1 (``'tc'`` wgmma + TMA, ``'wmma'`` the first 16-bit design,
 ``'simt'`` f32). ``dtype_counts`` splits every kernel's launches by the
-inputs' dtype (``'flash_attn_fwd.float16'``); ``count_launch`` moves all
-three.
+inputs' dtype (``'flash_attn_fwd.float16'``), ``tile_counts`` the flash
+kernels' by tile (``'flash_attn_fwd.64x64'``); ``count_launch`` moves all
+of them.
 """
 from __future__ import annotations
 
@@ -39,14 +40,16 @@ import time
 from ..base import MXNetError
 from ..telemetry import compile as _compile
 
-__all__ = ['launch_counts', 'variant_counts', 'dtype_counts',
+__all__ = ['launch_counts', 'variant_counts', 'dtype_counts', 'tile_counts',
            'count_launch', 'reset_launch_counts',
            'library', 'build_all', 'ptxas_report', 'check', 'SOURCES',
            'build_dir', 'triton_first_launch']
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
-SOURCES = ('flash_attn_fwd.cu', 'flash_attn_bwd.cu', 'dense_gelu.cu')
+SOURCES = ('flash_attn_fwd.cu', 'flash_attn_bwd.cu', 'dense_gelu.cu',
+           'flash_attn_fwd_tiles.cu', 'flash_attn_dq_tiles.cu',
+           'flash_attn_dkv_tiles.cu')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -59,6 +62,7 @@ variant_counts = {'flash_attn_fwd.tc': 0, 'flash_attn_fwd.simt': 0,
                   'dense_gelu.tc': 0, 'dense_gelu.wmma': 0,
                   'dense_gelu.simt': 0}
 dtype_counts = {}
+tile_counts = {}
 
 _lock = threading.Lock()
 _libs = {}
@@ -78,14 +82,19 @@ def reset_launch_counts():
         for k in counts:
             counts[k] = 0
     dtype_counts.clear()
+    tile_counts.clear()
 
 
-def count_launch(kernel, variant, dtype):
+def count_launch(kernel, variant, dtype, tile=None):
     """One launch of ``kernel`` (in ``variant``, for a kernel that has
-    variants) on ``dtype`` inputs."""
+    variants; at ``tile`` (bq, bk), for a kernel built at several) on
+    ``dtype`` inputs."""
     launch_counts[kernel] += 1
     if variant is not None:
         variant_counts[f'{kernel}.{variant}'] += 1
+    if tile is not None:
+        key = f'{kernel}.{tile[0]}x{tile[1]}'
+        tile_counts[key] = tile_counts.get(key, 0) + 1
     key = f'{kernel}.{str(dtype)[len("torch."):]}'
     dtype_counts[key] = dtype_counts.get(key, 0) + 1
 
@@ -179,18 +188,44 @@ def library(src):
     return lib if lib is not None else build_all()[src]
 
 
+def _template_args(mangled, i):
+    """The mangled template arguments from ``mangled[i]`` (just past the
+    'I') up to their closing 'E', as one string ('13__nv_bfloat16Li64ELi64E'),
+    or None."""
+    start = i
+    while i < len(mangled):
+        c = mangled[i]
+        if c == 'E':
+            return mangled[start:i]
+        if c == 'L':                        # a literal: L<type><value>E
+            end = mangled.find('E', i)
+            if end < 0:
+                return None
+            i = end + 1
+        elif c.isdigit():                   # a length-prefixed name
+            m = re.match(r'\d+', mangled[i:])
+            i += len(m.group()) + int(m.group())
+        else:                               # a builtin type code
+            i += 1
+    return None
+
+
 def _kernel_name(mangled):
     """'..._829481d916flash_fwd_kernelI13__nv_bfloat16Li64EE...' ->
-    'flash_fwd_kernel<13__nv_bfloat16Li64>': the length-prefixed name
-    that ends in '_kernel', with its template arguments as mangled."""
+    'flash_fwd_kernel<13__nv_bfloat16Li64E>': the length-prefixed name
+    that ends in '_kernel', with its template arguments as mangled (a
+    tiled kernel's tile too: 'flash_fwd_tc_kernel<13__nv_bfloat16Li64ELi128ELi64E>'
+    is D = 64, BQ = 128, BK = 64)."""
     for m in re.finditer(r'\d+', mangled):
         digits, start = m.group(), m.end()
         for i in range(len(digits)):
             n = int(digits[i:])
             name = mangled[start:start + n]
             if len(name) == n and name.endswith('_kernel'):
-                t = re.match(r'I(.*?)E', mangled[start + n:])
-                return name + (f'<{t.group(1)}>' if t else '')
+                rest = start + n
+                args = _template_args(mangled, rest + 1) \
+                    if mangled[rest:rest + 1] == 'I' else None
+                return name + (f'<{args}>' if args else '')
     return mangled
 
 

@@ -61,8 +61,9 @@ __all__ = ['flash_attention', 'flash_attention_forward',
            'flash_attention_backward', 'flash_attention_reference',
            'flash_attention_backward_reference', 'counter_keep',
            'dropout_threshold', 'seed_tensor', 'split_bf16',
-           'split_f16', 'kernel_variant',
-           'KERNEL_HEAD_DIMS', 'TC_HEAD_DIMS']
+           'split_f16', 'kernel_variant', 'tile_built', 'tile_attributes',
+           'tile_kernel_name', 'KERNEL_HEAD_DIMS', 'TC_HEAD_DIMS', 'TILES',
+           'DEFAULT_TILE']
 
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
@@ -72,6 +73,27 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TC_DTYPES = (torch.bfloat16, torch.float16)
 F16_TOP = 14         # split_f16 scales a row's largest |x| below 2**15
 F16_MIN_EXP = -100   # the least row exponent split_f16 scales by
+
+# The tensor-core kernels' built tiles, (bq, bk) -> head dims, by kernel:
+# the default in flash_attn_fwd.cu / flash_attn_bwd.cu for every
+# tensor-core head dim, the others in flash_attn_{fwd,dq,dkv}_tiles.cu
+# (their MXTT_*_TILES lists, which a CPU test reads against this table).
+# One backward tile sizes both dq and dk/dv, so their tiles are the same.
+DEFAULT_TILE = (64, 64)
+_FWD_TILES = ((64, 32), (64, 128), (128, 32), (128, 64), (128, 128))
+_BWD_TILES = ((64, 128), (128, 64), (128, 128))
+TILES = {
+    kernel: {DEFAULT_TILE: TC_HEAD_DIMS, **{t: (64, 128) for t in extra}}
+    for kernel, extra in (('fwd', _FWD_TILES), ('dq', _BWD_TILES),
+                          ('dkv', _BWD_TILES))}
+_TILE_SOURCES = {'fwd': ('flash_attn_fwd.cu', 'flash_attn_fwd_tiles.cu'),
+                 'dq': ('flash_attn_bwd.cu', 'flash_attn_dq_tiles.cu'),
+                 'dkv': ('flash_attn_bwd.cu', 'flash_attn_dkv_tiles.cu')}
+_TILE_ENTRY = {'fwd': 'mxtt_flash_attn_fwd_tc',
+               'dq': 'mxtt_flash_attn_bwd_dq_tc',
+               'dkv': 'mxtt_flash_attn_bwd_dkv_tc'}
+_TILE_KERNEL = {'fwd': 'flash_fwd_tc_kernel', 'dq': 'flash_bwd_dq_tc_kernel',
+                'dkv': 'flash_bwd_dkv_tc_kernel'}
 
 
 def dropout_threshold(rate):
@@ -84,6 +106,68 @@ def kernel_variant(dtype, D):
     ``TC_HEAD_DIMS``, else 'simt': the kernel the forward, dq and dk/dv
     wrappers launch."""
     return 'tc' if dtype in _TC_DTYPES and D in TC_HEAD_DIMS else 'simt'
+
+
+def tile_built(kernel, D, tile):
+    """Whether the tensor-core ``kernel`` ('fwd', 'dq' or 'dkv') is built
+    at ``tile`` (bq, bk) for head dim D."""
+    return D in TILES[kernel].get(tuple(tile), ())
+
+
+def _tile_library(kernel, tile):
+    default, others = _TILE_SOURCES[kernel]
+    return _build.library(default if tuple(tile) == DEFAULT_TILE
+                          else others)
+
+
+def tile_kernel_name(kernel, dtype, D, tile):
+    """The instantiation's name, as the ptxas report names it
+    ('flash_fwd_tc_kernel<13__nv_bfloat16Li64ELi64ELi64E>')."""
+    e = {torch.bfloat16: '13__nv_bfloat16', torch.float16: '6__half'}[dtype]
+    bq, bk = tile
+    return f'{_TILE_KERNEL[kernel]}<{e}Li{D}ELi{bq}ELi{bk}E>'
+
+
+def tile_attributes(kernel, dtype, D, tile):
+    """{'registers', 'local_bytes', 'max_threads'} of one built
+    tensor-core instantiation on the card (``cudaFuncGetAttributes``):
+    local bytes above 0 are spills."""
+    _check_tile(kernel, dtype, D, tile)
+    fn = getattr(_tile_library(kernel, tile), _TILE_ENTRY[kernel] + '_attrs')
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
+    out = (ctypes.c_int * 3)()
+    _build.check(fn(_DTYPE_CODE[dtype], D, tile[0], tile[1], out),
+                 f'{_TILE_ENTRY[kernel]}_attrs')
+    return {'registers': out[0], 'local_bytes': out[1],
+            'max_threads': out[2]}
+
+
+def _check_tile(kernel, dtype, D, tile):
+    if dtype not in _TC_DTYPES or not tile_built(kernel, D, tile):
+        raise MXNetError(
+            f"flash_attention: the {kernel} kernel is not built at tile "
+            f"{tuple(tile)} for {dtype}, D={D} (built: "
+            f"{ {t: d for t, d in TILES[kernel].items()} }); no other tile "
+            f"is taken in its place")
+
+
+def _block_sizes(BH, Tq, Tk, D, dtype, kind='fwd'):
+    """(G, bq, bk) of one kernel instance: ``autotune.resolve`` over the
+    ladder env override (``MXTPU_FA_*``) > tuning-DB winner
+    (``MXTPU_AUTOTUNE_DIR``) > the default (1, 64, 64), clamped to a
+    legal, built tile and recorded (the counterpart of the JAX
+    ``_block_sizes``)."""
+    from . import autotune
+    return autotune.resolve(autotune.KERNEL_FA, BH, Tq, Tk, D, dtype, kind,
+                            default=(1,) + DEFAULT_TILE)
+
+
+def _tile(q, k, kind):
+    B, H, Tq, D = q.shape
+    return tuple(_block_sizes(B * H, Tq, k.shape[2], D, q.dtype, kind)[1:])
 
 
 def split_bf16(x):
@@ -372,8 +456,20 @@ def _like_bthd(t):
                        device=t.device).permute(0, 2, 1, 3)
 
 
+def _variant_tile(kernel, q, variant, tile):
+    """The tile a launch runs at: the tensor-core kernels at a built tile
+    (else MXNetError), the SIMT kernels at their one tile."""
+    tile = tuple(tile)
+    if variant == 'tc':
+        _check_tile(kernel, q.dtype, q.shape[-1], tile)
+    elif tile != DEFAULT_TILE:
+        raise MXNetError(f"flash_attention: the SIMT {kernel} kernel is "
+                         f"built at {DEFAULT_TILE} only, not {tile}")
+    return tile
+
+
 def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed,
-            variant=None, bh_base=0):
+            variant=None, bh_base=0, tile=DEFAULT_TILE):
     _check_kernel_inputs(q, k, v)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -381,35 +477,46 @@ def _launch(q, k, v, kmask, mask_div, causal, dropout_p, seed,
         raise MXNetError("flash_attention: key_mask is on another device")
     o = _like_bthd(q)
     variant = _pick_variant(q, (('q', q), ('k', k), ('v', v)), variant)
+    tile = _variant_tile('fwd', q, variant, tile)
     lse = torch.empty(B * H, Tq, dtype=torch.float32, device=q.device)
-    name = 'mxtt_flash_attn_fwd' + ('_tc' if variant == 'tc' else '')
-    fn = getattr(_build.library('flash_attn_fwd.cu'), name)
+    if variant == 'tc':
+        fn = getattr(_tile_library('fwd', tile), 'mxtt_flash_attn_fwd_tc')
+        head = (_DTYPE_CODE[q.dtype], D) + tile
+    else:
+        fn = _build.library('flash_attn_fwd.cu').mxtt_flash_attn_fwd
+        head = (_DTYPE_CODE[q.dtype], D)
     if fn.argtypes is None:
         ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, i, i, i, i] + \
+        fn.argtypes = [i] * len(head) + [vp] * 6 + [i] * 4 + \
             [ll] * 12 + [i, ctypes.c_float, i, vp, ctypes.c_uint,
                          ctypes.c_float, i, ctypes.c_uint, vp]
         fn.restype = ctypes.c_int
     strides = []
     for t in (q, k, v, o):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
-    rc = fn(_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
+    rc = fn(*head, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), kmask.data_ptr() if kmask is not None else None,
             o.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, *strides, mask_div,
             1.0 / math.sqrt(D), int(bool(causal)),
             *_dropout_args(dropout_p, seed, bh_base),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, f'flash_attn_fwd ({variant})')
-    _build.count_launch('flash_attn_fwd', variant, q.dtype)
+    _build.check(rc, f'flash_attn_fwd ({variant}, tile {tile})')
+    _build.count_launch('flash_attn_fwd', variant, q.dtype, tile)
     return o, lse.reshape(B, H, Tq)
 
 
-def _bwd_fn(name):
-    fn = getattr(_build.library('flash_attn_bwd.cu'), name)
+def _bwd_fn(kernel, variant, tile):
+    if variant == 'tc':
+        fn = getattr(_tile_library(kernel, tile), _TILE_ENTRY[kernel])
+        n_head = 4
+    else:
+        fn = getattr(_build.library('flash_attn_bwd.cu'),
+                     'mxtt_flash_attn_bwd_' + kernel)
+        n_head = 2
     if fn.argtypes is None:
         i, vp = ctypes.c_int, ctypes.c_void_p
-        outs = [vp] if '_bwd_dq' in name else [vp, vp]
-        fn.argtypes = [i, i] + [vp] * 7 + outs + [i] * 4 + [vp] + \
+        outs = [vp] if kernel == 'dq' else [vp, vp]
+        fn.argtypes = [i] * n_head + [vp] * 7 + outs + [i] * 4 + [vp] + \
             [i, ctypes.c_float, i, vp, ctypes.c_uint, ctypes.c_float, i,
              ctypes.c_uint, vp]
         fn.restype = ctypes.c_int
@@ -417,9 +524,9 @@ def _bwd_fn(name):
 
 
 def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
-                lse, do, variant=None, bh_base=0):
+                lse, do, variant=None, bh_base=0, tile=DEFAULT_TILE):
     """The dq kernel, then the dk/dv kernel, both of one variant (picked
-    as for the forward), on the current stream."""
+    as for the forward) and at one tile, on the current stream."""
     _check_kernel_inputs(q, k, v, ('dO', do), ('out', out))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
@@ -432,24 +539,27 @@ def _launch_bwd(q, k, v, kmask, mask_div, causal, dropout_p, seed, out,
     dq, dk, dv = _like_bthd(q), _like_bthd(k), _like_bthd(v)
     variant = _pick_variant(
         q, (('q', q), ('k', k), ('v', v), ('dO', do)), variant)
-    suffix = '_tc' if variant == 'tc' else ''
+    tile = _variant_tile('dq', q, variant, tile)
+    if variant == 'tc':
+        _check_tile('dkv', q.dtype, D, tile)
+    head = (_DTYPE_CODE[q.dtype], D) + (tile if variant == 'tc' else ())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
+    common = (q.data_ptr(), k.data_ptr(),
               v.data_ptr(), kmask.data_ptr() if kmask is not None else None,
               do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (mask_div, 1.0 / math.sqrt(D), int(bool(causal)),
             *_dropout_args(dropout_p, seed, bh_base), stream)
-    for count, outs in (('flash_attn_bwd_dq', (dq,)),
-                        ('flash_attn_bwd_dkv', (dk, dv))):
+    for kernel, outs in (('dq', (dq,)), ('dkv', (dk, dv))):
         st = []
         for t in (q, k, v, do, outs[0]):
             st += [t.stride(0), t.stride(1), t.stride(2)]
         strides = (ctypes.c_longlong * 15)(*st)
-        name = f'mxtt_{count}{suffix}'
-        rc = _bwd_fn(name)(*common, *(t.data_ptr() for t in outs), B, H,
-                           Tq, Tk, strides, *tail)
-        _build.check(rc, name)
-        _build.count_launch(count, variant, q.dtype)
+        rc = _bwd_fn(kernel, variant, tile)(
+            *head, *common, *(t.data_ptr() for t in outs), B, H, Tq, Tk,
+            strides, *tail)
+        _build.check(rc, f'flash_attn_bwd_{kernel} ({variant}, tile {tile})')
+        _build.count_launch(f'flash_attn_bwd_{kernel}', variant, q.dtype,
+                            tile)
     return dq, dk, dv
 
 
@@ -471,22 +581,25 @@ def _prepare(q, k, key_mask, dropout_p, dropout_seed):
 
 def _forward(q, k, v, km, mask_div, causal, dropout_p, seed, variant=None,
              bh_base=0):
-    """(out, lse): the forward kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """(out, lse): the forward kernel for CUDA tensors at the resolved
+    tile, the plain version for CPU tensors (the decision is recorded on
+    both)."""
+    tile = _tile(q, k, 'fwd')
     if q.is_cuda:
         return _launch(q, k, v, km, mask_div, causal, dropout_p, seed,
-                       variant, bh_base)
+                       variant, bh_base, tile)
     return flash_attention_reference(q, k, v, km, causal, dropout_p, seed,
                                      bh_base)
 
 
 def _backward(q, k, v, km, mask_div, causal, dropout_p, seed, out, lse, do,
               variant=None, bh_base=0):
-    """(dq, dk, dv): the two backward kernels for CUDA tensors, the plain
-    version for CPU tensors."""
+    """(dq, dk, dv): the two backward kernels for CUDA tensors at the
+    resolved tile, the plain version for CPU tensors."""
+    tile = _tile(q, k, 'bwd')
     if q.is_cuda:
         return _launch_bwd(q, k, v, km, mask_div, causal, dropout_p, seed,
-                           out, lse, do, variant, bh_base)
+                           out, lse, do, variant, bh_base, tile)
     return flash_attention_backward_reference(q, k, v, km, causal, dropout_p,
                                               seed, out, lse, do, bh_base)
 

@@ -22,8 +22,8 @@ memory itself.
 ``data_axis`` declares the active data axis while a block runs (the
 compiled step declares it around its forward at dp > 1), so that
 ``SyncBatchNorm`` reduces its statistics over it. ``ppermute`` (ring
-attention, ROADMAP queue 1 item 13) and ``ordered_barrier`` (ZeRO-3's
-gather chain, item 7) raise.
+attention, ROADMAP queue 1 item 13) raises; ``ordered_barrier`` chains
+ZeRO-3's per-layer gathers.
 """
 from __future__ import annotations
 
@@ -220,9 +220,25 @@ def axis_size(axis_name):
     return _size(axis_name)
 
 
+class _OrderedBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *arrays):
+        return tuple(a.view_as(a) for a in arrays)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return grads
+
+
 def ordered_barrier(*arrays):
-    raise MXNetError("collectives.ordered_barrier: the ZeRO-3 per-layer "
-                     "gather chain is not ported (ROADMAP queue 1 item 7)")
+    """Identity on ``arrays`` whose outputs all come from one node that
+    takes every input (``lax.optimization_barrier`` with the JAX
+    package's differentiation rule): each output's gradient flows back
+    to its own input. ZeRO-3 (``parallel.step``) passes a layer group's
+    shards through it together with the previous group's gathered
+    values, so the group's gather is issued behind that one; eager
+    PyTorch runs in program order, so the chain is also the schedule."""
+    return _OrderedBarrier.apply(*arrays)
 
 
 # ---------------------------------------------------------------------------

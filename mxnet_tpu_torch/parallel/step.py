@@ -103,23 +103,62 @@ A ``loss_fn`` written on ``mx.nd`` ops gets tensors (the ops take them),
 and with NDArray inputs the loss comes back as an NDArray, as bench.py's
 ``_resnet_report`` calls it.
 
+ZeRO-3 (``zero=3`` or ``MXTPU_ZERO=3``, at dp > 1): the parameters
+themselves live sharded between steps, by the JAX step's
+``zero3_layout`` (``zero3_layouts``): 'dim' (a dim that splits evenly,
+or the one a ``param_specs`` entry shards over dp: the fsdp-style
+layout) keeps only this rank's shard of the parameter, its master and
+moments; 'flat' (nothing splits evenly) keeps the parameter whole and
+its f32 store and moments as a padded 1-D shard; 'repl' (smaller than
+dp) stays replicated. Each module's 'dim' parameters are one layer group
+(``_Zero3``), all-gathered before its first use in the forward, each
+gather chained behind the previous one, and freed after; a saved-tensor
+hook keeps a gathered parameter out of autograd's residuals, so the
+backward regathers it. The gradients are reduce-scattered into the
+shards and the update is ZeRO-1's, on the shards; only the flat
+parameters are gathered back. ``full_parameters()`` gathers every
+parameter whole. On the card the stage-3 step runs eagerly, uncaptured
+(``captured`` is False, ``stats()``): gloo cannot be captured, and a
+gather sits before every layer group in the forward and the backward.
+``param_specs`` naming dp is accepted at dp = 1 (where nothing shards)
+and under ZeRO-3; at stage 0 or 1 with dp > 1 it raises.
+
+Activation remat (``MXTPU_REMAT``, read at construction): 'layer' and
+'aggressive' run each layer of the forward (``_remat_regions``: the
+children of its sequential containers, BERT's encoder layers) under
+``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
+one layer at a time; 'layer' keeps the outputs of the products without
+batch dims (``aten.mm``/``addmm``) and recomputes the rest, 'aggressive'
+keeps only each layer's inputs. (The JAX step checkpoints the whole
+forward; one region over the whole forward recomputes all of it when the
+backward starts, so the peak does not drop, PERF.md.) The dropout
+generators and the block's buffers are replayed across each recompute
+(``_Recompute``), so the backward sees the masks, the attention seeds
+and the running statistics the forward saw; under a CUDA graph through
+generator twins registered with the graph. The policy, the ZeRO stage
+and the flash-attention tile decisions are flags of the step's compile
+signature (``signature``).
+
 Not ported, each refused by name: ``param_specs`` naming an axis other
-than dp (tensor parallelism, ROADMAP queue 1 item 6a) or dp itself
-(a parameter sharded between steps is ZeRO-3's layout), ZeRO-3 and
-``MXTPU_REMAT`` (item 7), ``compression_params`` and ``hierarchy``, and a
-dp axis over several hosts, which the JAX step splits (item 8),
-``guard`` (item 9), sparse gradients (item 12).
+than dp (tensor parallelism, ROADMAP queue 1 item 6a),
+``compression_params`` and ``hierarchy``, and a dp axis over several
+hosts, which the JAX step splits (item 8), ``guard`` (item 9), sparse
+gradients (item 12).
 """
 from __future__ import annotations
 
+import contextlib
 import pickle
+import re
 import time
+import warnings
 
 import numpy as onp
 import torch
 from torch.nn.parameter import UninitializedParameter
 
 from .. import config as _config
+from .. import random as _random
 from .._capture import DeviceScalars, capture, graph_generators
 from ..base import MXNetError, state, telem_flags as _telem, torch_dtype
 from ..gluon.block import Block, plain_calls
@@ -130,7 +169,7 @@ from . import collectives as _coll, dist as _dist
 from .mesh import make_mesh
 
 __all__ = ['ShardedTrainStep', 'rename_states', 'STATES_FORMAT',
-           'PartitionSpec', 'compose_zero_spec']
+           'PartitionSpec', 'compose_zero_spec', 'zero3_layout']
 
 STATES_FORMAT = 'sharded_train_step_v1'
 
@@ -183,6 +222,51 @@ def compose_zero_spec(shape, base_spec, dp_axis, dp_size):
         spec[i] = dp_axis
         return P(*spec)
     return None
+
+
+def zero3_layout(shape, base_spec, dp_axis, dp_size):
+    """Persistent ZeRO-3 layout of one parameter (the JAX step's rule,
+    copied as it is). Returns a dict:
+
+    - ``{'mode': 'dim', 'spec': P(...), 'gather_spec': P(...)}``: an
+      exactly divisible free dim (or the dim the parameter's own spec
+      shards over dp) shards over dp; the parameter, its master and its
+      moments live as that 1/dp shard, and the gather restores
+      ``gather_spec``;
+    - ``{'mode': 'flat', 'size': s, 'padded': p, 'pad': p - s}``: no dim
+      divides evenly; the f32 master and moments live as a 1-D buffer
+      padded to a dp multiple and sharded, the compute-dtype parameter
+      stays whole (never chosen for a parameter another axis shards);
+    - ``{'mode': 'repl'}``: too small to shard; replicated.
+    """
+    spec = list(base_spec) + [None] * (len(shape) - len(base_spec))
+
+    def _trim(entries):
+        entries = list(entries)
+        while entries and entries[-1] is None:
+            entries.pop()
+        return P(*entries)
+
+    for s in spec:
+        if s == dp_axis or (isinstance(s, (tuple, list)) and dp_axis in s):
+            # proposed by the caller (fsdp-style): validate and keep
+            compose_zero_spec(shape, base_spec, dp_axis, dp_size)
+            gspec = [None if ss == dp_axis else
+                     (tuple(a for a in ss if a != dp_axis) or None
+                      if isinstance(ss, (tuple, list)) else ss)
+                     for ss in spec]
+            return {'mode': 'dim', 'spec': P(*spec),
+                    'gather_spec': _trim(gspec)}
+    composed = compose_zero_spec(shape, base_spec, dp_axis, dp_size)
+    if composed is not None:
+        return {'mode': 'dim', 'spec': composed,
+                'gather_spec': _trim(spec)}
+    size = int(onp.prod(shape)) if shape else 1
+    if size >= dp_size and all(s is None for s in spec):
+        padded = -(-size // dp_size) * dp_size
+        return {'mode': 'flat', 'size': size, 'padded': padded,
+                'pad': padded - size}
+    return {'mode': 'repl'}
 
 
 # The JAX step's update closures over lists: ps are the f32 weights (the
@@ -329,6 +413,352 @@ def _ring(k):
     return (k - 1) / k if k > 1 else 0.0
 
 
+# -- MXTPU_REMAT --------------------------------------------------------
+
+# the products without batch dims (what a Dense layer's matmul reaches):
+# 'layer' keeps their outputs, the counterpart of JAX's
+# dots_with_no_batch_dims_saveable
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _layer_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_regions(block):
+    """The modules the forward is checkpointed by, one region each: the
+    children of the block's sequential containers (``nn.Sequential``,
+    ``ModuleList``, Gluon's ``(Hybrid)Sequential``: BERT's encoder layers,
+    a ResNet stage's blocks), outermost first; the whole block where it
+    has none. A region recomputes when the backward reaches it, so only
+    one region's activations are live again at a time."""
+    from ..gluon.nn.basic_layers import _Stack
+    stacks = (torch.nn.Sequential, torch.nn.ModuleList, _Stack)
+    regions, inside = [], set()
+    for name, m in block.named_modules():
+        if name in inside or any(name.startswith(p + '.') for p in inside):
+            continue
+        if isinstance(m, stacks):
+            kids = list(m.children())
+            regions += kids
+            inside |= {f'{name}.{k}' if name else k
+                       for k, _ in m.named_children()}
+    return regions or [block]
+
+
+class _Recompute:
+    """What a recomputed region must find as its forward found it.
+
+    The generators the block draws from (its modules' ``generator``s:
+    hidden dropout, the attention seeds; the port's generator of the
+    device and torch's default one): ``torch.utils.checkpoint`` restores
+    only the default generators, so a recompute would draw new masks
+    and a new attention seed, and the flash backward would differentiate
+    attention under masks the loss never saw. Eagerly each region's
+    forward saves their states (``get_state``) and its recompute sets
+    them, then puts back what it found. Inside a CUDA-graph capture
+    neither may be called; there each (region, generator) has a twin,
+    made after the eager first step (which records, per region, how far
+    each generator's Philox offset had moved since the forward began) and
+    registered with the graph that runs the recompute. Before every
+    replay ``sync`` gives each twin its generator's host state with that
+    offset added, and the recompute points the generator at its twin's
+    state (``graphsafe_set_state``) and back: the forward draws first in
+    its graph, so the twin starts where the region's forward started.
+
+    And the block's buffers and gradient-free parameters: a recompute of
+    BatchNorm would update its running statistics a second time, so they
+    are put back after it."""
+
+    def __init__(self, block, device):
+        gens = {}
+        for m in block.modules():
+            g = getattr(m, 'generator', None)
+            if isinstance(g, torch.Generator):
+                gens[id(g)] = g
+        for g in (_random.generator(device),
+                  torch.cuda.default_generators[device.index or 0]
+                  if device.type == 'cuda' else torch.default_generator):
+            gens.setdefault(id(g), g)
+        # the device's: a draw elsewhere does not reach the kernels here
+        self.gens = [g for g in gens.values()
+                     if g.device.type == device.type]
+        self._cuda = device.type == 'cuda'
+        # running statistics: buffers, or parameters without gradient
+        # (the port's BatchNorm keeps them as grad_req='null' Parameters)
+        self.buffers = list(block.buffers()) + [
+            p for p in block.parameters() if not p.requires_grad]
+        self.twins = []          # per region: a twin of each generator
+        self._twin_states = []
+        self._offsets = []       # per region: each generator's offset moved
+        self._saved = []         # per region: the generators' states
+        self._base = None
+        self._region = 0
+
+    def make_twins(self):
+        """The twins of the regions the eager step recorded, to register
+        with the graph that captures the recompute (flattened)."""
+        if not self.twins:
+            self.twins = [[torch.Generator(g.device) for g in self.gens]
+                          for _ in self._offsets]
+            self._twin_states = [[t.graphsafe_get_state() for t in ts]
+                                 for ts in self.twins]
+        return [t for ts in self.twins for t in ts]
+
+    def offsets(self):
+        """What the last eager forward recorded: a graph captured after it
+        keeps these (the offsets depend on the shapes drawn)."""
+        return [list(o) for o in self._offsets]
+
+    def sync(self, offsets):
+        """Before a replay of a graph captured with ``offsets``: each twin
+        takes its generator's host state, advanced to where its region's
+        forward starts."""
+        for ts, offs in zip(self.twins, offsets):
+            for g, t, off in zip(self.gens, ts, offs):
+                t.set_state(g.get_state())
+                t.set_offset(g.get_offset() + off)
+
+    @staticmethod
+    def _capturing():
+        return torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing()
+
+    def begin(self):
+        """At the start of a forward: regions count from 0."""
+        self._region = 0
+        if self._cuda and not self._capturing():
+            self._base = [g.get_offset() for g in self.gens]
+
+    def next_region(self):
+        r, self._region = self._region, self._region + 1
+        return r
+
+    @contextlib.contextmanager
+    def forward(self, r):
+        if not self._capturing():
+            states = [g.get_state() for g in self.gens]
+            offs = [g.get_offset() - b for g, b in
+                    zip(self.gens, self._base)] if self._cuda else None
+            if r < len(self._saved):
+                self._saved[r], self._offsets[r] = states, offs
+            else:
+                self._saved.append(states)
+                self._offsets.append(offs)
+        yield
+
+    @contextlib.contextmanager
+    def recompute(self, r):
+        kept = [b.detach().clone() for b in self.buffers]
+        graph = self._capturing()
+        if graph:
+            found = [g.graphsafe_get_state() for g in self.gens]
+            for g, t in zip(self.gens, self._twin_states[r]):
+                g.graphsafe_set_state(t)
+        else:
+            found = [g.get_state() for g in self.gens]
+            for g, st in zip(self.gens, self._saved[r]):
+                g.set_state(st)
+        try:
+            yield
+        finally:
+            for g, st in zip(self.gens, found):
+                if graph:
+                    g.graphsafe_set_state(st)
+                else:
+                    g.set_state(st)
+            with torch.no_grad():
+                for b, k in zip(self.buffers, kept):
+                    b.copy_(k)
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    """Two context managers entered as one (``checkpoint``'s context_fn
+    returns one for the forward and one for the recompute)."""
+    with a, b:
+        yield
+
+
+# -- ZeRO-3 --------------------------------------------------------------
+
+class _Gathered:
+    """What the saved-tensor hook keeps of a gathered parameter: its
+    name and the view autograd saved, never its storage."""
+
+    __slots__ = ('name', 'size', 'stride', 'offset')
+
+    def __init__(self, name, t):
+        self.name, self.size = name, tuple(t.size())
+        self.stride, self.offset = tuple(t.stride()), t.storage_offset()
+
+
+class _Zero3:
+    """ZeRO-3's parameter shards and per-layer gathers for one step.
+
+    Each parameter of layout 'dim' keeps, between steps, only this rank's
+    shard (``shard``: compute dtype, the shard dim first); its own tensor
+    keeps its shape but no storage (``untyped_storage().resize_(0)``), so
+    the module and autograd still see the same leaf. The parameters are
+    grouped by the module that owns them (``groups``, in module order). A
+    forward pre-hook on each owner's parent (which may read a child's
+    weights without calling the child, as ``BertLayer`` reads
+    ``ffn1.weight``) and on the owner itself gathers its groups, one
+    all-gather of the group's concatenated shards each, every gather
+    chained behind the previous one (``collectives.ordered_barrier``), and
+    the parent's post-hook frees them again. A saved-tensor hook (``pack``
+    / ``unpack``, active around the forward) keeps a gathered parameter
+    that autograd saves as its name and view, never its storage, and the
+    backward regathers it on unpack; under remat the recompute's
+    pre-hooks regather. Nothing is freed during the backward (a
+    recompute keeps references to what it gathered); the step frees
+    every group after it."""
+
+    def __init__(self, step, named, dims):
+        self.dp, self.rank = step._dp, step.mesh.rank
+        self.params = {n: p for n, p in named if n in dims}
+        self.dims = dims
+        self.shard = {}
+        for n, p in self.params.items():
+            st = p.untyped_storage()
+            if p.storage_offset() or st.nbytes() != p.numel() * \
+                    p.element_size() or not p.is_contiguous():
+                raise MXNetError(
+                    f"ShardedTrainStep: ZeRO-3 frees the storage of {n!r} "
+                    f"between steps, but it shares its storage with "
+                    f"another tensor")
+            d = dims[n]
+            rows = p.shape[d] // self.dp
+            # a copy: the parameter's own storage is freed below
+            self.shard[n] = p.detach().movedim(d, 0).narrow(
+                0, self.rank * rows, rows).clone(
+                    memory_format=torch.contiguous_format)
+        owner = {}
+        for mname, m in step.block.named_modules():
+            for pname, _ in m.named_parameters(recurse=False):
+                full = f'{mname}.{pname}' if mname else pname
+                if full in self.params:
+                    owner[full] = mname
+        order = [m for m, _ in step.block.named_modules()]
+        self.groups = [(m, sorted(n for n in self.params if owner[n] == m))
+                       for m in order if m in set(owner.values())]
+        self.group_of = {n: i for i, (_, ns) in enumerate(self.groups)
+                         for n in ns}
+        self.resident = set()
+        self.ptr = {}            # storage address -> parameter name
+        self.in_backward = False
+        self._token = None
+        self.gathers, self.gather_s = 0, 0.0
+        mods = dict(step.block.named_modules())
+        triggers = {}
+        for i, (m, _) in enumerate(self.groups):
+            parent = m.rsplit('.', 1)[0] if '.' in m else ''
+            for t in {parent, m}:
+                triggers.setdefault(t, []).append(i)
+        # id(module) -> the groups its pre-hook gathers
+        self._triggers = {id(mods[t]): idx for t, idx in triggers.items()}
+        self._hooks = []
+        for t, idx in triggers.items():
+            mod = mods[t]
+            self._hooks.append(mod.register_forward_pre_hook(
+                lambda *_a, idx=idx: self.gather_groups(idx)))
+            own = [i for i in idx if self.groups[i][0] != t]
+            if own:
+                self._hooks.append(mod.register_forward_hook(
+                    lambda *_a, own=own: self.release(own)))
+        for i in range(len(self.groups)):
+            self.free(i)
+
+    def gather_groups(self, idx):
+        for i in idx:
+            self.gather(i)
+
+    def triggered_by(self, module):
+        return self._triggers.get(id(module), ())
+
+    def release(self, idx):
+        if not self.in_backward:
+            for i in idx:
+                self.free(i)
+
+    def gather(self, i):
+        if i in self.resident:
+            return
+        # outside any dispatch mode: the selective checkpoint ('layer'
+        # remat) counts the ops of its region, and a recompute finds its
+        # groups resident where the forward gathered them
+        from torch.utils._python_dispatch import _disable_current_modes
+        t0 = time.perf_counter()
+        names = self.groups[i][1]
+        with torch.no_grad(), _disable_current_modes():
+            for dtype in sorted({self.params[n].dtype for n in names},
+                                key=str):
+                ns = [n for n in names if self.params[n].dtype == dtype]
+                flat = [self.shard[n].reshape(-1) for n in ns]
+                if self._token is not None:
+                    flat = list(_coll.ordered_barrier(
+                        *flat, self._token))[:-1]
+                flat = torch.cat(flat)
+                stage = flat.new_empty((self.dp, flat.numel()))
+                _coll.all_gather_into(stage, flat)
+                self.gathers += 1
+                off = 0
+                for n in ns:
+                    p, sh = self.params[n], self.shard[n]
+                    k = sh.numel()
+                    full = stage[:, off:off + k].reshape(
+                        (self.dp * sh.shape[0],) + tuple(sh.shape[1:]))
+                    st = p.data.untyped_storage()
+                    st.resize_(p.numel() * p.element_size())
+                    p.data.movedim(self.dims[n], 0).copy_(full)
+                    self.ptr[st.data_ptr()] = n
+                    off += k
+                self._token = self.params[ns[0]].data
+        self.resident.add(i)
+        self.gather_s += time.perf_counter() - t0
+
+    def free(self, i):
+        for n in self.groups[i][1]:
+            st = self.params[n].data.untyped_storage()
+            self.ptr.pop(st.data_ptr(), None)
+            st.resize_(0)
+        self.resident.discard(i)
+
+    def free_all(self):
+        for i in list(self.resident):
+            self.free(i)
+        self._token = None
+
+    def pack(self, t):
+        ptr = t.untyped_storage().data_ptr()
+        n = self.ptr.get(ptr) if ptr else None
+        return t if n is None else _Gathered(n, t)
+
+    def unpack(self, x):
+        if not isinstance(x, _Gathered):
+            return x
+        self.gather(self.group_of[x.name])
+        return self.params[x.name].data.as_strided(x.size, x.stride,
+                                                   x.offset)
+
+    def hooks(self):
+        return torch.autograd.graph.saved_tensors_hooks(self.pack,
+                                                        self.unpack)
+
+    def reset_stats(self):
+        self.gathers, self.gather_s = 0, 0.0
+
+    def full(self, n):
+        """Parameter ``n`` whole (a collective, on every rank)."""
+        sh = self.shard[n]
+        stage = sh.new_empty((self.dp,) + tuple(sh.shape))
+        _coll.all_gather_into(stage, sh)
+        return stage.reshape((-1,) + tuple(sh.shape[1:])).movedim(
+            0, self.dims[n])
+
+
 class ShardedTrainStep:
     """One training step per call (see the module docstring). ``mesh``
     defaults to a mesh over the world's ranks (one device each), or
@@ -364,25 +794,17 @@ class ShardedTrainStep:
                     f"ShardedTrainStep: param_specs {pat!r} -> {spec!r} "
                     f"names {sorted(axes - {dp_axis})}: tensor "
                     f"parallelism is not ported (ROADMAP queue 1 item 6a)")
-            if axes:
-                raise MXNetError(
-                    f"ShardedTrainStep: param_specs {pat!r} -> {spec!r} "
-                    f"shards a parameter over {dp_axis!r} between steps, "
-                    f"ZeRO-3's layout (ROADMAP queue 1 item 7)")
+        self.param_specs = dict(param_specs or {})
         if zero is None:
             zero = _config.get('MXTPU_ZERO')
         stage = int(zero) if not isinstance(zero, bool) else int(bool(zero))
-        if stage == 3:
-            raise MXNetError("ShardedTrainStep: ZeRO-3 is not ported "
-                             "(ROADMAP queue 1 item 7)")
-        if stage not in (0, 1):
+        if stage not in (0, 1, 3):
             raise MXNetError(f"zero={zero!r}: supported ZeRO stages are 0, "
-                             f"1 and 3")
-        remat = str(_config.get('MXTPU_REMAT')).strip().lower()
-        if remat not in ('', '0', 'off', 'false', 'no', 'n', 'none',
-                         'disabled'):
-            raise MXNetError(f"MXTPU_REMAT={remat!r}: activation remat is "
-                             f"not ported (ROADMAP queue 1 item 7)")
+                             f"1 and 3 (stage 2 has no meaning of its own: "
+                             f"gradients already reduce-scatter under 1)")
+        # read once, so the signature and the forward agree for the
+        # step's lifetime (as the JAX step reads it)
+        self._remat_policy = _config.get('MXTPU_REMAT')
         if any(getattr(m, 'sparse', False) for m in block.modules()
                if isinstance(m, torch.nn.Embedding)):
             raise MXNetError("ShardedTrainStep: sparse gradients are not "
@@ -416,7 +838,16 @@ class ShardedTrainStep:
         self.donate = donate
         self.zero_stage = stage if self._dp > 1 else 0
         self.zero = self.zero_stage > 0
-        self._zero_label = 'zero1' if self.zero else 'off'
+        self._zero_label = {0: 'off', 1: 'zero1', 3: 'zero3'}[
+            self.zero_stage]
+        # gloo cannot be captured, and ZeRO-3 gathers before every layer
+        # group in the forward and the backward: it runs eagerly
+        self.captured = self.zero_stage != 3
+        self._z3 = None              # _Zero3, at stage 3
+        self._recompute = None       # _Recompute, under MXTPU_REMAT
+        self._regions = []           # the modules it checkpoints
+        self.zero3_layouts = {}
+        self.opt_state_pad_bytes = 0
         self._trainable = None       # [(name, parameter)], sorted by name
         self._master = None          # name -> f32 master (a shard under ZeRO)
         self._state = None           # name -> tuple of f32 state tensors
@@ -426,6 +857,7 @@ class ShardedTrainStep:
         self._step_count = 0
         self._pending_states = None  # a restored payload awaiting the build
         self._hop_plan = {}          # (kind, axis) -> (bytes, count) a step
+        self._gather_plan = []       # ZeRO-3: (layer group, bytes, gathers)
         self.zero_specs = {}
 
     # ------------------------------------------------------------------
@@ -436,16 +868,48 @@ class ShardedTrainStep:
         if dp > 1:
             self._sync_world()
         shapes = {n: tuple(p.shape) for n, p in self._trainable}
-        self.zero_specs = {
-            n: compose_zero_spec(shapes[n], P(), self.dp_axis, dp)
-            if self.zero else None for n in shapes}
-        # name -> the dim its master and moments shard along (ZeRO)
+        specs = self._resolve_param_specs([n for n, _ in named])
+        if self.zero_stage == 3:
+            self.zero3_layouts = {
+                n: zero3_layout(shapes[n], specs[n], self.dp_axis, dp)
+                for n in shapes}
+            self.zero_specs = {n: lay['spec'] if lay['mode'] == 'dim'
+                               else None
+                               for n, lay in self.zero3_layouts.items()}
+        else:
+            sharded = [n for n in shapes if self.dp_axis in
+                       _spec_axes(specs[n])]
+            if dp > 1 and sharded:
+                raise MXNetError(
+                    f"ShardedTrainStep: param_specs shard {sharded[:3]} "
+                    f"over {self.dp_axis!r} between steps, ZeRO-3's "
+                    f"layout: pass zero=3")
+            self.zero_specs = {
+                n: compose_zero_spec(shapes[n], specs[n], self.dp_axis, dp)
+                if self.zero else None for n in shapes}
+        # name -> the dim its master and moments shard along (ZeRO), and
+        # the ZeRO-3 parameters kept as a padded flat f32 shard
         self._zdim = {n: list(sp).index(self.dp_axis)
                       for n, sp in self.zero_specs.items() if sp is not None}
+        self._flat = {n: lay for n, lay in self.zero3_layouts.items()
+                      if lay['mode'] == 'flat'}
+        if self.zero_stage == 3:
+            if len(dict(self.block.named_parameters(
+                    remove_duplicate=False))) != len(named):
+                raise MXNetError("ShardedTrainStep: ZeRO-3 shards each "
+                                 "parameter under its owning module; the "
+                                 "block registers one parameter twice")
+            self._z3 = _Zero3(self, self._trainable, self._zdim)
+        if self._remat_policy != 'none':
+            self._recompute = _Recompute(self.block, self.device)
+            self._regions = _remat_regions(self.block)
         low = {n for n, p in self._trainable
                if p.is_floating_point() and p.element_size() < 4}
+        # a flat ZeRO-3 parameter's f32 store is its master, whatever its
+        # dtype (the JAX step's master_names)
         self._master = {n: self._local(n, p).to(torch.float32).clone()
-                        for n, p in self._trainable if n in low}
+                        for n, p in self._trainable
+                        if n in low or n in self._flat}
         self._state = {n: tuple(torch.zeros(self._local(n, p).shape,
                                             dtype=torch.float32,
                                             device=self.device)
@@ -459,7 +923,8 @@ class ShardedTrainStep:
         self._slots = [[self._state[n][k] for n, _ in self._trainable]
                        for k in range(self._n_state)]
         self._low = [(self._local(n, p), self._master[n])
-                     for n, p in self._trainable if n in self._master]
+                     for n, p in self._trainable
+                     if n in self._master and n not in self._flat]
         if dp > 1:
             self._build_dp(shapes)
         self._plan_comm()
@@ -473,9 +938,35 @@ class ShardedTrainStep:
             doc, self._pending_states = self._pending_states, None
             self._apply_states(doc)
 
+    def _resolve_param_specs(self, names):
+        """name -> PartitionSpec: a ``param_specs`` key matches a parameter
+        by exact name or as a regular expression (``re.search``), the last
+        matching key winning, as the JAX step matches them."""
+        mapping = {n: P() for n in names}
+        for pat, spec in self.param_specs.items():
+            hits = [n for n in names
+                    if n == pat or re.search(str(pat), n) is not None]
+            if not hits:
+                warnings.warn(f"ShardedTrainStep: param_spec {pat!r} matched "
+                              f"no parameter (have e.g. {names[:5]})",
+                              RuntimeWarning)
+            for n in hits:
+                mapping[n] = P(*spec) if isinstance(spec, (tuple, list)) \
+                    else P(spec)
+        return mapping
+
     def _local(self, n, p):
-        """Parameter ``n``'s part this rank updates: the whole tensor, or
-        under ZeRO a view of its shard, the ZeRO dim moved first."""
+        """Parameter ``n``'s part this rank updates: the whole tensor; under
+        ZeRO-1 a view of its shard, the ZeRO dim moved first; under ZeRO-3
+        the kept shard, or a flat parameter's padded f32 slice."""
+        if self._z3 is not None and n in self._z3.shard:
+            return self._z3.shard[n]
+        if n in self._flat:
+            lay = self._flat[n]
+            k = lay['padded'] // self._dp
+            flat = torch.nn.functional.pad(
+                p.detach().reshape(-1).to(torch.float32), (0, lay['pad']))
+            return flat.narrow(0, self.mesh.rank * k, k)
         d = self._zdim.get(n) if hasattr(self, '_zdim') else None
         if d is None:
             return p.detach()
@@ -531,32 +1022,96 @@ class ShardedTrainStep:
         return list(shared.values())
 
     def _build_dp(self, shapes):
-        """The buffers of the dp step: f32 gradients (the ZeRO dim first),
-        the reduce-scattered shards, the gather staging, and LAMB's
+        """The buffers of the dp step: the reduce-scattered f32 gradient
+        shards; f32 gradients whole (the ZeRO dim first) where the capture
+        needs them (every tensor under ZeRO-1, the replicated ones under
+        ZeRO-3, whose step runs eagerly); the gather staging; and LAMB's
         per-shard sums of squares."""
         dp, dev = self._dp, self.device
+        stage3 = self.zero_stage == 3
         self._gbuf, self._gshard, self._gather_stage = {}, {}, {}
         for n, p in self._trainable:
             d = self._zdim.get(n)
             moved = shapes[n] if d is None else \
                 (shapes[n][d],) + shapes[n][:d] + shapes[n][d + 1:]
-            self._gbuf[n] = torch.zeros(moved, dtype=torch.float32,
-                                        device=dev)
+            if n in self._flat:
+                self._gshard[n] = torch.zeros(
+                    self._flat[n]['padded'] // dp, dtype=torch.float32,
+                    device=dev)
+                continue
             if d is not None:
                 self._gshard[n] = torch.zeros(
                     (moved[0] // dp,) + moved[1:], dtype=torch.float32,
                     device=dev)
+                if stage3:
+                    continue
                 self._gather_stage[n] = torch.empty(
                     (dp, moved[0] // dp) + moved[1:], dtype=p.dtype,
                     device=dev)
-        self._gs = [self._gshard.get(n, self._gbuf[n])
+            self._gbuf[n] = torch.zeros(moved, dtype=torch.float32,
+                                        device=dev)
+        self._gs = [self._gshard.get(n, self._gbuf.get(n))
                     for n, _ in self._trainable]
         self._sharded_idx = [i for i, (n, _) in enumerate(self._trainable)
-                             if n in self._zdim]
+                             if n in self._gshard]
         self._sharded_at = torch.tensor(self._sharded_idx, dtype=torch.int64,
                                         device=dev)
         self._sq = torch.zeros(2, max(1, len(self._sharded_idx)),
                                dtype=torch.float32, device=dev)
+
+    def _forward(self, inputs):
+        """The block's forward under the remat policy (``MXTPU_REMAT``):
+        'layer' and 'aggressive' checkpoint each region
+        (``_remat_regions``; ``torch.utils.checkpoint``, non-reentrant),
+        'layer' with a selective policy that keeps the products without
+        batch dims; the generators and buffers are replayed
+        (``_Recompute``). At ZeRO-3 the saved-tensor hooks keep gathered
+        parameters out of autograd's residuals, and each region gathers
+        its own layer groups inside it, so its recompute regathers
+        them."""
+        hooks = self._z3.hooks() if self._z3 is not None else \
+            contextlib.nullcontext()
+        with hooks:
+            if self._remat_policy == 'none':
+                return self.block(*inputs)
+            rec = self._recompute
+            rec.begin()
+            wrapped = [(m, self._checkpointed(m)) for m in self._regions]
+            try:
+                for m, fn in wrapped:
+                    m.forward = fn
+                return self.block(*inputs)
+            finally:
+                for m, _ in wrapped:
+                    del m.forward
+
+    def _checkpointed(self, m):
+        """``m.forward`` as one checkpoint region."""
+        from torch.utils.checkpoint import \
+            checkpoint, create_selective_checkpoint_contexts
+        rec, z3, orig = self._recompute, self._z3, m.forward
+
+        def run(*args, **kwargs):
+            if z3 is not None:
+                z3.gather_groups(z3.triggered_by(m))
+            return orig(*args, **kwargs)
+
+        def region(*args, **kwargs):
+            r = rec.next_region()
+
+            def contexts():
+                if self._remat_policy == 'layer':
+                    fwd, again = create_selective_checkpoint_contexts(
+                        _layer_policy)
+                else:
+                    fwd, again = contextlib.nullcontext(), \
+                        contextlib.nullcontext()
+                return _both(rec.forward(r), fwd), \
+                    _both(rec.recompute(r), again)
+            return checkpoint(run, *args, use_reentrant=False,
+                              preserve_rng_state=False, context_fn=contexts,
+                              **kwargs)
+        return region
 
     # ------------------------------------------------------------------
     def _train_flags(self):
@@ -579,7 +1134,7 @@ class ShardedTrainStep:
         prev = self._train_flags()
         try:
             with torch.enable_grad(), plain_calls():
-                out = self.block(*inputs)
+                out = self._forward(inputs)
                 outs = out if isinstance(out, (list, tuple)) else (out,)
                 loss = self.loss_fn(*outs, *labels).mean()
                 grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -609,7 +1164,7 @@ class ShardedTrainStep:
         try:
             with torch.enable_grad(), plain_calls(), \
                     _coll.data_axis(self.dp_axis):
-                out = self.block(*inputs)
+                out = self._forward(inputs)
         finally:
             self._restore_flags(prev)
         return tuple(out) if isinstance(out, (list, tuple)) else (out,)
@@ -631,8 +1186,11 @@ class ShardedTrainStep:
                   .requires_grad_(g.is_floating_point()) for g in gouts]
         labs = [g.reshape((-1,) + tuple(g.shape[2:])) for g in glabs]
         prev = self._train_flags()
+        z3 = self._z3
         try:
-            with torch.enable_grad(), plain_calls():
+            # the data axis too: a recompute of the forward runs here
+            with torch.enable_grad(), plain_calls(), \
+                    _coll.data_axis(self.dp_axis):
                 loss = self.loss_fn(*leaves, *labs).mean()
                 diff = [i for i, o in enumerate(outs) if o.requires_grad]
                 cots = torch.autograd.grad(
@@ -642,19 +1200,30 @@ class ShardedTrainStep:
                     b = outs[i].shape[0]
                     mine.append(torch.zeros_like(outs[i]) if c is None
                                 else c.narrow(0, r * b, b) * dp)
-                grads = torch.autograd.grad(
-                    [outs[i] for i in diff], params, grad_outputs=mine,
-                    allow_unused=True)
+                if z3 is not None:
+                    z3.in_backward = True
+                try:
+                    grads = torch.autograd.grad(
+                        [outs[i] for i in diff], params, grad_outputs=mine,
+                        allow_unused=True)
+                finally:
+                    if z3 is not None:
+                        z3.in_backward = False
+                        z3.free_all()
         finally:
             self._restore_flags(prev)
         with torch.no_grad():
-            for (n, _), g in zip(self._trainable, grads):
-                buf = self._gbuf[n]
-                if g is None:
-                    buf.zero_()
-                else:
-                    d = self._zdim.get(n)
-                    buf.copy_(g if d is None else g.movedim(d, 0))
+            self._grads = {}
+            for (n, p), g in zip(self._trainable, grads):
+                if n in self._gbuf:
+                    buf = self._gbuf[n]
+                    if g is None:
+                        buf.zero_()
+                    else:
+                        d = self._zdim.get(n)
+                        buf.copy_(g if d is None else g.movedim(d, 0))
+                else:           # ZeRO-3 sharded: reduce-scattered as it is
+                    self._grads[n] = torch.zeros_like(p) if g is None else g
         return loss.detach()
 
     def _dp_reduce(self):
@@ -662,10 +1231,19 @@ class ShardedTrainStep:
         into this rank's shard or all-reduced where replicated."""
         with torch.no_grad():
             for n, _ in self._trainable:
-                if n in self._gshard:
+                if n in self._gbuf and n in self._gshard:
                     _coll.reduce_scatter_into(self._gshard[n], self._gbuf[n])
-                else:
+                elif n in self._gbuf:
                     _coll.all_reduce_(self._gbuf[n])
+                elif n in self._flat:
+                    g = self._grads.pop(n).to(torch.float32).reshape(-1)
+                    _coll.reduce_scatter_into(
+                        self._gshard[n], torch.nn.functional.pad(
+                            g, (0, self._flat[n]['pad'])))
+                else:
+                    g = self._grads.pop(n).to(torch.float32)
+                    _coll.reduce_scatter_into(
+                        self._gshard[n], g.movedim(self._zdim[n], 0))
 
     def _dp_update_phases(self):
         """Segment 5 as functions between which a collective runs: the
@@ -727,11 +1305,20 @@ class ShardedTrainStep:
         return [direction, step], [reduce_norms]
 
     def _dp_gather_params(self):
-        """Segment 6: every parameter whole again from its shards."""
+        """Segment 6: every parameter whole again from its shards (under
+        ZeRO-3 only the flat ones, from their f32 stores: the others stay
+        sharded until the next forward gathers them)."""
         with torch.no_grad():
             for n, p in self._trainable:
+                if n in self._flat:
+                    m = self._master[n]
+                    stage = m.new_empty((self._dp, m.numel()))
+                    _coll.all_gather_into(stage, m)
+                    p.detach().copy_(stage.reshape(-1)[:p.numel()]
+                                     .reshape(p.shape))
+                    continue
                 d = self._zdim.get(n)
-                if d is None:
+                if d is None or n not in self._gather_stage:
                     continue
                 stage = self._gather_stage[n]
                 _coll.all_gather_into(stage, self._local(n, p))
@@ -744,6 +1331,8 @@ class ShardedTrainStep:
 
     def _step_dp(self, inputs, labels):
         """The whole dp step, eagerly; returns the loss."""
+        if self._z3 is not None:
+            self._z3.reset_stats()
         outs = self._dp_forward(inputs)
         gouts, glabs = self._gather_buffers(outs, labels)
         self._dp_gather(outs, labels, gouts, glabs)
@@ -768,7 +1357,7 @@ class ShardedTrainStep:
                     self._place_deferred(inputs)
                     self._build()
             self._lr.write([self.lr if lr is None else lr])
-            if self.device.type != 'cuda':
+            if self.device.type != 'cuda' or not self.captured:
                 with _trace.span('step.compiled'), \
                         _memory.oom_guard('step.dispatch'):
                     ins = [x.to(self.device) for x in inputs]
@@ -823,17 +1412,13 @@ class ShardedTrainStep:
                 _compile.abort(cctx)
                 raise
             if cctx is not None:
-                _compile.set_signature(cctx, _compile.signature(
-                    [_compile.array_sig(f'input{i}', x)
-                     for i, x in enumerate(ins)] +
-                    [_compile.array_sig(f'label{i}', x)
-                     for i, x in enumerate(labs)],
-                    {'optimizer': self._opt_update.__name__,
-                     'params': len(self._trainable)}))
+                _compile.set_signature(cctx, self.signature(ins, labs))
                 _compile.end(cctx)
             elif _telem['on']:
                 _metrics.record_compile(site, repr(sig),
                                         time.perf_counter() - t0)
+            if self._recompute is not None:
+                entry['offsets'] = self._recompute.offsets()
             self._graphs[sig] = entry
             return first
         with _trace.span('h2d.batch_put'):
@@ -841,14 +1426,46 @@ class ShardedTrainStep:
                 buf.copy_(x, non_blocking=True)
         with _trace.span('step.compiled'), \
                 _memory.oom_guard('step.dispatch'):
+            if self._recompute is not None:
+                self._recompute.sync(entry['offsets'])
             entry['run']()
         return entry['loss'].clone()
 
+    def signature(self, inputs, labels):
+        """The step's compile signature for these inputs: each argument's
+        shape and dtype, and the flags that change what runs: the
+        optimizer, the parameter count, the ZeRO stage, the remat policy
+        and the flash-attention tile decisions made so far
+        (``autotune.decision_flags``), as the JAX step's
+        ``_build_signature`` names them."""
+        from ..ops import autotune as _autotune
+        return _compile.signature(
+            [_compile.array_sig(f'input{i}', x) for i, x in enumerate(inputs)]
+            + [_compile.array_sig(f'label{i}', x)
+               for i, x in enumerate(labels)],
+            {'optimizer': self._opt_update.__name__,
+             'params': len(self._trainable), 'zero': self._zero_label,
+             'remat': self._remat_policy,
+             'autotune': _autotune.decision_flags() or None})
+
+    def _twins(self):
+        """The recompute's generator twins, made from what the eager step
+        recorded (none without remat)."""
+        return self._recompute.make_twins() if self._recompute is not None \
+            else []
+
     def _capture_one(self, ins, labs):
-        """dp = 1: the whole step, one graph."""
-        graph, loss, first = capture(
+        """dp = 1: the eager step on a side stream (this call's step), then
+        the whole step as one graph, the recompute's generator twins
+        registered with it."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            first = self._step(ins, labs)
+        graph, loss, _ = capture(
             lambda: self._step(ins, labs), self.device,
-            graph_generators(self.block, self.device), warm_up=True)
+            graph_generators(self.block, self.device) + self._twins(),
+            stream=stream)
         return dict(ins=ins, labs=labs, loss=loss, run=graph.replay), first
 
     def _capture_dp(self, ins, labs):
@@ -867,7 +1484,7 @@ class ShardedTrainStep:
         gouts, glabs = self._gather_buffers(outs, labs)
         bwd, loss, _ = capture(
             lambda: self._dp_backward(outs, gouts, glabs), self.device,
-            stream=stream)
+            self._twins(), stream=stream)
         phases, between = self._dp_update_phases()
         upd = [capture(ph, self.device, stream=stream)[0] for ph in phases]
 
@@ -886,25 +1503,40 @@ class ShardedTrainStep:
     # -- comm accounting (the JAX step's analytic ring model) ----------
     def _plan_comm(self):
         """``_hop_plan``: {(kind, axis): (ring wire bytes, count)} one
-        step moves, by the JAX step's formulas: a ZeRO tensor's
-        reduce-scatter and all-gather move (dp-1)/dp of its bytes each,
-        a replicated one's all-reduce twice that, counted at the
-        parameter's own dtype."""
+        step moves, by the JAX step's formulas: a ZeRO-1 tensor's
+        reduce-scatter and all-gather move (dp-1)/dp of its bytes each, a
+        replicated one's all-reduce twice that, counted at the
+        parameter's own dtype; under ZeRO-3 a dim-sharded tensor is
+        all-gathered twice (the forward's use and the backward's regather)
+        and its f32 gradient reduce-scattered, a flat one's padded f32
+        gradient reduce-scattered and its store all-gathered back.
+        ``_gather_plan``: (layer group, bytes, gathers) a step, ZeRO-3."""
         dp, ring = self._dp, _ring(self._dp)
         plan = {}
 
-        def add(kind, nbytes):
+        def add(kind, nbytes, count=1):
             b, c = plan.get((kind, self.dp_axis), (0.0, 0))
-            plan[(kind, self.dp_axis)] = (b + nbytes, c + 1)
+            plan[(kind, self.dp_axis)] = (b + nbytes, c + count)
 
+        nbytes = {n: p.numel() * p.element_size() for n, p in self._trainable}
         for n, p in self._trainable:
-            nbytes = p.numel() * p.element_size()
-            if self.zero_specs.get(n) is not None:
-                add('all_gather', ring * nbytes)
-                add('reduce_scatter', ring * nbytes)
+            lay = self.zero3_layouts.get(n, {}).get('mode')
+            if lay == 'dim':
+                add('all_gather', 2 * ring * nbytes[n], 2)
+                add('reduce_scatter', ring * p.numel() * 4)
+            elif lay == 'flat':
+                padded = self._flat[n]['padded']
+                add('all_gather', ring * padded * 4)
+                add('reduce_scatter', ring * padded * 4)
+            elif self.zero_specs.get(n) is not None:
+                add('all_gather', ring * nbytes[n])
+                add('reduce_scatter', ring * nbytes[n])
             elif dp > 1:
-                add('all_reduce', 2 * ring * nbytes)
+                add('all_reduce', 2 * ring * nbytes[n])
         self._hop_plan = plan
+        self._gather_plan = [
+            (group, 2 * ring * sum(nbytes[n] for n in names), 2)
+            for group, names in (self._z3.groups if self._z3 else [])]
 
     def _record_comm(self):
         if not self._hop_plan:
@@ -914,12 +1546,21 @@ class ShardedTrainStep:
                 _trace.instant(f'comm.{kind}', bytes=int(nbytes),
                                count=count, axis=axis,
                                stage=self._zero_label)
+            for layer, nbytes, count in self._gather_plan:
+                _trace.instant('comm.all_gather', bytes=int(nbytes),
+                               count=count, axis=self.dp_axis,
+                               stage=self._zero_label, layer=layer)
         if _telem['on']:
             for (kind, axis), (nbytes, count) in self._hop_plan.items():
                 _metrics.counter('mxnet_tpu_comm_collective_bytes_total').inc(
                     nbytes, kind=kind, axis=axis, stage=self._zero_label)
                 _metrics.counter('mxnet_tpu_comm_collectives_total').inc(
                     count, kind=kind, axis=axis, stage=self._zero_label)
+
+    def gather_bytes_per_step(self):
+        """Analytic ring-wire bytes of the ZeRO-3 per-layer parameter
+        gathers one step moves (0 outside stage 3)."""
+        return int(sum(b for _l, b, _c in self._gather_plan))
 
     def comm_bytes_per_hop(self):
         """Analytic ring-wire bytes one step moves, by mesh hop:
@@ -933,27 +1574,62 @@ class ShardedTrainStep:
     def opt_state_bytes_per_device(self):
         """Bytes of optimizer state (moments, masters, one update count
         per parameter) this rank holds: under ZeRO ~1/dp of the
-        replicated footprint, plus the tensors too small to shard."""
+        replicated footprint, plus the tensors too small to shard, the
+        ZeRO-3 flat stores' pad included (``opt_state_pad_bytes``)."""
         total = sum(s.numel() * s.element_size()
                     for st in (self._state or {}).values() for s in st)
         total += sum(m.numel() * m.element_size()
                      for m in (self._master or {}).values())
         if self._t is not None:
             total += self._t.numel() * self._t.element_size()
+        self.opt_state_pad_bytes = sum(
+            lay['pad'] * 4 * (1 + self._n_state) // self._dp
+            for lay in self._flat.values()) if self._trainable else 0
         return total
 
+    def _held(self):
+        """name -> the tensor of each parameter this rank holds between
+        steps: its ZeRO-3 shard, or the parameter."""
+        shards = self._z3.shard if self._z3 is not None else {}
+        return {n: shards.get(n, p) for n, p in self.block.named_parameters()}
+
     def param_bytes_per_device(self):
-        """Bytes of the block's parameters in their own dtypes (each rank
-        holds them whole)."""
-        return sum(p.numel() * p.element_size()
-                   for p in self.block.parameters())
+        """Bytes of the block's parameters this rank holds between steps,
+        in their own dtypes: each whole, or under ZeRO-3 the dim-sharded
+        ones' 1/dp shards."""
+        return sum(t.numel() * t.element_size()
+                   for t in self._held().values())
+
+    def full_parameters(self):
+        """{name: tensor} of every parameter whole: under ZeRO-3 the
+        sharded ones gathered from their shards (a collective: call it on
+        every rank), else the block's own tensors."""
+        out = {}
+        for n, p in self.block.named_parameters():
+            if self._z3 is not None and n in self._z3.shard:
+                out[n] = self._z3.full(n)
+            else:
+                out[n] = p.detach()
+        return out
+
+    def stats(self):
+        """The last step's figures: the ZeRO stage, whether the step runs
+        as captured CUDA graphs (``captured``: ZeRO-3 runs eagerly), the
+        remat policy, the ZeRO-3 layer groups, the group all-gathers the
+        step made (the forward's and the backward's) and their host
+        ms."""
+        z3 = self._z3
+        return {'zero_stage': self.zero_stage, 'captured': self.captured,
+                'remat': self._remat_policy,
+                'layer_groups': len(z3.groups) if z3 else 0,
+                'gathers': z3.gathers if z3 else 0,
+                'gather_ms': z3.gather_s * 1e3 if z3 else 0.0}
 
     def memory_pools(self):
         """This step's live tensors as named residency pools
-        (``telemetry.memory``): params, optimizer_state."""
-        pools = {'params': {}, 'optimizer_state': {}}
-        for n, p in self.block.named_parameters():
-            pools['params'][n] = p
+        (``telemetry.memory``): params (as this rank holds them),
+        optimizer_state."""
+        pools = {'params': dict(self._held()), 'optimizer_state': {}}
         for n, m in (self._master or {}).items():
             pools['optimizer_state'][f'master/{n}'] = m
         for n, st in (self._state or {}).items():
@@ -971,6 +1647,7 @@ class ShardedTrainStep:
         pools. None before the first step."""
         if self._trainable is None:
             return None
+        self.opt_state_bytes_per_device()       # refreshes the pad bytes
         pools = self.memory_pools()
         buckets = {
             'params': _memory.pool_nbytes(pools['params']),
@@ -1006,14 +1683,24 @@ class ShardedTrainStep:
             'zero_stage': self.zero_stage,
             'dp': self._dp,
             'compression': None,
-            'pad_bytes': 0,
+            'pad_bytes': self.opt_state_pad_bytes,
             'host_rss_bytes': _memory.host_rss_bytes(),
+            **({'gather_bytes_per_layer': {
+                g: int(b) for g, b, _c in self._gather_plan}}
+               if self._gather_plan else {}),
         }
 
     # -- the states payload, gathered to logical tensors ----------------
     def _logical(self, n, x):
         """A master or moment of ``n`` as the whole logical tensor on the
-        host (gathered from every rank's shard under ZeRO)."""
+        host (gathered from every rank's shard under ZeRO; a ZeRO-3 flat
+        store unflattened, its pad dropped)."""
+        if n in self._flat:
+            buf = x.new_empty((self._dp, x.numel()))
+            _coll.all_gather_into(buf, x.detach())
+            shape = dict(self._trainable)[n].shape
+            return buf.reshape(-1)[:self._flat[n]['size']].reshape(shape) \
+                .cpu().numpy()
         d = self._zdim.get(n)
         if d is None:
             return x.detach().to('cpu', copy=True).numpy()
@@ -1026,6 +1713,11 @@ class ShardedTrainStep:
         """This rank's part of the logical host array ``a`` of ``n``, in
         the layout of its master and moments."""
         t = torch.from_numpy(onp.asarray(a, onp.float32))
+        if n in self._flat:
+            lay = self._flat[n]
+            k = lay['padded'] // self._dp
+            return torch.nn.functional.pad(t.reshape(-1), (0, lay['pad'])) \
+                .narrow(0, self.mesh.rank * k, k)
         d = self._zdim.get(n)
         if d is None:
             return t
@@ -1093,7 +1785,14 @@ class ShardedTrainStep:
                              f"moves them together")
         if counts:
             self._t.fill_(counts.pop())
-        for n, m in doc.get('master', {}).items():
+        restored = doc.get('master', {})
+        for n, m in restored.items():
             if n in self._master:
                 self._master[n].copy_(self._shard_of(n, m))
+        # a flat ZeRO-3 store with no saved master (a payload of stage 0 or
+        # 1, where the parameter held the value) takes the parameter's
+        for n, p in self._trainable:
+            if n in self._flat and n not in restored:
+                self._master[n].copy_(self._shard_of(
+                    n, p.detach().float().cpu().numpy()))
         self._step_count = int(doc.get('step_count', self._step_count))

@@ -67,7 +67,8 @@ def test_dp_modules_import_no_jax(module):
 
 @pytest.mark.parametrize('test_file', ['test_torch_dist.py',
                                        'test_torch_zero1.py',
-                                       'test_torch_dp_bert.py'])
+                                       'test_torch_dp_bert.py',
+                                       'test_torch_zero3.py'])
 def test_dp_worker_scripts_import_only_the_port_and_numpy(test_file):
     """The ranks the dp tests spawn run a worker that imports the port,
     numpy, torch and the standard library only."""
@@ -84,6 +85,35 @@ def test_dp_worker_scripts_import_only_the_port_and_numpy(test_file):
             mods.add(node.module.split('.')[0])
     assert mods <= {'mxnet_tpu_torch', 'numpy', 'torch', 'os', 'sys',
                     'pickle', 'time'}, mods
+
+
+KNOB_MODULES = ('ops/autotune.py', 'ops/flash_attention.py',
+                'ops/_build.py', 'parallel/step.py',
+                'parallel/collectives.py', 'config.py')
+
+
+@pytest.mark.parametrize('module', KNOB_MODULES)
+def test_the_memory_and_tile_knob_modules_import_no_jax(module):
+    """The autotuner, the tiled flash wrappers, the remat and ZeRO-3 step
+    and the knobs' registry are the port's own, and importing the
+    autotuner in a fresh interpreter loads no jax."""
+    import subprocess
+    import sys
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+    code = ('import sys\n'
+            'import mxnet_tpu_torch.ops.autotune, '
+            'mxnet_tpu_torch.parallel.step\n'
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "mxnet_tpu")))')
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == '[]', out.stdout
 
 
 def test_port_imports_no_jax_and_no_reference_package():

@@ -333,11 +333,15 @@ def test_the_step_refuses_what_is_not_ported(jax_model, monkeypatch):
     for kw, item in ((dict(compression_params={'type': 'fp16'}), 'item 8'),
                      (dict(guard=object()), 'item 9'),
                      (dict(hierarchy=2), 'item 8'),
-                     (dict(param_specs={'qkv': ('tp',)}), 'item 6a'),
-                     (dict(zero=3), 'item 7')):
+                     (dict(param_specs={'qkv': ('tp',)}), 'item 6a')):
         with pytest.raises(MXNetError, match=item):
             parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
                                       mesh=mesh, **kw)
+    # ZeRO-3 is ported (item 7); at dp = 1, as in the JAX step, no stage
+    # is active
+    step = parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
+                                     mesh=mesh, zero=3)
+    assert step.zero_stage == 0 and step.captured
     with pytest.raises(ValueError, match='supports'):
         parallel.ShardedTrainStep(net, bert_pretrain_loss, 'rmsprop',
                                   mesh=mesh)
@@ -345,8 +349,14 @@ def test_the_step_refuses_what_is_not_ported(jax_model, monkeypatch):
         parallel.make_mesh(devices=['cpu', 'cpu'])
     with pytest.raises(MXNetError, match='item 6'):
         parallel.make_mesh((2,), devices=['cpu', 'cpu'])
-    monkeypatch.setenv('MXTPU_REMAT', 'layer')
-    with pytest.raises(MXNetError, match='item 7'):
+    # MXTPU_REMAT is ported (item 7): read at construction, parsed as
+    # the JAX package parses it
+    monkeypatch.setenv('MXTPU_REMAT', 'full')
+    step = parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
+                                     mesh=mesh)
+    assert step._remat_policy == 'aggressive'
+    monkeypatch.setenv('MXTPU_REMAT', 'bogus')
+    with pytest.raises(MXNetError, match='MXTPU_REMAT'):
         parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
                                   mesh=mesh)
     monkeypatch.delenv('MXTPU_REMAT')

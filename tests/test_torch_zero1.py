@@ -507,9 +507,12 @@ def test_compose_zero_spec_rules():
 
 
 def test_refusals_name_their_roadmap_items(arrays):
-    """What this slice leaves out raises by name: a parameter sharded
-    over dp between steps is ZeRO-3's layout (item 7); the distributed
-    kvstores, compression and update_on_kvstore are item 8."""
+    """What this slice leaves out raises by name: tensor parallelism
+    (item 6a); the distributed kvstores, compression and
+    update_on_kvstore are item 8. A parameter sharded over dp between
+    steps (the fsdp-style param_specs, ZeRO-3's layout, item 7) is
+    accepted, as the JAX step accepts it: at dp = 1 nothing shards and the
+    step trains as without the spec."""
     from mxnet_tpu_torch import gluon, parallel
     from mxnet_tpu_torch.gluon import nn
     with torch.device('cpu'):
@@ -518,9 +521,13 @@ def test_refusals_name_their_roadmap_items(arrays):
         net.initialize()
     mesh = parallel.make_mesh(devices=['cpu'])
     loss = gluon.loss.L2Loss()
-    with pytest.raises(MXNetError, match='item 7'):
-        parallel.ShardedTrainStep(net, loss, 'adamw', mesh=mesh,
-                                  param_specs={'0.weight': ('dp', None)})
+    x, y = torch.ones(2, 3), torch.zeros(2, 4)
+    w0 = net[0].weight.data().asnumpy().copy()
+    step = parallel.ShardedTrainStep(net, loss, 'adamw', mesh=mesh,
+                                     param_specs={'0.weight': ('dp', None)})
+    step(x, y)
+    assert step.zero_stage == 0 and step.zero_specs['0.weight'] is None
+    assert not onp.array_equal(net[0].weight.data().asnumpy(), w0)
     with pytest.raises(MXNetError, match='item 6a'):
         parallel.ShardedTrainStep(net, loss, 'adamw', mesh=mesh,
                                   param_specs={'0.weight': (None, 'tp')})
