@@ -224,7 +224,35 @@
    With two or more cards it repeats the training part over NCCL, one
    rank per card, up to 4; with one it prints "nccl: not run (1 card)".
    A rank that fails or passes DP_TIMEOUT fails the script.
-12. Prints the kernels' JSON line (each row with its variant and dtype
+12. Resilience phase (after the dp phase): training that survives
+   faults on the flagship path. (a) BERT-base BertForPretraining, bf16,
+   dropout 0.1, both knobs on, ShardedTrainStep (AdamW, one CUDA graph)
+   with a NonFiniteGuard and an async CheckpointManager (keep the last 2
+   steps and every 4th, autosave every 2) under
+   MXTPU_FAULT=step.dispatch:nan:1:0:5-7, 10 steps on 10 flagship
+   batches, the launch counters at 0 just before: steps 5-7 give NaN
+   losses and leave the parameters, masters, moments and update count
+   bitwise as they were (the flag and the where-gate inside the graph);
+   3 bad steps, one rollback, to step 4; committed 4, 8, 10 and no step
+   5-7; the eager step and the capture launch each kernel 2 per layer
+   (LayerNorm 4). (b) A fresh model and an unguarded step, captured on
+   batch 1, restored from step 4 in place (no parameter tensor replaced,
+   the RNG streams exact), replay steps 8-10: the same losses and
+   byte-equal parameters, masters and moments. (e) Step ms (median of 3
+   calls of 10) and kernel launches per replay, guarded against
+   unguarded; a save's blocked ms (a manager's first, which pins its
+   host buffers, and a later one, which reuses them), its seconds end to
+   end and bytes, the restore's seconds. (c) A child
+   process of this script (--resilience-child) trains a 2-layer bf16 BERT
+   (hidden 256) under the SIGTERM hook and commits step 3 when signalled;
+   a new manager restores it bitwise; a checkpoint.write:corrupt save of
+   step 4 makes restore_latest fall back to 3; /healthz (a
+   TelemetryServer on 127.0.0.1) reports the newest committed step. (d)
+   The serving engine (BlockRunner over that BERT) with its watchdog
+   armed: a burst of 32 requests from 4 threads gives no stall report; a
+   runner planted to stall 3 s under a 1 s watchdog gives exactly one.
+   Checkpoints live in a temporary directory removed at the end.
+13. Prints the kernels' JSON line (each row with its variant and dtype
    and, for a redesigned kernel, the time of the one it replaced, old_ms;
    the float16 routes as rows of their own, named kernel[float16], whose
    launches are the AMP phase's float16 ones) and, last, the result
@@ -334,6 +362,14 @@ def kernel_launches(fn, iters):
             fn()
         torch.cuda.synchronize()
     return {e.key: e.count for e in prof.key_averages() if _dev_us(e) > 0}
+
+
+def ops_split(names, iters):
+    """(kernels, copies) per call in a ``kernel_launches`` result: the
+    profiler's memcpy and memset events counted apart from the kernels."""
+    copies = sum(c for n, c in names.items()
+                 if n.startswith(('Memcpy', 'Memset')))
+    return (sum(names.values()) - copies) / iters, copies / iters
 
 
 def time_ms(fn, iters=20):
@@ -2258,6 +2294,9 @@ def compiled_step_phase(card, warmup=3, timed=10, batch=8, seq=512):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     losses = [float(x) for x in losses]
+    # the unguarded step's bits, to hold two trees against each other
+    bits = dict(params=_digest(dict(net.named_parameters())),
+                masters=_digest(step._master))
     launches = dict(mt.ops.launch_counts)
     variants = dict(mt.ops.variant_counts)
     routes = dict(attn_ops.route_counts)
@@ -2288,6 +2327,11 @@ def compiled_step_phase(card, warmup=3, timed=10, batch=8, seq=512):
                   for k in want}
     print(f'  kernel launches per replay (profiler, {replays} replays): '
           f'{per_replay}')
+    kern, copies = ops_split(names, replays)
+    print(f'  step bits on {card}: losses {[x.hex() for x in warm + losses]}; '
+          f'parameters sha256 {bits["params"]}, masters sha256 '
+          f'{bits["masters"]}; {kern + copies:.0f} device operations per '
+          f'replay ({kern:.0f} kernels, {copies:.0f} copies and memsets)')
     check(per_replay == want, f'launches per replay {per_replay}, expected '
           f'{want}')
 
@@ -3901,6 +3945,408 @@ def dp_phase(card, world=2):
 
 
 # the tiled kernels' rows, and the sweep's ranking each reads its times from
+# -- resilience: the guard, checkpoints, faults and the watchdog ----------
+
+RESIL_STEPS = 10
+RESIL_FAULT = 'step.dispatch:nan:1:0:5-7'
+RESIL_SMALL = dict(vocab_size=1000, hidden=256, layers=2, heads=4,
+                   intermediate=1024, max_len=128, type_vocab=2)
+RESIL_TIMEOUT = 300.0      # seconds for the preemption child, then killed
+
+
+def _resil_net(cfg, seed, dropout=0.1):
+    import torch
+    from mxnet_tpu_torch.models.bert import BertForPretraining
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    gen = torch.Generator('cuda').manual_seed(seed)
+    net = BertForPretraining(dict(cfg, dropout=dropout), dtype=torch.bfloat16,
+                             device='cuda', generator=gen)
+    net.load_state_dict(params_from_mxnet_tpu(random_bert_arrays(net), net))
+    return net
+
+
+def _resil_step(net, guard=None):
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models.bert import bert_pretrain_loss
+    return parallel.ShardedTrainStep(net, bert_pretrain_loss, 'adamw',
+                                     {'learning_rate': 1e-4, 'wd': 0.01},
+                                     guard=guard)
+
+
+def _resil_batch(cfg, batch, seq, seed):
+    import torch
+    data, _ = pretraining_batch(cfg, batch, seq, seed)
+    t = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    return [t['tokens'], t['types'], t['valid'], t['mpos']], \
+        [t['labels'], t['nsp']]
+
+
+def _resil_state(net, step):
+    """Parameters, masters, moments and update counts, cloned on the
+    card."""
+    return ({n: p.detach().clone() for n, p in net.named_parameters()},
+            {n: m.clone() for n, m in step._master.items()},
+            {n: tuple(s.clone() for s in st)
+             for n, st in step._state.items()}, step._t.clone())
+
+
+def _resil_equal(a, b):
+    import torch
+    pa, ma, sa, ta = a
+    pb, mb, sb, tb = b
+    return all(torch.equal(pa[n], pb[n]) for n in pa) and \
+        all(torch.equal(ma[n], mb[n]) for n in ma) and \
+        all(torch.equal(x, y) for n in sa for x, y in zip(sa[n], sb[n])) \
+        and torch.equal(ta, tb)
+
+
+def _digest(tensors):
+    """sha256 over the named tensors' bytes, in name order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for n in sorted(tensors):
+        t = tensors[n].detach().cpu().contiguous()
+        h.update(n.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes()
+                 if t.dtype == torch.bfloat16 else t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def resilience_child(work):
+    """The preempted process of path (c): the small BERT's compiled step
+    on the card under a CheckpointManager with the SIGTERM hook and no
+    autosave cadence; after 3 steps it waits for the signal, which commits
+    step 3, and writes the digest of its live parameters."""
+    import torch
+    from mxnet_tpu_torch import checkpoint
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = _resil_net(RESIL_SMALL, SEED + 21)
+    step = _resil_step(net)
+    mgr = checkpoint.CheckpointManager(os.path.join(work, 'preempt'),
+                                       params=net, trainer=step)
+    mgr.install_preemption_hook()
+    for k in range(1, 4):
+        step(*_resil_batch(RESIL_SMALL, 4, 128, SEED + 30 + k))
+        mgr.maybe_save(k)
+    torch.cuda.synchronize()
+    print('READY 3', flush=True)
+    deadline = time.monotonic() + RESIL_TIMEOUT
+    while not mgr.preempted and time.monotonic() < deadline:
+        time.sleep(0.05)
+    with open(os.path.join(work, 'preempt.json'), 'w') as f:
+        json.dump({'preempted': mgr.preempted, 'steps': mgr.all_steps(),
+                   'digest': _digest(dict(net.named_parameters()))}, f)
+    mgr.close()
+    return 0 if mgr.preempted else 1
+
+
+def _resil_preempt(work, card):
+    """Path (c): the SIGTERM child, a new manager restoring its step, a
+    corrupt write falling back, and /healthz."""
+    import signal
+    import warnings
+    from mxnet_tpu_torch import checkpoint, resilience
+    from mxnet_tpu_torch.telemetry import server
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--resilience-child',
+         work], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS='4'))
+    try:
+        deadline = time.monotonic() + RESIL_TIMEOUT
+        line = ''
+        while 'READY' not in line and time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line and proc.poll() is not None:
+                break
+        check('READY 3' in line, f'the preemption child never got ready '
+              f'(exit {proc.poll()})')
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=RESIL_TIMEOUT)
+        sig_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(os.path.join(work, 'preempt.json')) as f:
+        child = json.load(f)
+    print(f'  (c) SIGTERM to the child at step 3: exit {code}, committed '
+          f'{child["steps"]}, {sig_s:.2f} s from the signal to its exit')
+    check(code == 0 and child['preempted'] and child['steps'] == [3],
+          f'preemption child: exit {code}, {child}')
+    net = _resil_net(RESIL_SMALL, SEED + 22)
+    step = _resil_step(net)
+    mgr = checkpoint.CheckpointManager(os.path.join(work, 'preempt'),
+                                       params=net, trainer=step)
+    check(mgr.restore_latest() == 3, 'the SIGTERM step did not restore')
+    same = _digest(dict(net.named_parameters())) == child['digest']
+    print(f'  (c) a new manager restores step 3: parameters '
+          f'{"bitwise" if same else "NOT"} the preempted process\'s')
+    check(same, 'the restored parameters differ from the preempted ones')
+    loss = float(step(*_resil_batch(RESIL_SMALL, 4, 128, SEED + 34)))
+    check(loss == loss, 'non-finite loss after the SIGTERM restore')
+    resilience.faults.arm('checkpoint.write', 'corrupt', window=1)
+    try:
+        mgr.save(4, block=True)
+    finally:
+        resilience.faults.disarm()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        back = mgr.restore_latest(apply=False).step
+    fell = any('falling back' in str(w.message) for w in caught)
+    print(f'  (c) checkpoint.write:corrupt at step 4: committed '
+          f'{mgr.all_steps()}, restore_latest falls back to step {back}')
+    check(mgr.all_steps() == [3, 4] and back == 3 and fell,
+          f'corrupt step: {mgr.all_steps()}, restored {back}')
+    srv = server.TelemetryServer(port=0)
+    try:
+        import http.client
+        conn = http.client.HTTPConnection('127.0.0.1', srv.port, timeout=10)
+        conn.request('GET', '/healthz')
+        doc = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        srv.stop()
+    want = checkpoint.last_committed_step()
+    print(f'  (c) /healthz last_committed_step: '
+          f'{doc["last_committed_step"]} (newest over this process\'s '
+          f'managers: {want})')
+    check(doc['last_committed_step'] == want and want is not None,
+          f'/healthz says {doc["last_committed_step"]}, expected {want}')
+    mgr.close()
+
+
+def _resil_watchdog(card):
+    """Path (d): the serving engine with its watchdog armed."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models.bert import BertModel
+    cfg = dict(RESIL_SMALL)
+    del cfg['type_vocab']
+    net = BertModel(**cfg, dtype=torch.bfloat16, device='cuda')
+    rng = onp.random.RandomState(SEED + 40)
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            if n.endswith('weight'):
+                p.copy_(torch.from_numpy(rng.standard_normal(tuple(p.shape))
+                                         .astype('float32') * 0.02))
+    runner = mt.serving.BlockRunner(net)
+    kw = dict(seq_buckets='64,128', batch_buckets='1,4', deadline_ms=2.0)
+    warm = mt.serving.InferenceEngine(runner, **kw)
+    mt.serving.warmup(warm)
+    warm.drain()
+    engine = mt.serving.InferenceEngine(runner, watchdog_seconds=2.0, **kw)
+    errors = []
+
+    def client(k):
+        r = onp.random.RandomState(k)
+        try:
+            for _ in range(8):
+                engine.submit(list(r.randint(1, 1000, r.randint(8, 129))),
+                              timeout=60.0)
+        except Exception as e:          # noqa: BLE001
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120.0)
+    burst_s = time.perf_counter() - t0
+    engine.drain()
+    burst = engine.watchdog.stalls
+    print(f'  (d) serving burst of 32 requests in {burst_s:.2f} s with the '
+          f'watchdog armed (2 s): {burst} stall reports, '
+          f'{engine.stats()["batches"]} batches')
+    check(not errors and burst == 0, f'burst: {errors}, {burst} stalls')
+
+    calls = []
+
+    def stalled(mat):
+        calls.append(1)
+        if len(calls) == 2:
+            time.sleep(3.0)
+        return runner(mat)
+    reports = []
+    engine = mt.serving.InferenceEngine(stalled, watchdog_seconds=1.0, **kw)
+    note = engine.watchdog.on_stall
+    engine.watchdog.on_stall = lambda rep: (reports.append(rep), note(rep))
+    for k in range(3):
+        engine.submit(list(range(1, 60 + k)), timeout=60.0)
+    engine.drain()
+    stalls = engine.watchdog.stalls
+    print(f'  (d) a runner planted to stall 3 s on its 2nd batch, watchdog '
+          f'1 s: {stalls} stall report(s); first line: '
+          f'{reports[0].splitlines()[0] if reports else None}')
+    check(stalls == 1 and len(reports) == 1,
+          f'planted stall: {stalls} reports')
+
+
+def resilience_phase(card, batch=8, seq=512):
+    """Training that survives faults on the flagship path: BERT-base
+    ShardedTrainStep (bf16, dropout 0.1, AdamW, both knobs on, one CUDA
+    graph) with a NonFiniteGuard and an async CheckpointManager (keep the
+    last 2 and every 4th step, autosave every 2), MXTPU_FAULT's grammar
+    planting NaN on steps 5-7."""
+    import shutil
+    import tempfile
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import checkpoint, resilience
+    from mxnet_tpu_torch.models.bert import bert_base_config
+
+    os.environ['MXTPU_PALLAS_LN'] = '1'
+    os.environ['MXTPU_PALLAS_FFN'] = '1'
+    print(f'resilience phase on {card}: NonFiniteGuard + CheckpointManager '
+          f'on the compiled BERT-base step, {RESIL_FAULT}')
+    cfg = bert_base_config()
+    L = cfg['layers']
+    work = tempfile.mkdtemp(prefix='mxtt_resilience_')
+    t_phase = time.perf_counter()
+    try:
+        batches = [_resil_batch(cfg, batch, seq, SEED + 100 + k)
+                   for k in range(RESIL_STEPS)]
+        # (a) the guarded run
+        net = _resil_net(cfg, SEED + 5)
+        mgr = checkpoint.CheckpointManager(
+            os.path.join(work, 'a'), keep_last_n=2, keep_every_k_steps=4,
+            autosave_steps=2)
+        guard = resilience.NonFiniteGuard(manager=mgr, max_consecutive_bad=3)
+        step = _resil_step(net, guard)
+        mgr.bind_params(net)
+        mgr.bind_trainer(step)
+        resilience.faults.arm_from_env(RESIL_FAULT)
+        held, losses, saves = [], [], []
+        mt.ops.reset_launch_counts()
+        try:
+            for k, (ins, labs) in enumerate(batches, start=1):
+                before = _resil_state(net, step) if k in (5, 6, 7) else None
+                losses.append(step(ins, labs))
+                if before is not None:
+                    held.append(_resil_equal(before,
+                                             _resil_state(net, step)))
+                if guard.maybe_save(k):
+                    saves.append((k, mgr.last_blocked_seconds))
+            mgr.wait()
+        finally:
+            resilience.faults.disarm()
+        launches = dict(mt.ops.launch_counts)
+        losses = [float(x) for x in losses]
+        steps_kept = mgr.all_steps()
+        print(f'  (a) losses {losses}')
+        print(f'  (a) bad steps {guard.bad_steps}, rollbacks '
+              f'{guard.rollbacks} to step {guard.last_rollback_step}, '
+              f'committed {steps_kept}; parameters, masters, moments and t '
+              f'bitwise unchanged across steps 5, 6, 7: {held}')
+        print(f'  (a) host launches (eager step + capture of the guarded '
+              f'step): {launches}')
+        check(held == [True] * 3, f'a skipped step moved the state: {held}')
+        check([x != x for x in losses] == [k in (5, 6, 7) for k in
+                                          range(1, RESIL_STEPS + 1)],
+              f'losses {losses}')
+        check((guard.bad_steps, guard.rollbacks, guard.last_rollback_step)
+              == (3, 1, 4), f'guard ladder {guard.bad_steps}, '
+              f'{guard.rollbacks}, {guard.last_rollback_step}')
+        check(steps_kept == [4, 8, 10] and not {5, 6, 7} & set(steps_kept),
+              f'committed steps {steps_kept}')
+        check(launches == {'flash_attn_fwd': 2 * L, 'flash_attn_bwd_dq': 2 * L,
+                           'flash_attn_bwd_dkv': 2 * L,
+                           'fused_add_layernorm': 4 * L,
+                           'dense_gelu': 2 * L},
+              f'launch counts {launches}')
+        check(len(step._graphs) == 1, f'{len(step._graphs)} graphs')
+        final = _resil_state(net, step)
+        blocked_ms = saves[0][1] * 1e3
+        restore_s = mgr.last_restore_seconds
+
+        # (b) bitwise resume: a fresh model and an unguarded step, captured
+        # first, then restored from step 4 in place, replay steps 8-10
+        net_b = _resil_net(cfg, SEED + 5)
+        step_b = _resil_step(net_b)
+        step_b(*batches[0])
+        mgr_b = checkpoint.CheckpointManager(os.path.join(work, 'a'),
+                                             params=net_b, trainer=step_b,
+                                             keep_last_n=2,
+                                             keep_every_k_steps=4)
+        ptrs = {n: p.data_ptr() for n, p in net_b.named_parameters()}
+        t0 = time.perf_counter()
+        check(mgr_b.restore(4) == 4, 'restore(4)')
+        restore_b_s = time.perf_counter() - t0
+        check({n: p.data_ptr() for n, p in net_b.named_parameters()} == ptrs,
+              'the restore replaced a parameter tensor')
+        check(mgr_b.last_restored_metadata['rng_restored'] == 'exact',
+              'RNG restore')
+        losses_b = [float(step_b(*b)) for b in batches[7:]]
+        same = _resil_equal(final, _resil_state(net_b, step_b))
+        print(f'  (b) restored step 4 into a captured unguarded step '
+              f'({restore_b_s:.2f} s), steps 8-10: losses {losses_b} vs '
+              f'{losses[7:]}; parameters, masters and moments '
+              f'{"byte-equal" if same else "DIFFER"}')
+        check(losses_b == losses[7:], f'resumed losses {losses_b} vs '
+              f'{losses[7:]}')
+        check(same, 'the resumed state differs from the guarded run')
+
+        # (e) the step, guarded against unguarded, and the save's times
+        ins, labs = batches[0]
+        want = {'flash_fwd_tc_kernel': L, 'flash_bwd_dq_tc_kernel': L,
+                'flash_bwd_dkv_tc_kernel': L, 'dense_gelu_tc_kernel': L,
+                '_add_ln_fwd': 2 * L}
+        per = {}
+        for label, s in (('guarded', step), ('unguarded', step_b)):
+            names = kernel_launches(lambda s=s: s(ins, labs), 3)
+            total = sum(names.values()) / 3
+            kern, copies = ops_split(names, 3)
+            mine = {k: sum(c for n, c in names.items() if k in n) / 3
+                    for k in want}
+            check(mine == want, f'{label} launches per replay {mine}')
+            ms = sorted(steps_ms(lambda s=s: s(ins, labs), 10)
+                        for _ in range(3))[1]
+            per[label] = dict(ms=ms, launches=total, kernels=kern,
+                              copies=copies)
+        print(f'  (e) on {card}: step {per["guarded"]["ms"]:.3f} ms guarded '
+              f'vs {per["unguarded"]["ms"]:.3f} ms unguarded (median of 3 '
+              f'calls of 10), {per["guarded"]["launches"]:.0f} vs '
+              f'{per["unguarded"]["launches"]:.0f} device operations per '
+              f'replay (profiler; kernels {per["guarded"]["kernels"]:.0f} '
+              f'vs {per["unguarded"]["kernels"]:.0f}, copies and memsets '
+              f'{per["guarded"]["copies"]:.0f} vs '
+              f'{per["unguarded"]["copies"]:.0f})')
+        # a manager's first save pins its host buffers; later ones reuse
+        # them (each save here with the writer idle)
+        blocked_b_ms = []
+        for k in (11, 12):
+            mgr_b.save(k)
+            mgr_b.wait()
+            blocked_b_ms.append(mgr_b.last_blocked_seconds * 1e3)
+        save_s = mgr_b.last_save_seconds
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(mgr_b.step_dir(12)) for f in fs)
+        print(f'  (e) on {card}: save of {nbytes / 2 ** 30:.3f} GiB blocks '
+              f'the training thread {blocked_ms:.1f} ms at the guarded '
+              f'run\'s first save (its host buffers pinned), '
+              f'{blocked_b_ms[0]:.1f} ms at a new manager\'s first and '
+              f'{blocked_b_ms[1]:.1f} ms at its second (buffers reused); '
+              f'{save_s:.2f} s end to end (writer thread); restore '
+              f'{restore_s:.2f} s (the rollback), {restore_b_s:.2f} s (into '
+              f'the captured step)')
+        mgr.close()
+        mgr_b.close()
+        del step, net, step_b, net_b, final
+        torch.cuda.empty_cache()
+        _resil_preempt(work, card)
+        _resil_watchdog(card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f'  resilience phase: {phase_s:.1f} s')
+    return launches, dict(per=per, blocked_ms=blocked_ms,
+                          blocked_reused_ms=blocked_b_ms[1], save_s=save_s,
+                          restore_s=restore_s, restore_b_s=restore_b_s,
+                          phase_s=phase_s)
+
+
 TILED = {'flash_attn_fwd': 'fwd', 'flash_attn_bwd_dq': 'bwd',
          'flash_attn_bwd_dkv': 'bwd'}
 
@@ -3969,6 +4415,7 @@ def main():
     tuned_sweep = autotune_phase(card, tune_dir)
     remat, tuned, _remat = remat_phase(card, tune_dir)
     dp, dp_errs, _dp, zero3 = dp_phase(card)
+    resil, _resil = resilience_phase(card)
     # launches: the serving, front, training, compiled-step and ndarray
     # runs', each counted from 0 just before its run (serving's and the
     # front's are their warmups' eager runs and captures, the compiled
@@ -3978,7 +4425,8 @@ def main():
     # the AMP runs' float16 launches go to the [float16] rows where a
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
-             'ndarray', 'gluon', 'dp', 'remat', 'autotune', 'zero3')
+             'ndarray', 'gluon', 'dp', 'remat', 'autotune', 'zero3',
+             'resilience')
     by_path = {}
     for name in rows:
         base, f16 = name.split('[')[0], name.endswith('[float16]')
@@ -3994,7 +4442,7 @@ def main():
             compiled_step=compiled[name], ndarray=nd_ops[name],
             gluon=gluon.get(name, 0), dp=dp.get(name, 0),
             remat=remat.get(name, 0), autotune=tuned.get(name, 0),
-            zero3=zero3.get(name, 0))
+            zero3=zero3.get(name, 0), resilience=resil.get(name, 0))
     for name in user_rows:
         by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
     idle = [n for n, paths_n in by_path.items()
@@ -4039,6 +4487,12 @@ def _rank_args(argv):
 
 
 if __name__ == '__main__':
+    if '--resilience-child' in sys.argv:
+        import torch
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.exit(resilience_child(
+            sys.argv[sys.argv.index('--resilience-child') + 1]))
     if '--dp-rank' in sys.argv:
         import torch
         if not torch.cuda.is_available():

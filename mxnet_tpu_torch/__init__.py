@@ -30,8 +30,8 @@ from .context import Context, cpu, cpu_pinned, current_context, gpu, \
     num_gpus, tpu
 from . import (amp, autograd, checkpoint, config, context, contrib, engine,
                gluon, initializer, lr_scheduler, models, ndarray, ops,
-               optimizer, parallel, random, rtc, serialization, serving,
-               telemetry, weights)
+               optimizer, parallel, random, resilience, rtc, serialization,
+               serving, telemetry, weights)
 from . import ndarray as nd
 from . import initializer as init
 
@@ -39,5 +39,6 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',
            'config', 'context', 'contrib',
            'engine', 'gluon', 'init', 'initializer', 'lr_scheduler', 'models', 'nd',
-           'ndarray', 'ops', 'optimizer', 'parallel', 'random', 'rtc',
+           'ndarray', 'ops', 'optimizer', 'parallel', 'random',
+           'resilience', 'rtc',
            'serialization', 'serving', 'telemetry', 'weights']

@@ -1,13 +1,32 @@
-"""Checkpoints (counterpart of ``mxnet_tpu/checkpoint``): the on-disk
-layout of one committed step, its JSON manifest of content hashes and
-its validation (``manifest``). ``PredictServer``'s ``/reload`` resolves
-and validates a step directory with it. ``CheckpointManager`` and the
-replica layer wait for ROADMAP queue 1 items 9 and 10."""
+"""Fault-tolerant async checkpointing (counterpart of
+``mxnet_tpu/checkpoint``).
+
+``CheckpointManager`` snapshots params + optimizer state + step + RNG
+state on the training thread, writes atomically (per-array files + a
+hashed JSON manifest committed by one ``os.replace``) on a background
+thread, enforces keep-last-N / keep-every-K retention, and resumes via
+hash-verified ``restore_latest()`` with fallback to the previous
+committed step on corruption (``manager``). The on-disk layout and its
+validation are ``manifest``, which ``PredictServer``'s ``/reload`` uses
+too. The replica layer (``ReplicaManager``: peer replication, the
+integrity scrubber, the any-replica restore) waits for the membership
+side channel (ROADMAP queue 1 item 10) and raises naming it.
+"""
+from ..base import MXNetError
 from . import manifest
 from .manifest import (CorruptCheckpointError, atomic_write_bytes,
                        committed_steps, read_manifest, step_dir_name,
                        validate_step_dir)
+from .manager import (CheckpointManager, RestoredCheckpoint,
+                      last_committed_step)
 
-__all__ = ['manifest', 'CorruptCheckpointError', 'atomic_write_bytes',
-           'committed_steps', 'read_manifest', 'step_dir_name',
-           'validate_step_dir']
+__all__ = ['manifest', 'CheckpointManager', 'RestoredCheckpoint',
+           'ReplicaManager', 'CorruptCheckpointError', 'atomic_write_bytes',
+           'committed_steps', 'last_committed_step', 'read_manifest',
+           'step_dir_name', 'validate_step_dir']
+
+
+def ReplicaManager(*args, **kwargs):
+    raise MXNetError("checkpoint.ReplicaManager: peer replication runs over "
+                     "the membership side channel, which is not ported "
+                     "(ROADMAP queue 1 item 10)")

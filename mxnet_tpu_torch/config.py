@@ -214,8 +214,31 @@ _register('MXTPU_COMPILE_CACHE_DIR', str, '',
           'telemetry.compile.persistent_cache_stats counts its hits, '
           'misses and bytes.')
 _register('MXTPU_SERVE_WATCHDOG_SECONDS', float, 0.0,
-          'Serving watchdog deadline: nonzero needs resilience.watchdog, '
-          'which is not ported (ROADMAP queue 1 item 9) and raises.')
+          'Arm a StepWatchdog over the batcher: a dispatch that '
+          'produces no completed batch for this long dumps a stall '
+          'report (classified COMPILING vs EXECUTING via the compile '
+          'window) and notes serving.stuck. 0 = off.')
+_register('MXTPU_FAULT', str, '',
+          'Arm deterministic fault injection: comma-separated '
+          'site:kind[:prob[:seed[:first-last]]] specs (kinds: raise, '
+          'hang, corrupt, nan). See mxnet_tpu_torch.resilience.faults.'
+          'sites() for the registered sites. Read once at import; re-arm '
+          'with resilience.faults.arm_from_env().')
+_register('MXTPU_FAULT_HANG_SECONDS', float, 300.0,
+          'How long an armed "hang" fault sleeps at its site (long '
+          'enough to trip the step watchdog, short enough for tests).')
+_register('MXTPU_GUARD_MAX_BAD_STEPS', int, 3,
+          'NonFiniteGuard policy ladder: after this many CONSECUTIVE '
+          'non-finite steps (each already skipped on the device), '
+          'auto-restore the newest committed checkpoint.')
+_register('MXTPU_WATCHDOG_SECONDS', float, 300.0,
+          'StepWatchdog default deadline: with no training-step '
+          'heartbeat for this long, dump all-thread stacks + a telemetry '
+          'snapshot to the log (once per stall).')
+_register('MXTPU_CHECKPOINT_WRITE_RETRIES', int, 2,
+          'Bounded retries (with backoff) of a checkpoint payload write '
+          'after a transient filesystem error before the failure '
+          'surfaces on the training thread.')
 _register('MXNET_TPU_COORDINATOR', str, '',
           'host:port of rank 0 for a multi-process world '
           '(parallel.dist.init: a torch.distributed TCPStore there), or '

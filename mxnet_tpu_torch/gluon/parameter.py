@@ -620,9 +620,8 @@ class ParameterDict:
 def _load_into(param, value, ctx):
     """Set ``param`` from a loaded numpy array, placing it first if it
     has no tensor yet."""
-    t = torch.from_numpy(onp.array(value, dtype=onp.float32)
-                         if value.dtype.name == 'bfloat16'
-                         else onp.ascontiguousarray(value))
+    from ..serialization import is_bfloat16, to_tensor
+    t = to_tensor(value).float() if is_bfloat16(value) else to_tensor(value)
     if not param._is_materialized() and not param._deferred_init:
         param._deferred_init = (None, ctx, init_mod.Zero())
     elif ctx is not None:

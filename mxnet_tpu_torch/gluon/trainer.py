@@ -86,9 +86,25 @@ rank), so a payload restores at any dp, under ZeRO or not. Stage 3
 the finiteness of the local gradients is reduced over the world, so
 every rank skips the same step.
 
+The non-finite guard, as in the JAX Trainer: ``attach_guard(guard)``
+(a ``resilience.NonFiniteGuard``) folds into the fused update, which it
+recaptures, the finiteness of every gradient (one ``_foreach_norm`` at
+inf, NaN and inf propagating) into a flag on the device, copies the
+weights and every state tensor aside and, after the update, writes back
+``torch.where(flag, new, old)``: a non-finite step is a no-op on the
+device, inside the same CUDA graph. The guard reads the flag at the next
+``step`` (``pre_step``), before the update; a bad flag rewinds the update
+counts the skipped step advanced on the host, and a rollback restores
+the last checkpoint and drops this step's update (its gradients were
+computed against the weights before the restore). Under dp the flag is
+taken in a program of its own and all-reduced (min) before the update,
+so every rank skips the same step. The per-parameter loop checks the
+gradients first and skips the update. The ``step.dispatch`` fault site
+fires in every ``step``; ``nan`` poisons every gradient.
+
 The distributed kvstore types, gradient compression and
-update_on_kvstore raise (ROADMAP queue 1 item 8). The guard and elastic
-hooks of the JAX Trainer are not ported (items 9, 10).
+update_on_kvstore raise (ROADMAP queue 1 item 8). The elastic hook of
+the JAX Trainer waits for item 10.
 """
 from __future__ import annotations
 
@@ -101,6 +117,8 @@ from .._capture import DeviceScalars, capture
 from ..base import MXNetError, telem_flags as _telem
 from ..parallel import collectives as _coll, dist as _dist
 from ..parallel.step import P, compose_zero_spec
+from ..resilience import faults as _faults
+from ..resilience.guard import DeviceGate, finite_flag
 from ..telemetry import compile as _compile, flight as _flight, \
     memory as _memory, metrics as _metrics, trace as _trace
 from ..serialization import atomic_write_file
@@ -166,7 +184,10 @@ class Trainer:
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
         self._grads = {}       # index -> the gradient buffer the update reads
-        self._fused = None     # [signature, graph, scalars, program]
+        self._fused = None     # [signature, graphs, scalars, parts, between]
+        self._guard = None     # resilience.NonFiniteGuard (attach_guard)
+        self._gate = None      # the guard's DeviceGate in the fused update
+        self._fused_count_snapshot = None  # counts before the last update
         self._telem_last_step = None
         self._telem_step_ema = None
         # the dp world: gradients reduced over it, ZeRO-1 states (see the
@@ -199,6 +220,14 @@ class Trainer:
         if _telem['on']:
             self._time_step(batch_size)
         with _trace.span('step.dispatch'):
+            if _faults.fire('step.dispatch') == 'nan':
+                self._poison_grads()
+            if self._guard is not None and \
+                    self._guard.pre_step(on_bad=self._rewind_update_counts):
+                # a rollback just restored the weights, states and RNG:
+                # the gradients were computed against the weights before
+                # it, so this step's update is dropped
+                return
             self._optimizer.rescale_grad = self._scale / batch_size
             with _trace.span('optimizer.update'), \
                     _memory.oom_guard('step.dispatch'):
@@ -220,6 +249,48 @@ class Trainer:
         elif dt <= 20.0 * ema:
             _metrics.record_step(dt, batch_size)
             self._telem_step_ema = 0.9 * ema + 0.1 * dt
+
+    def attach_guard(self, guard):
+        """Bind a ``resilience.NonFiniteGuard`` (see the module docstring).
+        Recaptures the fused update, which the guard changes."""
+        self._guard = guard
+        self._fused = None
+
+    def _poison_grads(self):
+        """Injected ``step.dispatch:nan`` fault: every gradient becomes NaN
+        on the device (the ``.grad`` where set, else its buffer), so the
+        guard's detection, skip and rollback take a real non-finite
+        step."""
+        for i, param in enumerate(self._params):
+            if isinstance(param, Parameter) and \
+                    not param._is_materialized():
+                continue
+            p = tensor_of(param)
+            if not p.requires_grad:
+                continue
+            g = p.grad if p.grad is not None else self._grads.get(i)
+            if g is not None:
+                g.mul_(float('nan'))
+
+    def _rewind_update_counts(self):
+        """A guard-skipped step was a no-op on the device, but the fused
+        update advanced the host-side update counts before the flag was
+        known: rewind them, so bias correction and schedules keyed on
+        ``num_update`` see the skip as a true no-op."""
+        snap = self._fused_count_snapshot
+        if snap is not None:
+            counts, num = snap
+            self._optimizer._index_update_count = dict(counts)
+            self._optimizer.num_update = num
+            self._fused_count_snapshot = None
+
+    def _grads_ok(self, grads):
+        """The per-parameter loop's check, before it updates: every
+        gradient finite (over the world under dp). One host sync."""
+        ok = finite_flag(grads)
+        if self._reduce:
+            ok = _coll.all_reduce_(ok, op='min')
+        return bool(ok)
 
     def reset_step_timer(self):
         """Forget the previous step() timestamp so an intervening pause
@@ -251,6 +322,14 @@ class Trainer:
         if self._reduce:
             items = self._reduce_grads(items)
         if not self._fused_apply(items):
+            if self._guard is not None and items:
+                # the loop cannot gate on the device: check first (the
+                # skip happens before any count moves: nothing to rewind)
+                self._fused_count_snapshot = None
+                ok = self._grads_ok([g for _, _, g in items])
+                self._guard.push_flag(ok)
+                if not ok:
+                    return
             for i, p, g in items:
                 self._updater(i, g, p)
         if self._zero_active:
@@ -428,36 +507,86 @@ class Trainer:
             if i not in updater.states:
                 updater.states[i] = o.create_state_multi_precision(i, p)
                 updater.states_synced[i] = True
-        # host-side per-step scalars, the counts first (as JAX does)
+        # host-side per-step scalars, the counts first (as JAX does); the
+        # counts before them are kept for the guard's rewind
+        self._fused_count_snapshot = (dict(o._index_update_count),
+                                      o.num_update)
         for i in indices:
             o._update_count(i)
         values = o._get_lrs(indices) + o._get_wds(indices) + \
             [o._index_update_count[i] for i in indices] + [o.rescale_grad]
         device = items[0][1].device
         sig = (tuple(indices), o.__class__,
-               tuple(p.dtype for _, p, _ in items), device)
+               tuple(p.dtype for _, p, _ in items), device,
+               self._guard is not None)
         if self._fused is None or self._fused[0] != sig:
             scalars = DeviceScalars(len(values), device)
-            self._fused = [sig, None, scalars,
-                           self._program(items, scalars.values)]
-        _, graph, scalars, program = self._fused
+            update = self._program(items, scalars.values)
+            parts, between = self._guarded(items, update) \
+                if self._guard is not None else ([update], [])
+            self._fused = [sig, None, scalars, parts, between]
+        _, graphs, scalars, parts, between = self._fused
         scalars.write(values)
         with _trace.span('optimizer.fused'):
             if device.type != 'cuda':
-                program()
-            elif graph is None:
+                runs = parts
+            elif graphs is None:
                 # the warm-up run is this step's update; later steps replay
-                self._fused[1] = self._capture(program, device, items)
+                graphs = self._fused[1] = self._capture(parts, device, items)
+                runs = []
             else:
-                graph.replay()
+                runs = [g.replay for g in graphs]
+            for k, run in enumerate(runs):
+                run()
+                if k < len(between):
+                    between[k]()
+        if self._guard is not None:
+            self._guard.push_flag(self._gate.ok)
         return True
 
-    def _capture(self, program, device, items):
+    def _guarded(self, items, update):
+        """The fused update under the guard, as the programs to run in
+        order and the host steps between them: the flag over the
+        gradients (all-reduced, min, between the two programs under dp),
+        then the weights and state tensors copied aside, the update, and
+        each tensor written back as ``where(flag, new, old)``."""
+        gate = self._gate = DeviceGate(
+            [p for _, p, _ in items] + [t for i, _, _ in items
+                                        for t in _leaves(
+                                            self._updater.states[i])],
+            items[0][1].device)
+        grads = [g for _, _, g in items]
+
+        def check():
+            gate.check(grads)
+
+        def apply():
+            gate.copy()
+            update()
+            gate.select()
+        if self._reduce:
+            return [check, apply], [lambda: _coll.all_reduce_(gate.ok,
+                                                              op='min')]
+
+        def both():
+            check()
+            apply()
+        return [both], []
+
+    def _capture(self, parts, device, items):
+        """Each program captured as a CUDA graph, each after one eager
+        warm-up run that is this step's (the host steps between them run
+        between the warm-ups)."""
         site = 'trainer:fused_update'
         cctx = _compile.begin(site)
         t0 = time.perf_counter()
+        between = self._fused[4]
         try:
-            graph, _, _ = capture(program, device, warm_up=True)
+            graphs = []
+            for k, part in enumerate(parts):
+                graphs.append(capture(part, device, warm_up=True)[0])
+                if k < len(between):
+                    between[k]()
         except BaseException:
             _compile.abort(cctx)
             raise
@@ -465,12 +594,12 @@ class Trainer:
             _compile.set_signature(cctx, _compile.signature(
                 [_compile.array_sig(f'param{i}', p) for i, p, _ in items],
                 {'optimizer': self._optimizer.__class__.__name__,
-                 'params': len(items)}))
+                 'params': len(items), 'guard': self._guard is not None}))
             _compile.end(cctx)
         elif _telem['on']:
             _metrics.record_compile(site, repr(self._fused[0][:3]),
                                     time.perf_counter() - t0)
-        return graph
+        return graphs
 
     def _program(self, items, scalars):
         """The fused update over ``items``: the optimizer's own

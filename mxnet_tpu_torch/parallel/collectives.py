@@ -83,7 +83,8 @@ def _size(axis_name):
 
 def all_reduce_(t, op='sum'):
     """In place: ``t`` becomes the reduction over the world."""
-    red = {'sum': tdist.ReduceOp.SUM, 'max': tdist.ReduceOp.MAX}[op]
+    red = {'sum': tdist.ReduceOp.SUM, 'max': tdist.ReduceOp.MAX,
+           'min': tdist.ReduceOp.MIN}[op]
     tdist.all_reduce(t, op=red)
     return t
 

@@ -296,7 +296,10 @@ def dp_host_split(ranks=None, force=None):
 
 
 def barrier(tag='barrier', timeout=None):
-    """Every rank waits for every other (no-op in a world of one)."""
+    """Every rank waits for every other (no-op in a world of one). The
+    ``dist.barrier`` fault site fires on entry, in a world of one too."""
+    from ..resilience import faults as _faults
+    _faults.fire('dist.barrier')
     if num_workers() > 1:
         if backend() == 'nccl':
             tdist.barrier(device_ids=[device().index])

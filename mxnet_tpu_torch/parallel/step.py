@@ -139,11 +139,33 @@ generator twins registered with the graph. The policy, the ZeRO stage
 and the flash-attention tile decisions are flags of the step's compile
 signature (``signature``).
 
+The non-finite guard (``guard=resilience.NonFiniteGuard(...)``), as the
+JAX step fuses it into its program: each call first lets the guard read
+the previous step's flag (``pre_step``, which may roll back to the last
+checkpoint: the parameters, masters, moments and RNG are restored in
+place, and this call's batch trains against them). Inside the step (one
+CUDA graph at dp = 1) the parameters, masters, moments, the update count
+and the block's buffers are copied aside before the forward, the flag is
+the finiteness of the loss and of every f32 gradient (one
+``_foreach_norm`` at inf, NaN and inf propagating) and, after the update,
+each of those tensors becomes ``where(flag, new, old)``: a non-finite
+step is a no-op on the device, its arithmetic otherwise untouched, so a
+guarded run and an unguarded replay of its good steps agree bit for bit.
+The flag is a one-element tensor on the device that the guard reads at
+the next call (``bool`` of it waits for that step alone). At dp > 1 the
+flag is taken over this rank's reduced (reduce-scattered) gradients in a
+captured segment of its own and all-reduced (min) between the segments,
+so every rank skips the same step. The ``step.dispatch`` fault site fires
+on every call; armed (or under a guard) the loss is multiplied by a
+device scalar, 1 or NaN (``step.dispatch:nan``), the JAX step's
+``fault_scale``, and the multiply is part of the step's signature, so a
+step with no guard and no fault armed runs exactly the kernels it ran
+before.
+
 Not ported, each refused by name: ``param_specs`` naming an axis other
 than dp (tensor parallelism, ROADMAP queue 1 item 6a),
 ``compression_params`` and ``hierarchy``, and a dp axis over several
-hosts, which the JAX step splits (item 8), ``guard`` (item 9), sparse
-gradients (item 12).
+hosts, which the JAX step splits (item 8), sparse gradients (item 12).
 """
 from __future__ import annotations
 
@@ -159,6 +181,7 @@ from torch.nn.parameter import UninitializedParameter
 
 from .. import config as _config
 from .. import random as _random
+from ..resilience import faults as _faults
 from .._capture import DeviceScalars, capture, graph_generators
 from ..base import MXNetError, state, telem_flags as _telem, torch_dtype
 from ..gluon.block import Block, plain_calls
@@ -399,6 +422,11 @@ def rename_states(blob, names):
                                  f"{missing[:5]}")
             doc[key] = {names[n]: v for n, v in doc[key].items()}
     return pickle.dumps(doc)
+
+
+def _host_copy(t):
+    """A tensor copied to a host numpy array now."""
+    return t.detach().to('cpu', copy=True).numpy()
 
 
 def _device_key(d):
@@ -784,9 +812,11 @@ class ShardedTrainStep:
         if hierarchy is not None:
             raise MXNetError("ShardedTrainStep: hierarchical dp is not "
                              "ported (ROADMAP queue 1 item 8)")
+        # resilience.NonFiniteGuard: the flag and the where-gating go
+        # inside the step; a rollback's restore writes in place
+        self._guard = guard
         if guard is not None:
-            raise MXNetError("ShardedTrainStep: the non-finite guard is not "
-                             "ported (ROADMAP queue 1 item 9)")
+            guard.add_post_restore_hook(self._after_restore)
         for pat, spec in (param_specs or {}).items():
             axes = _spec_axes(spec)
             if axes - {dp_axis}:
@@ -852,7 +882,11 @@ class ShardedTrainStep:
         self._master = None          # name -> f32 master (a shard under ZeRO)
         self._state = None           # name -> tuple of f32 state tensors
         self._t = None               # update counts, one int32 per parameter
-        self._lr = None              # DeviceScalars: this step's rate
+        self._lr = None              # DeviceScalars: this step's rate and
+        #                              the loss's fault factor (1 or NaN)
+        self._scaled = False         # this call multiplies the loss by it
+        self._gate = None            # guard: resilience.guard.DeviceGate
+        self._ptrs = {}              # guard: each parameter's storage
         self._graphs = {}            # signature -> the captured step
         self._step_count = 0
         self._pending_states = None  # a restored payload awaiting the build
@@ -917,7 +951,7 @@ class ShardedTrainStep:
                        for n, p in self._trainable}
         self._t = torch.zeros(len(self._trainable), dtype=torch.int32,
                               device=self.device) if self._has_t else None
-        self._lr = DeviceScalars(1, self.device)
+        self._lr = DeviceScalars(2, self.device)
         self._p32 = [self._master[n] if n in self._master
                      else self._local(n, p) for n, p in self._trainable]
         self._slots = [[self._state[n][k] for n, _ in self._trainable]
@@ -927,6 +961,8 @@ class ShardedTrainStep:
                      if n in self._master and n not in self._flat]
         if dp > 1:
             self._build_dp(shapes)
+        if self._guard is not None:
+            self._build_guard()
         self._plan_comm()
         _memory.register_provider(self)
         if _telem['on']:
@@ -937,6 +973,37 @@ class ShardedTrainStep:
         if self._pending_states is not None:
             doc, self._pending_states = self._pending_states, None
             self._apply_states(doc)
+
+    def _build_guard(self):
+        """The guard's gate over the tensors a skipped step must leave as
+        they were: the f32 weights and masters, the moments, the update
+        count, the low-precision parameters or this rank's shards of them,
+        the block's buffers and gradient-free parameters."""
+        from ..resilience.guard import DeviceGate
+        self._gate = DeviceGate(
+            list(self._p32) + [s for slot in self._slots for s in slot] +
+            ([self._t] if self._t is not None else []) +
+            [p for p, _ in self._low] + list(self.block.buffers()) +
+            [p.detach() for p in self.block.parameters()
+             if not p.requires_grad], self.device)
+        self._ptrs = {n: p.data_ptr() for n, p in self._trainable}
+
+    def _after_restore(self):
+        """After a guard rollback's restore. The JAX step re-places the
+        restored host arrays on its mesh; here the restore wrote into the
+        step's own tensors in place (``load_full_parameters``,
+        ``set_states_bytes``), which the captured graphs read, so what is
+        left is to refuse a restore that swapped a parameter's tensor."""
+        if self._trainable is None or self._z3 is not None:
+            return
+        moved = [n for n, p in self._trainable
+                 if p.data_ptr() != self._ptrs.get(n, p.data_ptr())]
+        if moved:
+            raise MXNetError(
+                f"ShardedTrainStep: a restore replaced the tensors of "
+                f"{moved[:3]}; the step updates its parameters in place "
+                f"(restore through CheckpointManager(params=step.block, "
+                f"trainer=step))")
 
     def _resolve_param_specs(self, names):
         """name -> PartitionSpec: a ``param_specs`` key matches a parameter
@@ -1131,12 +1198,14 @@ class ShardedTrainStep:
         device); returns the loss. Allocates nothing that outlives it and
         reads the rate from the device scalar, so it can be captured."""
         params = [p for _, p in self._trainable]
+        if self._gate is not None:
+            self._gate.copy()
         prev = self._train_flags()
         try:
             with torch.enable_grad(), plain_calls():
                 out = self._forward(inputs)
                 outs = out if isinstance(out, (list, tuple)) else (out,)
-                loss = self.loss_fn(*outs, *labels).mean()
+                loss = self._scale(self.loss_fn(*outs, *labels).mean())
                 grads = torch.autograd.grad(loss, params, allow_unused=True)
         finally:
             self._restore_flags(prev)
@@ -1144,6 +1213,8 @@ class ShardedTrainStep:
             gs = [g.to(torch.float32) if g is not None else
                   torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                   for g, p in zip(grads, params)]
+            if self._gate is not None:
+                self._gate.check(gs, loss)
             if self._t is not None:
                 self._t.add_(1)
             self._opt_update(self._p32, gs, self._slots, self._lr.values[0],
@@ -1151,7 +1222,14 @@ class ShardedTrainStep:
             if self._low:
                 torch._foreach_copy_([p for p, _ in self._low],
                                      [m for _, m in self._low])
+            if self._gate is not None:
+                self._gate.select()
         return loss.detach()
+
+    def _scale(self, loss):
+        """The loss times the fault factor where this call is armed for it
+        (the JAX step's ``fault_scale``): an exact identity at 1."""
+        return loss * self._lr.values[1] if self._scaled else loss
 
     def _t_now(self):
         # every parameter's count moves together: the first one is t
@@ -1160,6 +1238,8 @@ class ShardedTrainStep:
     # -- the dp step, in the segments its capture splits into ----------
     def _dp_forward(self, inputs):
         """Segment 1: the forward on this rank's rows; its outputs."""
+        if self._gate is not None:
+            self._gate.copy()
         prev = self._train_flags()
         try:
             with torch.enable_grad(), plain_calls(), \
@@ -1191,7 +1271,7 @@ class ShardedTrainStep:
             # the data axis too: a recompute of the forward runs here
             with torch.enable_grad(), plain_calls(), \
                     _coll.data_axis(self.dp_axis):
-                loss = self.loss_fn(*leaves, *labs).mean()
+                loss = self._scale(self.loss_fn(*leaves, *labs).mean())
                 diff = [i for i, o in enumerate(outs) if o.requires_grad]
                 cots = torch.autograd.grad(
                     loss, [leaves[i] for i in diff], allow_unused=True)
@@ -1245,10 +1325,25 @@ class ShardedTrainStep:
                     _coll.reduce_scatter_into(
                         self._gshard[n], g.movedim(self._zdim[n], 0))
 
-    def _dp_update_phases(self):
+    def _dp_update_phases(self, loss):
         """Segment 5 as functions between which a collective runs: the
         update, or LAMB's direction, its sums-of-squares all-reduce, and
-        its step."""
+        its step. Under the guard the flag comes first, over ``loss`` and
+        this rank's reduced gradients, all-reduced (min) before the
+        update, and the last phase ends with the gate."""
+        phases, between = self._dp_updates()
+        gate = self._gate
+        if gate is None:
+            return phases, between
+        last = phases[-1]
+
+        def gated():
+            last()
+            gate.select()
+        return [lambda: gate.check(self._gs, loss)] + phases[:-1] + \
+            [gated], [lambda: _coll.all_reduce_(gate.ok, op='min')] + between
+
+    def _dp_updates(self):
         kw = self.optimizer_params
         lr = self._lr.values[0]
 
@@ -1338,7 +1433,7 @@ class ShardedTrainStep:
         self._dp_gather(outs, labels, gouts, glabs)
         loss = self._dp_backward(outs, gouts, glabs)
         self._dp_reduce()
-        phases, between = self._dp_update_phases()
+        phases, between = self._dp_update_phases(loss)
         for i, ph in enumerate(phases):
             ph()
             if i < len(between):
@@ -1350,13 +1445,21 @@ class ShardedTrainStep:
     def __call__(self, inputs, labels, lr=None):
         nd_in = any(isinstance(x, NDArray) for x in _as_list(inputs))
         with _trace.span('step.dispatch', step=self._step_count):
+            if self._guard is not None:
+                # the previous step's flag; a rollback restores in place,
+                # and this call's batch trains against what it restored
+                self._guard.pre_step()
+            fault = _faults.fire('step.dispatch')
+            self._scaled = self._guard is not None or \
+                _faults.is_armed('step.dispatch')
             inputs = [self._cast(_as_tensor(x)) for x in _as_list(inputs)]
             labels = [_as_tensor(x) for x in _as_list(labels)]
             if self._trainable is None:
                 with _trace.span('optimizer.state_init'):
                     self._place_deferred(inputs)
                     self._build()
-            self._lr.write([self.lr if lr is None else lr])
+            self._lr.write([self.lr if lr is None else lr,
+                            float('nan') if fault == 'nan' else 1.0])
             if self.device.type != 'cuda' or not self.captured:
                 with _trace.span('step.compiled'), \
                         _memory.oom_guard('step.dispatch'):
@@ -1366,6 +1469,8 @@ class ShardedTrainStep:
                         self._step(ins, labs)
             else:
                 loss = self._replay(inputs, labels)
+        if self._guard is not None:
+            self._guard.push_flag(self._gate.ok)
         self._step_count += 1
         self._record_comm()
         _memory.on_step(self._step_count)
@@ -1394,7 +1499,8 @@ class ShardedTrainStep:
 
     def _replay(self, inputs, labels):
         sig = tuple((tuple(x.shape), x.dtype) for x in inputs) + \
-            (len(inputs),) + tuple((tuple(x.shape), x.dtype) for x in labels)
+            (len(inputs),) + tuple((tuple(x.shape), x.dtype) for x in labels) \
+            + (self._scaled,)
         entry = self._graphs.get(sig)
         if entry is None:
             site = 'step:train_step'
@@ -1446,6 +1552,7 @@ class ShardedTrainStep:
             {'optimizer': self._opt_update.__name__,
              'params': len(self._trainable), 'zero': self._zero_label,
              'remat': self._remat_policy,
+             'guard': self._guard is not None, 'fault_scale': self._scaled,
              'autotune': _autotune.decision_flags() or None})
 
     def _twins(self):
@@ -1485,7 +1592,7 @@ class ShardedTrainStep:
         bwd, loss, _ = capture(
             lambda: self._dp_backward(outs, gouts, glabs), self.device,
             self._twins(), stream=stream)
-        phases, between = self._dp_update_phases()
+        phases, between = self._dp_update_phases(loss)
         upd = [capture(ph, self.device, stream=stream)[0] for ph in phases]
 
         def run():
@@ -1691,23 +1798,22 @@ class ShardedTrainStep:
         }
 
     # -- the states payload, gathered to logical tensors ----------------
-    def _logical(self, n, x):
+    def _logical(self, n, x, host=_host_copy):
         """A master or moment of ``n`` as the whole logical tensor on the
-        host (gathered from every rank's shard under ZeRO; a ZeRO-3 flat
-        store unflattened, its pad dropped)."""
+        host, through ``host`` (gathered from every rank's shard under
+        ZeRO; a ZeRO-3 flat store unflattened, its pad dropped)."""
         if n in self._flat:
             buf = x.new_empty((self._dp, x.numel()))
             _coll.all_gather_into(buf, x.detach())
             shape = dict(self._trainable)[n].shape
-            return buf.reshape(-1)[:self._flat[n]['size']].reshape(shape) \
-                .cpu().numpy()
+            return host(buf.reshape(-1)[:self._flat[n]['size']]
+                        .reshape(shape))
         d = self._zdim.get(n)
         if d is None:
-            return x.detach().to('cpu', copy=True).numpy()
+            return host(x)
         buf = x.new_empty((self._dp,) + tuple(x.shape))
         _coll.all_gather_into(buf, x.detach())
-        return buf.reshape((-1,) + tuple(x.shape[1:])).movedim(0, d) \
-            .cpu().numpy()
+        return host(buf.reshape((-1,) + tuple(x.shape[1:])).movedim(0, d))
 
     def _shard_of(self, n, a):
         """This rank's part of the logical host array ``a`` of ``n``, in
@@ -1731,24 +1837,63 @@ class ShardedTrainStep:
         shards under ZeRO: a collective, called on every rank), keyed by
         structured parameter name (see ``rename_states`` for the JAX
         package's names)."""
+        return pickle.dumps(self.states_doc(_host_copy))
+
+    def states_doc(self, host):
+        """The ``get_states_bytes`` document before pickling, each tensor
+        through ``host`` (tensor -> numpy array): the checkpoint manager
+        passes asynchronous copies into pinned memory and pickles on its
+        writer thread once they have landed."""
         if self._trainable is None:
             if self._pending_states is not None:
-                return pickle.dumps(self._pending_states)
+                return dict(self._pending_states)
             raise MXNetError("get_states_bytes: no optimizer state yet — "
                              "run at least one step first")
-        counts = None if self._t is None else self._t.cpu().numpy()
-        doc = {
+        counts = None if self._t is None else host(self._t)
+        return {
             'format': STATES_FORMAT,
             'opt_state': {
-                n: tuple(self._logical(n, s) for s in self._state[n]) +
-                (() if counts is None else (onp.asarray(counts[i],
-                                                        onp.int32),))
+                # a 0-d view: the host copy may still be landing
+                n: tuple(self._logical(n, s, host) for s in self._state[n])
+                + (() if counts is None else
+                   (counts[i:i + 1].reshape(()),))
                 for i, (n, _) in enumerate(self._trainable)},
-            'master': {n: self._logical(n, m)
+            'master': {n: self._logical(n, m, host)
                        for n, m in self._master.items()},
             'step_count': self._step_count,
             'zero': self.zero, 'stage': self.zero_stage, 'dp': self._dp}
-        return pickle.dumps(doc)
+
+    def load_full_parameters(self, arrays, strict=True):
+        """Write {structured name: host array} (``full_parameters``' names)
+        into the parameters in place, so a captured graph stays valid;
+        under ZeRO-3 each rank takes its shard. Once the step is built the
+        f32 masters follow the new values (a states payload restored after
+        this overwrites them with its own exact masters)."""
+        from ..serialization import to_tensor
+        with torch.no_grad():
+            for n, p in self.block.named_parameters():
+                if n not in arrays:
+                    if strict:
+                        raise MXNetError(
+                            f"load_full_parameters: parameter {n!r} missing "
+                            f"(pass strict=False to skip)")
+                    continue
+                t = to_tensor(arrays[n])
+                if tuple(t.shape) != tuple(p.shape):
+                    raise MXNetError(
+                        f"load_full_parameters: {n!r} has shape "
+                        f"{tuple(t.shape)}, the parameter {tuple(p.shape)}")
+                if self._z3 is not None and n in self._z3.shard:
+                    sh, d = self._z3.shard[n], self._z3.dims[n]
+                    rows = sh.shape[0]
+                    sh.copy_(t.movedim(d, 0).narrow(
+                        0, self.mesh.rank * rows, rows))
+                else:
+                    p.detach().copy_(t)
+            if self._trainable is not None:
+                for n, p in self._trainable:
+                    if n in self._master:
+                        self._master[n].copy_(self._local(n, p))
 
     def set_states_bytes(self, blob):
         """Restore a ``get_states_bytes`` payload (this package's at any

@@ -55,9 +55,14 @@ _FLAG_TO_DTYPE = {
     6: onp.dtype(onp.int64), 7: onp.dtype(onp.bool_),
     8: onp.dtype(onp.int16),
 }
-if _BF16 is not None:
-    _FLAG_TO_DTYPE[12] = _BF16
+# numpy has no bfloat16. Where ml_dtypes is missing, a bfloat16 array is
+# held as its raw bits in a 2-byte structured dtype, written and read under
+# the same type flag as the JAX package's ml_dtypes arrays (the same bytes)
+BF16_BITS = onp.dtype([('bfloat16', '<u2')])
+BF16 = _BF16 if _BF16 is not None else BF16_BITS
+_FLAG_TO_DTYPE[12] = BF16
 _DTYPE_TO_FLAG = {v: k for k, v in _FLAG_TO_DTYPE.items()}
+_DTYPE_TO_FLAG[BF16_BITS] = 12
 
 _STYPE_NAUX = {0: 0, 1: 1, 2: 2}   # dense / row_sparse / csr
 _STYPE_NAME = {0: 'default', 1: 'row_sparse', 2: 'csr'}
@@ -173,6 +178,37 @@ def _read_legacy(f, magic):
     n = int(onp.prod(shape))
     return onp.frombuffer(_read_exact(f, n * dtype.itemsize),
                           dtype=dtype).reshape(shape)
+
+
+def is_bfloat16(a) -> bool:
+    """Is ``a`` (an array or a dtype) bfloat16, as ml_dtypes' or as raw
+    bits (``BF16_BITS``)?"""
+    dt = onp.dtype(getattr(a, 'dtype', a))
+    return dt == BF16_BITS or dt.name == 'bfloat16'
+
+
+def to_numpy(t) -> onp.ndarray:
+    """A CPU tensor as a numpy array over its memory; bfloat16 as
+    ``BF16`` (the same bits)."""
+    import torch
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16)
+    return t.numpy()
+
+
+def to_tensor(a):
+    """A numpy array as a CPU tensor over its memory (bfloat16 from either
+    form, by its bits). The tensor of a read-only array (one loaded from a
+    file) is for reading only."""
+    import warnings
+    import torch
+    a = onp.ascontiguousarray(a)
+    bf16 = is_bfloat16(a)
+    with warnings.catch_warnings():
+        warnings.filterwarnings('ignore', message='The given NumPy array '
+                                'is not writable')
+        t = torch.from_numpy(a.view(onp.int16) if bf16 else a)
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 def sparse_to_dense(stype: str, data: onp.ndarray, aux: List[onp.ndarray],

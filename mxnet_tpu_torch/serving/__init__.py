@@ -11,8 +11,8 @@
   ejection, failover and readmission through /healthz.
 
 Membership discovery and the weight push over the replica transport
-raise until ``parallel.dist`` and the replica layer are ported (ROADMAP
-queue 1 items 9 and 10).
+raise until ``parallel.dist``'s membership and the replica layer are
+ported (ROADMAP queue 1 item 10).
 """
 from .batcher import (BlockRunner, InferenceEngine, RequestShed,
                       RequestTooLarge, ServeError, batch_bucket_for,

@@ -29,8 +29,11 @@ Telemetry, as the JAX engine reports it: every dispatch runs under a
 on, the queue-depth gauge, the shed counter (by reason) and, per
 completed batch, the requests, batches and bucket-hit counters and the
 fill-ratio and latency histograms; every shed is a ``serving.shed``
-flight note. The JAX engine's stall watchdog waits for
-``resilience.watchdog`` (ROADMAP queue 1 item 9).
+flight note. ``watchdog_seconds`` (or ``MXTPU_SERVE_WATCHDOG_SECONDS``)
+arms a ``resilience.StepWatchdog`` over the batcher, beaten once per
+completed batch: a dispatch that completes no batch for that long gets
+one stall report (all-thread stacks, classified COMPILING while a
+capture or a kernel build is open) and a ``serving.stuck`` flight note.
 """
 from __future__ import annotations
 
@@ -169,21 +172,14 @@ class InferenceEngine:
     until its request's batch has been formed, dispatched and sliced; one
     worker thread owns batch formation, and so every dispatch (and any
     capture of a bucket warmup did not see): client threads never touch
-    the card. ``watchdog_seconds`` (or ``MXTPU_SERVE_WATCHDOG_SECONDS``)
-    must be 0: the stall watchdog is not ported (ROADMAP queue 1 item
-    9)."""
+    the card. ``watchdog_seconds`` (or ``MXTPU_SERVE_WATCHDOG_SECONDS``),
+    when nonzero, arms the stall watchdog (``watchdog``; see the module
+    docstring)."""
 
     def __init__(self, runner, seq_buckets=None, batch_buckets=None,
                  deadline_ms=None, queue_limit=None, admission=None,
                  pad_value=0, dtype='int32', name='serve',
                  watchdog_seconds=None):
-        if watchdog_seconds is None:
-            watchdog_seconds = _config.get('MXTPU_SERVE_WATCHDOG_SECONDS')
-        if watchdog_seconds and float(watchdog_seconds) > 0:
-            raise MXNetError(
-                f"InferenceEngine(watchdog_seconds={watchdog_seconds}): "
-                f"the serving watchdog needs resilience.watchdog, which "
-                f"is not ported (ROADMAP queue 1 item 9)")
         self.runner = runner
         self.name = name
         self.dtype = onp.dtype(dtype)
@@ -210,6 +206,18 @@ class InferenceEngine:
         self.requests = 0
         self.batches = 0
         self.shed = 0
+        self.watchdog = None
+        if watchdog_seconds is None:
+            watchdog_seconds = _config.get('MXTPU_SERVE_WATCHDOG_SECONDS')
+        if watchdog_seconds and float(watchdog_seconds) > 0:
+            from ..resilience.watchdog import StepWatchdog
+
+            def _stuck(report):
+                _flight.note('serving.stuck', engine=self.name)
+
+            self.watchdog = StepWatchdog(
+                deadline_seconds=float(watchdog_seconds), on_stall=_stuck)
+            self.watchdog.start()
         self._worker = threading.Thread(
             target=self._loop, daemon=True,
             name=f'mxtt-serve-batcher-{name}')
@@ -290,6 +298,8 @@ class InferenceEngine:
             self._running = False
             self._cv.notify_all()
         self._worker.join(timeout=timeout)
+        if self.watchdog is not None:
+            self.watchdog.stop()
         return flushed
 
     close = drain
@@ -399,6 +409,8 @@ class InferenceEngine:
             for r in reqs:
                 self._latencies.append(now - r.enqueued)
             self.batches += 1
+        if self.watchdog is not None:
+            self.watchdog.beat(self.batches)
         if _telem['on']:
             _metrics.counter('mxnet_tpu_serving_requests_total').inc(
                 len(reqs), engine=self.name)

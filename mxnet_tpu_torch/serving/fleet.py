@@ -19,8 +19,8 @@ N identical replica processes (``PredictServer``) behind a router:
 
 Replica discovery from the membership view (``discover_replicas``) and
 the checkpoint weight push over the replica transport (``push_weights``)
-wait for ``parallel.dist`` and the replica transport (ROADMAP queue 1
-items 9 and 10): they raise, and so does a ``Router`` given a
+wait for ``parallel.dist``'s membership and the replica transport
+(ROADMAP queue 1 item 10): they raise, and so does a ``Router`` given a
 ``membership``.
 """
 from __future__ import annotations
@@ -77,7 +77,8 @@ def push_weights(block, step, replicas, ns='serving', timeout=10.0):
     needs the replica transport and ``parallel.dist``."""
     raise MXNetError(
         "push_weights: the replica transport (checkpoint.replica, "
-        "parallel.dist) is not ported (ROADMAP queue 1 items 9 and 10); "
+        "parallel.dist's membership) is not ported (ROADMAP queue 1 item "
+        "10); "
         "save the weights where the replica reads them and POST /reload "
         "{'path': ...}")
 

@@ -37,7 +37,7 @@ snap, as the JAX package does).
 
 The JAX server also leaves the membership on drain and takes its
 ``replica_root`` from the replica transport; neither is ported (ROADMAP
-queue 1 items 9 and 10): a ``membership`` raises.
+queue 1 item 10): a ``membership`` raises.
 """
 from __future__ import annotations
 

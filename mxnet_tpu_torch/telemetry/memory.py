@@ -20,11 +20,9 @@ forensics (counterpart of ``mxnet_tpu/telemetry/memory.py``).
   "CUDA out of memory" text) dumps ONE atomic JSON post-mortem — the
   watermark ring, the top tracked tensors by bytes and, on the card, the
   allocator's largest segments (``torch.cuda.memory_snapshot()``) — then
-  re-raises. The JAX package's ``alloc.oom`` fault site and its
-  ``memory_analysis`` bucket table wait for the port's
-  ``resilience.faults`` and a mesh-sharded step (ROADMAP queue 1 items 9
-  and 6); the dump keeps their keys (``memory_analysis`` None, no
-  ``hints``).
+  re-raises. The guard fires the deterministic ``alloc.oom`` fault site
+  (``resilience.faults``) on entry: an injected raise there is an OOM
+  too, so a drill leaves exactly the post-mortem a real one would.
 
 Armed with ``MXTPU_MEMORY=1`` (or ``memory.enable()``); sampling
 cadence is ``MXTPU_MEMORY_EVERY`` steps. Disarmed, every step-path hook
@@ -500,9 +498,16 @@ def leak_state():
 
 def is_oom_error(e):
     """Is this exception a device-allocator exhaustion? Matches
-    ``torch.cuda.OutOfMemoryError`` and the allocator's text ("CUDA out
-    of memory", and the JAX package's RESOURCE_EXHAUSTED wording), never
-    ordinary errors."""
+    ``torch.cuda.OutOfMemoryError``, the allocator's text ("CUDA out of
+    memory", and the JAX package's RESOURCE_EXHAUSTED wording) and the
+    injected ``alloc.oom`` fault, never ordinary errors."""
+    try:
+        from ..resilience import faults as _faults
+        if isinstance(e, _faults.InjectedFault) \
+                and getattr(e, 'site', None) == 'alloc.oom':
+            return True
+    except Exception:
+        pass
     try:
         import torch
         if isinstance(e, torch.cuda.OutOfMemoryError):
@@ -515,9 +520,10 @@ def is_oom_error(e):
 
 
 class _OomGuard:
-    """Reusable per-site context manager (no allocation per step): when
-    the guarded block dies of an allocator failure, writes the forensics
-    dump before the error propagates."""
+    """Reusable per-site context manager (no allocation per step): fires
+    the deterministic ``alloc.oom`` fault on entry and, when the guarded
+    block dies of an allocator failure (real or injected), writes the
+    forensics dump before the error propagates."""
 
     __slots__ = ('site',)
 
@@ -525,6 +531,19 @@ class _OomGuard:
         self.site = site
 
     def __enter__(self):
+        from ..resilience import faults as _faults
+        try:
+            _faults.fire('alloc.oom')
+        except _faults.InjectedFault as e:
+            # an injected raise surfaces HERE (before the body runs),
+            # where __exit__ never sees it — dump and re-raise so the
+            # drill leaves exactly the post-mortem a real OOM would
+            if is_oom_error(e):
+                try:
+                    dump_oom(self.site, e)
+                except Exception:
+                    pass
+            raise
         return self
 
     def __exit__(self, etype, e, tb):
@@ -541,7 +560,8 @@ _guards = {}
 
 def oom_guard(site):
     """The shared guard for one dispatch site — always armed (the cost
-    until an OOM fires is entering a context manager)."""
+    until an OOM fires is one dict check from the fault registry's
+    disarmed fast path)."""
     g = _guards.get(site)
     if g is None:
         g = _guards[site] = _OomGuard(site)

@@ -25,14 +25,13 @@ Endpoints (GET only):
 Armed by ``MXTPU_METRICS_PORT`` (0 = off; rank r serves on base + r), or
 call ``start()`` directly.
 
-The JAX endpoint also reports the membership view of
-``parallel.dist`` and the newest step a ``CheckpointManager`` committed.
-Neither is ported (ROADMAP queue 1 items 10 and 9), so this endpoint
-answers as the JAX one does for a lone process with neither:
-``last_committed_step`` is None and ``verdict`` is the single-process
-branch of ``resilience.elastic.stall_verdict`` (an open compile window
-classifies a stall as ``compiling``, else None). Passing a
-``membership`` raises.
+/healthz reports ``last_committed_step``, the newest step any live
+``checkpoint.CheckpointManager`` of this process committed (None without
+one). The JAX endpoint also reports the membership view of
+``parallel.dist``, which is not ported (ROADMAP queue 1 item 10), so
+``verdict`` is the single-process branch of the JAX
+``resilience.elastic.stall_verdict`` (an open compile window classifies a
+stall as ``compiling``, else None). Passing a ``membership`` raises.
 """
 from __future__ import annotations
 
@@ -306,7 +305,8 @@ class TelemetryServer:
         # operator should see the pressure BEFORE the OOM
         doc['memory'] = _memory.health_fields()
         doc['compile'] = _compile.health_fields()
-        doc['last_committed_step'] = None
+        from ..checkpoint.manager import last_committed_step
+        doc['last_committed_step'] = last_committed_step()
         doc['verdict'] = stall_verdict()
         mon = _fleet.monitor()
         if mon is not None:

@@ -455,16 +455,70 @@ def test_too_long_request_is_a_client_error(P, arrays):
         eng.drain()
 
 
-def test_port_watchdog_is_refused_until_ported(arrays, monkeypatch):
-    P = _ns('mxnet_tpu_torch')
-    runner = lambda mat: onp.zeros(mat.shape + (2,), 'float32')  # noqa
-    with pytest.raises(P.MXNetError, match='item 9'):
-        P.serving.InferenceEngine(runner, watchdog_seconds=5.0)
-    monkeypatch.setenv('MXTPU_SERVE_WATCHDOG_SECONDS', '2')
-    with pytest.raises(P.MXNetError, match='resilience.watchdog'):
-        P.serving.InferenceEngine(runner)
+def _watchdog_of(P, eng):
+    return eng.watchdog if P.port else eng._watchdog
+
+
+def _zeros_runner(stall_on=None, stall_s=0.0):
+    calls = []
+
+    def runner(mat):
+        calls.append(mat.shape)
+        if len(calls) == stall_on:
+            time.sleep(stall_s)
+        return onp.zeros(mat.shape + (2,), 'float32')
+    return runner
+
+
+def test_watchdog_reports_one_stall_for_a_stalled_dispatch(P):
+    """A dispatch that completes no batch for longer than the deadline
+    gets exactly one stall report, in both packages (one per stall: the
+    watchdog re-arms at the next completed batch)."""
+    eng = P.serving.InferenceEngine(
+        _zeros_runner(stall_on=2, stall_s=1.5), seq_buckets='8',
+        batch_buckets='1', deadline_ms=1.0, watchdog_seconds=0.5)
+    try:
+        for seq in ([1, 2, 3], [4, 5], [6]):
+            eng.submit(seq, timeout=10.0)
+        wd = _watchdog_of(P, eng)
+        assert wd.deadline_seconds == 0.5
+    finally:
+        eng.drain(timeout=10.0)
+    assert wd.stalls == 1
+    assert wd.last_step == 3              # one beat per completed batch
+    assert P.telemetry.value(
+        'mxnet_tpu_resilience_watchdog_stalls_total') == 1
+
+
+def test_watchdog_stays_quiet_through_a_burst(P, monkeypatch):
+    """Armed from MXTPU_SERVE_WATCHDOG_SECONDS, a burst of requests from
+    two threads gives no stall report; drain stops the watchdog."""
+    monkeypatch.setenv('MXTPU_SERVE_WATCHDOG_SECONDS', '5')
+    eng = P.serving.InferenceEngine(
+        _zeros_runner(), seq_buckets='8,16', batch_buckets='1,2,4',
+        deadline_ms=1.0)
+    wd = _watchdog_of(P, eng)
+    assert wd is not None and wd.deadline_seconds == 5.0
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(10):
+                eng.submit(list(range(1, 2 + (i + k) % 15)), timeout=10.0)
+        except Exception as e:          # noqa: BLE001
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30.0)
+    eng.drain(timeout=10.0)
+    assert not errors and wd.stalls == 0 and wd.last_step >= 1
+    assert wd._thread is None             # stopped with the engine
     monkeypatch.delenv('MXTPU_SERVE_WATCHDOG_SECONDS')
-    P.serving.InferenceEngine(runner, watchdog_seconds=0).drain()
+    eng = P.serving.InferenceEngine(_zeros_runner(), watchdog_seconds=0)
+    assert _watchdog_of(P, eng) is None
+    eng.drain()
 
 
 def test_port_results_survive_a_reused_output_buffer():

@@ -331,7 +331,6 @@ def test_the_step_refuses_what_is_not_ported(jax_model, monkeypatch):
     net = _port(arrays)
     mesh = parallel.make_mesh(devices=['cpu'])
     for kw, item in ((dict(compression_params={'type': 'fp16'}), 'item 8'),
-                     (dict(guard=object()), 'item 9'),
                      (dict(hierarchy=2), 'item 8'),
                      (dict(param_specs={'qkv': ('tp',)}), 'item 6a')):
         with pytest.raises(MXNetError, match=item):

@@ -15,10 +15,12 @@ references run here, each JAX block with a prefix, so no JAX name
 counter moves. f32 throughout: parity within 1e-6 (the JAX suite's
 bound), ZeRO-3 against ZeRO-1 bit for bit.
 
-Left out, each named: the non-finite guard and ``CheckpointManager``
-cases (ROADMAP queue 1 item 9: neither is ported), the tensor-parallel
-composition (item 6a), and the Trainer's stage 3 (what remains of item
-7: the port's Trainer raises at ``MXTPU_ZERO=3`` with dp > 1, which
+The non-finite guard and ``CheckpointManager`` cases at stage 3 are in
+tests/test_torch_resilience.py (a NaN rank skipping on every rank) and
+tests/test_torch_checkpoint.py (a dp-2 checkpoint restored at dp 1).
+Left out, each named: the tensor-parallel composition (item 6a), and the
+Trainer's stage 3 (what remains of item 7: the port's Trainer raises at
+``MXTPU_ZERO=3`` with dp > 1, which
 ``test_trainer_zero3_raises_where_the_jax_trainer_shards`` shows).
 """
 import os
