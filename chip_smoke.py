@@ -153,6 +153,38 @@
    are set to 0 before (b) and must read 0 after (a): this path runs
    none of them (its convolutions, pooling and BatchNorm are stock
    PyTorch/cuDNN ops, as the JAX package leaves them to XLA).
+8a. io phase (after the Gluon phase): MXNet's input pipeline on the card.
+   (a) A probe, decided up front and checked after: g++, jpeglib.h, a
+   system libjpeg, PIL and the libjpeg-turbo bundled in Pillow's wheel;
+   with g++ and either libjpeg the native runtime (src/io/mxtpu_io.cc,
+   built by mxnet_tpu_torch/_native.py) must build and serve, else the
+   PIL path, else raw uint8 through NDArrayIter. (b) bench.py's
+   _io_report on the card: 384 noise JPEGs 360 x 480 q90 (written with
+   PIL; without PIL the committed fixture tools/fixtures/io_smooth.rec),
+   B = 64, resize 256, random crop 224, mirror, bench.py's mean/std,
+   os.cpu_count() decode threads; images/s of the cold epoch and of 3
+   warm ones for f32-copy, u8-lease and u8-lease+device-prefetch, host
+   bytes per image and the decode cache's hits and misses; the u8 batch
+   (normalized on the card) against the f32 one (normalized on the host)
+   bitwise. (c) The Gluon phase's ResNet-50 v1 program (bf16, B = 64)
+   fed by ImageRecordIter(transport='u8', dtype='bfloat16') through
+   DevicePrefetchIter(depth=2), against the same step on a resident
+   batch: step ms (median and spread of 3 calls of 8), images/s, a
+   profiled step's idle share. (d) The compiled BERT-base step (bf16,
+   dropout 0.1, both knobs on) fed by gluon.data.DataLoader over an
+   ArrayDataset of 40 flagship rows (pin_memory=True, num_workers=2): 5
+   losses bitwise those of the same batches resident on the card, the
+   launch counters at 0 just before (the eager step and the capture:
+   24 / 24 / 24 / 48 / 24, the kernels' io column). (e) 200 u8 batches
+   under a slow consumer, a busy side stream and a delay planted on the
+   iterator's copy stream between each copy and its event, each bitwise
+   its f32 twin; no lease goes back before its event, the drains that
+   found the copy unfinished and waited (must be some); then 20 batches
+   with the drain's event sync taken out must show leases going back
+   early, so the probe can see a missing drain. (f) io.decode:corrupt under
+   corrupt_policy='skip' skips the same records twice; io.device_put:
+   raise reaches the caller; dataloader.worker:raise respawns twice and
+   leaves the batches unchanged.
 9. Compiled-step phase (the last to run): parallel.ShardedTrainStep, the flagship's entry
    point, whose step (forward, backward, AdamW) is one CUDA graph
    replayed per call. First, at hidden 128 and 2 layers in f32 with
@@ -3102,6 +3134,580 @@ def gluon_phase(card, batch=64, warmup=2, timed=8, loop_steps=5):
 
 
 # --------------------------------------------------------------------------
+# io phase: MXNet's input pipeline on the card
+# --------------------------------------------------------------------------
+
+IO_BATCH = 64
+IO_IMAGES = 384                  # bench.py's _io_report: 384 JPEGs,
+IO_SRC_HW = (360, 480)           # 360 x 480, quality 90
+IO_OUT = 224
+IO_RESIZE = 256
+IO_MEANSTD = dict(mean_r=123.68, mean_g=116.78, mean_b=103.94,
+                  std_r=58.4, std_g=57.1, std_b=57.4)
+IO_FIXTURE = os.path.join('tools', 'fixtures', 'io_smooth.rec')
+IO_RESIDENT_MS = 32.819          # ResNet-50 B = 64 bf16, resident (PR 10)
+LEASE_PROBE_BATCHES = 200
+
+
+def io_probe():
+    """What the machine offers the input pipeline, decided up front: the
+    native runtime needs g++ and a libjpeg, the system's (jpeglib.h and a
+    libjpeg shared library) or the libjpeg-turbo bundled in Pillow's
+    wheel (with the port's ABI-62 headers); the records are written with
+    PIL where it exists, else read from the committed fixture; with no
+    decoder at all the phase runs on raw uint8."""
+    import ctypes.util
+    import importlib.util
+    import shutil
+    from mxnet_tpu_torch import _native
+    gxx = shutil.which('g++')
+    header = False
+    if gxx:
+        header = subprocess.run(
+            [gxx, '-fsyntax-only', '-x', 'c++', '-'],
+            input='#include <cstdio>\n#include <jpeglib.h>\n',
+            capture_output=True, text=True, timeout=60).returncode == 0
+    libjpeg = ctypes.util.find_library('jpeg')
+    pil = importlib.util.find_spec('PIL') is not None
+    bundled = _native.pillow_libjpeg()
+    system = bool(header and libjpeg)
+    native = bool(gxx and (system or bundled))
+    out = dict(gxx=gxx, jpeglib_h=header, libjpeg=libjpeg, pil=pil,
+               pillow_libjpeg=bundled, native=native,
+               jpeg=('system' if system else bundled) if native else None,
+               decoder=native or pil,
+               records=('written (PIL, as bench.py writes them)' if pil
+                        else f'the committed fixture {IO_FIXTURE}'))
+    path = ('the native runtime on the system libjpeg' if native and system
+            else "the native runtime on Pillow's bundled libjpeg-turbo"
+            if native else 'the PIL path' if pil
+            else 'the raw uint8 path (no JPEG decoder)')
+    print(f'  (a) probe: g++ {gxx or "missing"}, jpeglib.h '
+          f'{"found" if header else "missing"}, system libjpeg '
+          f'{libjpeg or "missing"}, PIL {"found" if pil else "missing"}, '
+          f'libjpeg bundled with Pillow {bundled or "missing"} -> decode on '
+          f'{path}; records {out["records"] if out["decoder"] else "none"}')
+    return out
+
+
+def io_records(work, probe):
+    """(path, images) of the phase's .rec file."""
+    import io as pyio
+    import numpy as onp
+    from mxnet_tpu_torch import recordio
+    if not probe['pil']:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            IO_FIXTURE)
+        check(os.path.isfile(path), f'{IO_FIXTURE} is missing')
+        n = 0
+        rec = recordio.MXRecordIO(path, 'r')
+        while rec.read() is not None:
+            n += 1
+        rec.close()
+        return path, n
+    from PIL import Image
+    path = os.path.join(work, 'bench.rec')
+    rec = recordio.MXRecordIO(path, 'w')
+    rng = onp.random.RandomState(0)
+    for i in range(IO_IMAGES):
+        img = (rng.rand(*IO_SRC_HW, 3) * 255).astype(onp.uint8)
+        buf = pyio.BytesIO()
+        Image.fromarray(img).save(buf, format='JPEG', quality=90)
+        rec.write(recordio.pack(recordio.IRHeader(0, float(i % 10), i, 0),
+                                buf.getvalue()))
+    rec.close()
+    return path, IO_IMAGES
+
+
+def _record_iter(path, probe, **kw):
+    from mxnet_tpu_torch.io import ImageRecordIter
+    args = dict(path_imgrec=path, data_shape=(3, IO_OUT, IO_OUT),
+                batch_size=IO_BATCH, resize=IO_RESIZE, rand_crop=True,
+                rand_mirror=True, preprocess_threads=os.cpu_count() or 4,
+                **IO_MEANSTD)
+    args.update(kw)
+    it = ImageRecordIter(**args)
+    if probe['native'] and args.get('corrupt_policy') != 'skip':
+        check(it.native, 'the probe found g++, jpeglib.h and libjpeg but '
+              'the native pipeline is not serving the iterator')
+    return it
+
+
+def io_transport(path, probe, transport, prefetch, epochs=3):
+    """bench.py's _io_report on the card: images/s of a cold epoch and of
+    ``epochs`` warm ones, the decode cache, host bytes per image."""
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.io import DevicePrefetchIter
+    it = _record_iter(path, probe, transport=transport)
+    src = DevicePrefetchIter(it, depth=2) if prefetch else it
+    t0 = time.perf_counter()
+    seen = 0
+    for b in src:
+        seen += b.data[0].shape[0]
+    torch.cuda.synchronize()
+    cold = seen / (time.perf_counter() - t0)
+    telemetry.enable()
+    bytes0 = telemetry.counter('mxnet_tpu_io_host_bytes_total').value() or 0
+    seen = 0
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        src.reset()
+        for b in src:
+            seen += b.data[0].shape[0]
+    torch.cuda.synchronize()
+    warm = seen / (time.perf_counter() - t0)
+    host = ((telemetry.counter('mxnet_tpu_io_host_bytes_total').value() or 0)
+            - bytes0) / max(seen, 1)
+    telemetry.disable()
+    check(b.data[0]._data.is_cuda, 'a batch did not land on the card')
+    out = dict(images_per_s=warm, cold_images_per_s=cold,
+               host_bytes_per_image=host, native=it.native)
+    if it.native:
+        hits, misses, nbytes = it._pipe.cache_stats()
+        out['decode_cache'] = dict(hits=hits, misses=misses, bytes=nbytes)
+    return out
+
+
+def io_resnet_fed(path, probe, card, steps=8):
+    """(c) ResNet-50 v1 (bench.py's _resnet_report program, bf16, B = 64)
+    fed by ImageRecordIter(transport='u8', dtype='bfloat16') through
+    DevicePrefetchIter(depth=2), against the same step on a resident
+    batch."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.io import DevicePrefetchIter
+    from mxnet_tpu_torch.parallel import ShardedTrainStep
+
+    mx.random.seed(SEED + 6)
+    net = resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier())
+    net.cast('bfloat16')
+
+    def loss_fn(logits, labels):
+        logp = nd.log_softmax(logits, axis=-1)
+        return -nd.mean(nd.pick(logp, labels, axis=-1))
+
+    step = ShardedTrainStep(net, loss_fn, 'sgd',
+                            {'learning_rate': 0.1, 'momentum': 0.9})
+    src = DevicePrefetchIter(_record_iter(path, probe, transport='u8',
+                                          dtype='bfloat16'), depth=2)
+
+    def batch():
+        try:
+            return src.next()
+        except StopIteration:
+            src.reset()
+            return src.next()
+
+    def fed():
+        b = batch()
+        return step(b.data, b.label)
+
+    warm = [float(fed().asnumpy()) for _ in range(2)]
+    check(all(onp.isfinite(warm)), f'non-finite fed losses {warm}')
+    for _ in range(IO_IMAGES // IO_BATCH):
+        fed()              # the rest of the cold epoch fills the decode cache
+    b = batch()
+    check(b.data[0]._data.dtype == torch.bfloat16 and
+          b.data[0].shape == (IO_BATCH, 3, IO_OUT, IO_OUT),
+          f'fed batch {b.data[0].shape} {b.data[0]._data.dtype}')
+    xres = nd.NDArray(b.data[0]._data.clone())
+    yres = nd.NDArray(b.label[0]._data.clone())
+
+    def resident():
+        return step([xres], [yres])
+
+    out = {}
+    for label, fn, how in (
+            ('fed', fed, 'ImageRecordIter u8 -> bf16 + DevicePrefetchIter(2)'),
+            ('resident', resident, 'one batch resident on the card')):
+        fn()
+        calls = [steps_ms(fn, steps) for _ in range(3)]
+        loss = float(fn().asnumpy())
+        check(onp.isfinite(loss), f'non-finite {label} loss')
+        ms = sorted(calls)[1]
+        out[label] = dict(step_ms=ms, calls_ms=calls,
+                          images_per_s=IO_BATCH / ms * 1e3)
+        print(f'  (c) ResNet-50 v1 at B={IO_BATCH} bf16, {label} ({how}) '
+              f'on {card}: {ms:.3f} ms per step, the median of 3 calls of '
+              f'{steps} ({", ".join(f"{c:.3f}" for c in calls)} ms; spread '
+              f'{max(calls) - min(calls):.3f}), '
+              f'{IO_BATCH / ms * 1e3:.1f} images/s, '
+              f'{os.cpu_count()} host cores')
+        out[label]['busy'] = device_breakdown(
+            f'ResNet-50 step b{IO_BATCH}, {label}', fn, card, 3)
+    check(len(step._graphs) == 1, f'{len(step._graphs)} graphs captured')
+    print(f'  (c) fed against resident: {out["fed"]["step_ms"]:.3f} against '
+          f'{out["resident"]["step_ms"]:.3f} ms per step in this run '
+          f'(resident {IO_RESIDENT_MS} ms in PR 10\'s run), the pipeline\'s '
+          f'gap {out["fed"]["step_ms"] - out["resident"]["step_ms"]:.3f} ms')
+    return out
+
+
+def io_bert_fed(card, steps=5, batch=8, seq=512):
+    """(d) The compiled BERT-base step fed by gluon.data.DataLoader
+    (pin_memory=True, num_workers=2) against the same batches resident on
+    the card: each step's loss bitwise equal."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config,
+                                             bert_pretrain_loss)
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+
+    os.environ['MXTPU_PALLAS_LN'] = '1'
+    os.environ['MXTPU_PALLAS_FFN'] = '1'
+    cfg = bert_base_config()
+    L = cfg['layers']
+    data, _ = pretraining_batch(cfg, steps * batch, seq, SEED + 40)
+    ds = ArrayDataset(*[data[k] for k in ('tokens', 'types', 'valid', 'mpos',
+                                          'labels', 'nsp')])
+
+    def make():
+        gen = torch.Generator('cuda').manual_seed(SEED + 41)
+        net = BertForPretraining(dict(cfg, dropout=0.1), dtype=torch.bfloat16,
+                                 device='cuda', generator=gen)
+        net.load_state_dict(params_from_mxnet_tpu(random_bert_arrays(net),
+                                                  net))
+        return net, parallel.ShardedTrainStep(
+            net, bert_pretrain_loss, 'adamw',
+            {'learning_rate': 1e-4, 'wd': 0.01})
+
+    with mt.cpu():
+        host = list(DataLoader(ds, batch_size=batch))
+    resident = [[x._data.cuda() for x in b] for b in host]
+    torch.cuda.synchronize()
+    net, step = make()
+    want = [step(b[:4], b[4:]) for b in resident]
+    want = [float(x) for x in want]
+    del net, step
+    torch.cuda.empty_cache()
+
+    net, step = make()
+    mt.ops.reset_launch_counts()
+    loader = DataLoader(ds, batch_size=batch, pin_memory=True, num_workers=2)
+    check(loader._pin_to is not None, 'the loader is not pinning for the card')
+    t0 = time.perf_counter()
+    got = []
+    for b in loader:
+        check(all(x._data.is_cuda for x in b), 'a loader batch is not on '
+              'the card')
+        got.append(step(b[:4], b[4:]))
+    got = [float(x) for x in got]
+    wall = time.perf_counter() - t0
+    launches = dict(mt.ops.launch_counts)
+    loader.close()
+    same = [a.hex() == b.hex() for a, b in zip(got, want)]
+    print(f'  (d) compiled BERT-base step (bf16, dropout 0.1, both knobs on) '
+          f'fed by DataLoader(pin_memory=True, num_workers=2) over '
+          f'{len(ds)} pretraining rows, B={batch} T={seq}, {steps} steps in '
+          f'{wall:.2f} s (call 1 eager and capture): losses '
+          f'{[x.hex() for x in got]}; resident {[x.hex() for x in want]} '
+          f'-> {"bitwise equal" if all(same) else "DIFFERENT"}; launches '
+          f'{launches}')
+    check(len(got) == steps and all(same), f'fed losses {got} against '
+          f'resident {want}')
+    check(launches == {'flash_attn_fwd': 2 * L, 'flash_attn_bwd_dq': 2 * L,
+                       'flash_attn_bwd_dkv': 2 * L,
+                       'fused_add_layernorm': 4 * L, 'dense_gelu': 2 * L},
+          f'launch counts {launches} for the eager step and the capture')
+    del net, step
+    torch.cuda.empty_cache()
+    return launches, dict(losses=got)
+
+
+def _lease_probe_run(path, probe, batches, mutate_drain=False):
+    """u8 batches under a slow consumer (a host sleep between next() and
+    use, GEMMs on a busy side stream) with a delay planted on the
+    iterator's copy stream between each copy and the event behind it,
+    compared with their f32 twins on the card with no host sync until
+    the end. Returns (batches, mismatches, drains, waits, the returns
+    that found their lease's event unfinished)."""
+    import torch
+    it = _record_iter(path, probe, transport='u8', rand_crop=False,
+                      rand_mirror=False, shuffle=True, seed=7)
+    twin = _record_iter(path, probe, transport='f32', rand_crop=False,
+                        rand_mirror=False, shuffle=True, seed=7)
+    events = {}
+    early = [0]
+    if it._h2d.stream is not None:
+        finish, normalize = it._h2d.finish, it._normalize_u8
+        returned = it._pipe.return_lease if it._pipe is not None else None
+
+        def delayed_finish(tensors):
+            with torch.cuda.stream(it._h2d.stream):
+                torch.cuda._sleep(120_000_000)  # ~60 ms before the event
+            return finish(tensors)
+
+        def capture(u8):
+            # the delay goes behind the lease's copy only, not the labels'
+            it._h2d.finish = delayed_finish
+            try:
+                out, ev = normalize(u8)
+            finally:
+                it._h2d.finish = finish
+            events[it._lease] = ev
+            return out, ev
+
+        def checked_return(lease_id):
+            early[0] += not events[lease_id].query()
+            return returned(lease_id)
+
+        it._normalize_u8 = capture
+        if returned is not None:
+            it._pipe.return_lease = checked_return
+    busy = torch.cuda.Stream()
+    a = torch.randn(4096, 4096, device='cuda', dtype=torch.bfloat16)
+    bad = torch.zeros((), dtype=torch.int64, device='cuda')
+    pads = n = 0
+    sync = torch.cuda.Event.synchronize
+    if mutate_drain:
+        torch.cuda.Event.synchronize = lambda self: None
+    try:
+        while n < batches:
+            try:
+                b, t = it.next(), twin.next()
+            except StopIteration:
+                it.reset()
+                twin.reset()
+                continue
+            with torch.cuda.stream(busy):
+                for _ in range(4):
+                    a @ a
+            time.sleep(0.005)
+            bad += (b.data[0]._data != t.data[0]._data).any(
+                ) | (b.label[0]._data != t.label[0]._data).any()
+            pads += b.pad != t.pad
+            n += 1
+    finally:
+        torch.cuda.Event.synchronize = sync
+    torch.cuda.synchronize()
+    return n, int(bad) + pads, it.lease_drains, it.lease_drain_waits, \
+        early[0]
+
+
+def io_lease_probe(path, probe, card, batches=LEASE_PROBE_BATCHES):
+    """(e) The lease race probe: every lease goes back only after the
+    event behind the copy and normalize that read it, and every batch
+    equals its twin from the f32 transport with the same seed; the same
+    run with the drain's event sync taken out must show leases going
+    back early, or the probe could not see a missing drain."""
+    t0 = time.perf_counter()
+    n, bad, drains, waits, early = _lease_probe_run(path, probe, batches)
+    print(f'  (e) lease race probe on {card}: {n} u8 batches (a 5 ms '
+          f'consumer sleep, 4 GEMMs of 4096^2 bf16 on a busy side stream, '
+          f'~60 ms planted between each copy and its event) against the '
+          f'f32 twin: {bad} mismatches; sync.lease_drain {drains} drains, '
+          f'{waits} found the copy unfinished and waited, {early} leases '
+          f'went back before their event; {time.perf_counter() - t0:.1f} s')
+    check(bad == 0, f'{bad} u8 batches differ from the f32 twin')
+    check(early == 0, f'{early} leases went back before their copy\'s event')
+    out = dict(batches=n, mismatches=bad, drains=drains, waits=waits,
+               early=early)
+    if probe['native']:
+        check(waits > 0, 'the planted delay never outlasted a drain: the '
+              'probe cannot see a missing one')
+        m = _lease_probe_run(path, probe, 20, mutate_drain=True)
+        print(f'  (e) the same with the drain\'s event sync taken out: '
+              f'{m[0]} batches, {m[4]} leases went back before their event '
+              f'(the lease is pageable, so its copy had staged it: '
+              f'{m[1]} mismatches)')
+        check(m[4] > 0, 'with no drain no lease went back early: the probe '
+              'cannot see a missing drain')
+        out['early_without_drain'] = m[4]
+    return out
+
+
+def io_faults(path, probe):
+    """(f) The input pipeline's fault sites: io.decode:corrupt under
+    corrupt_policy='skip' skips the same records in two runs;
+    io.device_put:raise reaches the caller; dataloader.worker:raise
+    respawns within its budget and leaves the batches unchanged."""
+    import logging
+    import warnings
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.io import DevicePrefetchIter, NDArrayIter
+    from mxnet_tpu_torch.resilience import InjectedFault, faults
+
+    skipped = []
+    if probe['pil']:
+        class Grab(logging.Handler):
+            def emit(self, record):
+                skipped[-1].append(record.args[0].index)
+        log = logging.getLogger('mxnet_tpu_torch.io')
+        h = Grab()
+        log.addHandler(h)
+        try:
+            for _ in range(2):
+                skipped.append([])
+                faults.arm('io.decode', 'corrupt', prob=0.05, seed=11)
+                with warnings.catch_warnings():
+                    warnings.simplefilter('ignore', RuntimeWarning)
+                    it = _record_iter(path, probe, transport='u8',
+                                      corrupt_policy='skip')
+                check(not it.native, 'io.decode armed: the python path')
+                n = sum(b.data[0].shape[0] - b.pad for b in it)
+                faults.disarm()
+                check(n == IO_IMAGES, f'{n} images in a skipping epoch')
+        finally:
+            log.removeHandler(h)
+            faults.disarm()
+        print(f'  (f) io.decode:corrupt (prob 0.05, seed 11) under '
+              f'corrupt_policy=skip: skipped records {sorted(skipped[0])} '
+              f'then {sorted(skipped[1])}')
+        check(skipped[0] and sorted(skipped[0]) == sorted(skipped[1]),
+              'the skipped records differ between two runs')
+    else:
+        print('  (f) io.decode: not run (no PIL: the python decode path, '
+              'where the site sits, cannot decode)')
+
+    x = onp.arange(64, dtype=onp.float32).reshape(16, 4)
+    y = onp.arange(16, dtype=onp.float32)
+    faults.arm('io.device_put', 'raise')
+    try:
+        pre = DevicePrefetchIter(NDArrayIter(x, y, batch_size=4,
+                                             ctx=mx.cpu()), depth=2)
+        raised = False
+        try:
+            pre.next()
+        except InjectedFault:
+            raised = True
+    finally:
+        faults.disarm()
+    print(f'  (f) io.device_put:raise -> '
+          f'{"InjectedFault in the caller" if raised else "NOT RAISED"}')
+    check(raised, 'io.device_put:raise did not reach the caller')
+
+    def loader():
+        return DataLoader(ArrayDataset(x, y), batch_size=4, num_workers=2,
+                          pin_memory=True, worker_retries=2)
+    want = [[a.asnumpy() for a in b] for b in loader()]
+    telemetry.enable()
+    telemetry.reset()
+    faults.arm('dataloader.worker', 'raise', window=(1, 2))
+    try:
+        got = [[a.asnumpy() for a in b] for b in loader()]
+    finally:
+        faults.disarm()
+    respawns = telemetry.value('mxnet_tpu_resilience_worker_respawns_total')
+    telemetry.reset()
+    telemetry.disable()
+    same = len(got) == len(want) and all(
+        onp.array_equal(u, v) for bg, bw in zip(got, want)
+        for u, v in zip(bg, bw))
+    print(f'  (f) dataloader.worker:raise (occurrences 1-2): {respawns} '
+          f'respawns, batches {"unchanged" if same else "CHANGED"}')
+    check(respawns == 2 and same, 'dataloader.worker respawn')
+    torch.cuda.synchronize()
+    return dict(skipped=skipped, device_put_raised=raised,
+                respawns=respawns)
+
+
+def io_phase(card):
+    """MXNet's input pipeline on the card: (a) the probe, (b) images/s by
+    transport, (c) ResNet-50 fed against resident, (d) the compiled BERT
+    step fed by the DataLoader, (e) the lease race probe, (f) the fault
+    sites. Returns the kernels' launches of (d)'s run."""
+    import tempfile
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _native
+
+    t_phase = time.perf_counter()
+    print(f'io phase on {card}: RecordIO, the native decode runtime, '
+          f'ImageRecordIter, DevicePrefetchIter and gluon.data on the card; '
+          f'{os.cpu_count()} host cores')
+    probe = io_probe()
+    if probe['native']:
+        t0 = time.perf_counter()
+        lib = _native.get_lib()
+        check(lib is not None, f'native build failed: {_native.build_error()}')
+        print(f'  (a) native runtime: {lib._name}, libjpeg '
+              f'{_native.jpeg_route()} ({time.perf_counter() - t0:.1f} s to '
+              f'build and load)')
+        check(_native.jpeg_route() == probe['jpeg'],
+              f'the library links {_native.jpeg_route()}, the probe chose '
+              f'{probe["jpeg"]}')
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        if not probe['decoder']:
+            # no JPEG decoder at all: raw uint8 through NDArrayIter
+            from mxnet_tpu_torch.io import DevicePrefetchIter, NDArrayIter
+            rng = onp.random.RandomState(0)
+            u8 = (rng.rand(IO_BATCH * 6, 3, IO_OUT, IO_OUT) * 255).astype(
+                onp.uint8)
+            src = DevicePrefetchIter(NDArrayIter(u8, onp.zeros(len(u8)),
+                                                 batch_size=IO_BATCH,
+                                                 ctx=mx.cpu()), depth=2)
+            t0 = time.perf_counter()
+            n = sum(b.data[0].shape[0] for b in src)
+            torch.cuda.synchronize()
+            print(f'  (b) no JPEG decoder: raw uint8 NDArrayIter + '
+                  f'DevicePrefetchIter {n / (time.perf_counter() - t0):.1f} '
+                  f'images/s; (c) and the ImageRecordIter parts not run')
+            launches, bert = io_bert_fed(card)
+            return launches, dict(probe=probe, bert=bert)
+        path, n_img = io_records(work, probe)
+        print(f'  (b) {n_img} records, {os.path.getsize(path)} bytes: JPEG '
+              f'{IO_SRC_HW[0]}x{IO_SRC_HW[1]} -> resize {IO_RESIZE} -> '
+              f'random crop '
+              f'{IO_OUT} + mirror + mean/std, B={IO_BATCH}, '
+              f'{os.cpu_count()} decode threads')
+        ab = {}
+        for name, transport, prefetch in (('f32-copy', 'f32', False),
+                                          ('u8-lease', 'u8', False),
+                                          ('u8-lease+device-prefetch', 'u8',
+                                           True)):
+            ab[name] = r = io_transport(path, probe, transport, prefetch)
+            cache = r.get('decode_cache')
+            print(f'  (b) {name} on {card}: cold epoch '
+                  f'{r["cold_images_per_s"]:.1f} images/s, 3 warm epochs '
+                  f'{r["images_per_s"]:.1f} images/s, host bytes per image '
+                  f'{r["host_bytes_per_image"]:.0f}, decode cache '
+                  + (f'{cache["hits"]} hits, {cache["misses"]} misses, '
+                     f'{cache["bytes"] / 2 ** 20:.1f} MiB'
+                     if cache else 'n/a (PIL path)'))
+        # u8 against f32 on the card, bitwise (center crop: the native
+        # pipeline's random crops depend on which decode thread takes a
+        # batch)
+        kw = dict(rand_crop=False, rand_mirror=False, shuffle=True, seed=3)
+        u8 = [(b.data[0]._data, b.label[0]._data) for b in
+              _record_iter(path, probe, transport='u8', **kw)]
+        f32 = [(b.data[0]._data, b.label[0]._data) for b in
+               _record_iter(path, probe, transport='f32', **kw)]
+        diff = max(float((a - c).abs().max()) for (a, _), (c, _) in
+                   zip(u8, f32))
+        labels = all(torch.equal(a, c) for (_, a), (_, c) in zip(u8, f32))
+        print(f'  (b) u8 (normalized on the card) against f32 (normalized '
+              f'on the host) over {len(u8)} batches on the card: max abs '
+              f'difference {diff}, labels {"equal" if labels else "DIFFER"}')
+        check(len(u8) == len(f32) and diff == 0.0 and labels,
+              'u8 and f32 transports differ on the card')
+        del u8, f32
+        resnet = io_resnet_fed(path, probe, card)
+        torch.cuda.empty_cache()
+        launches, bert = io_bert_fed(card)
+        lease = io_lease_probe(path, probe, card)
+        fault = io_faults(path, probe)
+    print(f'  io phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches, dict(probe=probe, transports=ab, resnet=resnet,
+                          bert=bert, lease=lease, faults=fault)
+
+
+# --------------------------------------------------------------------------
 # dp phase: data parallelism and ZeRO-1 over torch.distributed
 # --------------------------------------------------------------------------
 
@@ -4406,6 +5012,7 @@ def main():
     amp_launches, amp_dtypes, _amp = amp_phase(card)
     user, nd_ops, user_rows, _nd = ndarray_phase(card)
     gluon, _gluon = gluon_phase(card)
+    io, _io = io_phase(card)
     # last: the traces taken after its graph replays are the least sure
     compiled, per_replay, _compiled = compiled_step_phase(card)
     tune_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4425,7 +5032,7 @@ def main():
     # the AMP runs' float16 launches go to the [float16] rows where a
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
-             'ndarray', 'gluon', 'dp', 'remat', 'autotune', 'zero3',
+             'ndarray', 'gluon', 'io', 'dp', 'remat', 'autotune', 'zero3',
              'resilience')
     by_path = {}
     for name in rows:
@@ -4440,7 +5047,8 @@ def main():
             serving=serving[name], front=front[name],
             training=training[name], amp=amp_launches[name] - n16,
             compiled_step=compiled[name], ndarray=nd_ops[name],
-            gluon=gluon.get(name, 0), dp=dp.get(name, 0),
+            gluon=gluon.get(name, 0), io=io.get(name, 0),
+            dp=dp.get(name, 0),
             remat=remat.get(name, 0), autotune=tuned.get(name, 0),
             zero3=zero3.get(name, 0), resilience=resil.get(name, 0))
     for name in user_rows:

@@ -23,22 +23,26 @@ replays one CUDA graph per bucket through ``hybridize()``, behind
 (metrics, spans, the flight recorder, memory watermarks, the compile
 ledger, attribution, the fleet monitor and the /metrics endpoint), off
 by default. ``amp`` (also ``contrib.amp``) is MXNet's automatic mixed
-precision in bfloat16 or float16, with the dynamic loss scaler.
+precision in bfloat16 or float16, with the dynamic loss scaler. The
+input pipeline is MXNet's: ``recordio``, ``io`` (``NDArrayIter``,
+``ImageRecordIter`` over the native decode runtime of
+``src/io/mxtpu_io.cc``, ``DevicePrefetchIter``), ``image`` and
+``gluon.data``, each batch copied to the card on a side stream.
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
     num_gpus, tpu
 from . import (amp, autograd, checkpoint, config, context, contrib, engine,
-               gluon, initializer, lr_scheduler, models, ndarray, ops,
-               optimizer, parallel, random, resilience, rtc, serialization,
-               serving, telemetry, weights)
+               gluon, image, initializer, io, lr_scheduler, models, ndarray,
+               ops, optimizer, parallel, random, recordio, resilience, rtc,
+               serialization, serving, telemetry, weights)
 from . import ndarray as nd
 from . import initializer as init
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',
            'config', 'context', 'contrib',
-           'engine', 'gluon', 'init', 'initializer', 'lr_scheduler', 'models', 'nd',
-           'ndarray', 'ops', 'optimizer', 'parallel', 'random',
-           'resilience', 'rtc',
+           'engine', 'gluon', 'image', 'init', 'initializer', 'io',
+           'lr_scheduler', 'models', 'nd', 'ndarray', 'ops', 'optimizer',
+           'parallel', 'random', 'recordio', 'resilience', 'rtc',
            'serialization', 'serving', 'telemetry', 'weights']

@@ -14,12 +14,25 @@ from typing import Callable, Dict, Optional
 import numpy as onp
 import torch
 
-__all__ = ['MXNetError', 'OpDef', 'register_op', 'get_op', 'list_ops',
+__all__ = ['MXNetError', 'DataError', 'OpDef', 'register_op', 'get_op', 'list_ops',
            'state', 'telem_flags', 'torch_dtype']
 
 
 class MXNetError(RuntimeError):
     """Raised for invalid usage, bad inputs and kernel failures."""
+
+
+class DataError(MXNetError):
+    """A corrupt or truncated input record, with the record's index, its
+    file offset and the file's path, so a caller can act on it; the
+    image iterator can skip and count these instead
+    (``MXNET_TPU_IO_CORRUPT_POLICY=skip``)."""
+
+    def __init__(self, message, index=None, offset=None, path=None):
+        super().__init__(message)
+        self.index = index
+        self.offset = offset
+        self.path = path
 
 
 _TORCH_DTYPES = {n: getattr(torch, n) for n in (

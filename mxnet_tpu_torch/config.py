@@ -356,3 +356,23 @@ _register('MXTPU_SERVE_EJECT_FAILURES', int, 2,
 _register('MXTPU_SERVE_READMIT_SECONDS', float, 5.0,
           'How long an ejected replica sits out before the router '
           'probes it back in (the next routed predict is the probe).')
+_register('MXNET_TPU_IO_TRANSPORT', str, 'u8',
+          "ImageRecordIter host->device transport: 'u8' moves raw uint8 "
+          'NHWC from the decode pipeline\'s leased buffer and normalizes '
+          "on the device (4x fewer host bytes); 'f32' normalizes to "
+          'float32 on the host.')
+_register('MXNET_TPU_IO_DECODE_CACHE_MB', float, 256.0,
+          'Byte budget (MB) of the cross-epoch decode cache: decoded + '
+          'short-side-resized images reused across epochs (crop/mirror/'
+          'normalize stay per-epoch). 0 disables the cache.')
+_register('MXNET_TPU_IO_CORRUPT_POLICY', str, 'error',
+          "What ImageRecordIter does with a corrupt/truncated record "
+          "mid-epoch: 'error' raises DataError naming the record index "
+          "and file offset; 'skip' substitutes the next good record and "
+          "counts mxnet_tpu_io_corrupt_records_total.")
+_register('MXTPU_DATALOADER_WORKER_RETRIES', int, 2,
+          'Bounded re-submissions of a gluon DataLoader batch fetch '
+          'after a worker crash before a clear error is raised.')
+_register('MXNET_TPU_NO_NATIVE_BUILD', _bool, False,
+          'Never compile the native IO library on demand: a missing '
+          'library means the pure-Python (PIL) decode path.')

@@ -1,6 +1,7 @@
 """Gluon, MXNet's imperative high-level API (counterpart of
 ``mxnet_tpu/gluon``): Parameters, Blocks and hybridize, the layers, the
-losses, the Trainer and the vision model zoo. ``collect_params(module)``
+losses, the Trainer, the vision model zoo and ``data`` (datasets,
+samplers, the DataLoader, the vision datasets and transforms). ``collect_params(module)``
 keys a plain ``torch.nn.Module``'s parameters by structured name (the
 BERT models)."""
 from .parameter import (Parameter, Constant, ParameterDict,
@@ -11,8 +12,9 @@ from . import nn
 from . import loss
 from . import utils
 from . import model_zoo
+from . import data
 
 __all__ = ['Parameter', 'Constant', 'ParameterDict',
            'DeferredInitializationError', 'collect_params', 'Block',
            'HybridBlock', 'SymbolBlock', 'Trainer', 'nn', 'loss', 'utils',
-           'model_zoo']
+           'model_zoo', 'data']

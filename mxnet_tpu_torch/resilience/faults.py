@@ -37,14 +37,21 @@ either. The sites that fire in this package:
 - ``checkpoint.write`` and ``checkpoint.read`` —
   ``checkpoint.CheckpointManager``;
 - ``alloc.oom`` — ``telemetry.memory.oom_guard``;
-- ``dist.barrier`` — ``parallel.dist.barrier``.
+- ``dist.barrier`` — ``parallel.dist.barrier``;
+- ``io.decode`` — ``io.ImageRecordIter``'s python decode path, keyed by
+  record index (``corrupt`` mangles the image bytes; armed before the
+  iterator is made, it selects that path);
+- ``io.device_put`` — ``io``'s host->device staging of a prefetched
+  batch (``DevicePrefetchIter``, ``PrefetchingIter(device_prefetch=
+  True)``);
+- ``dataloader.worker`` — ``gluon.data.DataLoader``'s batch fetch (a
+  ``raise`` takes the bounded respawn path).
 
 The others wait for the code they sit in: ``collective.all_reduce``
 (the kvstore, ROADMAP queue 1 item 8), ``dist.file_put``,
 ``dist.heartbeat``, ``dist.join`` and ``elastic.admit`` (the membership
 side channel, the replica transport and the elastic controller, item
-10), ``io.decode``, ``io.device_put`` and ``dataloader.worker`` (the
-input pipeline, item 11).
+10).
 
 Disarmed sites cost one empty-dict check per call.
 """

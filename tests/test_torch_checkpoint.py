@@ -9,7 +9,11 @@ retention, the preemption hook, corrupt-step fallback, the trainer
 states file and the standalone manifest tool. Left out, with the code
 they test: the estimator's ``CheckpointHandler`` and the
 ``do_checkpoint`` callback through ``Module`` (ROADMAP queue 1 items 14
-and 15).
+and 15). The data position rides the manifest as in JAX:
+``bind_data_state`` with ``ElasticShard.state()`` and
+``DataLoader.data_state()`` (an ``ElasticSampler``) records the same
+``meta['data']`` as the JAX manager at the same position and world, and
+a restore into another world replays the exact remaining samples.
 
 Across the packages, on a 2-layer BERT (hidden 64, dropout 0, f32): the
 JAX ``CheckpointManager`` + ``ShardedTrainStep`` save at step 2, the port
@@ -943,3 +947,82 @@ def test_zero_checkpoint_at_dp2_restores_at_dp1(zero_worlds, zero):
     for n, m in doc['after']['master'].items():
         assert _rel_fro(got['master'][n], m) <= BF16_STEP_RTOL, n
     mgr.close()
+
+
+# ---------------------------------------------------------------------------
+# the data position in the manifest (tests/test_resharding.py's cases)
+# ---------------------------------------------------------------------------
+
+def _jax_manager(path, shard_state):
+    import mxnet_tpu as jmx
+    from mxnet_tpu import checkpoint as jcheckpoint
+    net = jmx.gluon.nn.Dense(2, in_units=1, prefix='rsdata_')
+    net.initialize(jmx.init.Xavier())
+    mgr = jcheckpoint.CheckpointManager(str(path), params=net,
+                                        async_save=False)
+    mgr.bind_data_state(shard_state)
+    return mgr
+
+
+@pytest.mark.parametrize('provider', ['shard', 'loader'])
+def test_manifest_data_position_matches_jax_and_round_trips(tmp_path,
+                                                           provider):
+    """The port's manifest records the same meta['data'] as the JAX
+    manager at the same position and world, and a restore into another
+    world (dp=4 -> 2 -> 4) replays the exact remaining samples."""
+    from mxnet_tpu import io as jio
+    from mxnet_tpu.gluon import data as jdata
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader, \
+        ElasticSampler
+    from mxnet_tpu_torch.io import ElasticShard
+    G, N = 8, 32
+    net, _ = _make_net_and_trainer()
+    mgr = CheckpointManager(str(tmp_path / 'port'), params=net,
+                            async_save=False)
+    if provider == 'shard':
+        shard = ElasticShard(N, G, rank=0, world=4, seed=3)
+        jshard = jio.ElasticShard(N, G, rank=0, world=4, seed=3)
+        for _ in range(3):
+            shard.next_batch()
+            jshard.next_batch()
+        mgr.bind_data_state(shard.state)
+        jstate = jshard.state
+    else:
+        x = onp.arange(N, dtype=onp.float32).reshape(N, 1)
+        with mx.cpu():
+            loader = DataLoader(ArrayDataset(x), batch_sampler=ElasticSampler(
+                N, G, rank=0, world=4, seed=3))
+            list(loader)                        # one pass: 4 global batches
+        jloader = jdata.DataLoader(jdata.ArrayDataset(x),
+                                   batch_sampler=jdata.ElasticSampler(
+                                       N, G, rank=0, world=4, seed=3))
+        list(jloader)
+        mgr.bind_data_state(loader.data_state)
+        jstate = jloader.data_state
+    mgr.save(3)
+    jmgr = _jax_manager(tmp_path / 'jax', jstate)
+    jmgr.save(3)
+    port_meta = mgr.restore(3, apply=False).metadata
+    jax_meta = jmgr.restore(3, apply=False).metadata
+    assert port_meta['data'] == jax_meta['data']
+    assert 'world' in port_meta
+
+    net2, _ = _make_net_and_trainer()
+    mgr2 = CheckpointManager(str(tmp_path / 'port'), params=net2,
+                             async_save=False)
+    assert mgr2.restore_latest() == 3
+    ds = mgr2.last_restored_metadata['data']
+    steps = 3 if provider == 'shard' else 4
+    assert ds['position'] == steps * G and ds['world'] == 4
+    assert ds['assignment']['0'] == [0, G // 4]
+    ref = ElasticShard(N, G, rank=0, world=1, seed=3)
+    want = [[ref.sample_at(s * G + j) for j in range(G)] for s in range(8)]
+    halves = [ElasticShard.from_state(ds, rank=r, world=2) for r in range(2)]
+    assert [x for sh in halves for x in sh.next_batch()] == want[steps]
+    quarters = [ElasticShard.from_state(halves[0].state(), rank=r, world=4)
+                for r in range(4)]
+    assert [x for sh in quarters for x in sh.next_batch()] == \
+        want[steps + 1]
+    for m in (mgr, mgr2, jmgr):
+        m.close()
+

@@ -175,6 +175,67 @@ def test_the_import_check_covers_the_serving_front_modules():
     assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
 
 
+IO_MODULES = ('_native.py', 'recordio.py', 'io/__init__.py', 'io/io.py',
+              'image/__init__.py', 'image/image.py',
+              'gluon/data/__init__.py', 'gluon/data/dataset.py',
+              'gluon/data/sampler.py', 'gluon/data/dataloader.py',
+              'gluon/data/vision/__init__.py',
+              'gluon/data/vision/datasets.py',
+              'gluon/data/vision/transforms.py')
+
+
+@pytest.mark.parametrize('module', IO_MODULES)
+def test_input_pipeline_modules_import_no_jax(module):
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_native_loader_builds_and_loads_only_the_ports_library():
+    """The port's native IO loader resolves its library under
+    build/mxnet_tpu_torch/ and never under mxnet_tpu/_lib/: in a fresh
+    interpreter, importing the input pipeline and loading the library
+    pulls in no jax and nothing of the JAX package, and the process maps
+    no file of mxnet_tpu/_lib."""
+    import subprocess
+    import sys
+    code = ('import sys\n'
+            'import mxnet_tpu_torch.io, mxnet_tpu_torch.gluon.data, '
+            'mxnet_tpu_torch.image, mxnet_tpu_torch.recordio\n'
+            'from mxnet_tpu_torch import _native\n'
+            'lib = _native.get_lib()\n'
+            'print(lib._name if lib is not None else None)\n'
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "mxnet_tpu")))\n'
+            'maps = open("/proc/self/maps").read()\n'
+            'print("libmxtpu_io" in maps, "mxnet_tpu/_lib" in maps)\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    lib, mods, maps = out.stdout.strip().splitlines()[-3:]
+    want = os.path.join(ROOT, 'build', 'mxnet_tpu_torch') + os.sep
+    assert lib.startswith(want), lib
+    assert os.path.join('mxnet_tpu', '_lib') not in lib
+    assert mods == '[]', mods
+    assert maps == 'True False', maps
+
+
+def test_iterators_refuse_a_missing_card(tmp_path):
+    """An iterator's default context is the card: without one it raises
+    instead of falling back to the host."""
+    _require_no_card()
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.io import NDArrayIter
+    x = onp.zeros((4, 2), onp.float32)
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        next(iter(NDArrayIter(x, batch_size=2)))
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        next(iter(DataLoader(ArrayDataset(x), batch_size=2)))
+
+
 def test_forbidden_name_check_is_not_a_prefix_check():
     assert 'mxnet_tpu_torch'.split('.')[0] not in FORBIDDEN
     assert 'mxnet_tpu.ops'.split('.')[0] in FORBIDDEN

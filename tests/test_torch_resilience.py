@@ -6,11 +6,14 @@ the port, on the CPU, with the toy ``Dense(1, in_units=4)`` regression:
 the fault registry, its grammar and its deterministic firing (the same
 decisions as the JAX registry's, seed by seed), the guard's on-device
 skip (bit for bit a clean run of the good steps), its policy ladder, the
-watchdog and the checkpoint write faults. Left out, with the code they
-test: the kvstore's update_on_kvstore path and the collective fault site
-(ROADMAP queue 1 item 8), the DataLoader, RecordIO and ImageRecordIter
-cases (item 11), and the estimator and ``Module.fit`` handlers (items 14
-and 15).
+watchdog and the checkpoint write faults, and the input pipeline's: the
+DataLoader's bounded worker respawn (``dataloader.worker``) and its
+refusal to retry a DataError, RecordIO's truncated-file and corrupt-index
+errors, ImageRecordIter's corrupt records under both policies and the
+``io.decode`` corruption, the same records in every run. Left out, with
+the code they test: the kvstore's update_on_kvstore path and the
+collective fault site (ROADMAP queue 1 item 8), and the estimator and
+``Module.fit`` handlers (items 14 and 15).
 
 The JAX package's rollback scenario (NaN on steps 5-7, three bad steps,
 one rollback to step 4, resumed bit for bit) is red in the JAX suite by
@@ -1119,3 +1122,260 @@ def test_checkpoint_read_corrupt_falls_back(tmp_path):
         assert mgr.restore_latest(apply=False).step == 1
     mgr.close()
     assert glob.glob(str(tmp_path / '*.tmp-*')) == []
+
+
+# ---------------------------------------------------------------------------
+# the input pipeline: DataLoader worker respawn, corrupt and truncated
+# records (tests/test_resilience.py's cases, on the port)
+# ---------------------------------------------------------------------------
+
+def test_dataloader_worker_crash_respawns_bounded():
+    from mxnet_tpu_torch.gluon.data import DataLoader, ArrayDataset
+    x = onp.arange(64, dtype=onp.float32).reshape(16, 4)
+    y = onp.arange(16, dtype=onp.float32)
+    with mx.cpu():
+        loader = DataLoader(ArrayDataset(x, y), batch_size=4, num_workers=2,
+                            worker_retries=2)
+        faults.arm('dataloader.worker', 'raise', window=(1, 2))
+        batches = list(loader)           # crashes respawned transparently
+        assert len(batches) == 4
+        got = onp.concatenate([b[0].asnumpy() for b in batches])
+        assert onp.array_equal(onp.sort(got.ravel()), onp.sort(x.ravel()))
+        assert telemetry.value(
+            'mxnet_tpu_resilience_worker_respawns_total') == 2
+        # budget exhausted -> a clear error naming the failing batch
+        faults.arm('dataloader.worker', 'raise')     # every fetch crashes
+        loader2 = DataLoader(ArrayDataset(x, y), batch_size=4,
+                             num_workers=2, worker_retries=1)
+        with pytest.raises(MXNetError, match=r'worker failed 2x on batch 0'):
+            list(loader2)
+    loader.close()
+    loader2.close()
+
+
+def test_dataloader_does_not_retry_data_errors():
+    """Deterministic input corruption (DataError) is not burned through
+    the respawn budget: its index/offset context reaches the caller."""
+    from mxnet_tpu_torch.base import DataError
+    from mxnet_tpu_torch.gluon.data import DataLoader
+
+    class CorruptAt:
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            if i == 5:
+                raise DataError('corrupt record 5 at offset 1234',
+                                index=5, offset=1234, path='x.rec')
+            return onp.float32(i)
+
+    with mx.cpu():
+        loader = DataLoader(CorruptAt(), batch_size=4, num_workers=2,
+                            worker_retries=5)
+        with pytest.raises(DataError) as ei:
+            list(loader)
+    assert ei.value.index == 5 and ei.value.offset == 1234
+    assert telemetry.value(
+        'mxnet_tpu_resilience_worker_respawns_total') is None
+    loader.close()
+
+
+def test_recordio_truncated_file_names_record_and_offset(tmp_path,
+                                                         monkeypatch):
+    """The pure-Python reader names the record and its offset
+    (tests/test_resilience.py's case, on the port)."""
+    from mxnet_tpu_torch import _native, recordio as prec
+    from mxnet_tpu_torch.base import DataError
+    monkeypatch.setattr(_native, 'get_lib', lambda: None)
+    path = str(tmp_path / 'data.rec')
+    w = prec.MXRecordIO(path, 'w')
+    for _ in range(4):
+        w.write(b'p' * 40)
+    w.close()
+    rec = prec.MXRecordIO(path, 'r')
+    rec.read()
+    rec.read()
+    third_at = rec.handle.tell()
+    rec.close()
+    with open(path, 'r+b') as f:
+        f.truncate(third_at + 12)     # header + a few payload bytes
+    rec = prec.MXRecordIO(path, 'r')
+    assert rec.read() is not None
+    assert rec.read() is not None
+    with pytest.raises(DataError) as ei:
+        rec.read()
+    assert ei.value.index == 2
+    assert ei.value.offset == third_at
+    assert str(third_at) in str(ei.value)
+    rec.close()
+
+
+def test_indexed_recordio_corrupt_read_idx_names_key(tmp_path,
+                                                     monkeypatch):
+    """A destroyed record magic: random access names the real key
+    (tests/test_resilience.py's case, on the port)."""
+    from mxnet_tpu_torch import _native, recordio as prec
+    from mxnet_tpu_torch.base import DataError
+    monkeypatch.setattr(_native, 'get_lib', lambda: None)
+    rec_path = str(tmp_path / 'i.rec')
+    idx_path = str(tmp_path / 'i.idx')
+    w = prec.MXIndexedRecordIO(idx_path, rec_path, 'w')
+    for k in range(4):
+        w.write_idx(k, b'payload-%d' % k)
+    w.close()
+    r = prec.MXIndexedRecordIO(idx_path, rec_path, 'r')
+    pos = r.idx[2]
+    r.close()
+    with open(rec_path, 'r+b') as f:
+        f.seek(pos)
+        f.write(b'\xba\xad\xf0\x0d')        # destroy record 2's magic
+    r = prec.MXIndexedRecordIO(idx_path, rec_path, 'r')
+    assert r.read_idx(1) == b'payload-1'
+    with pytest.raises(DataError) as ei:
+        r.read_idx(2)
+    assert ei.value.index == 2
+    assert ei.value.offset == pos
+    assert r.read_idx(3) == b'payload-3'     # reader still usable
+    r.close()
+
+
+def _write_image_rec(path, n=8, size=(16, 16)):
+    """A tiny .rec of solid-colour JPEGs."""
+    import io as _io
+    from PIL import Image
+    from mxnet_tpu_torch import recordio
+    rec = recordio.MXRecordIO(path, 'w')
+    for i in range(n):
+        img = Image.new('RGB', size, (i * 20 % 255, 30, 40))
+        buf = _io.BytesIO()
+        img.save(buf, format='JPEG', quality=95)
+        rec.write(recordio.pack(
+            recordio.IRHeader(0, float(i), i, 0), buf.getvalue()))
+    rec.close()
+
+
+def _python_decode_path(monkeypatch):
+    from mxnet_tpu_torch.io.io import _NativePipeline
+    monkeypatch.setattr(_NativePipeline, 'try_create',
+                        classmethod(lambda cls, *a, **k: None))
+
+
+def test_image_record_iter_corrupt_record_error_and_skip(tmp_path,
+                                                         monkeypatch):
+    from mxnet_tpu_torch.base import DataError
+    from mxnet_tpu_torch.io import ImageRecordIter
+    _python_decode_path(monkeypatch)
+    path = str(tmp_path / 'data.rec')
+    _write_image_rec(path, n=8)
+    it = ImageRecordIter(path, (3, 8, 8), batch_size=4,
+                         preprocess_threads=1, transport='f32',
+                         ctx=mx.cpu())
+    # mangle record 5's image payload on disk (the IRHeader stays valid)
+    pos, length = it._offsets[5]
+    with open(path, 'r+b') as f:
+        f.seek(pos + 28)              # past the 28-byte IRHeader
+        f.write(b'\x00' * (length - 28))
+    it.reset()
+    it.next()                          # records 0-3 decode fine
+    with pytest.raises(DataError) as ei:
+        it.next()
+    assert ei.value.index == 5
+    assert ei.value.offset == pos
+    assert f'offset {pos}' in str(ei.value)
+    it.close()
+    # the error policy counts nothing: the counter means "substituted"
+    assert telemetry.value('mxnet_tpu_io_corrupt_records_total') is None
+    with pytest.warns(RuntimeWarning, match='pure-Python decode path'):
+        it2 = ImageRecordIter(path, (3, 8, 8), batch_size=4,
+                              preprocess_threads=1, transport='f32',
+                              corrupt_policy='skip', ctx=mx.cpu())
+    batches = 0
+    while True:
+        try:
+            it2.next()
+            batches += 1
+        except StopIteration:
+            break
+    assert batches == 2
+    assert telemetry.value('mxnet_tpu_io_corrupt_records_total') == 1
+    it2.close()
+
+
+def test_injected_decode_corruption_is_policy_skipped(tmp_path):
+    """io.decode:corrupt mangles image bytes in flight; the skip policy
+    absorbs it as it does on-disk corruption. Armed before the iterator
+    is made, the fault takes the python decode path by itself."""
+    from mxnet_tpu_torch.io import ImageRecordIter
+    path = str(tmp_path / 'data.rec')
+    _write_image_rec(path, n=8)
+    faults.arm('io.decode', 'corrupt', window=3)
+    with pytest.warns(RuntimeWarning, match='pure-Python decode path'):
+        it = ImageRecordIter(path, (3, 8, 8), batch_size=4,
+                             preprocess_threads=1, transport='f32',
+                             corrupt_policy='skip', ctx=mx.cpu())
+    assert not it.native
+    batches = 0
+    while True:
+        try:
+            it.next()
+            batches += 1
+        except StopIteration:
+            break
+    assert batches == 2
+    assert telemetry.value('mxnet_tpu_io_corrupt_records_total') == 1
+    it.close()
+
+
+def test_injected_decode_corruption_deterministic_across_threads(
+        tmp_path, monkeypatch):
+    """io.decode firing is keyed by record index, not call order: the
+    multi-threaded decode pool corrupts the same records in every run,
+    and the same records as the JAX package's iterator."""
+    from mxnet_tpu.io.io import ImageRecordIter as JIt
+    from mxnet_tpu.resilience import faults as jfaults
+    from mxnet_tpu_torch.io import ImageRecordIter
+    _python_decode_path(monkeypatch)
+    path = str(tmp_path / 'data.rec')
+    _write_image_rec(path, n=16)
+
+    def run(cls, flt, **kw):
+        flt.arm('io.decode', 'corrupt', prob=0.5, seed=11)
+        it = cls(path, (3, 8, 8), batch_size=8, preprocess_threads=4,
+                 transport='f32', corrupt_policy='skip', **kw)
+        out = []
+        try:
+            while True:
+                out.append(it.next().data[0].asnumpy().copy())
+        except StopIteration:
+            pass
+        it.close()
+        skipped = telemetry.value('mxnet_tpu_io_corrupt_records_total')
+        flt.disarm()
+        telemetry.reset()
+        return out, skipped
+
+    with pytest.warns(RuntimeWarning):
+        a, skipped_a = run(ImageRecordIter, faults, ctx=mx.cpu())
+        b, skipped_b = run(ImageRecordIter, faults, ctx=mx.cpu())
+        j, _ = run(JIt, jfaults)
+    assert skipped_a == skipped_b and skipped_a > 0
+    assert len(a) == len(b) == len(j) == 2
+    for x, y, z in zip(a, b, j):
+        onp.testing.assert_array_equal(x, y)
+        # the JAX python path divides by std, the port multiplies by the
+        # reciprocal: at most one float32 ulp
+        onp.testing.assert_array_max_ulp(x, z, maxulp=1)
+
+
+def test_native_pipeline_warns_when_io_decode_is_armed_late(tmp_path):
+    """Armed after the iterator chose the native pipeline, the io.decode
+    fault cannot fire there: the iterator says so."""
+    from mxnet_tpu_torch.io import ImageRecordIter
+    path = str(tmp_path / 'data.rec')
+    _write_image_rec(path, n=4)
+    it = ImageRecordIter(path, (3, 8, 8), batch_size=4, ctx=mx.cpu())
+    assert it.native
+    faults.arm('io.decode', 'corrupt')
+    with pytest.warns(RuntimeWarning, match='cannot fire'):
+        it.next()
+

@@ -586,6 +586,9 @@ def test_zero3_remat_with_dropout_is_stage1_bit_for_bit(worlds, n):
 
 
 def _jax_mesh_trainer(arrays, mesh):
+    # compiled programs an earlier test left on another mesh's device
+    # order would hand the Trainer states its re-placement cannot reorder
+    jax.clear_caches()
     net = _jnet(*SIZES['even'])
     for k, p in net._collect_params_with_prefix().items():
         p.set_data(nd.array(arrays['even'][k]))
