@@ -32,7 +32,44 @@
    version and one PyTorch library call that computes the same function
    (a yardstick only: the port never calls it) as device time from
    torch.profiler's CUDA trace (CUDA events where the trace has none),
-   and computes each kernel's bound from the H100 SXM data sheet.
+   and computes each kernel's bound from the H100 SXM data sheet. Last,
+   the language models' shapes: A, K2 and K3 at GPT-2 small's causal
+   self-attention (B = 8, T = 1024, H = 12) and at Transformer-base's
+   cross-attention (B = 16, H = 8, Tq = 200, Tk = 256, key mask), each
+   against its plain version and timed beside SDPA and the bound of the
+   query-key pairs those inputs need (A causal also without the flag).
+3a. lm phase (right after the kernel phase: its profiler traces are
+   read early, while they come back whole): (b) GPT-2 small
+   (models/gpt.py, gpt2_small_config: vocab 50257, hidden 768, 12
+   layers, 12 heads) at full width and depth, weights Normal(0.02) from a
+   numpy seed, one step at B = 1, T = 1024, dropout 0, bf16 on the card
+   against f32 on the CPU through the plain versions (PERF.md section
+   2's training bounds, the tied word_embed gradient on its own line);
+   (a) the main path as examples/train_gpt.py runs it: bf16,
+   gpt_lm_loss, ShardedTrainStep with AdamW at lr 3e-4, dropout 0.1 drawn
+   on the card, B = 8, T = 1024, one repeated batch: call 1 runs eagerly
+   and captures (the counters at 0 before: 24 launches each of A, K2 and
+   K3, all tensor-core), a profiler trace of 3 replays early (busy time,
+   idle share) and one counting 12 of each per replay, then 10 timed
+   steps whose losses must fall; step ms (median and spread of 3 calls),
+   tokens/s and MFU by bench.py's accounting; (c) Transformer-base
+   (Vaswani et al. 2017: hidden 512, 6 + 6 layers, 8 heads, FFN 2048,
+   a shared vocabulary of 37000) in bf16: its logits at B = 2 against f32
+   on the CPU (rel Frobenius 0.05), then one gluon.Trainer AdamW step at
+   B = 16, source T = 256 under a key mask from valid lengths in [128,
+   256], target T = 200: 18 A launches in the forward, 18 each of K2 and
+   K3 in the backward.
+3b. zoo phase: alexnet, vgg16_bn, squeezenet1.1, mobilenetv2_1.0,
+   densenet121 (224) and inceptionv3 (299) with 1000 classes, B = 8, f32,
+   He-normal weights from a numpy seed, each predict forward against the
+   CPU's within rel Frobenius 0.05 and timed; then gluon.contrib's
+   Estimator.fit of mobilenetv2_1.0 ending in a softmax (B = 32, 224, 8
+   batches of a DataLoader over an ArrayDataset, SGD) with Accuracy,
+   TopKAccuracy(5) and CrossEntropy held against numpy over the same
+   predictions (exactly; cross-entropy within 1e-5), a LoggingHandler, a
+   CheckpointHandler resumed into a fresh net byte for byte and a
+   WatchdogHandler's 8 beats; images/s. The path launches none of the
+   hand-written kernels.
 4. Serving phase: the serving recipe, InferenceEngine(BlockRunner(net))
    then serving.warmup(engine), on BERT-base at full width, weights drawn
    with numpy from a fixed seed (Normal(0.02)) and cast to bf16 on the
@@ -284,7 +321,8 @@
    armed: a burst of 32 requests from 4 threads gives no stall report; a
    runner planted to stall 3 s under a 1 s watchdog gives exactly one.
    Checkpoints live in a temporary directory removed at the end.
-13. Prints the kernels' JSON line (each row with its variant and dtype
+13. Prints the kernels' JSON line (each row with its variant and dtype,
+   A's, K2's and K3's launches per lm replay and their lm_shapes timings
    and, for a redesigned kernel, the time of the one it replaced, old_ms;
    the float16 routes as rows of their own, named kernel[float16], whose
    launches are the AMP phase's float16 ones) and, last, the result
@@ -294,9 +332,11 @@ Any failed check raises: the script exits non-zero and prints no result.
 """
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -304,6 +344,15 @@ SEED = 20261016
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12      # H100 SXM HBM3 bytes/s
+
+
+def _zero_counters():
+    """Every launch count and attention route count at 0."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import attention as attn_ops
+    mt.ops.reset_launch_counts()
+    for k in attn_ops.route_counts:
+        attn_ops.route_counts[k] = 0
 
 
 def check(cond, msg):
@@ -383,17 +432,31 @@ def steps_ms(step, steps):
     return (time.perf_counter() - t0) / steps * 1e3
 
 
-def kernel_launches(fn, iters):
+def kernel_launches(fn, iters, expect=None):
     """{kernel name: launches} in torch.profiler's CUDA trace of ``iters``
-    calls of ``fn`` (kernels replayed from a CUDA graph included)."""
+    calls of ``fn`` (kernels replayed from a CUDA graph included). A trace
+    can drop events (seen on the card: 34 of a graph's 36 launches of a
+    kernel); where ``expect`` ({name part: launches per call}) finds fewer
+    than it names, the trace is taken again, up to 3 times, and the retry
+    is printed. The caller checks the counts of the last trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages() if _dev_us(e) > 0}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages()
+                 if _dev_us(e) > 0}
+        short = {k: sum(c for n, c in names.items() if k in n)
+                 for k, want in (expect or {}).items()}
+        short = {k: c for k, c in short.items() if c < expect[k] * iters}
+        if not short:
+            break
+        print(f'  (profiler trace {attempt + 1} holds fewer launches than '
+              f'{iters} calls make: {short}; taken again)')
+    return names
 
 
 def ops_split(names, iters):
@@ -795,6 +858,8 @@ def kernel_phase(card):
                   lambda: fused_ffn.dense_gelu_reference(x16, w16, b16),
                   lambda: F.gelu(F.linear(x16, w16, b16))))
 
+    for name, shapes in lm_kernel_cases(card).items():
+        rows[name]['lm_shapes'] = shapes
     for name, r in rows.items():
         old = (f', the kernel it replaced {r["old_ms"]:.4f} ms'
                if r['old_ms'] is not None else '')
@@ -809,6 +874,149 @@ def kernel_phase(card):
               f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}); back-to-back '
               f'stream time of the kernel {r["stream_ms"]:.4f} ms')
     return rows
+
+
+# the language models' attention shapes (bf16, D = 64): GPT-2 small's
+# causal self-attention at B = 8, T = 1024, H = 12, and Transformer-base's
+# decoder cross-attention at B = 16, Tq = 200, Tk = 256, H = 8 under a key
+# mask from valid lengths in [128, 256]
+LM_ATTENTION = (('gpt2_causal_T1024', 8, 12, 1024, 1024, True, False),
+                ('cross_Tq200_Tk256', 16, 8, 200, 256, False, True))
+
+
+def _attention_pairs(B, H, Tq, Tk, causal, valid):
+    """The (query, key) pairs the attention of these inputs needs: every
+    key before the causal cut, and only the valid keys under a mask."""
+    if causal:
+        per_row = sum(min(i + 1, Tk) for i in range(Tq))
+        return B * H * per_row
+    keys = sum(valid) if valid is not None else B * Tk
+    return H * Tq * keys
+
+
+def lm_kernel_cases(card, reps=20):
+    """A, K2 and K3 at LM_ATTENTION's shapes: each against its plain
+    version (bf16 tolerances), exactly one launch of the tensor-core
+    variant each, and timed (device time from the profiler's trace) beside
+    the plain version, F.scaled_dot_product_attention (forward, and its
+    backward for dq + dk + dv) and the bound of the pairs the inputs need.
+    The causal forward is also timed without the causal flag: its kernel
+    walks every key tile either way (csrc/flash_fwd_tc.cuh), while dq
+    stops at the diagonal. Returns {row name: {shape label: numbers}}."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 16)
+    D, dtype, tol = 64, torch.bfloat16, TOL['bfloat16']
+    out_rows = {'flash_attn_fwd': {}, 'flash_attn_bwd_dq': {},
+                'flash_attn_bwd_dkv': {}}
+    tc_names = {'flash_attn_fwd': 'flash_fwd_tc_kernel',
+                'flash_attn_bwd_dq': 'flash_bwd_dq_tc_kernel',
+                'flash_attn_bwd_dkv': 'flash_bwd_dkv_tc_kernel'}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda').to(dtype)
+
+    def one_launch(*kernels):
+        want = {f'{k}.tc' for k in kernels}
+        got = {k for k, n in _build.variant_counts.items() if n}
+        check(got == want and all(_build.variant_counts[k] == 1
+                                  for k in want),
+              f'variant counts {dict(_build.variant_counts)}, expected one '
+              f'each of {sorted(want)}')
+
+    for label, B, H, Tq, Tk, causal, masked in LM_ATTENTION:
+        q, do = randn(B, H, Tq, D), randn(B, H, Tq, D)
+        k, v = randn(B, H, Tk, D), randn(B, H, Tk, D)
+        valid = key_mask = None
+        if masked:
+            valid = torch.randint(Tk // 2, Tk + 1, (B,), generator=gen,
+                                  device='cuda')
+            key_mask = torch.arange(Tk, device='cuda')[None, :] < \
+                valid[:, None]
+            valid = valid.tolist()
+        check(fa.kernel_variant(dtype, D) == 'tc', 'not the tc variant')
+        tag = f'{label} B={B} H={H} Tq={Tq} Tk={Tk} D={D} bf16 [tc]'
+        _build.reset_launch_counts()
+        out, lse = fa.flash_attention_forward(q, k, v, key_mask, causal)
+        torch.cuda.synchronize()
+        one_launch('flash_attn_fwd')
+        km, _ = fa._normalize_mask(key_mask, B, H, Tk)
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, km, causal)
+        err_f = compare(f'flash_attn_fwd {tag} out', out, ref_out, **tol)
+        compare(f'flash_attn_fwd {tag} lse', lse, ref_lse, **TOL['float32'])
+        _build.reset_launch_counts()
+        grads = fa.flash_attention_backward(q, k, v, key_mask, causal, 0.0,
+                                            None, out, lse, do)
+        torch.cuda.synchronize()
+        one_launch('flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
+        want = fa.flash_attention_backward_reference(q, k, v, km, causal,
+                                                     0.0, None, out, lse, do)
+        errs = [compare(f'flash_attn_bwd {tag} d{n}', g, w, **tol)
+                for n, g, w in zip('qkv', grads, want)]
+
+        # timings: the kernels, their plain versions and the library's
+        sdpa_mask = key_mask[:, None, None, :] if masked else None
+        fwd = timings(
+            lambda: fa.flash_attention_forward(q, k, v, key_mask, causal),
+            lambda: fa.flash_attention_reference(q, k, v, km, causal),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask, is_causal=causal))
+        per_kernel, _ = profile_device(
+            lambda: fa.flash_attention_backward(q, k, v, key_mask, causal,
+                                                0.0, None, out, lse, do),
+            reps, (tc_names['flash_attn_bwd_dq'],
+                   tc_names['flash_attn_bwd_dkv']))
+        plain_bwd, _ = time_ms(
+            lambda: fa.flash_attention_backward_reference(
+                q, k, v, km, causal, 0.0, None, out, lse, do))
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        s_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=sdpa_mask,
+                                               is_causal=causal)
+        sdpa_bwd, _ = time_ms(lambda: torch.autograd.grad(
+            s_out, (qs, ks, vs), do, retain_graph=True))
+        pairs = _attention_pairs(B, H, Tq, Tk, causal, valid)
+        # bytes: K and V are read for the keys the mask keeps only (a masked
+        # key changes nothing); dk and dv are written whole
+        ioq, iok = (B * H * T * D * 2 for T in (Tq, Tk))
+        iok_read = H * (sum(valid) if masked else B * Tk) * D * 2
+        rows_f32 = B * H * Tq * 4 + (B * Tk * 4 if masked else 0)
+        for name, flops, nbytes, err, ms, plain, lib in (
+                ('flash_attn_fwd', 4 * D * pairs, 2 * ioq + 2 * iok_read +
+                 rows_f32, err_f, fwd['ms'], fwd['plain_ms'],
+                 fwd['library_ms']),
+                ('flash_attn_bwd_dq', 6 * D * pairs, 3 * ioq + 2 * iok_read +
+                 2 * rows_f32, errs[0], None, plain_bwd, sdpa_bwd),
+                ('flash_attn_bwd_dkv', 8 * D * pairs, 2 * ioq + 2 * iok_read +
+                 2 * iok + 2 * rows_f32, max(errs[1:]), None, plain_bwd,
+                 sdpa_bwd)):
+            if ms is None:
+                us = sum(t for n_, t in per_kernel.items()
+                         if tc_names[name] in n_)
+                check(us > 0, f'no device time for {tc_names[name]}')
+                ms = us / reps / 1e3
+            b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16)
+            out_rows[name][label] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, pairs=pairs)
+        if causal:
+            out_rows['flash_attn_fwd'][label]['noncausal_ms'] = time_ms(
+                lambda: fa.flash_attention_forward(q, k, v))[0]
+        for name, r in out_rows.items():
+            r = r[label]
+            extra = (f', the same forward without the causal cut '
+                     f'{r["noncausal_ms"]:.4f} ms' if 'noncausal_ms' in r
+                     else '')
+            print(f'  timing {name} at {tag} on {card}: kernel '
+                  f'{r["ms"]:.4f} ms{extra}, plain {r["plain_ms"]:.4f} ms, '
+                  f'library {r["library_ms"]:.4f} ms (SDPA; for dq and '
+                  f'dk/dv its whole backward); bound {r["bound_ms"]:.4f} ms '
+                  f'({r["bound_by"]}, {pairs} query-key pairs)')
+        del q, k, v, do, out, lse, grads, want, qs, ks, vs, s_out
+    torch.cuda.empty_cache()
+    return out_rows
 
 
 _FAMILIES = (('flash_attn_fwd', ('flash_fwd_kernel', 'flash_fwd_tc_kernel')),
@@ -1014,9 +1222,7 @@ def serving_phase(card):
         # the main path's run, warmup and burst: counters at 0 just before
         comp.enable()
         comp.clear(ledger='')
-        mt.ops.reset_launch_counts()
-        for k in attn_ops.route_counts:
-            attn_ops.route_counts[k] = 0
+        _zero_counters()
         t0 = time.perf_counter()
         rep = mt.serving.warmup(engine)
         warm_s = time.perf_counter() - t0
@@ -1643,36 +1849,47 @@ def pretraining_batch(cfg, batch, seq, seed):
     return arrays, nmask
 
 
-def _key_bias_zeroed(name, g, hidden):
+def _key_bias_zeroed(name, g):
     """A gradient with the key third of a qkv bias set to 0: that gradient
     is zero in exact arithmetic (softmax ignores a shift shared by every
     key of a row), so what any run computes for it is rounding noise."""
-    if name.endswith('attention.qkv.bias'):
+    if name.endswith('.qkv.bias'):
+        hidden = g.shape[0] // 3
         g = g.clone()
         g[hidden:2 * hidden] = 0
     return g
 
 
-def parity_step(cfg, arrays, dev, dtype, seq=512, batch=2):
+def parity_step(model, arrays, dev, dtype):
     """(loss, {name: f32 gradient on the CPU}) of one step at dropout 0 of
-    BertForPretraining with ``arrays`` in ``dtype`` on ``dev``, on the
-    flagship-style batch drawn from SEED + 1 (the key third of each qkv
-    bias zeroed, see _key_bias_zeroed)."""
+    ``model`` = (build, loss_of): the net ``build(dtype, dev)`` with
+    ``arrays`` loaded, its loss ``loss_of(net, dev)`` (the key third of
+    each qkv bias zeroed, see _key_bias_zeroed)."""
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    build, loss_of = model
+    net = build(dtype, dev).train()
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    loss = loss_of(net, dev)
+    loss.backward()
+    return float(loss.detach()), {
+        n: _key_bias_zeroed(n, p.grad.detach().float().cpu())
+        for n, p in net.named_parameters()}
+
+
+def bert_model(cfg, seq=512, batch=2):
+    """parity_step's model: BertForPretraining on the flagship-style batch
+    drawn from SEED + 1."""
     import torch
     from mxnet_tpu_torch.models.bert import (BertForPretraining,
                                              bert_pretrain_loss)
-    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
     data, _ = pretraining_batch(cfg, batch, seq, SEED + 1)
-    net = BertForPretraining(dict(cfg, dropout=0.0), dtype=dtype,
-                             device=dev).train()
-    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
-    t = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-    mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
-    loss = bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
-    loss.backward()
-    return float(loss.detach()), {
-        n: _key_bias_zeroed(n, p.grad.detach().float().cpu(), cfg['hidden'])
-        for n, p in net.named_parameters()}
+
+    def loss_of(net, dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
+        return bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
+    return (lambda dtype, dev: BertForPretraining(
+        dict(cfg, dropout=0.0), dtype=dtype, device=dev)), loss_of
 
 
 _CPU_REF = []
@@ -1683,7 +1900,8 @@ def cpu_reference(cfg, arrays):
     and kept: the training and AMP phases hold the card against it."""
     import torch
     if not _CPU_REF:
-        _CPU_REF.append(parity_step(cfg, arrays, 'cpu', torch.float32))
+        _CPU_REF.append(parity_step(bert_model(cfg), arrays, 'cpu',
+                                     torch.float32))
     return _CPU_REF[0]
 
 
@@ -1716,7 +1934,8 @@ def training_parity(cfg, arrays, card, seq=512, batch=2):
     dropout 0) against the same weights in f32 on the CPU through the
     plain versions."""
     import torch
-    got = parity_step(cfg, arrays, 'cuda', torch.bfloat16, seq, batch)
+    got = parity_step(bert_model(cfg, seq, batch), arrays, 'cuda',
+                      torch.bfloat16)
     return hold_parity(f'one step at B={batch} T={seq} (dropout 0), bf16 on '
                        f'the card vs f32 CPU plain', got,
                        cpu_reference(cfg, arrays), TRAIN_TOL)
@@ -1766,9 +1985,7 @@ def training_phase(card, steps=5, batch=8, seq=512):
     masters0 = {i: st[0].clone() for i, st in states.items()}
     torch.cuda.synchronize()
     # the main path's run: counters at 0 just before, read just after
-    mt.ops.reset_launch_counts()
-    for k in attn_ops.route_counts:
-        attn_ops.route_counts[k] = 0
+    _zero_counters()
     t0 = time.perf_counter()
     losses = [step() for _ in range(steps)]
     torch.cuda.synchronize()
@@ -1904,7 +2121,7 @@ def amp_phase(card, steps=5, batch=8, seq=512):
     for target in ('bfloat16', 'float16'):
         amp.init(target)
         try:
-            got = parity_step(cfg, arrays, 'cuda', torch.float32)
+            got = parity_step(bert_model(cfg), arrays, 'cuda', torch.float32)
         finally:
             amp_mod._deinit()
         figures['parity'][target] = hold_parity(
@@ -2299,9 +2516,7 @@ def compiled_step_phase(card, warmup=3, timed=10, batch=8, seq=512):
     try:
         # the path's run: counters at 0 before call 1 (eager step and
         # capture, the host calls counted), read after the last replay
-        mt.ops.reset_launch_counts()
-        for k in attn_ops.route_counts:
-            attn_ops.route_counts[k] = 0
+        _zero_counters()
         t0 = time.perf_counter()
         warm = [float(step(ins, labs))]
         first_s = time.perf_counter() - t0
@@ -4953,6 +5168,517 @@ def resilience_phase(card, batch=8, seq=512):
                           phase_s=phase_s)
 
 
+# ---- the language models: GPT-2 small through ShardedTrainStep (the main
+# path of this slice), its parity, and Transformer-base through the
+# Trainer. Transformer-base is the base model of Vaswani et al. 2017,
+# "Attention Is All You Need": its Table 3 widths and the shared BPE
+# vocabulary of about 37000 tokens of its section 5.1.
+TRANSFORMER_BASE = dict(hidden=512, enc_layers=6, dec_layers=6, heads=8,
+                        ffn_hidden=2048)
+TRANSFORMER_VOCAB = 37000
+SERVE_TOL = 0.05        # rel Frobenius of bf16 logits against f32 (PERF.md 2)
+
+
+def gpt_flops(params, cfg, batch, seq):
+    """bench.py's accounting (PaLM-style, bench.py:1087-1106) of one GPT
+    training step: 6 FLOPs per body parameter per token, plus
+    6 * vocab * hidden per token for the tied head (the lookup does no
+    matmul work), plus 12 * L * hidden * T per token for attention, not
+    halved for causal."""
+    P = sum(p.numel() for p in params.values())
+    P_embed = sum(p.numel() for n, p in params.items()
+                  if n.startswith(('word_embed', 'pos_embed')))
+    tokens = batch * seq
+    return (6 * (P - P_embed) * tokens
+            + 6 * cfg['vocab_size'] * cfg['hidden'] * tokens
+            + 12 * cfg['layers'] * cfg['hidden'] * seq * tokens)
+
+
+def gpt_batch(cfg, batch, seq, seed):
+    """Random tokens and their labels: the tokens shifted left, -1 at the
+    last position (examples/train_gpt.py)."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    toks = rng.randint(0, cfg['vocab_size'], (batch, seq))
+    labels = onp.full_like(toks, -1)
+    labels[:, :-1] = toks[:, 1:]
+    return toks, labels
+
+
+def gpt_model(cfg, seq, batch):
+    """parity_step's model: GPTModel and gpt_lm_loss on the batch drawn
+    from SEED + 5."""
+    import torch
+    from mxnet_tpu_torch.models import gpt
+    toks, labels = gpt_batch(cfg, batch, seq, SEED + 5)
+    return (lambda dtype, dev: gpt.GPTModel(**cfg, dropout=0.0, dtype=dtype,
+                                            device=dev),
+            lambda net, dev: gpt.gpt_lm_loss(
+                net(torch.from_numpy(toks).to(dev)),
+                torch.from_numpy(labels).to(dev)))
+
+
+def gpt_parity(cfg, arrays, card, device='cuda', seq=1024, batch=1):
+    """One step of GPT-2 small at full width and depth, dropout 0, bf16 on
+    the card against f32 on the CPU through the plain versions, held to
+    PERF.md section 2's training bounds; the tied embedding's gradient
+    (the lookup's and the head's) printed on its own line."""
+    import torch
+    model = gpt_model(cfg, seq, batch)
+    got = parity_step(model, arrays, device, torch.bfloat16)
+    want = parity_step(model, arrays, 'cpu', torch.float32)
+    held = hold_parity(f'GPT-2 small one step at B={batch} T={seq} '
+                       f'(dropout 0), bf16 on the card vs f32 CPU plain',
+                       got, want, TRAIN_TOL)
+    # in float64: a float32 cosine over the table's 38.6M elements rounds
+    # past 1
+    g, w = (r[1]['word_embed.weight'].double() for r in (got, want))
+    rel = float((g - w).norm() / w.norm())
+    cos = float(torch.nn.functional.cosine_similarity(
+        g.flatten(), w.flatten(), dim=0))
+    print(f'  parity, the tied word_embed gradient (lookup + head): '
+          f'rel_fro_err={rel:.4f}, cosine {cos:.5f} (bounds '
+          f'{TRAIN_TOL["grad_rel_fro"]}, {TRAIN_TOL["grad_min_cos"]})')
+    check(rel <= TRAIN_TOL['grad_rel_fro'] and
+          cos >= TRAIN_TOL['grad_min_cos'], 'the tied gradient disagrees')
+    return dict(held, word_embed_rel_fro=rel, word_embed_cos=cos)
+
+
+def _flash_counts():
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import attention as attn_ops
+    return ({k: v for k, v in mt.ops.launch_counts.items() if v},
+            {k: v for k, v in mt.ops.variant_counts.items() if v},
+            dict(attn_ops.route_counts))
+
+
+def gpt_step(card, cfg, arrays, device='cuda', batch=8, seq=1024, warmup=3,
+             timed=10):
+    """(a) GPT-2 small as examples/train_gpt.py trains it: bf16,
+    gpt_lm_loss, ShardedTrainStep with AdamW at lr 3e-4, dropout 0.1 drawn
+    on the card, one repeated batch. Returns (launches of the eager step
+    and the capture, launches per replay, numbers)."""
+    import numpy as onp
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models import gpt
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+
+    L = cfg['layers']
+    gen = torch.Generator(device).manual_seed(SEED + 6)
+    net = gpt.GPTModel(**cfg, dropout=0.1, dtype=torch.bfloat16,
+                       device=device, generator=gen)
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    step = parallel.ShardedTrainStep(
+        net, gpt.gpt_lm_loss, 'adamw', {'learning_rate': 3e-4},
+        **({} if device == 'cuda' else
+           {'mesh': parallel.make_mesh(devices=[device])}))
+    toks, labels = gpt_batch(cfg, batch, seq, SEED + 7)
+    ins = [torch.from_numpy(toks).to(device)]
+    labs = [torch.from_numpy(labels).to(device)]
+
+    # the path's run: counters at 0 before call 1 (the eager step and the
+    # capture), read after the warm-up
+    _zero_counters()
+    t0 = time.perf_counter()
+    warm = [float(step(ins, labs))]
+    first_s = time.perf_counter() - t0
+    warm += [float(step(ins, labs)) for _ in range(warmup - 1)]
+    launches, variants, routes = _flash_counts()
+    print(f'  GPT-2 small warm-up losses {warm} (call 1, eager and capture: '
+          f'{first_s:.1f} s); host launches {launches} variants {variants} '
+          f'routes {routes}')
+    check(routes.get('flash') == 2 * L and not routes.get('plain'),
+          f'attention routes {routes}')
+    check(launches == {'flash_attn_fwd': 2 * L, 'flash_attn_bwd_dq': 2 * L,
+                       'flash_attn_bwd_dkv': 2 * L},
+          f'launch counts {launches} for the eager step and the capture')
+    check(variants == {'flash_attn_fwd.tc': 2 * L,
+                       'flash_attn_bwd_dq.tc': 2 * L,
+                       'flash_attn_bwd_dkv.tc': 2 * L},
+          f'variant counts {variants}')
+
+    # early traces (a late one drops events): the busy time and idle share
+    # of a replay, then each replay's kernels by name
+    busy = device_breakdown(f'GPT-2 small captured step b{batch}_s{seq}',
+                            lambda: step(ins, labs), card, 3)
+    replays = 3
+    want = {'flash_fwd_tc_kernel': L, 'flash_bwd_dq_tc_kernel': L,
+            'flash_bwd_dkv_tc_kernel': L}
+    names = kernel_launches(lambda: step(ins, labs), replays, want)
+    per_replay = {k: sum(c for n, c in names.items() if k in n) / replays
+                  for k in want}
+    simt = {k: sum(c for n, c in names.items() if k in n) / replays
+            for k in ('flash_fwd_kernel', 'flash_bwd_dq_kernel',
+                      'flash_bwd_dkv_kernel')}
+    print(f'  GPT-2 small kernel launches per replay (profiler, {replays} '
+          f'replays): {per_replay}; SIMT variants {simt}')
+    check(per_replay == want, f'launches per replay {per_replay}, expected '
+          f'{want}')
+    check(not any(simt.values()), f'SIMT flash kernels ran: {simt}')
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(ins, labs) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    # the first warm-up loss comes before any update; a bf16 loss in
+    # [2^e, 2^(e+1)) is spaced 2^(e-7) apart
+    ulp = 2.0 ** (math.floor(math.log2(abs(warm[0]))) - 7)
+    drop = (warm[0] - losses[-1]) / ulp
+    print(f'  GPT-2 small timed losses (one repeated batch): {losses}; the '
+          f'last is {drop:.0f} bf16 spacings ({ulp}) below the first '
+          f'warm-up loss {warm[0]} (before any update)')
+    check(all(onp.isfinite(x) for x in warm + losses), 'non-finite loss')
+    check(drop >= 8, f'the last loss is {drop:.0f} bf16 spacings below the '
+          f'first, expected at least 8')
+    # the replays after the timed ones still update: every f32 master moves
+    # in each of two
+    masters = step._master
+    for i in range(2):
+        kept = {n: m.clone() for n, m in masters.items()}
+        step(ins, labs)
+        torch.cuda.synchronize()
+        still = [n for n, m in masters.items() if torch.equal(m, kept[n])]
+        print(f'  one more replay: {len(masters) - len(still)} of '
+              f'{len(masters)} f32 masters moved')
+        check(not still, f'masters that did not move in a replay: {still}')
+        del kept
+    calls = [wall / timed * 1e3] + [
+        steps_ms(lambda: step(ins, labs), timed) for _ in range(2)]
+    step_ms = sorted(calls)[1]
+    flops = gpt_flops(dict(net.named_parameters()), cfg, batch, seq)
+    tokens_s = batch * seq / step_ms * 1e3
+    mfu = flops / (step_ms / 1e3) / PEAK_BF16
+    print(f'  GPT-2 small {timed} captured steps at B={batch} T={seq} on '
+          f'{card}: {step_ms:.3f} ms per step, the median of 3 calls '
+          f'({", ".join(f"{c:.3f}" for c in calls)} ms), {tokens_s:.1f} '
+          f'tokens/s, {flops / 1e12:.4f} TFLOP per step = 6*P_body*tokens '
+          f'+ 6*vocab*hidden*tokens (tied head) + 12*L*hidden*T*tokens '
+          f'(attention, not halved for causal), MFU {mfu:.4%} of 989 '
+          f'TFLOP/s bf16; peak allocated '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    rows = {'flash_attn_fwd': 'flash_fwd_tc_kernel',
+            'flash_attn_bwd_dq': 'flash_bwd_dq_tc_kernel',
+            'flash_attn_bwd_dkv': 'flash_bwd_dkv_tc_kernel'}
+    del step, net
+    torch.cuda.empty_cache()
+    return launches, {r: per_replay[k] for r, k in rows.items()}, dict(
+        step_ms=step_ms, calls_ms=calls, tokens_s=tokens_s, mfu=mfu,
+        flops=flops, losses=warm + losses, busy=busy)
+
+
+def transformer_base(card, device='cuda', batch=16, src_len=256,
+                     tgt_len=200, parity_batch=2, cfg=None,
+                     vocab=TRANSFORMER_VOCAB):
+    """(c) Transformer-base in bf16: the forward's logits at B = 2 against
+    f32 on the CPU through the plain versions (eval mode), then one
+    Trainer step (autograd, AdamW) at B = 16 with dropout 0.1, counting
+    the flash kernels' launches of its forward and of its backward."""
+    import numpy as onp
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.models.bert import masked_cross_entropy
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+
+    cfg = dict(cfg or TRANSFORMER_BASE)
+    gen = torch.Generator(device).manual_seed(SEED + 8)
+    net = transformer.TransformerModel(vocab, vocab, **cfg, dropout=0.1,
+                                       dtype=torch.bfloat16, device=device,
+                                       generator=gen)
+    arrays = random_bert_arrays(net, seed=SEED + 9)
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    rng = onp.random.RandomState(SEED + 10)
+
+    def batch_of(B):
+        src = rng.randint(0, vocab, (B, src_len))
+        tgt = rng.randint(0, vocab, (B, tgt_len))
+        labels = rng.randint(0, vocab, (B, tgt_len))
+        valid = rng.randint(src_len // 2, src_len + 1, (B,))
+        mask = onp.arange(src_len)[None, None, None, :] < \
+            valid[:, None, None, None]
+        return [torch.from_numpy(a) for a in (src, tgt, mask, labels)]
+
+    src, tgt, mask, _ = batch_of(parity_batch)
+    with torch.no_grad():
+        got = net.eval()(src.to(device), tgt.to(device), mask.to(device))
+        ref = transformer.TransformerModel(vocab, vocab, **cfg, dropout=0.0,
+                                           device='cpu')
+        ref.load_state_dict(params_from_mxnet_tpu(arrays, ref))
+        want = ref.eval()(src, tgt, mask)
+    rel = float((got.float().cpu() - want).norm() / want.norm())
+    print(f'  Transformer-base forward at B={parity_batch} Ts={src_len} '
+          f'Tt={tgt_len} (key mask), bf16 on the card vs f32 CPU plain: '
+          f'logits rel_fro_err={rel:.4f} (bound {SERVE_TOL})')
+    check(rel <= SERVE_TOL, 'Transformer-base logits disagree')
+    del ref, want, got
+
+    net.train()
+    trainer = gluon.Trainer(net.collect_params(), 'adamw',
+                            {'learning_rate': 1e-4, 'wd': 0.01,
+                             'multi_precision': True})
+    src, tgt, mask, labels = (t.to(device) for t in batch_of(batch))
+    L = cfg['enc_layers'] + 2 * cfg['dec_layers']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _zero_counters()
+    loss = masked_cross_entropy(net(src, tgt, mask), labels)
+    torch.cuda.synchronize()
+    fwd = _flash_counts()
+    _zero_counters()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd = _flash_counts()
+    trainer.step(1)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    print(f'  Transformer-base one Trainer step (AdamW) at B={batch} '
+          f'Ts={src_len} Tt={tgt_len}: loss {float(loss.detach()):.5f}, '
+          f'{step_s * 1e3:.1f} ms host (first step: kernels and the '
+          f'update\'s capture set up); forward launches {fwd[0]} variants '
+          f'{fwd[1]} routes {fwd[2]}; backward launches {bwd[0]} variants '
+          f'{bwd[1]}')
+    check(bool(torch.isfinite(loss)), 'non-finite Transformer loss')
+    check(fwd[0] == {'flash_attn_fwd': L} and fwd[2].get('flash') == L and
+          fwd[1] == {'flash_attn_fwd.tc': L}, f'forward launches {fwd}')
+    check(bwd[0] == {'flash_attn_bwd_dq': L, 'flash_attn_bwd_dkv': L} and
+          bwd[1] == {'flash_attn_bwd_dq.tc': L, 'flash_attn_bwd_dkv.tc': L},
+          f'backward launches {bwd}')
+    launches = {'flash_attn_fwd': L, 'flash_attn_bwd_dq': L,
+                'flash_attn_bwd_dkv': L}
+    del net, trainer, loss
+    torch.cuda.empty_cache()
+    return launches, dict(logits_rel_fro=rel, loss_step_ms=step_s * 1e3)
+
+
+def lm_phase(card, device='cuda', cfg=None, batch=8, seq=1024,
+             transformer_kw=None):
+    """GPT-2 small's parity (b), its captured step (a) and Transformer-base
+    (c); returns (launches of A, K2 and K3 on the path, GPT's launches per
+    replay, numbers)."""
+    import torch
+    from mxnet_tpu_torch.models import gpt
+
+    cfg = dict(cfg or gpt.gpt2_small_config())
+    print(f'lm phase on {card}: GPT-2 small {cfg} and Transformer-base')
+    # the weights: Normal(0.02) for every weight from a numpy seed, gamma,
+    # beta and biases as constructed
+    arrays = random_bert_arrays(gpt.GPTModel(**cfg, device='cpu'),
+                                seed=SEED + 4)
+    parity = gpt_parity(cfg, arrays, card, device, seq=seq, batch=1)
+    torch.cuda.empty_cache()
+    launches, per_replay, step = gpt_step(card, cfg, arrays, device, batch,
+                                          seq)
+    t_launches, trans = transformer_base(card, device,
+                                         **(transformer_kw or {}))
+    total = {k: launches[k] + t_launches[k] for k in launches}
+    return total, per_replay, dict(gpt_step=step, gpt_parity=parity,
+                                   transformer=trans)
+
+
+# ---- the rest of the vision zoo on the card
+ZOO_NETS = (('alexnet', 224), ('vgg16_bn', 224), ('squeezenet1.1', 224),
+            ('mobilenetv2_1.0', 224), ('densenet121', 224),
+            ('inceptionv3', 299))
+
+
+def he_arrays(net, seed):
+    """He-normal weights (N(0, 2 / fan_in)) drawn with numpy from ``seed``
+    for every convolution and dense weight; BatchNorm's gamma, beta and
+    running statistics and every bias as initialised (1, 0, 0, 1, 0), so
+    that activations keep their scale through a deep net in predict
+    mode."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    arrays = {}
+    for name, p in net._collect_params_with_prefix().items():
+        a = p.data().asnumpy()
+        if name.endswith('weight'):
+            fan_in = int(onp.prod(a.shape[1:]))
+            a = (rng.standard_normal(a.shape) *
+                 onp.sqrt(2.0 / fan_in)).astype(onp.float32)
+        arrays[name] = a
+    return arrays
+
+
+def _zoo_net(name, ctx, arrays=None, x=None, classes=1000):
+    """``get_model(name)`` on ``ctx``, placed by one predict forward of
+    ``x[:1]``, holding ``arrays`` (He-normal from ``SEED`` when None)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    with ctx:
+        net = get_model(name, classes=classes)
+        net.initialize()
+        net(mt.nd.array(x[:1]))
+        if arrays is None:
+            arrays = he_arrays(net, SEED + 11)
+        for k, p in net._collect_params_with_prefix().items():
+            p.set_data(mt.nd.array(arrays[k]))
+    return net, arrays
+
+
+def prob_nll_loss():
+    """-log p[label] as a Gluon Loss, for a net that ends in a softmax."""
+    from mxnet_tpu_torch import gluon
+
+    class ProbNLL(gluon.loss.Loss):
+        def hybrid_forward(self, F, pred, label):
+            return -F.log(F.pick(pred, label, axis=-1) + 1e-12)
+    return ProbNLL(None, 0)
+
+
+def zoo_estimator(card, work, batch=32, batches=8, side=224,
+                  name='mobilenetv2_1.0'):
+    """(b) Estimator.fit of ``name`` (ending in a softmax) in f32 on the
+    card: ``batches`` batches of ``batch`` from gluon.data.DataLoader over
+    an ArrayDataset, SGD, the metrics Accuracy, TopKAccuracy(5) and
+    CrossEntropy held against numpy over the same predictions, with
+    LoggingHandler, CheckpointHandler (resumed into a fresh net byte for
+    byte) and WatchdogHandler (one beat a batch)."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.contrib import estimator as est_mod
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+
+    rng = onp.random.RandomState(SEED + 12)
+    n = batch * batches
+    x = rng.standard_normal((n, 3, side, side)).astype(onp.float32)
+    y = rng.randint(0, 1000, n).astype(onp.float32)
+    ctx = mt.gpu(0)
+
+    def probs_net(arrays=None):
+        body, arrays = _zoo_net(name, ctx, arrays, x)
+        with ctx:
+            net = gluon.nn.HybridSequential(prefix='')
+            net.add(body)
+            net.add(gluon.nn.HybridLambda(
+                lambda F, z: F.softmax(z, axis=-1)))
+        return net, arrays
+
+    net, arrays = probs_net()
+    # labels the net can get right: the even images take the class its
+    # training-mode forward (as fit runs it) ranks first before any step,
+    # the odd ones stay random
+    with mt.autograd.record():
+        first = onp.concatenate([
+            net(mt.nd.array(x[i:i + batch], ctx=ctx)).asnumpy().argmax(1)
+            for i in range(0, n, batch)])
+    y = onp.where(onp.arange(n) % 2 == 0, first, y).astype(onp.float32)
+    trainer = gluon.Trainer(net.collect_params(), 'sgd',
+                            {'learning_rate': 0.01, 'momentum': 0.9})
+    metrics = [mt.metric.Accuracy(), mt.metric.TopKAccuracy(5),
+               mt.metric.CrossEntropy()]
+    est = est_mod.Estimator(net, prob_nll_loss(), metrics=metrics,
+                            trainer=trainer)
+    check(est.context == [ctx], f'Estimator context {est.context}')
+    seen = []
+
+    class Keep(est_mod.BatchEnd):
+        def batch_end(self, estimator, *args, **kwargs):
+            seen.append((kwargs['pred'][0].asnumpy(),
+                         kwargs['label'][0].asnumpy()))
+
+    ckpt_dir = os.path.join(work, 'estimator')
+    ckpt = est_mod.CheckpointHandler(ckpt_dir)
+    wd = est_mod.WatchdogHandler(deadline_seconds=300)
+    loader = DataLoader(ArrayDataset(x, y), batch_size=batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(loader, epochs=1, event_handlers=[
+        est_mod.LoggingHandler(metrics=metrics), ckpt, wd, Keep()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(seen) == batches and wd._step == batches,
+          f'{len(seen)} batches seen, {wd._step} watchdog beats')
+    p = onp.concatenate([s[0] for s in seen])
+    lab = onp.concatenate([s[1] for s in seen]).astype(onp.int64)
+    want = {'accuracy': float((p.argmax(1) == lab).sum()) / n,
+            'top_k_accuracy_5': float(
+                (onp.argsort(-p, axis=1)[:, :5] == lab[:, None])
+                .any(1).sum()) / n,
+            'cross-entropy': float(
+                (-onp.log(p[onp.arange(n), lab] + 1e-12)).sum()) / n}
+    got = dict(m.get() for m in metrics)
+    print(f'  Estimator.fit {name} f32 B={batch} {side}x{side}, {batches} '
+          f'batches, SGD, on {card}: {n / wall:.1f} images/s '
+          f'({wall:.2f} s, the first batch\'s set-up included); metrics '
+          f'{got}, numpy over the same predictions {want}; watchdog beats '
+          f'{wd._step}')
+    check(got['accuracy'] == want['accuracy'] and
+          got['top_k_accuracy_5'] == want['top_k_accuracy_5'],
+          'accuracy metrics disagree with numpy')
+    check(abs(got['cross-entropy'] - want['cross-entropy']) <=
+          1e-5 * abs(want['cross-entropy']), 'cross-entropy disagrees')
+
+    # resume: a fresh net takes the committed checkpoint byte for byte
+    fresh, _ = probs_net(he_arrays(net[0], SEED + 13))
+    est2 = est_mod.Estimator(fresh, prob_nll_loss(), metrics=[],
+                             trainer=gluon.Trainer(fresh.collect_params(),
+                                                   'sgd'))
+    h2 = est_mod.CheckpointHandler(ckpt_dir, resume_from_checkpoint=True)
+    h2.train_begin(est2)
+    h2.manager.close()
+    a, b = (dict((k, p_.data()._data) for k, p_ in
+                 m._collect_params_with_prefix().items())
+            for m in (net, fresh))
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    print(f'  checkpoint: committed steps {ckpt.manager.all_steps()}, '
+          f'resumed step {h2.resumed_step}, {len(a)} parameters, '
+          f'{len(differ)} differ after the resume')
+    check(h2.resumed_step == batches and not differ,
+          f'resume differs: {differ[:5]}')
+    return dict(images_s=n / wall, metrics=got)
+
+
+def zoo_phase(card, work, device='cuda', batch=8, nets=ZOO_NETS,
+              estimator_kw=None):
+    """(a) each net's predict forward on the card in f32 against the same
+    weights on the CPU through the plain versions, timed; (b)
+    zoo_estimator. The path launches none of the hand-written kernels:
+    convolutions, pooling and BatchNorm are PyTorch's, as the JAX package
+    leaves them to XLA."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+
+    print(f'zoo phase on {card}: the vision zoo beyond ResNet, f32')
+    _zero_counters()
+    out = {}
+    ctx = mt.gpu(0) if device == 'cuda' else mt.cpu()
+    for name, side in nets:
+        x = onp.random.RandomState(SEED + 14).standard_normal(
+            (batch, 3, side, side)).astype(onp.float32)
+        net, arrays = _zoo_net(name, ctx, None, x)
+        ref, _ = _zoo_net(name, mt.cpu(), arrays, x)
+        xt = torch.from_numpy(x)
+        xd = xt.to(device)
+        net.eval()
+        ref.eval()
+        with torch.no_grad():
+            got = net(xd).float().cpu()
+            want = ref(xt)
+            ms, how = time_ms(lambda: net(xd)) if device == 'cuda' \
+                else (float('nan'), 'not on a card')
+        rel = float((got - want).norm() / want.norm())
+        print(f'  zoo {name} B={batch} {side}x{side} f32 on {card}: '
+              f'device {ms:.3f} ms per forward ({how}); logits '
+              f'rel_fro_err={rel:.2e} against the CPU plain forward (bound '
+              f'{SERVE_TOL}), |logits| max {float(want.abs().max()):.3f}')
+        check(got.shape == (batch, 1000), f'{name} logits {got.shape}')
+        check(rel <= SERVE_TOL, f'{name} disagrees with the CPU forward')
+        out[name] = dict(ms=ms, rel_fro=rel)
+        del net, ref
+        torch.cuda.empty_cache()
+    out['estimator'] = zoo_estimator(card, work, **(estimator_kw or {}))
+    launches, _, _ = _flash_counts()
+    check(not launches, f'the zoo path launched {launches}')
+    return out
+
+
 TILED = {'flash_attn_fwd': 'fwd', 'flash_attn_bwd_dq': 'bwd',
          'flash_attn_bwd_dkv': 'bwd'}
 
@@ -5006,6 +5732,10 @@ def main():
               f'{name} spills or is missing: {line}')
 
     rows = kernel_phase(card)
+    # early in the process: the lm phase's traces are read in full there
+    lm, lm_replay, _lm = lm_phase(card)
+    with tempfile.TemporaryDirectory() as work:
+        _zoo = zoo_phase(card, work)
     serving, serve_replay, _serving = serving_phase(card)
     front, front_http, _front = front_phase(card)
     training, _train = training_phase(card)
@@ -5033,7 +5763,7 @@ def main():
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
              'ndarray', 'gluon', 'io', 'dp', 'remat', 'autotune', 'zero3',
-             'resilience')
+             'resilience', 'lm')
     by_path = {}
     for name in rows:
         base, f16 = name.split('[')[0], name.endswith('[float16]')
@@ -5050,7 +5780,8 @@ def main():
             gluon=gluon.get(name, 0), io=io.get(name, 0),
             dp=dp.get(name, 0),
             remat=remat.get(name, 0), autotune=tuned.get(name, 0),
-            zero3=zero3.get(name, 0), resilience=resil.get(name, 0))
+            zero3=zero3.get(name, 0), resilience=resil.get(name, 0),
+            lm=lm.get(name, 0))
     for name in user_rows:
         by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
     idle = [n for n, paths_n in by_path.items()
@@ -5072,6 +5803,10 @@ def main():
                        if name in dp_errs else {}),
                     **({'launches_per_replay': per_replay[name]}
                        if name in per_replay else {}),
+                    **({'launches_per_lm_replay': lm_replay[name]}
+                       if name in lm_replay else {}),
+                    **({'lm_shapes': r['lm_shapes']}
+                       if 'lm_shapes' in r else {}),
                     **({'launches_per_serving_dispatch': serve_replay[name]}
                        if name in serve_replay else {}),
                     **({'launches_per_http_dispatch': front_http[name]}

@@ -27,15 +27,19 @@ precision in bfloat16 or float16, with the dynamic loss scaler. The
 input pipeline is MXNet's: ``recordio``, ``io`` (``NDArrayIter``,
 ``ImageRecordIter`` over the native decode runtime of
 ``src/io/mxtpu_io.cc``, ``DevicePrefetchIter``), ``image`` and
-``gluon.data``, each batch copied to the card on a side stream.
+``gluon.data``, each batch copied to the card on a side stream. The
+models are BERT, GPT-2 (``models.gpt``) and the Transformer
+(``models.transformer``), the vision zoo is MXNet's, ``metric`` holds
+MXNet's evaluation metrics and ``gluon.contrib`` the Estimator and its
+handlers.
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
     num_gpus, tpu
 from . import (amp, autograd, checkpoint, config, context, contrib, engine,
-               gluon, image, initializer, io, lr_scheduler, models, ndarray,
-               ops, optimizer, parallel, random, recordio, resilience, rtc,
-               serialization, serving, telemetry, weights)
+               gluon, image, initializer, io, lr_scheduler, metric, models,
+               ndarray, ops, optimizer, parallel, random, recordio,
+               resilience, rtc, serialization, serving, telemetry, weights)
 from . import ndarray as nd
 from . import initializer as init
 
@@ -43,6 +47,6 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',
            'config', 'context', 'contrib',
            'engine', 'gluon', 'image', 'init', 'initializer', 'io',
-           'lr_scheduler', 'models', 'nd', 'ndarray', 'ops', 'optimizer',
+           'lr_scheduler', 'metric', 'models', 'nd', 'ndarray', 'ops', 'optimizer',
            'parallel', 'random', 'recordio', 'resilience', 'rtc',
            'serialization', 'serving', 'telemetry', 'weights']

@@ -127,9 +127,15 @@ _DEFAULT = Context('gpu', 0)
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the current CUDA device; ``'cpu'`` (or a CPU
-    ``torch.device``) is honoured only when asked for by name."""
-    dev = torch.device('cuda') if device is None else torch.device(device)
+    """``None`` means the device of the ``with mx.cpu():`` / ``with
+    mx.gpu(i):`` scope around the call, and outside any scope the current
+    CUDA device; ``'cpu'`` (or a CPU ``torch.device``) is honoured only
+    when asked for, by name or by a scope."""
+    if device is None:
+        stack = getattr(Context._default_ctx, 'stack', None)
+        dev = stack[-1].device if stack else torch.device('cuda')
+    else:
+        dev = torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise MXNetError(
             f"device {str(dev)!r} requested but no CUDA device is "

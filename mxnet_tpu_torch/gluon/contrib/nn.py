@@ -1,0 +1,62 @@
+"""Contrib layers (counterpart of ``mxnet_tpu/gluon/contrib/nn.py``, ref:
+python/mxnet/gluon/contrib/nn/basic_layers.py): ``HybridConcurrent``,
+``Concurrent``, ``Identity`` and ``PixelShuffle2D``. ``SparseEmbedding``
+needs row-sparse gradients, which are ROADMAP queue 1 item 12: it
+raises."""
+from __future__ import annotations
+
+from ...base import MXNetError
+from ... import ndarray as nd
+from ..block import Block, HybridBlock
+
+__all__ = ['HybridConcurrent', 'Concurrent', 'Identity', 'SparseEmbedding',
+           'PixelShuffle2D']
+
+
+class HybridConcurrent(HybridBlock):
+    """Apply the children to the same input and concatenate their outputs
+    along ``axis``."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        out = [block(x) for block in self._children.values()]
+        return nd.concat(*out, dim=self.axis)
+
+
+class Concurrent(HybridConcurrent):
+    pass
+
+
+class Identity(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.identity(x)
+
+
+class SparseEmbedding(Block):
+    """An Embedding with row-sparse gradients: not ported (ROADMAP queue 1
+    item 12, sparse)."""
+
+    def __init__(self, input_dim, output_dim, dtype='float32',
+                 weight_initializer=None, **kwargs):
+        raise MXNetError("SparseEmbedding needs row-sparse gradients, which "
+                         "are not ported (ROADMAP queue 1 item 12); use "
+                         "gluon.nn.Embedding")
+
+
+class PixelShuffle2D(HybridBlock):
+    """Channels to space by ``factor`` (``depth_to_space``, as the JAX
+    package computes it)."""
+
+    def __init__(self, factor):
+        super().__init__()
+        self._factor = int(factor)
+
+    def hybrid_forward(self, F, x):
+        return F.depth_to_space(x, block_size=self._factor)

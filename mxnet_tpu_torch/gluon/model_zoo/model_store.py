@@ -1,26 +1,34 @@
-"""Where the model zoo finds pretrained weights (counterpart of the path
-rules of ``mxnet_tpu/gluon/model_zoo/model_store.py``, ref:
+"""Where the model zoo finds pretrained weights (counterpart of
+``mxnet_tpu/gluon/model_zoo/model_store.py``, ref:
 python/mxnet/gluon/model_zoo/model_store.py).
 
 ``get_model_file(name, root)`` returns ``<root>/<name>-<hash8>.params``
 (root defaults to ``$MXNET_HOME/models``) when it is there and its SHA-1
-is the published one. Otherwise, when ``MXNET_GLUON_REPO`` is a local
-directory holding ``gluon/models/<name>-<hash8>.params`` with that SHA-1,
-the file is copied into root first. Nothing is downloaded: any other case
-raises. The checksums are the reference's own (model_store.py:34), so
-files published for MXNet load byte for byte. Zip archives, ``purge`` and
-downloading are ROADMAP queue 1 (``model_store.py``).
+is the published one. Otherwise it fetches the file from the repo that
+``MXNET_GLUON_REPO`` names, as the JAX package does: the bare
+``gluon/models/<name>-<hash8>.params`` is copied into root, or else the
+published ``gluon/models/<name>-<hash8>.zip`` is unpacked there; a
+fetched file whose SHA-1 is not the published one raises ValueError.
+The repo must be a local directory (a path or a ``file://`` URL): the
+port downloads nothing, and any other repo raises. ``purge(root)``
+removes every cached ``.params`` file. The checksums are the reference's
+own (model_store.py:34), so files published for MXNet load byte for
+byte.
 """
 from __future__ import annotations
 
+import logging
 import os
 import shutil
+import tempfile
+import uuid
+import zipfile
 
 from ...base import MXNetError
 from ... import config
-from ..utils import check_sha1
+from ..utils import check_sha1, replace_file
 
-__all__ = ['get_model_file', 'short_hash']
+__all__ = ['get_model_file', 'short_hash', 'purge', 'load_pretrained']
 
 _model_sha1 = {name: checksum for checksum, name in [
     ('44335d1f0046b328243b32a26a4fbd62d9057b45', 'alexnet'),
@@ -59,35 +67,87 @@ _model_sha1 = {name: checksum for checksum, name in [
     ('f360b758e856f1074a85abd5fd873ed1d98297c3', 'vgg19_bn')]}
 
 
+
 def short_hash(name):
     if name not in _model_sha1:
         raise ValueError(f'Pretrained model for {name} is not available.')
     return _model_sha1[name][:8]
 
 
-def get_model_file(name, root=None):
-    """The local path of ``name``'s pretrained .params (see the module
-    docstring)."""
-    file_name = f'{name}-{short_hash(name)}.params'
-    root = os.path.expanduser(root or os.path.join(config.get('MXNET_HOME'),
-                                                   'models'))
-    path = os.path.join(root, file_name)
-    sha1 = _model_sha1[name]
-    if os.path.exists(path) and check_sha1(path, sha1):
-        return path
+def _default_root():
+    return os.path.join(config.get('MXNET_HOME'), 'models')
+
+
+def _local_repo():
+    """The repo directory ``MXNET_GLUON_REPO`` names, or None when it names
+    none or names a remote one."""
     repo = config.get('MXNET_GLUON_REPO')
     if repo.startswith('file://'):
         repo = repo[len('file://'):]
-    src = os.path.join(repo, 'gluon', 'models', file_name) if repo else ''
-    if src and os.path.exists(src) and check_sha1(src, sha1):
-        os.makedirs(root, exist_ok=True)
-        shutil.copyfile(src, path)
-        return path
-    raise MXNetError(
-        f"pretrained weights for {name!r}: no file {path} with the "
-        f"published checksum, and MXNET_GLUON_REPO ({repo or 'unset'}) "
-        f"holds none; the port downloads nothing. Place the file there, "
-        f"or call net.load_parameters() with a local file.")
+    return repo if repo and os.path.isdir(repo) else None
+
+
+def _fetch(name, file_name, file_path):
+    """Copy the repo's bare .params to ``file_path``, or unpack its .zip
+    there; raise when the repo is not a local directory or holds
+    neither."""
+    repo = _local_repo()
+    base = os.path.join(repo, 'gluon', 'models', file_name) if repo else ''
+    if repo and os.path.exists(base + '.params'):
+        shutil.copyfile(base + '.params', file_path)
+        return
+    if not (repo and os.path.exists(base + '.zip')):
+        raise MXNetError(
+            f"pretrained weights for {name!r}: no file {file_path} with the "
+            f"published checksum, and MXNET_GLUON_REPO "
+            f"({config.get('MXNET_GLUON_REPO') or 'unset'}) is no local "
+            f"directory holding gluon/models/{file_name}.params or .zip; "
+            f"the port downloads nothing. Place the file there, or call "
+            f"net.load_parameters() with a local file.")
+    root = os.path.dirname(file_path)
+    temp_zip = os.path.join(root, file_name + '.zip' + str(uuid.uuid4()))
+    try:
+        shutil.copyfile(base + '.zip', temp_zip)
+        with zipfile.ZipFile(temp_zip) as zf:
+            temp_dir = tempfile.mkdtemp(dir=root)
+            try:
+                zf.extractall(temp_dir)
+                replace_file(os.path.join(temp_dir, file_name + '.params'),
+                             file_path)
+            finally:
+                shutil.rmtree(temp_dir, ignore_errors=True)
+    finally:
+        if os.path.exists(temp_zip):
+            os.remove(temp_zip)
+
+
+def get_model_file(name, root=None):
+    """The local path of ``name``'s pretrained .params (see the module
+    docstring)."""
+    file_name = f'{name}-{short_hash(name)}'
+    root = os.path.expanduser(root or _default_root())
+    file_path = os.path.join(root, file_name + '.params')
+    sha1_hash = _model_sha1[name]
+    if os.path.exists(file_path):
+        if check_sha1(file_path, sha1_hash):
+            return file_path
+        logging.warning('Mismatch in the content of model file detected. '
+                        'Fetching it again.')
+    os.makedirs(root, exist_ok=True)
+    _fetch(name, file_name, file_path)
+    if check_sha1(file_path, sha1_hash):
+        return file_path
+    raise ValueError('Downloaded file has different hash. Please try again.')
+
+
+def purge(root=None):
+    """Remove every cached model file (ref: model_store.py purge)."""
+    root = os.path.expanduser(root or _default_root())
+    if not os.path.isdir(root):
+        return
+    for f in os.listdir(root):
+        if f.endswith('.params'):
+            os.remove(os.path.join(root, f))
 
 
 def load_pretrained(net, name, root=None, ctx=None):

@@ -478,6 +478,10 @@ class Constant(Parameter):
 
         super().__init__(name, grad_req='null', shape=tuple(t.shape),
                          dtype=t.dtype, init=_CInit(), device=device)
+        if self._ready:
+            # built on a device at once: the value, not the zeros other
+            # parameters start from
+            self._finish_init(None, None, None)
 
 
 class ParameterDict:
@@ -544,13 +548,13 @@ class ParameterDict:
                                  zip(param._shape, kwargs['shape']))
         return param
 
-    def get_constant(self, name, value=None):
+    def get_constant(self, name, value=None, device=None):
         name = self._prefix + name
         param = self._get_impl(name)
         if param is None:
             if value is None:
                 raise MXNetError(f"No constant named '{name}'")
-            param = Constant(name, value)
+            param = Constant(name, value, device=device)
             self._params[name] = param
         return param
 

@@ -11,9 +11,10 @@ import warnings
 import torch
 
 from ..base import MXNetError
+from ..ndarray.utils import split_data, split_and_load  # noqa: F401
 
 __all__ = ['clip_global_norm', 'shape_is_known', 'HookHandle', 'check_sha1',
-           'replace_file', 'download']
+           'replace_file', 'download', 'split_data', 'split_and_load']
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):

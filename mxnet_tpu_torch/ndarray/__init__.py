@@ -10,6 +10,7 @@ from .ndarray import (NDArray, array, zeros, ones, full, arange, empty,
                       imperative_invoke, waitall, from_numpy, from_dlpack,
                       to_dlpack_for_read, _invoke, _wrap)
 from . import register as _register
+from .utils import split_data, split_and_load  # noqa: F401
 
 # op wrappers from the registry; the creation ops keep their ctx-aware
 # front-ends above

@@ -228,7 +228,7 @@ def num_workers():
 
 
 def device():
-    """This rank's device (the current CUDA device outside a world)."""
+    """This rank's device (outside a world, ``resolve_device(None)``)."""
     if _world is not None:
         return _world['device']
     from ..context import resolve_device

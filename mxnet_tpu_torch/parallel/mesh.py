@@ -57,7 +57,7 @@ _default_mesh: Optional[Mesh] = None
 def make_mesh(axis_shapes: Sequence[int] = None,
               axis_names: Sequence[str] = ('dp',), devices=None) -> Mesh:
     """A mesh of ``axis_shapes`` over the world's ranks, or over
-    ``devices`` (default: the current CUDA device) outside a world;
+    ``devices`` (default: ``resolve_device(None)``) outside a world;
     axis_shapes=None puts every rank (or every given device) on one
     axis."""
     world = _dist.num_workers()

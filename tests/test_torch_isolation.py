@@ -193,6 +193,30 @@ def test_input_pipeline_modules_import_no_jax(module):
     assert not bad, bad
 
 
+LM_ZOO_MODULES = (
+    'metric.py', 'models/__init__.py', 'models/gpt.py',
+    'models/transformer.py', 'ndarray/utils.py', 'gluon/contrib/__init__.py',
+    'gluon/contrib/nn.py', 'gluon/contrib/estimator.py',
+    'gluon/model_zoo/model_store.py', 'gluon/model_zoo/vision/__init__.py',
+    'gluon/model_zoo/vision/alexnet.py', 'gluon/model_zoo/vision/vgg.py',
+    'gluon/model_zoo/vision/squeezenet.py',
+    'gluon/model_zoo/vision/mobilenet.py',
+    'gluon/model_zoo/vision/densenet.py',
+    'gluon/model_zoo/vision/inception.py')
+
+
+@pytest.mark.parametrize('module', LM_ZOO_MODULES)
+def test_language_model_metric_and_zoo_modules_import_no_jax(module):
+    """GPT, the Transformer, the metrics, the Estimator and the rest of
+    the vision zoo are among the files checked above and import neither
+    jax nor the reference package."""
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
 def test_native_loader_builds_and_loads_only_the_ports_library():
     """The port's native IO loader resolves its library under
     build/mxnet_tpu_torch/ and never under mxnet_tpu/_lib/: in a fresh
@@ -271,6 +295,35 @@ def test_entry_points_refuse_a_missing_card(device):
     with pytest.raises(MXNetError, match='no CUDA device'):
         mt.parallel.make_mesh(devices=None if device is None else [device])
     assert mt.parallel.make_mesh(devices=['cpu']).device.type == 'cpu'
+
+
+@pytest.mark.parametrize('device', [None, 'cuda'])
+def test_language_models_refuse_a_missing_card(device):
+    """GPT, the Transformer, BERT and the Estimator are built on the card
+    unless the CPU is asked for (by name, or by a ``with mx.cpu():``
+    scope)."""
+    _require_no_card()
+    from mxnet_tpu_torch.gluon.contrib.estimator import Estimator
+    from mxnet_tpu_torch.models import GPTModel, TransformerModel
+    small = dict(hidden=16, layers=1, heads=2, max_len=16)
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        GPTModel(vocab_size=32, **small, device=device)
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        TransformerModel(32, 32, hidden=16, enc_layers=1, dec_layers=1,
+                         heads=2, ffn_hidden=32, max_len=16, device=device)
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        Estimator(nn.Dense(2, in_units=3), mt.gluon.loss.L2Loss(),
+                  context=None if device is None else [mt.gpu(0)])
+    with mt.cpu():
+        assert GPTModel(vocab_size=32, **small).word_embed.weight.tensor \
+            .device.type == 'cpu'
+        assert next(BertModel(**SMALL).parameters()).device.type == 'cpu'
+        assert Estimator(nn.Dense(2, in_units=3),
+                         mt.gluon.loss.L2Loss()).context == [mt.cpu()]
+        assert next(TransformerModel(32, 32, hidden=16, enc_layers=1,
+                                     dec_layers=1, heads=2, ffn_hidden=32,
+                                     max_len=16, device='cpu').parameters()
+                    ).device.type == 'cpu'
 
 
 def test_weights_follow_the_module_device():
