@@ -70,6 +70,47 @@
    CheckpointHandler resumed into a fresh net byte for byte and a
    WatchdogHandler's 8 beats; images/s. The path launches none of the
    hand-written kernels.
+3c. seq phase, f32 with TF32 off: gluon.rnn on the fused rnn op and
+   CTC. (a) MXNet 1.6's example/gluon/word_language_model as its README
+   trains it (emsize 650, nhid 650, 2 layers, dropout 0.5, tied, the
+   vocabulary of WikiText-2, 33278; B = 32, bptt 35), composed here:
+   Embedding, gluon.rnn.LSTM, a Dense tied to the embedding, weights
+   uniform in [-0.1, 0.1] from a numpy seed, token ids from a numpy seed.
+   One forward and backward at dropout 0 against the same weights on the
+   CPU (loss rel 1e-5, every gradient rel Frobenius 1e-4, the tied
+   embedding's gradient on its own line); then the example's loop on the
+   hybridized model (gluon.Trainer SGD at lr 20, clip_global_norm at
+   0.25, the hidden state detached between batches, dropout 0.5 drawn on
+   the card) over one repeated batch: the loss must fall; step ms
+   (median and spread of 3 calls of 10), tokens/s, and the busy time and
+   idle share of a profiler trace of 3 steps. (b) A bidirectional 2-layer
+   GRU's forward (hidden 650, T = 35, B = 32) against the CPU (rel
+   Frobenius 1e-4). (c) example/ctc's sizes (2 LSTM layers of 100, 80
+   steps over 30 features, 4 digits, 11 classes with the blank, B = 128):
+   CTCLoss (TNC, blank last, label 0 among the labels) and its gradients
+   against the CPU, then one Trainer step (finite loss, every parameter
+   moved). The path launches none of the hand-written kernels.
+3d. det phase, f32: SSD-512 VOC (ssd_512(num_classes=20), He-normal
+   weights from a numpy seed). (a) 24572 anchors; one training step at
+   B = 2 (examples/train_ssd.py make_batch at 512 and 20 classes, labels
+   padded to 4 rows) against the same weights on the CPU:
+   multibox_target's outputs on the card against the CPU's fed the
+   card's cls_pred (class targets and masks exactly, box targets 1e-5);
+   ssd_train_loss (rel 1e-5) and every gradient (rel Frobenius 1e-4; the
+   convolution biases ahead of a BatchNorm left out, their gradient zero
+   in exact arithmetic), the CPU fed the card's targets where a near-tie
+   of the mining scores makes its own differ (the count printed). (b) The
+   example's loop at B = 32 (gluon.Trainer Adam at lr 1e-3, one repeated
+   batch): the loss must fall; step ms (median and spread of 3 calls of
+   10), images/s, the idle share of a trace of 3 steps. (c) detect's
+   multibox_detection at B = 8, nms_topk 400, on the card against the
+   CPU fed the same cls_prob and loc_pred (the kept ids and their order
+   exactly, scores and boxes 1e-5), timed, with the peak memory it adds
+   (NMS forms no 24572 x 24572 matrix). (d) A .rec of 32 JPEGs 512 x 512
+   with box labels, written with recordio.pack_img in a temporary
+   directory, read by ImageDetIter (rand_crop, rand_pad, rand_mirror,
+   mean and std) on the card: every box in [0, 1]; 4 SSD steps fed by it,
+   finite losses. The path launches none of the hand-written kernels.
 4. Serving phase: the serving recipe, InferenceEngine(BlockRunner(net))
    then serving.warmup(engine), on BERT-base at full width, weights drawn
    with numpy from a fixed seed (Normal(0.02)) and cast to bf16 on the
@@ -321,7 +362,11 @@
    armed: a burst of 32 requests from 4 threads gives no stall report; a
    runner planted to stall 3 s under a 1 s watchdog gives exactly one.
    Checkpoints live in a temporary directory removed at the end.
-13. Prints the kernels' JSON line (each row with its variant and dtype,
+13. Removes what the run created under build/ (the kernels and the native
+   io library it built, the tile database, the dp phase's files), so that
+   a later process in the checkout, the `cuda` tests say, starts as it
+   would have without this run.
+14. Prints the kernels' JSON line (each row with its variant and dtype,
    A's, K2's and K3's launches per lm replay and their lm_shapes timings
    and, for a redesigned kernel, the time of the one it replaced, old_ms;
    the float16 routes as rows of their own, named kernel[float16], whose
@@ -5679,6 +5724,756 @@ def zoo_phase(card, work, device='cuda', batch=8, nets=ZOO_NETS,
     return out
 
 
+# ---- sequence models on the card: gluon.rnn and CTC
+SEQ_TOL = {'loss_rel': 1e-5, 'grad_rel_fro': 1e-4}   # PERF.md section 2, f32
+# MXNet 1.6's example/gluon/word_language_model as its README trains it:
+# --emsize 650 --nhid 650 --nlayers 2 --dropout 0.5 --tied, WikiText-2's
+# vocabulary, batch 32, bptt 35, SGD at lr 20, gradients clipped at 0.25
+LM_CFG = dict(vocab=33278, emsize=650, nhid=650, nlayers=2, dropout=0.5,
+              batch=32, bptt=35, lr=20.0, clip=0.25)
+# MXNet 1.6's example/ctc (LSTM OCR), hyperparams.py: 2 LSTM layers of
+# 100, 80 steps over 80 x 30 images, 4 digits a label, 10 digits and the
+# blank, batch 128
+CTC_CFG = dict(layers=2, hidden=100, seq_len=80, features=30, label_len=4,
+               classes=11, batch=128)
+
+
+def _uniform_arrays(net, seed, scale=0.1):
+    """Every parameter of ``net`` (a tied one once) uniform in
+    [-scale, scale] from ``seed``, by structured name."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    drawn, arrays = {}, {}
+    for name, p in net._collect_params_with_prefix().items():
+        if id(p) not in drawn:
+            drawn[id(p)] = rng.uniform(-scale, scale, p.shape).astype(
+                onp.float32)
+        arrays[name] = drawn[id(p)]
+    return arrays
+
+
+def _place(net, ctx, inputs, arrays, draw):
+    """``net`` initialized on ``ctx``, its deferred shapes placed by one
+    forward of the numpy ``inputs`` (none: no forward), holding ``arrays``
+    by structured name (``draw(net)`` when None). Returns (net, arrays)."""
+    import mxnet_tpu_torch as mt
+    net.initialize(ctx=ctx)
+    if inputs:
+        with mt.autograd.pause():
+            net(*[mt.nd.array(a, ctx=ctx) for a in inputs])
+    if arrays is None:
+        arrays = draw(net)
+    for k, p in net._collect_params_with_prefix().items():
+        p.set_data(mt.nd.array(arrays[k], ctx=ctx))
+    return net, arrays
+
+
+def lm_net(ctx, dropout, arrays=None):
+    """word_language_model's RNNModel (Embedding, then gluon.rnn.LSTM,
+    then a Dense tied to the embedding), composed here as the example
+    composes it, the LSTM's (h, c) passed apart; the weights ``arrays``
+    (uniform in [-0.1, 0.1] from SEED + 20 when None)."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+    c = LM_CFG
+
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(c['vocab'], c['emsize'])
+                self.rnn = rnn.LSTM(c['nhid'], c['nlayers'],
+                                    dropout=dropout, input_size=c['emsize'])
+                self.decoder = nn.Dense(c['vocab'], in_units=c['nhid'],
+                                        params=self.encoder.params)
+
+        def hybrid_forward(self, F, inputs, h, c_):
+            emb = self.drop(self.encoder(inputs))
+            out, (h, c_) = self.rnn(emb, [h, c_])
+            out = self.drop(out)
+            return self.decoder(out.reshape((-1, c['nhid']))), h, c_
+
+    hidden = onp.zeros((c['nlayers'], c['batch'], c['nhid']), onp.float32)
+    toks = onp.zeros((c['bptt'], c['batch']), onp.float32)
+    return _place(RNNModel(), ctx, (toks, hidden, hidden), arrays,
+                  lambda n: _uniform_arrays(n, SEED + 20))
+
+
+def lm_batch(seed):
+    """One (bptt, batch) batch of token ids and its next-token targets,
+    flattened as the example's ``target.reshape((-1,))``."""
+    import numpy as onp
+    c = LM_CFG
+    rng = onp.random.RandomState(seed)
+    stream = rng.randint(0, c['vocab'], (c['bptt'] + 1, c['batch']))
+    return (stream[:-1].astype(onp.float32),
+            stream[1:].reshape(-1).astype(onp.float32))
+
+
+def _grads(net, skip=()):
+    """{structured name: gradient}, a tied parameter once."""
+    seen, out = set(), {}
+    for k, p in net._collect_params_with_prefix().items():
+        if p.grad_req == 'null' or id(p) in seen or k in skip:
+            continue
+        seen.add(id(p))
+        out[k] = p.grad().asnumpy()
+    return out
+
+
+def _rel(a, b):
+    import numpy as onp
+    a, b = onp.asarray(a, onp.float64), onp.asarray(b, onp.float64)
+    return float(onp.linalg.norm(a - b) / max(onp.linalg.norm(b), 1e-30))
+
+
+def hold_f32(label, loss_rel, grads, want_grads, tol=SEQ_TOL, skip=()):
+    """A step's loss (its relative error ``loss_rel``) and every gradient
+    (rel Frobenius, the worst named) on the card against the CPU's,
+    within ``tol``; ``skip`` gradients are left out (counted in the
+    line)."""
+    rel = {k: _rel(grads[k], want_grads[k]) for k in want_grads
+           if k not in skip}
+    worst = max(rel, key=rel.get)
+    ok = loss_rel <= tol['loss_rel'] and rel[worst] <= tol['grad_rel_fro']
+    print(f'  parity, {label}: loss rel {loss_rel:.2e}, {len(rel)} '
+          f'gradients, worst rel Frobenius {rel[worst]:.2e} ({worst})' +
+          (f', {len(skip)} left out (zero in exact arithmetic)'
+           if skip else '') + f'; tolerance {tol} -> '
+          f'{"ok" if ok else "FAIL"}')
+    check(ok, f'{label} disagrees with the f32 CPU reference')
+    return dict(loss_rel=loss_rel, grad_rel_fro=rel[worst])
+
+
+def lm_parity(card, arrays, toks, target):
+    """(a) One forward and backward at dropout 0 on the card against the
+    same weights on the CPU; the tied embedding's gradient (the lookup's
+    and the decoder's) on its own line."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    c = LM_CFG
+    out = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        net, _ = lm_net(ctx, 0.0, arrays)
+        h = mt.nd.zeros((c['nlayers'], c['batch'], c['nhid']), ctx=ctx)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        with autograd.record():
+            o, _, _ = net(mt.nd.array(toks, ctx=ctx), h, h)
+            L = loss_fn(o, mt.nd.array(target, ctx=ctx)) / (
+                c['bptt'] * c['batch'])
+        L.backward()
+        out.append((float(L.sum().asnumpy()), _grads(net)))
+    (loss, g), (loss_c, g_c) = out
+    tied = 'encoder.weight'
+    print(f'  LSTM LM loss {loss:.6f} on the card, {loss_c:.6f} on the CPU')
+    held = hold_f32(f'LSTM LM (emsize {c["emsize"]}, nhid {c["nhid"]}, '
+                    f'{c["nlayers"]} layers, vocab {c["vocab"]}, tied) '
+                    f'B={c["batch"]} bptt={c["bptt"]}, dropout 0, f32 '
+                    f'card (TF32 off) vs CPU',
+                    abs(loss - loss_c) / abs(loss_c), g, g_c)
+    rel = _rel(g[tied], g_c[tied])
+    print(f'  parity, the tied embedding gradient ({tied}: the lookup\'s '
+          f'and the decoder\'s): rel_fro_err={rel:.2e} (bound '
+          f'{SEQ_TOL["grad_rel_fro"]})')
+    check(rel <= SEQ_TOL['grad_rel_fro'], 'the tied gradient disagrees')
+    return dict(held, tied_rel_fro=rel)
+
+
+def lm_loop(card, arrays, toks, target, timed=10):
+    """(a) The example's loop on the hybridized model: gluon.Trainer SGD
+    at lr 20, gradients clipped to a global norm of 0.25, the hidden
+    state detached between batches, dropout 0.5 drawn on the card; one
+    repeated batch."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    c = LM_CFG
+    ctx = mt.gpu(0)
+    net, _ = lm_net(ctx, c['dropout'], arrays)
+    net.hybridize()
+    params = list(net.collect_params().values())
+    trainer = gluon.Trainer(net.collect_params(), 'sgd',
+                            {'learning_rate': c['lr'], 'momentum': 0,
+                             'wd': 0})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = mt.nd.array(toks, ctx=ctx), mt.nd.array(target, ctx=ctx)
+    shape = (c['nlayers'], c['batch'], c['nhid'])
+    hidden = [mt.nd.zeros(shape, ctx=ctx), mt.nd.zeros(shape, ctx=ctx)]
+    norms = []
+
+    def step():
+        nonlocal hidden
+        hidden = [h.detach() for h in hidden]
+        with autograd.record():
+            out, h, c_ = net(x, *hidden)
+            L = loss_fn(out, y) / (c['bptt'] * c['batch'])
+        L.backward()
+        hidden = [h, c_]
+        norms.append(gluon.utils.clip_global_norm(
+            [p.grad(ctx) for p in params], c['clip']))
+        trainer.step(1)
+        return L
+
+    first = float(step().sum().asnumpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(L.sum().asnumpy()) for L in losses]
+    calls = [wall / timed * 1e3] + [steps_ms(step, timed) for _ in range(2)]
+    step_ms = sorted(calls)[1]
+    tokens_s = c['bptt'] * c['batch'] / step_ms * 1e3
+    print(f'  LSTM LM losses (one repeated batch, the hidden state carried '
+          f'and detached): {first:.4f} before the timed steps, then '
+          f'{[round(v, 4) for v in losses]}; global gradient norm before '
+          f'clipping {norms[0]:.3f} then {norms[-1]:.3f} (clip '
+          f'{c["clip"]})')
+    check(all(onp.isfinite([first] + losses)), 'non-finite LM loss')
+    check(losses[-1] < first, 'the LM loss did not fall')
+    busy = device_breakdown(f'LSTM LM step B={c["batch"]} bptt={c["bptt"]} '
+                            f'(hybridized; Trainer SGD, clip)', step, card, 3)
+    print(f'  LSTM LM {timed} steps at B={c["batch"]} bptt={c["bptt"]} on '
+          f'{card}: {step_ms:.3f} ms per step, the median of 3 calls '
+          f'({", ".join(f"{v:.3f}" for v in calls)} ms), {tokens_s:.1f} '
+          f'tokens/s; idle share {busy["idle"]:.3f}')
+    return dict(step_ms=step_ms, calls_ms=calls, tokens_s=tokens_s,
+                losses=[first] + losses, busy=busy)
+
+
+def gru_parity(card, hidden=650, T=35, B=32):
+    """(b) A bidirectional 2-layer GRU's forward (the output and the final
+    state) on the card against the CPU, f32."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon import rnn
+    rng = onp.random.RandomState(SEED + 21)
+    x = rng.randn(T, B, hidden).astype(onp.float32)
+    h0 = rng.randn(4, B, hidden).astype(onp.float32)
+    arrays, outs = None, []
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        net, arrays = _place(
+            rnn.GRU(hidden, 2, bidirectional=True, input_size=hidden), ctx,
+            (), arrays, lambda n: _uniform_arrays(n, SEED + 22))
+        o, (h,) = net(mt.nd.array(x, ctx=ctx), [mt.nd.array(h0, ctx=ctx)])
+        outs.append((o.asnumpy(), h.asnumpy()))
+    (oc, hc), (og, hg) = outs
+    rel_o, rel_h = _rel(og, oc), _rel(hg, hc)
+    tol = SEQ_TOL['grad_rel_fro']
+    print(f'  parity, GRU bidirectional 2 layers hidden {hidden} T={T} '
+          f'B={B} forward, f32 card vs CPU: output {og.shape} rel_fro_err='
+          f'{rel_o:.2e}, final state rel_fro_err={rel_h:.2e} (bound {tol})')
+    check(og.shape == (T, B, 2 * hidden) and hg.shape == (4, B, hidden),
+          f'GRU shapes {og.shape} {hg.shape}')
+    check(rel_o <= tol and rel_h <= tol, 'the GRU disagrees with the CPU')
+    return dict(out_rel_fro=rel_o, state_rel_fro=rel_h)
+
+
+def ctc_net(ctx, arrays=None):
+    """example/ctc's network: LSTM layers over the image's columns, a
+    Dense to the 10 digits and the blank at every step."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+    c = CTC_CFG
+    net = gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(rnn.LSTM(c['hidden'], c['layers'],
+                         input_size=c['features']))
+        net.add(nn.Dense(c['classes'], flatten=False, in_units=c['hidden']))
+    x = onp.zeros((c['seq_len'], 1, c['features']), onp.float32)
+    return _place(net, ctx, (x,), arrays,
+                  lambda n: _uniform_arrays(n, SEED + 23))
+
+
+def ctc_phase_part(card):
+    """(c) CTCLoss (TNC, blank last, label 0 among the labels) and its
+    gradients on the card against the CPU, then one Trainer step."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    c = CTC_CFG
+    rng = onp.random.RandomState(SEED + 24)
+    x = rng.rand(c['seq_len'], c['batch'], c['features']).astype(
+        onp.float32)
+    lab = rng.randint(0, 10, (c['batch'], c['label_len'])).astype(
+        onp.float32)
+    lab[::3, 0] = 0        # label 0, a digit under 'last', in every third
+    arrays, runs = None, []
+    loss_fn = gluon.loss.CTCLoss(layout='TNC', label_layout='NT')
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        net, arrays = ctc_net(ctx, arrays)
+        with autograd.record():
+            L = loss_fn(net(mt.nd.array(x, ctx=ctx)),
+                        mt.nd.array(lab, ctx=ctx))
+        L.backward()
+        runs.append((L.asnumpy(), _grads(net), net))
+    (lc, gc, _), (lg, gg, net) = runs
+    loss_rel = _rel(lg, lc)
+    held = hold_f32(f'CTC (example/ctc: LSTM {c["layers"]} x '
+                    f'{c["hidden"]}, T={c["seq_len"]} over '
+                    f'{c["features"]} features, {c["label_len"]} digits, '
+                    f'C={c["classes"]}, B={c["batch"]}), CTCLoss TNC blank '
+                    f'last, f32 card vs CPU (loss: rel Frobenius of the '
+                    f'{c["batch"]} losses)', loss_rel, gg, gc)
+    trainer = gluon.Trainer(net.collect_params(), 'adam',
+                            {'learning_rate': 1e-3})
+    before = {k: p.data().asnumpy() for k, p in
+              net._collect_params_with_prefix().items()}
+    ctx = mt.gpu(0)
+    with autograd.record():
+        L = loss_fn(net(mt.nd.array(x, ctx=ctx)), mt.nd.array(lab, ctx=ctx))
+    L.backward()
+    trainer.step(c['batch'])
+    after = {k: p.data().asnumpy() for k, p in
+             net._collect_params_with_prefix().items()}
+    still = [k for k in before if onp.array_equal(before[k], after[k])]
+    mean = float(L.asnumpy().mean())
+    print(f'  CTC Trainer step (Adam, lr 1e-3) on {card}: mean loss '
+          f'{mean:.4f}, {len(before) - len(still)} of {len(before)} '
+          f'parameters moved')
+    check(onp.isfinite(L.asnumpy()).all(), 'non-finite CTC loss')
+    check(not still, f'CTC parameters that did not move: {still}')
+    return dict(held, loss_rel_fro=loss_rel, mean_loss=mean)
+
+
+def seq_phase(card):
+    """gluon.rnn and CTC on the card in f32 (TF32 off, as main sets it):
+    (a) the LSTM language model, (b) the bidirectional GRU, (c) CTC. The
+    path launches none of the hand-written kernels."""
+    import mxnet_tpu_torch as mt
+    print(f'seq phase on {card}: gluon.rnn (the fused rnn op) and CTC, f32')
+    _zero_counters()
+    arrays = lm_net(mt.cpu(), 0.0)[1]
+    toks, target = lm_batch(SEED + 25)
+    out = dict(lm_parity=lm_parity(card, arrays, toks, target))
+    out['lm'] = lm_loop(card, arrays, toks, target)
+    out['gru'] = gru_parity(card)
+    out['ctc'] = ctc_phase_part(card)
+    launches, _, _ = _flash_counts()
+    check(not launches, f'the seq path launched {launches}')
+    return out
+
+
+# ---- SSD-512 on the card: the multibox ops and ImageDetIter
+SSD_CLASSES = 20           # VOC, BASELINE.json's config
+SSD_SIZE = 512
+SSD_ANCHORS = 24572        # 4*64^2 + 6*(32^2+16^2+8^2+4^2+2^2) + 4*1^2
+SSD_TOL = {'loss_rel': 1e-5, 'grad_rel_fro': 1e-4}    # f32 training bounds
+
+
+def ssd_batch(rng, batch, size=SSD_SIZE, num_classes=SSD_CLASSES, M=4):
+    """examples/train_ssd.py make_batch: noise images, each with one
+    bright rectangle; its label is the class and the normalized corner
+    box, padded to M = 4 rows with -1. With 20 classes the rectangle is
+    drawn in channel class % 3 (the example's channel is the class, for
+    its 3 classes)."""
+    import numpy as onp
+    x = rng.rand(batch, 3, size, size).astype(onp.float32) * 0.1
+    label = onp.full((batch, M, 5), -1.0, onp.float32)
+    for i in range(batch):
+        cls = rng.randint(num_classes)
+        w, h = rng.randint(size // 4, size // 2, 2)
+        x0, y0 = rng.randint(0, size - w), rng.randint(0, size - h)
+        x[i, cls % 3, y0:y0 + h, x0:x0 + w] += 0.8
+        label[i, 0] = [cls, x0 / size, y0 / size, (x0 + w) / size,
+                       (y0 + h) / size]
+    return x, label
+
+
+def ssd_net(ctx, arrays=None):
+    """ssd_512(num_classes=20) on ``ctx``, placed by one forward at
+    64 x 64 (no parameter's shape depends on the image size), with
+    He-normal weights from SEED + 30 (he_arrays) unless ``arrays``."""
+    import numpy as onp
+    from mxnet_tpu_torch.models import ssd_512
+    return _place(ssd_512(num_classes=SSD_CLASSES), ctx,
+                  (onp.zeros((1, 3, 64, 64), onp.float32),), arrays,
+                  lambda n: he_arrays(n, SEED + 30))
+
+
+def _bn_fed_biases(net):
+    """Structured names of the convolution biases a BatchNorm follows:
+    their gradient is zero in exact arithmetic."""
+    out = []
+    for name, blk in net.named_modules():
+        kids = list(getattr(blk, '_children', {}).items())
+        for (k, a), (_, b) in zip(kids, kids[1:]):
+            if type(a).__name__ == 'Conv2D' and \
+                    type(b).__name__ == 'BatchNorm':
+                out.append(f'{name}.{k}.bias' if name else f'{k}.bias')
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def aligned_units(shift=None, routes=None):
+    """The discrete choices of a Gluon forward, recorded on the host in
+    call order: every ReLU input (``nd.activation``, act_type 'relu',
+    which the Activation blocks call) and every 2-D max pooling's argmax
+    per window (``nd.pooling``, unpadded, 'valid'). ``shift`` maps a ReLU
+    call's index to (flat indices, values): those inputs take the values,
+    the move carrying no gradient. With ``routes`` (another run's argmax
+    list) each such pooling takes its output, and routes its gradient,
+    from those positions; the run's own argmax is still recorded.
+    Yields (ReLU inputs, argmaxes, per pooling the values where the two
+    argmaxes differ: (routed value, own max))."""
+    import torch
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mt
+    real_act, real_pool = mt.nd.activation, mt.nd.pooling
+    relu, pools, ties = [], [], []
+
+    def activation(data, act_type='relu', **kw):
+        if act_type == 'relu':
+            i = len(relu)
+            if shift and i in shift:
+                idx, vals = shift[i]
+                flat = data.detach().reshape(-1)
+                idx = idx.to(flat.device)
+                move = torch.zeros_like(flat)
+                move[idx] = vals.to(flat) - flat[idx]
+                data = data + move.reshape(data.shape)
+            relu.append(data.detach().cpu())
+        return real_act(data, act_type=act_type, **kw)
+
+    def pooling(data, kernel=None, pool_type='max', global_pool=False,
+                stride=None, pad=None, pooling_convention='valid', **kw):
+        if pool_type != 'max' or global_pool or data.dim() != 4 or \
+                any(pad or ()) or pooling_convention != 'valid':
+            return real_pool(data, kernel=kernel, pool_type=pool_type,
+                             global_pool=global_pool, stride=stride,
+                             pad=pad, pooling_convention=pooling_convention,
+                             **kw)
+        out, idx = F.max_pool2d(data, kernel, stride, return_indices=True)
+        i = len(pools)
+        pools.append(idx.cpu())
+        if routes is not None:
+            r = routes[i].to(data.device)
+            flat = data.flatten(2)
+            out = flat.gather(2, r.flatten(2)).reshape(out.shape)
+            moved = (r != idx).reshape(-1)
+            ties.append((out.detach().reshape(-1)[moved].cpu(),
+                         flat.detach().gather(2, idx.flatten(2))
+                         .reshape(-1)[moved].cpu()))
+        return out
+    mt.nd.activation, mt.nd.pooling = activation, pooling
+    try:
+        yield relu, pools, ties
+    finally:
+        mt.nd.activation, mt.nd.pooling = real_act, real_pool
+
+
+def _relu_flips(got, want):
+    """{call: (flat indices, got's inputs)} where the two runs' ReLU
+    inputs lie on different sides of 0 (so their derivatives differ)."""
+    out = {}
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.reshape(-1), b.reshape(-1)
+        idx = ((a > 0) != (b > 0)).nonzero()[:, 0]
+        if len(idx):
+            out[i] = (idx, a[idx])
+    return out
+
+
+def _ssd_step(ctx, arrays, x, label, targets=None, shift=None,
+              routes=None):
+    """One ssd_train_loss step of ssd_512 on ``ctx`` under
+    ``aligned_units(shift, routes)``: its loss, gradients, own multibox
+    targets, anchors, class predictions, ReLU inputs, pooling argmaxes
+    and ties, and the net; ``targets`` replace its own in the loss."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.models import ssd as tssd
+    from mxnet_tpu_torch.ops.detection import multibox_target
+    net, arrays = ssd_net(ctx, arrays)
+    xs, ls = nd.array(x, ctx=ctx), nd.array(label, ctx=ctx)
+    with aligned_units(shift, routes) as (relu, pools, ties), \
+            autograd.record():
+        anchor, cls_pred, loc_pred = net(xs)
+        own = nd._invoke(multibox_target, anchor, ls, cls_pred,
+                         negative_mining_ratio=3.0)
+        use = own if targets is None else [nd.array(t, ctx=ctx)
+                                           for t in targets]
+        loss = nd._invoke(tssd._loss_of_targets, cls_pred, loc_pred, *use)
+    loss.backward()
+    return dict(loss=float(loss.asnumpy()), grads=_grads(net),
+                targets=[t.asnumpy() for t in own], anchor=anchor.asnumpy(),
+                cls=cls_pred.asnumpy(), relu=relu, pools=pools, ties=ties,
+                net=net, arrays=arrays)
+
+
+def ssd_parity(card, x, label):
+    """(a) One training step of ssd_512 at B = 2 on the card against the
+    same weights on the CPU: multibox_target's outputs (the CPU fed the
+    card's cls_pred), ssd_train_loss and every gradient. cuDNN's and the
+    CPU's convolutions round differently, so where the step makes a
+    discrete choice between values within f32 rounding of each other the
+    two devices can choose differently, and a gradient then differs by a
+    whole term: a ReLU input on the other side of 0, or another argmax in
+    a max pooling window. The CPU's step takes the card's choices: its
+    max poolings route through the card's argmax (each window where its
+    own differs must be a tie within 1e-4), and its ReLU inputs on the
+    other side of 0 take the card's values (each within 1e-4 of 0), the
+    moves carrying no gradient (tests/test_torch_model_zoo.py's rule for
+    ReLU). Returns (the readings, the card's net)."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops.detection import multibox_target
+    card_run = _ssd_step(mt.gpu(0), None, x, label)
+    n_anchor = card_run['anchor'].shape[1]
+    print(f'  SSD-512 ({SSD_CLASSES} classes) at {SSD_SIZE}x{SSD_SIZE}: '
+          f'{n_anchor} anchors (expected {SSD_ANCHORS})')
+    check(n_anchor == SSD_ANCHORS, f'{n_anchor} anchors')
+    ref = [t.numpy() for t in multibox_target(
+        torch.from_numpy(card_run['anchor']), torch.from_numpy(label),
+        torch.from_numpy(card_run['cls']), negative_mining_ratio=3.0)]
+    box_t, box_m, cls_t = card_run['targets']
+    box_err = float(onp.abs(box_t - ref[0]).max())
+    same_cls = bool(onp.array_equal(cls_t, ref[2]))
+    same_mask = bool(onp.array_equal(box_m, ref[1]))
+    print(f'  multibox_target, card vs CPU fed the card\'s cls_pred: '
+          f'cls_target equal {same_cls} ({int((cls_t >= 0).sum())} kept, '
+          f'{int((cls_t > 0).sum())} positive), box_mask equal '
+          f'{same_mask}, box_target max abs err {box_err:.2e} (bound 1e-5)')
+    check(same_cls and same_mask and box_err <= 1e-5,
+          'multibox_target disagrees with the CPU')
+    arrays, routes = card_run['arrays'], card_run['pools']
+    cpu_run = _ssd_step(mt.cpu(), arrays, x, label, routes=routes)
+    differ = int((cpu_run['targets'][2] != cls_t).sum())
+    print(f'  the CPU\'s targets from its own cls_pred differ from the '
+          f'card\'s at {differ} anchors' +
+          (': the CPU loss takes the card\'s targets' if differ else ''))
+    targets = card_run['targets'] if differ else None
+    shift, rounds = {}, 0
+    flips = _relu_flips(card_run['relu'], cpu_run['relu'])
+    while flips and rounds < 3:
+        rounds += 1
+        for i, (idx, vals) in flips.items():
+            old = shift.get(i)
+            shift[i] = (idx, vals) if old is None else (
+                torch.cat([old[0], idx]), torch.cat([old[1], vals]))
+        cpu_run = _ssd_step(mt.cpu(), arrays, x, label, targets, shift,
+                            routes)
+        flips = _relu_flips(card_run['relu'], cpu_run['relu'])
+    units = sum(len(v[0]) for v in shift.values())
+    units_all = sum(a.numel() for a in card_run['relu'])
+    worst_in = max((float(v[1].abs().max()) for v in shift.values()),
+                   default=0.0)
+    windows = sum(len(a) for a, _ in cpu_run['ties'])
+    windows_all = sum(r.numel() for r in routes)
+    worst_tie = max((float((a - b).abs().max()) for a, b in
+                     cpu_run['ties'] if len(a)), default=0.0)
+    print(f'  choices within rounding, card vs CPU: {units} of {units_all} '
+          f'ReLU inputs on different sides of 0 (|input| at most '
+          f'{worst_in:.2e}, bound 1e-4), taken at the card\'s values in '
+          f'{rounds} rerun(s) of the CPU step; {windows} of {windows_all} '
+          f'max pooling windows with another argmax (the two values at most '
+          f'{worst_tie:.2e} apart, bound 1e-4), routed as on the card')
+    check(not flips and worst_in <= 1e-4,
+          f'ReLU inputs left on different sides of 0: {len(flips)} calls')
+    check(worst_tie <= 1e-4, f'a pooling argmax moved by {worst_tie}')
+    lg, lc = card_run['loss'], cpu_run['loss']
+    print(f'  SSD-512 loss {lg:.6f} on the card, {lc:.6f} on the CPU')
+    held = hold_f32(f'SSD-512 one step at B={x.shape[0]} (ssd_train_loss, '
+                    f'f32 card, TF32 off, vs CPU)', abs(lg - lc) / abs(lc),
+                    card_run['grads'], cpu_run['grads'], SSD_TOL,
+                    _bn_fed_biases(card_run['net']))
+    return dict(held, anchors=n_anchor, mined_differ=differ,
+                box_target_err=box_err, relu_flips=units,
+                pool_ties=windows), card_run['net']
+
+
+def ssd_train_steps(net, batches, trainer):
+    """A step function of the example's loop over ``batches`` (cycled):
+    autograd.record, ssd_train_loss, backward, Trainer.step(B)."""
+    import itertools
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.models import ssd_train_loss
+    it = itertools.cycle(batches)
+
+    def step():
+        x, label = next(it)
+        with autograd.record():
+            loss = ssd_train_loss(*net(x), label)
+        loss.backward()
+        trainer.step(x.shape[0])
+        return loss
+    return step
+
+
+def ssd_loop(card, net, batch=32, timed=10):
+    """(b) examples/train_ssd.py's loop at B = 32: Adam at lr 1e-3 through
+    gluon.Trainer, one repeated batch."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import gluon, nd
+    ctx = mt.gpu(0)
+    x, label = ssd_batch(onp.random.RandomState(SEED + 32), batch)
+    trainer = gluon.Trainer(net.collect_params(), 'adam',
+                            {'learning_rate': 1e-3})
+    step = ssd_train_steps(net, [(nd.array(x, ctx=ctx),
+                                  nd.array(label, ctx=ctx))], trainer)
+    torch.cuda.reset_peak_memory_stats()
+    first = float(step().asnumpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(v.asnumpy()) for v in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    calls = [wall / timed * 1e3] + [steps_ms(step, timed) for _ in range(2)]
+    step_ms = sorted(calls)[1]
+    print(f'  SSD-512 losses (one repeated batch of {batch}): {first:.4f} '
+          f'before the timed steps, then {[round(v, 4) for v in losses]}')
+    check(onp.isfinite([first] + losses).all(), 'non-finite SSD loss')
+    check(losses[-1] < first, 'the SSD loss did not fall')
+    busy = device_breakdown(f'SSD-512 step B={batch} (Trainer Adam)', step,
+                            card, 3)
+    print(f'  SSD-512 {timed} steps at B={batch} {SSD_SIZE}x{SSD_SIZE} f32 '
+          f'on {card}: {step_ms:.3f} ms per step, the median of 3 calls '
+          f'({", ".join(f"{v:.3f}" for v in calls)} ms), '
+          f'{batch / step_ms * 1e3:.1f} images/s; idle share '
+          f'{busy["idle"]:.3f}; peak allocated {peak:.2f} GiB')
+    return dict(step_ms=step_ms, calls_ms=calls,
+                images_s=batch / step_ms * 1e3, losses=[first] + losses,
+                busy=busy, peak_gib=peak)
+
+
+def ssd_detect(card, net, batch=8, topk=400):
+    """(c) detect's decode and NMS (multibox_detection, nms_topk 400) on
+    the card against the port's CPU path fed the same cls_prob and
+    loc_pred from the card; timed, with the peak memory it adds."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops.detection import multibox_detection
+    x, _ = ssd_batch(onp.random.RandomState(SEED + 33), batch)
+    with mt.autograd.predict_mode():
+        anchor, cls_pred, loc_pred = net(nd.array(x, ctx=mt.gpu(0)))
+    prob = torch.softmax(cls_pred._data, dim=1)
+    loc, anc = loc_pred._data, anchor._data
+    kw = dict(nms_threshold=0.45, threshold=0.01, nms_topk=topk)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = multibox_detection(prob, loc, anc, **kw)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        want = multibox_detection(prob.cpu(), loc.cpu(), anc.cpu(), **kw)
+        ms, how = time_ms(lambda: multibox_detection(prob, loc, anc, **kw),
+                          iters=3)
+    got = got.cpu().numpy()
+    want = want.numpy()
+    A = anc.shape[1]
+    kept = (got[..., 0] >= 0).sum(1)
+    same_ids = bool(onp.array_equal(got[..., 0], want[..., 0]))
+    err = float(onp.abs(got - want).max())
+    square = batch * A * A * 4
+    print(f'  detect (multibox_detection, nms_topk {topk}) B={batch} over '
+          f'{A} anchors on {card}: kept per image {kept.tolist()}; ids and '
+          f'their order equal to the CPU\'s {same_ids}; scores and boxes max '
+          f'abs err {err:.2e} (bound 1e-5); device {ms:.3f} ms ({how}), '
+          f'host {host_ms:.1f} ms for the first call; peak memory it adds '
+          f'{peak / 2 ** 20:.1f} MiB (bound: one image\'s {A}x{A} f32 IoU '
+          f'matrix, {square / batch / 2 ** 30:.2f} GiB; the JAX op forms '
+          f'{batch}, {square / 2 ** 30:.2f} GiB)')
+    check(got.shape == (batch, A, 6), f'detections {got.shape}')
+    check(same_ids and err <= 1e-5, 'detect disagrees with the CPU')
+    check(((kept > 0) & (kept <= topk)).all(), f'kept {kept.tolist()}')
+    check(peak < square / batch, f'detect took {peak} bytes, more than '
+          f'one image\'s {A}x{A} IoU matrix')
+    return dict(ms=ms, host_ms=host_ms, peak_mib=peak / 2 ** 20,
+                kept=kept.tolist(), max_abs_err=err)
+
+
+def ssd_iter_fed(card, net, work, images=32, batch=8, steps=4):
+    """(d) ImageDetIter (rand_crop, rand_pad, rand_mirror) over a .rec of
+    512 x 512 JPEGs with box labels, written here with
+    recordio.pack_img, feeds SSD steps on the card."""
+    import random
+    import numpy as onp
+    from mxnet_tpu_torch import gluon, image, recordio
+    rng = onp.random.RandomState(SEED + 34)
+    rec = os.path.join(work, 'det.rec')
+    idx = os.path.join(work, 'det.idx')
+    w = recordio.MXIndexedRecordIO(idx, rec, 'w')
+    for i in range(images):
+        img = (rng.rand(SSD_SIZE, SSD_SIZE, 3) * 60).astype(onp.uint8)
+        objs = []
+        for _ in range(1 + i % 3):
+            bw, bh = rng.randint(SSD_SIZE // 8, SSD_SIZE // 2, 2)
+            x0 = rng.randint(0, SSD_SIZE - bw)
+            y0 = rng.randint(0, SSD_SIZE - bh)
+            img[y0:y0 + bh, x0:x0 + bw] += onp.uint8(120)
+            objs += [float(rng.randint(SSD_CLASSES)), x0 / SSD_SIZE,
+                     y0 / SSD_SIZE, (x0 + bw) / SSD_SIZE,
+                     (y0 + bh) / SSD_SIZE]
+        w.write_idx(i, recordio.pack_img(
+            (0, onp.array([2, 5] + objs, onp.float32), i, 0), img))
+    w.close()
+    random.seed(SEED + 35)
+    it = image.ImageDetIter(batch, (3, SSD_SIZE, SSD_SIZE), path_imgrec=rec,
+                            path_imgidx=idx, shuffle=True, rand_crop=0.5,
+                            rand_pad=0.5, rand_mirror=True, mean=True,
+                            std=True, max_objects=8)
+    trainer = gluon.Trainer(net.collect_params(), 'adam',
+                            {'learning_rate': 1e-3})
+    batches, boxes = [], 0
+    for _ in range(steps):
+        b = it.next()
+        lab = b.label[0].asnumpy()
+        valid = lab[lab[:, :, 0] >= 0]
+        boxes += len(valid)
+        check(len(valid) > 0 and (valid[:, 1:5] >= 0).all() and
+              (valid[:, 1:5] <= 1).all(), 'a box outside [0, 1]')
+        check(b.data[0]._data.is_cuda and b.label[0]._data.is_cuda,
+              'ImageDetIter left a batch on the host')
+        batches.append((b.data[0], b.label[0]))
+    step = ssd_train_steps(net, batches, trainer)
+    t0 = time.perf_counter()
+    losses = [float(step().asnumpy()) for _ in range(steps)]
+    wall = time.perf_counter() - t0
+    print(f'  ImageDetIter (rand_crop, rand_pad, rand_mirror, mean/std) '
+          f'over {images} JPEGs {SSD_SIZE}x{SSD_SIZE}: {steps} batches of '
+          f'{batch} on the card, {boxes} boxes all in [0, 1]; {steps} SSD '
+          f'steps fed by them, losses {[round(v, 4) for v in losses]} '
+          f'({wall / steps * 1e3:.1f} ms a step)')
+    check(onp.isfinite(losses).all(), 'non-finite loss on the fed steps')
+    return dict(losses=losses, boxes=boxes)
+
+
+def det_phase(card, work):
+    """SSD-512 VOC (ssd_512(num_classes=20)) on the card in f32: (a) the
+    step against the CPU, (b) the example's loop at B = 32, (c) detect,
+    (d) ImageDetIter-fed steps. The path launches none of the
+    hand-written kernels."""
+    import numpy as onp
+    import torch
+    print(f'det phase on {card}: SSD-512 ({SSD_CLASSES} classes), the '
+          f'multibox ops and ImageDetIter, f32')
+    _zero_counters()
+    x, label = ssd_batch(onp.random.RandomState(SEED + 31), 2)
+    parity, net = ssd_parity(card, x, label)
+    out = dict(parity=parity)
+    out['loop'] = ssd_loop(card, net)
+    out['detect'] = ssd_detect(card, net)
+    out['iter'] = ssd_iter_fed(card, net, work)
+    launches, _, _ = _flash_counts()
+    check(not launches, f'the det path launched {launches}')
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
 TILED = {'flash_attn_fwd': 'fwd', 'flash_attn_bwd_dq': 'bwd',
          'flash_attn_bwd_dkv': 'bwd'}
 
@@ -5694,12 +6489,45 @@ def _tile_fields(name, sweep):
                   for b, r in sweep[kind].items()})
 
 
+def _build_entries(root):
+    """Every file and directory under the checkout's build/."""
+    out = set()
+    for dirpath, _dirs, files in os.walk(os.path.join(root, 'build')):
+        out.add(dirpath)
+        out.update(os.path.join(dirpath, n) for n in files)
+    return out
+
+
+def _remove_new_build_entries(root, before):
+    """Remove what this run created under build/ (the kernels and the
+    native io library it built, the tile database, the dp phase's files),
+    so that a later process in the checkout starts as it would have
+    without this run; what was there before stays."""
+    import shutil
+    for path in sorted(_build_entries(root) - before, key=len,
+                       reverse=True):
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+        elif os.path.exists(path):
+            os.remove(path)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs only on the card',
               file=sys.stderr)
         return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    before = _build_entries(root)
+    try:
+        return _run()
+    finally:
+        _remove_new_build_entries(root, before)
+
+
+def _run():
+    import torch
     from mxnet_tpu_torch.ops import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5736,6 +6564,9 @@ def main():
     lm, lm_replay, _lm = lm_phase(card)
     with tempfile.TemporaryDirectory() as work:
         _zoo = zoo_phase(card, work)
+    _seq = seq_phase(card)
+    with tempfile.TemporaryDirectory() as work:
+        _det = det_phase(card, work)
     serving, serve_replay, _serving = serving_phase(card)
     front, front_http, _front = front_phase(card)
     training, _train = training_phase(card)

@@ -1,15 +1,14 @@
 """Losses (counterpart of ``mxnet_tpu/gluon/loss.py``, ref:
 python/mxnet/gluon/loss.py), each a HybridBlock whose forward takes
 ``(pred, label[, sample_weight])`` and returns one value per sample (the
-mean over every axis but ``batch_axis``). ``CTCLoss`` waits for the CTC
-op (ROADMAP queue 1)."""
+mean over every axis but ``batch_axis``); ``CTCLoss`` returns one loss
+per sequence."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from ..base import MXNetError
 from .block import HybridBlock
 
 __all__ = ['Loss', 'L2Loss', 'L1Loss', 'SigmoidBinaryCrossEntropyLoss',
@@ -146,12 +145,31 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Waits for the CTC op (``ops/nn.py`` ``ctc_loss``, ROADMAP queue
-    1)."""
+    """Connectionist temporal classification loss over the ``ctc_loss``
+    op, blank the last class, labels padded with -1 (ref: loss.py
+    CTCLoss). ``layout`` 'NTC' or 'TNC' for ``pred``, ``label_layout`` 'NT'
+    or 'TN'; ``pred_lengths`` and ``label_lengths`` optional. One loss per
+    sequence, not averaged."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("CTCLoss is not ported yet (ROADMAP queue 1, with "
-                         "ops/nn.py ctc_loss)")
+    def __init__(self, layout='NTC', label_layout='NT', weight=None,
+                 **kwargs):
+        assert layout in ('NTC', 'TNC')
+        assert label_layout in ('NT', 'TN')
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find('N'), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == 'NTC':
+            pred = pred.swapaxes(0, 1)
+        if self._batch_axis == 1:
+            label = label.swapaxes(0, 1)
+        loss = F.ctc_loss(pred, label, pred_lengths, label_lengths,
+                          use_data_lengths=pred_lengths is not None,
+                          use_label_lengths=label_lengths is not None,
+                          blank_label='last')
+        return _apply_weighting(loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -18,8 +18,10 @@ __all__ = ['clip_global_norm', 'shape_is_known', 'HookHandle', 'check_sha1',
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):
-    """Scale ``arrays`` (NDArrays, rebound) so that their joint 2-norm is
-    at most ``max_norm``; returns the norm before scaling."""
+    """Scale ``arrays`` (NDArrays) in place so that their joint 2-norm is
+    at most ``max_norm``; returns the norm before scaling. In place, as
+    MXNet's ``arr *= scale``: the arrays of ``p.grad()`` are views of the
+    Parameters' gradients, which the Trainer's next step reads."""
     if not arrays:
         raise MXNetError("clip_global_norm needs at least one array")
     total = torch.stack([a._data.detach().float().pow(2).sum()
@@ -29,8 +31,9 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
         warnings.warn(UserWarning('nan or inf is detected.'))
         return tn
     scale = min(1.0, max_norm / (tn + 1e-8))
-    for a in arrays:
-        a._data = (a._data * scale).to(a._data.dtype)
+    with torch.no_grad():
+        for a in arrays:
+            a._data.mul_(scale)
     return tn
 
 

@@ -1,5 +1,5 @@
-"""mx.image: image loading and augmentation (counterpart of
-``mxnet_tpu/image``; ref: python/mxnet/image/). ``image/detection.py``
-waits for ROADMAP queue 1 item 14."""
+"""mx.image: image loading and augmentation, and the detection iterator
+(counterpart of ``mxnet_tpu/image``; ref: python/mxnet/image/)."""
 from .image import *  # noqa: F401,F403
-from . import image  # noqa: F401
+from .detection import *  # noqa: F401,F403
+from . import detection, image  # noqa: F401

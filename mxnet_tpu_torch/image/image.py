@@ -10,8 +10,8 @@ context: an augmenter chain stays on the host); ``ImageIter`` puts each
 batch on its context, the card by default, as one contiguous array.
 
 Augmenter classes keep the reference's names and call signature
-(`aug(src) -> NDArray` with HWC float32 data). ``image/detection.py`` is
-not ported yet (ROADMAP queue 1 item 14).
+(`aug(src) -> NDArray` with HWC float32 data); the detection augmenters
+and ``ImageDetIter`` are in ``image/detection.py``.
 """
 from __future__ import annotations
 

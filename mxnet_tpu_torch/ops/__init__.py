@@ -13,6 +13,9 @@ each inside a ``torch.autograd.Function``:
 ``nn`` are the registered ops that ``mx.nd`` wraps for NDArrays (plain
 PyTorch, as the JAX package left them to XLA).
 
+``contrib`` (the box ops: IoU, NMS, anchors) and ``detection`` (the SSD
+and R-CNN heads) are the detection ops, also plain PyTorch.
+
 ``optimizer_ops`` holds the optimizers' update math (plain PyTorch).
 
 ``autotune`` picks the flash kernels' tile per shape (the counterpart of
@@ -25,11 +28,12 @@ launches of the flash forward, dq, dk/dv and FFN1 kernels by variant,
 """
 from ._build import (dtype_counts, launch_counts, reset_launch_counts,
                      tile_counts, variant_counts)
-from . import (attention, autotune, elemwise, flash_attention, fused_ffn,
-               fused_layernorm, index, init, matrix, nn, optimizer_ops,
-               reduce)
+from . import (attention, autotune, contrib, detection, elemwise,
+               flash_attention, fused_ffn, fused_layernorm, index, init,
+               matrix, nn, optimizer_ops, reduce)
 
-__all__ = ['attention', 'autotune', 'elemwise', 'flash_attention',
+__all__ = ['attention', 'autotune', 'contrib', 'detection', 'elemwise',
+           'flash_attention',
            'fused_ffn', 'fused_layernorm', 'index', 'init', 'matrix', 'nn',
            'optimizer_ops', 'reduce', 'launch_counts', 'reset_launch_counts',
            'variant_counts', 'dtype_counts', 'tile_counts']

@@ -49,6 +49,15 @@ leaves to XLA, are stock PyTorch ops here (cuDNN on the card):
   per-channel gradient sums the normalisation needs (in JAX, autodiff
   through ``psum`` gives that); gamma's and beta's gradients are the
   rank's own rows' (the step's or Trainer's reduction sums them).
+
+The sequence ops, plain PyTorch as the JAX package computes them outside
+any Pallas kernel:
+
+- ``rnn`` (``nd.rnn``, MXNet's fused RNN op): a Python loop over time
+  per layer and direction, the inputs projected once per layer;
+- ``ctc_loss`` (``nd.ctc_loss``): the log-alpha recursion over time, its
+  gradient from autograd through the loop. Labels are padded as MXNet
+  documents, which the JAX op does not follow (see its docstring).
 """
 from __future__ import annotations
 
@@ -66,7 +75,7 @@ __all__ = ['fully_connected', 'activation', 'layer_norm', 'add_layer_norm',
            'dropout_op', 'one_hot', 'blockgrad', 'identity', 'convolution',
            'deconvolution', 'pooling', 'leaky_relu', 'batch_norm',
            'instance_norm', 'group_norm', 'softmax_cross_entropy',
-           'sync_batch_norm_op']
+           'sync_batch_norm_op', 'rnn', 'ctc_loss']
 
 
 def _tensor(x):
@@ -513,3 +522,153 @@ def softmax_cross_entropy(data, label):
     src/operator/softmax_output.cc)."""
     logp = torch.log_softmax(data, dim=-1)
     return -logp.gather(-1, label.to(torch.int64)[..., None]).sum()
+
+
+_RNN_GATES = {'rnn_relu': 1, 'rnn_tanh': 1, 'lstm': 4, 'gru': 3}
+
+
+def _rnn_step(mode, xp, h, c, w_h2h, b_h2h, clip):
+    """One time step of one layer and direction: ``xp`` is the step's
+    input projection with the i2h bias, (N, G*H)."""
+    hh = torch.addmm(b_h2h, h, w_h2h.t())
+    if mode == 'lstm':
+        i, f, g, o = (xp + hh).chunk(4, dim=-1)
+        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        if clip is not None:
+            new_c = new_c.clamp(*clip)
+        return torch.sigmoid(o) * torch.tanh(new_c), new_c
+    if mode == 'gru':
+        # MXNet's gate order r, z, n; r scales the h2h part of n only
+        xr, xz, xn = xp.chunk(3, dim=-1)
+        hr, hz, hn = hh.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        return (1 - z) * n + z * h, c
+    gates = xp + hh
+    return (torch.tanh(gates) if mode == 'rnn_tanh' else
+            torch.relu(gates)), c
+
+
+@register_op()
+def rnn(data, params, state, state_cell=None, state_size=0, num_layers=1,
+        mode='lstm', bidirectional=False, p=0.0, projection_size=None,
+        lstm_state_clip_min=None, lstm_state_clip_max=None,
+        use_sequence_length=False, sequence_length=None):
+    """Fused multi-layer RNN (ref: src/operator/rnn.cc; the JAX package's
+    ``ops/nn.py`` ``rnn``). Returns (out, h) or, for 'lstm', (out, h, c).
+
+    data: (T, N, I). params: one flat vector, all weights first
+    (layer-major, direction-minor, i2h then h2h, each (G*H, in)), then all
+    biases in the same order. state and state_cell: (L*D, N, H).
+
+    Each layer projects its whole input once, then loops over time (the
+    second direction backwards, its outputs in the input's order); the
+    next layer reads the directions' outputs side by side. Between layers,
+    in autograd train mode, dropout ``p`` draws from the port's generator
+    of the data's device. ``projection_size``, ``use_sequence_length`` and
+    ``sequence_length`` are accepted and ignored, as in the JAX op."""
+    from ..base import state as flags
+    T, N, I = data.shape
+    H, L = state_size, num_layers
+    D = 2 if bidirectional else 1
+    G = _RNN_GATES[mode]
+    clip = None if lstm_state_clip_min is None else (lstm_state_clip_min,
+                                                     lstm_state_clip_max)
+    sizes = []
+    for layer in range(L):
+        n_in = I if layer == 0 else H * D
+        sizes += [(G * H, n_in), (G * H, H)] * D
+    sizes += [(G * H,)] * (2 * L * D)
+    pieces = params.split([math.prod(s) for s in sizes])
+    pieces = [t.reshape(s) for t, s in zip(pieces, sizes)]
+    weights, biases = pieces[:2 * L * D], pieces[2 * L * D:]
+    x = data
+    hs, cs = [], []
+    for layer in range(L):
+        outs = []
+        for d in range(D):
+            idx = layer * D + d
+            w_i2h, w_h2h = weights[2 * idx:2 * idx + 2]
+            b_i2h, b_h2h = biases[2 * idx:2 * idx + 2]
+            xp = torch.matmul(x, w_i2h.t()) + b_i2h
+            h = state[idx]
+            c = state_cell[idx] if state_cell is not None else \
+                torch.zeros_like(h)
+            ys = [None] * T
+            for t in (range(T - 1, -1, -1) if d == 1 else range(T)):
+                h, c = _rnn_step(mode, xp[t], h, c, w_h2h, b_h2h, clip)
+                ys[t] = h
+            outs.append(torch.stack(ys))
+            hs.append(h)
+            cs.append(c)
+        x = outs[0] if D == 1 else torch.cat(outs, dim=-1)
+        if p > 0 and layer < L - 1 and flags.is_training:
+            x = dropout(x, p, True, _random.generator(x.device))
+    if mode == 'lstm':
+        return x, torch.stack(hs), torch.stack(cs)
+    return x, torch.stack(hs)
+
+
+_CTC_NEG = -1e30
+
+
+@register_op()
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label='first'):
+    """CTC loss (ref: src/operator/nn/ctc_loss.cc; the JAX package's
+    ``ops/nn.py`` ``ctc_loss``): one -log p(label | data) per sequence.
+    data: (T, N, C) logits (softmax inside), label: (N, L).
+
+    Padding follows MXNet's documentation: with ``blank_label='first'``
+    the blank is 0 and a label counts when it is > 0 (0 and -1 pad); with
+    ``'last'`` the blank is C - 1 and a label counts when it is >= 0 and
+    not the blank (-1 pads, 0 is a class). The JAX op swaps the two rules
+    (>= 0 under 'first', > 0 under 'last'), so under 'last' it drops
+    every label 0; the port does not copy that.
+
+    The log-alpha recursion over the extended sequence (blank, l1, blank,
+    l2, ..., blank) runs as a loop over time; with ``use_data_lengths``
+    a sequence's alphas stop moving after its length."""
+    T, N, C = data.shape
+    L = label.shape[1]
+    lab = label.to(device=data.device, dtype=torch.int64)
+    if blank_label == 'first':
+        blank = 0
+        lab_valid = lab > 0
+    else:
+        blank = C - 1
+        lab_valid = (lab >= 0) & (lab != blank)
+    if use_label_lengths and label_lengths is not None:
+        lab_len = label_lengths.to(device=data.device, dtype=torch.int64)
+    else:
+        lab_len = lab_valid.sum(1)
+    lab = torch.where(lab_valid, lab, blank)
+    logp = torch.log_softmax(data, dim=-1)
+    S = 2 * L + 1
+    ext = torch.full((N, S), blank, dtype=torch.int64, device=data.device)
+    ext[:, 1::2] = lab
+    neg = data.new_full((N, 2), _CTC_NEG)
+    alpha = torch.cat([logp[0, :, blank:blank + 1],
+                       logp[0].gather(1, ext[:, 1:2]),
+                       data.new_full((N, S - 2), _CTC_NEG)], dim=1)
+    same_as_prev2 = torch.cat([torch.ones((N, 2), dtype=torch.bool,
+                                          device=data.device),
+                               ext[:, 2:] == ext[:, :-2]], dim=1)
+    dlen = data_lengths.to(device=data.device, dtype=torch.int64) \
+        if use_data_lengths and data_lengths is not None else None
+    for t in range(1, T):
+        a1 = torch.cat([neg[:, :1], alpha[:, :-1]], dim=1)
+        a2 = torch.cat([neg, alpha[:, :-2]], dim=1).masked_fill(
+            same_as_prev2, _CTC_NEG)
+        m = torch.maximum(torch.maximum(alpha, a1), a2)
+        new = m + torch.log(torch.exp(alpha - m) + torch.exp(a1 - m) +
+                            torch.exp(a2 - m)) + logp[t].gather(1, ext)
+        alpha = new if dlen is None else \
+            torch.where((t < dlen)[:, None], new, alpha)
+    ext_len = 2 * lab_len + 1
+    a1 = alpha.gather(1, (ext_len - 1)[:, None])[:, 0]
+    a2 = alpha.gather(1, (ext_len - 2).clamp_min(0)[:, None])[:, 0]
+    m = torch.maximum(a1, a2)
+    return -(m + torch.log(torch.exp(a1 - m) + torch.exp(a2 - m)))

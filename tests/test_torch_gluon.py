@@ -291,6 +291,22 @@ def test_global_norm_clip(P):
     assert abs(total - 1.0) < 1e-5
 
 
+def test_global_norm_clip_scales_parameter_gradients(P):
+    """``p.grad()`` arrays clipped together: the Parameters' own
+    gradients shrink, so the next Trainer step reads the clipped ones."""
+    nn, nd = P.nn, P.nd
+    net = nn.Dense(3, in_units=4)
+    net.initialize(P.init.One())
+    with P.autograd.record():
+        loss = (net(nd.ones((2, 4))) * 100).sum()
+    loss.backward()
+    params = list(net.collect_params().values())
+    norm = P.gluon.utils.clip_global_norm([p.grad() for p in params], 0.25)
+    assert abs(norm - onp.sqrt(3 * 4 * 200 ** 2 + 3 * 200 ** 2)) < 1e-2
+    total = onp.sqrt(sum((p.grad().asnumpy() ** 2).sum() for p in params))
+    assert abs(total - 0.25) < 1e-6
+
+
 def test_block_repr_and_summary(P, capsys):
     net = P.nn.HybridSequential()
     net.add(P.nn.Dense(4, in_units=2))
@@ -599,8 +615,14 @@ def test_triplet_and_cosine_losses_match_jax():
 
 
 def test_ctc_loss_waits_for_its_op():
-    with pytest.raises(MXNetError, match='ROADMAP'):
-        tgluon.loss.CTCLoss()
+    """The CTC op is ported: CTCLoss builds and, on labels where MXNet's
+    padding rule and the JAX op's agree, gives the JAX layer's losses
+    (tests/test_torch_ctc.py holds the rest)."""
+    x = onp.random.RandomState(0).randn(2, 6, 5).astype(onp.float32)
+    lab = onp.array([[1, 2, -1, -1], [3, 1, 2, -1]], onp.float32)
+    got = tgluon.loss.CTCLoss()(mt.nd.array(x), mt.nd.array(lab))
+    want = jgluon.loss.CTCLoss()(mj.nd.array(x), mj.nd.array(lab))
+    close(got, want, 1e-5, 1e-5)
 
 
 # ---- layers against JAX, with the JAX weights ----------------------------

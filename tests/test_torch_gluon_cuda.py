@@ -11,6 +11,8 @@ cuDNN's TF32 and its benchmark mode stay off, so the eager run and the
 capture pick the same algorithms and the predict-mode results must be
 bitwise equal.
 """
+import gc
+
 import numpy as onp
 import pytest
 import torch
@@ -26,6 +28,11 @@ pytestmark = pytest.mark.cuda
 def card():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
+    # what earlier tests of the process left (graphs, streams, generators
+    # kept alive by garbage cycles, queued work) is finished and freed
+    # before this test captures anything
+    gc.collect()
+    torch.cuda.synchronize()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False

@@ -6,8 +6,8 @@ Decode, resize and crop helpers, ``color_normalize``, every augmenter of
 lists) run in both packages from the same Python and numpy seeds: the
 augmenters draw from the same generators in the same order, so uint8
 outputs and labels are bitwise equal and float outputs equal (both
-compute in numpy). ``image/detection.py`` is not ported (ROADMAP queue 1
-item 14); its two cases stay with the JAX tests.
+compute in numpy). The two detection cases are in
+tests/test_torch_image_det.py.
 """
 import random as pyrandom
 

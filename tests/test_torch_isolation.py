@@ -217,6 +217,64 @@ def test_language_model_metric_and_zoo_modules_import_no_jax(module):
     assert not bad, bad
 
 
+SEQ_DET_MODULES = ('gluon/rnn/__init__.py', 'gluon/rnn/rnn_layer.py',
+                   'gluon/rnn/rnn_cell.py', 'ops/contrib.py',
+                   'ops/detection.py', 'models/ssd.py',
+                   'image/detection.py')
+
+
+@pytest.mark.parametrize('module', SEQ_DET_MODULES)
+def test_sequence_and_detection_modules_import_no_jax(module):
+    """gluon.rnn, the box and detection ops, SSD and the detection
+    iterator are among the files checked above and import neither jax
+    nor the reference package."""
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_sequence_and_detection_modules_loads_no_jax():
+    """In a fresh interpreter, importing gluon.rnn, ops.contrib,
+    ops.detection, models.ssd and image.detection loads neither jax nor
+    anything of the JAX package."""
+    import subprocess
+    import sys
+    code = ('import sys\n'
+            'import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.ops.contrib, '
+            'mxnet_tpu_torch.ops.detection, mxnet_tpu_torch.models.ssd, '
+            'mxnet_tpu_torch.image.detection\n'
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "mxnet_tpu")))')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
+
+
+@pytest.mark.parametrize('device', [None, 'cuda'])
+def test_sequence_and_detection_models_refuse_a_missing_card(device):
+    """The RNN layers and SSD are built on the card unless the CPU is
+    asked for; ImageDetIter's batches go to the card by default."""
+    _require_no_card()
+    from mxnet_tpu_torch.gluon import rnn
+    from mxnet_tpu_torch.models import ssd_512
+    ctx = None if device is None else mt.gpu(0)
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        net = rnn.LSTM(4, input_size=3)
+        net.initialize(ctx=ctx)
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        net = ssd_512()
+        net.initialize(ctx=ctx)
+        net(mt.nd.zeros((1, 3, 64, 64), ctx=ctx))
+    with mt.cpu():
+        net = rnn.GRU(4, input_size=3)
+        net.initialize()
+        assert net.l0_i2h_weight.tensor.device.type == 'cpu'
+
+
 def test_native_loader_builds_and_loads_only_the_ports_library():
     """The port's native IO loader resolves its library under
     build/mxnet_tpu_torch/ and never under mxnet_tpu/_lib/: in a fresh

@@ -34,7 +34,6 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as JP
 
 import mxnet_tpu as mx
-from mxnet_tpu import autograd as jautograd
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import nd
 from mxnet_tpu.parallel import ShardedTrainStep as JStep
@@ -600,37 +599,49 @@ def test_zero3_remat_with_dropout_is_stage1_bit_for_bit(worlds, n):
             assert got['stats']['layer_groups'] > 8
 
 
-def _jax_mesh_trainer(arrays, mesh):
-    # compiled programs an earlier test left on another mesh's device
-    # order would hand the Trainer states its re-placement cannot reorder
-    jax.clear_caches()
+def _jax_trainer_layout(arrays, mesh):
+    """The JAX Trainer's own ZeRO decision, ``Trainer._zero_layout``
+    (``mxnet_tpu/gluon/trainer.py:447``, which its fused update calls at
+    ``:708-711``), for weights placed replicated on ``mesh``, with no
+    update run: the weight re-placement it asks of ``jax.device_put`` is
+    recorded instead of made. (A whole Trainer step re-placed the weights
+    and raced with the fused update's programs now and then, ROADMAP
+    queue 3.) Returns (the layout, the Trainer, the shardings asked
+    for)."""
     net = _jnet(*SIZES['even'])
     for k, p in net._collect_params_with_prefix().items():
         p.set_data(nd.array(arrays['even'][k]))
-    x, y = (nd.array(a) for a in _data('even'))
-    net(x)
+    net(nd.array(_data('even')[0]))
     repl = NamedSharding(mesh, JP())
     for p in net.collect_params().values():
         p.data()._data = jax.device_put(p.data()._data, repl)
-    for a in (x, y):
-        a._data = jax.device_put(a._data, repl)
     tr = jgluon.Trainer(net.collect_params(), 'adam', {'learning_rate': 0.01})
-    loss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
-    with jautograd.record():
-        loss = loss_fn(net(x), y)
-    loss.backward()
-    tr.step(x.shape[0])
-    return tr
+    items = [(i, p, None, p.list_data()) for i, p in enumerate(tr._params)
+             if p.grad_req != 'null']
+    asked = []
+
+    def record(xs, shardings):
+        asked.extend(shardings)
+        return xs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, 'device_put', record)
+        layout = tr._zero_layout(items)
+    return layout, tr, asked
 
 
 @pytest.mark.parametrize('n', [2, 4])
 def test_trainer_zero3_raises_where_the_jax_trainer_shards(worlds, arrays,
                                                            monkeypatch, n):
-    """MXTPU_ZERO=3 with dp > 1: the JAX Trainer re-places the weights
-    sharded (stage 3); the port's raises, naming ROADMAP item 7, where it
-    once ran ZeRO-1 under the stage-3 setting."""
+    """MXTPU_ZERO=3 with dp > 1: the JAX Trainer chooses stage 3 and asks
+    for every weight re-placed dp-sharded; the port's raises, naming
+    ROADMAP item 7, where it once ran ZeRO-1 under the stage-3
+    setting."""
     monkeypatch.setenv('MXTPU_ZERO', '3')
-    tr = _jax_mesh_trainer(arrays, jmake_mesh((n,), ('dp',)))
-    assert tr._zero_stage == 3 and tr._zero_active
+    layout, tr, asked = _jax_trainer_layout(arrays,
+                                            jmake_mesh((n,), ('dp',)))
+    assert layout['zero'] and layout['stage'] == 3 and layout['dp'] == n
+    assert tr._zero3_mesh is not None
+    assert len(asked) == len(tr._params) and \
+        all('dp' in tuple(sh.spec) for sh in asked)
     for o in worlds[n]:
         assert 'item 7' in o['trainer'] and 'MXTPU_ZERO=3' in o['trainer']
