@@ -111,6 +111,37 @@
    directory, read by ImageDetIter (rand_crop, rand_pad, rand_mirror,
    mean and std) on the card: every box in [0, 1]; 4 SSD steps fed by it,
    finite losses. The path launches none of the hand-written kernels.
+3e. sym phase (after det): MXNet's symbolic API. (a) ResNet-50 v1
+   built from mx.sym as MXNet 1.6's example/image-classification/
+   symbols/resnet.py lays it out (a BatchNorm of the data, 50 layers of
+   bottleneck units over 64/256/512/1024/2048 filters, 1000 classes,
+   BatchNorm eps 2e-5 and momentum 0.9, ``bn[0]``), He-normal weights
+   from a numpy seed, through Module on the card: one forward
+   (is_train=True) and backward at B = 2, f32 with TF32 off, against the
+   CPU (aligned_units for the ReLU and max-pool ties; the output, every
+   gradient and the new moving statistics at the det phase's f32
+   bounds, or, the step being ill-conditioned at B = 2, no further from
+   the CPU's float64 step than twice the CPU's own f32 step); Module.fit
+   over an NDArrayIter of random images at B = 32 (SGD momentum 0.9, lr
+   0.1, wd 1e-4, 8 batches): step ms (median and spread), images/s, a profiled
+   step's busy time and idle share; save_checkpoint, Module.load and
+   predict bitwise the predictions before; SymbolBlock.imports of the
+   pair within 1e-6 with the same classes; a Gluon net's export and
+   imports on the card. (b) At BERT-base width (hidden 768, 12 heads,
+   T = 512, B = 8, bf16, valid_length in [256, 512]): a 12-layer encoder
+   from mx.sym (FullyConnected flatten=False, multi_head_attention,
+   LayerNorm, FFN 3072) through simple_bind: 12 launches of A per
+   forward, 12 of K2 and of K3 per backward, the output within rel
+   Frobenius 0.05 and the gradients within the bf16 training bounds of
+   f32 on the CPU; and 12 NaiveAttentionBlocks (tests/test_subgraph.py's,
+   written for the port, additive key mask) hybridized with
+   backend='fuse_attention': 12 matches a trace, a replayed forward
+   launches A 12 times and no softmax kernel, a replayed step under
+   autograd.record 12 of A, K2 and K3; fused against unfused within the
+   bf16 bounds; device ms of both. The checkpoint and exported files live
+   under build/chip_smoke_sym and are removed. The launches of (b) are
+   the kernels' sym column (A, K2 and K3 per symbolic forward and
+   backward beside them); (a) launches none.
 4. Serving phase: the serving recipe, InferenceEngine(BlockRunner(net))
    then serving.warmup(engine), on BERT-base at full width, weights drawn
    with numpy from a fixed seed (Normal(0.02)) and cast to bf16 on the
@@ -363,11 +394,14 @@
    runner planted to stall 3 s under a 1 s watchdog gives exactly one.
    Checkpoints live in a temporary directory removed at the end.
 13. Removes what the run created under build/ (the kernels and the native
-   io library it built, the tile database, the dp phase's files), so that
-   a later process in the checkout, the `cuda` tests say, starts as it
-   would have without this run.
+   io library it built, the tile database, the dp phase's files, the sym
+   phase's checkpoint and exported files), so that a later process in
+   the checkout, the `cuda` tests say, starts as it would have without
+   this run.
 14. Prints the kernels' JSON line (each row with its variant and dtype,
-   A's, K2's and K3's launches per lm replay and their lm_shapes timings
+   A's, K2's and K3's launches per lm replay and per symbolic forward
+   and backward (launches_per_sym_forward/_backward), their lm_shapes
+   timings
    and, for a redesigned kernel, the time of the one it replaced, old_ms;
    the float16 routes as rows of their own, named kernel[float16], whose
    launches are the AMP phase's float16 ones) and, last, the result
@@ -1950,28 +1984,37 @@ def cpu_reference(cfg, arrays):
     return _CPU_REF[0]
 
 
+def grad_agreement(got, want):
+    """The gradients ``got`` against ``want`` (both {name: tensor}, over
+    want's names): their global rel Frobenius, and the least cosine with
+    its name."""
+    import torch
+    num = sum(float((got[n].double() - want[n].double()).square().sum())
+              for n in want)
+    den = sum(float(want[n].double().square().sum()) for n in want)
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        got[n].flatten().double(), want[n].flatten().double(), dim=0))
+        for n in want}
+    worst = min(cos, key=cos.get)
+    return (num / den) ** 0.5, cos[worst], worst
+
+
 def hold_parity(label, got, want, tol):
     """loss rel, gradients' rel Frobenius and least cosine of the card's
     step ``got`` against the CPU's ``want``, each within ``tol``."""
-    import torch
     (lg, gg), (lc, gc) = got, want
     loss_rel = abs(lg - lc) / abs(lc)
-    num = sum(float((gg[n] - gc[n]).square().sum()) for n in gc)
-    den = sum(float(gc[n].square().sum()) for n in gc)
-    rel_fro = (num / den) ** 0.5
-    cos = {n: float(torch.nn.functional.cosine_similarity(
-        gg[n].flatten(), gc[n].flatten(), dim=0)) for n in gc}
-    worst = min(cos, key=cos.get)
+    rel_fro, cos, worst = grad_agreement(gg, gc)
     ok = loss_rel <= tol['loss_rel'] and \
         rel_fro <= tol['grad_rel_fro'] and \
-        cos[worst] >= tol['grad_min_cos']
+        cos >= tol['grad_min_cos']
     print(f'  parity, {label}: loss {lg:.5f} vs {lc:.5f} (rel '
           f'{loss_rel:.2e}), gradients rel_fro_err={rel_fro:.4f}, least '
-          f'cosine {cos[worst]:.5f} ({worst}); tolerance {tol} (key third '
+          f'cosine {cos:.5f} ({worst}); tolerance {tol} (key third '
           f'of each qkv bias left out: its gradient is zero in exact '
           f'arithmetic) -> {"ok" if ok else "FAIL"}')
     check(ok, f'{label} disagrees with the f32 CPU reference')
-    return dict(loss_rel=loss_rel, rel_fro=rel_fro, min_cos=cos[worst])
+    return dict(loss_rel=loss_rel, rel_fro=rel_fro, min_cos=cos)
 
 
 def training_parity(cfg, arrays, card, seq=512, batch=2):
@@ -5161,7 +5204,8 @@ def resilience_phase(card, batch=8, seq=512):
                 '_add_ln_fwd': 2 * L}
         per = {}
         for label, s in (('guarded', step), ('unguarded', step_b)):
-            names = kernel_launches(lambda s=s: s(ins, labs), 3)
+            # a short trace (a late one can drop events) is taken again
+            names = kernel_launches(lambda s=s: s(ins, labs), 3, want)
             total = sum(names.values()) / 3
             kern, copies = ops_split(names, 3)
             mine = {k: sum(c for n, c in names.items() if k in n) / 3
@@ -6063,6 +6107,7 @@ SSD_CLASSES = 20           # VOC, BASELINE.json's config
 SSD_SIZE = 512
 SSD_ANCHORS = 24572        # 4*64^2 + 6*(32^2+16^2+8^2+4^2+2^2) + 4*1^2
 SSD_TOL = {'loss_rel': 1e-5, 'grad_rel_fro': 1e-4}    # f32 training bounds
+SSD_TIE = 1e-4      # choices within f32 rounding (tests/test_torch_model_zoo)
 
 
 def ssd_batch(rng, batch, size=SSD_SIZE, num_classes=SSD_CLASSES, M=4):
@@ -6110,20 +6155,24 @@ def _bn_fed_biases(net):
 
 @contextlib.contextmanager
 def aligned_units(shift=None, routes=None):
-    """The discrete choices of a Gluon forward, recorded on the host in
-    call order: every ReLU input (``nd.activation``, act_type 'relu',
-    which the Activation blocks call) and every 2-D max pooling's argmax
-    per window (``nd.pooling``, unpadded, 'valid'). ``shift`` maps a ReLU
-    call's index to (flat indices, values): those inputs take the values,
-    the move carrying no gradient. With ``routes`` (another run's argmax
-    list) each such pooling takes its output, and routes its gradient,
-    from those positions; the run's own argmax is still recorded.
-    Yields (ReLU inputs, argmaxes, per pooling the values where the two
-    argmaxes differ: (routed value, own max))."""
+    """The discrete choices of a Gluon forward or a symbol Executor's,
+    recorded on the host in call order: every ReLU input (the
+    ``activation`` op, act_type 'relu', which the Activation blocks and
+    ``sym.Activation`` nodes call) and every 2-D max pooling's argmax per
+    window (the ``pooling`` op, 'valid'). ``shift`` maps a ReLU call's index to (flat indices,
+    values): those inputs take the values, the move carrying no gradient.
+    With ``routes`` (another run's argmax list) each such pooling takes
+    its output, and routes its gradient, from those positions; the run's
+    own argmax is still recorded. Yields (ReLU inputs, argmaxes, per
+    pooling the values where the two argmaxes differ: (routed value, own
+    max))."""
     import torch
     import torch.nn.functional as F
     import mxnet_tpu_torch as mt
-    real_act, real_pool = mt.nd.activation, mt.nd.pooling
+    from mxnet_tpu_torch.base import get_op
+    act_def, pool_def = get_op('activation'), get_op('pooling')
+    real_act, real_pool = act_def.fn, pool_def.fn
+    nd_act, nd_pool = mt.nd.activation, mt.nd.pooling
     relu, pools, ties = [], [], []
 
     def activation(data, act_type='relu', **kw):
@@ -6142,12 +6191,13 @@ def aligned_units(shift=None, routes=None):
     def pooling(data, kernel=None, pool_type='max', global_pool=False,
                 stride=None, pad=None, pooling_convention='valid', **kw):
         if pool_type != 'max' or global_pool or data.dim() != 4 or \
-                any(pad or ()) or pooling_convention != 'valid':
+                pooling_convention != 'valid':
             return real_pool(data, kernel=kernel, pool_type=pool_type,
                              global_pool=global_pool, stride=stride,
                              pad=pad, pooling_convention=pooling_convention,
                              **kw)
-        out, idx = F.max_pool2d(data, kernel, stride, return_indices=True)
+        out, idx = F.max_pool2d(data, kernel, stride, padding=pad or 0,
+                                return_indices=True)
         i = len(pools)
         pools.append(idx.cpu())
         if routes is not None:
@@ -6160,10 +6210,12 @@ def aligned_units(shift=None, routes=None):
                          .reshape(-1)[moved].cpu()))
         return out
     mt.nd.activation, mt.nd.pooling = activation, pooling
+    act_def.fn, pool_def.fn = activation, pooling
     try:
         yield relu, pools, ties
     finally:
-        mt.nd.activation, mt.nd.pooling = real_act, real_pool
+        mt.nd.activation, mt.nd.pooling = nd_act, nd_pool
+        act_def.fn, pool_def.fn = real_act, real_pool
 
 
 def _relu_flips(got, want):
@@ -6176,6 +6228,66 @@ def _relu_flips(got, want):
         if len(idx):
             out[i] = (idx, a[idx])
     return out
+
+
+TIE_SHARE = 1e-5    # most of a step's ReLU inputs that may fall on ties
+
+
+def aligned_rerun(step, card_run, first=None):
+    """The CPU's step taking the card's discrete choices.
+    ``step(shift, routes)`` runs it under ``aligned_units``: its max
+    poolings route through ``card_run``'s argmaxes, and its ReLU inputs
+    on the other side of 0 from the card's take the card's values, over
+    up to 3 reruns (``first``, when given, is the step's routed first
+    run). Returns (the last run, the readings ``tie_faults`` judges)."""
+    import torch
+    routes = card_run['pools']
+    run = step(None, routes) if first is None else first
+    shift, rounds = {}, 0
+    flips = _relu_flips(card_run['relu'], run['relu'])
+    while flips and rounds < 3:
+        rounds += 1
+        for i, (idx, vals) in flips.items():
+            old = shift.get(i)
+            shift[i] = (idx, vals) if old is None else (
+                torch.cat([old[0], idx]), torch.cat([old[1], vals]))
+        run = step(shift, routes)
+        flips = _relu_flips(card_run['relu'], run['relu'])
+    return run, dict(
+        shift=shift, rounds=rounds, left=len(flips),
+        units=sum(len(v[0]) for v in shift.values()),
+        units_all=sum(a.numel() for a in card_run['relu']),
+        worst_in=max((float(v[1].abs().max()) for v in shift.values()),
+                     default=0.0),
+        windows=sum(len(a) for a, _ in run['ties']),
+        windows_all=sum(r.numel() for r in routes),
+        worst_tie=max((float((a - b).abs().max()) for a, b in run['ties']
+                       if len(a)), default=0.0))
+
+
+def tie_faults(read, tie):
+    """The tie rule on ``aligned_rerun``'s readings: no ReLU input left
+    on another side of 0 than on the card, every one taken at the card's
+    value within ``tie`` of 0 and at most TIE_SHARE of them, and each
+    re-routed max pooling window's two values within ``tie``. Prints the
+    readings; returns the rule's failures (none when it holds)."""
+    print(f'  choices within rounding: {read["units"]} of '
+          f'{read["units_all"]} ReLU inputs on different sides of 0 '
+          f'(|input| at most {read["worst_in"]:.2e}; bounds {tie:.2e} and '
+          f'{TIE_SHARE:g} of the inputs), taken at the card\'s values in '
+          f'{read["rounds"]} rerun(s) of the CPU step; {read["windows"]} of '
+          f'{read["windows_all"]} max pooling windows with another argmax '
+          f'(the two values at most {read["worst_tie"]:.2e} apart, bound '
+          f'{tie:.2e}), routed as on the card')
+    return [f for f, bad in (
+        (f'ReLU inputs left on different sides of 0 in {read["left"]} '
+         f'calls', read['left']),
+        (f'a ReLU input {read["worst_in"]:.2e} from 0 taken at the card\'s '
+         f'value', read['worst_in'] > tie),
+        (f'{read["units"]} ReLU inputs on ties', read['units'] >
+         TIE_SHARE * read['units_all']),
+        (f'a pooling argmax moved by {read["worst_tie"]:.2e}',
+         read['worst_tie'] > tie)) if bad]
 
 
 def _ssd_step(ctx, arrays, x, label, targets=None, shift=None,
@@ -6215,9 +6327,10 @@ def ssd_parity(card, x, label):
     a max pooling window. The CPU's step takes the card's choices: its
     max poolings route through the card's argmax (each window where its
     own differs must be a tie within 1e-4), and its ReLU inputs on the
-    other side of 0 take the card's values (each within 1e-4 of 0), the
-    moves carrying no gradient (tests/test_torch_model_zoo.py's rule for
-    ReLU). Returns (the readings, the card's net)."""
+    other side of 0 take the card's values (each within 1e-4 of 0, at
+    most TIE_SHARE of them), the moves carrying no gradient
+    (tests/test_torch_model_zoo.py's rule for ReLU; ``tie_faults``).
+    Returns (the readings, the card's net)."""
     import numpy as onp
     import torch
     import mxnet_tpu_torch as mt
@@ -6247,34 +6360,11 @@ def ssd_parity(card, x, label):
           f'card\'s at {differ} anchors' +
           (': the CPU loss takes the card\'s targets' if differ else ''))
     targets = card_run['targets'] if differ else None
-    shift, rounds = {}, 0
-    flips = _relu_flips(card_run['relu'], cpu_run['relu'])
-    while flips and rounds < 3:
-        rounds += 1
-        for i, (idx, vals) in flips.items():
-            old = shift.get(i)
-            shift[i] = (idx, vals) if old is None else (
-                torch.cat([old[0], idx]), torch.cat([old[1], vals]))
-        cpu_run = _ssd_step(mt.cpu(), arrays, x, label, targets, shift,
-                            routes)
-        flips = _relu_flips(card_run['relu'], cpu_run['relu'])
-    units = sum(len(v[0]) for v in shift.values())
-    units_all = sum(a.numel() for a in card_run['relu'])
-    worst_in = max((float(v[1].abs().max()) for v in shift.values()),
-                   default=0.0)
-    windows = sum(len(a) for a, _ in cpu_run['ties'])
-    windows_all = sum(r.numel() for r in routes)
-    worst_tie = max((float((a - b).abs().max()) for a, b in
-                     cpu_run['ties'] if len(a)), default=0.0)
-    print(f'  choices within rounding, card vs CPU: {units} of {units_all} '
-          f'ReLU inputs on different sides of 0 (|input| at most '
-          f'{worst_in:.2e}, bound 1e-4), taken at the card\'s values in '
-          f'{rounds} rerun(s) of the CPU step; {windows} of {windows_all} '
-          f'max pooling windows with another argmax (the two values at most '
-          f'{worst_tie:.2e} apart, bound 1e-4), routed as on the card')
-    check(not flips and worst_in <= 1e-4,
-          f'ReLU inputs left on different sides of 0: {len(flips)} calls')
-    check(worst_tie <= 1e-4, f'a pooling argmax moved by {worst_tie}')
+    cpu_run, read = aligned_rerun(
+        lambda shift, routes: _ssd_step(mt.cpu(), arrays, x, label, targets,
+                                        shift, routes), card_run, cpu_run)
+    faults = tie_faults(read, SSD_TIE)
+    check(not faults, f'SSD-512 choices beyond rounding: {faults}')
     lg, lc = card_run['loss'], cpu_run['loss']
     print(f'  SSD-512 loss {lg:.6f} on the card, {lc:.6f} on the CPU')
     held = hold_f32(f'SSD-512 one step at B={x.shape[0]} (ssd_train_loss, '
@@ -6282,8 +6372,8 @@ def ssd_parity(card, x, label):
                     card_run['grads'], cpu_run['grads'], SSD_TOL,
                     _bn_fed_biases(card_run['net']))
     return dict(held, anchors=n_anchor, mined_differ=differ,
-                box_target_err=box_err, relu_flips=units,
-                pool_ties=windows), card_run['net']
+                box_target_err=box_err, relu_flips=read['units'],
+                pool_ties=read['windows']), card_run['net']
 
 
 def ssd_train_steps(net, batches, trainer):
@@ -6474,6 +6564,691 @@ def det_phase(card, work):
     return out
 
 
+SYM_TOL = {'loss_rel': 1e-5, 'grad_rel_fro': 1e-4, 'aux_rel_fro': 1e-5}
+SYM_BERT = dict(hidden=768, heads=12, layers=12, ffn=3072)
+SYM_DIR = os.path.join('build', 'chip_smoke_sym')
+
+
+def resnet50_symbol(sym, num_classes=1000, bn_mom=0.9, eps=2e-5):
+    """ResNet-50 v1 from ``mx.sym`` as MXNet 1.6's
+    example/image-classification/symbols/resnet.py lays the network out:
+    a BatchNorm of the data (fix_gamma), a 7x7/2 convolution, BatchNorm,
+    ReLU and a 3x3/2 max pooling, then 3, 4, 6 and 3 bottleneck units of
+    64/256, 128/512, 256/1024 and 512/2048 filters (v1: convolution,
+    BatchNorm, ReLU; the stride on the unit's first 1x1, a projection
+    shortcut on each stage's first unit, the sum then ReLU), global
+    average pooling, a 1000-way FullyConnected and SoftmaxOutput.
+    BatchNorm eps 2e-5, momentum 0.9, fix_gamma=False but on the data;
+    ``bn[0]`` takes BatchNorm's output."""
+    def bn(x, name, fix_gamma=False):
+        return sym.BatchNorm(x, fix_gamma=fix_gamma, eps=eps,
+                             momentum=bn_mom, name=name)[0]
+
+    def conv(x, nf, kernel, stride, pad, name):
+        return sym.Convolution(x, num_filter=nf, kernel=kernel, stride=stride,
+                               pad=pad, no_bias=True, name=name)
+
+    def relu(x, name):
+        return sym.Activation(x, act_type='relu', name=name)
+
+    def unit(x, nf, stride, dim_match, name):
+        b = relu(bn(conv(x, nf // 4, (1, 1), stride, (0, 0), name + '_conv1'),
+                    name + '_bn1'), name + '_relu1')
+        b = relu(bn(conv(b, nf // 4, (3, 3), (1, 1), (1, 1), name + '_conv2'),
+                    name + '_bn2'), name + '_relu2')
+        b = bn(conv(b, nf, (1, 1), (1, 1), (0, 0), name + '_conv3'),
+               name + '_bn3')
+        short = x if dim_match else bn(
+            conv(x, nf, (1, 1), stride, (0, 0), name + '_sc'), name + '_sc_bn')
+        return relu(b + short, name + '_relu')
+
+    body = bn(sym.Variable('data'), 'bn_data', fix_gamma=True)
+    body = relu(bn(conv(body, 64, (7, 7), (2, 2), (3, 3), 'conv0'), 'bn0'),
+                'relu0')
+    body = sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                       pool_type='max', name='pool0')
+    for i, (n, nf) in enumerate(zip((3, 4, 6, 3), (256, 512, 1024, 2048))):
+        for j in range(n):
+            body = unit(body, nf, (1, 1) if i == 0 or j else (2, 2), j > 0,
+                        f'stage{i + 1}_unit{j + 1}')
+    pool = sym.Pooling(body, kernel=(7, 7), global_pool=True, pool_type='avg',
+                       name='pool1')
+    fc = sym.FullyConnected(sym.Flatten(pool, name='flatten0'),
+                            num_hidden=num_classes, name='fc1')
+    return sym.SoftmaxOutput(fc, sym.Variable('softmax_label'), name='softmax')
+
+
+def sym_arrays(net, shapes, seed):
+    """He-normal weights (N(0, 2 / fan_in)) for every ``*_weight`` from a
+    numpy seed; gammas and moving variances 1, betas, biases and moving
+    means 0."""
+    import numpy as onp
+    args, _, aux = net.infer_shape(**shapes)
+    rng = onp.random.RandomState(seed)
+    arg_params, aux_params = {}, {}
+    for name, shape in zip(net.list_arguments(), args):
+        if name in shapes:
+            continue
+        if name.endswith('_weight'):
+            a = rng.standard_normal(shape) * onp.sqrt(
+                2.0 / int(onp.prod(shape[1:])))
+        elif name.endswith('_gamma'):
+            a = onp.ones(shape)
+        else:
+            a = onp.zeros(shape)
+        arg_params[name] = a.astype(onp.float32)
+    for name, shape in zip(net.list_auxiliary_states(), aux):
+        aux_params[name] = (onp.ones if name.endswith('_var') else
+                            onp.zeros)(shape, onp.float32)
+    return arg_params, aux_params
+
+
+def _sym_module(net, ctx, arrays, batch, side, train=True):
+    import mxnet_tpu_torch as mt
+    mod = mt.module.Module(net, context=ctx)
+    mod.bind(data_shapes=[('data', (batch, 3, side, side))],
+             label_shapes=[('softmax_label', (batch,))], for_training=train)
+    args, aux = arrays
+    mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                for k, v in args.items()},
+                    aux_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                for k, v in aux.items()})
+    return mod
+
+
+def _sym_step(net, ctx, arrays, x, label, shift=None, routes=None,
+              dtype=None):
+    """One Module forward(is_train=True) and backward of ``net`` on
+    ``ctx`` under aligned_units (in ``dtype``, float64 for the exact
+    reference, when given): every gradient, the new moving statistics,
+    the ReLU inputs, the pooling argmaxes and ties."""
+    import mxnet_tpu_torch as mt
+    mod = _sym_module(net, ctx, arrays, x.shape[0], x.shape[-1])
+    e = mod._execs[0]
+    if dtype is not None:
+        for d in (e.arg_dict, e.aux_dict, e.grad_dict):
+            for a in d.values():
+                a._data = a._data.to(dtype)
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=ctx)],
+                            [mt.nd.array(label, ctx=ctx)])
+    with aligned_units(shift, routes) as (relu, pools, ties):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+    grads = {n: g._data.double().cpu() for n, g in e.grad_dict.items()
+             if g is not None and n not in ('data', 'softmax_label')}
+    return dict(grads=grads, aux={n: a._data.double().cpu()
+                                  for n, a in e.aux_dict.items()},
+                out=e.outputs[0]._data.double().cpu(), relu=relu,
+                pools=pools, ties=ties)
+
+
+def _own_rounding(run32, run64, reads):
+    """The CPU f32 step's own rounding at this depth: the largest
+    distance of its ReLU inputs from the float64 step's, the inputs that
+    either step took at the card's values left out."""
+    import torch
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(run32['relu'], run64['relu'])):
+        d = (a.double() - b.double()).abs().reshape(-1)
+        for r in reads:
+            if i in r['shift']:
+                d[r['shift'][i][0]] = 0.0
+        worst = max(worst, float(torch.max(d)))
+    return worst
+
+
+def _sym_verdict(net, arrays, x, label, card_run):
+    """The f32 check of one card step of the symbolic ResNet-50 against
+    the CPU. The CPU runs the step in f32 and in float64, both taking the
+    card's choices on ties (``aligned_rerun``); the tie rule's bound is
+    twice the CPU f32 step's own rounding of the ReLU inputs (its
+    largest distance from the float64 step): a card as accurate as the
+    CPU flips no input farther from 0. A reading (the output, each
+    gradient, each new moving statistic) holds within its SYM_TOL bound
+    of the CPU f32 step, or within max(bound, twice the CPU f32 step's
+    own distance) of the float64 step. Returns (readings, the tie rule's
+    failures, the readings' failures)."""
+    import torch
+    import mxnet_tpu_torch as mt
+
+    def step(dtype):
+        return lambda shift, routes: _sym_step(
+            net, mt.cpu(), arrays, x, label, shift, routes, dtype)
+    cpu32, r32 = aligned_rerun(step(None), card_run)
+    cpu64, r64 = aligned_rerun(step(torch.float64), card_run)
+    tie = 2 * _own_rounding(cpu32, cpu64, (r32, r64))
+    print(f'  the CPU f32 step\'s own rounding of the ReLU inputs (largest '
+          f'distance from the float64 step) {tie / 2:.2e}: ties within '
+          f'{tie:.2e}')
+    tie_failed = []
+    for what, r in (('CPU f32', r32), ('CPU float64', r64)):
+        print(f'  card vs {what}:')
+        tie_failed += [f'{what}: {f}' for f in tie_faults(r, tie)]
+    rows = [('output', 'out', None, SYM_TOL['loss_rel'])]
+    rows += [(n, 'grads', n, SYM_TOL['grad_rel_fro'])
+             for n in cpu32['grads']]
+    rows += [(n, 'aux', n, SYM_TOL['aux_rel_fro']) for n in cpu32['aux']]
+    worst = {kind: (0.0, '-', 0.0, 0.0, bound)
+             for _, kind, _, bound in rows}
+    failed, n_over = [], 0
+    for name, kind, key, bound in rows:
+        def pick(run):
+            return run[kind] if key is None else run[kind][key]
+        e32 = _rel(pick(card_run), pick(cpu32))
+        e64 = _rel(pick(card_run), pick(cpu64))
+        c64 = _rel(pick(cpu32), pick(cpu64))
+        n_over += e32 > bound
+        if e32 >= worst[kind][0]:
+            worst[kind] = (e32, name, e64, c64, bound)
+        if e32 > bound and e64 > max(bound, 2 * c64):
+            failed.append((name, f'{e32:.2e}', f'{e64:.2e}', f'{c64:.2e}'))
+    for group, (e32, name, e64, c64, bound) in worst.items():
+        print(f'  {group}: worst card vs CPU f32 rel Frobenius {e32:.2e} '
+              f'({name}; card vs the float64 step {e64:.2e}, CPU f32 vs '
+              f'float64 {c64:.2e}); bound {bound}')
+    moved = max(float((cpu32['aux'][n] - torch.from_numpy(
+        arrays[1][n]).double()).abs().max()) for n in cpu32['aux'])
+    print(f'  {len(rows)} readings (output, {len(cpu32["grads"])} '
+          f'gradients, {len(cpu32["aux"])} moving statistics, moved by up '
+          f'to {moved:.3e}): past the bound against the CPU f32 step '
+          f'{n_over}; of those also past max(bound, twice the CPU f32 '
+          f'step\'s own distance) from the float64 step (name, vs f32, vs '
+          f'float64, CPU f32 vs float64): {failed or "none"}')
+    if moved <= 0:
+        failed.append(('moving statistics did not move',))
+    return dict(out_rel=worst['out'][0], grad_rel_fro=worst['grads'][0],
+                grad_rel_fro_f64=worst['grads'][2],
+                aux_rel_fro=worst['aux'][0], tie=tie,
+                relu_flips=r32['units'], relu_flips_f64=r64['units'],
+                worst_in=max(r32['worst_in'], r64['worst_in']),
+                pool_ties=r32['windows'], past_f32=n_over,
+                failed=len(failed)), tie_failed, failed
+
+
+def resnet_sym_parity(card, net, arrays, device='cuda', batch=2, side=224):
+    """(a) parity: one Module forward (is_train=True) and backward of the
+    symbolic ResNet-50 at B = 2, f32 with TF32 off, on the card against
+    the same weights on the CPU at the det phase's f32 bounds (the output
+    within rel Frobenius 1e-5, every gradient within 1e-4, the new
+    moving statistics within 1e-5), the choices on ties aligned
+    (``_sym_verdict``). Through 53 BatchNorms in training mode at B = 2
+    an f32 step is ill-conditioned: the CPU's own f32 step lies past
+    those bounds from the same step in float64 (PERF.md section 6), so a
+    reading also holds where the card is as close to the float64 step
+    as the CPU's f32 step is. The control: the same card step with TF32
+    on (10-bit mantissas in the convolutions and the FC) must fail that
+    check."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    rng = onp.random.RandomState(SEED + 41)
+    x = rng.standard_normal((batch, 3, side, side)).astype(onp.float32)
+    label = rng.randint(0, 1000, batch).astype(onp.float32)
+    card_ctx = mt.gpu(0) if device == 'cuda' else mt.cpu()
+    print(f'  symbolic ResNet-50 v1 Module step at B={batch}, f32, TF32 '
+          f'off, card vs CPU:')
+    card_run = _sym_step(net, card_ctx, arrays, x, label)
+    held, tie_failed, failed = _sym_verdict(net, arrays, x, label, card_run)
+    check(not tie_failed and not failed, f'the symbolic ResNet-50 step '
+          f'disagrees: {tie_failed + failed}')
+    if device != 'cuda':
+        return held
+    print(f'  control: the same card step with TF32 on, the same check:')
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_run = _sym_step(net, card_ctx, arrays, x, label)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    ctl, ctl_tie, ctl_failed = _sym_verdict(net, arrays, x, label, tf32_run)
+    print(f'  control (TF32 on): the tie rule fails {len(ctl_tie)} ways, '
+          f'{len(ctl_failed)} readings fail (f32: {len(failed)}) -> '
+          f'{"separated" if ctl_failed else "NOT separated"}')
+    check(ctl_failed, 'the f32 check passes a TF32 step: it does not '
+          'separate a lower-precision step')
+    return dict(held, control=ctl, control_tie_faults=len(ctl_tie))
+
+
+def resnet_sym_fit(card, net, arrays, device='cuda', batch=32, batches=8,
+                   side=224):
+    """(a) timed: Module.fit over an NDArrayIter of random images (numpy
+    seed) at B = 32, SGD momentum 0.9, lr 0.1, wd 1e-4, 8 batches: step ms
+    (median and spread, the first batch left out), images/s, a
+    cross-entropy that stays finite, every parameter moved; then a
+    profiled step's busy time, idle share and breakdown."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    ctx = mt.gpu(0) if device == 'cuda' else mt.cpu()
+    rng = onp.random.RandomState(SEED + 43)
+    images = rng.standard_normal((batch * batches, 3, side, side)) \
+        .astype(onp.float32)
+    labels = rng.randint(0, 1000, batch * batches).astype(onp.float32)
+    with ctx:
+        it = mt.io.NDArrayIter(images, labels, batch_size=batch)
+    mod = mt.module.Module(net, context=ctx)
+    marks = []
+
+    def mark(param):
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    args, aux = arrays
+    marks.append(time.perf_counter())
+    metric = mt.metric.CrossEntropy()
+    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer='sgd',
+            optimizer_params={'learning_rate': 0.1, 'momentum': 0.9,
+                              'wd': 1e-4},
+            arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in args.items()},
+            aux_params={k: mt.nd.array(v, ctx=mt.cpu())
+                        for k, v in aux.items()},
+            batch_end_callback=mark)
+    steps = [(b - a) * 1e3 for a, b in zip(marks[1:], marks[2:])]
+    med = float(onp.median(steps))
+    ce = metric.get()[1]
+    got, _ = mod.get_params()
+    still = [k for k, v in got.items()
+             if onp.array_equal(v.asnumpy(), args[k])]
+    print(f'  Module.fit, symbolic ResNet-50 v1 at B={batch}, {side}x{side}, '
+          f'f32, SGD momentum 0.9 lr 0.1 wd 1e-4, {batches} batches on '
+          f'{card}: step {med:.3f} ms median of {len(steps)} (spread '
+          f'{min(steps):.3f}-{max(steps):.3f}; first {marks[1] - marks[0]:.3f}'
+          f' s), {batch / med * 1e3:.1f} images/s; cross-entropy {ce:.4f}; '
+          f'{len(got) - len(still)} of {len(got)} parameters moved')
+    check(math.isfinite(ce) and not still, f'fit: ce {ce}, unmoved {still}')
+    it.reset()
+    batch0 = next(iter(it))
+
+    def step():
+        mod.forward_backward(batch0)
+        mod.update()
+    brk = device_breakdown(f'Module step (symbolic ResNet-50, B={batch})',
+                           step, card, 3) if device == 'cuda' else {}
+    return mod, images, dict(step_ms=med, step_ms_spread=[min(steps),
+                                                           max(steps)],
+                             images_per_s=batch / med * 1e3, ce=ce, **brk)
+
+
+def resnet_sym_roundtrip(card, mod, images, work, device='cuda', batch=32):
+    """(a) round trip: save_checkpoint, Module.load and predict bitwise
+    the predictions before the save; SymbolBlock.imports of the same
+    files within 1e-6 of the Module's inference forward, same classes;
+    a Gluon net exported and imported on the card likewise."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    ctx = mt.gpu(0) if device == 'cuda' else mt.cpu()
+    with ctx:
+        it = mt.io.NDArrayIter(images[:2 * batch], batch_size=batch)
+    before = mod.predict(it).asnumpy()
+    prefix = os.path.join(work, 'resnet50_sym')
+    mod.save_checkpoint(prefix, 8)
+    loaded = mt.module.Module.load(prefix, 8, context=ctx)
+    loaded.bind(data_shapes=it.provide_data, for_training=False)
+    after = loaded.predict(it).asnumpy()
+    bitwise = after.tobytes() == before.tobytes()
+    blk = mt.gluon.SymbolBlock.imports(prefix + '-symbol.json',
+                                       ['data', 'softmax_label'],
+                                       prefix + '-0008.params', ctx=ctx)
+    x = mt.nd.array(images[:batch], ctx=ctx)
+    got = blk(x, mt.nd.zeros((batch,), ctx=ctx)).asnumpy()
+    err = float(onp.abs(got - before[:batch]).max())
+    same = bool((got.argmax(1) == before[:batch].argmax(1)).all())
+    print(f'  round trip on {card}: Module.load + predict bitwise equal '
+          f'{bitwise}; SymbolBlock.imports forward max abs err {err:.2e} '
+          f'(bound 1e-6), same classes {same}')
+    check(bitwise and err <= 1e-6 and same, 'the round trip changed the '
+          'predictions')
+    nn = mt.gluon.nn
+    with ctx:
+        net = nn.HybridSequential(prefix='exp_')
+        with net.name_scope():
+            net.add(nn.Conv2D(8, kernel_size=3, padding=1, in_channels=3),
+                    nn.BatchNorm(in_channels=8), nn.Activation('relu'),
+                    nn.MaxPool2D(pool_size=2), nn.Flatten(),
+                    nn.Dense(10, in_units=8 * 16 * 16))
+        net.initialize(mt.init.Xavier(), ctx=ctx)
+        xs = mt.nd.array(images[:4, :, :32, :32], ctx=ctx)
+        want = net(xs).asnumpy()
+    files = net.export(os.path.join(work, 'exported'), epoch=1)
+    imp = mt.gluon.SymbolBlock.imports(files[0], ['data'], files[1], ctx=ctx)
+    exp_err = float(onp.abs(imp(xs).asnumpy() - want).max())
+    print(f'  export + SymbolBlock.imports of a Conv/BatchNorm/Dense net on '
+          f'{card}: max abs err {exp_err:.2e} (bound 1e-6)')
+    check(exp_err <= 1e-6, 'export/imports changed the output')
+    return dict(bitwise=bitwise, imports_err=err, export_err=exp_err)
+
+
+def bert_sym_encoder(sym, hidden=768, heads=12, layers=12, ffn=3072):
+    """A BERT-base encoder from ``mx.sym``: per layer q, k, v and output
+    projections (FullyConnected, flatten=False), multi_head_attention
+    under the key mask, residual + LayerNorm, FFN 3072 with GELU,
+    residual + LayerNorm."""
+    h = sym.Variable('data')
+    mask = sym.Variable('mask')
+    for i in range(layers):
+        p = f'l{i}_'
+
+        def fc(x, n, name):
+            return sym.FullyConnected(x, num_hidden=n, flatten=False,
+                                      name=p + name)
+        att = sym.multi_head_attention(fc(h, hidden, 'q'), fc(h, hidden, 'k'),
+                                       fc(h, hidden, 'v'), mask,
+                                       num_heads=heads, name=p + 'att')
+        h = sym.LayerNorm(h + fc(att, hidden, 'o'), name=p + 'ln1')
+        f = sym.Activation(fc(h, ffn, 'ffn1'), act_type='gelu',
+                           name=p + 'gelu')
+        h = sym.LayerNorm(h + fc(f, hidden, 'ffn2'), name=p + 'ln2')
+    return h
+
+
+def _bert_sym_exec(net, ctx, dtype, batch, seq, arrays):
+    import torch
+    shapes = dict(data=(batch, seq, SYM_BERT['hidden']),
+                  mask=(batch, 1, 1, seq))
+    names = net.list_arguments()
+    types = {n: dtype for n in names}
+    types['mask'] = 'float32'
+    reqs = {n: 'null' if n in shapes else 'write' for n in names}
+    exe = net.simple_bind(ctx, grad_req=reqs, type_dict=types, **shapes)
+    for n, a in arrays.items():
+        dst = exe.arg_dict[n]
+        dst._data = torch.from_numpy(a).to(dst._data.device, dst._data.dtype)
+    return exe
+
+
+def bert_sym_check(card, device='cuda', batch=8, seq=512):
+    """(b1) The 12-layer BERT-base encoder from mx.sym through simple_bind
+    on the card in bf16 at B = 8, T = 512, valid_length in [256, 512] (an
+    additive key mask: 0 kept, -1e4 padding): one forward(is_train=True)
+    launches A 12 times and its backward (a random head gradient) K2 and
+    K3 12 times each, counted from 0 around each call (the mask
+    (B, 1, 1, T), which the kernels take as a key mask); the output within
+    rel Frobenius 0.05 of the same graph in f32 on the CPU, the gradients
+    within the bf16 training bounds."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    net = bert_sym_encoder(mt.sym, **SYM_BERT)
+    rng = onp.random.RandomState(SEED + 47)
+    H = SYM_BERT['hidden']
+    shapes = dict(data=(batch, seq, H), mask=(batch, 1, 1, seq))
+    args, _, _ = net.infer_shape(**shapes)
+    arrays = {}
+    for n, s in zip(net.list_arguments(), args):
+        if n in shapes:
+            continue
+        arrays[n] = (rng.standard_normal(s) * 0.02 if n.endswith('_weight')
+                     else onp.ones(s) if n.endswith('_gamma')
+                     else onp.zeros(s)).astype(onp.float32)
+    x = rng.standard_normal(shapes['data']).astype(onp.float32)
+    valid = rng.randint(seq // 2, seq + 1, batch)
+    mask = onp.where(onp.arange(seq)[None] < valid[:, None], 0.0, -1e4) \
+        .astype(onp.float32).reshape(batch, 1, 1, seq)
+    head = rng.standard_normal(shapes['data']).astype(onp.float32)
+    ctx = mt.gpu(0) if device == 'cuda' else mt.cpu()
+    dtype = 'bfloat16' if device == 'cuda' else 'float32'
+    exe = _bert_sym_exec(net, ctx, dtype, batch, seq, arrays)
+    dev = exe.arg_dict['data']._data.device
+    tx = torch.from_numpy(x).to(dev, exe.arg_dict['data']._data.dtype)
+    tm = torch.from_numpy(mask).to(dev)
+    th = torch.from_numpy(head).to(dev, tx.dtype)
+    exe.forward(is_train=True, data=tx, mask=tm)      # warm-up, kernels
+    exe.backward(out_grads=th)
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    sync()
+    base = dict(mt.ops.launch_counts)
+    t0 = time.perf_counter()
+    out = exe.forward(is_train=True, data=tx, mask=tm)[0]
+    sync()
+    t1 = time.perf_counter()
+    fwd = {k: v - base.get(k, 0) for k, v in mt.ops.launch_counts.items()
+           if v != base.get(k, 0)}
+    base = dict(mt.ops.launch_counts)
+    exe.backward(out_grads=th)
+    sync()
+    t2 = time.perf_counter()
+    bwd = {k: v - base.get(k, 0) for k, v in mt.ops.launch_counts.items()
+           if v != base.get(k, 0)}
+    L = SYM_BERT['layers']
+    print(f'  symbolic BERT-base encoder ({L} layers, simple_bind, {dtype}) '
+          f'at B={batch} T={seq} on {card}: forward {(t1 - t0) * 1e3:.3f} ms,'
+          f' backward {(t2 - t1) * 1e3:.3f} ms (host, synced); launches per '
+          f'forward {fwd}, per backward {bwd}')
+    if device == 'cuda':
+        check(fwd == {'flash_attn_fwd': L} and bwd == {
+            'flash_attn_bwd_dq': L, 'flash_attn_bwd_dkv': L},
+            f'symbolic encoder launches: forward {fwd}, backward {bwd}')
+    got_out = out.asnumpy().astype(onp.float64)
+    got_grads = {n: exe.grad_dict[n]._data.float().cpu()
+                 for n in arrays}
+    ref = _bert_sym_exec(net, mt.cpu(), 'float32', batch, seq, arrays)
+    want = ref.forward(is_train=True, data=x, mask=mask)[0].asnumpy()
+    ref.backward(out_grads=head)
+    want_grads = {n: ref.grad_dict[n]._data for n in arrays}
+    out_rel = _rel(got_out, want)
+    print(f'  symbolic encoder output, {dtype} on {card} vs f32 on the CPU: '
+          f'rel Frobenius {out_rel:.2e} (bound {SERVE_TOL})')
+    check(out_rel <= SERVE_TOL, 'the symbolic encoder output disagrees')
+    held = _hold_grads(f'symbolic encoder gradients, {dtype} on {card} vs '
+                       f'f32 on the CPU', got_grads, want_grads,
+                       skip=[n for n in want_grads if n.endswith('_k_bias')])
+    return dict(fwd=fwd, bwd=bwd, out_rel=out_rel, **held,
+                fwd_ms=(t1 - t0) * 1e3, bwd_ms=(t2 - t1) * 1e3)
+
+
+def _hold_grads(label, got, want, tol=TRAIN_TOL, skip=()):
+    """The gradients' global rel Frobenius and least cosine against
+    ``want`` within the bf16 training bounds (``TRAIN_TOL``); ``skip``
+    (zero in exact arithmetic) left out."""
+    want = {n: g for n, g in want.items() if n not in skip}
+    rel, cos, worst = grad_agreement(got, want)
+    ok = rel <= tol['grad_rel_fro'] and cos >= tol['grad_min_cos']
+    print(f'  {label}: {len(want)} gradients ({len(skip)} left out: zero '
+          f'in exact arithmetic), rel Frobenius {rel:.4f}, '
+          f'least cosine {cos:.5f} ({worst}); bounds '
+          f'{tol["grad_rel_fro"]} / {tol["grad_min_cos"]} -> '
+          f'{"ok" if ok else "FAIL"}')
+    check(ok, f'{label} disagree')
+    return dict(grad_rel_fro=rel, grad_min_cos=cos)
+
+
+def naive_attention_stack(mt, layers, hidden, heads):
+    """tests/test_subgraph.py's NaiveAttentionBlock written for the port
+    (its forward on tensors; the additive key mask -1e30 in x's dtype),
+    ``layers`` of them in a HybridBlock that passes valid_len to each."""
+    import torch
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+
+    class NaiveAttentionBlock(HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.qkv = nn.Dense(3 * hidden, flatten=False,
+                                    in_units=hidden)
+                self.proj = nn.Dense(hidden, flatten=False, in_units=hidden)
+
+        def forward(self, x, valid_len):
+            N, T, C = x.shape
+            D = C // heads
+            q, k, v = nd.split(self.qkv(x), num_outputs=3, axis=-1)
+            q = q.reshape(N, T, heads, D).permute(0, 2, 1, 3)
+            k = k.reshape(N, T, heads, D).permute(0, 2, 1, 3)
+            v = v.reshape(N, T, heads, D).permute(0, 2, 1, 3)
+            scores = nd.batch_dot(q, k, transpose_b=True) / (D ** 0.5)
+            keep = (torch.arange(T, device=x.device).reshape(1, 1, 1, T) <
+                    valid_len.reshape(-1, 1, 1, 1)).to(x.dtype)
+            big = torch.full((1, 1, 1, 1), -1e30, dtype=x.dtype,
+                             device=x.device)
+            att = nd.softmax(scores + (1.0 - keep) * big, axis=-1)
+            out = nd.batch_dot(att, v)
+            return self.proj(out.permute(0, 2, 1, 3).reshape(N, T, C))
+
+    class Stack(HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                for _ in range(layers):
+                    self.register_child(NaiveAttentionBlock())
+
+        def forward(self, x, valid_len):
+            for blk in self._children.values():
+                x = blk(x, valid_len)
+            return x
+    return Stack()
+
+
+def fused_attention_check(card, device='cuda', batch=8, seq=512):
+    """(b2) 12 NaiveAttentionBlocks at BERT-base width (hidden 768, 12
+    heads), bf16, the additive mask from valid_length in [256, 512],
+    hybridized with backend='fuse_attention' on the card: 12 matches; a
+    replayed predict forward launches A 12 times and no softmax kernel;
+    a replayed step under autograd.record launches A, K2 and K3 12 times
+    each; fused against unfused (hybridize() alone) within the bf16
+    bounds, output and gradients; device ms of both."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd
+    L, H, heads = SYM_BERT['layers'], SYM_BERT['hidden'], SYM_BERT['heads']
+    ctx = mt.gpu(0) if device == 'cuda' else mt.cpu()
+    dtype = 'bfloat16' if device == 'cuda' else 'float32'
+    rng = onp.random.RandomState(SEED + 53)
+    mt.random.seed(SEED + 59)
+    with ctx:
+        net = naive_attention_stack(mt, L, H, heads)
+        net.initialize(mt.init.Normal(0.02), ctx=ctx)
+    if dtype == 'bfloat16':
+        net.cast('bfloat16')
+    x = mt.nd.array(rng.standard_normal((batch, seq, H)), ctx=ctx,
+                    dtype=dtype)
+    vlen = mt.nd.array(rng.randint(seq // 2, seq + 1, batch), ctx=ctx,
+                       dtype='float32')
+    head = mt.nd.array(rng.standard_normal((batch, seq, H)), ctx=ctx,
+                       dtype=dtype)
+    runs = {}
+    for backend in (None, 'fuse_attention'):
+        net.hybridize(backend=backend)
+        out = net(x, vlen)
+        xg = mt.nd.array(x.asnumpy(), ctx=ctx, dtype=dtype)
+        xg.attach_grad()
+
+        def train():
+            with autograd.record():
+                y = net(xg, vlen)
+            y.backward(head)
+        train()
+        grads = {k: p.grad()._data.float().cpu() for k, p in
+                 net._collect_params_with_prefix().items()}
+        grads['x'] = xg.grad._data.float().cpu()
+        runs[backend] = dict(out=out.asnumpy(), grads=grads)
+        if device == 'cuda':
+            runs[backend]['fwd_ms'] = time_ms(lambda: net(x, vlen), 10)[0]
+            runs[backend]['train_ms'] = time_ms(train, 5)[0]
+            if backend:
+                fnames = kernel_launches(lambda: net(x, vlen), 2,
+                                         {'flash_fwd': L})
+                tnames = kernel_launches(train, 2, {
+                    'flash_fwd': L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L})
+                runs[backend]['fwd_launches'] = fnames
+                runs[backend]['train_launches'] = tnames
+    backend = net._subgraph_backend
+    matches, traces = backend.stats['matches'], len(backend._programs)
+    print(f'  fuse_attention over {L} NaiveAttentionBlocks (hidden {H}, '
+          f'{heads} heads, {dtype}, B={batch} T={seq}, additive key mask) '
+          f'on {card}: {matches} matches in {traces} traces (predict, '
+          f'autograd)')
+    check(traces == 2 and matches == L * traces,
+          f'fuse_attention matched {matches} in {traces} traces')
+    fused, plain = runs['fuse_attention'], runs[None]
+    out_rel = _rel(fused['out'], plain['out'])
+    print(f'  fused vs unfused output: rel Frobenius {out_rel:.2e} (bound '
+          f'{SERVE_TOL})')
+    check(out_rel <= SERVE_TOL, 'fused output disagrees')
+    held = _hold_grads(f'fused vs unfused gradients ({dtype})',
+                       fused['grads'], plain['grads'])
+    res = dict(matches_per_trace=matches // traces, out_rel=out_rel, **held)
+    if device == 'cuda':
+        def count(names, part):
+            return sum(c for n, c in names.items() if part in n) // 2
+        fl, tl = fused['fwd_launches'], fused['train_launches']
+        softmax = [n for n in fl if 'softmax' in n.lower()]
+        per = dict(fwd=count(fl, 'flash_fwd'),
+                   train_fwd=count(tl, 'flash_fwd'),
+                   dq=count(tl, 'flash_bwd_dq'),
+                   dkv=count(tl, 'flash_bwd_dkv'))
+        print(f'  fused replays: A {per["fwd"]} per predict forward, '
+              f'softmax kernels {softmax or "none"}; per step under '
+              f'autograd.record A {per["train_fwd"]}, K2 {per["dq"]}, K3 '
+              f'{per["dkv"]}; device ms predict forward fused '
+              f'{fused["fwd_ms"]:.3f} / unfused {plain["fwd_ms"]:.3f}, '
+              f'training step fused {fused["train_ms"]:.3f} / unfused '
+              f'{plain["train_ms"]:.3f} ({card})')
+        check(per == dict(fwd=L, train_fwd=L, dq=L, dkv=L) and not softmax,
+              f'fused launches {per}, softmax {softmax}')
+        res.update(per, fwd_ms=fused['fwd_ms'], fwd_ms_unfused=plain[
+            'fwd_ms'], train_ms=fused['train_ms'],
+            train_ms_unfused=plain['train_ms'])
+    return res
+
+
+def sym_phase(card, device='cuda', side=224, fit_batch=32, fit_batches=8,
+              bert_batch=8, seq=512):
+    """MXNet's symbolic API on the card: (a) ResNet-50 v1 from mx.sym
+    through Module (parity, Module.fit timed, the checkpoint round trip),
+    (b) attention at BERT-base width through a symbolic encoder and
+    through the fuse_attention backend. The launch counters are set to 0
+    just before and read just after; (a) launches none of the
+    hand-written kernels, (b) A, K2 and K3. Returns (launches of the
+    path, A/K2/K3 launches per symbolic forward and backward, readings)."""
+    import shutil
+    import torch
+    import mxnet_tpu_torch as mt
+    t0 = time.perf_counter()
+    print(f'sym phase on {card}: Symbol, Executor, Module.fit, '
+          f'SymbolBlock/export and fuse_attention')
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), SYM_DIR)
+    os.makedirs(work, exist_ok=True)
+    _zero_counters()
+    try:
+        net = resnet50_symbol(mt.sym)
+        shapes = dict(data=(2, 3, side, side), softmax_label=(2,))
+        arrays = sym_arrays(net, shapes, SEED + 37)
+        print(f'  ResNet-50 v1 from mx.sym: {len(net.list_arguments())} '
+              f'arguments, {len(net.list_auxiliary_states())} auxiliary '
+              f'states, {sum(a.size for a in arrays[0].values())} '
+              f'parameters')
+        out = dict(parity=resnet_sym_parity(card, net, arrays, device,
+                                            side=side))
+        mod, images, out['fit'] = resnet_sym_fit(card, net, arrays, device,
+                                                 fit_batch, fit_batches,
+                                                 side)
+        out['roundtrip'] = resnet_sym_roundtrip(card, mod, images, work,
+                                                device, fit_batch)
+        del mod, images
+        launched, _, _ = _flash_counts()
+        check(not launched, f'the ResNet-50 Module path launched {launched}')
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+        out['bert'] = bert_sym_check(card, device, bert_batch, seq)
+        out['fused'] = fused_attention_check(card, device, bert_batch, seq)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launched = {k: v for k, v in mt.ops.launch_counts.items() if v}
+    per_fwd = dict(out['bert']['fwd'])
+    per_bwd = dict(out['bert']['bwd'])
+    out['seconds'] = time.perf_counter() - t0
+    print(f'  sym phase: launches {launched}, {out["seconds"]:.1f} s')
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    return launched, per_fwd, per_bwd, out
+
+
+SYM_ROWS = ('flash_attn_fwd', 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
 TILED = {'flash_attn_fwd': 'fwd', 'flash_attn_bwd_dq': 'bwd',
          'flash_attn_bwd_dkv': 'bwd'}
 
@@ -6500,7 +7275,8 @@ def _build_entries(root):
 
 def _remove_new_build_entries(root, before):
     """Remove what this run created under build/ (the kernels and the
-    native io library it built, the tile database, the dp phase's files),
+    native io library it built, the tile database, the dp phase's files,
+    the sym phase's checkpoint and exported files),
     so that a later process in the checkout starts as it would have
     without this run; what was there before stays."""
     import shutil
@@ -6567,6 +7343,7 @@ def _run():
     _seq = seq_phase(card)
     with tempfile.TemporaryDirectory() as work:
         _det = det_phase(card, work)
+    sym, sym_fwd, sym_bwd, _sym = sym_phase(card)
     serving, serve_replay, _serving = serving_phase(card)
     front, front_http, _front = front_phase(card)
     training, _train = training_phase(card)
@@ -6594,7 +7371,7 @@ def _run():
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
              'ndarray', 'gluon', 'io', 'dp', 'remat', 'autotune', 'zero3',
-             'resilience', 'lm')
+             'resilience', 'lm', 'sym')
     by_path = {}
     for name in rows:
         base, f16 = name.split('[')[0], name.endswith('[float16]')
@@ -6612,7 +7389,7 @@ def _run():
             dp=dp.get(name, 0),
             remat=remat.get(name, 0), autotune=tuned.get(name, 0),
             zero3=zero3.get(name, 0), resilience=resil.get(name, 0),
-            lm=lm.get(name, 0))
+            lm=lm.get(name, 0), sym=sym.get(name, 0))
     for name in user_rows:
         by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
     idle = [n for n, paths_n in by_path.items()
@@ -6638,6 +7415,9 @@ def _run():
                        if name in lm_replay else {}),
                     **({'lm_shapes': r['lm_shapes']}
                        if 'lm_shapes' in r else {}),
+                    **({'launches_per_sym_forward': sym_fwd.get(name, 0),
+                        'launches_per_sym_backward': sym_bwd.get(name, 0)}
+                       if name in SYM_ROWS else {}),
                     **({'launches_per_serving_dispatch': serve_replay[name]}
                        if name in serve_replay else {}),
                     **({'launches_per_http_dispatch': front_http[name]}

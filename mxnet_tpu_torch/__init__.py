@@ -31,7 +31,13 @@ input pipeline is MXNet's: ``recordio``, ``io`` (``NDArrayIter``,
 models are BERT, GPT-2 (``models.gpt``) and the Transformer
 (``models.transformer``), the vision zoo is MXNet's, ``metric`` holds
 MXNet's evaluation metrics and ``gluon.contrib`` the Estimator and its
-handlers.
+handlers. MXNet's symbolic API is ``sym`` (``symbol``: graphs, JSON both
+ways with the JAX package, the Executor), ``mod`` (``module``: Module,
+BucketingModule, SequentialModule and ``fit``), ``model`` (checkpoint
+pairs), ``callback``, ``monitor``, ``visualization``, ``name``,
+``AttrScope``, ``operator`` (``CustomOp``) and ``subgraph`` (the
+``fuse_attention`` backend on the flash kernels); ``gluon`` adds
+``SymbolBlock`` and ``export``.
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
@@ -42,10 +48,19 @@ from . import (amp, autograd, checkpoint, config, context, contrib, engine,
                resilience, rtc, serialization, serving, telemetry, weights)
 from . import ndarray as nd
 from . import initializer as init
+from . import (attribute, callback, executor, executor_manager, model,
+               module, monitor, name, operator, subgraph, symbol,
+               visualization)
+from . import symbol as sym
+from . import module as mod
+from .attribute import AttrScope
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',
-           'config', 'context', 'contrib',
+           'config', 'context', 'contrib', 'AttrScope', 'attribute',
+           'callback', 'executor', 'executor_manager', 'model', 'module',
+           'mod', 'monitor', 'name', 'operator', 'subgraph', 'sym',
+           'symbol', 'visualization',
            'engine', 'gluon', 'image', 'init', 'initializer', 'io',
            'lr_scheduler', 'metric', 'models', 'nd', 'ndarray', 'ops', 'optimizer',
            'parallel', 'random', 'recordio', 'resilience', 'rtc',

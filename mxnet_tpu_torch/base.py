@@ -14,7 +14,8 @@ from typing import Callable, Dict, Optional
 import numpy as onp
 import torch
 
-__all__ = ['MXNetError', 'DataError', 'OpDef', 'register_op', 'get_op', 'list_ops',
+__all__ = ['MXNetError', 'DataError', 'OpDef', 'register_op',
+           'register_op_alias', 'get_op', 'list_ops',
            'state', 'telem_flags', 'torch_dtype']
 
 
@@ -63,6 +64,10 @@ class OpDef:
 
 _OP_REGISTRY: Dict[str, OpDef] = {}
 
+# alias -> canonical name (the JAX package's ``register_op_alias``): an
+# alias resolves through ``get_op`` and is not listed by ``list_ops``
+_OP_ALIASES: Dict[str, str] = {}
+
 
 def register_op(name: Optional[str] = None, num_outputs: int = 1):
     """Register a function over torch tensors as a framework op."""
@@ -73,8 +78,16 @@ def register_op(name: Optional[str] = None, num_outputs: int = 1):
     return deco
 
 
+def register_op_alias(alias: str, canonical: str):
+    """Make ``alias`` resolve to the registered op ``canonical``."""
+    if canonical not in _OP_REGISTRY:
+        raise MXNetError(f"Cannot alias {alias!r}: target {canonical!r} "
+                         f"is not registered")
+    _OP_ALIASES[alias] = canonical
+
+
 def get_op(name: str) -> OpDef:
-    od = _OP_REGISTRY.get(name)
+    od = _OP_REGISTRY.get(name) or _OP_REGISTRY.get(_OP_ALIASES.get(name))
     if od is None:
         raise MXNetError(f"Operator {name!r} is not registered")
     return od

@@ -147,6 +147,9 @@ _register('MXTPU_AUTOTUNE_REPS', int, 5,
           'Measured-sweep repetitions per candidate: each surviving tile '
           'is built and warmed outside the timed window, then timed this '
           'many times with CUDA events; the median decides the winner.')
+_register('MXNET_SUBGRAPH_BACKEND', str, '',
+          'Default subgraph backend that hybridize() applies when the call '
+          'names none (see mxnet_tpu_torch.subgraph).')
 _register('MXNET_HOME', str, os.path.join(os.path.expanduser('~'), '.mxnet'),
           'Data directory: the model zoo looks for pretrained weights in '
           'its models/ folder.')

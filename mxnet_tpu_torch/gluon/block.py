@@ -70,8 +70,20 @@ disarmed and telemetry on; a call that finds its key counts a cache hit.
 Nested hybridized blocks inside such a call run as part of it; a block
 called inside another capture (``ShardedTrainStep``'s) runs plain. On
 the CPU ``hybridize()`` changes nothing: the same forward runs eagerly.
-``SymbolBlock``, ``export`` and subgraph backends wait for the Symbol
-API (ROADMAP queue 1 item 15).
+
+The symbolic side (ref: block.py:1106 export, :1218 SymbolBlock). Called
+with a ``Symbol``, a HybridBlock traces itself: ``hybrid_forward(sym, x,
+**params)`` with each parameter a ``sym.var`` of its name, so ``export``
+writes ``path-symbol.json`` and ``path-NNNN.params`` (``arg:``/``aux:``
+keys, the running statistics as ``aux:``), the JAX package's pair.
+``SymbolBlock(outputs, inputs)`` runs a Symbol graph as a block, one
+Parameter per argument and auxiliary state; ``SymbolBlock.imports`` loads
+such a pair, the JAX package's or the port's, or a Module checkpoint's.
+
+``hybridize(backend=name)`` (or ``optimize_for``) applies a subgraph
+backend (``mxnet_tpu_torch.subgraph``): the block's forward runs as the
+backend's rewritten program, eagerly on the CPU and captured as above
+on the card. An unknown name raises.
 """
 from __future__ import annotations
 
@@ -89,6 +101,7 @@ import torch
 from ..base import MXNetError, state, telem_flags as _telem
 from ..ndarray.ndarray import NDArray
 from .. import ndarray as nd
+from .. import symbol as _symbol
 from .. import _imperative
 from ..amp import amp as _amp
 from .. import autograd as _autograd
@@ -183,6 +196,10 @@ def _capturable(args):
 
 def _has_ndarray(args):
     return any(isinstance(a, NDArray) for a in args)
+
+
+def _is_symbol(x):
+    return isinstance(x, _symbol.Symbol)
 
 
 def _map_out(out, fn):
@@ -394,16 +411,22 @@ class HybridBlock(Block):
         self._active = False
         self._cached_op = None
         self._flags = {}
+        self._subgraph_backend = None
 
     def hybridize(self, active=True, backend=None, clear=True, **kwargs):
         """Ref: block.py:1043. ``static_alloc``/``static_shape`` are
-        accepted: a CUDA graph is both. Subgraph backends are not
-        ported (ROADMAP queue 1 item 15)."""
-        if backend is not None:
-            raise MXNetError(f"hybridize(backend={backend!r}): subgraph "
-                             f"backends are not ported (ROADMAP queue 1 "
-                             f"item 15)")
+        accepted: a CUDA graph is both. ``backend`` names a subgraph
+        backend (``MXNET_SUBGRAPH_BACKEND`` when None); an unknown name
+        raises."""
         self._active = active
+        if backend is None:
+            from .. import config as _config
+            backend = _config.get('MXNET_SUBGRAPH_BACKEND') or None
+        if backend is not None:
+            from .. import subgraph as _subgraph
+            self._subgraph_backend = _subgraph.get_backend(backend)
+        elif clear:
+            self._subgraph_backend = None
         self._flags.update(kwargs)
         if clear:
             self._cached_op = None
@@ -423,6 +446,9 @@ class HybridBlock(Block):
         return new
 
     def __call__(self, *args, **kwargs):
+        if args and _is_symbol(args[0]):
+            # a symbolic trace (export) bypasses the cache
+            return self.forward(*args)
         if not _has_ndarray(args):
             return self._call_tensors(args, kwargs)
         self.train(state.is_training)
@@ -452,15 +478,31 @@ class HybridBlock(Block):
 
     def _call_tensors(self, args, kwargs):
         if self._active and not kwargs and \
-                getattr(_plain, 'depth', 0) == 0 and _capturable(args):
-            if self._cached_op is None:
-                self._cached_op = CachedOp(self)
-            return self._cached_op(args)
+                getattr(_plain, 'depth', 0) == 0:
+            if _capturable(args):
+                if self._cached_op is None:
+                    self._cached_op = CachedOp(self)
+                return self._cached_op(args)
+            if self._subgraph_backend is not None:
+                return self._run_forward(args)
         return super().__call__(*args, **kwargs)
+
+    def _run_forward(self, args):
+        """The block's forward on tensors: its subgraph backend's
+        rewritten program when it has one."""
+        if self._subgraph_backend is not None:
+            return self._subgraph_backend.run(self, args)
+        return torch.nn.Module.__call__(self, *args)
 
     def forward(self, x, *args):
         """``hybrid_forward(nd, x, *args, **params)`` with the layer's
-        parameter tensors (ref: block.py:1156)."""
+        parameter tensors (ref: block.py:1156); with a Symbol, the trace
+        ``hybrid_forward(sym, x, *args, **params)``, each parameter a
+        variable of its name."""
+        if _is_symbol(x):
+            params = {name: _symbol.var(p.name)
+                      for name, p in self._reg_params.items()}
+            return self.hybrid_forward(_symbol, x, *args, **params)
         params = OrderedDict()
         for name, p in self._reg_params.items():
             if not p._ready:
@@ -483,12 +525,30 @@ class HybridBlock(Block):
         with _autograd.pause():
             self(*args)
 
-    def export(self, path, epoch=0, **kwargs):
-        raise MXNetError("export: the Symbol API is not ported (ROADMAP "
-                         "queue 1 item 15); save_parameters writes the "
-                         "weights")
+    def export(self, path, epoch=0, remove_amp_cast=True,
+               input_names=('data',)):
+        """Write ``path-symbol.json`` and ``path-{epoch:04d}.params``
+        (ref: block.py:1106): the block traced into a Symbol graph, its
+        parameters keyed ``arg:<name>``, those without gradient (the
+        running statistics) ``aux:<name>``; ``SymbolBlock.imports`` and the
+        JAX package read the pair. Returns the two file names."""
+        out = self(*[_symbol.var(n) for n in input_names])
+        if isinstance(out, (list, tuple)):
+            raise MXNetError(
+                "export supports single-output blocks; group outputs first")
+        sym_file = f"{path}-symbol.json"
+        out.save(sym_file)
+        arg_names = set(out.list_arguments()) - set(input_names)
+        payload = {('aux:' if p.grad_req == 'null' else 'arg:') + name:
+                   p.data()
+                   for name, p in self.collect_params().items()
+                   if name in arg_names}
+        fname = f"{path}-{epoch:04d}.params"
+        nd.save(fname, payload)
+        return sym_file, fname
 
     def optimize_for(self, x, *args, backend=None, **kwargs):
+        """Partition for ``backend`` and run (ref: block.py optimize_for)."""
         self.hybridize(True, backend=backend, **kwargs)
         return self(x, *args)
 
@@ -503,7 +563,7 @@ class _Graphed(torch.nn.Module):
 
     def forward(self, *xs):
         with plain_calls():
-            return torch.nn.Module.__call__(self.block, *xs)
+            return self.block._run_forward(xs)
 
 
 class CachedOp:
@@ -618,7 +678,7 @@ class CachedOp:
 
         def fn():
             with torch.no_grad(), plain_calls():
-                return torch.nn.Module.__call__(block, *static)
+                return block._run_forward(static)
         graph, out, first = capture(fn, device,
                                     graph_generators(block, device),
                                     warm_up=True)
@@ -637,7 +697,7 @@ class CachedOp:
 
         def run(new_args):
             with plain_calls():
-                return torch.nn.Module.__call__(block, *new_args)
+                return block._run_forward(new_args)
         if (any(not isinstance(a, torch.Tensor) for a in args) or
                 module_generators(block) or
                 any(m._forward_hooks or m._forward_pre_hooks
@@ -687,14 +747,78 @@ class CachedOp:
 
 
 class SymbolBlock(HybridBlock):
-    """Waits for the Symbol API (ROADMAP queue 1 item 15)."""
+    """A Symbol graph run as a block (ref: block.py:1218): one Parameter
+    per argument that is not an input, and per auxiliary state (those
+    without gradient), each named as its variable and registered under
+    that name (dots as underscores). Called with tensors or NDArrays it
+    evaluates the graph on them, differentiably; in training mode each
+    BatchNorm node's new moving statistics go into its auxiliary
+    parameters, as the Executor writes them."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("SymbolBlock: the Symbol API is not ported "
-                         "(ROADMAP queue 1 item 15)")
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix='', params=params)
+        if isinstance(outputs, (list, tuple)):
+            if len(outputs) != 1:
+                raise MXNetError("SymbolBlock takes one output; group "
+                                 "outputs first")
+            outputs = outputs[0]
+        self._sym_outputs = outputs
+        self._sym_inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        input_names = {i.name for i in self._sym_inputs}
+        aux = set(outputs.list_auxiliary_states())
+        for name in outputs.list_arguments() + sorted(aux):
+            if name in input_names:
+                continue
+            p = self.params.get(name, allow_deferred_init=True,
+                                grad_req='null' if name in aux else 'write')
+            setattr(self, name.replace('.', '_'), p)
 
     @staticmethod
-    def imports(*args, **kwargs):
-        raise MXNetError("SymbolBlock.imports: the Symbol API is not "
-                         "ported (ROADMAP queue 1 item 15)")
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of ``symbol_file`` whose inputs are the variables
+        ``input_names``, its parameters loaded from ``param_file`` (keys
+        ``arg:``/``aux:`` prefixed or bare; an ``aux:`` entry gets no
+        gradient) onto ``ctx`` (the card for None)."""
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(_symbol.load(symbol_file),
+                          [_symbol.var(n) for n in input_names])
+        if param_file is not None:
+            from ..serialization import load_params_dict
+            with open(param_file, 'rb') as f:
+                ret._load_arg_dict(load_params_dict(f.read(),
+                                                    strip_arg_aux=False),
+                                   ctx=ctx)
+        return ret
 
+    def _load_arg_dict(self, loaded, ctx=None):
+        """Load {"arg:name"/"aux:name"/name: array} into this block's
+        parameters; names the graph does not have are skipped."""
+        params = {p.name: p for p in self.params.values()}
+        for key, arr in loaded.items():
+            kind, name = key.split(':', 1) if ':' in key else ('arg', key)
+            p = params.get(name)
+            if p is None:
+                continue
+            p.shape = tuple(arr.shape)
+            p.initialize(init='zeros', ctx=ctx)
+            p.set_data(arr.asnumpy() if isinstance(arr, NDArray) else arr)
+            if kind == 'aux':
+                p.grad_req = 'null'
+
+    def forward(self, *args):
+        bindings = {i.name: x for i, x in zip(self._sym_inputs, args)}
+        params = {p.name: p for p in self.params.values()}
+        for name, p in params.items():
+            p._check_initialized()
+            bindings[name] = p._var
+        out, cache = _symbol._evaluate(self._sym_outputs, bindings)
+        if state.is_training:
+            with torch.no_grad():
+                for name, t in _symbol._new_moving_stats(self._sym_outputs,
+                                                         cache):
+                    p = params.get(name)
+                    if p is not None and p.grad_req == 'null':
+                        p._var.copy_(t)
+        return out

@@ -125,6 +125,12 @@ class Dropout(HybridBlock):
         self.generator = generator
 
     def forward(self, x):
+        if not isinstance(x, torch.Tensor):
+            # a Symbol: the JAX layer's graph
+            from ... import symbol as F
+            if self._rate > 0:
+                return F.dropout(x, p=self._rate, axes=self._axes)
+            return F.identity(x)
         return _nn_ops.dropout(x, self._rate, self.training, self.generator,
                                self._axes)
 
@@ -171,6 +177,10 @@ class BatchNorm(HybridBlock):
                 p._finish_deferred_init((c,))
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        if not isinstance(x, torch.Tensor):
+            # a Symbol: the inference graph, as the JAX layer traces it
+            return F.batch_norm(x, gamma, beta, running_mean, running_var,
+                                **self._kwargs)[0]
         out, new_mean, new_var = F.batch_norm(
             x, gamma, beta, running_mean, running_var,
             training=self.training, **self._kwargs)

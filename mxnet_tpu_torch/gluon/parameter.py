@@ -398,8 +398,10 @@ class Parameter:
             self._var.grad = self._var.grad.to(self._dtype)
 
     def var(self):
-        raise MXNetError("Parameter.var(): the Symbol API is not ported "
-                         "(ROADMAP queue 1 item 15)")
+        """This parameter as a symbol variable: its name, its shape as
+        the ``__shape__`` hint (ref: parameter.py var)."""
+        from .. import symbol
+        return symbol.var(self.name, shape=self.shape, dtype=self.dtype)
 
     def row_sparse_data(self, row_id):
         raise MXNetError("row_sparse_data: sparse parameters are not ported "

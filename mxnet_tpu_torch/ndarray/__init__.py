@@ -2,8 +2,9 @@
 (counterpart of ``mxnet_tpu/ndarray/__init__.py``, ref:
 python/mxnet/ndarray/__init__.py).
 
-``nd.sparse``, ``nd.linalg``, ``nd.random`` and ``nd.contrib`` are not
-ported yet.
+``nd.contrib`` holds the control-flow operators and the contrib and
+attention ops; ``nd.Custom`` is ``operator.register``'s custom op.
+``nd.sparse``, ``nd.linalg`` and ``nd.random`` are not ported yet.
 """
 from .ndarray import (NDArray, array, zeros, ones, full, arange, empty,
                       concat, stack, save, load, load_frombuffer,
@@ -11,6 +12,7 @@ from .ndarray import (NDArray, array, zeros, ones, full, arange, empty,
                       to_dlpack_for_read, _invoke, _wrap)
 from . import register as _register
 from .utils import split_data, split_and_load  # noqa: F401
+from . import contrib  # noqa: F401
 
 # op wrappers from the registry; the creation ops keep their ctx-aware
 # front-ends above

@@ -16,6 +16,10 @@ PyTorch, as the JAX package left them to XLA).
 ``contrib`` (the box ops: IoU, NMS, anchors) and ``detection`` (the SSD
 and R-CNN heads) are the detection ops, also plain PyTorch.
 
+``misc`` holds the symbolic API's loss ops (``SoftmaxOutput``,
+``MakeLoss``, the regression outputs) and ``gradient_multiplier``, each
+with its own gradient.
+
 ``optimizer_ops`` holds the optimizers' update math (plain PyTorch).
 
 ``autotune`` picks the flash kernels' tile per shape (the counterpart of
@@ -30,10 +34,11 @@ from ._build import (dtype_counts, launch_counts, reset_launch_counts,
                      tile_counts, variant_counts)
 from . import (attention, autotune, contrib, detection, elemwise,
                flash_attention, fused_ffn, fused_layernorm, index, init,
-               matrix, nn, optimizer_ops, reduce)
+               matrix, misc, nn, optimizer_ops, reduce)
 
 __all__ = ['attention', 'autotune', 'contrib', 'detection', 'elemwise',
            'flash_attention',
-           'fused_ffn', 'fused_layernorm', 'index', 'init', 'matrix', 'nn',
+           'fused_ffn', 'fused_layernorm', 'index', 'init', 'matrix', 'misc',
+           'nn',
            'optimizer_ops', 'reduce', 'launch_counts', 'reset_launch_counts',
            'variant_counts', 'dtype_counts', 'tile_counts']

@@ -17,6 +17,10 @@ plain route on the CPU draws the masks the kernels draw on the card. In
 a world of more than one rank the batch*head index is the global one
 (``bh_base = rank * N * H``, N the rank's batch), as the JAX package's
 program over the global batch hashes it.
+
+The registered ops (``multi_head_attention`` with the JAX signature, the
+four ``interleaved_matmul_*`` ops and ``div_sqrt_dim``) are at the end;
+``mx.sym`` graphs reach the flash kernels through the first.
 """
 from __future__ import annotations
 
@@ -24,7 +28,10 @@ import math
 
 import torch
 
-__all__ = ['multi_head_attention', 'route_counts']
+__all__ = ['multi_head_attention', 'multi_head_attention_op', 'route_counts',
+           'interleaved_matmul_selfatt_qk',
+           'interleaved_matmul_selfatt_valatt', 'interleaved_matmul_encdec_qk',
+           'interleaved_matmul_encdec_valatt', 'div_sqrt_dim']
 
 route_counts = {'flash': 0, 'plain': 0}
 
@@ -122,3 +129,87 @@ def multi_head_attention(query, key, value, mask=None, num_heads=1,
         att = (att.float() * keep).to(q.dtype)
     out = torch.einsum('nhqk,nhkd->nhqd', att, v)
     return out.permute(0, 2, 1, 3).reshape(N, Tq, tot)
+
+
+# ---------------------------------------------------------------------------
+# The registered ops (``mx.nd.<name>``, ``mx.sym.<name>``): the JAX
+# package's names and signatures (``mxnet_tpu/ops/attention.py:41-83,
+# 143``), so that a symbol graph written for either package runs in both.
+# ---------------------------------------------------------------------------
+
+def _split_heads_interleaved(queries_keys_values, num_heads, parts):
+    """(T, N, parts*H*D) interleaved per head -> list of (N*H, T, D)."""
+    T, N, tot = queries_keys_values.shape
+    D = tot // (num_heads * parts)
+    x = queries_keys_values.reshape(T, N, num_heads, parts, D)
+    return [x[:, :, :, p, :].permute(1, 2, 0, 3).reshape(N * num_heads, T, D)
+            for p in range(parts)]
+
+
+def _merge_heads(out, heads):
+    NH, T, D = out.shape
+    N = NH // heads
+    return out.reshape(N, heads, T, D).permute(2, 0, 1, 3).reshape(
+        T, N, heads * D)
+
+
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads=1):
+    """Scaled Q K^T from packed qkv (ref: transformer.cc:650)."""
+    q, k, _ = _split_heads_interleaved(queries_keys_values, heads, 3)
+    return torch.matmul(q * (1.0 / math.sqrt(q.shape[-1])),
+                        k.transpose(-1, -2))
+
+
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                      heads=1):
+    """att V, re-packed to (T, N, H*D) (ref: transformer.cc:708)."""
+    _, _, v = _split_heads_interleaved(queries_keys_values, heads, 3)
+    return _merge_heads(torch.matmul(attention, v), heads)
+
+
+def interleaved_matmul_encdec_qk(queries, keys_values, heads=1):
+    """queries (Tq, N, H*D), keys_values (Tk, N, 2*H*D) (ref:
+    transformer.cc:766)."""
+    Tq, N, tot = queries.shape
+    D = tot // heads
+    q = queries.reshape(Tq, N, heads, D).permute(1, 2, 0, 3).reshape(
+        N * heads, Tq, D)
+    k, _ = _split_heads_interleaved(keys_values, heads, 2)
+    return torch.matmul(q * (1.0 / math.sqrt(D)), k.transpose(-1, -2))
+
+
+def interleaved_matmul_encdec_valatt(keys_values, attention, heads=1):
+    _, v = _split_heads_interleaved(keys_values, heads, 2)
+    return _merge_heads(torch.matmul(attention, v), heads)
+
+
+def div_sqrt_dim(data):
+    """data / sqrt(data.shape[-1]) (ref: transformer.cc
+    _contrib_div_sqrt_dim)."""
+    return data / math.sqrt(data.shape[-1])
+
+
+def multi_head_attention_op(query, key, value, mask=None, num_heads=1,
+                            dropout_p=0.0, causal=False, use_pallas='auto',
+                            dropout_key=None):
+    """``multi_head_attention`` as the JAX package registers it: dropout
+    only in autograd train mode or with ``dropout_key`` (the seed here).
+    ``use_pallas`` is accepted and changes nothing: CUDA tensors take the
+    flash kernels whenever the mask allows, as 'auto' does on a TPU."""
+    from ..base import state
+    p = dropout_p if (dropout_key is not None or state.is_training) else 0.0
+    return multi_head_attention(query, key, value, mask, num_heads, p,
+                                causal, dropout_seed=dropout_key)
+
+
+def _register():
+    from ..base import register_op
+    for fn in (interleaved_matmul_selfatt_qk,
+               interleaved_matmul_selfatt_valatt,
+               interleaved_matmul_encdec_qk, interleaved_matmul_encdec_valatt,
+               div_sqrt_dim):
+        register_op(fn.__name__)(fn)
+    register_op('multi_head_attention')(multi_head_attention_op)
+
+
+_register()

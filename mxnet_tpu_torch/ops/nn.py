@@ -399,7 +399,9 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                                fix_gamma, use_global_stats, output_mean_var,
                                1, training)
         return out.movedim(1, axis), m, v
-    weight = None if fix_gamma else gamma
+    # fix_gamma: gamma is 1 (and gets no gradient); a ones weight rather
+    # than none, which the CUDA backward does not take
+    weight = torch.ones_like(gamma).detach() if fix_gamma else gamma
     if not training or use_global_stats:
         out = torch.batch_norm(data, weight, beta, moving_mean, moving_var,
                                False, 0.0, eps, False)

@@ -892,12 +892,19 @@ def test_training_mode_rule_for_both_kinds_of_call(layer):
         assert trained(blk(t), xs)                   # tensors ignore it
 
 
-def test_symbol_api_refusals():
-    with pytest.raises(MXNetError, match='item 15'):
-        tgluon.SymbolBlock(None, None)
+def test_symbol_api_refusals(tmp_path):
+    """The Symbol API is ported (ROADMAP item 15): export writes
+    the pair SymbolBlock.imports reads back; what still raises is a
+    SymbolBlock of several outputs."""
     net = tgluon.nn.Dense(2, in_units=2)
-    with pytest.raises(MXNetError, match='item 15'):
-        net.export('x')
+    net.initialize()
+    files = net.export(str(tmp_path / 'dense'))
+    blk = tgluon.SymbolBlock.imports(files[0], ['data'], files[1])
+    x = mt.nd.array(onp.arange(4, dtype=onp.float32).reshape(2, 2))
+    close(blk(x), net(x))
+    with pytest.raises(MXNetError, match='one output'):
+        tgluon.SymbolBlock([mt.sym.var('a'), mt.sym.var('b')],
+                           mt.sym.var('a'))
 
 
 def test_bert_layers_are_the_gluon_blocks():

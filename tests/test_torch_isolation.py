@@ -431,3 +431,92 @@ def test_dropout_draws_on_the_tensors_device():
     kept = y != 0
     torch.testing.assert_close(y[kept], torch.full_like(y[kept], 2.0))
     assert 0.4 < kept.float().mean().item() < 0.6
+
+
+SYMBOLIC_MODULES = ('name.py', 'attribute.py', 'symbol.py', 'executor.py',
+                    'executor_manager.py', 'model.py', 'callback.py',
+                    'module.py', 'monitor.py', 'visualization.py',
+                    'operator.py', 'subgraph.py', 'ops/misc.py',
+                    'ops/control_flow.py', 'ops/attention.py',
+                    'ndarray/contrib.py', 'gluon/block.py',
+                    'gluon/parameter.py')
+
+
+@pytest.mark.parametrize('module', SYMBOLIC_MODULES)
+def test_symbolic_api_modules_import_no_jax(module):
+    """The symbolic API (Symbol, the Executor, Module, the checkpoint
+    pair, the callbacks, the monitor, CustomOp, the subgraph backends,
+    the loss and control-flow ops, SymbolBlock) is among the files
+    checked above and imports neither jax nor the reference package."""
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_symbolic_api_loads_no_jax():
+    """In a fresh interpreter, importing the symbolic modules and binding,
+    training and exporting a small graph on the CPU loads neither jax nor
+    anything of the JAX package."""
+    import subprocess
+    import sys
+    code = ('import sys\n'
+            'import mxnet_tpu_torch as mx\n'
+            'from mxnet_tpu_torch import sym\n'
+            'with mx.cpu():\n'
+            '    out = sym.SoftmaxOutput(sym.FullyConnected(\n'
+            '        sym.Variable("data"), num_hidden=2, name="fc"),\n'
+            '        sym.Variable("softmax_label"), name="sm")\n'
+            '    mod = mx.mod.Module(out)\n'
+            '    it = mx.io.NDArrayIter(mx.nd.ones((4, 3)), mx.nd.zeros((4,)),'
+            ' batch_size=2)\n'
+            '    mod.fit(it, num_epoch=1)\n'
+            '    mx.subgraph.get_backend("fuse_attention")\n'
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "mxnet_tpu")))')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
+
+
+@pytest.mark.parametrize('device', [None, 'gpu'])
+def test_symbolic_entry_points_refuse_a_missing_card(device, tmp_path):
+    """simple_bind, bind, Module, BucketingModule, the executor manager,
+    load_checkpoint and SymbolBlock.imports put their arrays on the card
+    unless the CPU is asked for (ctx=mx.cpu() or ``with mx.cpu():``);
+    with no card they raise."""
+    _require_no_card()
+    ctx = None if device is None else mt.gpu(0)
+    sym = mt.sym
+    out = sym.FullyConnected(sym.Variable('data'), num_hidden=2, name='fc')
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        out.simple_bind(ctx, data=(2, 3))
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        mt.module.Module(out, label_names=None, context=ctx) \
+            .bind(data_shapes=[('data', (2, 3))])
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        mt.module.BucketingModule(lambda k: (out, ('data',), None),
+                                  default_bucket_key=1, context=ctx)
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        mt.executor_manager.DataParallelExecutorManager(
+            out, ctx=ctx, data_shapes=[('data', (2, 3))])
+    with mt.cpu():
+        exe = out.simple_bind(data=(2, 3))
+        args = dict(exe.arg_dict)
+        mt.model.save_checkpoint(str(tmp_path / 'ck'), 1, out,
+                                 {k: v for k, v in args.items()
+                                  if k != 'data'}, {})
+    assert exe.arg_dict['data']._data.device.type == 'cpu'
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        out.bind(ctx, args={k: mt.nd.array(v.asnumpy(), ctx=ctx)
+                            for k, v in args.items()})
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        mt.model.load_checkpoint(str(tmp_path / 'ck'), 1, ctx=ctx)
+    with pytest.raises(MXNetError, match='no CUDA device'):
+        mt.gluon.SymbolBlock.imports(str(tmp_path / 'ck-symbol.json'),
+                                     ['data'],
+                                     str(tmp_path / 'ck-0001.params'),
+                                     ctx=ctx)
