@@ -142,6 +142,42 @@
    under build/chip_smoke_sym and are removed. The launches of (b) are
    the kernels' sym column (A, K2 and K3 per symbolic forward and
    backward beside them); (a) launches none.
+3f. sparse phase (after sym), f32 with TF32 off: MXNet's sparse storage
+   on the RowSparse path (ops/rowsparse.py, parallel/step.py) and
+   models.wide_deep.WideDeep (examples/train_wide_deep.py's model on the
+   port's layers; both tables Embedding(sparse_grad=True)). (a)
+   unique_rows, dedup_take (forward and table gradient) and
+   merge_row_blocks on the card equal the CPU's bitwise, on a batch
+   where row vocab - 1 is live and the budget keeps sentinel slots and on
+   the example's batch; dedup_take's table gradient bitwise equal across
+   3 runs and 3 permutations of the ids. (b) At the example's defaults
+   (vocab 100000, 20 fields, dim 16, hidden 64, B = 128, hot fraction
+   0.05, weights Normal(0.01) from a numpy seed): the lazy-Adam
+   ShardedTrainStep on the card (call 1 eager and captured, call 2 a
+   replay) against the same step on the CPU: loss rel 1e-5, every
+   parameter and moment rel Frobenius 1e-4, the untouched rows' moments
+   exactly 0; exact mode against dense (MXTPU_SPARSE=0), 3 captured
+   steps, bitwise. (c) The example's loop: 20 captured steps over 4
+   batches repeated, the last cycle's mean loss below the first's; 3
+   replays under torch.cuda.set_sync_debug_mode('error') (no host sync),
+   a profiler trace of 3 replays (busy time, idle share), step ms (median
+   and spread of 3 calls of 10), peak memory, sparse_report()'s update
+   bytes and shrink. (d) The same model at a Criteo-sized table (26
+   fields, one table hashed to 10,000,000 rows, dim 16, B = 2048, hot
+   fraction 0.05; about DLRM's Criteo Terabyte sizes) under lazy, exact
+   and dense (MXTPU_SPARSE=0): the (c) readings for each; under lazy,
+   sampled untouched rows keep zero moments and every touched row moved.
+   (e) gluon.Trainer with SGD (momentum 0.9, lazy) and with Adam over
+   Embedding(sparse_grad=True) + Dense: grad() a RowSparseNDArray on the
+   card, 3 steps against the CPU within 1e-5, absent rows unchanged
+   bitwise. (f) nd.sparse on the card: dot(csr, dense) through the CSR
+   route against the dense product within 1e-5 (both timed), retain and
+   tostype round trips, nd.save / nd.load of row_sparse and csr bitwise,
+   SparseEmbedding's one SGD step moving exactly the looked-up rows. (g)
+   The DGL ops on card-resident inputs equal the CPU's (the samplers
+   seeded alike). The launch counters are set to 0 just before and read
+   just after: the path launches none of the hand-written kernels (the
+   JAX package's sparse path runs no Pallas kernel). Prints its seconds.
 4. Serving phase: the serving recipe, InferenceEngine(BlockRunner(net))
    then serving.warmup(engine), on BERT-base at full width, weights drawn
    with numpy from a fixed seed (Normal(0.02)) and cast to bf16 on the
@@ -410,6 +446,7 @@
 Any failed check raises: the script exits non-zero and prints no result.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -7248,6 +7285,519 @@ def sym_phase(card, device='cuda', side=224, fit_batch=32, fit_batches=8,
     return launched, per_fwd, per_bwd, out
 
 
+# ---- sparse storage: the RowSparse path, Wide & Deep, nd.sparse, DGL
+SPARSE_TOL = {'loss_rel': 1e-5, 'state_rel_fro': 1e-4, 'eager': 1e-5,
+              'dot': 1e-5}
+
+
+def _ctx(device):
+    import mxnet_tpu_torch as mt
+    return mt.gpu(0) if device == 'cuda' else mt.cpu()
+
+
+def _wd_net(cfg, ctx, arrays=None, seed=SEED + 41):
+    """models.wide_deep.WideDeep at ``cfg`` on ``ctx``, its weights
+    Normal(0.01) drawn with numpy from ``seed`` (or ``arrays``), by
+    structured name. Returns (net, arrays)."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models.wide_deep import WideDeep
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    with ctx:
+        net = WideDeep(cfg['vocab'], cfg['dim'], cfg['hidden'])
+        net.initialize(mt.init.Zero(), ctx=ctx)
+        net(mt.nd.zeros((1, cfg['fields']), ctx=ctx))
+    if arrays is None:
+        rng = onp.random.default_rng(seed)
+        arrays = {n: rng.standard_normal(tuple(p.shape), dtype=onp.float32)
+                  * onp.float32(0.01)
+                  for n, p in sorted(net.named_parameters())}
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    return net, arrays
+
+
+@contextlib.contextmanager
+def _env(values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _wd_step(net, exact=False, dense=False):
+    """ShardedTrainStep with lazy Adam (lr 0.01) and the example's BCE,
+    and a call of it under MXTPU_SPARSE_EXACT=1 (``exact``) or
+    MXTPU_SPARSE=0 (``dense``), which the step reads at its first call.
+    Returns (step, call)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.parallel import ShardedTrainStep
+    bce = mt.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    step = ShardedTrainStep(net, lambda o, y: bce(o, y), 'adam',
+                            {'learning_rate': 0.01})
+    env = dict(MXTPU_SPARSE='0' if dense else '1',
+               MXTPU_SPARSE_EXACT='1' if exact else '0')
+
+    def call(x, y):
+        with _env(env):
+            return step(x, y)
+    return step, call
+
+
+def _wd_batches(cfg, n, seed=SEED + 43):
+    """``n`` batches of the example's synthetic CTR data (float32 ids)."""
+    from mxnet_tpu_torch.models.wide_deep import synthetic_ctr
+    ids, y = synthetic_ctr(cfg['batch'] * n, cfg['fields'], cfg['vocab'],
+                           cfg['hot_fraction'], seed=seed)
+    b = cfg['batch']
+    return [(ids[i * b:(i + 1) * b], y[i * b:(i + 1) * b]) for i in range(n)]
+
+
+def _state_rel(a, b):
+    import torch
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float(torch.linalg.norm(a - b) /
+                 torch.linalg.norm(b).clamp_min(1e-30))
+
+
+def sparse_dedup_checks(card, device='cuda'):
+    """(a) unique_rows, dedup_take and merge_row_blocks on the card equal
+    the CPU's exactly, on a batch where row vocab - 1 is live and the
+    budget keeps sentinel slots, and on the example's batch; the table
+    gradient of dedup_take is bitwise equal across 3 runs and 3
+    permutations of the ids."""
+    import numpy as onp
+    import torch
+    from mxnet_tpu_torch.ops import rowsparse as rs
+    cfg = _wd_example()
+    cases = {'sentinel': (onp.array([49, 3, 49, 3, 49, 0, 49, 0, 3, 3]), 50,
+                          10),
+             'example': (_wd_batches(cfg, 1)[0][0].astype(onp.int64).ravel(),
+                         cfg['vocab'], cfg['batch'] * cfg['fields'])}
+    for label, (ids, vocab, budget) in cases.items():
+        outs = {}
+        for dev in ('cpu', device):
+            t = torch.from_numpy(ids).to(dev)
+            uids, inv, n_live = rs.unique_rows(t, budget, vocab)
+            rng = onp.random.RandomState(SEED + 45)
+            w = torch.from_numpy(rng.standard_normal((vocab, 16)).astype(
+                onp.float32)).to(dev).requires_grad_()
+            out = rs.dedup_take(w, t)
+            (out * out).sum().backward()
+            vals = torch.from_numpy(rng.standard_normal(
+                (2 * budget, 16)).astype(onp.float32)).to(dev)
+            mu, mv, mn = rs.merge_row_blocks(torch.cat([uids, uids]), vals,
+                                             vocab)
+            outs[dev] = [x.detach().cpu() for x in
+                         (uids, inv, n_live, out, w.grad, mu, mv, mn)]
+        same = all(torch.equal(a, b) for a, b in zip(outs['cpu'],
+                                                     outs[device]))
+        n = int(outs[device][2])
+        print(f'  dedup {label}: {ids.size} ids, vocab {vocab}, budget '
+              f'{budget}, {n} live; unique_rows, dedup_take (forward and '
+              f'table gradient) and merge_row_blocks on the card '
+              f'{"equal" if same else "DIFFER from"} the CPU\'s bitwise')
+        check(same, f'dedup {label}: card and CPU differ')
+        if label == 'sentinel':
+            u = outs[device][0].tolist()
+            check(n == 3 and u[:3] == [0, 3, 49] and u[3:] == [vocab] * 7,
+                  f'sentinel uids {u}')
+    ids = cases['example'][0]
+    vocab = cfg['vocab']
+    rng = onp.random.RandomState(SEED + 46)
+    w0 = torch.from_numpy(rng.standard_normal((vocab, 16)).astype(
+        onp.float32)).to(device)
+    grads = []
+    for perm in range(3):
+        order = onp.random.RandomState(perm).permutation(ids.size)
+        for _ in range(3 if perm == 0 else 1):
+            w = w0.clone().requires_grad_()
+            out = rs.dedup_take(w, torch.from_numpy(ids[order]).to(device))
+            (out * out).sum().backward()
+            grads.append(w.grad)
+    same = all(torch.equal(grads[0], g) for g in grads[1:])
+    print(f'  table gradient of dedup_take over {ids.size} ids: 3 runs and '
+          f'3 permutations {"bitwise equal" if same else "DIFFER"}')
+    check(same, 'the dedup gradient is not bitwise reproducible')
+
+
+def _wd_example():
+    from mxnet_tpu_torch.models.wide_deep import example_config
+    return example_config()
+
+
+def sparse_parity(card, device='cuda', cfg=None, steps=2):
+    """(b) At the example's defaults: the lazy-Adam ShardedTrainStep on
+    the card against the same step on the CPU (call 1 eager and captured,
+    call 2 replayed): loss rel 1e-5, every parameter and moment rel
+    Frobenius 1e-4, the untouched rows' moments exactly 0; then exact mode
+    against dense (MXTPU_SPARSE=0) over 3 steps on the card, bitwise."""
+    import torch
+    import mxnet_tpu_torch as mt
+    cfg = cfg or _wd_example()
+    batches = _wd_batches(cfg, steps)
+    runs = {}
+    for dev, ctx in (('cpu', mt.cpu()), (device, _ctx(device))):
+        net, arrays = _wd_net(cfg, ctx)
+        step, call = _wd_step(net)
+        losses = [float(call(torch.from_numpy(x).to(dev),
+                             torch.from_numpy(y).to(dev)))
+                  for x, y in batches]
+        runs[dev] = (net, step, losses)
+    (cnet, cstep, closs), (gnet, gstep, gloss) = runs['cpu'], runs[device]
+    check(gstep._sparse_names == ['deep.weight', 'wide.weight'],
+          f'sparse tables {gstep._sparse_names}')
+    check(device == 'cpu' or len(gstep._graphs) == 1,
+          'the sparse step was not captured')
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gloss, closs))
+    worst = 0.0
+    cp = dict(cnet.named_parameters())
+    for n, p in gnet.named_parameters():
+        worst = max(worst, _state_rel(p, cp[n]))
+        for a, b in zip(gstep._state[n], cstep._state[n]):
+            worst = max(worst, _state_rel(a, b))
+    touched = torch.unique(torch.cat([
+        torch.from_numpy(x).long().reshape(-1) for x, _ in batches]))
+    frozen = torch.ones(cfg['vocab'], dtype=torch.bool)
+    frozen[touched] = False
+    zero = all(bool((s.detach().cpu()[frozen] == 0).all())
+               for n in gstep._sparse_names for s in gstep._state[n])
+    print(f'  Wide & Deep at the example\'s defaults (vocab {cfg["vocab"]}, '
+          f'{cfg["fields"]} fields, dim {cfg["dim"]}, hidden '
+          f'{cfg["hidden"]}, B={cfg["batch"]}), lazy Adam, {steps} steps '
+          f'(eager + capture, then replays) on the card against the CPU: '
+          f'loss rel {loss_rel:.2e} (bound {SPARSE_TOL["loss_rel"]}), '
+          f'worst parameter/moment rel Frobenius {worst:.2e} (bound '
+          f'{SPARSE_TOL["state_rel_fro"]}); moments of the '
+          f'{int(frozen.sum())} untouched rows exactly 0: {zero}')
+    check(loss_rel <= SPARSE_TOL['loss_rel'], 'sparse step loss vs CPU')
+    check(worst <= SPARSE_TOL['state_rel_fro'], 'sparse step state vs CPU')
+    check(zero, 'an untouched row has a nonzero moment under lazy')
+    # exact against dense, bitwise, on the card
+    ctx = _ctx(device)
+    b3 = _wd_batches(cfg, 3, seed=SEED + 44)
+    res = {}
+    for mode in ('exact', 'dense'):
+        net, _ = _wd_net(cfg, ctx)
+        step, call = _wd_step(net, exact=mode == 'exact',
+                              dense=mode == 'dense')
+        losses = [call(torch.from_numpy(x).to(device),
+                       torch.from_numpy(y).to(device)) for x, y in b3]
+        res[mode] = ([float(v) for v in losses],
+                     {n: p.detach().clone() for n, p in
+                      net.named_parameters()}, step)
+    check(res['exact'][2]._sparse_names and
+          not res['dense'][2]._sparse_names, 'exact/dense routes')
+    same = res['exact'][0] == res['dense'][0] and all(
+        torch.equal(res['exact'][1][n], res['dense'][1][n])
+        for n in res['dense'][1])
+    print(f'  exact mode against dense (MXTPU_SPARSE=0), 3 captured steps '
+          f'on the card: losses {res["exact"][0]} vs {res["dense"][0]}; '
+          f'parameters {"bitwise equal" if same else "DIFFER"}')
+    check(same, 'exact sparse and dense steps differ')
+    return dict(loss_rel=loss_rel, state_rel=worst)
+
+
+def _no_sync_replays(call, n=3):
+    """``n`` calls under torch.cuda.set_sync_debug_mode('error'): a call
+    that synchronizes the host with the card raises."""
+    import torch
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(n):
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def sparse_loop(card, cfg, label, modes=('lazy',), steps=20, timed=10,
+                device='cuda', cycle=4):
+    """(c)/(d) The example's loop: ``steps`` captured steps over
+    ``cycle`` batches repeated; the mean loss of the last cycle must be
+    below the first's. For each mode in ``modes`` (lazy, exact, dense):
+    3 replays under the sync check, a profiler trace of 3 replays (busy
+    time, idle share), step ms (median and spread of 3 calls of
+    ``timed``), the peak memory of the build and the steps, and
+    sparse_report()."""
+    import torch
+    import mxnet_tpu_torch as mt
+    ctx = _ctx(device)
+    batches = [(torch.from_numpy(x).to(device), torch.from_numpy(y).to(
+        device)) for x, y in _wd_batches(cfg, cycle)]
+    out = {}
+    arrays = None
+    for mode in modes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        net, arrays = _wd_net(cfg, ctx, arrays)
+        step, call = _wd_step(net, exact=mode == 'exact',
+                              dense=mode == 'dense')
+        losses = [float(call(*batches[i % cycle])) for i in range(steps)]
+        check((mode == 'dense') != bool(step._sparse_names),
+              f'{label} {mode}: tables {step._sparse_names}')
+        check(len(step._graphs) == 1, f'{label} {mode}: not one graph')
+        first = sum(losses[:cycle]) / cycle
+        last = sum(losses[-cycle:]) / cycle
+        check(all(map(math.isfinite, losses)) and last < first,
+              f'{label} {mode}: the loss did not fall ({first} -> {last})')
+        k = [0]
+
+        def one():
+            x, y = batches[k[0] % cycle]
+            k[0] += 1
+            return call(x, y)
+        _no_sync_replays(one)
+        busy = device_breakdown(f'{label} {mode} step', one, card, 3)
+        calls = [steps_ms(one, timed) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated() - base
+        rep = step.sparse_report()
+        print(f'  {label} {mode}: losses {first:.4f} -> {last:.4f} (means of '
+              f'the first and last {cycle} of {steps} captured steps); '
+              f'3 replays without a host sync; step {sorted(calls)[1]:.3f} '
+              f'ms, the median of 3 calls of {timed} '
+              f'({", ".join(f"{v:.3f}" for v in calls)}), idle share '
+              f'{busy["idle"]:.3f}; peak memory {peak / 2**30:.3f} GiB '
+              f'above the start; ' + (
+                  f'update {rep["update_bytes_per_step"]} B/step against '
+                  f'dense {rep["dense_update_bytes_per_step"]} '
+                  f'({rep["update_shrink"]:.1f}x shrink), budgets '
+                  f'{ {n: t["budget"] for n, t in rep["tables"].items()} }'
+                  if rep else 'dense path'))
+        if mode == 'lazy':
+            _frozen_rows(step, batches, cfg)
+        out[mode] = dict(step_ms=sorted(calls)[1], calls_ms=calls,
+                         idle=busy['idle'], busy_ms=busy['busy_ms'],
+                         peak_bytes=peak, report=rep,
+                         losses=[first, last])
+        # the step, its graph and the tables go before the next mode
+        del net, step, call, one
+        gc.collect()
+    return out
+
+
+def _frozen_rows(step, batches, cfg, samples=4096):
+    """Sampled untouched rows keep zero moments; every touched row of the
+    deep table moved its first moment."""
+    import numpy as onp
+    import torch
+    touched = torch.unique(torch.cat([x.long().reshape(-1)
+                                      for x, _ in batches]))
+    free = onp.setdiff1d(onp.random.RandomState(SEED + 47).randint(
+        0, cfg['vocab'], samples), touched.cpu().numpy())
+    at = torch.from_numpy(free).to(touched.device)
+    m, v = step._state['deep.weight']
+    zero = bool((m.index_select(0, at) == 0).all()) and \
+        bool((v.index_select(0, at) == 0).all())
+    moved = bool((m.index_select(0, touched).abs().sum(1) > 0).all())
+    print(f'  lazy: {free.size} sampled untouched rows keep zero moments: '
+          f'{zero}; all {touched.numel()} touched rows moved: {moved}')
+    check(zero and moved, 'lazy row freezing')
+
+
+def sparse_eager(card, device='cuda', steps=3):
+    """(e) gluon.Trainer with SGD (momentum 0.9, lazy) and with Adam over
+    Embedding(sparse_grad=True) + Dense, 3 steps on the card against the
+    CPU at 1e-5; p.grad() a RowSparseNDArray on the card; absent rows
+    unchanged bitwise."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    vocab, dim = 1000, 16
+    rng = onp.random.RandomState(SEED + 48)
+    w0 = {'0.weight': (rng.standard_normal((vocab, dim)) * 0.1)
+          .astype(onp.float32),
+          '1.weight': (rng.standard_normal((4, dim)) * 0.1)
+          .astype(onp.float32),
+          '1.bias': onp.zeros(4, onp.float32)}
+    ids = rng.randint(0, 100, (32, 5)).astype(onp.float32)
+    lab = rng.standard_normal((32, 5, 4)).astype(onp.float32)
+    out = {}
+    for opt, kw in (('sgd', {'learning_rate': 0.1, 'momentum': 0.9}),
+                    ('adam', {'learning_rate': 0.01})):
+        res = {}
+        for dev, ctx in (('cpu', mt.cpu()), (device, _ctx(device))):
+            with ctx:
+                net = mt.gluon.nn.HybridSequential()
+                net.add(mt.gluon.nn.Embedding(vocab, dim, sparse_grad=True))
+                net.add(mt.gluon.nn.Dense(4, flatten=False, in_units=dim))
+                net.initialize()
+                for n, p in net.named_parameters():
+                    p.data.copy_(mt.nd.array(w0[n])._data)
+                tr = mt.gluon.Trainer(net.collect_params(), opt, dict(kw))
+                x, y = mt.nd.array(ids), mt.nd.array(lab)
+                for _ in range(steps):
+                    with mt.autograd.record():
+                        loss = ((net(x) - y) ** 2).mean()
+                    loss.backward()
+                    g = net[0].weight.grad()
+                    tr.step(1)
+                res[dev] = ({n: p.detach().cpu().numpy()
+                             for n, p in net.named_parameters()}, g)
+        (cw, _), (gw, g) = res['cpu'], res[device]
+        check(isinstance(g, sp.RowSparseNDArray) and
+              g._data.device.type == device, f'{opt}: grad() {type(g)}')
+        worst = max(float(onp.abs(gw[n] - cw[n]).max() /
+                          max(onp.abs(cw[n]).max(), 1e-30)) for n in cw)
+        absent = onp.setdiff1d(onp.arange(vocab), ids.astype(int))
+        frozen = onp.array_equal(gw['0.weight'][absent],
+                                 w0['0.weight'][absent])
+        print(f'  eager Trainer {opt} ({kw}) over Embedding(sparse_grad='
+              f'True) + Dense, {steps} steps: grad() a RowSparseNDArray on '
+              f'{g._data.device}; worst rel error against the CPU '
+              f'{worst:.2e} (bound {SPARSE_TOL["eager"]}); the '
+              f'{absent.size} absent rows unchanged bitwise: {frozen}')
+        check(worst <= SPARSE_TOL['eager'], f'eager {opt} vs CPU')
+        check(frozen, f'eager {opt}: absent rows moved')
+        out[opt] = worst
+    return out
+
+
+def sparse_nd_checks(card, work, device='cuda'):
+    """(f) nd.sparse on the card: dot(csr, dense) against the dense
+    product, retain and tostype round trips, nd.save / nd.load of
+    row_sparse and csr bitwise, SparseEmbedding trains one step; (g) the
+    DGL ops on card-resident inputs equal the CPU's."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.base import get_op
+    from mxnet_tpu_torch.gluon.contrib.nn import SparseEmbedding
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    from mxnet_tpu_torch.ops import sparse_ops
+    ctx = _ctx(device)
+    rng = onp.random.RandomState(SEED + 49)
+    a = rng.standard_normal((512, 1024)).astype(onp.float32)
+    a[rng.rand(*a.shape) > 0.01] = 0
+    b = rng.standard_normal((1024, 256)).astype(onp.float32)
+    csr = sp.csr_matrix(a, ctx=ctx)
+    rhs = mt.nd.array(b, ctx=ctx)
+    before = sparse_ops.route_counts['dot_csr_dense']
+    got = mt.nd.dot(csr, rhs)
+    want = mt.nd.dot(mt.nd.array(a, ctx=ctx), rhs)
+    check(sparse_ops.route_counts['dot_csr_dense'] == before + 1,
+          'dot(csr, dense) did not take the CSR route')
+    err = float((got._data - want._data).abs().max())
+    rel = err / float(want._data.abs().max())
+    dense = torch.from_numpy(a).to(device)
+    ms, _ = time_ms(lambda: mt.nd.dot(csr, rhs), 10)
+    dms, _ = time_ms(lambda: torch.matmul(dense, rhs._data), 10)
+    print(f'  dot(csr 512x1024 at density {csr.density:.4f}, dense '
+          f'1024x256) on {got._data.device}: max rel error {rel:.2e} '
+          f'against the dense product (bound {SPARSE_TOL["dot"]}); '
+          f'{ms:.4f} ms device (CSR route, the conversion included) vs '
+          f'{dms:.4f} ms dense matmul')
+    check(rel <= SPARSE_TOL['dot'], 'dot(csr, dense)')
+    r = sp.row_sparse_array(a, ctx=ctx)
+    kept = r.retain(mt.nd.array([0, 7, 300], ctx=ctx))
+    ka = kept.asnumpy()
+    ok = onp.array_equal(ka[[0, 7, 300]], a[[0, 7, 300]]) and \
+        not ka[onp.setdiff1d(onp.arange(512), [0, 7, 300])].any()
+    for st in ('csr', 'row_sparse', 'default'):
+        ok = ok and onp.array_equal(r.tostype(st).asnumpy(), a) and \
+            r.tostype(st).stype == st
+    ok = ok and r.indices.asnumpy().tolist() == \
+        onp.nonzero(a.any(axis=1))[0].tolist()
+    print(f'  retain, tostype and the row_sparse parts on the card: {ok}')
+    check(ok, 'retain / tostype round trips')
+    f = os.path.join(work, 'sparse.nd')
+    mt.nd.save(f, {'r': r, 'c': csr})
+    back = mt.nd.load(f, ctx=ctx)
+    same = all(onp.array_equal(back[k].asnumpy(), a) for k in ('r', 'c'))
+    print(f'  nd.save / nd.load of row_sparse and csr ({os.path.getsize(f)} '
+          f'bytes): bitwise {same}')
+    check(same, 'nd.save / nd.load of sparse arrays')
+    emb = SparseEmbedding(1000, 8)
+    emb.initialize(ctx=ctx)
+    w0 = emb.weight.data().asnumpy()
+    tr = mt.gluon.Trainer(emb.collect_params(), 'sgd',
+                          {'learning_rate': 0.5})
+    with mt.autograd.record():
+        loss = (emb(mt.nd.array([3, 9, 9], ctx=ctx)) ** 2).sum()
+    loss.backward()
+    tr.step(1)
+    w1 = emb.weight.data().asnumpy()
+    moved = sorted(onp.nonzero((w1 != w0).any(axis=1))[0].tolist())
+    print(f'  SparseEmbedding one SGD step on the card: rows moved {moved}')
+    check(moved == [3, 9], 'SparseEmbedding step')
+    # (g) DGL ops
+    x = onp.asarray([[1, 0, 0], [0, 2, 0], [0, 0, 3]], onp.float32)
+    u, v = onp.asarray([0, 0, 1, 1, 2, 2]), onp.asarray([0, 1, 1, 2, 0, 2])
+    g = onp.asarray([[0, 1, 2], [3, 0, 4], [5, 6, 0]], onp.float32)
+    clique = onp.zeros((5, 5), onp.float32)
+    clique[~onp.eye(5, dtype=bool)] = onp.arange(1, 21)
+    cases = [('edge_id', (x, u, v), {}), ('dgl_adjacency', (x,), {}),
+             ('dgl_subgraph', (g, onp.asarray([0, 2])),
+              {'return_mapping': True}),
+             ('dgl_graph_compact', (clique,),
+              {'graph_sizes': (3,), 'return_mapping': True}),
+             ('dgl_csr_neighbor_uniform_sample',
+              (clique, onp.asarray([0, 1, 2, 3, 4])),
+              {'num_hops': 2, 'num_neighbor': 2, 'max_num_vertices': 5}),
+             ('dgl_csr_neighbor_non_uniform_sample',
+              (clique, onp.asarray([1., 1., 0., 0., 0.], onp.float32),
+               onp.asarray([0, 1, 2, 3, 4])),
+              {'num_hops': 1, 'num_neighbor': 1, 'max_num_vertices': 5})]
+    for name, args, kw in cases:
+        outs = {}
+        for dev in ('cpu', device):
+            mt.random.seed(SEED)       # the samplers' seed stream
+            res = get_op(name).fn(*[torch.from_numpy(onp.asarray(t)).to(dev)
+                                    for t in args], **kw)
+            outs[dev] = res if isinstance(res, tuple) else (res,)
+        same = all(t.device.type == device for t in outs[device]) and all(
+            torch.equal(a_.cpu(), b_) for a_, b_ in zip(outs[device],
+                                                        outs['cpu']))
+        print(f'  {name} on card-resident inputs equal to the CPU: {same}')
+        check(same, f'{name} on the card')
+
+
+def sparse_phase(card, device='cuda', example=None, criteo=None,
+                 loop_steps=20, timed=10):
+    """MXNet's sparse storage on the card (f32, TF32 off as main sets
+    it): (a) the dedup, (b) the step's parity at the example's defaults,
+    (c) the example's loop, (d) the Criteo-sized table lazy / exact /
+    dense, (e) the eager Trainer, (f) nd.sparse, (g) the DGL ops. The
+    launch counters are set to 0 just before and read just after: the
+    path launches none of the hand-written kernels."""
+    import torch
+    from mxnet_tpu_torch.models.wide_deep import criteo_config
+    t0 = time.perf_counter()
+    example = example or _wd_example()
+    criteo = criteo or criteo_config()
+    print(f'sparse phase on {card}: the RowSparse step, Wide & Deep, the '
+          f'eager lazy updates, nd.sparse and the DGL ops, f32')
+    _zero_counters()
+    out = {}
+    sparse_dedup_checks(card, device)
+    out['parity'] = sparse_parity(card, device, example)
+    out['example'] = sparse_loop(card, example, 'Wide & Deep example',
+                                 ('lazy',), loop_steps, timed, device)
+    out['criteo'] = sparse_loop(card, criteo, 'Wide & Deep Criteo-sized '
+                                f'(vocab {criteo["vocab"]}, '
+                                f'{criteo["fields"]} fields, '
+                                f'B={criteo["batch"]})',
+                                ('lazy', 'exact', 'dense'), 8, timed, device)
+    out['eager'] = sparse_eager(card, device)
+    with tempfile.TemporaryDirectory() as work:
+        sparse_nd_checks(card, work, device)
+    launched, _, _ = _flash_counts()
+    check(not launched, f'the sparse path launched {launched}')
+    out['seconds'] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'  sparse phase: {out["seconds"]:.1f} s; '
+          f'{torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated '
+          f'after it')
+    return out
+
+
 SYM_ROWS = ('flash_attn_fwd', 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
 TILED = {'flash_attn_fwd': 'fwd', 'flash_attn_bwd_dq': 'bwd',
          'flash_attn_bwd_dkv': 'bwd'}
@@ -7344,6 +7894,7 @@ def _run():
     with tempfile.TemporaryDirectory() as work:
         _det = det_phase(card, work)
     sym, sym_fwd, sym_bwd, _sym = sym_phase(card)
+    _sparse = sparse_phase(card)
     serving, serve_replay, _serving = serving_phase(card)
     front, front_http, _front = front_phase(card)
     training, _train = training_phase(card)

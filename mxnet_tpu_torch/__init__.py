@@ -37,7 +37,10 @@ BucketingModule, SequentialModule and ``fit``), ``model`` (checkpoint
 pairs), ``callback``, ``monitor``, ``visualization``, ``name``,
 ``AttrScope``, ``operator`` (``CustomOp``) and ``subgraph`` (the
 ``fuse_attention`` backend on the flash kernels); ``gluon`` adds
-``SymbolBlock`` and ``export``.
+``SymbolBlock`` and ``export``. MXNet's sparse storage is ``nd.sparse``
+(CSR and RowSparse NDArrays), ``Embedding(sparse_grad=True)`` with lazy
+updates in the Trainer and the RowSparse path of ``ShardedTrainStep``
+(``ops/rowsparse.py``), and the DGL graph ops (``ops/graph.py``).
 """
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
@@ -48,9 +51,10 @@ from . import (amp, autograd, checkpoint, config, context, contrib, engine,
                resilience, rtc, serialization, serving, telemetry, weights)
 from . import ndarray as nd
 from . import initializer as init
-from . import (attribute, callback, executor, executor_manager, model,
-               module, monitor, name, operator, subgraph, symbol,
+from . import (attribute, callback, executor, executor_manager, kvstore,
+               model, module, monitor, name, operator, subgraph, symbol,
                visualization)
+from . import kvstore as kv
 from . import symbol as sym
 from . import module as mod
 from .attribute import AttrScope
@@ -58,7 +62,8 @@ from .attribute import AttrScope
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',
            'config', 'context', 'contrib', 'AttrScope', 'attribute',
-           'callback', 'executor', 'executor_manager', 'model', 'module',
+           'callback', 'executor', 'executor_manager', 'kv', 'kvstore',
+           'model', 'module',
            'mod', 'monitor', 'name', 'operator', 'subgraph', 'sym',
            'symbol', 'visualization',
            'engine', 'gluon', 'image', 'init', 'initializer', 'io',

@@ -3,8 +3,10 @@ module of the port (counterpart of ``mxnet_tpu/base.py``).
 
 Ops are plain Python functions over ``torch.Tensor``s registered by name;
 ``mx.nd.<name>`` wraps each one for NDArrays (``ndarray/register.py``).
-The JAX package's sparse implementations, aliases and op-use accounting
-are not carried over.
+An op may also register a storage-specific implementation for the
+storage types of its NDArray arguments (``register_sparse_impl``), which
+``NDArray`` dispatch swaps in, as the JAX package's FComputeEx seam does.
+The JAX package's op-use accounting is not carried over.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 __all__ = ['MXNetError', 'DataError', 'OpDef', 'register_op',
            'register_op_alias', 'get_op', 'list_ops',
+           'register_sparse_impl', 'lookup_sparse_impl',
            'state', 'telem_flags', 'torch_dtype']
 
 
@@ -95,6 +98,27 @@ def get_op(name: str) -> OpDef:
 
 def list_ops():
     return sorted(_OP_REGISTRY)
+
+
+# Storage-driven kernel dispatch (ref: FComputeEx,
+# include/mxnet/op_attr_types.h:304): an op may register alternative
+# implementations keyed by the storage types of its tensor arguments;
+# NDArray dispatch swaps them in when the stype signature matches.
+_SPARSE_IMPLS: Dict[tuple, Callable] = {}
+
+
+def register_sparse_impl(opname: str, stypes: tuple):
+    """Register a storage-specific implementation of ``opname`` for the
+    given tuple of positional-argument storage types, e.g.
+    ('csr', 'default')."""
+    def deco(fn: Callable):
+        _SPARSE_IMPLS[(opname, tuple(stypes))] = fn
+        return fn
+    return deco
+
+
+def lookup_sparse_impl(opname: str, stypes: tuple):
+    return _SPARSE_IMPLS.get((opname, tuple(stypes)))
 
 
 class _ThreadLocalState(threading.local):

@@ -543,11 +543,19 @@ class CheckpointManager:
             tr = self._trainer
             stage = int(getattr(tr, 'zero_stage', 0) or
                         (1 if getattr(tr, '_zero_active', False) else 0))
-            meta.setdefault('optimizer_state_layout', {
+            layout = {
                 'format': 'gathered-host', 'zero1': stage >= 1,
                 'stage': stage,
                 'dp': int(getattr(tr, '_dp', 0)
-                          or getattr(tr, '_zero_dp', 1))})
+                          or getattr(tr, '_zero_dp', 1))}
+            sp = getattr(tr, 'sparse_layout', None)
+            sp = sp() if callable(sp) else None
+            if sp:
+                # the RowSparse path's update mode and tables; provenance
+                # only: the states stay table-shaped, so dense-to-sparse
+                # and sparse-to-dense restores need no conversion
+                layout['sparse'] = sp
+            meta.setdefault('optimizer_state_layout', layout)
         return {'step': int(step), 'arrays': arrays, 'blobs': blobs,
                 'rng': rng, 'metadata': meta, 'host': host}
 

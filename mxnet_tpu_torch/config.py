@@ -379,3 +379,33 @@ _register('MXTPU_DATALOADER_WORKER_RETRIES', int, 2,
 _register('MXNET_TPU_NO_NATIVE_BUILD', _bool, False,
           'Never compile the native IO library on demand: a missing '
           'library means the pure-Python (PIL) decode path.')
+
+# the RowSparse fast path of the compiled step (parallel/step.py) and the
+# knobs it reads, with the JAX package's names and defaults
+_register('MXTPU_SPARSE', _bool, True,
+          'Enable the RowSparse fast path in the compiled train step: '
+          "parameters declared grad_stype='row_sparse' (Embedding("
+          'sparse_grad=True)) backpropagate (unique row ids, row-block '
+          'values) instead of a dense table-shaped gradient, and the '
+          'optimizer updates only the gathered live rows inside the one '
+          'captured step. Off: such tables take the dense path '
+          '(identical trajectories under exact mode, see '
+          'MXTPU_SPARSE_EXACT).')
+_register('MXTPU_SPARSE_ROWS', int, 0,
+          'Per-table live-row budget ceiling for the sparse fast path. '
+          "A table whose worst-case unique-row budget (min(batch ids, "
+          'vocab), discovered when the step is built) exceeds this takes '
+          'the dense path. 0 (default) = no ceiling.')
+_register('MXTPU_SPARSE_EXACT', _bool, False,
+          'Force exact (non-lazy) sparse semantics: the deduped row '
+          'block densifies into a table-shaped gradient and the dense '
+          'update runs, bit-identical to the dense path (ref '
+          'lazy_update=False). Default off = lazy semantics: moments of '
+          'absent rows stay frozen and weight decay applies only to '
+          'live rows.')
+_register('MXTPU_SPARSE_TABLE_AXIS', str, '',
+          "Mesh axis to shard row_sparse embedding tables' rows over "
+          "(e.g. 'tp'). Needs a model axis across cards, which the port "
+          'does not have (ROADMAP queue 1 item 6a): a step with sparse '
+          'tables raises when it is set. Empty (default) = tables '
+          'replicate like other params.')

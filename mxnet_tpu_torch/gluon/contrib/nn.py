@@ -1,11 +1,9 @@
 """Contrib layers (counterpart of ``mxnet_tpu/gluon/contrib/nn.py``, ref:
 python/mxnet/gluon/contrib/nn/basic_layers.py): ``HybridConcurrent``,
-``Concurrent``, ``Identity`` and ``PixelShuffle2D``. ``SparseEmbedding``
-needs row-sparse gradients, which are ROADMAP queue 1 item 12: it
-raises."""
+``Concurrent``, ``Identity``, ``SparseEmbedding`` (an Embedding whose
+gradient is ``row_sparse``) and ``PixelShuffle2D``."""
 from __future__ import annotations
 
-from ...base import MXNetError
 from ... import ndarray as nd
 from ..block import Block, HybridBlock
 
@@ -40,14 +38,22 @@ class Identity(HybridBlock):
 
 
 class SparseEmbedding(Block):
-    """An Embedding with row-sparse gradients: not ported (ROADMAP queue 1
-    item 12, sparse)."""
+    """An Embedding whose weight gradient is ``row_sparse`` (ref: contrib
+    SparseEmbedding): the Trainer's lazy updates touch only the rows a
+    batch looked up. An eager Block, as in the JAX package."""
 
     def __init__(self, input_dim, output_dim, dtype='float32',
                  weight_initializer=None, **kwargs):
-        raise MXNetError("SparseEmbedding needs row-sparse gradients, which "
-                         "are not ported (ROADMAP queue 1 item 12); use "
-                         "gluon.nn.Embedding")
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self.weight = self.params.get(
+            'weight', shape=(input_dim, output_dim), dtype=dtype,
+            init=weight_initializer, grad_stype='row_sparse')
+
+    def forward(self, x):
+        return nd.embedding(x, self.weight.data(), input_dim=self._input_dim,
+                            output_dim=self._output_dim, sparse_grad=True)
 
 
 class PixelShuffle2D(HybridBlock):

@@ -301,25 +301,28 @@ class InstanceNorm(_Norm):
 
 class Embedding(HybridBlock):
     """Row lookup in a (input_dim, output_dim) table (ref: basic_layers.py
-    Embedding). Sparse gradients are not ported (ROADMAP queue 1
-    item 12)."""
+    Embedding). ``sparse_grad=True`` declares the weight's gradient
+    ``row_sparse``: ``weight.grad()`` is a RowSparseNDArray, the Trainer's
+    SGD and Adam update only the rows a batch looked up (``lazy_update``),
+    and ``ShardedTrainStep`` takes the table's RowSparse path (deduped row
+    blocks, live-row updates inside the captured step)."""
 
     def __init__(self, input_dim, output_dim, dtype='float32',
                  weight_initializer=None, sparse_grad=False, device=None,
                  **kwargs):
         super().__init__(**kwargs)
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True): sparse gradients "
-                             "are not ported (ROADMAP queue 1 item 12)")
         self._input_dim = input_dim
         self._output_dim = output_dim
+        self._sparse_grad = sparse_grad
         self.weight = self.params.get(
             'weight', shape=(input_dim, output_dim), dtype=dtype,
-            init=weight_initializer, allow_deferred_init=True, device=device)
+            init=weight_initializer, allow_deferred_init=True, device=device,
+            grad_stype='row_sparse' if sparse_grad else 'default')
 
     def hybrid_forward(self, F, x, weight):
         return F.embedding(x, weight, input_dim=self._input_dim,
-                           output_dim=self._output_dim)
+                           output_dim=self._output_dim,
+                           sparse_grad=self._sparse_grad)
 
     def __repr__(self):
         return f"Embedding({self._input_dim} -> {self._output_dim})"

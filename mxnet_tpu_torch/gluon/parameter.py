@@ -122,10 +122,17 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype='default', grad_stype='default', device=None):
-        if stype != 'default' or grad_stype != 'default':
-            raise MXNetError("sparse parameters are not ported (ROADMAP "
-                             "queue 1 item 12)")
+        for st in (stype, grad_stype):
+            if st not in ('default', 'row_sparse', 'csr'):
+                raise MXNetError(f"Parameter '{name}': unknown storage "
+                                 f"type {st!r}")
         self.name = name
+        # the weight's and the gradient's storage types: the payloads
+        # stay dense tensors, as in the JAX package; a 'row_sparse'
+        # gradient is a RowSparseNDArray (grad()), read by the optimizer
+        # (lazy updates) and by ShardedTrainStep (the RowSparse path)
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._grad_req = grad_req if differentiable else 'null'
         if isinstance(shape, int):
             shape = (shape,)
@@ -235,7 +242,11 @@ class Parameter:
 
     @property
     def stype(self):
-        return 'default'
+        return self._stype
+
+    @property
+    def grad_stype(self):
+        return self._grad_stype
 
     # ---- initialisation -------------------------------------------------
     def initialize(self, init=None, ctx=None, default_init=None,
@@ -326,6 +337,9 @@ class Parameter:
                              f"gradient (grad_req='null')")
         if self._var.grad is None:
             self._init_grad()
+        if self._grad_stype != 'default':
+            from ..ndarray.sparse import cast_storage
+            return cast_storage(NDArray(self._var.grad), self._grad_stype)
         return NDArray(self._var.grad)
 
     def list_grad(self):
@@ -404,8 +418,14 @@ class Parameter:
         return symbol.var(self.name, shape=self.shape, dtype=self.dtype)
 
     def row_sparse_data(self, row_id):
-        raise MXNetError("row_sparse_data: sparse parameters are not ported "
-                         "(ROADMAP queue 1 item 12)")
+        """The rows ``row_id`` of the weight as a RowSparseNDArray, the
+        others zero (ref: parameter.py row_sparse_data; the JAX package
+        retains them from the dense weight, as here)."""
+        from ..ndarray import sparse
+        return sparse.retain(self.data(), row_id)
+
+    def list_row_sparse_data(self, row_id):
+        return [self.row_sparse_data(row_id)]
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "

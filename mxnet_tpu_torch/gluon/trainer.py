@@ -102,6 +102,14 @@ so every rank skips the same step. The per-parameter loop checks the
 gradients first and skips the update. The ``step.dispatch`` fault site
 fires in every ``step``; ``nan`` poisons every gradient.
 
+Sparse parameters (``stype`` or ``grad_stype`` not 'default', e.g.
+``Embedding(sparse_grad=True)``): as in the JAX Trainer the fused update
+declines them and every parameter takes the per-parameter loop, where a
+``row_sparse`` gradient reaches the optimizer as a RowSparseNDArray, so
+SGD's and Adam's ``lazy_update`` leave the rows without a gradient (and
+their moments) as they were. ``sparse_layout()`` describes the tables
+for the checkpoint manifest.
+
 The distributed kvstore types, gradient compression and
 update_on_kvstore raise (ROADMAP queue 1 item 8). The elastic hook of
 the JAX Trainer waits for item 10.
@@ -121,6 +129,7 @@ from ..resilience import faults as _faults
 from ..resilience.guard import DeviceGate, finite_flag
 from ..telemetry import compile as _compile, flight as _flight, \
     memory as _memory, metrics as _metrics, trace as _trace
+from ..ndarray.sparse import RowSparseNDArray
 from ..serialization import atomic_write_file
 from .. import optimizer as opt
 from .parameter import Parameter, tensor_of
@@ -198,6 +207,11 @@ class Trainer:
         self._zero_dims = {}     # index -> the dim its states shard along
         self._zero_grads = {}    # index -> its reduce-scattered shard
         self._broadcast = set()  # indices broadcast from rank 0
+        self._contains_sparse_weight = any(
+            getattr(p, '_stype', 'default') != 'default' for p in self._params)
+        self._contains_sparse_grad = any(
+            getattr(p, '_grad_stype', 'default') != 'default'
+            for p in self._params)
         if self._reduce:
             self._broadcast_params()
 
@@ -211,6 +225,31 @@ class Trainer:
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+
+    def sparse_layout(self):
+        """The RowSparse layout of the eager update for the checkpoint
+        manifest (``optimizer_state_layout.sparse``), as the JAX Trainer
+        gives it: None when no parameter has a ``row_sparse`` gradient;
+        else the update mode (lazy when the optimizer has lazy row
+        updates) and the (vocab, dim) of every sparse-gradient table.
+        Provenance only: the states stay table-shaped either way."""
+        tables = {}
+        for p in self._params:
+            if getattr(p, '_grad_stype', 'default') != 'row_sparse':
+                continue
+            shape = tuple(p.shape or ())
+            if len(shape) == 2:
+                tables[p.name] = {'vocab': int(shape[0]),
+                                  'dim': int(shape[1])}
+        if not tables:
+            return None
+        lazy = bool(getattr(self._optimizer, 'lazy_update', False))
+        return {'mode': 'lazy' if lazy else 'exact',
+                'table_axis': None, 'tables': tables}
+
+    def _row_sparse(self, i):
+        return getattr(self._params[i], '_grad_stype', 'default') == \
+            'row_sparse'
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One update of every parameter, its gradient scaled by
@@ -331,6 +370,9 @@ class Trainer:
                 if not ok:
                     return
             for i, p, g in items:
+                if self._row_sparse(i):
+                    # the optimizer reads the stype: lazy row updates
+                    g = RowSparseNDArray(g)
                 self._updater(i, g, p)
         if self._zero_active:
             self._gather_params()
@@ -500,6 +542,11 @@ class Trainer:
             return True
         o = self._optimizer
         if not getattr(o, 'fused_update', False):
+            return False
+        if self._contains_sparse_weight or self._contains_sparse_grad:
+            # sparse parameters take the per-parameter loop, whose
+            # optimizer call reads each gradient's stype (lazy updates),
+            # as the JAX Trainer declines its fused update for them
             return False
         updater = self._updater
         indices = [i for i, _, _ in items]

@@ -3,8 +3,9 @@
 python/mxnet/ndarray/__init__.py).
 
 ``nd.contrib`` holds the control-flow operators and the contrib and
-attention ops; ``nd.Custom`` is ``operator.register``'s custom op.
-``nd.sparse``, ``nd.linalg`` and ``nd.random`` are not ported yet.
+attention ops; ``nd.Custom`` is ``operator.register``'s custom op;
+``nd.sparse`` the CSR and RowSparse arrays. ``nd.linalg`` and
+``nd.random`` are not ported yet.
 """
 from .ndarray import (NDArray, array, zeros, ones, full, arange, empty,
                       concat, stack, save, load, load_frombuffer,
@@ -13,6 +14,7 @@ from .ndarray import (NDArray, array, zeros, ones, full, arange, empty,
 from . import register as _register
 from .utils import split_data, split_and_load  # noqa: F401
 from . import contrib  # noqa: F401
+from . import sparse  # noqa: F401
 
 # op wrappers from the registry; the creation ops keep their ctx-aware
 # front-ends above

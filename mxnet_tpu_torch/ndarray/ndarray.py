@@ -20,6 +20,7 @@ returns float32 (every bf16 value is exactly representable), so
 """
 from __future__ import annotations
 
+import functools
 import numbers
 import os
 import tempfile
@@ -27,7 +28,7 @@ import tempfile
 import numpy as onp
 import torch
 
-from ..base import MXNetError, get_op, torch_dtype
+from ..base import MXNetError, get_op, lookup_sparse_impl, torch_dtype
 from ..context import Context, context_of, current_context
 from .. import _imperative
 from ..ops import (elemwise as _ew, reduce as _red, matrix as _mat,
@@ -159,11 +160,15 @@ class NDArray:
 
     # ---- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req='write', stype=None):
-        """Ref: python/mxnet/ndarray/ndarray.py attach_grad (dense
-        gradients only: sparse storage is not ported)."""
+        """Ref: python/mxnet/ndarray/ndarray.py attach_grad. A non-default
+        ``stype`` makes the gradient a sparse NDArray (dense payload), so
+        the sparse API (indices/data/retain) and the stype-dispatching
+        optimizers see it."""
+        grad = NDArray(torch.zeros_like(self._data.detach()))
         if stype not in (None, 'default'):
-            raise MXNetError("sparse gradients are not ported")
-        self._grad = NDArray(torch.zeros_like(self._data.detach()))
+            from .sparse import cast_storage
+            grad = cast_storage(grad, stype)
+        self._grad = grad
         self._grad_req = grad_req
         self._in_graph = True
 
@@ -300,9 +305,10 @@ class NDArray:
         return _invoke(_idx.take, self, indices, axis=axis, mode=mode)
 
     def tostype(self, stype):
-        if stype == 'default':
-            return self
-        raise MXNetError(f"storage type {stype!r} is not ported")
+        """This array under storage type ``stype`` ('default', 'csr',
+        'row_sparse'): the same dense payload, as in the JAX package."""
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     # ---- arithmetic dunders -------------------------------------------------
     def _binop(self, other, fn, scalar_fn):
@@ -441,6 +447,7 @@ def _invoke(fn, *args, **kwargs):
                 any(isinstance(a, torch.Tensor) for a in args) or
                 any(isinstance(v, torch.Tensor) for v in kwargs.values())):
         return fn(*args, **kwargs)
+    fn = _storage_dispatch(fn, args, kwargs)
     out, recording = _imperative.invoke(fn, args, kwargs)
     if isinstance(out, tuple):
         outs = tuple(NDArray(o) for o in out)
@@ -452,6 +459,26 @@ def _invoke(fn, *args, **kwargs):
     if recording:
         _imperative.record_output(out)
     return out
+
+
+def _storage_dispatch(fn, args, kwargs):
+    """Storage-driven dispatch (the reference's FComputeEx,
+    op_attr_types.h:304): when a positional argument carries a sparse
+    stype and an implementation is registered for the op's stype
+    signature (``base.register_sparse_impl``), that one runs instead.
+    Its ``__sparse_prepare__`` hook reads host-side facts (the nnz
+    budget) from the concrete payloads first."""
+    stypes = tuple(a.stype for a in args if isinstance(a, NDArray))
+    if all(st == 'default' for st in stypes):
+        return fn
+    impl = lookup_sparse_impl(getattr(fn, '__name__', ''), stypes)
+    if impl is None:
+        return fn
+    prepare = getattr(impl, '__sparse_prepare__', None)
+    if prepare is None:
+        return impl
+    return functools.wraps(impl)(functools.partial(impl,
+                                                   **prepare(args, kwargs)))
 
 
 def imperative_invoke(op_name, *args, **kwargs):

@@ -22,6 +22,11 @@ with its own gradient.
 
 ``optimizer_ops`` holds the optimizers' update math (plain PyTorch).
 
+``rowsparse`` (the dedup-first lookup and the compiled step's RowSparse
+capture), ``sparse_ops`` (storage casts, retain, the CSR product) and
+``graph`` (the DGL ops) are the sparse ops, plain PyTorch as the JAX
+package left them to XLA.
+
 ``autotune`` picks the flash kernels' tile per shape (the counterpart of
 ``ops/autotune.py``).
 
@@ -33,12 +38,13 @@ launches of the flash forward, dq, dk/dv and FFN1 kernels by variant,
 from ._build import (dtype_counts, launch_counts, reset_launch_counts,
                      tile_counts, variant_counts)
 from . import (attention, autotune, contrib, detection, elemwise,
-               flash_attention, fused_ffn, fused_layernorm, index, init,
-               matrix, misc, nn, optimizer_ops, reduce)
+               flash_attention, fused_ffn, fused_layernorm, graph, index,
+               init, matrix, misc, nn, optimizer_ops, reduce, rowsparse,
+               sparse_ops)
 
 __all__ = ['attention', 'autotune', 'contrib', 'detection', 'elemwise',
            'flash_attention',
-           'fused_ffn', 'fused_layernorm', 'index', 'init', 'matrix', 'misc',
-           'nn',
+           'fused_ffn', 'fused_layernorm', 'graph', 'index', 'init',
+           'matrix', 'misc', 'nn', 'rowsparse', 'sparse_ops',
            'optimizer_ops', 'reduce', 'launch_counts', 'reset_launch_counts',
            'variant_counts', 'dtype_counts', 'tile_counts']

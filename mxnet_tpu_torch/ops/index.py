@@ -3,15 +3,17 @@
 src/operator/contrib/{boolean_mask,index_copy}.cc).
 
 Out-of-range indices clamp (``mode='clip'``, and 'raise' as in the JAX
-package) or wrap (``mode='wrap'``). The JAX package's row-dedup gather is
-an XLA scatter optimisation; torch's ``index_select`` backward already
-sums repeated rows, so the port gathers directly.
+package) or wrap (``mode='wrap'``). A table-style ``take`` (axis 0 of a
+tensor of 2 or more dims) goes through the dedup-first lookup of
+``ops/rowsparse.py``, as in the JAX package: its backward segment-sums
+repeated ids into one row block per id, in a fixed order.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import register_op
+from . import rowsparse as _rowsparse
 
 __all__ = []
 
@@ -33,6 +35,8 @@ def _index(indices, n, mode='clip'):
 def take(a, indices, axis=0, mode='clip'):
     axis = axis % a.dim()
     idx = _index(indices, a.shape[axis], mode)
+    if axis == 0 and a.dim() >= 2 and idx.numel() > 0:
+        return _rowsparse.dedup_take(a, idx)
     out = torch.index_select(a, axis, idx.reshape(-1))
     return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
 

@@ -69,6 +69,7 @@ import torch.nn.functional as F
 from ..base import MXNetError, register_op, state, torch_dtype
 from .. import config as _config
 from .. import random as _random
+from . import rowsparse as _rowsparse
 
 __all__ = ['fully_connected', 'activation', 'layer_norm', 'add_layer_norm',
            'dense_gelu', 'embedding', 'softmax', 'log_softmax', 'dropout',
@@ -157,8 +158,20 @@ def dense_gelu(x, weight, bias):
 def embedding(data, weight, input_dim=0, output_dim=0, dtype='float32',
               sparse_grad=False):
     """Row gather; out-of-range ids clamp to the table, as ``jnp.take``
-    with mode='clip' does. ``input_dim``, ``output_dim``, ``dtype`` and
-    ``sparse_grad`` are MXNet's and change nothing here."""
+    with mode='clip' does (ref: src/operator/tensor/indexing_op.cc
+    Embedding). Routed as the JAX op routes it: a table the compiled
+    step has armed a RowSparse capture for (``sparse_grad``, matched by
+    identity) records its live rows and takes the row tangent; any other
+    2-D table goes through the dedup-first lookup, whose backward
+    segment-sums repeated ids before the table-shaped write
+    (``ops/rowsparse.py``). ``input_dim``, ``output_dim``, ``dtype`` and
+    ``sparse_grad`` are MXNet's: the gradient's storage type is the
+    parameter's (``grad_stype``)."""
+    slot = _rowsparse.lookup_capture(weight)
+    if slot is not None:
+        return slot.lookup(data)
+    if weight.dim() == 2 and data.numel() > 0:
+        return _rowsparse.dedup_take(weight, data)
     idx = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
     return weight[idx]
 

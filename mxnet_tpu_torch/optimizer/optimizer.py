@@ -58,6 +58,17 @@ def _cg(v):
     return -1.0 if v is None else v
 
 
+def _grad_tensor(grad):
+    """(tensor, whether its stype is row_sparse) of a gradient given as a
+    tensor or as an NDArray. Lazy semantics apply exactly to row-sparse
+    gradients (ref: optimizer.py:526 SGD docstring; FComputeEx dispatch
+    on stype), as in the JAX package."""
+    from ..ndarray.ndarray import NDArray
+    if isinstance(grad, NDArray):
+        return grad._data, grad.stype == 'row_sparse'
+    return grad, False
+
+
 def _zeros32(weight):
     return torch.zeros(weight.shape, dtype=torch.float32,
                        device=weight.device)
@@ -117,12 +128,26 @@ class Optimizer:
 
     @torch.no_grad()
     def update_multi_precision(self, index, weight, grad, state):
+        """``grad`` is a tensor, or an NDArray whose stype an optimizer
+        with ``lazy_update`` (SGD, Adam) reads: a RowSparseNDArray
+        selects the lazy row update (see ``_grad_tensor``)."""
+        g, row_sparse = _grad_tensor(grad)
         if self._low_precision(weight):
             master, base_state = state
-            self.update(index, master, grad.to(torch.float32), base_state)
+            g = g.to(torch.float32)
+            self.update(index, master, self._tagged(g, row_sparse),
+                        base_state)
             weight.copy_(master.to(weight.dtype))
         else:
-            self.update(index, weight, grad, state)
+            self.update(index, weight, self._tagged(g, row_sparse), state)
+
+    def _tagged(self, g, row_sparse):
+        """The gradient as ``update`` takes it: a RowSparseNDArray over
+        ``g`` for an optimizer that reads the stype, else the tensor."""
+        if row_sparse and getattr(self, 'lazy_update', None) is not None:
+            from ..ndarray.sparse import RowSparseNDArray
+            return RowSparseNDArray(g)
+        return g
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -188,8 +213,10 @@ class Optimizer:
 
 @register
 class SGD(Optimizer):
-    """SGD with momentum (ref: optimizer.py:526). ``lazy_update`` is
-    accepted and changes nothing: the port has no row-sparse gradients."""
+    """SGD with momentum (ref: optimizer.py:526). ``lazy_update`` (on by
+    default) applies to a row-sparse gradient (a RowSparseNDArray): only
+    its present rows, those with a nonzero, move, weight and momentum;
+    a dense gradient updates every row."""
     fused_update = True
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
@@ -203,9 +230,11 @@ class SGD(Optimizer):
     @torch.no_grad()
     def update(self, index, weight, grad, state):
         self._update_count(index)
+        grad, row_sparse = _grad_tensor(grad)
         kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
                   rescale_grad=self.rescale_grad,
-                  clip_gradient=_cg(self.clip_gradient))
+                  clip_gradient=_cg(self.clip_gradient),
+                  lazy_update=bool(self.lazy_update and row_sparse))
         if state is not None:
             new_w, new_mom = O.sgd_mom_update(weight, grad, state,
                                               momentum=self.momentum, **kw)
@@ -245,7 +274,9 @@ class NAG(Optimizer):
 @register
 class Adam(Optimizer):
     """Adam with the bias correction folded into lr (ref:
-    optimizer.py:1547); wd is added to the gradient."""
+    optimizer.py:1547); wd is added to the gradient. ``lazy_update``, as
+    SGD's: on a row-sparse gradient the absent rows keep their weight and
+    both moments."""
     fused_update = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
@@ -270,11 +301,13 @@ class Adam(Optimizer):
         # ** 0.5, not math.sqrt: t may be a device tensor
         lr_t = lr * coef2 ** 0.5 / coef1
         mean, var = state
+        grad, row_sparse = _grad_tensor(grad)
         new_w, new_mean, new_var = O.adam_update(
             weight, grad, mean, var, lr=lr_t, beta1=self.beta1,
             beta2=self.beta2, epsilon=self.epsilon, wd=wd,
             rescale_grad=self.rescale_grad,
-            clip_gradient=_cg(self.clip_gradient))
+            clip_gradient=_cg(self.clip_gradient),
+            lazy_update=bool(self.lazy_update and row_sparse))
         weight.copy_(new_w)
         mean.copy_(new_mean)
         var.copy_(new_var)

@@ -162,10 +162,45 @@ device scalar, 1 or NaN (``step.dispatch:nan``), the JAX step's
 step with no guard and no fault armed runs exactly the kernels it ran
 before.
 
+RowSparse tables (the JAX step's fast path): a 2-D parameter whose
+Gluon Parameter has ``grad_stype='row_sparse'`` (``Embedding(
+sparse_grad=True)``) and that the forward looks up through ``embedding``
+takes it while ``MXTPU_SPARSE`` is on (the default). When the step is
+built, one forward in predict mode without gradients records each such
+table's lookups (``rowsparse.trace_capture`` in discover mode); a lookup
+of n ids gets a row budget of min(n, vocab), and a table whose budgets
+sum past ``MXTPU_SPARSE_ROWS`` (when set) takes the dense path. Each step
+then looks a captured table up through the dedup (sort, boundaries,
+cumsum, scatter, searchsorted: static shapes, no host read) and adds a
+zero f32 row tangent to the gathered rows; the table itself gets no
+gradient, the tangent's is the deduped row block, a table looked up more
+than once merging its blocks (``merge_row_blocks``). Lazy mode (the
+default; the reference's ``lazy_update``): the live rows of the f32
+weight (or master) and of the moments are gathered, the same ``_OPTS``
+closure runs on the ``(budget, dim)`` blocks, and the rows are written
+back, the sentinel slots redirected to the last live row
+(``rowsparse.write_slots``), so rows the batch did not touch keep their
+weights and moments. Exact mode (``MXTPU_SPARSE_EXACT=1``, or
+``lazy_update=False`` in ``optimizer_params``) writes the row block
+into a table-shaped gradient and runs the dense update, bit for bit the
+dense path's (the dense embedding goes through the same segment sum).
+All of it runs inside the step's one CUDA graph. A step whose lookups
+differ from the build's raises. ``sparse_layout()`` and
+``sparse_report()`` describe the tables; the states payload carries the
+layout under ``sparse``; the live-row counts reach the telemetry one step
+late (``mxnet_tpu_sparse_live_rows``, ``..._row_bytes_total``,
+``..._dedup_ratio``), never through a sync of the step just launched.
+
 Not ported, each refused by name: ``param_specs`` naming an axis other
-than dp (tensor parallelism, ROADMAP queue 1 item 6a),
-``compression_params`` and ``hierarchy``, and a dp axis over several
-hosts, which the JAX step splits (item 8), sparse gradients (item 12).
+than dp (tensor parallelism, ROADMAP queue 1 item 6a), and with it
+``MXTPU_SPARSE_TABLE_AXIS`` on a step with sparse tables;
+``compression_params`` (for sparse tables too) and ``hierarchy``, and a
+dp axis over several hosts, which the JAX step splits (item 8); sparse
+tables at dp > 1 (item 12a: each rank's live ids differ, and the JAX
+step's global dedup has no counterpart yet) and under ZeRO-3 (item 7);
+``torch.nn.Embedding(sparse=True)``, whose torch sparse gradients the
+step does not take (``gluon.nn.Embedding(sparse_grad=True)`` is the
+sparse table).
 """
 from __future__ import annotations
 
@@ -186,6 +221,7 @@ from .._capture import DeviceScalars, capture, graph_generators
 from ..base import MXNetError, state, telem_flags as _telem, torch_dtype
 from ..gluon.block import Block, plain_calls
 from ..ndarray.ndarray import NDArray
+from ..ops import rowsparse as _rowsparse
 from ..telemetry import compile as _compile, flight as _flight, \
     memory as _memory, metrics as _metrics, trace as _trace
 from . import collectives as _coll, dist as _dist
@@ -422,6 +458,17 @@ def rename_states(blob, names):
                                  f"{missing[:5]}")
             doc[key] = {names[n]: v for n, v in doc[key].items()}
     return pickle.dumps(doc)
+
+
+def _row_sparse_names(block):
+    """The structured names of the block's parameters whose Gluon
+    Parameter declares a ``row_sparse`` gradient."""
+    collect = getattr(block, 'collect_params', None)
+    if collect is None:
+        return set()
+    sparse = {id(gp.tensor) for gp in collect().values()
+              if getattr(gp, '_grad_stype', 'default') == 'row_sparse'}
+    return {n for n, t in block.named_parameters() if id(t) in sparse}
 
 
 def _host_copy(t):
@@ -802,13 +849,19 @@ class ShardedTrainStep:
         self.optimizer_params = dict(optimizer_params or {})
         self.lr = self.optimizer_params.pop(
             'learning_rate', self.optimizer_params.pop('lr', 0.01))
-        self.optimizer_params.pop('lazy_update', None)
+        # the reference Optimizer's lazy_update: lazy (the default) updates
+        # only the live rows of a sparse table; False is the exact path
+        self._lazy_sparse = bool(self.optimizer_params.pop('lazy_update',
+                                                           True))
         if optimizer not in _OPTS:
             raise ValueError(f"ShardedTrainStep supports {sorted(_OPTS)}")
         self._n_state, self._has_t, self._opt_update = _OPTS[optimizer]
+        self._row_sparse = _row_sparse_names(block)
         if compression_params is not None:
-            raise MXNetError("ShardedTrainStep: gradient compression is not "
-                             "ported (ROADMAP queue 1 item 8)")
+            raise MXNetError(
+                "ShardedTrainStep: gradient compression is not ported "
+                + ("(sparse tables included) " if self._row_sparse else "")
+                + "(ROADMAP queue 1 item 8)")
         if hierarchy is not None:
             raise MXNetError("ShardedTrainStep: hierarchical dp is not "
                              "ported (ROADMAP queue 1 item 8)")
@@ -837,8 +890,11 @@ class ShardedTrainStep:
         self._remat_policy = _config.get('MXTPU_REMAT')
         if any(getattr(m, 'sparse', False) for m in block.modules()
                if isinstance(m, torch.nn.Embedding)):
-            raise MXNetError("ShardedTrainStep: sparse gradients are not "
-                             "ported (ROADMAP queue 1 item 12)")
+            raise MXNetError(
+                "ShardedTrainStep: torch.nn.Embedding(sparse=True) gives "
+                "torch sparse gradients, which the step does not take; use "
+                "gluon.nn.Embedding(sparse_grad=True), whose row_sparse "
+                "gradient takes the step's RowSparse path")
         params = [p for p in block.parameters()
                   if not isinstance(p, UninitializedParameter)]
         if not params:
@@ -893,15 +949,26 @@ class ShardedTrainStep:
         self._hop_plan = {}          # (kind, axis) -> (bytes, count) a step
         self._gather_plan = []       # ZeRO-3: (layer group, bytes, gathers)
         self.zero_specs = {}
+        self._sparse_names = []      # the tables on the RowSparse path
+        self._sparse_budgets = {}    # name -> [per-lookup row budget]
+        self._sparse_id_counts = {}  # name -> ids a step, before the dedup
+        self._sparse_exact = False
+        self._sparse_table_axis = None
+        self._sparse_sig = None
+        self._sparse_prev_stats = None
+        self._tangents = {}          # name -> (sum(budgets), dim) zero leaf
+        self._live = None            # live rows per table (device, int64)
+        self._refuse_sparse()
 
     # ------------------------------------------------------------------
-    def _build(self):
+    def _build(self, inputs):
         named = sorted(self.block.named_parameters())
         self._trainable = [(n, p) for n, p in named if p.requires_grad]
         dp = self._dp
         if dp > 1:
             self._sync_world()
         shapes = {n: tuple(p.shape) for n, p in self._trainable}
+        self._build_sparse(inputs)
         specs = self._resolve_param_specs([n for n, _ in named])
         if self.zero_stage == 3:
             self.zero3_layouts = {
@@ -939,6 +1006,7 @@ class ShardedTrainStep:
             self._regions = _remat_regions(self.block)
         low = {n for n, p in self._trainable
                if p.is_floating_point() and p.element_size() < 4}
+        lazy = set() if self._sparse_exact else set(self._sparse_names)
         # a flat ZeRO-3 parameter's f32 store is its master, whatever its
         # dtype (the JAX step's master_names)
         self._master = {n: self._local(n, p).to(torch.float32).clone()
@@ -956,9 +1024,21 @@ class ShardedTrainStep:
                      else self._local(n, p) for n, p in self._trainable]
         self._slots = [[self._state[n][k] for n, _ in self._trainable]
                        for k in range(self._n_state)]
+        # the lazy tables' rows are written where they are updated
         self._low = [(self._local(n, p), self._master[n])
                      for n, p in self._trainable
-                     if n in self._master and n not in self._flat]
+                     if n in self._master and n not in self._flat
+                     and n not in lazy]
+        # the tensors the backward differentiates, and the update's lists
+        # without the lazy tables (their row blocks update on their own)
+        self._diff = [p for n, p in self._trainable
+                      if n not in self._sparse_names] + \
+            [self._tangents[n] for n in self._sparse_names]
+        self._main = [i for i, (n, _) in enumerate(self._trainable)
+                      if n not in lazy]
+        self._p32_main = [self._p32[i] for i in self._main]
+        self._slots_main = [[slot[i] for i in self._main]
+                            for slot in self._slots]
         if dp > 1:
             self._build_dp(shapes)
         if self._guard is not None:
@@ -973,6 +1053,76 @@ class ShardedTrainStep:
         if self._pending_states is not None:
             doc, self._pending_states = self._pending_states, None
             self._apply_states(doc)
+
+    def _refuse_sparse(self):
+        """The sparse tables' refusals, each naming its ROADMAP item."""
+        if not self._row_sparse or not _config.get('MXTPU_SPARSE'):
+            return
+        names = sorted(self._row_sparse)[:3]
+        axis = str(_config.get('MXTPU_SPARSE_TABLE_AXIS') or '')
+        if axis:
+            raise MXNetError(
+                f"ShardedTrainStep: MXTPU_SPARSE_TABLE_AXIS={axis!r} shards "
+                f"the sparse tables {names} over a model axis across cards, "
+                f"which the port does not have (ROADMAP queue 1 item 6a); "
+                f"unset it")
+        if self.zero_stage == 3:
+            raise MXNetError(
+                f"ShardedTrainStep: the sparse tables {names} under ZeRO-3's "
+                f"flat stores are not ported (ROADMAP queue 1 item 7); use "
+                f"zero=1, or MXTPU_SPARSE=0 for the dense path")
+        if self._dp > 1:
+            raise MXNetError(
+                f"ShardedTrainStep: the sparse tables {names} at dp = "
+                f"{self._dp} are not ported (ROADMAP queue 1 item 12a: each "
+                f"rank's live ids differ); run at dp = 1, or MXTPU_SPARSE=0 "
+                f"for the dense path")
+
+    def _build_sparse(self, inputs):
+        """The RowSparse tables (see the module docstring): the candidates'
+        lookups recorded by one forward in predict mode without gradients,
+        the row budgets (the dense path past ``MXTPU_SPARSE_ROWS``) and
+        the zero row tangents."""
+        cands = [n for n, p in self._trainable
+                 if n in self._row_sparse and p.dim() == 2]
+        if not cands or not _config.get('MXTPU_SPARSE'):
+            return
+        params = dict(self._trainable)
+        cap = _rowsparse.trace_capture({n: params[n] for n in cands})
+        prev = self.block.training
+        try:
+            with torch.no_grad(), plain_calls(), cap:
+                self.block.eval()(*[x.to(self.device) for x in inputs])
+        finally:
+            self.block.train(prev)
+        ceiling = int(_config.get('MXTPU_SPARSE_ROWS'))
+        for n in cands:
+            sizes = cap.slots[n].call_sizes
+            if not sizes:
+                continue         # never looked up through embedding
+            vocab = params[n].shape[0]
+            buds = [min(k, vocab) for k in sizes]
+            if ceiling and sum(buds) > ceiling:
+                continue         # over the ceiling: the dense path
+            self._sparse_budgets[n] = buds
+            self._sparse_id_counts[n] = int(sum(sizes))
+        self._sparse_names = sorted(self._sparse_budgets)
+        self._sparse_exact = bool(_config.get('MXTPU_SPARSE_EXACT')) or \
+            not self._lazy_sparse
+        if not self._sparse_names:
+            return
+        self._tangents = {
+            n: torch.zeros((sum(self._sparse_budgets[n]), params[n].shape[1]),
+                           dtype=torch.float32, device=self.device,
+                           requires_grad=True)
+            for n in self._sparse_names}
+        self._live = torch.zeros(len(self._sparse_names), dtype=torch.int64,
+                                 device=self.device)
+        self._sparse_sig = {
+            'mode': 'exact' if self._sparse_exact else 'lazy',
+            'table_axis': None,
+            'tables': {n: int(sum(self._sparse_budgets[n]))
+                       for n in self._sparse_names}}
 
     def _build_guard(self):
         """The guard's gate over the tensors a skipped step must leave as
@@ -1197,34 +1347,115 @@ class ShardedTrainStep:
         """Forward, loss, gradients and update on the given tensors (one
         device); returns the loss. Allocates nothing that outlives it and
         reads the rate from the device scalar, so it can be captured."""
-        params = [p for _, p in self._trainable]
         if self._gate is not None:
             self._gate.copy()
+        cap = _rowsparse.trace_capture(
+            {n: p for n, p in self._trainable if n in self._tangents},
+            tangents=self._tangents, budgets=self._sparse_budgets) \
+            if self._sparse_names else contextlib.nullcontext()
         prev = self._train_flags()
         try:
-            with torch.enable_grad(), plain_calls():
+            with torch.enable_grad(), plain_calls(), cap:
                 out = self._forward(inputs)
                 outs = out if isinstance(out, (list, tuple)) else (out,)
                 loss = self._scale(self.loss_fn(*outs, *labels).mean())
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                if self._sparse_names:
+                    # later lookups are a remat region's recompute
+                    cap.freeze()
+                grads = torch.autograd.grad(loss, self._diff,
+                                            allow_unused=True)
         finally:
             self._restore_flags(prev)
         with torch.no_grad():
             gs = [g.to(torch.float32) if g is not None else
                   torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                  for g, p in zip(grads, params)]
+                  for g, p in zip(grads, self._diff)]
+            n_dense = len(gs) - len(self._tangents)
+            blocks = self._row_blocks(cap, gs[n_dense:]) \
+                if self._sparse_names else {}
+            gs = self._table_grads(gs[:n_dense], blocks)
             if self._gate is not None:
-                self._gate.check(gs, loss)
+                self._gate.check(gs + [r for _, r, _ in blocks.values()],
+                                 loss)
             if self._t is not None:
                 self._t.add_(1)
-            self._opt_update(self._p32, gs, self._slots, self._lr.values[0],
-                             self._t_now(), **self.optimizer_params)
+            if self._main:
+                self._opt_update(self._p32_main, gs, self._slots_main,
+                                 self._lr.values[0], self._t_now(),
+                                 **self.optimizer_params)
+            if blocks and not self._sparse_exact:
+                self._lazy_update(blocks)
             if self._low:
                 torch._foreach_copy_([p for p, _ in self._low],
                                      [m for _, m in self._low])
             if self._gate is not None:
                 self._gate.select()
         return loss.detach()
+
+    # -- the RowSparse tables -------------------------------------------
+    def _row_blocks(self, cap, tangent_grads):
+        """{name: (uids, f32 rows, n_live)}: each sparse table's deduped
+        row block (a table looked up more than once merged), its live
+        count copied into ``_live`` for the telemetry."""
+        recs = cap.results()
+        params = dict(self._trainable)
+        out = {}
+        for n, rows in zip(self._sparse_names, tangent_grads):
+            uids, n_live = recs[n]['uids'], recs[n]['n_live']
+            if len(self._sparse_budgets[n]) > 1:
+                uids, rows, n_live = _rowsparse.merge_row_blocks(
+                    uids, rows, params[n].shape[0])
+            out[n] = (uids, rows, n_live)
+        self._live.copy_(torch.stack([out[n][2] for n in self._sparse_names]))
+        return out
+
+    def _table_grads(self, gs, blocks):
+        """The update's gradient list in ``_main``'s order: the dense
+        gradients, and under exact mode each table's row block written
+        into a table-shaped gradient."""
+        dense = iter(gs)
+        out = []
+        for n, p in self._trainable:
+            if n in blocks:
+                if self._sparse_exact:
+                    uids, rows, _ = blocks[n]
+                    out.append(_rowsparse.densify_rows(uids, rows,
+                                                       p.shape[0]))
+            else:
+                out.append(next(dense))
+        return out
+
+    def _lazy_update(self, blocks):
+        """The lazy tables' update (the JAX step's lazy mode): the live
+        rows of the f32 weight (or master) and of the moments gathered
+        (a sentinel slot reads the clamped last row, as XLA's clipped
+        gather does), the ``_OPTS`` closure run on the ``(budget, dim)``
+        blocks, and the rows written back through ``write_slots``; a
+        bf16/f16 table's own rows too."""
+        params = dict(self._trainable)
+        idx = {n: i for i, (n, _) in enumerate(self._trainable)}
+        p_rows, g_rows, s_rows, writes = [], [], [[] for _ in self._slots], []
+        for n in self._sparse_names:
+            uids, rows, n_live = blocks[n]
+            vocab = params[n].shape[0]
+            take = uids.clamp(max=vocab - 1)
+            i = idx[n]
+            p_rows.append(self._p32[i].index_select(0, take))
+            g_rows.append(rows)
+            for k, slot in enumerate(self._slots):
+                s_rows[k].append(slot[i].index_select(0, take))
+            ws = _rowsparse.write_slots(n_live, uids.shape[0])
+            writes.append((i, uids.index_select(0, ws), ws))
+        self._opt_update(p_rows, g_rows, s_rows, self._lr.values[0],
+                         self._t_now(), **self.optimizer_params)
+        for j, (i, at, ws) in enumerate(writes):
+            new = p_rows[j].index_select(0, ws)
+            self._p32[i].index_copy_(0, at, new)
+            n, p = self._trainable[i]
+            if n in self._master:
+                p.detach().index_copy_(0, at, new.to(p.dtype))
+            for k, slot in enumerate(self._slots):
+                slot[i].index_copy_(0, at, s_rows[k][j].index_select(0, ws))
 
     def _scale(self, loss):
         """The loss times the fault factor where this call is armed for it
@@ -1457,7 +1688,7 @@ class ShardedTrainStep:
             if self._trainable is None:
                 with _trace.span('optimizer.state_init'):
                     self._place_deferred(inputs)
-                    self._build()
+                    self._build(inputs)
             self._lr.write([self.lr if lr is None else lr,
                             float('nan') if fault == 'nan' else 1.0])
             if self.device.type != 'cuda' or not self.captured:
@@ -1473,6 +1704,8 @@ class ShardedTrainStep:
             self._guard.push_flag(self._gate.ok)
         self._step_count += 1
         self._record_comm()
+        if self._sparse_names:
+            self._record_sparse()
         _memory.on_step(self._step_count)
         _flight.record_step(self._step_count, loss=loss)
         return NDArray(loss) if nd_in else loss
@@ -1537,6 +1770,101 @@ class ShardedTrainStep:
             entry['run']()
         return entry['loss'].clone()
 
+    def _record_sparse(self):
+        """The sparse path's telemetry, as the JAX step emits it: the
+        ``optimizer.sparse_update`` trace instant, and, when metrics are
+        on, each table's live rows, row bytes and dedup ratio one step
+        late: this step's counts go to pinned memory behind an event,
+        and the previous step's are read once its event is done (a wait
+        for that step alone, never for the one just launched)."""
+        if _trace.enabled():
+            _trace.instant('optimizer.sparse_update',
+                           mode='exact' if self._sparse_exact else 'lazy',
+                           tables=len(self._sparse_names))
+        if not _telem['on']:
+            return
+        cuda = self._live.is_cuda
+        buf = torch.empty(self._live.shape, dtype=self._live.dtype,
+                          pin_memory=cuda)
+        buf.copy_(self._live, non_blocking=cuda)
+        ev = None
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+        prev, self._sparse_prev_stats = self._sparse_prev_stats, (buf, ev)
+        if prev is None:
+            return
+        host, ev = prev
+        if ev is not None:
+            ev.synchronize()
+        shapes = dict(self._trainable)
+        for n, live in zip(self._sparse_names, host.tolist()):
+            dim = shapes[n].shape[1]
+            _metrics.set_gauge('mxnet_tpu_sparse_live_rows', live, table=n)
+            _metrics.counter('mxnet_tpu_sparse_row_bytes_total').inc(
+                live * dim * 4, table=n)
+            ids = self._sparse_id_counts.get(n, 0)
+            if live:
+                _metrics.set_gauge('mxnet_tpu_sparse_dedup_ratio',
+                                   ids / live, table=n)
+
+    def sparse_layout(self):
+        """The RowSparse layout for the checkpoint manifest
+        (``optimizer_state_layout.sparse``): update mode, table-shard
+        axis and per table (vocab, dim, live-row budget, ids a step).
+        None before the first build or when no table took the sparse
+        path. The state tensors stay table-shaped (lazy updates write
+        rows in place), so dense-to-sparse restores need no conversion:
+        this record is provenance."""
+        if not self._sparse_names:
+            return None
+        shapes = dict(self._trainable)
+        return {
+            'mode': 'exact' if self._sparse_exact else 'lazy',
+            'table_axis': None,
+            'tables': {n: {'vocab': int(shapes[n].shape[0]),
+                           'dim': int(shapes[n].shape[1]),
+                           'budget': int(sum(self._sparse_budgets[n])),
+                           'ids_per_step':
+                               int(self._sparse_id_counts.get(n, 0))}
+                       for n in self._sparse_names},
+        }
+
+    def sparse_report(self):
+        """The analytic per-step cost of the sparse path against the dense
+        path it replaced (the JAX step's): None when no table took it.
+        ``update_bytes_per_step`` counts the optimizer-touched bytes (the
+        weight, an f32 master, the moments) of the sparse tables' rows:
+        the live-row budget under lazy mode, the whole table under exact
+        mode, which densifies. ``exchange_bytes_per_hop`` is empty: the
+        port's sparse path runs at dp = 1."""
+        if not self._sparse_names:
+            return None
+        shapes = dict(self._trainable)
+        tables = {}
+        upd = dense_upd = 0
+        for n in self._sparse_names:
+            vocab, dim = shapes[n].shape
+            budget = min(int(sum(self._sparse_budgets[n])), int(vocab))
+            leaves = 1 + self._n_state + (1 if n in self._master else 0)
+            per_row = dim * 4 * leaves
+            touched = vocab if self._sparse_exact else budget
+            tables[n] = {'vocab': int(vocab), 'dim': int(dim),
+                         'budget': budget,
+                         'update_bytes': touched * per_row,
+                         'dense_update_bytes': int(vocab) * per_row}
+            upd += touched * per_row
+            dense_upd += int(vocab) * per_row
+        return {
+            'mode': 'exact' if self._sparse_exact else 'lazy',
+            'table_axis': None,
+            'tables': tables,
+            'update_bytes_per_step': int(upd),
+            'dense_update_bytes_per_step': int(dense_upd),
+            'update_shrink': dense_upd / max(1, upd),
+            'exchange_bytes_per_hop': {},
+        }
+
     def signature(self, inputs, labels):
         """The step's compile signature for these inputs: each argument's
         shape and dtype, and the flags that change what runs: the
@@ -1553,7 +1881,8 @@ class ShardedTrainStep:
              'params': len(self._trainable), 'zero': self._zero_label,
              'remat': self._remat_policy,
              'guard': self._guard is not None, 'fault_scale': self._scaled,
-             'autotune': _autotune.decision_flags() or None})
+             'autotune': _autotune.decision_flags() or None,
+             'sparse': self._sparse_sig})
 
     def _twins(self):
         """The recompute's generator twins, made from what the eager step
@@ -1861,7 +2190,11 @@ class ShardedTrainStep:
             'master': {n: self._logical(n, m, host)
                        for n, m in self._master.items()},
             'step_count': self._step_count,
-            'zero': self.zero, 'stage': self.zero_stage, 'dp': self._dp}
+            'zero': self.zero, 'stage': self.zero_stage, 'dp': self._dp,
+            # provenance only: the sparse state tensors are table-shaped,
+            # so a restore needs no conversion in either direction
+            **({'sparse': self.sparse_layout()} if self._sparse_names
+               else {})}
 
     def load_full_parameters(self, arrays, strict=True):
         """Write {structured name: host array} (``full_parameters``' names)

@@ -8,7 +8,11 @@
   plain PyTorch version;
 - ``ffn_sgd``: MXNet's imperative API end to end, an FFN block
   ``dot(gelu(dot(x, w1) + b1), w2) + b2`` with a squared-error loss,
-  trained by SGD written in NDArrays, its GELU an ``autograd.Function``.
+  trained by SGD written in NDArrays, its GELU an ``autograd.Function``;
+- ``rand_ndarray`` (dense, ``csr`` or ``row_sparse``, at a ``density``)
+  and ``compare_optimizer`` (two optimizers over one weight and gradient
+  stream, the gradient row-sparse with ``g_stype='row_sparse'``), the JAX
+  package's helpers of those names.
 """
 from __future__ import annotations
 
@@ -21,7 +25,83 @@ from . import autograd, nd
 
 __all__ = ['USER_KERNELS', 'RTC_SOURCE', 'launch_user_kernel',
            'rtc_gelu_function', 'PlainGelu', 'FfnSgd', 'ffn_sgd', 'ffn_arrays',
-           'gelu_reference', 'gelu_grad_reference']
+           'gelu_reference', 'gelu_grad_reference', 'rand_ndarray',
+           'compare_optimizer']
+
+
+def _sparsify(a, stype, density, rng):
+    """Zero entries of ``a`` (whole rows for row_sparse) so that about a
+    ``density`` fraction stays."""
+    if density is None or stype == 'default':
+        return a
+    if stype == 'row_sparse':
+        a[rng.uniform(0, 1, a.shape[0]) >= density] = 0
+    else:
+        a[rng.uniform(0, 1, a.shape) >= density] = 0
+    return a
+
+
+def rand_ndarray(shape, stype='default', density=None, dtype=None, ctx=None):
+    """A uniform(-1, 1) NDArray of ``shape`` (numpy's global generator, as
+    the JAX package draws it); for ``stype`` 'csr' or 'row_sparse' the
+    sparse NDArray over it, with about a ``density`` fraction of its
+    entries (rows, for row_sparse) kept when ``density`` is given."""
+    data = onp.random.uniform(-1, 1, size=shape).astype(dtype or onp.float32)
+    data = _sparsify(data, stype, density, onp.random)
+    arr = nd.array(data, ctx=ctx)
+    if stype != 'default':
+        from .ndarray import sparse
+        return sparse.cast_storage(arr, stype)
+    return arr
+
+
+def compare_optimizer(opt1, opt2, shapes, dtype, w_stype='default',
+                      g_stype='default', rtol=1e-4, atol=1e-5, ntrials=3):
+    """Run two optimizers over identical weight and gradient streams and
+    require the same weights and states (ref: test_utils.py
+    compare_optimizer). Weights are tensors on the current context's
+    device, as the port's optimizers take them;
+    ``w_stype`` is a storage tag the optimizers do not read (the weight's
+    payload is dense in both packages); with ``g_stype='row_sparse'``
+    each gradient has about half its rows zero and reaches ``update`` as
+    a RowSparseNDArray, so a ``lazy_update`` optimizer skips those
+    rows."""
+    from .context import current_context
+    from .ndarray.sparse import cast_storage
+    dev = current_context().device
+    for _ in range(ntrials):
+        w1, w2, g1, g2, s1, s2 = [], [], [], [], [], []
+        for i, shape in enumerate(shapes):
+            w = onp.random.uniform(-1, 1, shape).astype(dtype)
+            g = _sparsify(onp.random.uniform(-1, 1, shape).astype(dtype),
+                          g_stype, 0.5 if g_stype != 'default' else None,
+                          onp.random)
+            w1.append(torch.tensor(w, device=dev))
+            w2.append(torch.tensor(w, device=dev))
+            for gs in (g1, g2):
+                gt = torch.tensor(g, device=dev)
+                gs.append(cast_storage(nd.NDArray(gt), g_stype)
+                          if g_stype != 'default' else gt)
+            s1.append(opt1.create_state_multi_precision(i, w1[-1]))
+            s2.append(opt2.create_state_multi_precision(i, w2[-1]))
+        for i in range(len(shapes)):
+            opt1.update_multi_precision(i, w1[i], g1[i], s1[i])
+            opt2.update_multi_precision(i, w2[i], g2[i], s2[i])
+            for a, b in zip(_state_leaves(s1[i]), _state_leaves(s2[i])):
+                onp.testing.assert_allclose(a.cpu().numpy(),
+                                            b.cpu().numpy(), rtol=rtol,
+                                            atol=atol)
+            onp.testing.assert_allclose(w1[i].float().cpu().numpy(),
+                                        w2[i].float().cpu().numpy(),
+                                        rtol=rtol, atol=atol)
+
+
+def _state_leaves(s):
+    if s is None:
+        return []
+    if isinstance(s, torch.Tensor):
+        return [s]
+    return [t for x in s for t in _state_leaves(x)]
 
 RTC_SOURCE = r'''
 extern "C" __global__ void scale_add(const float *x, const float *y,

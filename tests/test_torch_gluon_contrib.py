@@ -3,7 +3,7 @@ nn.py``) against the JAX package's: ``HybridConcurrent`` and
 ``Concurrent`` (children on one input, concatenated), ``Identity`` and
 ``PixelShuffle2D`` on seeded inputs, within 1e-6 (f32 on the CPU), with
 the JAX children's weights carried by structured name; and
-``SparseEmbedding``, which raises naming ROADMAP item 12.
+``SparseEmbedding`` (row-sparse gradients) against the JAX layer.
 """
 import numpy as onp
 import pytest
@@ -80,5 +80,25 @@ def test_pixel_shuffle_matches_jax(factor):
 
 
 def test_sparse_embedding_raises_naming_the_sparse_item():
-    with pytest.raises(mt.MXNetError, match='item 12'):
-        tcnn.SparseEmbedding(10, 4)
+    """SparseEmbedding is ported (ROADMAP item 12): its gradient is a
+    RowSparseNDArray holding the looked-up rows, its output the JAX
+    layer's on the same weights; what still raises of the sparse surface
+    names its item (the KVStore's row_sparse_pull, item 8)."""
+    w0 = onp.random.RandomState(3).randn(10, 4).astype(onp.float32)
+    ids = onp.array([1, 7, 7], onp.float32)
+    outs = {}
+    for name, pk, cnn in (('jax', mj, jcnn), ('port', mt, tcnn)):
+        emb = cnn.SparseEmbedding(10, 4)
+        emb.initialize()
+        emb.weight.set_data(pk.nd.array(w0))
+        with pk.autograd.record():
+            out = emb(pk.nd.array(ids))
+            (out ** 2).sum().backward()
+        g = emb.weight.grad()
+        assert g.stype == 'row_sparse', name
+        assert sorted(g.indices.asnumpy().tolist()) == [1, 7]
+        outs[name] = (out.asnumpy(), g.asnumpy())
+    for got, want in zip(outs['port'], outs['jax']):
+        onp.testing.assert_allclose(got, want, rtol=1e-6)
+    with pytest.raises(mt.MXNetError, match='item 8'):
+        mt.kv.row_sparse_pull('w', row_ids=mt.nd.array([1]))

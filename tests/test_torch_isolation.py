@@ -520,3 +520,41 @@ def test_symbolic_entry_points_refuse_a_missing_card(device, tmp_path):
                                      ['data'],
                                      str(tmp_path / 'ck-0001.params'),
                                      ctx=ctx)
+
+
+SPARSE_MODULES = ('ndarray/sparse.py', 'ops/rowsparse.py',
+                  'ops/sparse_ops.py', 'ops/graph.py', 'kvstore.py',
+                  'models/wide_deep.py', 'optimizer/optimizer.py',
+                  'gluon/parameter.py', 'gluon/trainer.py',
+                  'checkpoint/manager.py', 'test_utils.py')
+
+
+@pytest.mark.parametrize('module', SPARSE_MODULES)
+def test_sparse_modules_import_no_jax(module):
+    """The sparse slice's modules (sparse NDArrays, the dedup and the
+    RowSparse capture, the storage ops, the DGL ops, Wide & Deep) are
+    among the files checked above and import neither jax nor the
+    reference package."""
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_sparse_modules_loads_no_jax():
+    """In a fresh interpreter, importing nd.sparse, the sparse ops, the
+    DGL ops and Wide & Deep loads neither jax nor the JAX package."""
+    import subprocess
+    import sys
+    code = ('import sys\n'
+            'import mxnet_tpu_torch.ndarray.sparse, '
+            'mxnet_tpu_torch.ops.rowsparse, mxnet_tpu_torch.ops.sparse_ops, '
+            'mxnet_tpu_torch.ops.graph, mxnet_tpu_torch.models.wide_deep\n'
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "mxnet_tpu")))')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
