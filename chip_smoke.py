@@ -7798,6 +7798,376 @@ def sparse_phase(card, device='cuda', example=None, criteo=None,
     return out
 
 
+# the ops phase: MXNet 1.6's op surface on the card (mxnet_tpu_torch's
+# registry, nd.linalg, nd.random, mx.np, mx.npx and the quantized ops)
+
+def ops_registry_on_card(card, device='cuda'):
+    """(a) Every registered op on CUDA tensors against the same op on the
+    CPU, on the sweep's inputs (mxnet_tpu_torch/_op_cases.py's
+    ``card_case``: the CPU tests' cases, and inputs of their own for the
+    ops whose parity with the JAX package other test files hold), by
+    mxnet_tpu_torch/_op_checks.py's rules: f32 at rel 1e-4 of the
+    output's scale (bf16/f16 at 1e-2), integer, bool and the quantized
+    int32 outputs exactly, dtypes and shapes exactly, the decompositions
+    by their residuals. Then every sampler on the card against its law
+    (moments, KS or chi-square, and the structural rules). Host-only ops
+    are named."""
+    from mxnet_tpu_torch import _op_cases as C
+    from mxnet_tpu_torch import _op_checks as K
+    from mxnet_tpu_torch.base import list_ops
+    ops = list_ops()
+    worst, held, failed = {}, [], []
+    t0 = time.perf_counter()
+    for op in ops:
+        err, fault = K.compare_on_device(op, device, SEED)
+        if fault:
+            failed.append(f'{op}: {fault}')
+            continue
+        held.append(op)
+        fam = K.family(op)
+        worst[fam] = max(worst.get(fam, 0.0), err)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    worst_z, worst_p, lawless = 0.0, 1.0, []
+    for op in sorted(K.LAWS):
+        z, p, fault = K.law_check(op, device, seed=SEED)
+        worst_z, worst_p = max(worst_z, z), min(worst_p, p)
+        if fault:
+            lawless.append(f'{op}: {fault}')
+    law_seconds = time.perf_counter() - t0
+    host = sorted(o for o in held if o in C.HOST)
+    print(f'  (a) the registry on {card}: {len(ops)} ops registered, '
+          f'{len(ops)} run on the card against the CPU, {len(held)} held, '
+          f'{len(failed)} not; host-only: {", ".join(host)}; '
+          f'{seconds:.1f} s')
+    print('      worst error by family (f32 rel to the output scale): ' +
+          ', '.join(f'{k} {v:.3g}' for k, v in sorted(worst.items())))
+    print(f'      samplers on the card against their laws: '
+          f'{len(K.LAWS) - len(lawless)} of {len(K.LAWS)} held, worst mean '
+          f'{worst_z:.2f} standard errors, worst test p {worst_p:.3g}; '
+          f'{law_seconds:.1f} s')
+    check(not failed, 'ops that did not hold on the card: ' +
+          '; '.join(failed[:20]))
+    check(not lawless, 'samplers that did not hold their laws: ' +
+          '; '.join(lawless))
+    check(set(C.RANDOM) <= set(K.LAWS),
+          f'samplers without a law: {sorted(set(C.RANDOM) - set(K.LAWS))}')
+    return dict(registered=len(ops), run=len(ops), held=len(held),
+                worst=worst, seconds=seconds, law_seconds=law_seconds,
+                laws=len(K.LAWS), test_p=worst_p, mean_z=worst_z)
+
+
+def _timed(fn, device='cuda'):
+    """(result, device ms, host ms) of one call: CUDA events around it,
+    and the host's wall time to issue it."""
+    import torch
+    if device != 'cuda':
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, ms
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), host
+
+
+def ops_bert_adamw(card, device='cuda', cfg=None, batch=8, seq=512):
+    """(b) BERT-base at full width through the op surface: every weight
+    drawn with nd.random.normal(0, 0.02) on the card from a seeded
+    mx.random.seed (sample mean and std held, the same seed drawing the
+    same numbers), the flagship batch's gradients from one
+    ShardedTrainStep step (bf16; the flash kernels launch), then one
+    AdamW update three ways from the same f32 state: nd.adamw_update per
+    parameter with out= the weight, nd.multi_adamw_update, and the
+    Trainer's fused update. Returns the launch counts of the step."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config,
+                                             bert_pretrain_loss)
+    os.environ['MXTPU_PALLAS_LN'] = '1'
+    os.environ['MXTPU_PALLAS_FFN'] = '1'
+    cfg = cfg or bert_base_config()
+    ctx = mt.Context('gpu' if device == 'cuda' else 'cpu', 0)
+    dt = torch.bfloat16 if device == 'cuda' else torch.float32
+    net = BertForPretraining(dict(cfg, dropout=0.1), dtype=dt, device=device,
+                             generator=torch.Generator(device).manual_seed(
+                                 SEED + 5))
+    names = [n for n, _ in net.named_parameters() if n.endswith('weight')]
+    params = dict(net.named_parameters())
+
+    def draw():
+        mt.random.seed(SEED)
+        return {n: mt.nd.random.normal(0, 0.02, shape=tuple(params[n].shape),
+                                       ctx=ctx) for n in names}
+    (draws, dev_ms, host_ms) = _timed(draw, device)
+    flat = torch.cat([d._data.reshape(-1) for d in draws.values()])
+    n = flat.numel()
+    mean = float(flat.double().mean())
+    std = float(flat.double().std())
+    again = draw()
+    same = all(torch.equal(again[k]._data, draws[k]._data) for k in names)
+    print(f'  (b) BERT-base init through nd.random.normal(0, 0.02) on '
+          f'{card}: {n} floats in {len(names)} weights, mean {mean:.3g}, '
+          f'std {std:.6g}, {dev_ms:.1f} ms device / {host_ms:.1f} ms host; '
+          f'the same seed draws the same numbers: {same}')
+    check(abs(mean) < 5 * 0.02 / onp.sqrt(n), f'init mean {mean}')
+    check(abs(std / 0.02 - 1) < 5 / onp.sqrt(2 * n), f'init std {std}')
+    check(same, 'the same seed drew other numbers')
+    check(all(d._data.device.type == device for d in draws.values()),
+          'a draw left the card')
+    with torch.no_grad():
+        for k in names:
+            params[k].copy_(draws[k]._data.to(params[k].dtype))
+    del draws, again, flat
+    w0 = {k: p.detach().float().clone() for k, p in params.items()}
+
+    step = parallel.ShardedTrainStep(
+        net, bert_pretrain_loss, 'adamw', {'learning_rate': 1e-4, 'wd': 0.01},
+        **({} if device == 'cuda' else
+           {'mesh': parallel.make_mesh(devices=['cpu'])}))
+    data, _ = pretraining_batch(cfg, batch, seq, SEED)
+    t = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    # the step hands its f32 gradients to its update: keep the first
+    # (eager) step's, taken at the drawn weights
+    grads, update = {}, step._opt_update
+
+    def keep(p32, gs, *args, **kwargs):
+        if not grads:
+            for (k, _), g in zip(step._trainable, gs):
+                grads[k] = g.detach().clone()
+        return update(p32, gs, *args, **kwargs)
+    step._opt_update = keep
+    _zero_counters()
+    loss = float(step([t['tokens'], t['types'], t['valid'], t['mpos']],
+                      [t['labels'], t['nsp']]))
+    launched, _, _ = _flash_counts()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    check(set(grads) == set(w0) and all(
+        grads[k].shape == w0[k].shape for k in w0),
+        'the step did not give every gradient')
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          'a gradient is not finite')
+    print(f'      one ShardedTrainStep step (B={batch}, T={seq}, {dt}): loss '
+          f'{loss:.4f}, launches {launched}')
+    del step
+    keys = list(w0)
+    hp = dict(lr=1e-4, wd=0.01)
+
+    def route_nd():
+        out = {}
+        for k in keys:
+            w = mt.nd.NDArray(w0[k].clone())
+            m = mt.nd.NDArray(torch.zeros_like(w0[k]))
+            v = mt.nd.NDArray(torch.zeros_like(w0[k]))
+            r = mt.nd.adamw_update(w, mt.nd.NDArray(grads[k]), m, v, out=w,
+                                   **hp)
+            check(r is w, 'nd.adamw_update(out=w) did not return w')
+            out[k] = (w._data, m._data, v._data)
+        return out
+
+    def route_multi():
+        ws = [mt.nd.NDArray(w0[k].clone()) for k in keys]
+        ms = [mt.nd.NDArray(torch.zeros_like(w0[k])) for k in keys]
+        vs = [mt.nd.NDArray(torch.zeros_like(w0[k])) for k in keys]
+        mt.nd.multi_adamw_update(
+            ws, [mt.nd.NDArray(grads[k]) for k in keys], ms, vs,
+            mt.nd.NDArray(torch.ones(1, device=device)),
+            [hp['lr']] * len(keys), [1.0] * len(keys),
+            [hp['wd']] * len(keys), out=ws)
+        return {k: (w._data, m._data, v._data)
+                for k, w, m, v in zip(keys, ws, ms, vs)}
+
+    net32 = BertForPretraining(dict(cfg, dropout=0.1), dtype=torch.float32,
+                               device=device)
+    p32 = dict(net32.named_parameters())
+    trainer = gluon.Trainer(net32.collect_params(), 'adamw',
+                            {'learning_rate': hp['lr'], 'wd': hp['wd']})
+
+    def set_grads():
+        with torch.no_grad():
+            for k in keys:
+                p32[k].grad = grads[k].clone()
+
+    def route_trainer():
+        with torch.no_grad():
+            for k in keys:
+                p32[k].copy_(w0[k])
+        set_grads()
+        trainer.step(1)
+        return {k: p32[k].detach().clone() for k in keys}
+
+    results, times = {}, {}
+    for name, fn in (('nd.adamw_update', route_nd),
+                     ('nd.multi_adamw_update', route_multi)):
+        fn()                              # first call: build and warm up
+        results[name], dev, host = _timed(fn, device)
+        times[name] = (dev, host)
+    # the Trainer's first step captures its fused update; its time is the
+    # second step's (a replay), its values the first step's
+    w_tr = route_trainer()
+    set_grads()
+    _, dev, host = _timed(lambda: trainer.step(1), device)
+    times['the Trainer\'s fused update'] = (dev, host)
+    a, b = results['nd.adamw_update'], results['nd.multi_adamw_update']
+    same_tr = all(torch.equal(a[k][0], w_tr[k]) for k in keys)
+    same_mv = all(torch.equal(a[k][1], b[k][1]) and
+                  torch.equal(a[k][2], b[k][2]) for k in keys)
+    rel = max(float((a[k][0] - b[k][0]).abs().max()) /
+              max(float(b[k][0].abs().max()), 1e-30) for k in keys)
+    for name, (dev, host) in times.items():
+        print(f'      AdamW via {name}: {dev:.2f} ms device, {host:.2f} ms '
+              f'host ({len(keys)} tensors)')
+    print(f'      nd.adamw_update vs the Trainer: weights bitwise equal: '
+          f'{same_tr}; vs nd.multi_adamw_update: moments bitwise equal: '
+          f'{same_mv}, weights max rel diff {rel:.3g} (their arithmetic '
+          f'orders lr*(eta*m/..) against eta*(lr*m/..))')
+    check(same_tr, 'nd.adamw_update and the Trainer disagree')
+    check(same_mv, 'the AdamW moments disagree')
+    check(rel <= 1e-6, f'AdamW weights: rel {rel} > 1e-6')
+    del net32, trainer, results, w_tr
+    return launched, dict(loss=loss, init_mean=mean, init_std=std,
+                          routes_ms=times, multi_rel=rel)
+
+
+def ops_at_size(card, device='cuda', M=4096, K=768, N=3072, B=8, H=12,
+                T=512, D=64):
+    """(c) linalg and np at size: nd.linalg.gemm2 at FFN1's M x K x N in
+    bf16 and f32 against torch.matmul; potrf, trsm and syevd on a K x K
+    Gram matrix of a BERT-sized weight by f64 reconstruction; the
+    attention scores through mx.np.einsum and npx.softmax(length=)
+    against nd.batch_dot and nd.softmax; the int8 FFN1 product through
+    quantized_fully_connected (exact int32 through f64) against
+    torch._int_mm."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.base import get_op
+    ctx = mt.Context('gpu' if device == 'cuda' else 'cpu', 0)
+    gen = torch.Generator(device).manual_seed(SEED + 7)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.randn(M, K, generator=gen, device=device).to(dt)
+        b = torch.randn(K, N, generator=gen, device=device).to(dt)
+        got = mt.nd.linalg.gemm2(mt.nd.NDArray(a), mt.nd.NDArray(b))._data
+        want = torch.matmul(a, b)
+        check(torch.equal(got, want), f'gemm2 {dt} differs from matmul')
+        ms = stream_ms(lambda: mt.nd.linalg.gemm2(mt.nd.NDArray(a),
+                                                  mt.nd.NDArray(b)))
+        lib = stream_ms(lambda: torch.matmul(a, b))
+        out[f'gemm2_{dt}'] = (ms, lib)
+        print(f'  (c) nd.linalg.gemm2 {M}x{K}x{N} {str(dt)[6:]} on {card}: '
+              f'{ms:.4f} ms (torch.matmul {lib:.4f} ms), bitwise equal')
+    w = torch.randn(3 * K, K, generator=gen, device=device) * 0.02
+    gram = w.t() @ w + 1e-3 * torch.eye(K, device=device)
+    G = gram.double().cpu().numpy()
+    L = mt.nd.linalg.potrf(mt.nd.NDArray(gram))._data
+    Ld = L.double().cpu().numpy()
+    e_potrf = onp.abs(Ld @ Ld.T - G).max() / onp.abs(G).max()
+    rhs = torch.randn(K, 64, generator=gen, device=device)
+    X = mt.nd.linalg.trsm(mt.nd.NDArray(L), mt.nd.NDArray(rhs))._data
+    e_trsm = onp.abs(Ld @ X.double().cpu().numpy() -
+                     rhs.double().cpu().numpy()).max() / float(
+                         rhs.abs().max())
+    U, lam = [x._data.double().cpu().numpy() for x in
+              mt.nd.linalg_syevd(mt.nd.NDArray(gram))]
+    e_syevd = onp.abs(U.T @ onp.diag(lam) @ U - G).max() / onp.abs(G).max()
+    e_orth = onp.abs(U @ U.T - onp.eye(K)).max()
+    times = {n: stream_ms(f, iters=5, warmup=1) for n, f in (
+        ('potrf', lambda: mt.nd.linalg.potrf(mt.nd.NDArray(gram))),
+        ('trsm', lambda: mt.nd.linalg.trsm(mt.nd.NDArray(L),
+                                           mt.nd.NDArray(rhs))),
+        ('syevd', lambda: mt.nd.linalg_syevd(mt.nd.NDArray(gram))))}
+    print(f'      {K}x{K} Gram matrix of a {3 * K}x{K} weight: potrf '
+          f'|LLt-A|/|A| {e_potrf:.2g} ({times["potrf"]:.3f} ms), trsm '
+          f'|LX-B|/|B| {e_trsm:.2g} ({times["trsm"]:.3f} ms), syevd '
+          f'|UtLU-A|/|A| {e_syevd:.2g}, |UUt-I| {e_orth:.2g} '
+          f'({times["syevd"]:.3f} ms), eigenvalues ascending '
+          f'{bool((onp.diff(lam) >= 0).all())}')
+    check(e_potrf < 1e-5 and e_trsm < 1e-4 and e_syevd < 1e-5 and
+          e_orth < 1e-4 and (onp.diff(lam) >= 0).all(),
+          'a decomposition does not reconstruct')
+    out.update(potrf=(e_potrf, times['potrf']), trsm=(e_trsm, times['trsm']),
+               syevd=(e_syevd, times['syevd']))
+
+    q = torch.randn(B, H, T, D, generator=gen, device=device)
+    k = torch.randn(B, H, T, D, generator=gen, device=device)
+    valid = torch.randint(T // 2, T + 1, (B,), generator=gen, device=device)
+    length = valid[:, None, None].expand(B, H, T).to(torch.int32)
+    with ctx:
+        qn, kn = mt.np.array(q), mt.np.array(k)
+
+        def via_np():
+            s = mt.np.einsum('bhqd,bhkd->bhqk', qn, kn)
+            return mt.npx.softmax(s, length=mt.np.array(length))
+
+        def via_nd():
+            s = mt.nd.batch_dot(mt.nd.NDArray(q.reshape(B * H, T, D)),
+                                mt.nd.NDArray(k.reshape(B * H, T, D)),
+                                transpose_b=True).reshape((B, H, T, T))
+            return mt.nd.softmax(s, length=mt.nd.NDArray(length))
+        got, want = via_np()._data, via_nd()._data
+        e = float((got - want).abs().max())
+        ms_np = stream_ms(via_np, iters=10)
+        ms_nd = stream_ms(via_nd, iters=10)
+    print(f'      mx.np.einsum + npx.softmax(length=) at {B}x{H}x{T}x{D}: '
+          f'max abs diff {e:.3g} against nd.batch_dot + nd.softmax; '
+          f'{ms_np:.3f} ms against {ms_nd:.3f} ms')
+    check(e < 1e-5, f'einsum attention differs by {e}')
+    out['einsum'] = (e, ms_np, ms_nd)
+
+    qd = torch.randint(-127, 128, (M, K), generator=gen, device=device,
+                       dtype=torch.int32).to(torch.int8)
+    qw = torch.randint(-127, 128, (N, K), generator=gen, device=device,
+                       dtype=torch.int32).to(torch.int8)
+    fc = get_op('quantized_fully_connected').fn
+    kw = dict(min_data=-1.0, max_data=1.0, min_weight=-1.0, max_weight=1.0,
+              no_bias=True)
+    got = fc(qd, qw, **kw)[0]
+    want = fc(qd.cpu(), qw.cpu(), **kw)[0]
+    check(torch.equal(got.cpu(), want), 'the int32 FC differs from the CPU')
+    ms_q = stream_ms(lambda: fc(qd, qw, **kw), iters=10)
+    lib = None
+    if device == 'cuda':
+        ref = torch._int_mm(qd, qw.t().contiguous())
+        check(torch.equal(ref, got), 'the int32 FC differs from _int_mm')
+        wt = qw.t().contiguous()
+        lib = stream_ms(lambda: torch._int_mm(qd, wt), iters=10)
+    print(f'      quantized_fully_connected int8 {M}x{K}x{N} -> int32 '
+          f'(float64 route): {ms_q:.3f} ms, bit for bit equal to the CPU'
+          + (f' and to torch._int_mm ({lib:.4f} ms)' if lib else ''))
+    out['quantized_fc'] = (ms_q, lib)
+    return out
+
+
+def ops_phase(card, device='cuda'):
+    """MXNet 1.6's op surface on the card: (a) every registered op against
+    the CPU, (b) BERT-base through nd.random and three AdamW routes, (c)
+    linalg and np at size. The launch counters are set to 0 just before
+    (b)'s step and read just after it: it launches the flash kernels."""
+    import torch
+    t0 = time.perf_counter()
+    print(f'ops phase on {card}: every registered op, BERT-base through '
+          f'nd.random and nd.adamw_update, linalg and np at size')
+    out = {'registry': ops_registry_on_card(card, device)}
+    launched, out['bert'] = ops_bert_adamw(card, device)
+    out['size'] = ops_at_size(card, device)
+    out['seconds'] = time.perf_counter() - t0
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    print(f'  ops phase: {out["seconds"]:.1f} s')
+    return launched, out
+
 SYM_ROWS = ('flash_attn_fwd', 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
 TILED = {'flash_attn_fwd': 'fwd', 'flash_attn_bwd_dq': 'bwd',
          'flash_attn_bwd_dkv': 'bwd'}
@@ -7895,6 +8265,7 @@ def _run():
         _det = det_phase(card, work)
     sym, sym_fwd, sym_bwd, _sym = sym_phase(card)
     _sparse = sparse_phase(card)
+    ops, _ops = ops_phase(card)
     serving, serve_replay, _serving = serving_phase(card)
     front, front_http, _front = front_phase(card)
     training, _train = training_phase(card)
@@ -7922,7 +8293,7 @@ def _run():
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
              'ndarray', 'gluon', 'io', 'dp', 'remat', 'autotune', 'zero3',
-             'resilience', 'lm', 'sym')
+             'resilience', 'lm', 'sym', 'ops')
     by_path = {}
     for name in rows:
         base, f16 = name.split('[')[0], name.endswith('[float16]')
@@ -7940,7 +8311,8 @@ def _run():
             dp=dp.get(name, 0),
             remat=remat.get(name, 0), autotune=tuned.get(name, 0),
             zero3=zero3.get(name, 0), resilience=resil.get(name, 0),
-            lm=lm.get(name, 0), sym=sym.get(name, 0))
+            lm=lm.get(name, 0), sym=sym.get(name, 0),
+            ops=ops.get(name, 0))
     for name in user_rows:
         by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
     idle = [n for n, paths_n in by_path.items()

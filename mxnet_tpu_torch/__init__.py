@@ -41,14 +41,24 @@ pairs), ``callback``, ``monitor``, ``visualization``, ``name``,
 (CSR and RowSparse NDArrays), ``Embedding(sparse_grad=True)`` with lazy
 updates in the Trainer and the RowSparse path of ``ShardedTrainStep``
 (``ops/rowsparse.py``), and the DGL graph ops (``ops/graph.py``).
+MXNet 1.6's whole op surface is registered (``list_ops``,
+``register_op``; every name of its op inventory resolves through
+``base.get_op``), with ``nd.linalg``, ``nd.random``, ``mx.np``
+(``numpy``), ``mx.npx`` (``numpy_extension``), the quantized ops,
+``util``, ``registry`` and ``seed``.
 """
-from .base import MXNetError
+from .base import MXNetError, list_ops, register_op
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
     num_gpus, tpu
 from . import (amp, autograd, checkpoint, config, context, contrib, engine,
                gluon, image, initializer, io, lr_scheduler, metric, models,
                ndarray, ops, optimizer, parallel, random, recordio,
-               resilience, rtc, serialization, serving, telemetry, weights)
+               registry, resilience, rtc, serialization, serving, telemetry,
+               util, weights)
+from .random import seed
+from . import numpy, numpy_extension
+from . import numpy as np
+from . import numpy_extension as npx
 from . import ndarray as nd
 from . import initializer as init
 from . import (attribute, callback, executor, executor_manager, kvstore,
@@ -58,6 +68,7 @@ from . import kvstore as kv
 from . import symbol as sym
 from . import module as mod
 from .attribute import AttrScope
+from . import test_utils
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',
@@ -69,4 +80,6 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'engine', 'gluon', 'image', 'init', 'initializer', 'io',
            'lr_scheduler', 'metric', 'models', 'nd', 'ndarray', 'ops', 'optimizer',
            'parallel', 'random', 'recordio', 'resilience', 'rtc',
-           'serialization', 'serving', 'telemetry', 'weights']
+           'serialization', 'serving', 'telemetry', 'weights', 'list_ops',
+           'register_op', 'seed', 'np', 'npx', 'numpy', 'numpy_extension',
+           'registry', 'test_utils', 'util']

@@ -86,12 +86,19 @@ def invoke(fn, args, kwargs):
 
     inputs = [a for a in args if isinstance(a, NDArray)]
     inputs += [v for v in kwargs.values() if isinstance(v, NDArray)]
+    # the multi-tensor ops take lists of arrays: a list or tuple that
+    # holds one is passed on as a list of tensors, any other as it is
+    lists = {i for i, a in enumerate(args) if isinstance(a, (list, tuple))
+             and any(isinstance(x, NDArray) for x in a)}
+    inputs += [x for i in lists for x in args[i] if isinstance(x, NDArray)]
     recording = state.is_recording and any(a._in_graph for a in inputs)
     if recording:
         for a in inputs:
             if a._grad is not None:
                 leaf_tensor(a)
-    call_args = [a._data if isinstance(a, NDArray) else a for a in args]
+    call_args = [a._data if isinstance(a, NDArray) else
+                 [x._data if isinstance(x, NDArray) else x for x in a]
+                 if i in lists else a for i, a in enumerate(args)]
     call_kwargs = {k: (v._data if isinstance(v, NDArray) else v)
                    for k, v in kwargs.items()}
     try:

@@ -17,7 +17,8 @@ import numpy as onp
 import torch
 
 __all__ = ['MXNetError', 'DataError', 'OpDef', 'register_op',
-           'register_op_alias', 'get_op', 'list_ops',
+           'register_op_alias', 'get_op', 'list_ops', 'list_op_aliases',
+           'mutated_input_indices',
            'register_sparse_impl', 'lookup_sparse_impl',
            'state', 'telem_flags', 'torch_dtype']
 
@@ -57,12 +58,20 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 class OpDef:
-    __slots__ = ('name', 'fn', 'num_outputs')
+    __slots__ = ('name', 'fn', 'num_outputs', 'mutate_inputs', 'nograd',
+                 'doc')
 
-    def __init__(self, name: str, fn: Callable, num_outputs: int = 1):
+    def __init__(self, name: str, fn: Callable, num_outputs: int = 1,
+                 mutate_inputs=(), nograd: bool = False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs   # -1: set by the op's arguments
+        # the inputs the op rewrites in place, by index, or 'all'
+        # (``mutated_input_indices``): ``nd.<op>`` writes the op's
+        # outputs back into them, as MXNet's in-place updates do
+        self.mutate_inputs = mutate_inputs
+        self.nograd = nograd
+        self.doc = fn.__doc__ or ''
 
 
 _OP_REGISTRY: Dict[str, OpDef] = {}
@@ -72,13 +81,22 @@ _OP_REGISTRY: Dict[str, OpDef] = {}
 _OP_ALIASES: Dict[str, str] = {}
 
 
-def register_op(name: Optional[str] = None, num_outputs: int = 1):
+def register_op(name: Optional[str] = None, num_outputs: int = 1,
+                mutate_inputs=(), nograd: bool = False):
     """Register a function over torch tensors as a framework op."""
     def deco(fn: Callable):
         opname = name or fn.__name__
-        _OP_REGISTRY[opname] = OpDef(opname, fn, num_outputs)
+        _OP_REGISTRY[opname] = OpDef(opname, fn, num_outputs,
+                                     mutate_inputs, nograd)
         return fn
     return deco
+
+
+def mutated_input_indices(opdef: OpDef, num_inputs: int) -> tuple:
+    """The indices of the inputs ``opdef`` mutates, 'all' resolved."""
+    if opdef.mutate_inputs == 'all':
+        return tuple(range(num_inputs))
+    return tuple(opdef.mutate_inputs)
 
 
 def register_op_alias(alias: str, canonical: str):
@@ -86,6 +104,8 @@ def register_op_alias(alias: str, canonical: str):
     if canonical not in _OP_REGISTRY:
         raise MXNetError(f"Cannot alias {alias!r}: target {canonical!r} "
                          f"is not registered")
+    if alias in _OP_REGISTRY:
+        raise MXNetError(f"Alias {alias!r} collides with a registered op")
     _OP_ALIASES[alias] = canonical
 
 
@@ -98,6 +118,10 @@ def get_op(name: str) -> OpDef:
 
 def list_ops():
     return sorted(_OP_REGISTRY)
+
+
+def list_op_aliases():
+    return dict(_OP_ALIASES)
 
 
 # Storage-driven kernel dispatch (ref: FComputeEx,

@@ -14,8 +14,6 @@ package: the base one steps each child, so a stack holding a
 """
 from __future__ import annotations
 
-import torch
-
 from ...base import MXNetError
 from ... import ndarray as nd
 from ..block import Block
@@ -23,33 +21,6 @@ from ..block import Block
 __all__ = ['RecurrentCell', 'HybridRecurrentCell', 'RNNCell', 'LSTMCell',
            'GRUCell', 'SequentialRNNCell', 'DropoutCell', 'ModifierCell',
            'ZoneoutCell', 'ResidualCell', 'BidirectionalCell']
-
-
-def _sequence_mask(data, length, axis):
-    """Steps at or past each sequence's length set to 0 (the JAX
-    package's ``ops/sequence.py`` ``sequence_mask``)."""
-    pos = torch.arange(data.shape[axis], device=data.device)
-    shape = [1] * data.dim()
-    shape[axis] = -1
-    lshape = [1] * data.dim()
-    lshape[1 - axis] = -1
-    mask = pos.reshape(shape) < length.reshape(lshape)
-    return torch.where(mask, data, torch.zeros((), dtype=data.dtype,
-                                               device=data.device))
-
-
-def _sequence_reverse(data, length, axis):
-    """Each sequence's first ``length`` steps reversed, the rest in place
-    (``ops/sequence.py`` ``sequence_reverse``)."""
-    if axis != 0:
-        data = data.movedim(axis, 0)
-    pos = torch.arange(data.shape[0], device=data.device)[:, None]
-    L = length.to(torch.int64)[None, :]
-    idx = torch.where(pos < L, L - 1 - pos, pos)
-    idx = idx.reshape(idx.shape + (1,) * (data.dim() - 2)).expand(
-        data.shape)
-    out = data.gather(0, idx)
-    return out.movedim(0, axis) if axis != 0 else out
 
 
 class RecurrentCell(Block):
@@ -110,8 +81,8 @@ class RecurrentCell(Block):
             outputs.append(out)
         if valid_length is not None:
             stacked = nd.stack(*outputs, axis=axis)
-            stacked = nd._invoke(_sequence_mask, stacked, valid_length,
-                                 axis=axis)
+            stacked = nd.sequence_mask(stacked, valid_length,
+                                       use_sequence_length=True, axis=axis)
             if merge_outputs is False:
                 outputs = [nd._invoke(lambda d, t=t: d[:, t] if axis == 1
                                       else d[t], stacked)
@@ -423,15 +394,16 @@ class BidirectionalCell(HybridRecurrentCell):
         if valid_length is None:
             rev_inputs = nd.flip(inputs, axis=(axis,))
         else:
-            rev_inputs = nd._invoke(_sequence_reverse, inputs, valid_length,
-                                    axis=axis)
+            rev_inputs = nd.sequence_reverse(
+                inputs, valid_length, use_sequence_length=True, axis=axis)
         r_outputs, r_states = r_cell.unroll(
             length, rev_inputs, begin_state[n_l:], layout,
             merge_outputs=True, valid_length=valid_length)
         if valid_length is None:
             r_outputs = nd.flip(r_outputs, axis=(axis,))
         else:
-            r_outputs = nd._invoke(_sequence_reverse, r_outputs,
-                                   valid_length, axis=axis)
+            r_outputs = nd.sequence_reverse(
+                r_outputs, valid_length, use_sequence_length=True,
+                axis=axis)
         outputs = nd.concat(l_outputs, r_outputs, dim=2)
         return outputs, l_states + r_states

@@ -4,8 +4,9 @@ python/mxnet/ndarray/__init__.py).
 
 ``nd.contrib`` holds the control-flow operators and the contrib and
 attention ops; ``nd.Custom`` is ``operator.register``'s custom op;
-``nd.sparse`` the CSR and RowSparse arrays. ``nd.linalg`` and
-``nd.random`` are not ported yet.
+``nd.sparse`` the CSR and RowSparse arrays; ``nd.linalg`` the
+``linalg_*`` ops under MXNet's short names and ``nd.random`` the
+samplers.
 """
 from .ndarray import (NDArray, array, zeros, ones, full, arange, empty,
                       concat, stack, save, load, load_frombuffer,
@@ -15,6 +16,8 @@ from . import register as _register
 from .utils import split_data, split_and_load  # noqa: F401
 from . import contrib  # noqa: F401
 from . import sparse  # noqa: F401
+from . import random  # noqa: F401
+from . import linalg  # noqa: F401
 
 # op wrappers from the registry; the creation ops keep their ctx-aware
 # front-ends above
@@ -31,9 +34,7 @@ def __getattr__(name):
                              f"attribute {name!r}")
 
     def wrapper(*args, **kwargs):
-        kwargs.pop('out', None)
-        kwargs.pop('name', None)
-        return imperative_invoke(name, *args, **kwargs)
+        return _register.make_wrapper(_OP_REGISTRY[name])(*args, **kwargs)
 
     wrapper.__name__ = wrapper.__qualname__ = name
     globals()[name] = wrapper

@@ -449,16 +449,25 @@ def _invoke(fn, *args, **kwargs):
         return fn(*args, **kwargs)
     fn = _storage_dispatch(fn, args, kwargs)
     out, recording = _imperative.invoke(fn, args, kwargs)
-    if isinstance(out, tuple):
-        outs = tuple(NDArray(o) for o in out)
-        if recording:
-            for o in outs:
-                _imperative.record_output(o)
-        return outs
+    if isinstance(out, (tuple, list)):
+        return _wrap_outputs(out, recording)
     out = NDArray(out)
     if recording:
         _imperative.record_output(out)
     return out
+
+
+def _wrap_outputs(out, recording):
+    """An op's tuple (or list) of outputs as NDArrays, nested lists (the
+    multi-tensor updates) included."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap_outputs(o, recording) for o in out)
+    if not isinstance(out, torch.Tensor):
+        return out
+    arr = NDArray(out)
+    if recording:
+        _imperative.record_output(arr)
+    return arr
 
 
 def _storage_dispatch(fn, args, kwargs):

@@ -34,17 +34,40 @@ package left them to XLA.
 launches of the flash forward, dq, dk/dv and FFN1 kernels by variant,
 ``dtype_counts`` by dtype and ``tile_counts`` the flash kernels' by tile
 (see ``_build``).
+
+``random_ops``, ``sequence``, ``quantization`` (int8 products exact in
+int32 through float64), ``numpy_ops`` (the ``_npi_*``/``_np_*`` ops of
+``mx.np``) and ``ref_compat`` (MXNet's long tail) complete the JAX
+package's registry; ``ref_aliases``, imported last, makes every name of
+MXNet 1.6's op inventory resolve through ``get_op``, as the JAX package's
+``ops/__init__.py`` does.
 """
 from ._build import (dtype_counts, launch_counts, reset_launch_counts,
                      tile_counts, variant_counts)
-from . import (attention, autotune, contrib, detection, elemwise,
-               flash_attention, fused_ffn, fused_layernorm, graph, index,
-               init, matrix, misc, nn, optimizer_ops, reduce, rowsparse,
-               sparse_ops)
+from . import (elemwise, reduce, matrix, nn, index, init, random_ops,
+               optimizer_ops, sequence, attention, contrib, detection, misc,
+               control_flow, quantization, numpy_ops, sparse_ops, graph,
+               ref_compat)
+from . import ref_aliases  # after every op module
+from . import (autotune, flash_attention, fused_ffn, fused_layernorm,
+               rowsparse)
+from ..base import _OP_REGISTRY, register_op as _register_op
 
-__all__ = ['attention', 'autotune', 'contrib', 'detection', 'elemwise',
-           'flash_attention',
+__all__ = ['attention', 'autotune', 'contrib', 'control_flow', 'detection',
+           'elemwise', 'flash_attention',
            'fused_ffn', 'fused_layernorm', 'graph', 'index', 'init',
-           'matrix', 'misc', 'nn', 'rowsparse', 'sparse_ops',
+           'matrix', 'misc', 'nn', 'numpy_ops', 'quantization',
+           'random_ops', 'ref_aliases', 'ref_compat', 'rowsparse',
+           'sequence', 'sparse_ops',
            'optimizer_ops', 'reduce', 'launch_counts', 'reset_launch_counts',
            'variant_counts', 'dtype_counts', 'tile_counts']
+
+
+# the counts of outputs the symbolic API needs for this slice's
+# multi-output ops (from the JAX package's ``ops/__init__.py`` table; the
+# ops ported earlier declare theirs where they are registered)
+for _name, _n in [('hawkes_ll', 2), ('sgd_mom_update', 2),
+                  ('adam_update', 3)]:
+    _od = _OP_REGISTRY[_name]
+    _register_op(_name, num_outputs=_n, mutate_inputs=_od.mutate_inputs,
+                  nograd=_od.nograd)(_od.fn)

@@ -6,7 +6,8 @@ dot.cc,ordering_op.cc}).
 because no NDArray is ever written in place: writes rebind an NDArray to
 a new tensor (see ``ndarray/ndarray.py``). ``dot`` and ``batch_dot`` are
 torch products, as the JAX package left them to XLA. The ``linalg_*``
-ops are not ported yet.
+ops (ref: la_op.cc) are ``torch.matmul`` and ``torch.linalg`` (cuBLAS
+and cuSOLVER on the card), as the JAX package left them to XLA.
 """
 from __future__ import annotations
 
@@ -369,3 +370,100 @@ def histogram(data, bin_cnt=10, range=None):
     keep = (idx >= 0) & (idx < bin_cnt)
     hist = torch.bincount(idx[keep], minlength=bin_cnt).to(data.dtype)
     return hist, edges.to(data.dtype)
+
+
+# --- linalg (ref: src/operator/tensor/la_op.cc) ----------------------------
+
+def _t(x):
+    return x.transpose(-1, -2)
+
+
+@_reg
+def linalg_gemm(A, B, C, transpose_a=False, transpose_b=False, alpha=1.0,
+                beta=1.0):
+    a = _t(A) if transpose_a else A
+    b = _t(B) if transpose_b else B
+    return alpha * torch.matmul(a, b) + beta * C
+
+
+@_reg
+def linalg_gemm2(A, B, transpose_a=False, transpose_b=False, alpha=1.0):
+    a = _t(A) if transpose_a else A
+    b = _t(B) if transpose_b else B
+    return alpha * torch.matmul(a, b)
+
+
+@_reg
+def linalg_potrf(A):
+    return torch.linalg.cholesky(A)
+
+
+@_reg
+def linalg_potri(A):
+    """A's inverse through its Cholesky factor. As in the JAX op, ``A`` is
+    the SPD matrix itself, where MXNet takes its factor L (ROADMAP
+    queue 3)."""
+    L = torch.linalg.cholesky(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    inv_l = torch.linalg.solve_triangular(L, eye.expand(A.shape),
+                                          upper=False)
+    return torch.matmul(_t(inv_l), inv_l)
+
+
+@_reg
+def linalg_trsm(A, B, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    a = _t(A) if transpose else A
+    low = lower != transpose
+    if rightside:
+        x = _t(torch.linalg.solve_triangular(_t(a), _t(B), upper=low))
+    else:
+        x = torch.linalg.solve_triangular(a, B, upper=not low)
+    return alpha * x
+
+
+@_reg
+def linalg_trmm(A, B, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    tri = torch.tril(A) if lower else torch.triu(A)
+    if transpose:
+        tri = _t(tri)
+    out = torch.matmul(B, tri) if rightside else torch.matmul(tri, B)
+    return alpha * out
+
+
+@_reg
+def linalg_syrk(A, transpose=False, alpha=1.0):
+    a = _t(A) if transpose else A
+    return alpha * torch.matmul(a, _t(a))
+
+
+@_reg
+def linalg_sumlogdiag(A):
+    return torch.log(torch.diagonal(A, dim1=-2, dim2=-1)).sum(-1)
+
+
+@_reg
+def linalg_extractdiag(A, offset=0):
+    return torch.diagonal(A, offset=offset, dim1=-2, dim2=-1)
+
+
+@_reg
+def linalg_makediag(A, offset=0):
+    return torch.diag_embed(A, offset=offset)
+
+
+@_reg
+def linalg_det(A):
+    return torch.linalg.det(A)
+
+
+@_reg
+def linalg_inverse(A):
+    return torch.linalg.inv(A)
+
+
+@_reg
+def linalg_slogdet(A):
+    sign, logdet = torch.linalg.slogdet(A)
+    return sign, logdet

@@ -16,6 +16,16 @@ Each op whose gradient is not the derivative of its forward is a
 - the three regression outputs: the link (identity or sigmoid) forward,
   ``grad(link(x), label) * grad_scale`` backward.
 
+``round_ste``/``sign_ste`` round or take the sign forward and pass the
+head gradient straight through.
+
+The contrib long tail (ref: contrib/{fft,ifft,count_sketch,quadratic_op,
+hawkes_ll,nnz,allclose_op}.cc, l2_normalization.cc, instance_norm.cc):
+``fft``/``ifft`` (the interleaved [re, im] layout), ``count_sketch``,
+``quadratic``, ``hawkes_ll`` (a Python loop over the T steps, each step
+batched), ``nnz``, ``allclose``, ``L2Normalization`` and
+``InstanceNorm``.
+
 ``SliceChannel``/``slice_channel`` split along an axis (``split``'s
 arithmetic), registered with a count of outputs its arguments set.
 The JAX package registers ``softmax_output`` twice (``ops/nn.py:443``
@@ -31,7 +41,10 @@ from ..base import register_op
 __all__ = ['gradient_multiplier', 'MakeLoss', 'make_loss', 'SoftmaxOutput',
            'softmax_output', 'SliceChannel', 'slice_channel',
            'linear_regression_output', 'mae_regression_output',
-           'logistic_regression_output']
+           'logistic_regression_output', 'fft', 'ifft', 'count_sketch',
+           'quadratic', 'round_ste', 'sign_ste', 'hawkes_ll', 'nnz',
+           'allclose', 'L2Normalization', 'l2_normalization',
+           'InstanceNorm']
 
 
 def _reg(fn, num_outputs=1):
@@ -206,3 +219,149 @@ def mae_regression_output(data, label, grad_scale=1.0):
 def logistic_regression_output(data, label, grad_scale=1.0):
     """Sigmoid forward; backward (sigmoid(x) - label) * grad_scale."""
     return _logistic(data, label, grad_scale)
+
+
+@_reg
+def fft(data, compute_size=128):
+    """FFT of the last axis; real input, interleaved [re, im] output of
+    width 2d (ref: contrib/fft.cc)."""
+    out = torch.fft.fft(data.to(torch.complex64), dim=-1)
+    inter = torch.stack([out.real, out.imag], dim=-1)
+    return inter.reshape(*data.shape[:-1], data.shape[-1] * 2)
+
+
+@_reg
+def ifft(data, compute_size=128):
+    """Inverse of ``fft``, unnormalised as the reference's: scale by 1/d
+    to recover the signal (ref: contrib/ifft.cc)."""
+    d = data.shape[-1] // 2
+    c = data.reshape(*data.shape[:-1], d, 2).to(torch.float32)
+    comp = torch.complex(c[..., 0], c[..., 1])
+    return torch.fft.ifft(comp, dim=-1).real.to(data.dtype) * d
+
+
+@_reg
+def count_sketch(data, h, s, out_dim):
+    """out[:, h[i]] += s[i] * data[:, i] (ref: contrib/count_sketch.cc)."""
+    n, in_dim = data.shape
+    hh = h.reshape(-1)[:in_dim].to(torch.int64)
+    ss = s.reshape(-1)[:in_dim].to(data.dtype)
+    out = torch.zeros((n, int(out_dim)), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add(1, hh, data * ss[None, :])
+
+
+@_reg
+def quadratic(data, a=0.0, b=0.0, c=0.0):
+    """a*x^2 + b*x + c (ref: contrib/quadratic_op.cc)."""
+    return a * data * data + b * data + c
+
+
+class _StraightThrough(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fn):
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@_reg
+def round_ste(data):
+    """Straight-through rounding (ref: contrib/stes_op.cc)."""
+    return _StraightThrough.apply(data, torch.round)
+
+
+@_reg
+def sign_ste(data):
+    """Straight-through sign (ref: contrib/stes_op.cc)."""
+    return _StraightThrough.apply(data, torch.sign)
+
+
+@_reg
+def hawkes_ll(lda, alpha, beta, state, lags, marks, valid_length,
+              max_time):
+    """Log-likelihood of a marked self-exciting Hawkes process, one
+    sample per row (ref: contrib/hawkes_ll.cc): lda (N, K), alpha/beta
+    (K,), state (N, K), lags/marks (N, T), valid_length/max_time (N,).
+    Returns (ll (N,), new_state (N, K))."""
+    N, T = lags.shape
+    K = lda.shape[1]
+    marks_i = marks.to(torch.int64)
+    ll = torch.zeros((N,), dtype=lda.dtype, device=lda.device)
+    rem = state
+    elapsed = torch.zeros((N,), dtype=lda.dtype, device=lda.device)
+    for t in range(T):
+        lag = lags[:, t]
+        mark = marks_i[:, t]
+        valid = (t < valid_length).to(lda.dtype)
+        elapsed_new = elapsed + lag
+        decay = torch.exp(-beta[None, :] * lag[:, None])
+        rem_decayed = rem * decay
+        intensity = lda + alpha[None, :] * rem_decayed
+        lam = intensity.gather(1, mark[:, None])[:, 0]
+        ll_t = torch.log(torch.clamp(lam, min=1e-20))
+        comp = (lda * lag[:, None]
+                + (alpha / beta)[None, :] * rem * (1.0 - decay)).sum(1)
+        ll = ll + valid * (ll_t - comp)
+        rem_new = rem_decayed + torch.nn.functional.one_hot(
+            mark, K).to(lda.dtype)
+        rem = torch.where(valid[:, None] > 0, rem_new, rem)
+        elapsed = torch.where(valid > 0, elapsed_new, elapsed)
+    tail = torch.clamp(max_time - elapsed, min=0.0)
+    decay_tail = 1.0 - torch.exp(-beta[None, :] * tail[:, None])
+    comp_tail = (lda * tail[:, None]
+                 + (alpha / beta)[None, :] * rem * decay_tail).sum(1)
+    ll = ll - comp_tail
+    new_state = rem * torch.exp(-beta[None, :] * tail[:, None])
+    return ll, new_state
+
+
+@_reg
+def nnz(data, axis=None):
+    """Number of non-zeros, int32 as the JAX op gives with x64 off (ref:
+    contrib/nnz.cc)."""
+    return torch.count_nonzero(data, dim=axis).to(torch.int32)
+
+
+@_reg
+def allclose(a, b, rtol=1e-05, atol=1e-08, equal_nan=True):
+    """Scalar 0/1 (ref: contrib/allclose_op.cc)."""
+    return torch.as_tensor(torch.allclose(a, b, rtol=rtol, atol=atol,
+                                          equal_nan=equal_nan),
+                           dtype=torch.float32, device=a.device)
+
+
+@_reg
+def L2Normalization(data, eps=1e-10, mode='instance'):
+    """x / sqrt(sum(x^2) + eps) over all but the batch axis ('instance'),
+    the channel axis ('channel') or the spatial axes ('spatial') (ref:
+    src/operator/l2_normalization.cc)."""
+    if mode == 'instance':
+        axes = tuple(range(1, data.dim()))
+    elif mode == 'channel':
+        axes = (1,)
+    elif mode == 'spatial':
+        axes = tuple(range(2, data.dim()))
+    else:
+        raise ValueError(f"unknown L2Normalization mode {mode!r}")
+    norm = torch.sqrt(torch.sum(data * data, dim=axes, keepdim=True) + eps)
+    return data / norm
+
+
+@_reg
+def l2_normalization(data, eps=1e-10, mode='instance'):
+    return L2Normalization(data, eps=eps, mode=mode)
+
+
+@_reg
+def InstanceNorm(data, gamma, beta, eps=1e-3):
+    """Per-sample, per-channel normalisation over the spatial axes (ref:
+    src/operator/instance_norm.cc)."""
+    axes = tuple(range(2, data.dim()))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = data.var(dim=axes, keepdim=True, unbiased=False)
+    xhat = (data - mean) / torch.sqrt(var + eps)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return xhat * gamma.reshape(shape) + beta.reshape(shape)

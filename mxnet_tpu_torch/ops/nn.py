@@ -76,7 +76,8 @@ __all__ = ['fully_connected', 'activation', 'layer_norm', 'add_layer_norm',
            'dropout_op', 'one_hot', 'blockgrad', 'identity', 'convolution',
            'deconvolution', 'pooling', 'leaky_relu', 'batch_norm',
            'instance_norm', 'group_norm', 'softmax_cross_entropy',
-           'sync_batch_norm_op', 'rnn', 'ctc_loss']
+           'sync_batch_norm_op', 'rnn', 'ctc_loss', 'softmin', 'lrn',
+           'upsampling']
 
 
 def _tensor(x):
@@ -687,3 +688,29 @@ def ctc_loss(data, label, data_lengths=None, label_lengths=None,
     a2 = alpha.gather(1, (ext_len - 2).clamp_min(0)[:, None])[:, 0]
     m = torch.maximum(a1, a2)
     return -(m + torch.log(torch.exp(a1 - m) + torch.exp(a2 - m)))
+
+
+@register_op()
+def softmin(data, axis=-1):
+    return torch.softmax(-data, dim=axis)
+
+
+@register_op()
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response norm across channels (ref: src/operator/nn/lrn.cc)."""
+    sq = torch.square(data)
+    half = nsize // 2
+    padded = F.pad(sq.movedim(1, -1), (half, half)).movedim(-1, 1)
+    acc = torch.zeros_like(data)
+    for i in range(nsize):
+        acc = acc + padded.narrow(1, i, data.shape[1])
+    return data / torch.pow(knorm + alpha / nsize * acc, beta)
+
+
+@register_op()
+def upsampling(data, scale=1, sample_type='nearest', num_filter=0):
+    """Nearest upsampling of NCHW by ``scale`` (ref:
+    src/operator/nn/upsampling.cc)."""
+    n, c, h, w = data.shape
+    x = data.reshape(n, c, h, 1, w, 1).expand(n, c, h, scale, w, scale)
+    return x.reshape(n, c, h * scale, w * scale)

@@ -14,10 +14,17 @@ reads it back. Where the JAX function branches on a scalar (``if wd``),
 a tensor takes the branch that adds its term, as the JAX package's
 ``preloaded_*`` functions do for device scalars. ``clip_gradient``,
 ``lower_bound`` and ``upper_bound`` are settings and stay Python numbers.
+
+Each is also a registered op under the JAX name, with ``mutate_inputs``
+naming the inputs its outputs replace (slot 0, the weight, is written
+only through ``out=``), so ``nd.adamw_update(w, g, m, v, out=w)`` updates
+``w``, ``m`` and ``v`` in place as MXNet's does (``ndarray/register.py``).
 """
 from __future__ import annotations
 
 import torch
+
+from ..base import register_op
 
 __all__ = ['sgd_update', 'sgd_mom_update', 'mp_sgd_update',
            'mp_sgd_mom_update', 'nag_mom_update', 'adam_update',
@@ -483,3 +490,28 @@ def multi_adamw_update(weights, grads, means, vars_, rescale_grad, lrs,
         new_ms.append(torch.where(ok, m_new, m))
         new_vs.append(torch.where(ok, v_new, v))
     return new_ws, new_ms, new_vs
+
+
+# output j of each update replaces input _MUTATES[name][j] (0: the weight,
+# through out=); the multi-tensor forms take and return lists
+_MUTATES = {
+    'sgd_update': (0,), 'sgd_mom_update': (0, 2), 'mp_sgd_update': (0, 2),
+    'mp_sgd_mom_update': (0, 2, 3), 'nag_mom_update': (0, 2),
+    'adam_update': (0, 2, 3), 'adamw_update': (0, 2, 3),
+    'ftrl_update': (0, 2, 3), 'rmsprop_update': (0, 2),
+    'rmspropalex_update': (0, 2, 3, 4), 'signsgd_update': (0,),
+    'signum_update': (0, 2), 'adagrad_update': (0, 2),
+    'adadelta_update': (0, 2, 3), 'ftml_update': (0, 2, 3, 4),
+    'lamb_update_phase1': (0, 2, 3), 'lamb_update_phase2': (0,),
+    'multi_sum_sq': (), 'all_finite': (),
+    'multi_sgd_update': (0,), 'multi_sgd_mom_update': (0, 2),
+    'multi_mp_sgd_update': (0, 2), 'multi_mp_sgd_mom_update': (0, 2, 3),
+    'preloaded_multi_sgd_update': (0,),
+    'preloaded_multi_sgd_mom_update': (0, 2),
+    'preloaded_multi_mp_sgd_update': (0, 2),
+    'preloaded_multi_mp_sgd_mom_update': (0, 2, 3),
+    'multi_lamb_update': (0, 2, 3), 'multi_lans_update': (0, 2, 3),
+    'multi_adamw_update': (0, 2, 3),
+}
+for _name in __all__:
+    register_op(_name, mutate_inputs=_MUTATES[_name])(globals()[_name])

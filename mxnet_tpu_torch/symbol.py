@@ -40,7 +40,7 @@ import json
 import numpy as onp
 import torch
 
-from .base import MXNetError, _OP_REGISTRY, get_op, state, \
+from .base import MXNetError, _OP_REGISTRY, _OP_ALIASES, get_op, state, \
     telem_flags as _telem, torch_dtype
 from .context import Context, resolve_device
 from .ndarray.ndarray import NDArray
@@ -898,29 +898,28 @@ class _OpMaker:
 
 _OpMaker.populate(globals())
 
-# CamelCase legacy aliases (the JAX package's table, symbol.py:768-779)
-_CAMEL = {
-    'FullyConnected': 'fully_connected', 'Convolution': 'convolution',
-    'Deconvolution': 'deconvolution', 'Pooling': 'pooling',
-    'Activation': 'activation', 'BatchNorm': 'batch_norm',
-    'LayerNorm': 'layer_norm', 'Dropout': 'dropout', 'Flatten': 'flatten',
-    'SoftmaxOutput': 'softmax_output', 'Embedding': 'embedding',
-    'Concat': 'concat', 'LeakyReLU': 'leaky_relu', 'RNN': 'rnn',
-    'SequenceMask': 'sequence_mask', 'SequenceLast': 'sequence_last',
-    'SequenceReverse': 'sequence_reverse', 'SliceChannel': 'split',
-    'UpSampling': 'upsampling', 'LRN': 'lrn', 'Cast': 'cast',
-    'SwapAxis': 'swapaxes', 'Reshape': 'reshape',
-}
-for _camel, _snake in _CAMEL.items():
-    if _snake in globals():
-        globals()[_camel] = globals()[_snake]
+# MXNet's spellings (FullyConnected, _Plus, _contrib_ROIAlign, ...) are
+# the registry's aliases (ops/ref_aliases.py): each names the maker of its
+# canonical op, as the JAX package's CamelCase table does. The legacy
+# names the alias table leaves out or maps elsewhere keep the JAX
+# package's meaning (symbol.py:768-779).
+for _alias, _canonical in _OP_ALIASES.items():
+    globals().setdefault(_alias, globals()[_canonical])
+for _camel, _snake in {
+        'SoftmaxOutput': 'softmax_output', 'SliceChannel': 'split',
+        'RNN': 'rnn', 'LRN': 'lrn', 'SequenceLast': 'sequence_last',
+        'SequenceReverse': 'sequence_reverse'}.items():
+    globals()[_camel] = globals()[_snake]
 
 
 def __getattr__(name):
-    """``sym.<op>`` for an op registered after this module was imported
-    (``operator.register``'s ``Custom``, the control-flow ops)."""
-    if name in _OP_REGISTRY:
-        fn = globals()[name] = _OpMaker.make(name)
-        return fn
-    raise AttributeError(f"module 'mxnet_tpu_torch.symbol' has no "
-                         f"attribute {name!r}")
+    """``sym.<op>`` for an op (or alias) registered after this module was
+    imported (``operator.register``'s ``Custom``), resolved through
+    ``get_op``."""
+    try:
+        opname = get_op(name).name
+    except MXNetError:
+        raise AttributeError(f"module 'mxnet_tpu_torch.symbol' has no "
+                             f"attribute {name!r}") from None
+    fn = globals()[name] = globals().get(opname) or _OpMaker.make(opname)
+    return fn

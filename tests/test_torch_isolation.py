@@ -558,3 +558,62 @@ def test_importing_the_sparse_modules_loads_no_jax():
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
+
+
+OP_SURFACE_MODULES = (
+    'ops/sequence.py', 'ops/random_ops.py', 'ops/quantization.py',
+    'ops/numpy_ops.py', 'ops/ref_compat.py', 'ops/ref_aliases.py',
+    'ops/matrix.py', 'ops/misc.py', 'ops/contrib.py', 'ops/nn.py',
+    'ops/optimizer_ops.py', 'ndarray/random.py', 'ndarray/linalg.py',
+    'ndarray/register.py', 'numpy/__init__.py',
+    'numpy_extension/__init__.py', 'util.py', 'registry.py',
+    '_op_cases.py', '_op_checks.py')
+
+
+@pytest.mark.parametrize('module', OP_SURFACE_MODULES)
+def test_op_surface_modules_import_no_jax(module):
+    """The op-surface slice's modules (the registered ops, the reference
+    aliases, nd.linalg/nd.random, mx.np, mx.npx, util, registry) are
+    among the files checked above and import neither jax nor the
+    reference package."""
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_op_surface_loads_no_jax():
+    """In a fresh interpreter, importing the port and using mx.np, mx.npx
+    and the reference aliases loads neither jax nor the JAX package."""
+    import subprocess
+    import sys
+    code = ('import sys\n'
+            'import mxnet_tpu_torch as mx\n'
+            'from mxnet_tpu_torch.ops import ref_aliases\n'
+            'with mx.cpu():\n'
+            '    mx.npx.relu(mx.np.ones((2,)))\n'
+            'assert len(ref_aliases.reference_op_names()) > 900\n'
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "mxnet_tpu")))')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
+
+
+def test_the_op_inventory_is_the_ports_own_copy():
+    """The port reads its own copy of MXNet's op inventory, never the
+    JAX package's file: the copy is byte-equal, and no port file names
+    the JAX package's path."""
+    from mxnet_tpu_torch.ops import ref_aliases
+    own = os.path.join(ROOT, 'mxnet_tpu_torch', 'ops',
+                       'reference_op_names.txt')
+    ref = os.path.join(ROOT, 'mxnet_tpu', 'ops', 'reference_op_names.txt')
+    with open(own, 'rb') as a, open(ref, 'rb') as b:
+        assert a.read() == b.read()
+    assert os.path.dirname(ref_aliases.__file__) == os.path.dirname(own)
+    for path in _port_files():
+        with open(path) as f:
+            assert 'mxnet_tpu/ops/reference_op_names' not in f.read(), path
