@@ -429,8 +429,45 @@
    armed: a burst of 32 requests from 4 threads gives no stall report; a
    runner planted to stall 3 s under a 1 s watchdog gives exactly one.
    Checkpoints live in a temporary directory removed at the end.
-13. Removes what the run created under build/ (the kernels and the native
-   io library it built, the tile database, the dp phase's files, the sym
+12a. frontends phase (last): MXNet's frontends and contrib on the card,
+   both fused-kernel knobs on in (a). (a), in a process of this script
+   of its own (--frontends-profiler: its torch.profiler traces are the
+   first in that process, where they come back whole, and leave the main
+   process's profiler state alone): mx.profiler around the
+   flagship BERT-base step through gluon.Trainer (AdamW, bf16, dropout 0.1, B = 8,
+   T = 512): set_config(profile_all, aggregate_stats, jax_trace_dir),
+   start, one step, stop, dump, dumps, 3 windows, the launch counters at
+   0 just before each: 12 launches of A, K2, K3 and C and 24 of B a step,
+   the device trace (torch.profiler's chrome trace) holding the same
+   launches, the dumped trace balanced with the step's scope and a
+   counter in it; the first window's loss bitwise the unprofiled loss of
+   the same step from the same weights and dropout seed; the step's ms
+   under the profiler against the unprofiled step's (median of 3 calls of
+   3); mx.profiler.start() under another torch.profiler raises. (b) ONNX:
+   ResNet-50 v1 (He-normal weights from a numpy seed, 224, f32, B = 8),
+   hybridized on the card, exported (byte for byte the export of the same
+   weights from the CPU), imported by import_to_gluon(ctx=gpu): output
+   within rel 1e-4. (c) quantize_net of the same net: naive calibration
+   over 2 batches of 32 on the card and on the CPU: int8 weights, weight
+   ranges and biases bitwise, calibration ranges within rel 1e-5; with the
+   card's ranges loaded into the CPU's net, each of the 54 quantized
+   layers on the card against the same layer on the CPU fed its input
+   (rel 1e-4), the whole net's rel Frobenius and top-1 agreement (with the
+   CPU's and with the float net) printed; the hybridized int8 forward at
+   B = 8 bitwise its eager forward and timed; entropy calibration of the
+   final Dense on both sides within one histogram bin. (d) mx.library:
+   src/lib_api/example_lib.cc built by g++ into build/, its three ops on
+   card tensors bitwise the CPU call and timed; a hybridized block calling
+   my_relu runs eagerly on the card (one eager key of its CachedOp) and
+   returns its eager output. (e) to_torch/from_torch share storage on the
+   card; TorchOp over a 768-3072-768 FFN: input and parameter gradients
+   against torch autograd. (f) runtime.Features() (CUDA, CUDNN, NCCL on;
+   TPU, XLA off); SVRGModule.fit of tests/test_svrg.py's linear
+   regression, 3 epochs, on the card within 1e-5 of the CPU. Prints its
+   seconds. The profiled steps' launches are the kernels' profiler
+   column.
+13. Removes what the run created under build/ (the kernels, the native
+   io library and the example op library it built, the tile database, the dp phase's files, the sym
    phase's checkpoint and exported files), so that a later process in
    the checkout, the `cuda` tests say, starts as it would have without
    this run.
@@ -5604,6 +5641,564 @@ def lm_phase(card, device='cuda', cfg=None, batch=8, seq=1024,
                                    transformer=trans)
 
 
+
+# ---- the frontends: profiler, ONNX, quantize_net, op libraries, the torch
+# bridge, Features and SVRG (the last phase; its profiler part runs in a
+# process of its own, where its traces are the first and come back whole)
+# the ONNX round trip's output on the card against the exporting net's,
+# f32 with TF32 off (tests/test_onnx.py's round-trip bound)
+ONNX_TOL = 1e-4
+# each quantized layer on the card against the same layer on the CPU fed
+# the card's input (f32 dequantize, int32 products exact on both sides)
+QUANT_LAYER_TOL = 1e-4
+# SVRG's weights on the card against the CPU run, f32
+SVRG_TOL = 1e-5
+
+
+def _trace_kernels(path):
+    """{launch-counter name: kernel launches} in a torch.profiler chrome
+    trace, by _FAMILIES' name patterns."""
+    with open(path) as f:
+        evs = json.load(f)['traceEvents']
+    fams = dict(_FAMILIES)
+    counts = dict.fromkeys(('flash_attn_fwd', 'flash_attn_bwd_dq',
+                            'flash_attn_bwd_dkv', 'fused_add_layernorm',
+                            'dense_gelu'), 0)
+    for e in evs:
+        if e.get('cat') != 'kernel':
+            continue
+        for k in counts:
+            if any(p in e.get('name', '') for p in fams[k]):
+                counts[k] += 1
+    return counts
+
+
+def _balanced(path):
+    """(events, whether every 'B' has its 'E' on its pid and tid) of a
+    chrome trace written by mx.profiler.dump."""
+    with open(path) as f:
+        evs = json.load(f)['traceEvents']
+    depth = {}
+    ok = all('ph' in e for e in evs)
+    for e in evs:
+        key = (e.get('pid'), e.get('tid'))
+        if e.get('ph') == 'B':
+            depth[key] = depth.get(key, 0) + 1
+        elif e.get('ph') == 'E':
+            depth[key] = depth.get(key, 0) - 1
+            ok = ok and depth[key] >= 0
+    return evs, ok and not any(depth.values())
+
+
+def _bert_trainer(cfg, arrays, data):
+    """BERT-base BertForPretraining (bf16, dropout 0.1 from its own
+    generator, the arrays loaded) and its gluon.Trainer AdamW step on the
+    flagship batch ``data``. Returns (step, forward_loss, generator):
+    ``forward_loss`` is the step's loss without the backward and the
+    update, so the two give the same loss from the same generator state."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_pretrain_loss)
+    from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    net = BertForPretraining(dict(cfg, dropout=0.1), dtype=torch.bfloat16,
+                             device='cuda', generator=gen)
+    net.load_state_dict(params_from_mxnet_tpu(arrays, net))
+    net.train()
+    trainer = gluon.Trainer(gluon.collect_params(net), 'adamw',
+                            {'learning_rate': 1e-4, 'wd': 0.01,
+                             'multi_precision': True})
+    t = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+
+    def forward_loss():
+        mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
+        return bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
+
+    def step():
+        loss = forward_loss()
+        loss.backward()
+        trainer.step(1)
+        net.zero_grad(set_to_none=False)
+        return loss.detach()
+    return step, forward_loss, gen
+
+
+def _profiled_step(step, work, n):
+    """One ``step`` inside mx.profiler (profile_all, aggregate_stats, the
+    device trace under ``work``), the launch counters at 0 just before and
+    read just after. Returns (loss, step ms under the profiler, launches,
+    the device trace's launches, the dump's events, whether balanced)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    tdir = os.path.join(work, f'trace{n}')
+    dump = os.path.join(work, f'profile{n}.json')
+    mt.profiler.set_config(profile_all=True, aggregate_stats=True,
+                           jax_trace_dir=tdir, filename=dump)
+    torch.cuda.synchronize()
+    _zero_counters()
+    mt.profiler.start()
+    dom = mt.profiler.Domain('chip_smoke')
+    t0 = time.perf_counter()
+    with dom.new_task('bert_step'):
+        loss = step()
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    dom.new_counter('steps', n)
+    mt.profiler.stop()
+    launches = dict(mt.ops.launch_counts)
+    mt.profiler.dump()
+    table = mt.profiler.dumps()
+    mt.profiler.set_config(profile_all=False, aggregate_stats=False,
+                           jax_trace_dir=None, filename='profile.json')
+    traced = _trace_kernels(mt.profiler.device_trace_file())
+    evs, ok = _balanced(dump)
+    return float(loss), ms, launches, traced, evs, ok, table
+
+
+def frontends_profiler(card, work, batch=8, seq=512, windows=3):
+    """(a) mx.profiler around the flagship BERT-base Trainer step."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config)
+    from mxnet_tpu_torch.base import MXNetError
+    cfg = bert_base_config()
+    L = cfg['layers']
+    arrays = random_bert_arrays(BertForPretraining(
+        dict(cfg, dropout=0.1), device='cpu'))
+    data, _ = pretraining_batch(cfg, batch, seq, SEED)
+    step, forward_loss, gen = _bert_trainer(cfg, arrays, data)
+    # the first call captures the Trainer's fused update: outside the
+    # profiler
+    step()
+    # the step's loss, recorded and unprofiled, from the generator state
+    # the profiled step then starts from
+    state = gen.get_state()
+    with torch.enable_grad():
+        loss_plain = float(forward_loss().detach())
+    gen.set_state(state)
+    first = _profiled_step(step, work, 0)
+    print(f'  (a) the step\'s loss from the same weights and dropout seed: '
+          f'{loss_plain!r} unprofiled, {first[0]!r} under mx.profiler')
+    check(first[0] == loss_plain, 'the profiled step\'s loss differs from '
+          'the unprofiled one\'s')
+    want = {'flash_attn_fwd': L, 'flash_attn_bwd_dq': L,
+            'flash_attn_bwd_dkv': L, 'fused_add_layernorm': 2 * L,
+            'dense_gelu': L}
+    runs = [first] + [_profiled_step(step, work, n)
+                      for n in range(1, windows)]
+    total = dict.fromkeys(want, 0)
+    for n, (loss, ms, launches, traced, evs, ok, table) in enumerate(runs):
+        print(f'  (a) window {n}: launches {launches}, device trace '
+              f'{traced}, {len(evs)} dumped events, balanced {ok}, step '
+              f'{ms:.3f} ms under the profiler')
+        check(onp.isfinite(loss), f'window {n}: non-finite loss')
+        check(launches == want, f'window {n}: launches {launches}, want '
+              f'{want} for one step')
+        check(traced == launches, f'window {n}: the device trace holds '
+              f'{traced} launches, the counters {launches}')
+        check(ok, f'window {n}: the dumped trace is not balanced')
+        check(any(e.get('name') == 'bert_step' for e in evs) and
+              any(e.get('name') == 'steps' for e in evs),
+              f'window {n}: the dump lacks the scope or the counter')
+        check(table.startswith('Name'), 'dumps() gave no aggregate table')
+        for k in total:
+            total[k] += launches[k]
+    print('  (a) dumps():\n    ' + '\n    '.join(
+        runs[-1][6].splitlines()[:6]))
+    profiled_ms = sorted(r[1] for r in runs)[len(runs) // 2]
+    calls = [steps_ms(step, 3) for _ in range(3)]
+    plain_ms = sorted(calls)[1]
+    print(f'  (a) BERT-base Trainer step (B={batch}, T={seq}, bf16) on '
+          f'{card}: {plain_ms:.3f} ms unprofiled (median of 3 calls of 3: '
+          f'{", ".join(f"{c:.3f}" for c in calls)}), {profiled_ms:.3f} ms '
+          f'under mx.profiler (median of {windows} windows), '
+          f'{profiled_ms / plain_ms:.3f}x')
+    # torch runs one profiler at a time: mx.profiler.start() refuses
+    mt.profiler.set_config(jax_trace_dir=os.path.join(work, 'refused'))
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            try:
+                mt.profiler.start()
+            except MXNetError as e:
+                refused = str(e)
+            else:
+                mt.profiler.stop()
+                refused = None
+    finally:
+        mt.profiler.set_config(jax_trace_dir=None)
+    check(refused is not None and 'torch.profiler' in refused,
+          'mx.profiler.start() ran under another torch.profiler')
+    print(f'  (a) under another torch.profiler: MXNetError: {refused}')
+    del step, forward_loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, dict(plain_ms=plain_ms, profiled_ms=profiled_ms,
+                       calls_ms=calls, loss=loss_plain)
+
+
+def frontends_profiler_child(work):
+    """(a) in a process of its own (--frontends-profiler): its
+    torch.profiler sessions leave no profiler state behind in the main
+    process, whose later phases read their own traces. Prints the
+    numbers as one JSON line, last."""
+    import torch
+    from mxnet_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    _build.build_all()
+    launches, prof = frontends_profiler(card_line(), work)
+    print(json.dumps({'launches': launches, 'prof': prof}))
+    return 0
+
+
+def frontends_profiler_in_child(card, work, timeout=600):
+    """Runs (a) in a child process of this script, both knobs on, and
+    returns its (launches, numbers); the child's lines are printed."""
+    env = dict(os.environ, MXTPU_PALLAS_LN='1', MXTPU_PALLAS_FFN='1')
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), '--frontends-profiler',
+         work], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, timeout=timeout)
+    lines = [ln for ln in proc.stdout.splitlines() if 'USDT' not in ln]
+    result = [ln for ln in lines if ln.startswith('{"launches": ')]
+    print('\n'.join(ln for ln in lines if ln not in result))
+    check(proc.returncode == 0 and len(result) == 1,
+          f'(a) failed in its process (exit {proc.returncode})')
+    out = json.loads(result[0])
+    return out['launches'], out['prof']
+
+
+def _resnet50(ctx, arrays, x):
+    return _zoo_net('resnet50_v1', ctx, arrays, x)
+
+
+def frontends_onnx(card, work, x):
+    """(b) ONNX round trip of ResNet-50 v1 (224, f32, B = 8)."""
+    import mxnet_tpu_torch as mt
+    gpu = mt.gpu(0)
+    net, arrays = _resnet50(gpu, None, x)
+    net.hybridize()
+    ref = net(mt.nd.array(x, ctx=gpu)).asnumpy()
+    card_file = os.path.join(work, 'resnet50_v1.onnx')
+    cpu_file = os.path.join(work, 'resnet50_v1_cpu.onnx')
+    t0 = time.perf_counter()
+    mt.contrib.onnx.export_model(net, None, input_shapes=[x.shape],
+                                 onnx_file_path=card_file)
+    export_s = time.perf_counter() - t0
+    net.collect_params().reset_ctx(mt.cpu())
+    mt.contrib.onnx.export_model(net, None, input_shapes=[x.shape],
+                                 onnx_file_path=cpu_file)
+    with open(card_file, 'rb') as f, open(cpu_file, 'rb') as g:
+        same = f.read() == g.read()
+    check(same, 'the exports of the card\'s and the CPU\'s weights differ')
+    t0 = time.perf_counter()
+    back = mt.contrib.onnx.import_to_gluon(card_file, ctx=gpu)
+    import_s = time.perf_counter() - t0
+    check(all(p.data().context == gpu for p in back.params.values()),
+          'import_to_gluon(ctx=gpu) left parameters off the card')
+    out = back(mt.nd.array(x, ctx=gpu)).asnumpy()
+    err = _rel(out, ref)
+    print(f'  (b) ONNX ResNet-50 v1 on {card}: {os.path.getsize(card_file)} '
+          f'bytes, export {export_s:.2f} s (byte for byte the CPU '
+          f'export\'s: {same}), import_to_gluon onto the card '
+          f'{import_s:.2f} s, output rel Frobenius {err:.3e} against the '
+          f'exporting net (tolerance {ONNX_TOL})')
+    check(err <= ONNX_TOL, 'the imported ResNet-50 disagrees')
+    return arrays, dict(export_s=export_s, import_s=import_s, rel=err,
+                        bytes=os.path.getsize(card_file))
+
+
+def _quantizable_paths(net):
+    from mxnet_tpu_torch.contrib import quantization as Q
+    return [path for _, _, path, child in Q._walk(net)
+            if type(child) in Q._QUANTIZABLE]
+
+
+def frontends_quantize(card, arrays, x, calib_batch=32, calib_batches=2):
+    """(c) quantize_net of ResNet-50 v1 on the card against the CPU."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.contrib import quantization as Q
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    rng = onp.random.RandomState(SEED + 23)
+    calib = [rng.standard_normal((calib_batch,) + x.shape[1:])
+             .astype(onp.float32) for _ in range(calib_batches)]
+    nets = {'gpu': _resnet50(gpu, arrays, x)[0],
+            'cpu': _resnet50(cpu, arrays, x)[0]}
+    q, secs, params = {}, {}, {}
+    for kind, ctx in (('gpu', gpu), ('cpu', cpu)):
+        with ctx:
+            t0 = time.perf_counter()
+            q[kind] = Q.quantize_net(
+                nets[kind], calib_data=[mt.nd.array(c, ctx=ctx)
+                                        for c in calib], calib_mode='naive')
+            secs[kind] = time.perf_counter() - t0
+        params[kind] = {n: p.data().asnumpy() for n, p in
+                        q[kind]._collect_params_with_prefix().items()}
+    int8 = [n for n, v in params['cpu'].items() if v.dtype == onp.int8]
+    wbits = all(onp.array_equal(params['gpu'][n], params['cpu'][n])
+                for n in params['cpu'] if not n.endswith('.calib'))
+    calib_rel = max(float(onp.abs(params['gpu'][n] - params['cpu'][n]).max()
+                          / onp.abs(params['cpu'][n]).max())
+                    for n in params['cpu'] if n.endswith('.calib'))
+    calib_eq = sum(onp.array_equal(params['gpu'][n], params['cpu'][n])
+                   for n in params['cpu'] if n.endswith('.calib'))
+    print(f'  (c) quantize_net(naive) of ResNet-50 v1 over {calib_batches} '
+          f'batches of {calib_batch}: {len(int8)} int8 layers, {secs["gpu"]:.2f}'
+          f' s on the card, {secs["cpu"]:.2f} s on the CPU; int8 weights, '
+          f'weight ranges and biases bitwise: {wbits}; calibration ranges '
+          f'bitwise in {calib_eq} of {len(int8)}, worst rel {calib_rel:.2e}')
+    check(len(int8) == 54, f'{len(int8)} quantized layers, want 53 + 1')
+    check(wbits, 'the int8 weights differ between the card and the CPU')
+    check(calib_rel <= 1e-5, f'calibration ranges differ by {calib_rel}')
+    # the same quantization on both sides: the card's ranges into the CPU's
+    for n, p in q['cpu']._collect_params_with_prefix().items():
+        p.set_data(mt.nd.array(params['gpu'][n], ctx=cpu,
+                               dtype=params['gpu'][n].dtype))
+    seen = []
+    twins = {path: child for _, _, path, child in Q._walk(q['cpu'])}
+    hooks = [child.register_forward_hook(
+        lambda blk, ins, out, path=path: seen.append(
+            (path, ins[0].detach().clone(), out.detach().clone())))
+        for _, _, path, child in Q._walk(q['gpu'])
+        if isinstance(child, Q._QuantizedBase)]
+    xg = mt.nd.array(x, ctx=gpu)
+    with torch.no_grad():
+        out_g = q['gpu'](xg).asnumpy()
+    for h in hooks:
+        h.detach()
+    worst = 0.0
+    with torch.no_grad():
+        for path, inp, out in seen:
+            want = twins[path](inp.cpu())
+            worst = max(worst, _rel(out.cpu().numpy(), want.numpy()))
+    out_c = q['cpu'](mt.nd.array(x, ctx=cpu)).asnumpy()
+    e2e = _rel(out_g, out_c)
+    float_out = nets['gpu'](xg).asnumpy()
+    agree = float((out_g.argmax(1) == float_out.argmax(1)).mean())
+    agree_cpu = float((out_g.argmax(1) == out_c.argmax(1)).mean())
+    print(f'  (c) each of the {len(seen)} quantized layers on the card '
+          f'against the same layer on the CPU fed its input: worst rel '
+          f'{worst:.3e} (tolerance {QUANT_LAYER_TOL}); the whole int8 net '
+          f'against the CPU\'s: rel Frobenius {e2e:.3e}, top-1 agreement '
+          f'{agree_cpu:.3f}; against the float net on the card: top-1 '
+          f'agreement {agree:.3f} on the batch of {x.shape[0]}')
+    check(len(seen) == len(int8), 'a quantized layer did not run')
+    check(worst <= QUANT_LAYER_TOL, 'a quantized layer disagrees')
+    q['gpu'].hybridize()
+    fwd = [steps_ms(lambda: q['gpu'](xg), 5) for _ in range(3)]
+    replay = q['gpu'](xg).asnumpy()
+    check(onp.array_equal(replay, out_g), 'the hybridized int8 net differs '
+          'from its eager forward')
+    fwd_ms = sorted(fwd)[1]
+    print(f'  (c) int8 ResNet-50 v1 forward at B={x.shape[0]} on {card}, '
+          f'hybridized (one CUDA graph): {fwd_ms:.3f} ms (median of 3 '
+          f'calls of 5: {", ".join(f"{c:.3f}" for c in fwd)}), the '
+          f'convolutions through float64 (cuDNN)')
+    # entropy calibration of the final Dense alone, card and CPU
+    paths = _quantizable_paths(nets['gpu'])
+    last = paths[-1]
+    th = {}
+    for kind, ctx in (('gpu', gpu), ('cpu', cpu)):
+        with ctx:
+            qe = Q.quantize_net(nets[kind], calib_data=[
+                mt.nd.array(c, ctx=ctx) for c in calib],
+                calib_mode='entropy', exclude_layers=paths[:-1])
+        blk = dict((p, c) for _, _, p, c in Q._walk(qe))[last]
+        th[kind] = float(blk.calib.data().asnumpy()[1])
+    # one bin of the 8001-bin histogram over [-max, max] of that input
+    bin_w = 2 * float(params['cpu'][last + '.calib'][1]) / 8001
+    print(f'  (c) entropy calibration of {last}: threshold {th["gpu"]!r} '
+          f'on the card, {th["cpu"]!r} on the CPU (a histogram bin '
+          f'{bin_w:.3e})')
+    check(abs(th['gpu'] - th['cpu']) <= bin_w, 'the entropy thresholds '
+          'differ by more than one bin')
+    del nets, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(fwd_ms=fwd_ms, calib_s=secs, layer_rel=worst, e2e_rel=e2e,
+                top1_float=agree, top1_cpu=agree_cpu, entropy=th)
+
+
+def frontends_library(card):
+    """(d) mx.library: the example op library built by g++ into build/,
+    its ops on card tensors against the CPU, and in a hybridized block."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    t0 = time.perf_counter()
+    path = mt.library.example_library()
+    build_s = time.perf_counter() - t0
+    ops = mt.library.load(path)
+    check(set(ops) == {'my_relu', 'my_gemm', 'my_split2'},
+          f'op library registered {ops}')
+    rng = onp.random.RandomState(SEED + 29)
+    cases = {'my_relu': [rng.standard_normal((4096, 768))
+                         .astype(onp.float32)],
+             'my_gemm': [rng.standard_normal((256, 512)).astype(onp.float32),
+                         rng.standard_normal((512, 256)).astype(onp.float32)],
+             'my_split2': [rng.randint(-9, 9, (1024, 1024))
+                           .astype(onp.int64)]}
+    times = {}
+    for op, arrays in cases.items():
+        outs = {}
+        for kind, ctx in (('gpu', gpu), ('cpu', cpu)):
+            ins = [mt.nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
+            res = getattr(mt.nd, op)(*ins)
+            res = res if isinstance(res, (list, tuple)) else [res]
+            check(all(r.context == ctx for r in res),
+                  f'{op} returned off its context')
+            outs[kind] = [r.asnumpy() for r in res]
+            if kind == 'gpu':
+                times[op] = steps_ms(lambda: getattr(mt.nd, op)(*ins), 5)
+        check(all(onp.array_equal(g, c) for g, c in
+                  zip(outs['gpu'], outs['cpu'])),
+              f'{op} on the card differs from the CPU')
+
+    class Net(mt.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.fc = mt.gluon.nn.Dense(768, in_units=768)
+
+        def hybrid_forward(self, F, x):
+            return F.my_relu(self.fc(x)) * 2.0
+
+    with gpu:
+        net = Net()
+        net.initialize(mt.init.Xavier())
+    x = mt.nd.array(cases['my_relu'][0][:64], ctx=gpu)
+    eager = net(x).asnumpy()
+    net.hybridize()
+    got = [net(x).asnumpy() for _ in range(2)]
+    check(all(onp.array_equal(g, eager) for g in got),
+          'the hybridized block with an external op differs from eager')
+    check(net._cached_op.num_eager == 1,
+          f'{net._cached_op.num_eager} eager keys, want 1')
+    torch.cuda.synchronize()
+    print(f'  (d) mx.library: {os.path.basename(path)} built by g++ in '
+          f'{build_s:.2f} s, ops {ops}; on card tensors bitwise the CPU '
+          f'call; host round trip per call on {card}: ' + ', '.join(
+              f'{op} {ms:.3f} ms' for op, ms in times.items()) +
+          '; a hybridized block calling my_relu runs eagerly (1 eager key) '
+          'and returns its eager output bitwise')
+    return dict(build_s=build_s, call_ms=times)
+
+
+def frontends_bridge(card):
+    """(e) to_torch/from_torch share storage on the card; TorchOp's
+    gradients there equal torch autograd's."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    gpu = mt.gpu(0)
+    rng = onp.random.RandomState(SEED + 31)
+    x_np = rng.standard_normal((512, 768)).astype(onp.float32)
+    a = mt.nd.array(x_np, ctx=gpu)
+    t = mt.torch.to_torch(a)
+    shared = t.is_cuda and t.data_ptr() == a._data.data_ptr() and \
+        mt.torch.from_torch(t)._data.data_ptr() == t.data_ptr()
+    check(shared, 'to_torch/from_torch copied on the card')
+    torch.manual_seed(SEED)
+    ffn = torch.nn.Sequential(torch.nn.Linear(768, 3072), torch.nn.GELU(),
+                              torch.nn.Linear(3072, 768)).cuda()
+    ref = torch.nn.Sequential(torch.nn.Linear(768, 3072), torch.nn.GELU(),
+                              torch.nn.Linear(3072, 768)).cuda()
+    ref.load_state_dict(ffn.state_dict())
+    a.attach_grad()
+    with mt.autograd.record():
+        y = mt.torch.TorchOp(ffn)(a)
+        loss = (y * y).mean()
+    loss.backward()
+    tx = torch.from_numpy(x_np).cuda().requires_grad_()
+    (ref(tx) ** 2).mean().backward()
+    errs = [_rel(a.grad.asnumpy(), tx.grad.cpu().numpy())] + [
+        _rel(p.grad.cpu().numpy(), q.grad.cpu().numpy())
+        for p, q in zip(ffn.parameters(), ref.parameters())]
+    print(f'  (e) the torch bridge on {card}: to_torch/from_torch share '
+          f'storage: {shared}; TorchOp(FFN 768-3072-768) on 512 rows: input '
+          f'and parameter gradients against torch autograd, worst rel '
+          f'{max(errs):.3e}')
+    check(max(errs) <= 1e-6, 'TorchOp\'s gradients differ from autograd\'s')
+    return max(errs)
+
+
+def frontends_svrg(card, epochs=3):
+    """(f) Features on the card; SVRGModule.fit of tests/test_svrg.py's
+    linear regression on the card against the CPU."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.contrib.svrg_optimization import SVRGModule
+    f = mt.runtime.Features()
+    on = {k: f.is_enabled(k) for k in ('CUDA', 'CUDNN', 'NCCL', 'TPU',
+                                       'XLA', 'PROFILER')}
+    print(f'  (f) Features on {card}: {on}')
+    check(on['CUDA'] and on['CUDNN'] and on['NCCL'] and not on['TPU']
+          and not on['XLA'], f'Features {on}')
+    rng = onp.random.RandomState(0)
+    X = rng.randn(200, 5).astype(onp.float32)
+    Y = (X @ rng.randn(5, 1).astype(onp.float32)).astype(onp.float32)
+    w0 = onp.random.RandomState(1).normal(0, 0.1, (5, 1)).astype('float32')
+    out, secs = {}, {}
+    for kind, ctx in (('gpu', mt.gpu(0)), ('cpu', mt.cpu())):
+        s = mt.sym
+        loss = s.MakeLoss(s.mean(s.square(
+            s.dot(s.var('data'), s.var('w', shape=(5, 1))) -
+            s.var('lin_label'))))
+        mod = SVRGModule(loss, data_names=('data',),
+                         label_names=('lin_label',), update_freq=2,
+                         context=ctx)
+        mod.bind(data_shapes=[('data', (20, 5))],
+                 label_shapes=[('lin_label', (20, 1))])
+        mod.init_params(arg_params={'w': mt.nd.array(w0, ctx=ctx)})
+        it = mt.io.NDArrayIter(X, Y, batch_size=20, label_name='lin_label')
+        t0 = time.perf_counter()
+        mod.fit(it, eval_metric='mse', optimizer='sgd',
+                optimizer_params=(('learning_rate', 0.05),
+                                  ('rescale_grad', 1.0)), num_epoch=epochs)
+        secs[kind] = time.perf_counter() - t0
+        out[kind] = mod.get_params()[0]['w'].asnumpy()
+    err = float(onp.abs(out['gpu'] - out['cpu']).max())
+    mse = float(onp.mean((X @ out['gpu'] - Y) ** 2))
+    print(f'  (f) SVRGModule.fit, {epochs} epochs: weights on the card '
+          f'within {err:.3e} of the CPU run (tolerance {SVRG_TOL}), mse '
+          f'{mse:.5f}, {secs["gpu"]:.2f} s on the card')
+    check(err <= SVRG_TOL, 'SVRG on the card differs from the CPU')
+    return dict(err=err, mse=mse, secs=secs)
+
+
+def frontends_phase(card, batch=8, side=224):
+    """MXNet's frontends and contrib on the card: (a) mx.profiler around
+    the flagship BERT step, (b) ONNX, (c) quantize_net, (d) op libraries,
+    (e) the torch bridge, (f) Features and SVRG. Returns (launches of the
+    profiled steps, numbers)."""
+    import numpy as onp
+    t0 = time.perf_counter()
+    print(f'frontends phase on {card}')
+    x = onp.random.RandomState(SEED + 19).standard_normal(
+        (batch, 3, side, side)).astype(onp.float32)
+    with tempfile.TemporaryDirectory() as work:
+        launches, prof = frontends_profiler_in_child(card, work)
+        print(f'  (a) {time.perf_counter() - t0:.1f} s, its process '
+              f'included')
+        arrays, onnx = frontends_onnx(card, work, x)
+    quant = frontends_quantize(card, arrays, x)
+    lib = frontends_library(card)
+    bridge = frontends_bridge(card)
+    svrg = frontends_svrg(card)
+    secs = time.perf_counter() - t0
+    print(f'  frontends phase: {secs:.1f} s on {card}')
+    return launches, dict(profiler=prof, onnx=onnx, quantize=quant,
+                          library=lib, bridge=bridge, svrg=svrg, secs=secs)
+
+
 # ---- the rest of the vision zoo on the card
 ZOO_NETS = (('alexnet', 224), ('vgg16_bn', 224), ('squeezenet1.1', 224),
             ('mobilenetv2_1.0', 224), ('densenet121', 224),
@@ -7811,11 +8406,16 @@ def ops_registry_on_card(card, device='cuda'):
     int32 outputs exactly, dtypes and shapes exactly, the decompositions
     by their residuals. Then every sampler on the card against its law
     (moments, KS or chi-square, and the structural rules). Host-only ops
-    are named."""
+    are named. The ops of the op libraries loaded in this process (the
+    frontends phase's example library, which (d) holds on its own) are
+    users' ops, not the package's, and are left out."""
+    import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import _op_cases as C
     from mxnet_tpu_torch import _op_checks as K
     from mxnet_tpu_torch.base import list_ops
-    ops = list_ops()
+    loaded = {op for ops in mt.library.loaded_libraries().values()
+              for op in ops}
+    ops = [op for op in list_ops() if op not in loaded]
     worst, held, failed = {}, [], []
     t0 = time.perf_counter()
     for op in ops:
@@ -8194,8 +8794,8 @@ def _build_entries(root):
 
 
 def _remove_new_build_entries(root, before):
-    """Remove what this run created under build/ (the kernels and the
-    native io library it built, the tile database, the dp phase's files,
+    """Remove what this run created under build/ (the kernels, the native
+    io library and the example op library it built, the tile database, the dp phase's files,
     the sym phase's checkpoint and exported files),
     so that a later process in the checkout starts as it would have
     without this run; what was there before stays."""
@@ -8283,6 +8883,9 @@ def _run():
     remat, tuned, _remat = remat_phase(card, tune_dir)
     dp, dp_errs, _dp, zero3 = dp_phase(card)
     resil, _resil = resilience_phase(card)
+    # last: its profiler phase (a) runs in a process of its own, where its
+    # traces are the first; the rest reads no trace
+    prof, _frontends = frontends_phase(card)
     # launches: the serving, front, training, compiled-step and ndarray
     # runs', each counted from 0 just before its run (serving's and the
     # front's are their warmups' eager runs and captures, the compiled
@@ -8293,7 +8896,7 @@ def _run():
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
              'ndarray', 'gluon', 'io', 'dp', 'remat', 'autotune', 'zero3',
-             'resilience', 'lm', 'sym', 'ops')
+             'resilience', 'lm', 'sym', 'ops', 'profiler')
     by_path = {}
     for name in rows:
         base, f16 = name.split('[')[0], name.endswith('[float16]')
@@ -8312,7 +8915,7 @@ def _run():
             remat=remat.get(name, 0), autotune=tuned.get(name, 0),
             zero3=zero3.get(name, 0), resilience=resil.get(name, 0),
             lm=lm.get(name, 0), sym=sym.get(name, 0),
-            ops=ops.get(name, 0))
+            ops=ops.get(name, 0), profiler=prof.get(name, 0))
     for name in user_rows:
         by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
     idle = [n for n, paths_n in by_path.items()
@@ -8364,6 +8967,12 @@ def _rank_args(argv):
 
 
 if __name__ == '__main__':
+    if '--frontends-profiler' in sys.argv:
+        import torch
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        sys.exit(frontends_profiler_child(
+            sys.argv[sys.argv.index('--frontends-profiler') + 1]))
     if '--resilience-child' in sys.argv:
         import torch
         if not torch.cuda.is_available():

@@ -45,7 +45,17 @@ MXNet 1.6's whole op surface is registered (``list_ops``,
 ``register_op``; every name of its op inventory resolves through
 ``base.get_op``), with ``nd.linalg``, ``nd.random``, ``mx.np``
 (``numpy``), ``mx.npx`` (``numpy_extension``), the quantized ops,
-``util``, ``registry`` and ``seed``.
+``util``, ``registry`` and ``seed``. Around a model: ``profiler`` (op
+rows, scopes and the card's trace), ``runtime`` (``Features``),
+``libinfo``, ``log``, ``library`` (op libraries loaded at run time),
+``torch`` (the PyTorch bridge: ``mx.torch.to_torch``), ``test_utils``
+(MXNet's test helpers) and ``contrib`` (``quantization.quantize_net``,
+``onnx``, ``text``, ``tensorboard``, ``svrg_optimization``).
+
+``mx.torch`` is the bridge module: this package's namespace never binds
+PyTorch itself (and ``__all__`` leaves the bridge out, so a star import
+does not shadow PyTorch), and every module of the port imports PyTorch
+absolutely (``import torch``).
 """
 from .base import MXNetError, list_ops, register_op
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
@@ -69,6 +79,8 @@ from . import symbol as sym
 from . import module as mod
 from .attribute import AttrScope
 from . import test_utils
+from . import libinfo, library, log, profiler, runtime
+from . import torch  # noqa: F401  (the bridge, mx.torch)
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',
@@ -82,4 +94,5 @@ __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'parallel', 'random', 'recordio', 'resilience', 'rtc',
            'serialization', 'serving', 'telemetry', 'weights', 'list_ops',
            'register_op', 'seed', 'np', 'npx', 'numpy', 'numpy_extension',
-           'registry', 'test_utils', 'util']
+           'registry', 'test_utils', 'util', 'libinfo', 'library', 'log',
+           'profiler', 'runtime']

@@ -28,7 +28,30 @@ from .base import MXNetError
 from .telemetry import compile as _compile
 
 __all__ = ['DeviceScalars', 'capture', 'module_generators',
-           'graph_generators']
+           'graph_generators', 'HostCallInCapture', 'host_call',
+           'host_calls']
+
+# calls of ops that compute on the host, in this process
+_host_calls = [0]
+
+
+class HostCallInCapture(MXNetError):
+    """A function being captured calls an op that computes on the host."""
+
+
+def host_call(name):
+    """One call of the host op ``name``: counted, and refused while the
+    current stream captures."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise HostCallInCapture(
+            f"op {name!r} computes on the host and cannot run inside a "
+            f"CUDA graph capture")
+    _host_calls[0] += 1
+
+
+def host_calls():
+    """How many host op calls this process has made."""
+    return _host_calls[0]
 
 
 class DeviceScalars:
@@ -98,8 +121,13 @@ def capture(fn, device, generators=(), warm_up=False, stream=None):
     stream.wait_stream(current)
     first = None
     if warm_up:
+        calls = _host_calls[0]
         with torch.cuda.stream(stream):
             first = fn()
+        if _host_calls[0] != calls:
+            raise HostCallInCapture(
+                f"the function to capture called {_host_calls[0] - calls} "
+                f"op(s) that compute on the host")
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
@@ -107,6 +135,8 @@ def capture(fn, device, generators=(), warm_up=False, stream=None):
     try:
         with torch.cuda.graph(graph, stream=stream):
             out = fn()
+    except HostCallInCapture:
+        raise
     except Exception as e:
         raise MXNetError(f"CUDA graph capture failed: {type(e).__name__}: "
                          f"{e}") from e

@@ -30,11 +30,12 @@ JAX package's ``jax.vjp`` tape) does differently from torch is kept here:
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 
 import torch
 
-from .base import MXNetError, state
+from .base import MXNetError, prof_flags, state
 
 __all__ = ['invoke', 'backward', 'grad', 'tape']
 
@@ -101,6 +102,7 @@ def invoke(fn, args, kwargs):
                  if i in lists else a for i, a in enumerate(args)]
     call_kwargs = {k: (v._data if isinstance(v, NDArray) else v)
                    for k, v in kwargs.items()}
+    t0 = _profile_begin() if prof_flags['op'] else None
     try:
         if recording:
             with torch.enable_grad():
@@ -117,7 +119,27 @@ def invoke(fn, args, kwargs):
         # the reference surfaces op failures as MXNetError
         name = getattr(fn, '__name__', str(fn))
         raise MXNetError(f"Error in operator {name}: {e}") from e
+    if t0 is not None:
+        _profile_end(fn, t0)
     return out, recording
+
+
+def _profile_begin():
+    """The start of a profiled op (``profiler.set_config(
+    profile_imperative=True)``): with ``profile_sync`` (or
+    ``aggregate_stats``) the card's queue drained first, so the row
+    times the op to completion and not its launch."""
+    if prof_flags['sync'] and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _profile_end(fn, t0):
+    from . import profiler
+    if prof_flags['sync'] and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    profiler.record_op(getattr(fn, '__name__', str(fn)),
+                       (time.perf_counter() - t0) * 1e6)
 
 
 def _graph_nodes(tensors):

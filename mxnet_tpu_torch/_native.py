@@ -39,7 +39,6 @@ import hashlib
 import importlib.util
 import logging
 import os
-import subprocess
 import threading
 import time
 
@@ -163,29 +162,18 @@ def _configure(lib):
 
 
 def _build(out, cmd):
-    """Compile to a temporary name beside ``out`` and move it into place:
-    None on success, else the compiler's stderr."""
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f'{out}.{os.getpid()}.{threading.get_ident()}.tmp'
-    cmd = cmd + ['-o', tmp]
+    """Build ``out`` (``ops._build.Compile``): None on success, else the
+    compiler's output."""
+    from .ops._build import Compile
     t0 = time.perf_counter()
     _compile.cache_event(hit=False)
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f'{" ".join(cmd)}: {e}'
-    if proc.returncode != 0:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        return f'{" ".join(cmd)} exited {proc.returncode}:\n{proc.stderr}'
-    os.replace(tmp, out)
+    err = Compile(out, cmd, timeout=300).wait()
+    if err is not None:
+        return err
     _compile.report('build', time.perf_counter() - t0, 'native:mxtpu_io',
                     lambda: _compile.signature(
                         [_compile.arg_sig(os.path.basename(SOURCE))],
-                        {'g++': ' '.join(cmd[1:-2])}))
+                        {'g++': ' '.join(cmd[1:])}))
     return None
 
 

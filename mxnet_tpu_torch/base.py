@@ -20,7 +20,7 @@ __all__ = ['MXNetError', 'DataError', 'OpDef', 'register_op',
            'register_op_alias', 'get_op', 'list_ops', 'list_op_aliases',
            'mutated_input_indices',
            'register_sparse_impl', 'lookup_sparse_impl',
-           'state', 'telem_flags', 'torch_dtype']
+           'state', 'telem_flags', 'prof_flags', 'torch_dtype']
 
 
 class MXNetError(RuntimeError):
@@ -161,3 +161,8 @@ state = _ThreadLocalState()
 # every instrumented path, so a disabled run pays one dict lookup per site
 # and records nothing.
 telem_flags = {'on': False}
+
+# PROCESS-wide profiler gate, written by ``profiler`` (set_config, start,
+# stop, pause, resume) and read by ``_imperative.invoke``: 'op' gives each
+# imperative op a row, 'sync' times it to completion on the card.
+prof_flags = {'op': False, 'sync': False}

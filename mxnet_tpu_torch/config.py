@@ -409,3 +409,12 @@ _register('MXTPU_SPARSE_TABLE_AXIS', str, '',
           'does not have (ROADMAP queue 1 item 6a): a step with sparse '
           'tables raises when it is set. Empty (default) = tables '
           'replicate like other params.')
+_register('MXNET_TPU_JAX_TRACE_DIR', str, '',
+          'Directory for the device trace that profiler.start() takes '
+          '(torch.profiler, CPU and CUDA activities; its chrome trace is '
+          'written there at stop()). The name is the JAX package\'s, so '
+          'one run configuration drives both.')
+_register('MXNET_TPU_MNIST_DIR', str, '',
+          'Directory holding the MNIST idx files for '
+          'test_utils.get_mnist(). Empty: the JAX package\'s '
+          'deterministic synthetic set.')

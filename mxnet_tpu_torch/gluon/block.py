@@ -62,6 +62,12 @@ it, nor the other way round) and the parameters' names. On the card:
   one forward under ``no_grad`` shows it, its writes undone) runs
   eagerly here instead: ``make_graphed_callables`` registers only the
   default generator, refuses hooks, and takes tensors only.
+- a forward that calls an op computing on the host (an op library's op,
+  ``library.load``) cannot enter a CUDA graph: its device-to-host copy
+  and synchronize are not capturable. The key's first run shows it
+  (``_capture.HostCallInCapture``), and that key runs eagerly from then
+  on, counted in ``CachedOp.num_eager``; the op returns what it returns
+  outside a hybridized block.
 
 Each new key is a compile of site ``cachedop:<block name>`` for the
 compile ledger (``telemetry.compile``; the capture's seconds and the
@@ -106,7 +112,8 @@ from .. import _imperative
 from ..amp import amp as _amp
 from .. import autograd as _autograd
 from .. import random as _random
-from .._capture import capture, graph_generators, module_generators
+from .._capture import (HostCallInCapture, capture, graph_generators,
+                        host_calls, module_generators)
 from ..telemetry import compile as _compile, memory as _memory, \
     metrics as _metrics
 from .parameter import (DeferredInitializationError, Parameter,
@@ -583,9 +590,11 @@ class CachedOp:
         self._cache = {}
         self._names = None
         self._names_at = None
+        self.num_eager = 0
 
     @property
     def num_graphs(self):
+        """The keys held, the eager ones (``num_eager``) among them."""
         return len(self._cache)
 
     def param_names(self):
@@ -637,6 +646,14 @@ class CachedOp:
                 entry, out = self._build_graphed(args, device)
             else:
                 entry, out = self._build_graph(args, device)
+        except HostCallInCapture:
+            # the forward calls an op that computes on the host: this key
+            # runs eagerly
+            _compile.abort(cctx)
+            self.num_eager += 1
+            entry = self._eager
+            self._cache[key] = entry
+            return entry(args)
         except BaseException:
             _compile.abort(cctx)
             raise
@@ -692,12 +709,13 @@ class CachedOp:
         replay.graph = graph
         return replay, first
 
+    def _eager(self, args):
+        with plain_calls():
+            return self.block._run_forward(args)
+
     def _build_graphed(self, args, device):
         block = self.block
-
-        def run(new_args):
-            with plain_calls():
-                return block._run_forward(new_args)
+        run = self._eager
         if (any(not isinstance(a, torch.Tensor) for a in args) or
                 module_generators(block) or
                 any(m._forward_hooks or m._forward_pre_hooks
@@ -718,6 +736,7 @@ class CachedOp:
         # one forward shows whether it does, and then the key runs eagerly
         own = _random.generator(device)
         before = own.get_state()
+        calls = host_calls()
         with plain_calls(), torch.no_grad():
             torch.nn.Module.__call__(block, *args)
         draws = not torch.equal(own.get_state(), before)
@@ -725,6 +744,9 @@ class CachedOp:
         with torch.no_grad():
             for p, s in zip(written, saved):
                 p.copy_(s)
+        if host_calls() != calls:
+            raise HostCallInCapture(f"{block.name} calls an op that "
+                                    f"computes on the host")
         if draws:
             return run, run(args)
         adapter = _Graphed(block)

@@ -1,13 +1,14 @@
 """ResNet v1 and v2 (counterpart of ``mxnet_tpu/gluon/model_zoo/vision/
 resnet.py``, ref: python/mxnet/gluon/model_zoo/vision/resnet.py), with the
 JAX package's structure and so its structured parameter names (as
-BottleneckV1 there, its body's 1x1 convolutions keep their bias)."""
+BottleneckV1 there, its body's 1x1 convolutions keep their bias). Each
+block is a ``hybrid_forward``, so a ResNet traces into a Symbol
+(``export``, ONNX's ``export_model``) as the JAX package's does."""
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
 from ....base import MXNetError
-from ....ops import nn as F
 from ..model_store import load_pretrained
 
 __all__ = ['ResNetV1', 'ResNetV2', 'BasicBlockV1', 'BasicBlockV2',
@@ -41,7 +42,7 @@ class BasicBlockV1(HybridBlock):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = self.downsample(x) if self.downsample is not None \
             else x
         return F.activation(residual + self.body(x), act_type='relu')
@@ -69,7 +70,7 @@ class BottleneckV1(HybridBlock):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         residual = self.downsample(x) if self.downsample is not None \
             else x
         return F.activation(self.body(x) + residual, act_type='relu')
@@ -89,7 +90,7 @@ class BasicBlockV2(HybridBlock):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         out = F.activation(self.bn1(x), act_type='relu')
         residual = self.downsample(out) if self.downsample is not None \
             else x
@@ -116,7 +117,7 @@ class BottleneckV2(HybridBlock):
         else:
             self.downsample = None
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         out = F.activation(self.bn1(x), act_type='relu')
         residual = self.downsample(out) if self.downsample is not None \
             else x
@@ -163,7 +164,7 @@ class ResNetV1(HybridBlock):
                                 prefix=''))
         return layer
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 
@@ -200,7 +201,7 @@ class ResNetV2(HybridBlock):
 
     _make_layer = ResNetV1._make_layer
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

@@ -15,6 +15,13 @@ does the same for a Triton kernel's JIT compile.
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises when that is not 0.
 
+``Compile`` is the one compiler run of every native build of the port:
+these kernels, the native IO library (``_native.py``) and the op
+libraries that ``library.py`` builds: the compiler writes a temporary
+name beside the library and the library is moved into place only when
+it built, so processes that build at once never load a half-written
+file.
+
 ``launch_counts`` holds one plain integer per kernel. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels. ``variant_counts`` splits the
@@ -43,7 +50,7 @@ from ..telemetry import compile as _compile
 __all__ = ['launch_counts', 'variant_counts', 'dtype_counts', 'tile_counts',
            'count_launch', 'reset_launch_counts',
            'library', 'build_all', 'ptxas_report', 'check', 'SOURCES',
-           'build_dir', 'triton_first_launch']
+           'build_dir', 'triton_first_launch', 'Compile']
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -75,6 +82,52 @@ def build_dir():
     ``MXTPU_COMPILE_CACHE_DIR`` where set, else ``build/mxnet_tpu_torch``
     at the root of the checkout (``telemetry.compile.cache_dir``)."""
     return _compile.cache_dir()
+
+
+class Compile:
+    """One compiler run that writes the library ``out``, started at once:
+    ``cmd`` (without ``-o``) writes a temporary name beside ``out``.
+    ``wait()`` moves the library into place and returns None, or removes
+    the temporary file and returns the command with the compiler's output
+    (or why it did not start, or ran past ``timeout`` seconds); ``log``
+    holds the compiler's output either way."""
+
+    def __init__(self, out, cmd, timeout=None):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        self.out = out
+        self.tmp = f'{out}.{os.getpid()}.{threading.get_ident()}.tmp'
+        self.cmd = list(cmd) + ['-o', self.tmp]
+        self.timeout = timeout
+        self.log = ''
+        self._error = None
+        try:
+            self._proc = subprocess.Popen(
+                self.cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+        except OSError as e:
+            self._proc = None
+            self._error = f'{" ".join(self.cmd)}: {e}'
+
+    def wait(self):
+        if self._proc is None:
+            return self._error
+        try:
+            self.log, _ = self._proc.communicate(timeout=self.timeout)
+            err = None if self._proc.returncode == 0 else (
+                f'{" ".join(self.cmd)} exited {self._proc.returncode}:\n'
+                f'{self.log}')
+        except subprocess.TimeoutExpired as e:
+            self._proc.kill()
+            self.log, _ = self._proc.communicate()
+            err = f'{" ".join(self.cmd)}: {e}'
+        if err is not None:
+            try:
+                os.unlink(self.tmp)
+            except OSError:
+                pass
+            return err
+        os.replace(self.tmp, self.out)
+        return None
 
 
 def reset_launch_counts():
@@ -130,8 +183,7 @@ def build_all():
         todo = [s for s in SOURCES if s not in _libs]
         if not todo:
             return dict(_libs)
-        os.makedirs(build_dir(), exist_ok=True)
-        procs = {}
+        jobs = {}
         t0 = time.perf_counter()
         for src in todo:
             out = _target(src)
@@ -139,24 +191,18 @@ def build_all():
                 _compile.cache_event(hit=True)
                 continue
             _compile.cache_event(hit=False)
-            tmp = f'{out}.{os.getpid()}.tmp'
-            procs[src] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-                 os.path.join(CSRC_DIR, src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
+            jobs[src] = Compile(out, [_nvcc(), *NVCC_FLAGS,
+                                      os.path.join(CSRC_DIR, src)])
         failed = []
-        for src, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            _ptxas[src] = log
-            if proc.returncode != 0:
-                failed.append(f'{src}:\n{log}')
-                continue
-            os.replace(tmp, out)
+        for src, job in jobs.items():
+            err = job.wait()
+            _ptxas[src] = job.log
+            if err is not None:
+                failed.append(f'{src}:\n{err}')
         if failed:
             raise MXNetError('nvcc failed for ' + '\n'.join(failed))
-        if procs:
-            built = sorted(procs)
+        if jobs:
+            built = sorted(jobs)
             _compile.report('build', time.perf_counter() - t0,
                             'kernel:' + ','.join(built),
                             lambda: _compile.signature(

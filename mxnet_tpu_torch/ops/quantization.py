@@ -42,8 +42,9 @@ def _regn(n):
 
 def _over(c, t):
     """c / t, rounded once as a float32 division: torch computes a Python
-    number over a tensor as c * (1 / t), which rounds twice."""
-    return torch.div(torch.tensor(c, dtype=t.dtype, device=t.device), t)
+    number over a tensor as c * (1 / t), which rounds twice. The constant
+    is filled on t's device (no host copy, so a CUDA graph captures it)."""
+    return torch.div(torch.full_like(t, c), t)
 
 
 def _rng(x, device=None):

@@ -4,7 +4,10 @@ Parameters are keyed by the JAX package's structured names (those of
 ``Block._collect_params_with_prefix``, e.g. ``encoder.0.ln1.gamma``),
 which are the port modules' ``named_parameters()`` names too: for a Gluon
 net (the model zoo's ResNets) these include BatchNorm's
-``running_mean``/``running_var``, carried like any parameter. Every
+``running_mean``/``running_var``, carried like any parameter, and for a
+net that ``contrib.quantization.quantize_net`` converted, the quantized
+layers' Constants (the int8 ``weight``, ``wrange``, ``bias`` and
+``calib``), integer arrays carried as integers. Every
 mismatch — a missing or extra key, a shape that differs, a parameter
 still waiting for its shape (deferred initialisation: run one forward
 first) — raises.
@@ -44,8 +47,12 @@ def params_from_mxnet_tpu(arrays: Dict[str, onp.ndarray],
         if tuple(a.shape) != tuple(p.shape):
             raise MXNetError(f"parameter {name!r}: shape {a.shape} in the "
                              f"arrays, {tuple(p.shape)} in the module")
-        # through f32: numpy has no native bfloat16 for torch to take
-        t = torch.from_numpy(onp.array(a, dtype=onp.float32))
+        if onp.issubdtype(a.dtype, onp.integer) or a.dtype == onp.bool_:
+            # integers (a quantized layer's int8 weight) as they are
+            t = torch.from_numpy(onp.ascontiguousarray(a))
+        else:
+            # through f32: numpy has no native bfloat16 for torch to take
+            t = torch.from_numpy(onp.array(a, dtype=onp.float32))
         out[name] = t.to(device=p.device, dtype=p.dtype)
     return out
 

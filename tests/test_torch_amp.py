@@ -38,20 +38,7 @@ from mxnet_tpu_torch.base import MXNetError, list_ops
 from mxnet_tpu_torch.models.bert import BertForPretraining
 from mxnet_tpu_torch.models.bert import bert_pretrain_loss
 from mxnet_tpu_torch.weights import params_from_mxnet_tpu
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it: its unnamed JAX blocks would otherwise move
-    the prefixes of reference tests that run later in the same worker
-    (``tests/test_zero3.py`` and ``test_zero1.py`` pair parameters by
-    sorted prefixed names, ROADMAP queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 POLICIES = {'lp16', 'fp32', 'widest', 'nofloat', 'passthrough'}

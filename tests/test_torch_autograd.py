@@ -13,6 +13,7 @@ import pytest
 
 import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

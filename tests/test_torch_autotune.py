@@ -28,6 +28,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import autotune
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops.flash_attention import _block_sizes
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 KNOBS = ('MXTPU_AUTOTUNE_DIR', 'MXTPU_FA_G', 'MXTPU_FA_BQ', 'MXTPU_FA_BK',
          'MXTPU_FA_BWD_G', 'MXTPU_FA_BWD_BQ', 'MXTPU_FA_BWD_BK',

@@ -20,20 +20,7 @@ from mxnet_tpu_torch.models.bert import BertModel
 from mxnet_tpu_torch.serving.batcher import (batch_bucket_for, parse_buckets,
                                              seq_bucket_for)
 from mxnet_tpu_torch.weights import load_parameters, params_from_mxnet_tpu
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it: its unnamed JAX blocks would otherwise move
-    the prefixes of reference tests that run later in the same worker
-    (``tests/test_zero3.py`` and ``test_zero1.py`` pair parameters by
-    sorted prefixed names, ROADMAP queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 CFG = dict(vocab_size=512, hidden=128, layers=2, heads=2, intermediate=512,

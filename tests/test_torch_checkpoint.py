@@ -50,6 +50,7 @@ from mxnet_tpu_torch.checkpoint import (CheckpointManager,
 from mxnet_tpu_torch.checkpoint.manager import _TEST_HOOKS
 from mxnet_tpu_torch.gluon import Trainer, nn
 from mxnet_tpu_torch.parallel import dist
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), os.pardir))
 WORLD_TIMEOUT = 120.0
@@ -77,20 +78,6 @@ def _train_steps(net, trainer, n=2, batch=2):
 
 def _arr(a):
     return nd.array(onp.asarray(a, onp.float32), ctx=mx.cpu())
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it: its unnamed JAX BERT would otherwise move the
-    prefixes of reference tests that run later in the same worker
-    (``tests/test_zero3.py`` and ``test_zero1.py`` pair parameters by
-    sorted prefixed names, ROADMAP queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
 
 
 @pytest.fixture(autouse=True)

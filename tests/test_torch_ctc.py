@@ -32,18 +32,10 @@ import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
 from mxnet_tpu.ops import nn as jnn
 from mxnet_tpu_torch.ops import nn as tnn
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ATOL = 1e-5
 GRAD_TOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
 
 
 @pytest.fixture(autouse=True)

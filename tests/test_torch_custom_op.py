@@ -19,26 +19,13 @@ import pytest
 
 import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
 def _port_on_cpu():
     with mt.cpu():
         yield
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global name counters as this file found them,
-    put back after it (ROADMAP queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    from mxnet_tpu.symbol import Symbol
-    saved = dict(_BlockScope._global_counter)
-    count = Symbol._counter[0]
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
-    Symbol._counter[0] = count
 
 
 def define(mx):

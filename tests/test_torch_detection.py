@@ -26,6 +26,7 @@ from mxnet_tpu.ops import detection as jd
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import contrib as tc
 from mxnet_tpu_torch.ops import detection as td
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ATOL = 1e-5
 

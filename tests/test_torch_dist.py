@@ -33,6 +33,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import collectives, dist
 from mxnet_tpu_torch.resilience import retry_call
 from mxnet_tpu_torch import telemetry
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), os.pardir))
 WORLD_TIMEOUT = 120.0

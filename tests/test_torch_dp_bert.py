@@ -47,6 +47,7 @@ from mxnet_tpu_torch.models.bert import (BertForPretraining,
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.parallel import dist
 from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), os.pardir))
 WORLD_TIMEOUT = 120.0

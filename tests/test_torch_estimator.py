@@ -34,18 +34,7 @@ from mxnet_tpu_torch import checkpoint, gluon, nd
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.contrib import estimator as test_est
 from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it (``tests/test_zero3.py`` and
-    ``test_zero1.py`` pair parameters by sorted prefixed names)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

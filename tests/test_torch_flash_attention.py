@@ -18,6 +18,7 @@ import torch
 
 from mxnet_tpu.ops import pallas_attention as pa
 from mxnet_tpu_torch.ops import flash_attention as fa
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 B, H, T, D = 2, 2, 20, 8     # T = 20 is not a block multiple
 RTOL, ATOL = 1e-4, 1e-5      # the bound of tests/test_operator.py:312

@@ -20,6 +20,7 @@ import torch
 
 from mxnet_tpu.ops import pallas_attention as pa
 from mxnet_tpu_torch.ops import flash_attention as fa
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 B, H, D = 2, 2, 8
 RTOL, ATOL = 1e-4, 2e-5      # the grad bound of tests/test_operator.py:342

@@ -25,6 +25,7 @@ import urllib.request
 
 import numpy as onp
 import pytest
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 PKGS = ('mxnet_tpu', 'mxnet_tpu_torch')
 

@@ -13,6 +13,7 @@ from mxnet_tpu.ops.pallas_layernorm import fused_add_layer_norm as j_fused_ln
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.ops.fused_ffn import fused_dense_gelu
 from mxnet_tpu_torch.ops.fused_layernorm import fused_add_layer_norm
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 def _ln_inputs(shape, seed):

@@ -30,20 +30,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu_torch import gluon as tgluon
 from mxnet_tpu_torch.base import MXNetError
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it: its unnamed JAX blocks would otherwise move
-    the prefixes of reference tests that run later in the same worker
-    (``tests/test_zero3.py`` and ``test_zero1.py`` pair parameters by
-    sorted prefixed names, ROADMAP queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 RTOL, ATOL = 1e-5, 1e-6

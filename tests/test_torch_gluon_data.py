@@ -29,21 +29,9 @@ from mxnet_tpu_torch.gluon import data as pdata
 from mxnet_tpu_torch.gluon.data import (ArrayDataset, DataLoader, Dataset,
                                         ElasticSampler)
 from mxnet_tpu_torch.gluon.data.vision import transforms as ptf
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 CPU = mx.cpu()
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's block-name counters as this file found them, put
-    back after it (its JAX transforms are unnamed blocks; reference tests
-    that pair parameters by sorted names read the counters, ROADMAP
-    queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
 
 
 @pytest.fixture(autouse=True)

@@ -40,23 +40,12 @@ from mxnet_tpu_torch import parallel
 from mxnet_tpu_torch.models import gpt as tgpt
 from mxnet_tpu_torch.ops import attention as attn_ops
 from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 CFG = dict(vocab_size=97, hidden=64, layers=2, heads=4, max_len=32)
 B, T = 2, 32
 OUT_RTOL, GRAD_RTOL = 1e-5, 1e-4
 ADAMW = {'learning_rate': 1e-3, 'wd': 0.01, 'eps': 1e-6}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it (``tests/test_zero3.py`` and
-    ``test_zero1.py`` pair parameters by sorted prefixed names)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
 
 
 @pytest.fixture(autouse=True)

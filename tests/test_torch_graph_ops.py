@@ -12,6 +12,7 @@ import torch
 import mxnet_tpu_torch as mt
 from mxnet_tpu.base import get_op as jget
 from mxnet_tpu_torch.base import get_op as tget
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -19,6 +19,7 @@ import mxnet_tpu as jmx
 from mxnet_tpu import image as jimage
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import image, recordio
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 CPU = mx.cpu()
 

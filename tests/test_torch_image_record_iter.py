@@ -23,6 +23,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import recordio, telemetry
 from mxnet_tpu_torch.io import io as io_mod
 from mxnet_tpu_torch.io import DevicePrefetchIter, ImageRecordIter
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 CPU = mx.cpu()
 MEANSTD = dict(mean_r=123.68, mean_g=116.78, mean_b=103.94,

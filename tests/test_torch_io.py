@@ -26,6 +26,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import io as pio, telemetry
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.io import ElasticShard, NDArrayIter
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 CPU = mx.cpu()
 G, N = 8, 32     # global batch / dataset size (4 batches per epoch)

@@ -20,6 +20,7 @@ import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
 from mxnet_tpu.base import get_op as jget
 from mxnet_tpu_torch.base import get_op as tget
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 R = onp.random.RandomState(17)
 

@@ -8,6 +8,7 @@ import pytest
 from mxnet_tpu import lr_scheduler as jsched
 from mxnet_tpu_torch import lr_scheduler as tsched
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 CASES = [
     ('FactorScheduler', dict(step=3, factor=0.5, base_lr=0.1)),

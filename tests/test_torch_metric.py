@@ -20,6 +20,7 @@ import torch
 import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import metric as tmetric
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 N, C = 24, 5
 

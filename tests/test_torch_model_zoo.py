@@ -58,20 +58,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 from mxnet_tpu_torch.models import lenet as tlenet
 from mxnet_tpu_torch.ops import nn as tops_nn
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it: its unnamed JAX blocks would otherwise move
-    the prefixes of reference tests that run later in the same worker
-    (``tests/test_zero3.py`` and ``test_zero1.py`` pair parameters by
-    sorted prefixed names, ROADMAP queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 MODELS = {

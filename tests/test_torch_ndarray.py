@@ -17,6 +17,7 @@ import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
 from mxnet_tpu import nd as ndj
 from mxnet_tpu_torch import nd as ndt
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -21,6 +21,7 @@ import pytest
 import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.test_utils import PlainGelu, ffn_arrays, ffn_sgd
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ROWS, HIDDEN, FFN, LR, STEPS = 16, 32, 64, 0.5, 3
 

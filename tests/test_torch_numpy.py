@@ -11,6 +11,7 @@ import pytest
 
 import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

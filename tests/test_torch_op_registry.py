@@ -31,6 +31,7 @@ from mxnet_tpu.base import (get_op as jget, list_ops as jlist,
 from mxnet_tpu_torch import _op_cases as C
 from mxnet_tpu_torch.base import (get_op as tget, list_ops as tlist,
                                   list_op_aliases as taliases)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -7,6 +7,7 @@ import pytest
 from mxnet_tpu.base import list_ops as jlist
 
 from test_torch_op_registry import check_op
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 @pytest.mark.parametrize('op', [o for o in jlist()

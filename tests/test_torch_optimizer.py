@@ -12,6 +12,7 @@ from mxnet_tpu.ops import optimizer_ops as jops
 from mxnet_tpu_torch import optimizer as topt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import optimizer_ops as tops
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-7     # one f32 update: rounding order only
 

@@ -17,6 +17,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import get_op
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 N = 200000
 

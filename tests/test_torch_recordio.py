@@ -19,6 +19,7 @@ import mxnet_tpu as jmx
 from mxnet_tpu import recordio as jrec, _native as jnative
 from mxnet_tpu_torch import recordio as prec, _native as pnative
 from mxnet_tpu_torch.base import DataError, MXNetError
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 PAYLOADS = [b"hello", b"x" * 13, b"", b"0123456789abcdef", bytes(range(7))]
 

@@ -18,6 +18,7 @@ from mxnet_tpu.base import get_op as jget
 from mxnet_tpu.ops import ref_aliases as jra
 from mxnet_tpu_torch.base import get_op as tget
 from mxnet_tpu_torch.ops import ref_aliases as tra
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), os.pardir))
 NAMES = jra.reference_op_names()

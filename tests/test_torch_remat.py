@@ -26,6 +26,7 @@ from mxnet_tpu.parallel.mesh import make_mesh as jmake_mesh
 from mxnet_tpu_torch import parallel
 from mxnet_tpu_torch.models.bert import BertForPretraining, bert_pretrain_loss
 from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 CFG = dict(vocab_size=256, hidden=64, layers=2, heads=2, intermediate=128,
            max_len=64, type_vocab=2, dropout=0.0)

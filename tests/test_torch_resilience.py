@@ -54,6 +54,7 @@ from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.parallel import dist
 from mxnet_tpu_torch.resilience import (InjectedFault, NonFiniteGuard,
                                         StepWatchdog, faults)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), os.pardir))
 WORLD_TIMEOUT = 120.0

@@ -32,20 +32,10 @@ from mxnet_tpu.ops import nn as jnn
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import rnn as trnn
 from mxnet_tpu_torch.ops import nn as tnn
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ATOL = 1e-5      # forward values
 GRAD_TOL = 1e-4  # gradients, rel Frobenius
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's block-name counters put back after this file
-    (reference tests later in the worker pair parameters by name)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
 
 
 @pytest.fixture(autouse=True)

@@ -23,6 +23,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import nd, rtc
 from mxnet_tpu_torch.test_utils import (RTC_SOURCE, USER_KERNELS,
                                         launch_user_kernel)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 def _inputs(seed):

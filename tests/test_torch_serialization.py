@@ -9,6 +9,7 @@ from mxnet_tpu import serialization as jser
 from mxnet_tpu_torch import serialization as tser
 from mxnet_tpu_torch.initializer import Normal
 from mxnet_tpu_torch.models.bert import BertModel
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 def _arrays():

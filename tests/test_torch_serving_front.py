@@ -27,6 +27,7 @@ import types
 import numpy as onp
 import pytest
 import torch
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 PKGS = ('mxnet_tpu', 'mxnet_tpu_torch')
 HOST = '127.0.0.1'

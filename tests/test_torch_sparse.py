@@ -19,18 +19,7 @@ from mxnet_tpu.ndarray import sparse as jsp
 from mxnet_tpu_torch.ndarray import sparse as tsp
 from mxnet_tpu.ops import optimizer_ops as JO
 from mxnet_tpu_torch.ops import optimizer_ops as TO
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it (``tests/test_zero3.py`` and
-    ``test_zero1.py`` pair parameters by sorted prefixed names)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

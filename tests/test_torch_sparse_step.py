@@ -27,21 +27,10 @@ from mxnet_tpu.parallel.mesh import make_mesh as jmake_mesh
 from mxnet_tpu_torch.ops import rowsparse as trs
 from mxnet_tpu_torch.parallel import ShardedTrainStep, make_mesh
 from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 VOCAB, DIM = 2000, 8
 LOSS_RTOL, RTOL = 1e-5, 1e-4
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it (``tests/test_zero3.py`` and
-    ``test_zero1.py`` pair parameters by sorted prefixed names)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
 
 
 @pytest.fixture(autouse=True)

@@ -48,6 +48,7 @@ from mxnet_tpu_torch.gluon import rnn as trnn
 from mxnet_tpu_torch.models import ssd as tssd
 from mxnet_tpu_torch.ops import nn as tops_nn
 from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 ATOL = 1e-5
 LOSS_RTOL = 1e-5
@@ -58,15 +59,6 @@ MAX_AMBIGUOUS = 4
 SIGN_MARGIN = 1e3
 SIZES = [(.15, .25), (.35, .45), (.6, .7)]
 RATIOS = [[1, 2, .5]] * 3
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
 
 
 @pytest.fixture(autouse=True)

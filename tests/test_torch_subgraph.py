@@ -26,22 +26,9 @@ from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.block import HybridBlock
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global name counters as this file found them,
-    put back after it (ROADMAP queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    from mxnet_tpu.symbol import Symbol
-    saved = dict(_BlockScope._global_counter)
-    count = Symbol._counter[0]
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
-    Symbol._counter[0] = count
 
 
 @pytest.fixture(autouse=True)

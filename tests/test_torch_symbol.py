@@ -30,24 +30,9 @@ import torch
 import mxnet_tpu as mj
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global name counters (Gluon's block prefixes and
-    the Symbol counter) as this file found them, put back after it, so
-    that reference tests later in the worker see the names they expect
-    (ROADMAP queue 3)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    from mxnet_tpu.symbol import Symbol
-    saved = dict(_BlockScope._global_counter)
-    count = Symbol._counter[0]
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
-    Symbol._counter[0] = count
 
 
 @pytest.fixture(autouse=True)

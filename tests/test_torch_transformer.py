@@ -33,6 +33,7 @@ from mxnet_tpu_torch import gluon, parallel
 from mxnet_tpu_torch.models import transformer as ttr
 from mxnet_tpu_torch.models.bert import masked_cross_entropy
 from mxnet_tpu_torch.weights import params_from_mxnet_tpu
+from test_torch_jax_globals import jax_globals  # noqa: F401
 
 CFG = dict(hidden=64, enc_layers=2, dec_layers=2, heads=4, ffn_hidden=128,
            max_len=64, dropout=0.0)
@@ -40,18 +41,6 @@ VOCAB, B, TS, TT = 50, 3, 12, 9
 VALID = [12, 7, 5]
 OUT_RTOL, RTOL, ATOL = 1e-5, 1e-4, 1e-7
 SGD = ('sgd', {'learning_rate': 0.1, 'momentum': 0.9})
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _jax_name_counters():
-    """The JAX package's global block-name counters as this file found
-    them, put back after it (``tests/test_zero3.py`` and
-    ``test_zero1.py`` pair parameters by sorted prefixed names)."""
-    from mxnet_tpu.gluon.block import _BlockScope
-    saved = dict(_BlockScope._global_counter)
-    yield
-    _BlockScope._global_counter.clear()
-    _BlockScope._global_counter.update(saved)
 
 
 @pytest.fixture(autouse=True)
