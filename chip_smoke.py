@@ -178,6 +178,46 @@
    seeded alike). The launch counters are set to 0 just before and read
    just after: the path launches none of the hand-written kernels (the
    JAX package's sparse path runs no Pallas kernel). Prints its seconds.
+3g. ops phase (after sparse): every registered op on the card against
+   the CPU, BERT-base through nd.random and three AdamW routes, linalg
+   and np at size (ops_phase's docstring). Its step's flagship gradients
+   feed the embed phase's store.
+3h. embed phase (after ops): MXNet's C ABIs and the KVStore, f32 with
+   TF32 off unless said. (a) g++ builds the four libraries of
+   mxnet_tpu_torch/csrc/embed (predict, training, NDArray, symbol; the
+   seconds printed). (b) The 12-layer BERT-base encoder of the sym phase
+   (hidden 768, 12 heads, FFN 3072), f32 weights from SEED, saved with
+   the port's serializer, through MXPredCreate(dev_type=2),
+   MXPredSetInput (data, mask), MXPredForward and MXPredGetOutput at
+   B = 8, T = 512, valid_length in [256, 512]: bitwise the port's
+   SymbolBlock forward on the card, rows 0-1 within EMBED_PREDICT_TOL
+   of the CPU's (dev_type=1); each forward launches A 12 times in its SIMT
+   variant (f32); host ms of forward + output against the Python
+   forward's. (c) The same encoder as a training-ABI CachedOp over
+   float16 arrays (dtype code 2) at B = 8, T = 512, recorded, with
+   MXTrainAutogradBackward from a seeded head gradient: 12 launches each
+   of A, K2 and K3 in float16; output and gradients bitwise the same
+   CachedOp driven from Python (_train_embed) on the card; at B = 2 the
+   card's float16 gradients against f32 on the CPU (the ABI under
+   ``with mt.cpu():``) within EMBED_F16_TOL, and the same step in
+   bfloat16 (driven from Python: the ABI has no bfloat16 code) outside
+   it; the step's device ms. (d)
+   test_c_embedder_trains_lenet's loop through the training ABI on the
+   card (its arrays there): the loss falls; examples/c_embedder/
+   train_mlp.c, read and not edited, compiled with cc from a copy laid
+   out so that its relative include finds the port's header, linked to
+   the port's library and libpython, run as a process of its own with the
+   repository on PYTHONPATH: exit 0, the loss halved; run with no card
+   visible it fails naming the missing device. (e) The ops phase's 159
+   flagship gradients pushed and pulled through kvstore 'device', plain
+   and through 2bit, fp16 and int8, bitwise the CPU store fed the same
+   tensors, device ms per push and pull; the flagship Trainer (bf16,
+   AdamW, B = 8, T = 512, dropout 0.1 from a seeded generator) for 3
+   steps with update_on_kvstore=True against the fused update from the
+   same weights: moments bitwise, weights within rel 1e-6, both step
+   times. (f) runs in the dp phase's ranks. The launch counters are set
+   to 0 around (b), (c) and (e)'s Trainer and summed: the phase's
+   column of the kernels' line, A's SIMT launches under their variant.
 4. Serving phase: the serving recipe, InferenceEngine(BlockRunner(net))
    then serving.warmup(engine), on BERT-base at full width, weights drawn
    with numpy from a fixed seed (Normal(0.02)) and cast to bf16 on the
@@ -397,7 +437,10 @@
    attention masks, DP_STEPS steps, held to DP_TOL against its ZeRO-1
    run; the parameter bytes a rank holds over ZeRO-1's within
    [0.45, 0.55]; the layer groups, the group all-gathers a step and
-   their host ms printed.
+   their host ms printed. Each gloo rank also runs the embed phase's
+   (f): kvstore 'dist_sync' over the world, a push of FFN1-shaped f32
+   tensors on the card all-reduced, then 3 pushes through the 2bit codec,
+   each rank's pulls bitwise numpy's sum and codec replay.
    With two or more cards it repeats the training part over NCCL, one
    rank per card, up to 4; with one it prints "nccl: not run (1 card)".
    A rank that fails or passes DP_TIMEOUT fails the script.
@@ -467,11 +510,13 @@
    seconds. The profiled steps' launches are the kernels' profiler
    column.
 13. Removes what the run created under build/ (the kernels, the native
-   io library and the example op library it built, the tile database, the dp phase's files, the sym
+   io library, the example op library and the C ABI libraries it built,
+   the tile database, the dp phase's files, the sym
    phase's checkpoint and exported files), so that a later process in
    the checkout, the `cuda` tests say, starts as it would have without
    this run.
 14. Prints the kernels' JSON line (each row with its variant and dtype,
+   the embed phase's launches by variant on the flash rows,
    A's, K2's and K3's launches per lm replay and per symbolic forward
    and backward (launches_per_sym_forward/_backward), their lm_shapes
    timings
@@ -4685,6 +4730,92 @@ def dp_sync_bn(world, rank, device='cuda', batch=8):
     return y.detach().cpu().numpy(), stats
 
 
+DP_KV_SHAPES = ((3072, 768), (3072,))     # FFN1's weight and bias
+
+
+def _dp_kv_values(rank, scale=1.0):
+    import numpy as onp
+    rng = onp.random.RandomState(SEED + 83 + rank)
+    return [(rng.standard_normal(s) * scale).astype(onp.float32)
+            for s in DP_KV_SHAPES]
+
+
+def dp_kvstore(world, rank, device='cuda'):
+    """The embed phase's (f), in a dp rank: kvstore 'dist_sync' over the
+    world, its rank and num_workers the world's; one push of this rank's
+    seeded tensors on the card, all-reduced over the process group, then
+    3 pushes through the 2bit codec (each rank's residual its own).
+    Returns the pulls as numpy."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+
+    def nds(arrs):
+        return [mt.nd.NDArray(torch.from_numpy(a).to(device)) for a in arrs]
+    keys = list(range(len(DP_KV_SHAPES)))
+    zeros = [onp.zeros(s, onp.float32) for s in DP_KV_SHAPES]
+    kv = mt.kv.create('dist_sync')
+    res = dict(rank=kv.rank, workers=kv.num_workers)
+    kv.init(keys, nds(zeros))
+    kv.push(keys, nds(_dp_kv_values(rank)))
+    outs = nds(zeros)
+    kv.pull(keys, out=outs)
+    res['plain'] = [o._data.cpu().numpy() for o in outs]
+    kc = mt.kv.create('dist_sync')
+    kc.set_gradient_compression({'type': '2bit', 'threshold': 0.5})
+    kc.init(keys, nds(zeros))
+    res['2bit'] = []
+    for _ in range(3):
+        kc.push(keys, nds(_dp_kv_values(rank, 0.4)))
+        kc.pull(keys, out=outs)
+        res['2bit'].append([o._data.cpu().numpy() for o in outs])
+    res['on_card'] = all(o._data.is_cuda for o in outs)
+    kc.barrier()
+    return res
+
+
+def _hold_dp_kvstore(ranks):
+    """Each rank's dist_sync pulls against numpy: the plain push the sum
+    of the ranks' tensors, the 2bit pushes numpy's replay of the codec
+    (each rank's residual carried), bitwise."""
+    import numpy as onp
+    n = len(ranks)
+    xs = [_dp_kv_values(r) for r in range(n)]
+    want_plain = [sum(x[k] for x in xs[1:]) + xs[0][k] if n > 1 else xs[0][k]
+                  for k in range(len(DP_KV_SHAPES))]
+    residual = [[onp.zeros(s, onp.float32) for s in DP_KV_SHAPES]
+                for _ in range(n)]
+    want_2bit = []
+    for _ in range(3):
+        step = []
+        for k in range(len(DP_KV_SHAPES)):
+            total = None
+            for r in range(n):
+                acc = residual[r][k] + _dp_kv_values(r, 0.4)[k]
+                q = onp.where(acc >= 0.5, onp.float32(0.5),
+                              onp.where(acc <= -0.5, onp.float32(-0.5),
+                                        onp.float32(0))).astype(onp.float32)
+                residual[r][k] = acc - q
+                total = q if total is None else total + q
+            step.append(total)
+        want_2bit.append(step)
+    ok_world = all(o['kvstore']['rank'] == r and
+                   o['kvstore']['workers'] == n for r, o in enumerate(ranks))
+    ok_plain = all(onp.array_equal(g, w) for o in ranks
+                   for g, w in zip(o['kvstore']['plain'], want_plain))
+    ok_2bit = all(onp.array_equal(g, w) for o in ranks
+                  for got, want in zip(o['kvstore']['2bit'], want_2bit)
+                  for g, w in zip(got, want))
+    on_card = all(o['kvstore']['on_card'] for o in ranks)
+    print(f'  (embed f) kvstore dist_sync over {n} gloo ranks on the card: '
+          f'rank/num_workers the world\'s: {ok_world}; a push bitwise the '
+          f'numpy sum: {ok_plain}; 3 pushes through 2bit bitwise numpy\'s '
+          f'replay of the codec: {ok_2bit}; outputs on the card: {on_card}')
+    check(ok_world and ok_plain and ok_2bit and on_card,
+          'dist_sync over the gloo ranks disagrees with numpy')
+    return dict(plain=ok_plain, two_bit=ok_2bit)
+
+
 def dp_rank_main(rank, world, work, backend):
     """A rank of the dp phase (chip_smoke.py --dp-rank R ...)."""
     import pickle
@@ -4703,6 +4834,7 @@ def dp_rank_main(rank, world, work, backend):
     res['bh_base'] = rank * (8 // world) * 12
     if backend == 'gloo':
         res['sbn'] = dp_sync_bn(world, rank)
+        res['kvstore'] = dp_kvstore(world, rank)
     with open(os.path.join(work, f'{backend}_rank{rank}.pkl'), 'wb') as f:
         pickle.dump(res, f)
     dist.barrier()
@@ -4908,6 +5040,7 @@ def dp_phase(card, world=2):
             compare(f'SyncBatchNorm {n}, rank {ranks.index(o)}',
                     torch.from_numpy(o['sbn'][1][n]), torch.from_numpy(v),
                     **DP_SBN_TOL)
+    kvstore = _hold_dp_kvstore(ranks)
     zero3 = _hold_zero3(ranks, ref, got_masters, work, world, card)
     nccl = None
     count = torch.cuda.device_count()
@@ -4923,7 +5056,7 @@ def dp_phase(card, world=2):
     else:
         print('  nccl: not run (1 card)')
     return launches, errs, dict(parity=parity, ratio=ratio, coll_ms=coll,
-                                step_ms=rank_ms, nccl=nccl,
+                                step_ms=rank_ms, nccl=nccl, kvstore=kvstore,
                                 zero3=zero3[1]), zero3[0]
 
 
@@ -8637,7 +8770,7 @@ def ops_bert_adamw(card, device='cuda', cfg=None, batch=8, seq=512):
     check(rel <= 1e-6, f'AdamW weights: rel {rel} > 1e-6')
     del net32, trainer, results, w_tr
     return launched, dict(loss=loss, init_mean=mean, init_std=std,
-                          routes_ms=times, multi_rel=rel)
+                          routes_ms=times, multi_rel=rel, grads=grads)
 
 
 def ops_at_size(card, device='cuda', M=4096, K=768, N=3072, B=8, H=12,
@@ -8768,6 +8901,609 @@ def ops_phase(card, device='cuda'):
     print(f'  ops phase: {out["seconds"]:.1f} s')
     return launched, out
 
+# -- embed: MXNet's C ABIs (predict, training, NDArray, symbol) and the
+# KVStore on the card
+
+EMBED_TIMEOUT = 300.0     # seconds for the standalone embedder, then killed
+EMBED_CODECS = (None, '2bit', 'fp16', 'int8')
+# the f32 predict ABI on the card against f32 on the CPU: PERF.md
+# section 2's f32 bound (rel Frobenius)
+EMBED_PREDICT_TOL = 1e-4
+# the float16 training ABI's gradients against f32 on the CPU: float16
+# rounds 8x finer than bfloat16 (2^-11 against 2^-8), so its bound sits
+# between float16's reading and a bfloat16 control of the same step,
+# which must fall outside it
+EMBED_F16_TOL = {'grad_rel_fro': 0.005, 'grad_min_cos': 0.999}
+
+
+class _Launches:
+    """Launch counts summed over the parts of a path: each part counted
+    from 0 just before it and read just after (``part``)."""
+
+    def __init__(self):
+        self.kernels, self.dtypes, self.variants = {}, {}, {}
+
+    def part(self, fn):
+        import mxnet_tpu_torch as mt
+        from mxnet_tpu_torch.ops import _build
+        _zero_counters()
+        out = fn()
+        got = ({k: v for k, v in mt.ops.launch_counts.items() if v},
+               {k: v for k, v in _build.dtype_counts.items() if v},
+               {k: v for k, v in _build.variant_counts.items() if v})
+        for acc, counts in zip((self.kernels, self.dtypes, self.variants),
+                               got):
+            for k, v in counts.items():
+                acc[k] = acc.get(k, 0) + v
+        return out, got
+
+
+def embed_encoder(batch, seq, seed, layers=None):
+    """chip_smoke's symbolic BERT-base encoder (``bert_sym_encoder`` at
+    SYM_BERT) with f32 parameters from ``seed`` (Normal(0.02) weights, unit
+    gammas, zero biases), an input batch, an additive key mask from
+    valid_length in [seq/2, seq] (0 kept, -1e4 padding) and a head
+    gradient."""
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    cfg = dict(SYM_BERT, **({'layers': layers} if layers else {}))
+    net = bert_sym_encoder(mt.sym, **cfg)
+    rng = onp.random.RandomState(seed)
+    shapes = dict(data=(batch, seq, cfg['hidden']), mask=(batch, 1, 1, seq))
+    args, _, _ = net.infer_shape(**shapes)
+    arrays = {}
+    for n, s in zip(net.list_arguments(), args):
+        if n in shapes:
+            continue
+        arrays[n] = (rng.standard_normal(s) * 0.02 if n.endswith('_weight')
+                     else onp.ones(s) if n.endswith('_gamma')
+                     else onp.zeros(s)).astype(onp.float32)
+    x = rng.standard_normal(shapes['data']).astype(onp.float32)
+    valid = rng.randint(seq // 2, seq + 1, batch)
+    mask = onp.where(onp.arange(seq)[None] < valid[:, None], 0.0, -1e4) \
+        .astype(onp.float32).reshape(shapes['mask'])
+    head = rng.standard_normal(shapes['data']).astype(onp.float32)
+    return net, arrays, x, mask, head
+
+
+def embed_predict(card, work, launches, batch=8, seq=512, cpu_rows=2):
+    """(b) The predict ABI at full width, f32: MXPredCreate(dev_type=2)
+    over the exported encoder, MXPredSetInput (data, mask), MXPredForward,
+    MXPredGetOutput at B x T. The output is bitwise the port's
+    SymbolBlock forward on the card, within EMBED_PREDICT_TOL of the
+    CPU's (dev_type=1, its first ``cpu_rows`` rows); each forward launches A
+    12 times, in its SIMT variant (f32)."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import _capi
+    from mxnet_tpu_torch.serialization import load_params_dict
+    net, arrays, x, mask, _ = embed_encoder(batch, seq, SEED + 61)
+    path = os.path.join(work, 'encoder-0000.params')
+    with mt.cpu():
+        mt.nd.save(path, {f'arg:{k}': mt.nd.array(v)
+                          for k, v in arrays.items()})
+    sym_json = net.tojson().encode()
+    with open(path, 'rb') as f:
+        params = f.read()
+    lib = _capi.load('predict')
+    L = SYM_BERT['layers']
+    pred = _capi.PredictABI(lib, sym_json, params,
+                            {'data': x.shape, 'mask': mask.shape},
+                            dev_type=2, dev_id=0)
+    try:
+        pred.set_input('data', x)
+        pred.set_input('mask', mask)
+        pred.forward()                     # warm-up: cuBLAS, allocator
+        out_c = pred.output(0)
+        (_, (fwd, dts, var)) = launches.part(pred.forward)
+        check(fwd == {'flash_attn_fwd': L} and
+              var == {'flash_attn_fwd.simt': L} and
+              dts == {'flash_attn_fwd.float32': L},
+              f'MXPredForward launches {fwd}, variants {var}, dtypes {dts}; '
+              f'expected {L} of A, SIMT, f32')
+        again = pred.output(0)
+        check(onp.array_equal(again, out_c), 'two forwards differ')
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred.forward()
+            pred.output(0)
+            host.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        pred.free()
+    block = mt.gluon.SymbolBlock(mt.sym.fromjson(sym_json.decode()),
+                                 [mt.sym.var('data'), mt.sym.var('mask')])
+    block._load_arg_dict({k: onp.array(v) for k, v in
+                          load_params_dict(params).items()}, ctx=mt.gpu(0))
+    xd = mt.nd.array(x, ctx=mt.gpu(0))
+    md = mt.nd.array(mask, ctx=mt.gpu(0))
+    direct = block(xd, md).asnumpy()
+    py_host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        block(mt.nd.array(x, ctx=mt.gpu(0)),
+              mt.nd.array(mask, ctx=mt.gpu(0))).asnumpy()
+        py_host.append((time.perf_counter() - t0) * 1e3)
+    same = onp.array_equal(out_c, direct)
+    cpu = _capi.predict(lib, sym_json, params, {'data': x[:cpu_rows],
+                                                'mask': mask[:cpu_rows]},
+                        dev_type=1)
+    rel = _rel(out_c[:cpu_rows].astype(onp.float64), cpu)
+    print(f'  (b) MXPredForward of the {L}-layer BERT-base encoder (f32) '
+          f'at B={batch} T={seq} on {card}: output {out_c.shape}, bitwise '
+          f'the SymbolBlock forward on the card: {same}; rows 0-'
+          f'{cpu_rows - 1} vs the CPU (dev_type=1) rel Frobenius {rel:.2e} '
+          f'(bound {EMBED_PREDICT_TOL}); launches a forward {fwd}, '
+          f'variants {var}; '
+          f'host ms of MXPredForward + MXPredGetOutput '
+          f'{[round(h, 3) for h in host]} against the Python forward + '
+          f'asnumpy {[round(h, 3) for h in py_host]}')
+    check(same, 'the C predict output differs from the SymbolBlock '
+          'forward on the card')
+    check(rel <= EMBED_PREDICT_TOL, f'C predict vs the CPU: rel {rel}')
+    check(bool(onp.isfinite(out_c).all()), 'C predict output not finite')
+    del block, xd, md
+    return dict(fwd=fwd, variants=var, cpu_rel=rel,
+                c_ms=float(onp.median(host)), py_ms=float(onp.median(py_host)))
+
+
+def _abi_array(handle):
+    """The NDArray behind a training-ABI handle (an owned reference to
+    the Python object)."""
+    import ctypes
+    return ctypes.cast(handle, ctypes.py_object).value
+
+
+def _abi_step(api, json_str, arrays, x, mask, head, dtype):
+    """One recorded step of the training ABI over the encoder's CachedOp
+    in ``dtype``: the arrays made and filled through the ABI, the
+    parameters marked, the forward recorded, MXTrainAutogradBackward
+    with ``head``. Returns (run, read): ``run()`` repeats the forward and
+    backward; ``read()`` gives the output and the gradients as numpy."""
+    import numpy as onp
+    names, cop = api.cached_op(json_str)
+    values = dict(arrays, data=x, mask=mask)
+    handles = {n: api.create(values[n].shape, dtype) for n in names}
+    for n in names:
+        api.set(handles[n], values[n].astype(dtype))
+    params = [n for n in names if n in arrays]
+    grads = {n: api.create(arrays[n].shape, dtype) for n in params}
+    api.mark([handles[n] for n in params], [grads[n] for n in params])
+    head_h = api.create(head.shape, dtype)
+    api.set(head_h, head.astype(dtype))
+    state = {}
+
+    def run():
+        api.flags(recording=1, training=1)
+        try:
+            out, = api.call(cop, [handles[n] for n in names])
+        finally:
+            api.flags(recording=0, training=0)
+        api.backward([out], [head_h])
+        state['out'] = out
+
+    def read():
+        out = api.get(state['out'], head.shape, dtype)
+        return out, {n: api.get(api.grad(handles[n]), arrays[n].shape, dtype)
+                     for n in params}
+    run.handles = list(handles.values())
+    return run, read
+
+
+def embed_train_abi(card, launches, batch=8, seq=512, cpu_batch=2):
+    """(c) The training ABI at full width in float16: the encoder as a
+    CachedOp, recorded, MXTrainAutogradBackward with a seeded head
+    gradient. A, K2 and K3 launch 12 times each in float16; the gradients
+    are bitwise those of the same CachedOp driven from Python on the
+    card; at B = ``cpu_batch`` the card's float16 gradients against f32
+    on the CPU (the same ABI under ``with mt.cpu():``) within
+    EMBED_F16_TOL, and a bfloat16 control of the same step outside it."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import _capi
+    net, arrays, x, mask, head = embed_encoder(batch, seq, SEED + 67)
+    json_str = net.tojson()
+    api = _capi.TrainABI(_capi.load('train'))
+    run, read = _abi_step(api, json_str, arrays, x, mask, head, 'float16')
+    run()                                   # warm-up
+    check(all(_abi_array(h)._data.is_cuda for h in run.handles),
+          'a training-ABI array is not on the card')
+    L = SYM_BERT['layers']
+    _, (got, dts, var) = launches.part(run)
+    want = {k: L for k in ('flash_attn_fwd', 'flash_attn_bwd_dq',
+                           'flash_attn_bwd_dkv')}
+    check(got == want and dts == {f'{k}.float16': L for k in want} and
+          var == {f'{k}.tc': L for k in want},
+          f'training-ABI step launches {got}, dtypes {dts}, variants {var}; '
+          f'expected {L} each of A, K2, K3 in float16 on the tensor cores')
+    out_c, grads_c = read()
+    _, dev_ms, host_ms = _timed(run)
+    py_run, py_read = _abi_step(_capi.ModuleTrainABI(mt._train_embed),
+                                json_str, arrays, x, mask, head, 'float16')
+    py_run()
+    out_p, grads_p = py_read()
+    same = onp.array_equal(out_c, out_p) and all(
+        onp.array_equal(grads_c[n], grads_p[n]) for n in grads_c)
+    finite = all(onp.isfinite(g).all() for g in grads_c.values())
+    print(f'  (c) training ABI on {card}: the {L}-layer encoder as a '
+          f'CachedOp in float16 at B={batch} T={seq}, recorded, '
+          f'MXTrainAutogradBackward with a seeded head gradient: launches '
+          f'{got}, variants {var}; the step {dev_ms:.3f} ms device, '
+          f'{host_ms:.3f} ms host; output and {len(grads_c)} gradients '
+          f'bitwise the same CachedOp driven from Python: {same}')
+    check(same, 'the training ABI and the Python CachedOp disagree')
+    check(finite, 'a training-ABI gradient is not finite')
+    del run, read, py_run, py_read, grads_p
+    # at B = cpu_batch: the card's float16 step against f32 on the CPU
+    sl = slice(0, cpu_batch)
+    run16, read16 = _abi_step(api, json_str, arrays, x[sl], mask[sl],
+                              head[sl], 'float16')
+    run16()
+    _, g16 = read16()
+    with mt.cpu():
+        run32, read32 = _abi_step(api, json_str, arrays, x[sl], mask[sl],
+                                  head[sl], 'float32')
+        run32()
+        _, g32 = read32()
+    held = _hold_grads(
+        f'training-ABI gradients, float16 on {card} vs f32 on the CPU at '
+        f'B={cpu_batch}',
+        {n: torch.from_numpy(g.astype(onp.float32)) for n, g in g16.items()},
+        {n: torch.from_numpy(g) for n, g in g32.items()},
+        tol=EMBED_F16_TOL, skip=[n for n in g32 if n.endswith('_k_bias')])
+    # the control: the same step with every array in bfloat16 on the card
+    ctl_run, ctl_read = _abi_step(_Bf16TrainABI(mt._train_embed), json_str,
+                                  arrays, x[sl], mask[sl], head[sl],
+                                  'float32')
+    ctl_run()
+    _, gbf = ctl_read()
+    ctl_rel, ctl_cos, _ = grad_agreement(
+        {n: torch.from_numpy(g) for n, g in gbf.items()},
+        {n: torch.from_numpy(g) for n, g in g32.items()
+         if not n.endswith('_k_bias')})
+    print(f'  (c) control: the same step in bfloat16 on {card} vs f32 on '
+          f'the CPU: rel Frobenius {ctl_rel:.4f}, least cosine '
+          f'{ctl_cos:.5f} (outside the float16 bound '
+          f'{EMBED_F16_TOL["grad_rel_fro"]}: '
+          f'{ctl_rel > EMBED_F16_TOL["grad_rel_fro"]})')
+    check(ctl_rel > EMBED_F16_TOL['grad_rel_fro'],
+          'the bfloat16 control falls within the float16 bound')
+    return dict(launches=got, dev_ms=dev_ms, host_ms=host_ms,
+                bf16_control_rel_fro=ctl_rel, **held)
+
+
+class _Bf16TrainABI:
+    """The calls of ``_capi.ModuleTrainABI`` over bfloat16 arrays, which
+    the training ABI's dtype codes lack: arrays made, filled and read as
+    torch tensors (filled from float32, read as float32)."""
+
+    def __init__(self, module):
+        from mxnet_tpu_torch import _capi
+        self._py = _capi.ModuleTrainABI(module)
+
+    def __getattr__(self, name):
+        return getattr(self._py, name)
+
+    def create(self, shape, dtype='float32'):
+        import mxnet_tpu_torch as mt
+        return mt.nd.zeros(tuple(shape), dtype='bfloat16')
+
+    def set(self, h, arr):
+        import numpy as onp
+        import torch
+        h._data.copy_(torch.from_numpy(onp.ascontiguousarray(
+            arr, onp.float32)))
+
+    def get(self, h, shape, dtype='float32'):
+        return h._data.float().cpu().numpy().reshape(shape)
+
+
+def lenet_symbol(sym):
+    """tests/test_c_train.py's LeNet, weights as explicit inputs."""
+    x = sym.Variable('data')
+    c1 = sym.Activation(sym.Convolution(
+        x, sym.Variable('c1_weight', shape=(8, 1, 5, 5)),
+        sym.Variable('c1_bias', shape=(8,)), kernel=(5, 5), num_filter=8,
+        name='c1'), act_type='relu')
+    p1 = sym.Pooling(c1, kernel=(2, 2), stride=(2, 2), pool_type='max')
+    c2 = sym.Activation(sym.Convolution(
+        p1, sym.Variable('c2_weight', shape=(16, 8, 3, 3)),
+        sym.Variable('c2_bias', shape=(16,)), kernel=(3, 3), num_filter=16,
+        name='c2'), act_type='relu')
+    p2 = sym.Pooling(c2, kernel=(2, 2), stride=(2, 2), pool_type='max')
+    h1 = sym.Activation(sym.FullyConnected(
+        sym.Flatten(p2), sym.Variable('fc1_weight', shape=(32, 400)),
+        sym.Variable('fc1_bias', shape=(32,)), num_hidden=32, name='fc1'),
+        act_type='relu')
+    return sym.FullyConnected(h1, sym.Variable('fc2_weight', shape=(10, 32)),
+                              sym.Variable('fc2_bias', shape=(10,)),
+                              num_hidden=10, name='fc2')
+
+
+LENET_SHAPES = {'data': (8, 1, 28, 28), 'c1_weight': (8, 1, 5, 5),
+                'c1_bias': (8,), 'c2_weight': (16, 8, 3, 3),
+                'c2_bias': (16,), 'fc1_weight': (32, 400),
+                'fc1_bias': (32,), 'fc2_weight': (10, 32),
+                'fc2_bias': (10,)}
+
+
+def embed_lenet(card, work, steps=20):
+    """(d) test_c_embedder_trains_lenet's loop through the training ABI
+    on the card (no CPU scope: its arrays go to the card): the loss
+    falls. Then examples/c_embedder/train_mlp.c, read and not edited,
+    compiled with cc against the port's header and library from a copy
+    laid out so that its ``#include "../../src/train/c_api_train.h"``
+    finds the port's header, linked to libpython, run as a process of its
+    own: it exits 0 with a falling loss; run again with no card visible it
+    fails naming the missing device, so its arrays were on the card."""
+    import shutil
+    import numpy as onp
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import _capi
+    api = _capi.TrainABI(_capi.load('train'))
+    names, cop = api.cached_op(lenet_symbol(mt.sym).tojson())
+    rng = onp.random.RandomState(0)
+    handles, grads = {}, {}
+    for n in names:
+        handles[n] = api.create(LENET_SHAPES[n])
+        if n != 'data':
+            api.set(handles[n], rng.randn(*LENET_SHAPES[n]).astype(
+                onp.float32) * (0.1 if 'weight' in n else 0.0))
+            grads[n] = api.create(LENET_SHAPES[n])
+    pnames = [n for n in names if n != 'data']
+    api.mark([handles[n] for n in pnames], [grads[n] for n in pnames])
+    imgs = rng.rand(8, 1, 28, 28).astype(onp.float32) * 0.1
+    labels = rng.randint(0, 10, 8).astype(onp.float32)
+    for i, lab in enumerate(labels.astype(int)):
+        imgs[i, 0, lab:lab + 10, lab:lab + 10] += 0.8
+    label_h = api.create((8,))
+    api.set(label_h, labels)
+    api.set(handles['data'], imgs)
+    check(all(_abi_array(h)._data.is_cuda for h in handles.values()),
+          'a LeNet array made through the ABI is not on the card')
+    losses = []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(steps):
+            api.flags(recording=1, training=1)
+            logits = api.call(cop, [handles[n] for n in names])[0]
+            loss, = api.invoke('softmax_cross_entropy', [logits, label_h])
+            api.flags(recording=0)
+            losses.append(float(api.get(loss, ()).reshape(-1)[0]))
+            api.backward([loss])
+            for n in pnames:
+                g = api.grad(handles[n])
+                newp, = api.invoke('sgd_update', [handles[n], g],
+                                   {'lr': 0.1, 'rescale_grad': 1.0 / 8})
+                api.set(handles[n], api.get(newp, LENET_SHAPES[n]))
+                api.free(newp, g)
+            api.free(logits, loss)
+    finally:
+        api.flags(recording=0, training=0)
+    loop_s = time.perf_counter() - t0
+    print(f'  (d) LeNet through the training ABI on {card}: {steps} steps '
+          f'in {loop_s:.2f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}')
+    check(losses[-1] < losses[0] * 0.8, f'LeNet loss did not fall: {losses}')
+    # the standalone embedder
+    root = os.path.join(work, 'embedder')
+    prog = os.path.join(root, 'examples', 'c_embedder')
+    hdr = os.path.join(root, 'src', 'train')
+    os.makedirs(prog)
+    os.makedirs(hdr)
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.copy(os.path.join(here, 'examples', 'c_embedder', 'train_mlp.c'),
+                prog)
+    shutil.copy(_capi.header('train'), os.path.join(hdr, 'c_api_train.h'))
+    t0 = time.perf_counter()
+    exe = _capi.link_program(os.path.join(prog, 'train_mlp.c'),
+                             os.path.join(root, 'train_mlp'))
+    link_s = time.perf_counter() - t0
+    env = _capi.program_env()
+    t0 = time.perf_counter()
+    r = subprocess.run([exe], capture_output=True, text=True, env=env,
+                       cwd=root, timeout=EMBED_TIMEOUT)
+    run_s = time.perf_counter() - t0
+    last = [ln for ln in r.stdout.splitlines() if ln.startswith('loss ')]
+    print(f'  (d) examples/c_embedder/train_mlp.c linked in {link_s:.2f} s '
+          f'against the port\'s library and libpython; its run on {card}: '
+          f'exit {r.returncode} in {run_s:.1f} s, {last}, '
+          f'{"C EMBEDDER TRAIN OK" in r.stdout}')
+    check(r.returncode == 0 and 'C EMBEDDER TRAIN OK' in r.stdout,
+          f'train_mlp exited {r.returncode}: {r.stdout[-2000:]} '
+          f'{r.stderr[-2000:]}')
+    blind = subprocess.run([exe], capture_output=True, text=True,
+                           env=dict(env, CUDA_VISIBLE_DEVICES=''), cwd=root,
+                           timeout=EMBED_TIMEOUT)
+    print(f'  (d) the same program with no card visible: exit '
+          f'{blind.returncode}, "no CUDA device" named: '
+          f'{"no CUDA device" in blind.stderr}')
+    check(blind.returncode != 0 and 'no CUDA device' in blind.stderr,
+          'train_mlp did not need the card')
+    return dict(lenet=losses, standalone=last, standalone_s=run_s)
+
+
+def embed_store(card, grads, device='cuda'):
+    """(e1) BERT-base's flagship gradients (the ops phase's
+    ShardedTrainStep step: one f32 tensor a parameter) pushed twice (the
+    codec's residual carried into the second) and pulled through kvstore
+    'device' on the card, plain and through each codec, bitwise the CPU
+    store's fed the same tensors; device ms of each push and of the pull
+    of all the keys (the first push allocates the store's tensors)."""
+    import torch
+    import mxnet_tpu_torch as mt
+    names = sorted(grads)
+    keys = list(range(len(names)))
+    card_vals = [grads[n] for n in names]
+    cpu_vals = [g.cpu() for g in card_vals]
+    nbytes = sum(g.numel() * 4 for g in card_vals)
+    out = {}
+
+    def run(vals, codec, dev):
+        kv = mt.kv.create('device')
+        if codec:
+            kv.set_gradient_compression({'type': codec, 'threshold': 0.5})
+        kv.init(keys, [mt.nd.NDArray(torch.zeros_like(v)) for v in vals])
+        nd_vals = [mt.nd.NDArray(v) for v in vals]
+        outs = [mt.nd.NDArray(torch.empty_like(v)) for v in vals]
+        push_ms = [_timed(lambda: kv.push(keys, nd_vals), dev)[1]
+                   for _ in range(2)]
+        _, pull_ms, _ = _timed(lambda: kv.pull(keys, out=outs), dev)
+        return [o._data for o in outs], push_ms, pull_ms
+    for codec in EMBED_CODECS:
+        got, push_ms, pull_ms = run(card_vals, codec, device)
+        tc = time.perf_counter()
+        want, _, _ = run(cpu_vals, codec, 'cpu')
+        cpu_s = time.perf_counter() - tc
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        label = codec or 'plain'
+        print(f'  (e) kvstore device on {card}, {len(keys)} flagship '
+              f'gradients ({nbytes / 2**20:.1f} MiB f32), {label}: pushes '
+              f'{push_ms[0]:.3f} / {push_ms[1]:.3f} ms device, pull '
+              f'{pull_ms:.3f} ms; bitwise the CPU store fed the same '
+              f'tensors: {same} (the CPU store {cpu_s:.1f} s)')
+        check(same, f'kvstore ({label}) on the card differs from the CPU')
+        out[label] = dict(push_ms=push_ms, pull_ms=pull_ms)
+        del got, want
+    return out
+
+
+def _state_leaves(state):
+    import torch
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, (list, tuple)):
+        return [t for s in state for t in _state_leaves(s)]
+    return []
+
+
+def embed_trainer(card, launches, steps=3, batch=8, seq=512, device='cuda',
+                  cfg=None):
+    """(e2) The flagship's gluon.Trainer (BERT-base bf16, AdamW,
+    multi_precision, dropout 0.1 from a seeded generator, B = 8, T = 512)
+    for ``steps`` steps with update_on_kvstore=True (the optimizer in the
+    store, which binds the parameters: a push a parameter) against the
+    default Trainer (the fused update) from the same weights: the moments
+    bitwise, the weights within rel 1e-6; both step times."""
+    import numpy as onp
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.models.bert import (BertForPretraining,
+                                             bert_base_config,
+                                             bert_pretrain_loss)
+    cfg = cfg or bert_base_config()
+    dt = torch.bfloat16 if device == 'cuda' else torch.float32
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    data, _ = pretraining_batch(cfg, batch, seq, SEED + 71)
+    t = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    init = BertForPretraining(dict(cfg, dropout=0.1), dtype=dt,
+                              device=device, generator=torch.Generator(
+                                  device).manual_seed(SEED + 73))
+    state0 = {k: v.clone() for k, v in init.state_dict().items()}
+    del init
+
+    def run(**kw):
+        gen = torch.Generator(device).manual_seed(SEED + 79)
+        net = BertForPretraining(dict(cfg, dropout=0.1), dtype=dt,
+                                 device=device, generator=gen)
+        net.load_state_dict(state0)
+        net.train()
+        trainer = gluon.Trainer(gluon.collect_params(net), 'adamw',
+                                {'learning_rate': 1e-4, 'wd': 0.01,
+                                 'multi_precision': True}, **kw)
+        ms, losses = [], []
+        for _ in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            mlm, nsp = net(t['tokens'], t['types'], t['valid'], t['mpos'])
+            loss = bert_pretrain_loss(mlm, nsp, t['labels'], t['nsp'])
+            loss.backward()
+            trainer.step(1)
+            net.zero_grad(set_to_none=False)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach()))
+        updater = trainer._states_updater()
+        states = {i: [s.clone() for s in _state_leaves(st)]
+                  for i, st in updater.states.items()}
+        weights = {n: p.detach().float().clone()
+                   for n, p in net.named_parameters()}
+        del net, trainer
+        return losses, ms, states, weights
+    (kv_run, got) = launches.part(lambda: run(update_on_kvstore=True))
+    base = run()
+    same_loss = kv_run[0] == base[0]
+    same_states = kv_run[2].keys() == base[2].keys() and all(
+        len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        for a, b in ((kv_run[2][i], base[2][i]) for i in base[2]))
+    rel = max(float((kv_run[3][n] - base[3][n]).abs().max()) /
+              max(float(base[3][n].abs().max()), 1e-30) for n in base[3])
+    kv_ms = float(onp.median(kv_run[1][1:]))
+    base_ms = float(onp.median(base[1][1:]))
+    print(f'  (e) the flagship Trainer (bf16, AdamW, B={batch} T={seq}) on '
+          f'{card}, {steps} steps: update_on_kvstore=True losses '
+          f'{kv_run[0]} against the fused update\'s {base[0]} (equal: '
+          f'{same_loss}); moments bitwise equal: {same_states}; weights max '
+          f'rel diff {rel:.3g}; step ms (median of steps 2-{steps}) '
+          f'{kv_ms:.3f} in the store against {base_ms:.3f} fused; launches '
+          f'{got[0]}')
+    check(same_states, 'update_on_kvstore moments differ from the fused '
+          'update\'s')
+    check(rel <= 1e-6, f'update_on_kvstore weights: rel {rel} > 1e-6')
+    return dict(kv_ms=kv_ms, fused_ms=base_ms, weights_rel=rel,
+                losses=kv_run[0])
+
+
+def embed_phase(card, grads):
+    """MXNet's C ABIs and the KVStore on the card: (a) the four libraries'
+    g++ build, (b) the predict ABI, (c) the training ABI, (d) the LeNet
+    loop and the standalone embedder, (e) the store (the flagship
+    gradients through each codec; the flagship Trainer with
+    update_on_kvstore). (f), dist_sync over two ranks, runs in the dp
+    phase's ranks. Returns ({kernel: launches}, {kernel: float16
+    launches}, {kernel: {variant: launches other than float16}},
+    readings): the launches of (b), (c) and (e)'s Trainer, each counted
+    from 0 around it."""
+    import torch
+    from mxnet_tpu_torch import _capi
+    t0 = time.perf_counter()
+    print(f'embed phase on {card}: the predict, training, NDArray and '
+          f'symbol C ABIs, the standalone embedder and the KVStore')
+    out = {}
+    tb = time.perf_counter()
+    paths = _capi.build_all()
+    out['build_s'] = time.perf_counter() - tb
+    print(f'  (a) g++ of the {len(paths)} C ABI libraries in '
+          f'{out["build_s"]:.2f} s: '
+          f'{sorted(os.path.basename(p) for p in paths.values())}')
+    launches = _Launches()
+    with tempfile.TemporaryDirectory() as work:
+        out['predict'] = embed_predict(card, work, launches)
+        torch.cuda.empty_cache()
+        out['train'] = embed_train_abi(card, launches)
+        torch.cuda.empty_cache()
+        out['lenet'] = embed_lenet(card, work)
+    out['store'] = embed_store(card, grads)
+    torch.cuda.empty_cache()
+    out['trainer'] = embed_trainer(card, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f16 = {k.rsplit('.', 1)[0]: v for k, v in launches.dtypes.items()
+           if k.endswith('.float16')}
+    # by variant, the float16 launches (tensor-core) left to their rows
+    variants = {}
+    for k, v in launches.variants.items():
+        kernel, variant = k.rsplit('.', 1)
+        v -= f16.get(kernel, 0) if variant == 'tc' else 0
+        if v:
+            variants.setdefault(kernel, {})[variant] = v
+    out['seconds'] = time.perf_counter() - t0
+    print(f'  embed phase: {out["seconds"]:.1f} s; launches {launches.kernels}'
+          f' (float16 {f16}; by variant {variants})')
+    return launches.kernels, f16, variants, out
+
+
 SYM_ROWS = ('flash_attn_fwd', 'flash_attn_bwd_dq', 'flash_attn_bwd_dkv')
 TILED = {'flash_attn_fwd': 'fwd', 'flash_attn_bwd_dq': 'bwd',
          'flash_attn_bwd_dkv': 'bwd'}
@@ -8795,8 +9531,9 @@ def _build_entries(root):
 
 def _remove_new_build_entries(root, before):
     """Remove what this run created under build/ (the kernels, the native
-    io library and the example op library it built, the tile database, the dp phase's files,
-    the sym phase's checkpoint and exported files),
+    io library, the example op library and the C ABI libraries it built,
+    the tile database, the dp phase's files, the sym phase's checkpoint
+    and exported files),
     so that a later process in the checkout starts as it would have
     without this run; what was there before stays."""
     import shutil
@@ -8866,6 +9603,9 @@ def _run():
     sym, sym_fwd, sym_bwd, _sym = sym_phase(card)
     _sparse = sparse_phase(card)
     ops, _ops = ops_phase(card)
+    # the flagship gradients of the ops phase's step feed the store
+    embed, embed_f16, embed_variants, _embed = embed_phase(
+        card, _ops['bert'].pop('grads'))
     serving, serve_replay, _serving = serving_phase(card)
     front, front_http, _front = front_phase(card)
     training, _train = training_phase(card)
@@ -8896,7 +9636,7 @@ def _run():
     # kernel has one, the rest of theirs to the kernel's own row
     paths = ('serving', 'front', 'training', 'amp', 'compiled_step',
              'ndarray', 'gluon', 'io', 'dp', 'remat', 'autotune', 'zero3',
-             'resilience', 'lm', 'sym', 'ops', 'profiler')
+             'resilience', 'lm', 'sym', 'ops', 'profiler', 'embed')
     by_path = {}
     for name in rows:
         base, f16 = name.split('[')[0], name.endswith('[float16]')
@@ -8905,6 +9645,7 @@ def _run():
         by_path[name] = dict.fromkeys(paths, 0)
         if f16:
             by_path[name]['amp'] = n16
+            by_path[name]['embed'] = embed_f16.get(base, 0)
             continue
         by_path[name].update(
             serving=serving[name], front=front[name],
@@ -8915,7 +9656,10 @@ def _run():
             remat=remat.get(name, 0), autotune=tuned.get(name, 0),
             zero3=zero3.get(name, 0), resilience=resil.get(name, 0),
             lm=lm.get(name, 0), sym=sym.get(name, 0),
-            ops=ops.get(name, 0), profiler=prof.get(name, 0))
+            ops=ops.get(name, 0), profiler=prof.get(name, 0),
+            embed=embed.get(name, 0) - (embed_f16.get(name, 0)
+                                        if f'{name}[float16]' in rows
+                                        else 0))
     for name in user_rows:
         by_path[name] = dict(dict.fromkeys(paths, 0), ndarray=user[name])
     idle = [n for n, paths_n in by_path.items()
@@ -8941,6 +9685,9 @@ def _run():
                        if name in lm_replay else {}),
                     **({'lm_shapes': r['lm_shapes']}
                        if 'lm_shapes' in r else {}),
+                    **({'embed_launches_by_variant': embed_variants[name]}
+                       if name in embed_variants and '[' not in name
+                       else {}),
                     **({'launches_per_sym_forward': sym_fwd.get(name, 0),
                         'launches_per_sym_backward': sym_bwd.get(name, 0)}
                        if name in SYM_ROWS else {}),

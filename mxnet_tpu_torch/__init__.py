@@ -26,7 +26,7 @@ by default. ``amp`` (also ``contrib.amp``) is MXNet's automatic mixed
 precision in bfloat16 or float16, with the dynamic loss scaler. The
 input pipeline is MXNet's: ``recordio``, ``io`` (``NDArrayIter``,
 ``ImageRecordIter`` over the native decode runtime of
-``src/io/mxtpu_io.cc``, ``DevicePrefetchIter``), ``image`` and
+``csrc/io/mxtpu_io.cc``, ``DevicePrefetchIter``), ``image`` and
 ``gluon.data``, each batch copied to the card on a side stream. The
 models are BERT, GPT-2 (``models.gpt``) and the Transformer
 (``models.transformer``), the vision zoo is MXNet's, ``metric`` holds
@@ -81,6 +81,9 @@ from .attribute import AttrScope
 from . import test_utils
 from . import libinfo, library, log, profiler, runtime
 from . import torch  # noqa: F401  (the bridge, mx.torch)
+from . import kvstore_server
+# a DMLC_ROLE=server process exits here, before the script's body runs
+kvstore_server._init_kvstore_server_module()
 
 __all__ = ['MXNetError', 'Context', 'cpu', 'cpu_pinned', 'current_context',
            'gpu', 'num_gpus', 'tpu', 'amp', 'autograd', 'checkpoint',

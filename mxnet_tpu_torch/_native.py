@@ -1,9 +1,10 @@
 """Loader for the native IO runtime (counterpart of ``mxnet_tpu/_native.py``).
 
-The runtime is ``src/io/mxtpu_io.cc``: the RecordIO reader and writer and
-the threaded JPEG decode pipeline, a flat C interface read with
-``ctypes``. The port compiles that source itself, with the flags of
-``src/Makefile`` (``g++ -O3 -std=c++17 -fPIC -pthread -shared -ljpeg``),
+The runtime is ``csrc/io/mxtpu_io.cc``, the port's copy of the JAX
+package's source: the RecordIO reader and writer and the threaded JPEG
+decode pipeline, a flat C interface read with ``ctypes``. The port
+compiles it with the JAX package's flags
+(``g++ -O3 -std=c++17 -fPIC -pthread -shared -ljpeg``),
 into the kernel build directory (``build/mxnet_tpu_torch/`` at the root
 of the checkout, ``MXTPU_COMPILE_CACHE_DIR`` where set) at first use. It
 builds to a temporary name and moves the library into place, so
@@ -13,7 +14,7 @@ loads the JAX package's library.
 
 Two routes link a libjpeg, tried in this order:
 
-- ``'system'``: the system's headers and ``-ljpeg``, as ``src/Makefile``
+- ``'system'``: the system's headers and ``-ljpeg``, as the JAX package
   builds it (a machine with the libjpeg development files);
 - the libjpeg-turbo that Pillow's wheel bundles (``pillow.libs/
   libjpeg-*.so.62*``, the libjpeg ABI 62) through the ABI-62 headers kept
@@ -49,8 +50,7 @@ __all__ = ['get_lib', 'native_available', 'lib_path', 'build_error',
            'LD_FLAGS']
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-_ROOT = os.path.dirname(_PKG)
-SOURCE = os.path.join(_ROOT, 'src', 'io', 'mxtpu_io.cc')
+SOURCE = os.path.join(_PKG, 'csrc', 'io', 'mxtpu_io.cc')
 JPEG62_HEADERS = os.path.join(_PKG, 'csrc', 'jpeg62')
 CXX_FLAGS = ['-O3', '-std=c++17', '-fPIC', '-Wall', '-pthread']
 LD_FLAGS = ['-shared', '-pthread', '-ljpeg']

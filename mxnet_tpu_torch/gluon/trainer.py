@@ -110,9 +110,25 @@ SGD's and Adam's ``lazy_update`` leave the rows without a gradient (and
 their moments) as they were. ``sparse_layout()`` describes the tables
 for the checkpoint manifest.
 
-The distributed kvstore types, gradient compression and
-update_on_kvstore raise (ROADMAP queue 1 item 8). The elastic hook of
-the JAX Trainer waits for item 10.
+The kvstore, as in the JAX Trainer. ``kvstore`` is a type name of
+``kvstore.create`` or a ``KVStore`` object (None: no store). With
+``update_on_kvstore=True`` (the default where a parameter is sparse and a
+store is given) the store runs the optimizer: ``step`` pushes each
+gradient and the store's updater applies it to the store's weight, which
+is the parameter's own tensor, bound rather than copied; so a restore, a
+rollback or a ``set_data`` lands in the weight the next push updates
+(MXNet's ``Parameter.set_data`` resets the store for this). The states
+payload is then the store's. ``compression_params`` compresses each
+gradient with an error-feedback residual kept per parameter index
+(``kvstore.gradient_compression``): in the store's push where the store
+runs the optimizer, else in place before the update, through the store's
+codec (or the Trainer's own where ``kvstore=None``); a states restore
+drops the residuals. In a world of more than one rank every store type
+reduces with the Trainer's own reduction described above (ZeRO-1
+included; the gradients are compressed before it, as a worker's push
+is), except where a ``dist_*`` store runs the optimizer: its push
+all-reduces. The elastic hook of the JAX Trainer waits for ROADMAP queue
+1 item 10.
 """
 from __future__ import annotations
 
@@ -131,7 +147,10 @@ from ..telemetry import compile as _compile, flight as _flight, \
     memory as _memory, metrics as _metrics, trace as _trace
 from ..ndarray.sparse import RowSparseNDArray
 from ..serialization import atomic_write_file
+from .. import kvstore as kvs
 from .. import optimizer as opt
+from ..kvstore.kvstore import DistSync
+from ..ndarray.ndarray import NDArray
 from .parameter import Parameter, tensor_of
 
 __all__ = ['Trainer']
@@ -166,18 +185,6 @@ class Trainer:
             if not isinstance(p, (Parameter, torch.nn.Parameter)):
                 raise ValueError(f"First argument must contain Parameters, "
                                  f"got {type(p)}")
-        if kvstore not in ('device', 'local', None):
-            raise MXNetError(f"kvstore {kvstore!r} is not ported: the port's "
-                             f"Trainer reduces over the dp world with "
-                             f"'device' or 'local' (None: no reduction); "
-                             f"the distributed kvstores are ROADMAP queue 1 "
-                             f"item 8")
-        if compression_params is not None:
-            raise MXNetError("gradient compression is not ported (ROADMAP "
-                             "queue 1 item 8)")
-        if update_on_kvstore:
-            raise MXNetError("update_on_kvstore is not ported (ROADMAP "
-                             "queue 1 item 8)")
         self._params = list(params)
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get('rescale_grad', 1.0))
@@ -192,6 +199,12 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
+        self._contains_sparse_weight = any(
+            getattr(p, '_stype', 'default') != 'default' for p in self._params)
+        self._contains_sparse_grad = any(
+            getattr(p, '_grad_stype', 'default') != 'default'
+            for p in self._params)
+        self._init_kvstore(kvstore, compression_params, update_on_kvstore)
         self._grads = {}       # index -> the gradient buffer the update reads
         self._fused = None     # [signature, graphs, scalars, parts, between]
         self._guard = None     # resilience.NonFiniteGuard (attach_guard)
@@ -201,19 +214,59 @@ class Trainer:
         self._telem_step_ema = None
         # the dp world: gradients reduced over it, ZeRO-1 states (see the
         # module docstring)
-        self._reduce = _dist.num_workers() > 1 and kvstore is not None
+        self._dp = _dist.num_workers() > 1 and self._kvstore is not None
         self._zero_active = False
         self._zero_dp = 1
         self._zero_dims = {}     # index -> the dim its states shard along
         self._zero_grads = {}    # index -> its reduce-scattered shard
         self._broadcast = set()  # indices broadcast from rank 0
-        self._contains_sparse_weight = any(
-            getattr(p, '_stype', 'default') != 'default' for p in self._params)
-        self._contains_sparse_grad = any(
-            getattr(p, '_grad_stype', 'default') != 'default'
-            for p in self._params)
-        if self._reduce:
+        if self._dp:
             self._broadcast_params()
+
+    def _init_kvstore(self, kvstore, compression_params, update_on_kvstore):
+        """The store (ref: trainer.py:174), its codec and, where it runs
+        the optimizer, the optimizer; the parameters are bound into it at
+        the updates that push (``_kv_bind``)."""
+        self._compression_params = compression_params
+        self._local_gc = None
+        if kvstore is None or kvstore is False:
+            self._kvstore = None
+            self._update_on_kvstore = False
+            return
+        kv = kvstore if isinstance(kvstore, kvs.KVStoreBase) \
+            else kvs.create(kvstore)
+        self._kvstore = kv
+        if compression_params:
+            kv.set_gradient_compression(compression_params)
+        if update_on_kvstore is None:
+            update_on_kvstore = bool(self._contains_sparse_weight)
+        self._update_on_kvstore = bool(update_on_kvstore)
+        if self._update_on_kvstore:
+            kv.set_optimizer(self._optimizer)
+
+    def _compression(self):
+        """The codec of the paths that push nothing: the store's, or the
+        Trainer's own where there is no store (residuals keyed by
+        parameter index); None when compression is off."""
+        p = self._compression_params
+        if p is None or p.get('type', '2bit') == 'none':
+            return None
+        comp = getattr(self._kvstore, '_compression', None)
+        if comp is not None:
+            return comp
+        if self._local_gc is None:
+            from ..kvstore.gradient_compression import GradientCompression
+            self._local_gc = GradientCompression(
+                p.get('type', '2bit'), p.get('threshold', 0.5),
+                p.get('block_size', 0))
+        return self._local_gc
+
+    def _kv_bind(self, items):
+        """Every trainable parameter's tensor bound as the store's weight
+        under its index; a parameter whose tensor was replaced (moved to
+        another context) is bound anew."""
+        for i, p, _ in items:
+            self._kvstore._bind(i, p)
 
     @property
     def optimizer(self):
@@ -327,7 +380,7 @@ class Trainer:
         """The per-parameter loop's check, before it updates: every
         gradient finite (over the world under dp). One host sync."""
         ok = finite_flag(grads)
-        if self._reduce:
+        if self._dp:
             ok = _coll.all_reduce_(ok, op='min')
         return bool(ok)
 
@@ -343,7 +396,7 @@ class Trainer:
     @torch.no_grad()
     def _update(self):
         items = self._gather_grads()
-        if self._reduce:
+        if self._dp:
             self._broadcast_params()
         # AMP's dynamic loss scaling: on a non-finite gradient the update
         # is skipped (no update count moves) and the scale shrinks,
@@ -351,14 +404,23 @@ class Trainer:
         scaler = getattr(self, '_amp_loss_scaler', None)
         if scaler is not None and scaler.dynamic:
             overflow = scaler.has_overflow([g for _, _, g in items])
-            if self._reduce:
+            if self._dp:
                 flag = torch.tensor([float(overflow)],
                                     device=_dist.device())
                 overflow = bool(_coll.all_reduce_(flag, op='max').item())
             scaler.update_scale(overflow)
             if overflow:
                 return
-        if self._reduce:
+        comp = None if self._update_on_kvstore else self._compression()
+        if comp is not None:
+            # no push carries these gradients: the codec applies in place
+            # (before the dp reduction, as a worker's push is encoded)
+            for i, _, g in items:
+                g.copy_(comp.compress_decompress(NDArray(g), i)._data)
+        if self._update_on_kvstore:
+            self._update_on_store(items)
+            return
+        if self._dp:
             items = self._reduce_grads(items)
         if not self._fused_apply(items):
             if self._guard is not None and items:
@@ -376,6 +438,24 @@ class Trainer:
                 self._updater(i, g, p)
         if self._zero_active:
             self._gather_params()
+
+    def _update_on_store(self, items):
+        """The store runs the optimizer: each gradient pushed (summed over
+        the world at dp > 1: by the Trainer, or by a dist store's push)
+        and applied by the store's updater to the parameter it binds. The
+        guard checks the gradients first, as in the JAX Trainer: the
+        update is out of reach of the fused gate."""
+        if self._dp and not isinstance(self._kvstore, DistSync):
+            items = self._reduce_grads(items)
+        self._kv_bind(items)
+        if self._guard is not None and items:
+            self._fused_count_snapshot = None   # nothing to rewind
+            ok = self._grads_ok([g for _, _, g in items])
+            self._guard.push_flag(ok)
+            if not ok:
+                return
+        for i, _, g in items:
+            self._kvstore.push(i, NDArray(g))
 
     # -- the dp world ---------------------------------------------------
     def _broadcast_params(self):
@@ -416,7 +496,7 @@ class Trainer:
                 "module; the Trainer's stage 3 is not ported (ROADMAP queue "
                 "1 item 7). ShardedTrainStep(..., zero=3) runs it")
         zero = stage > 0 and getattr(o, 'fused_update', False) and \
-            not o.whole_tensor
+            not o.whole_tensor and not self._update_on_kvstore
         if zero != self._zero_active:
             self._zero_active = zero
             self._zero_dp = _dist.num_workers() if zero else 1
@@ -611,7 +691,7 @@ class Trainer:
             gate.copy()
             update()
             gate.select()
-        if self._reduce:
+        if self._dp:
             return [check, apply], [lambda: _coll.all_reduce_(gate.ok,
                                                               op='min')]
 
@@ -681,10 +761,18 @@ class Trainer:
                 o._index_update_count, o.rescale_grad = saved
         return program
 
+    def _states_updater(self):
+        """The updater whose states the payload holds: the store's where
+        it runs the optimizer."""
+        return self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+
     def get_states_bytes(self):
         """The states payload as bytes: {index: state as numpy, whole
         tensors under ZeRO too} and the pickled optimizer (update counts,
         rescale_grad, schedule)."""
+        if self._update_on_kvstore:
+            return self._states_updater().get_states(dump_optimizer=True)
         if not self._zero_dims:
             return self._updater.get_states(dump_optimizer=True)
         held, self._updater.states = self._updater.states, \
@@ -697,13 +785,22 @@ class Trainer:
     def set_states_bytes(self, states):
         """Restore a ``get_states_bytes`` payload: the states go to their
         parameters' devices, the optimizer gets the live parameters back,
-        and the fused update is recaptured over the new state tensors."""
-        self._updater.set_states(states)
-        self._optimizer = self._updater.optimizer
+        and the fused update is recaptured over the new state tensors. A
+        restore rewinds the trajectory, so the compression residuals are
+        dropped."""
+        updater = self._states_updater()
+        updater.set_states(states)
+        self._optimizer = updater.optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
-        self._updater.states = {
+        updater.states = {
             i: _to_device(s, tensor_of(self._params[i]).device)
-            for i, s in self._updater.states.items()}
+            for i, s in updater.states.items()}
+        if self._update_on_kvstore:
+            self._kvstore._optimizer = self._optimizer
+        for comp in (self._local_gc,
+                     getattr(self._kvstore, '_compression', None)):
+            if comp is not None:
+                comp.reset()
         if self._zero_dims:
             self._relayout_states()
         self._fused = None

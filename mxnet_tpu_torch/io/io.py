@@ -863,7 +863,7 @@ class ImageRecordIter(DataIter):
     """RecordIO-backed image iterator (ref: src/io/iter_image_recordio_2.cc:880).
 
     Decodes JPEGs from a .rec file (the native pipeline of
-    ``src/io/mxtpu_io.cc``, or PIL), applies the decode-side
+    ``csrc/io/mxtpu_io.cc``, or PIL), applies the decode-side
     augmentations, batches and prefetches. Two transports over the host
     boundary:
 
@@ -1315,7 +1315,7 @@ class ImageRecordIter(DataIter):
 
 class _NativePipeline:
     """ctypes wrapper over the C++ threaded decode pipeline
-    (src/io/mxtpu_io.cc mxt_pipeline_*)."""
+    (csrc/io/mxtpu_io.cc mxt_pipeline_*)."""
 
     def __init__(self, lib, handle, batch_size, data_shape, label_width,
                  output_u8):

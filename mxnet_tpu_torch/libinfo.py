@@ -4,11 +4,12 @@ ref: python/mxnet/libinfo.py).
 ``find_lib_path()`` lists the native libraries the port has built in its
 build directory (``build/mxnet_tpu_torch/`` at the root of the checkout,
 ``MXTPU_COMPILE_CACHE_DIR`` where set): the CUDA kernels
-(``ops/_build.py``), the native IO runtime (``_native.py``) and the op
-libraries built by ``library.build``. Each is built at first use, so the
-list holds what this checkout has built so far. ``find_include_path()``
-is ``src/``, where the C headers are (``src/lib_api/mxtpu_lib_api.h``
-for op libraries).
+(``ops/_build.py``), the native IO runtime (``_native.py``), the op
+libraries built by ``library.build`` and the C ABIs (``_capi.py``). Each
+is built at first use, so the list holds what this checkout has built so
+far. ``find_include_path()`` is the port's ``csrc/``, where its C headers
+are (``lib_api/mxtpu_lib_api.h`` for op libraries, ``embed/`` for the
+predict and training ABIs).
 """
 from __future__ import annotations
 
@@ -33,7 +34,5 @@ def find_lib_path():
 
 
 def find_include_path():
-    """The directory of the C headers: ``src/`` at the root of the
-    checkout."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    return os.path.join(root, 'src')
+    """The directory of the C headers: the package's ``csrc/``."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')

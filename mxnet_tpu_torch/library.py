@@ -3,7 +3,8 @@
 include/mxnet/lib_api.h:626).
 
 ``load(path)`` dlopens a shared object built against
-``src/lib_api/mxtpu_lib_api.h`` (a plain C ABI, no framework headers),
+``csrc/lib_api/mxtpu_lib_api.h`` (a plain C ABI, no framework headers;
+the port's copy of the JAX package's header, declaration for declaration),
 lists the ops it provides and registers each one in the port's registry,
 so ``mx.nd.<name>``, ``mx.sym.<name>`` and ``F.<name>`` in a
 ``hybrid_forward`` reach it. ``loaded_libraries()`` lists them.
@@ -22,8 +23,8 @@ checkout, ``MXTPU_COMPILE_CACHE_DIR`` where set), named by a hash of the
 source, the ABI header and the flags, at first use
 (``ops._build.Compile``); a failed build raises with the compiler's
 output. ``example_library()`` builds and returns
-``src/lib_api/example_lib.cc``'s (``my_relu``, ``my_gemm``,
-``my_split2``). Nothing is written under ``src/``.
+``csrc/lib_api/example_lib.cc``'s (``my_relu``, ``my_gemm``,
+``my_split2``). Nothing is written beside the sources.
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ from .telemetry import compile as _compile
 __all__ = ['load', 'loaded_libraries', 'build', 'example_library',
            'EXAMPLE_SOURCE', 'CXX_FLAGS']
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-INCLUDE_DIR = os.path.join(_ROOT, 'src', 'lib_api')
+INCLUDE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'csrc', 'lib_api')
 EXAMPLE_SOURCE = os.path.join(INCLUDE_DIR, 'example_lib.cc')
 CXX_FLAGS = ['-O3', '-std=c++17', '-fPIC', '-Wall', '-pthread', '-shared']
 
@@ -238,5 +239,5 @@ def build(source, flags=()):
 
 
 def example_library():
-    """``src/lib_api/example_lib.cc``'s library, built at first use."""
+    """``csrc/lib_api/example_lib.cc``'s library, built at first use."""
     return build(EXAMPLE_SOURCE)

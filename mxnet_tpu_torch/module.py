@@ -316,11 +316,17 @@ class Module(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  state_names=None, group2ctxs=None, compression_params=None):
         super().__init__(logger)
+        # update() pushes nothing through a kvstore, so the error-feedback
+        # codec applies to each summed gradient there (ref: module.py
+        # compression_params, the JAX Module's contract)
+        self._compression = None
         if compression_params is not None and \
                 compression_params.get('type', '2bit') != 'none':
-            raise MXNetError("Module(compression_params=...): gradient "
-                             "compression waits for the kvstore (ROADMAP "
-                             "queue 1 item 8)")
+            from .kvstore.gradient_compression import GradientCompression
+            self._compression = GradientCompression(
+                compression_params.get('type', '2bit'),
+                compression_params.get('threshold', 0.5),
+                compression_params.get('block_size', 0))
         self._symbol = symbol
         self._data_names = list(data_names)
         self._label_names = list(label_names or [])
@@ -539,6 +545,9 @@ class Module(BaseModule):
             total = grads[0]
             for g in grads[1:]:
                 total = total + g.to(total.device)
+            if self._compression is not None:
+                total = self._compression.compress_decompress(
+                    NDArray(total), name)._data
             self._updater(idx, total, weight)
         self._share_to_execs()
 

@@ -17,9 +17,12 @@ value to 0; ``encode_decode`` re-injects non-finite inputs instead.
 
 Plain torch ops, as the JAX codec is plain jnp (no hand-written
 kernel). ``serving.quantize_weights(block, 'int8')`` snaps weights to
-the int8 grid with it. The kvstore, the error-feedback callers, the
-wire accounting and ``compression_params`` wait for ROADMAP queue 1
-item 8.
+the int8 grid with it; the kvstore's ``GradientCompression`` (and
+through it ``gluon.Trainer`` and ``Module``'s ``compression_params``)
+carries its error-feedback residual. ``resolve`` validates a
+``compression_params`` dict, ``wire_bytes`` counts a tensor's encoded
+bytes. ``ShardedTrainStep``'s compression and its wire accounting wait
+for ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -27,12 +30,43 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ['CODECS', 'BITS_PER_ELEM', 'encode_decode']
+__all__ = ['CODECS', 'BITS_PER_ELEM', 'resolve', 'n_scales', 'encode_decode',
+           'wire_bytes']
 
 CODECS = ('none', 'fp16', 'int8', '2bit')
 
 #: encoded payload size, bits per element (per-block scales apart)
 BITS_PER_ELEM = {'fp16': 16, 'int8': 8, '2bit': 2}
+
+
+def resolve(compression_params):
+    """Validate ``compression_params`` (a dict with ``type`` and optional
+    ``threshold``/``block_size``) into ``{'type', 'threshold', 'block'}``,
+    or None when compression is off (None, or type 'none'). An unknown
+    codec, a threshold <= 0 or a negative block raises."""
+    if compression_params is None:
+        return None
+    ctype = compression_params.get('type', '2bit')
+    if ctype not in CODECS:
+        raise MXNetError(
+            f"gradient compression type {ctype!r} is not supported "
+            f"(supported: {', '.join(repr(c) for c in CODECS)}). "
+            f"'fp16' truncates to half precision, 'int8' rounds against "
+            f"a per-block max-abs scale, '2bit' is the reference "
+            f"kvstore's sign+threshold quantizer.")
+    if ctype == 'none':
+        return None
+    threshold = float(compression_params.get('threshold', 0.5))
+    block = int(compression_params.get('block_size', 256))
+    if threshold <= 0:
+        raise MXNetError(
+            f"gradient compression threshold must be > 0, got "
+            f"{threshold!r}")
+    if block < 0:
+        raise MXNetError(
+            f"gradient compression block_size must be >= 0 "
+            f"(0 = one per-tensor scale), got {block!r}")
+    return {'type': ctype, 'threshold': threshold, 'block': block}
 
 
 def _block_scale(x, block):
@@ -52,6 +86,19 @@ def _block_scale(x, block):
     return torch.where(s > 0, s, one)
 
 
+def n_scales(shape, block):
+    """How many per-block float32 scales the encoded form of a tensor of
+    ``shape`` carries."""
+    if not shape:
+        return 1
+    size = 1
+    for d in shape:
+        size *= d
+    if block and shape[-1] % block == 0 and shape[-1] >= block:
+        return size // block
+    return 1
+
+
 def encode_decode(x, ctype, threshold=0.5, block=256):
     """The float32 value the far end of a compressed exchange would
     decode from ``x``. Non-finite inputs propagate to the output."""
@@ -59,7 +106,10 @@ def encode_decode(x, ctype, threshold=0.5, block=256):
     if ctype == 'fp16':
         return x.to(torch.float16).to(torch.float32)
     if ctype == 'int8':
-        s = _block_scale(x, block) / 127.0
+        # a tensor divisor: CUDA divides by a Python number as a multiply
+        # by its reciprocal, which rounds apart from the CPU's (and XLA's)
+        # division
+        s = _block_scale(x, block) / x.new_full((), 127.0)
         q = torch.clamp(torch.round(x / s), -127.0, 127.0)
         dec = q * s
     elif ctype == '2bit':
@@ -71,3 +121,20 @@ def encode_decode(x, ctype, threshold=0.5, block=256):
     else:
         raise MXNetError(f"encode_decode: unknown codec {ctype!r}")
     return torch.where(torch.isfinite(x), dec, x)
+
+
+def wire_bytes(shape, ctype, block=256):
+    """Encoded bytes of one tensor on the wire: the payload's bits plus
+    one float32 scale per block (fp16 and the absolute-threshold 2bit
+    carry none). Uncompressed: ``4 * n`` float32 bytes."""
+    size = 1
+    for d in tuple(shape):
+        size *= d
+    if ctype == 'none' or not ctype:
+        return 4 * size
+    payload = (size * BITS_PER_ELEM[ctype] + 7) // 8
+    scales = 0 if ctype == 'fp16' else 4 * n_scales(tuple(shape), block)
+    if ctype == '2bit' and not block:
+        scales = 0
+    return payload + scales
+

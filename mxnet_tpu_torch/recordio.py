@@ -34,7 +34,7 @@ def _decode_lrec(lrec):
 class MXRecordIO:
     """Sequential .rec reader/writer (ref: recordio.py MXRecordIO).
 
-    Backed by the native C++ runtime (src/io/mxtpu_io.cc, built by
+    Backed by the native C++ runtime (csrc/io/mxtpu_io.cc, built by
     ``_native``) when the shared library is available; a pure-Python
     file path otherwise. Both produce identical bytes.
     """

@@ -37,7 +37,10 @@ either. The sites that fire in this package:
 - ``checkpoint.write`` and ``checkpoint.read`` —
   ``checkpoint.CheckpointManager``;
 - ``alloc.oom`` — ``telemetry.memory.oom_guard``;
-- ``dist.barrier`` — ``parallel.dist.barrier``;
+- ``dist.barrier`` — ``parallel.dist.barrier`` (and a kvstore's
+  ``barrier``);
+- ``collective.all_reduce`` — the kvstore's reduction of a push
+  (``kvstore.kvstore._reduce``);
 - ``io.decode`` — ``io.ImageRecordIter``'s python decode path, keyed by
   record index (``corrupt`` mangles the image bytes; armed before the
   iterator is made, it selects that path);
@@ -47,11 +50,10 @@ either. The sites that fire in this package:
 - ``dataloader.worker`` — ``gluon.data.DataLoader``'s batch fetch (a
   ``raise`` takes the bounded respawn path).
 
-The others wait for the code they sit in: ``collective.all_reduce``
-(the kvstore, ROADMAP queue 1 item 8), ``dist.file_put``,
+The others wait for the code they sit in: ``dist.file_put``,
 ``dist.heartbeat``, ``dist.join`` and ``elastic.admit`` (the membership
-side channel, the replica transport and the elastic controller, item
-10).
+side channel, the replica transport and the elastic controller, ROADMAP
+queue 1 item 10).
 
 Disarmed sites cost one empty-dict check per call.
 """

@@ -10,8 +10,11 @@ collectives are held against numpy on the ranks' numpy-seeded inputs,
 their gradients against the JAX transposes' definitions, and
 SyncBatchNorm at dp = 2 against the JAX package's ``sync_batch_norm_op``
 under ``shard_map`` on a two-device CPU mesh (outputs, running statistics
-and gradients within 1e-5). ``init`` runs from the MXNET_TPU_* names
-(``launch_local``) and, in a second world, from the DMLC_* drop-ins.
+and gradients within 1e-5). The ``dist_sync`` KVStore pushes over both
+worlds, plain and through the 2bit codec, and a Trainer steps through
+'device' and 'dist_sync' stores, against numpy. ``init`` runs from the
+MXNET_TPU_* names (``launch_local``) and, in a second world, from the
+DMLC_* drop-ins.
 """
 import os
 import pickle
@@ -101,6 +104,50 @@ for key, call in (('tp_mesh', lambda: make_mesh((n // 2, 2), ('dp', 'tp'))),
     except MXNetError as e:
         out[key] = str(e)
 dist.barrier()
+# the dist store over the world: a plain push, then 3 pushes through the
+# 2bit codec (each rank carries its own residual)
+with mx.cpu():
+    kv = mx.kv.create('dist_sync')
+    out['kv_rank'], out['kv_workers'] = kv.rank, kv.num_workers
+    kv.init(0, mx.nd.zeros((4, 6)))
+    kv.push(0, mx.nd.array(a(r)))
+    o = mx.nd.zeros((4, 6))
+    kv.pull(0, out=o)
+    out['kv_sum'] = o.asnumpy()
+    kc = mx.kv.create('dist_sync')
+    kc.set_gradient_compression({'type': '2bit', 'threshold': 0.5})
+    kc.init(0, mx.nd.zeros((4, 6)))
+    out['kv_2bit'] = []
+    for i in range(3):
+        kc.push(0, mx.nd.array(a(r) * 0.4))
+        kc.pull(0, out=o)
+        out['kv_2bit'].append(o.asnumpy())
+    kc.barrier()
+# the Trainer over the world through each store: 2 SGD steps on this
+# rank's batch from the same weights
+out['trainer'] = {}
+for label, kw in (('device', dict(kvstore='device')),
+                  ('dist_sync', dict(kvstore='dist_sync')),
+                  ('dist_sync_on_kvstore', dict(kvstore='dist_sync',
+                                                update_on_kvstore=True)),
+                  ('dist_sync_2bit', dict(
+                      kvstore='dist_sync',
+                      compression_params={'type': '2bit',
+                                          'threshold': 0.5}))):
+    with mx.cpu():
+        net = nn.Dense(5, in_units=6)
+        net.initialize()
+        net.weight.set_data(mx.nd.array(a(0, (5, 6)) * 0.3))
+        net.bias.set_data(mx.nd.zeros((5,)))
+        tr = mx.gluon.Trainer(net.collect_params(), 'sgd',
+                              {'learning_rate': 0.1, 'momentum': 0.9}, **kw)
+        for step in range(2):
+            with mx.autograd.record():
+                loss = (net(mx.nd.array(a(r + 20 * step))) ** 2).sum()
+            loss.backward()
+            tr.step(4 * n)
+    out['trainer'][label] = [net.weight.data().asnumpy(),
+                             net.bias.data().asnumpy()]
 if n == 2:
     # SyncBatchNorm: this rank's rows of the global batch
     rng = onp.random.RandomState(3)
@@ -229,6 +276,72 @@ def test_reductions_against_numpy(worlds, world):
                                     atol=1e-6)
         onp.testing.assert_array_equal(o['pmax'], onp.max(xs, axis=0))
         assert o['index'] == o['rank'] and o['axis_size'] == n
+
+
+@pytest.mark.parametrize('world', ['env2', 'env4'])
+def test_dist_kvstore_against_numpy(worlds, world):
+    """``kvstore.create('dist_sync')`` across the ranks: rank and
+    num_workers are the world's; a push is all-reduced over the world
+    (the numpy sum; bitwise at two ranks); with 2bit compression each
+    rank's push is quantized against its own residual before the sum,
+    as numpy's replay of the codec gives, bitwise."""
+    ranks = worlds[world]
+    n = len(ranks)
+    xs = [_a(r) for r in range(n)]
+    residual = [onp.zeros_like(x) for x in xs]
+    want_2bit = []
+    for _ in range(3):
+        total = onp.zeros_like(xs[0])
+        for r in range(n):
+            acc = residual[r] + xs[r] * onp.float32(0.4)
+            q = onp.where(acc >= 0.5, onp.float32(0.5),
+                          onp.where(acc <= -0.5, onp.float32(-0.5),
+                                    onp.float32(0.0))).astype('float32')
+            residual[r] = acc - q
+            total = total + q
+        want_2bit.append(total)
+    for o in ranks:
+        assert (o['kv_rank'], o['kv_workers']) == (o['rank'], n)
+        if n == 2:
+            onp.testing.assert_array_equal(o['kv_sum'], xs[0] + xs[1])
+        onp.testing.assert_allclose(o['kv_sum'], sum(xs), rtol=1e-6,
+                                    atol=1e-6)
+        for got, want in zip(o['kv_2bit'], want_2bit):
+            onp.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('world', ['env2', 'env4'])
+def test_trainer_over_each_store_against_numpy(worlds, world):
+    """A Trainer of 2 SGD steps (momentum 0.9) on each rank's batch:
+    'device' and 'dist_sync' take the Trainer's own f32 reduction, so the
+    world's weights are numpy's replay of the summed gradients; with the
+    optimizer in the dist store (its push all-reduces) they agree within
+    f32 rounding; with the 2bit codec every rank ends with the same
+    weights."""
+    ranks = worlds[world]
+    n = len(ranks)
+    w, b = _a(0, (5, 6)) * onp.float32(0.3), onp.zeros(5, 'float32')
+    mom = [onp.zeros_like(w), onp.zeros_like(b)]
+    for step in range(2):
+        gw, gb = onp.zeros_like(w), onp.zeros_like(b)
+        for r in range(n):
+            x = _a(r + 20 * step)
+            dy = 2 * (x @ w.T + b)
+            gw, gb = gw + dy.T @ x, gb + dy.sum(0)
+        for k, (p, g) in enumerate(((w, gw), (b, gb))):
+            mom[k] = onp.float32(0.9) * mom[k] - onp.float32(0.1) * (
+                g / onp.float32(4 * n))
+        w, b = w + mom[0], b + mom[1]
+    for o in ranks:
+        got = o['trainer']
+        for label in ('device', 'dist_sync', 'dist_sync_on_kvstore'):
+            for t, want in zip(got[label], (w, b)):
+                onp.testing.assert_allclose(t, want, rtol=1e-5, atol=1e-6)
+        for t, d in zip(got['dist_sync'], got['device']):
+            onp.testing.assert_array_equal(t, d)
+        for t, r0 in zip(got['dist_sync_2bit'], ranks[0]['trainer'][
+                'dist_sync_2bit']):
+            onp.testing.assert_array_equal(t, r0)
 
 
 @pytest.mark.parametrize('world', ['env2', 'env4'])

@@ -71,8 +71,9 @@ def test_pixel_shuffle_matches_jax(factor):
 def test_sparse_embedding_raises_naming_the_sparse_item():
     """SparseEmbedding is ported (ROADMAP item 12): its gradient is a
     RowSparseNDArray holding the looked-up rows, its output the JAX
-    layer's on the same weights; what still raises of the sparse surface
-    names its item (the KVStore's row_sparse_pull, item 8)."""
+    layer's on the same weights; the KVStore's row_sparse_pull of the
+    looked-up rows (ROADMAP item 8, which this test once saw raise) is the
+    JAX store's."""
     w0 = onp.random.RandomState(3).randn(10, 4).astype(onp.float32)
     ids = onp.array([1, 7, 7], onp.float32)
     outs = {}
@@ -89,5 +90,14 @@ def test_sparse_embedding_raises_naming_the_sparse_item():
         outs[name] = (out.asnumpy(), g.asnumpy())
     for got, want in zip(outs['port'], outs['jax']):
         onp.testing.assert_allclose(got, want, rtol=1e-6)
-    with pytest.raises(mt.MXNetError, match='item 8'):
-        mt.kv.row_sparse_pull('w', row_ids=mt.nd.array([1]))
+    # the table's rows through the KVStore's row_sparse_pull (item 8,
+    # ported): the looked-up rows, the others zero, as the JAX store pulls
+    pulled = {}
+    for name, pk in (('jax', mj), ('port', mt)):
+        kv = pk.kv.create('local')
+        kv.init('w', pk.nd.sparse.row_sparse_array(w0))
+        out = pk.nd.sparse.zeros('row_sparse', (10, 4))
+        kv.row_sparse_pull('w', out=out, row_ids=pk.nd.array(ids))
+        pulled[name] = out.asnumpy()
+    onp.testing.assert_array_equal(pulled['port'], pulled['jax'])
+    onp.testing.assert_array_equal(pulled['port'][[1, 7]], w0[[1, 7]])

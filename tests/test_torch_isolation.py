@@ -523,7 +523,7 @@ def test_symbolic_entry_points_refuse_a_missing_card(device, tmp_path):
 
 
 SPARSE_MODULES = ('ndarray/sparse.py', 'ops/rowsparse.py',
-                  'ops/sparse_ops.py', 'ops/graph.py', 'kvstore.py',
+                  'ops/sparse_ops.py', 'ops/graph.py', 'kvstore/kvstore.py',
                   'models/wide_deep.py', 'optimizer/optimizer.py',
                   'gluon/parameter.py', 'gluon/trainer.py',
                   'checkpoint/manager.py', 'test_utils.py')
@@ -617,3 +617,115 @@ def test_the_op_inventory_is_the_ports_own_copy():
     for path in _port_files():
         with open(path) as f:
             assert 'mxnet_tpu/ops/reference_op_names' not in f.read(), path
+
+
+EMBED_MODULES = ('_capi.py', '_predict_embed.py', '_train_embed.py',
+                 'kvstore/__init__.py', 'kvstore/base.py',
+                 'kvstore/kvstore.py', 'kvstore/gradient_compression.py',
+                 'kvstore_server.py', 'parallel/compression.py')
+
+
+@pytest.mark.parametrize('module', EMBED_MODULES)
+def test_embedding_abi_and_kvstore_modules_import_no_jax(module):
+    """The C ABIs' Python sides, their build module and the KVStore are
+    among the files checked above and import neither jax nor the
+    reference package."""
+    path = os.path.join(ROOT, 'mxnet_tpu_torch', module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path)
+           if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_embedding_abis_and_the_kvstore_loads_no_jax():
+    import subprocess
+    import sys
+    code = ('import sys\n'
+            'import mxnet_tpu_torch._capi, mxnet_tpu_torch._predict_embed, '
+            'mxnet_tpu_torch._train_embed, mxnet_tpu_torch.kvstore, '
+            'mxnet_tpu_torch.kvstore_server\n'
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "mxnet_tpu")))')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == '[]', out.stdout
+
+
+def _c_sources():
+    return sorted(glob.glob(os.path.join(ROOT, 'mxnet_tpu_torch', 'csrc',
+                                         '**', '*.*'), recursive=True))
+
+
+def test_the_c_sources_import_the_port_only():
+    """Every module a C source of the port imports through the CPython
+    API is the port's (the JAX package's libraries import mxnet_tpu.*)."""
+    import re
+    found = []
+    for path in _c_sources():
+        if not path.endswith(('.cc', '.h', '.cu', '.cuh')):
+            continue
+        with open(path, errors='replace') as f:
+            text = f.read()
+        found += re.findall(r'PyImport_ImportModule\("([^"]+)"\)', text)
+        assert 'mxnet_tpu.' not in text.replace('mxnet_tpu_torch', ''), path
+    assert sorted(found) == ['mxnet_tpu_torch._predict_embed',
+                             'mxnet_tpu_torch._train_embed']
+
+
+def test_no_path_of_the_port_points_into_the_reference_trees():
+    """The port builds from its own copies under csrc/: no path the
+    package composes names src/ or mxnet_tpu/ (os.path.join arguments and
+    string constants), and the native, op-library, include and C ABI
+    paths all lie inside the package."""
+    import ast
+    from mxnet_tpu_torch import _capi, _native, libinfo, library
+    pkg = os.path.join(ROOT, 'mxnet_tpu_torch')
+    bad = []
+    for path in _port_files():
+        if not path.startswith(pkg + os.sep):
+            continue
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and \
+                    getattr(node.func, 'attr', None) == 'join':
+                for arg in node.args:
+                    if isinstance(arg, ast.Constant) and \
+                            isinstance(arg.value, str) and \
+                            arg.value.split('/')[0] in ('src',
+                                                        'mxnet_tpu'):
+                        bad.append((path, node.lineno, arg.value))
+            elif isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and \
+                    node.value.startswith(('src/', 'mxnet_tpu/')):
+                bad.append((path, node.lineno, node.value))
+    assert not bad, bad
+    for p in (_native.SOURCE, library.INCLUDE_DIR, library.EXAMPLE_SOURCE,
+              libinfo.find_include_path(), _capi.EMBED_DIR,
+              _capi.header('train')):
+        assert p.startswith(os.path.join(pkg, 'csrc')), p
+        assert os.path.exists(p), p
+
+
+def _code(path):
+    """A C source without its comments, whitespace normalized."""
+    import re
+    with open(path) as f:
+        text = f.read()
+    text = re.sub(r'/\*.*?\*/', ' ', text, flags=re.S)
+    text = re.sub(r'//[^\n]*', ' ', text)
+    return ' '.join(text.split())
+
+
+@pytest.mark.parametrize('copy, ref', [
+    ('lib_api/mxtpu_lib_api.h', 'lib_api/mxtpu_lib_api.h'),
+    ('lib_api/example_lib.cc', 'lib_api/example_lib.cc'),
+    ('io/mxtpu_io.cc', 'io/mxtpu_io.cc')])
+def test_the_ports_c_copies_keep_the_reference_code(copy, ref):
+    """The op-library header stays ABI-identical to the JAX package's (one
+    library loads into both), and the example library and the native IO
+    runtime are the same code: only comments differ."""
+    assert _code(os.path.join(ROOT, 'mxnet_tpu_torch', 'csrc', copy)) == \
+        _code(os.path.join(ROOT, 'src', ref))

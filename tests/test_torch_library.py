@@ -1,7 +1,8 @@
 """Op libraries loaded at run time (``mxnet_tpu_torch.library``) against
 the JAX package's (``mxnet_tpu.library``), on the CPU.
 
-``src/lib_api/example_lib.cc`` is built once by the port
+The port's copy of ``src/lib_api/example_lib.cc``
+(``mxnet_tpu_torch/csrc/lib_api/``) is built once by the port
 (``library.example_library()``: ``g++`` into the build directory, here a
 temporary one) and the same ``.so`` is loaded into both packages: the C
 ABI is one. The cases of tests/test_library.py run through both:

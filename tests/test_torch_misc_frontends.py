@@ -62,12 +62,22 @@ def test_libinfo_paths(pkg):
 
 
 def test_libinfo_of_the_port():
-    """The include path is the JAX package's (``src/``, where the op
-    library header is); the libraries are the port's build directory's."""
+    """The include path is the port's own ``csrc/`` (the op library
+    header and the embedding ABIs' headers, laid out as under the JAX
+    package's ``src/``); the libraries are the port's build
+    directory's."""
     from mxnet_tpu_torch.telemetry import compile as _compile
-    assert mx.libinfo.find_include_path() == jmx.libinfo.find_include_path()
-    assert os.path.isfile(os.path.join(mx.libinfo.find_include_path(),
-                                       'lib_api', 'mxtpu_lib_api.h'))
+    inc = mx.libinfo.find_include_path()
+    assert inc == os.path.join(os.path.dirname(mx.__file__), 'csrc')
+    assert inc != jmx.libinfo.find_include_path()
+    for header in (('lib_api', 'mxtpu_lib_api.h'),
+                   ('embed', 'c_predict_api.h'), ('embed', 'c_api_train.h')):
+        assert os.path.isfile(os.path.join(inc, *header))
+        assert os.path.isfile(os.path.join(
+            jmx.libinfo.find_include_path(),
+            header[0] if header[0] == 'lib_api' else
+            {'c_predict_api.h': 'predict', 'c_api_train.h': 'train'}[
+                header[1]], header[1]))
     assert all(os.path.dirname(p) == _compile.cache_dir()
                for p in mx.libinfo.find_lib_path())
     assert mx.libinfo.__version__ == jmx.libinfo.__version__

@@ -6,8 +6,9 @@ Files written by either package, through the native writer or the
 pure-Python one, are byte-equal and read back by the other; ``pack``,
 ``pack_img`` and ``unpack`` give the same bytes and headers; truncation
 raises in both (the record-and-offset cases of tests/test_resilience.py
-are in tests/test_torch_resilience.py). The port builds
-``src/io/mxtpu_io.cc`` itself into ``build/mxnet_tpu_torch/``.
+are in tests/test_torch_resilience.py). The port builds its copy of
+``src/io/mxtpu_io.cc`` (``mxnet_tpu_torch/csrc/io/``) itself into
+``build/mxnet_tpu_torch/``.
 """
 import os
 import struct

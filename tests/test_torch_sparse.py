@@ -4,8 +4,8 @@ optimizers, ``Parameter(stype=, grad_stype=)``, ``Embedding(
 sparse_grad=True)``, ``SparseEmbedding``, the Trainer's loop) against the
 JAX package's: every case of ``tests/test_sparse.py`` run through both
 packages on the same numpy inputs, with the JAX tests' tolerances (the
-port on the CPU). ``test_kvstore_row_sparse_pull`` waits for ROADMAP
-item 8: the port's ``kvstore.row_sparse_pull`` raises naming it.
+port on the CPU), ``test_kvstore_row_sparse_pull`` through both
+packages' KVStores.
 """
 import copy
 
@@ -293,13 +293,22 @@ def test_embedding_sparse_grad_end_to_end():
 
 
 def test_kvstore_row_sparse_pull():
-    """ROADMAP item 8: the port's KVStore, row_sparse_pull included,
-    raises naming it (the JAX package's local store pulls the rows)."""
-    with pytest.raises(mt.MXNetError, match='item 8'):
-        mt.kv.create('local')
-    with pytest.raises(mt.MXNetError, match='item 8'):
-        mt.kv.row_sparse_pull('w', out=tsp.zeros('row_sparse', (8, 3)),
-                              row_ids=mt.nd.array(onp.array([2, 5])))
+    """tests/test_sparse.py::test_kvstore_row_sparse_pull in both
+    packages: the local store pulls the asked rows of a RowSparse value,
+    the others zero, bitwise the JAX store's."""
+    a = onp.random.RandomState(6).uniform(-1, 1, (8, 3)).astype('float32')
+    got = {}
+    for pkg, (mx, sp) in PKGS.items():
+        kv = mx.kv.create('local')
+        kv.init('w', sp.row_sparse_array(a))
+        out = sp.zeros('row_sparse', (8, 3))
+        kv.row_sparse_pull('w', out=out,
+                           row_ids=mx.nd.array(onp.array([2, 5])))
+        assert out.stype == 'row_sparse', pkg
+        got[pkg] = out.asnumpy()
+    onp.testing.assert_array_equal(got['port'], got['jax'])
+    assert onp.allclose(got['port'][[2, 5]], a[[2, 5]], atol=1e-6)
+    assert (got['port'][[0, 1, 3, 4, 6, 7]] == 0).all()
 
 
 def test_sparse_grad_is_row_sparse_ndarray():

@@ -141,3 +141,22 @@ def test_svrg_step_needs_a_snapshot():
     it.reset()
     with pytest.raises(ValueError, match='update_full_grads'):
         mod.forward_backward_svrg(next(iter(it)))
+
+
+def test_svrg_fit_takes_a_kvstore_object_like_jax():
+    """``fit(kvstore=...)`` takes a KVStore object as well as a type name
+    (the Module's update pushes nothing through it, in both packages): the
+    trajectory is the JAX module's."""
+    seen = {}
+    for pkg, (m, _) in PKGS.items():
+        mod, it, _, _ = _linreg_problem(pkg)
+        ws = []
+        mod.fit(it, eval_metric='mse', kvstore=m.kv.create('device'),
+                optimizer='sgd',
+                optimizer_params=(('learning_rate', 0.05),
+                                  ('rescale_grad', 1.0)), num_epoch=2,
+                epoch_end_callback=lambda e, s, a, x: ws.append(
+                    a['w'].asnumpy()))
+        seen[pkg] = ws
+    for got, want in zip(seen['port'], seen['jax']):
+        onp.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)

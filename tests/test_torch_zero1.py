@@ -510,8 +510,9 @@ def test_compose_zero_spec_rules():
 
 def test_refusals_name_their_roadmap_items(arrays):
     """What this slice leaves out raises by name: tensor parallelism
-    (item 6a); the distributed kvstores, compression and
-    update_on_kvstore are item 8. A parameter sharded over dp between
+    (item 6a). The distributed kvstores, compression and
+    update_on_kvstore (item 8) now run, as in the JAX Trainer. A
+    parameter sharded over dp between
     steps (the fsdp-style param_specs, ZeRO-3's layout, item 7) is
     accepted, as the JAX step accepts it: at dp = 1 nothing shards and the
     step trains as without the spec."""
@@ -533,9 +534,35 @@ def test_refusals_name_their_roadmap_items(arrays):
     with pytest.raises(MXNetError, match='item 6a'):
         parallel.ShardedTrainStep(net, loss, 'adamw', mesh=mesh,
                                   param_specs={'0.weight': (None, 'tp')})
-    params = net.collect_params()
+    # item 8's store seams, which this test saw raise before they were
+    # ported: one SGD step of the Trainer under each, against the JAX
+    # Trainer's from the same weights (rel 1e-5)
+    w, b = (net[0].weight.data().asnumpy().copy(),
+            net[0].bias.data().asnumpy().copy())
     for kw in (dict(kvstore='dist_sync'),
-               dict(compression_params={'type': '2bit'}),
+               dict(compression_params={'type': '2bit', 'threshold': 0.01}),
                dict(update_on_kvstore=True)):
-        with pytest.raises(MXNetError, match='item 8'):
-            gluon.Trainer(params, 'sgd', **kw)
+        net[0].weight.set_data(w)
+        net[0].bias.set_data(b)
+        tr = gluon.Trainer(net.collect_params(), 'sgd',
+                           {'learning_rate': 0.1}, **kw)
+        net.zero_grad()
+        loss(net(x), y).sum().backward()
+        tr.step(2)
+        jnet = jgluon.nn.Dense(4, in_units=3)
+        jnet.initialize()
+        jnet.weight.set_data(nd.array(w))
+        jnet.bias.set_data(nd.array(b))
+        jtr = jgluon.Trainer(jnet.collect_params(), 'sgd',
+                             {'learning_rate': 0.1}, **kw)
+        with jautograd.record():
+            jl = jgluon.loss.L2Loss()(jnet(nd.ones((2, 3))),
+                                      nd.zeros((2, 4)))
+        jl.backward()
+        jtr.step(2)
+        for got, want in ((net[0].weight, jnet.weight),
+                          (net[0].bias, jnet.bias)):
+            onp.testing.assert_allclose(got.data().asnumpy(),
+                                        want.data().asnumpy(), rtol=1e-5,
+                                        atol=1e-7)
+        assert not onp.array_equal(net[0].weight.data().asnumpy(), w)
